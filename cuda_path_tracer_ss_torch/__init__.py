@@ -1,0 +1,65 @@
+"""cuda_path_tracer_ss_torch — the PyTorch/CUDA port of the path tracer.
+
+The counterpart, for one NVIDIA Hopper GPU, of ``cuda_path_tracer_ss_tpu``:
+same scenes, same counter-based random streams, same estimator, with the
+fused render kernel written by hand in CUDA C++ (``csrc/``) and a plain
+PyTorch version of it beside it. This package imports ``torch`` and
+``numpy`` only. Ported so far: the forward render — presets, scene packing,
+the megakernel in its default variant, the progressive renderer with exact
+resume, and the ``render`` / ``benchmark`` commands.
+"""
+
+from .constants import (
+    DEFAULT_DIM,
+    DEFAULT_MAX_BOUNCES,
+    GAMMA_CORRECTION,
+    RAY_BUMP_EPSILON,
+)
+from .models.camera import Camera, camera_arrays
+from .models.presets import PRESETS, get_scene
+from .models.scene import (
+    MaterialSpec,
+    Materials,
+    MAT_FLAG_COOK_TORRANCE,
+    MAT_FLAG_PURE_REFLECTION,
+    Scene,
+    SceneBuilder,
+    scene_from_numpy,
+    scene_to_numpy,
+)
+from .ops.cuda.megakernel import (
+    PackedScene,
+    pack_scene,
+    render_fast2,
+    render_megakernel,
+    render_megakernel_plain,
+)
+from .render.renderer import ProgressiveRenderer, RenderConfig
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Camera",
+    "DEFAULT_DIM",
+    "DEFAULT_MAX_BOUNCES",
+    "GAMMA_CORRECTION",
+    "MaterialSpec",
+    "Materials",
+    "MAT_FLAG_COOK_TORRANCE",
+    "MAT_FLAG_PURE_REFLECTION",
+    "PRESETS",
+    "PackedScene",
+    "ProgressiveRenderer",
+    "RAY_BUMP_EPSILON",
+    "RenderConfig",
+    "Scene",
+    "SceneBuilder",
+    "camera_arrays",
+    "get_scene",
+    "pack_scene",
+    "render_fast2",
+    "render_megakernel",
+    "render_megakernel_plain",
+    "scene_from_numpy",
+    "scene_to_numpy",
+]

@@ -1,0 +1,176 @@
+"""Command-line app shell of the PyTorch/CUDA package.
+
+Replaces the reference's GLUT window + keyboard loop (``CudaTracer.cu:649-786``,
+``CudaUtils.h:27-188``) with file-output commands:
+
+  render     progressive render of a scene preset -> PNG/TGA/NPY
+  benchmark  primary rays/s of the megakernel on the chosen device
+
+Both run on ``--device cuda`` unless told otherwise; without a card they
+fail instead of rendering somewhere else. Runtime-configurable everything the
+reference hardcoded: resolution, spp, bounces, scene preset, seed.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+
+def _common(p: argparse.ArgumentParser):
+    p.add_argument("--scene", default="cornell", help="scene preset name")
+    p.add_argument("--width", type=int, default=512)
+    p.add_argument("--height", type=int, default=512)
+    p.add_argument("--spp", type=int, default=64)
+    p.add_argument("--bounces", type=int, default=15)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--samples-per-pass", type=int, default=None,
+                   help="samples accumulated per progressive pass; default "
+                        "AUTO — 'render' grows passes 4 -> 1024 to amortize "
+                        "launch overhead (spp is a runtime kernel argument)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to render on (default cuda; 'cpu' "
+                        "runs the plain PyTorch version)")
+    p.add_argument("--engine", default="auto",
+                   choices=["auto", "cuda", "plain"],
+                   help="cuda = the hand-written CUDA megakernel, plain = "
+                        "the plain PyTorch version of the same function "
+                        "(slow; the yardstick of correctness), auto = cuda "
+                        "on a CUDA device, plain on --device cpu")
+    p.add_argument("--accel", default="none", choices=["none", "grid"],
+                   help="spatial acceleration; only 'none' (linear sweeps) "
+                        "is ported, 'grid' raises")
+    p.add_argument("--physical", action="store_true",
+                   help="unbiased estimator mode; not ported yet, raises")
+
+
+def _config(args):
+    from .render.renderer import RenderConfig
+
+    return RenderConfig(width=args.width, height=args.height,
+                        max_bounces=args.bounces, spp=args.spp,
+                        seed=args.seed,
+                        samples_per_pass=args.samples_per_pass,
+                        engine=args.engine, accel=args.accel,
+                        physical=args.physical, device=args.device)
+
+
+def _build(args):
+    from .models.camera import Camera
+    from .models.presets import get_scene
+    from .render.renderer import ProgressiveRenderer
+
+    return ProgressiveRenderer(get_scene(args.scene), Camera(), _config(args))
+
+
+def _checkpoint_paths(path: str):
+    """(final, tmp): np.savez appends .npz to any other suffix, so the tmp
+    name must already carry it for the rename source to exist."""
+    final = path if path.endswith(".npz") else path + ".npz"
+    return final, final[:-len(".npz")] + ".tmp.npz"
+
+
+def cmd_render(args):
+    r = _build(args)
+    if args.resume:
+        r.restore(args.resume)
+    if args.checkpoint:
+        final, tmp = _checkpoint_paths(args.checkpoint)
+    if args.checkpoint and args.checkpoint_every > 0:
+        # periodic snapshot -> any crash/preemption restarts from the last
+        # completed pass (atomic: write aside, then rename)
+        every = args.checkpoint_every
+        passes = [0]
+
+        def snap(metrics):
+            passes[0] += 1
+            if passes[0] % every == 0:
+                r.checkpoint(tmp)
+                os.replace(tmp, final)
+
+        r.on_pass = snap
+    r.run()
+    r.save(args.out)
+    if args.checkpoint:
+        # atomic like the periodic snapshots: a kill mid-write must never
+        # leave a corrupt resume file
+        r.checkpoint(tmp)
+        os.replace(tmp, final)
+    print(f"wrote {args.out}")
+
+
+def cmd_benchmark(args):
+    import torch
+
+    from .models.camera import Camera, camera_arrays
+    from .models.presets import get_scene
+    from .ops.cuda.megakernel import (pack_scene, render_megakernel,
+                                      render_megakernel_plain)
+    from .utils.profiling import sync, timed
+
+    cfg = _config(args)
+    engine = cfg.resolved_engine()
+    cfg.check_ported()
+    device = torch.device(args.device)
+    cp = camera_arrays(Camera())
+    # pack once: per-repeat packing would be counted in the timing
+    packed = pack_scene(get_scene(args.scene), device)
+    render = render_megakernel if engine == "cuda" else render_megakernel_plain
+    window = [0]
+
+    def run():
+        # distinct sample window per call: timing reflects fresh work
+        window[0] += 1
+        return render(packed, cp, args.seed, args.width, args.height,
+                      args.spp, args.bounces,
+                      sample_offset=(window[0] - 1) * args.spp)
+
+    t0 = time.perf_counter()
+    run()
+    sync(device)
+    first_call_s = time.perf_counter() - t0  # kernel build + first launch
+    img, per_call_s = timed(run, reps=args.repeats, warmup=0, device=device)
+    rays = args.width * args.height * args.spp
+    out = {
+        "scene": args.scene, "width": args.width, "height": args.height,
+        "spp": args.spp, "bounces": args.bounces,
+        "first_call_s": round(first_call_s, 2),
+        "wall_s": round(per_call_s * args.repeats, 4),
+        "primary_rays_per_s": round(rays / per_call_s, 1),
+        "engine": engine,
+        "device": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu"),
+        "checksum": float(img.sum()),
+    }
+    print(json.dumps(out))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="cuda_path_tracer_ss_torch",
+                                 description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("render", help="render a preset to an image file")
+    _common(p)
+    p.add_argument("--out", default="render.png")
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
+                   help="also snapshot the accumulator every N passes "
+                        "(atomic rename) so a killed render resumes from "
+                        "the last completed pass via --resume")
+    p.add_argument("--resume", default=None)
+    p.set_defaults(fn=cmd_render)
+
+    p = sub.add_parser("benchmark", help="measure primary rays/s")
+    _common(p)
+    p.add_argument("--repeats", type=int, default=3)
+    p.set_defaults(fn=cmd_benchmark)
+
+    args = ap.parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,497 @@
+// Device math of the forward-render megakernel: one call of render_pixel()
+// traces every sample of one pixel (eye ray, bounce loop, next-event
+// estimation, scatter) and returns the pixel's radiance SUM over samples.
+//
+// Replaces the per-lane body of the TPU kernel
+// cuda_path_tracer_ss_tpu/ops/pallas/megakernel.py::_make_render_kernel
+// (default variant: reference-parity estimator, linear sweeps, untextured,
+// float32 state). Scalar float32 code, one path per thread; the plain PyTorch
+// version in ops/cuda/megakernel.py states the same formulas in the same
+// operation order, so with FMA contraction off (-fmad=false) the two agree
+// per pixel up to the math library's ulps.
+//
+// The header is also valid host C++ (CPT_HD collapses to `inline`), so the
+// same math can be compiled with a host compiler and exercised on a CPU.
+//
+// Numerics that are part of the function: best_t starts at +inf and a hit is
+// best_t < inf; spec_exp is +inf for delta mirrors and tested with isfinite;
+// every max(x, eps) / degenerate-determinant guard of the reference is kept.
+// Never build with --use_fast_math. fmaxf/fminf drop a NaN operand where the
+// tensor version would propagate it; every such NaN (only reachable through an
+// infinite ior) lands in a comparison that is false either way.
+#pragma once
+
+#include <math.h>
+#include <stdint.h>
+
+#if defined(__CUDACC__)
+#define CPT_HD __host__ __device__ __forceinline__
+#define CPT_RSQRT(x) rsqrtf(x)
+#else
+#define CPT_HD inline
+#define CPT_RSQRT(x) (1.0f / sqrtf(x))
+#endif
+
+namespace cpt {
+
+constexpr int S_COLS = 5;     // cx cy cz r mat
+constexpr int T_COLS = 19;    // v0 e1 e2 n0 n1 n2 mat
+constexpr int M_COLS = 20;    // diff spec absorb emit specExp ior pd ps prf rough pure ct
+constexpr int PL_COLS = 6;    // pos power
+constexpr int AL_COLS = 23;   // tri A (9) tri B (9) power (3) tri index, material index
+constexpr int CAM_FLOATS = 16;
+
+constexpr float RAY_BUMP_EPSILON = 1e-4f;
+constexpr float INV_PI = (float)0.31830988618;
+constexpr float FOUR_PI = (float)(4.0 * 3.141592653589793);
+constexpr float TWO_PI = (float)(2.0 * 3.141592653589793);
+constexpr float INV24 = 1.0f / 16777216.0f;
+
+// Read-only device (or, in a host build, host) tables; nothing writes them
+// while a render runs.
+struct SceneTables {
+    const float* __restrict__ spheres;
+    const float* __restrict__ triangles;
+    const float* __restrict__ materials;
+    const float* __restrict__ point_lights;
+    const float* __restrict__ area_lights;
+    const float* __restrict__ background;
+    int num_spheres, num_triangles, num_materials, num_point_lights, num_area_lights;
+};
+
+struct RenderParams {
+    float cam[CAM_FLOATS];  // rot 9, pos 3, tan(fov/2), z_near, sample clamp, spare
+    int seed, pixel_offset, n_local, sample_offset, spp, max_bounces, width, height;
+    float inv_width, inv_height, aspect;  // 1/width, 1/height, height/width
+};
+
+// The three derived floats are rounded from double quotients, as the tensor
+// version rounds its Python-float constants.
+inline void set_image_size(RenderParams& p, int width, int height) {
+    p.width = width; p.height = height;
+    p.inv_width = (float)(1.0 / (double)width);
+    p.inv_height = (float)(1.0 / (double)height);
+    p.aspect = (float)((double)height / (double)width);
+}
+
+// ---- Threefry-2x32, 13 rounds (utils/rng.py) -------------------------------
+
+CPT_HD uint32_t rotl32(uint32_t x, int d) { return (x << d) | (x >> (32 - d)); }
+
+CPT_HD void threefry2x32_13(uint32_t k0, uint32_t k1, uint32_t x0, uint32_t x1,
+                            uint32_t& o0, uint32_t& o1) {
+    const uint32_t ks0 = k0, ks1 = k1, ks2 = k0 ^ k1 ^ 0x1BD11BDAu;
+    x0 += ks0; x1 += ks1;
+    x0 += x1; x1 = rotl32(x1, 13); x1 ^= x0;
+    x0 += x1; x1 = rotl32(x1, 15); x1 ^= x0;
+    x0 += x1; x1 = rotl32(x1, 26); x1 ^= x0;
+    x0 += x1; x1 = rotl32(x1, 6);  x1 ^= x0;
+    x0 += ks1; x1 += ks2 + 1u;
+    x0 += x1; x1 = rotl32(x1, 17); x1 ^= x0;
+    x0 += x1; x1 = rotl32(x1, 29); x1 ^= x0;
+    x0 += x1; x1 = rotl32(x1, 16); x1 ^= x0;
+    x0 += x1; x1 = rotl32(x1, 24); x1 ^= x0;
+    x0 += ks2; x1 += ks0 + 2u;
+    x0 += x1; x1 = rotl32(x1, 13); x1 ^= x0;
+    x0 += x1; x1 = rotl32(x1, 15); x1 ^= x0;
+    x0 += x1; x1 = rotl32(x1, 26); x1 ^= x0;
+    x0 += x1; x1 = rotl32(x1, 6);  x1 ^= x0;
+    x0 += ks0; x1 += ks1 + 3u;
+    x0 += x1; x1 = rotl32(x1, 17); x1 ^= x0;
+    o0 = x0; o1 = x1;
+}
+
+// Two U[0,1) draws for (seed, pixel, sample, pair): the LOW 24 bits, masked.
+CPT_HD void uniform_pair(int seed, int pixel, int sample, int pair, float& u0, float& u1) {
+    uint32_t o0, o1;
+    threefry2x32_13((uint32_t)seed, (uint32_t)pixel, (uint32_t)sample, (uint32_t)pair, o0, o1);
+    u0 = (float)(o0 & 0x00FFFFFFu) * INV24;
+    u1 = (float)(o1 & 0x00FFFFFFu) * INV24;
+}
+
+// ---- small vector helpers ----------------------------------------------------
+
+CPT_HD float dot3(float ax, float ay, float az, float bx, float by, float bz) {
+    return ax * bx + ay * by + az * bz;
+}
+
+CPT_HD void normalize3(float x, float y, float z, float eps, float& ox, float& oy, float& oz) {
+    const float inv = CPT_RSQRT(fmaxf(x * x + y * y + z * z, eps));
+    ox = x * inv; oy = y * inv; oz = z * inv;
+}
+
+// rotate +Y onto target t, applied to sample s (CudaTracer.cu:579-585)
+CPT_HD void rotate_y_to(float tx, float ty, float tz, float sx, float sy, float sz,
+                        float& ox, float& oy, float& oz) {
+    float w = 1.0f + ty;
+    float rx = tz;
+    const float ry = 0.0f;
+    float rz = -tx;
+    const float n2 = w * w + rx * rx + rz * rz;
+    const bool degen = n2 < 1e-12f;
+    const float inv = CPT_RSQRT(degen ? 1.0f : n2);
+    w = w * inv; rx = rx * inv; rz = rz * inv;
+    const float t_x = ry * sz - rz * sy + w * sx;
+    const float t_y = rz * sx - rx * sz + w * sy;
+    const float t_z = rx * sy - ry * sx + w * sz;
+    const float qx = sx + 2.0f * (ry * t_z - rz * t_y);
+    const float qy = sy + 2.0f * (rz * t_x - rx * t_z);
+    const float qz = sz + 2.0f * (rx * t_y - ry * t_x);
+    ox = degen ? sx : qx;
+    oy = degen ? -sy : qy;
+    oz = degen ? -sz : qz;
+}
+
+// ---- primitive tests -----------------------------------------------------------
+
+CPT_HD bool sphere_t(float ox, float oy, float oz, float dx, float dy, float dz,
+                     float cx, float cy, float cz, float r, float& t) {
+    const float vx = ox - cx, vy = oy - cy, vz = oz - cz;
+    const float b = 2.0f * dot3(dx, dy, dz, vx, vy, vz);
+    const float c = vx * vx + vy * vy + vz * vz - r * r;
+    const float disc = b * b - 4.0f * c;
+    const float sq = sqrtf(fmaxf(disc, 0.0f));
+    const float t0 = (-b - sq) * 0.5f;
+    const float t1 = (-b + sq) * 0.5f;
+    t = t0 < 0.0f ? t1 : t0;
+    return (disc >= 0.0f) && (t >= 0.0f);
+}
+
+// Moller-Trumbore with precomputed edges; tri points at v0 e1 e2.
+CPT_HD bool triangle_t(float ox, float oy, float oz, float dx, float dy, float dz,
+                       const float* tri, float& t, float& w1, float& w2) {
+    const float v0x = tri[0], v0y = tri[1], v0z = tri[2];
+    const float e1x = tri[3], e1y = tri[4], e1z = tri[5];
+    const float e2x = tri[6], e2y = tri[7], e2z = tri[8];
+    const float qx = dy * e2z - dz * e2y;
+    const float qy = dz * e2x - dx * e2z;
+    const float qz = dx * e2y - dy * e2x;
+    const float det = e1x * qx + e1y * qy + e1z * qz;
+    const bool degen = fabsf(det) <= 1e-7f;
+    const float inv = 1.0f / (degen ? 1.0f : det);
+    const float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
+    const float rx = sy * e1z - sz * e1y;
+    const float ry = sz * e1x - sx * e1z;
+    const float rz = sx * e1y - sy * e1x;
+    t = (e2x * rx + e2y * ry + e2z * rz) * inv;
+    w1 = (sx * qx + sy * qy + sz * qz) * inv;
+    w2 = (dx * rx + dy * ry + dz * rz) * inv;
+    const float w0 = 1.0f - w1 - w2;
+    return (!degen) && (t > 0.0f) && (w0 >= 0.0f) && (w1 >= 0.0f) && (w2 >= 0.0f);
+}
+
+struct Hit {
+    float t;           // +inf on a miss
+    float nx, ny, nz;  // sphere: unit; triangle: barycentric, UNNORMALISED
+    int mat;           // 0 on a miss
+};
+
+// Nearest hit, linear sweep. Tie rule: valid && t <= best_t, so the LATER
+// primitive wins equal t; spheres first, then triangles.
+CPT_HD Hit intersect_sweep(const SceneTables& sc, float ox, float oy, float oz,
+                           float dx, float dy, float dz) {
+    float best_t = INFINITY;
+    int best_s = -1, best_tri = -1;
+    float bw1 = 0.0f, bw2 = 0.0f;
+    for (int i = 0; i < sc.num_spheres; ++i) {
+        const float* s = sc.spheres + i * S_COLS;
+        float t;
+        if (sphere_t(ox, oy, oz, dx, dy, dz, s[0], s[1], s[2], s[3], t) && t <= best_t) {
+            best_t = t; best_s = i;
+        }
+    }
+    for (int i = 0; i < sc.num_triangles; ++i) {
+        float t, w1, w2;
+        if (triangle_t(ox, oy, oz, dx, dy, dz, sc.triangles + i * T_COLS, t, w1, w2)
+            && t <= best_t) {
+            best_t = t; best_tri = i; bw1 = w1; bw2 = w2;
+        }
+    }
+    Hit h;
+    h.t = best_t; h.nx = 0.0f; h.ny = 0.0f; h.nz = 0.0f; h.mat = 0;
+    if (best_tri >= 0) {
+        const float* tr = sc.triangles + best_tri * T_COLS;
+        const float w0 = 1.0f - bw1 - bw2;
+        h.nx = tr[9] * w0 + tr[12] * bw1 + tr[15] * bw2;
+        h.ny = tr[10] * w0 + tr[13] * bw1 + tr[16] * bw2;
+        h.nz = tr[11] * w0 + tr[14] * bw1 + tr[17] * bw2;
+        h.mat = (int)tr[18];
+    } else if (best_s >= 0) {
+        const float* s = sc.spheres + best_s * S_COLS;
+        const float px = ox + dx * best_t, py = oy + dy * best_t, pz = oz + dz * best_t;
+        normalize3(px - s[0], py - s[1], pz - s[2], 1e-20f, h.nx, h.ny, h.nz);
+        h.mat = (int)s[4];
+    }
+    return h;
+}
+
+// Any hit within max_d; stops at the first occluder.
+CPT_HD bool occlusion_sweep(const SceneTables& sc, float ox, float oy, float oz,
+                            float wx, float wy, float wz, float max_d) {
+    for (int i = 0; i < sc.num_spheres; ++i) {
+        const float* s = sc.spheres + i * S_COLS;
+        float t;
+        if (sphere_t(ox, oy, oz, wx, wy, wz, s[0], s[1], s[2], s[3], t) && t <= max_d) return true;
+    }
+    for (int i = 0; i < sc.num_triangles; ++i) {
+        float t, w1, w2;
+        if (triangle_t(ox, oy, oz, wx, wy, wz, sc.triangles + i * T_COLS, t, w1, w2)
+            && t <= max_d) return true;
+    }
+    return false;
+}
+
+// ---- next-event estimation ---------------------------------------------------------
+
+// Reference-parity direct light from one sampled light point: falloff
+// cos_l * p_diff / pi / (4 pi) / d^2, shadow ray from the bumped hit point.
+// The shadow sweep runs only where its result can change the sum.
+CPT_HD void light_contribution(const SceneTables& sc, float px, float py, float pz,
+                               float nx, float ny, float nz, const float* m,
+                               float lx, float ly, float lz, float pwx, float pwy, float pwz,
+                               float& dir_r, float& dir_g, float& dir_b) {
+    const float offx = lx - px, offy = ly - py, offz = lz - pz;
+    const float d2 = fmaxf(offx * offx + offy * offy + offz * offz, 1e-12f);
+    const float dist = sqrtf(d2);
+    const float inv_d = 1.0f / dist;
+    const float wx = offx * inv_d, wy = offy * inv_d, wz = offz * inv_d;
+    const float cos_l = fmaxf(0.0f, dot3(nx, ny, nz, wx, wy, wz));
+    const float m_pd = m[14];
+    float lit = 0.0f;
+    if (cos_l > 0.0f && m_pd > 0.0f) {
+        const bool occ = occlusion_sweep(sc, px + nx * RAY_BUMP_EPSILON, py + ny * RAY_BUMP_EPSILON,
+                                         pz + nz * RAY_BUMP_EPSILON, wx, wy, wz,
+                                         dist - 2.0f * RAY_BUMP_EPSILON);
+        lit = occ ? 0.0f : cos_l;
+    }
+    const float scale = lit * m_pd * INV_PI / FOUR_PI / d2;
+    dir_r += pwx * m[0] * scale;
+    dir_g += pwy * m[1] * scale;
+    dir_b += pwz * m[2] * scale;
+}
+
+// ---- BSDF cascade scatter (CudaTracer.cu:208-318) -----------------------------
+
+// One uniform picks diffuse / specular (Cook-Torrance, Phong or mirror) /
+// refraction; only the branch taken is evaluated. Returns false when the
+// path dies (no branch taken, or refraction under total internal reflection).
+CPT_HD bool scatter_sample(float dx, float dy, float dz, float nx, float ny, float nz,
+                           float px, float py, float pz, float cos_i,
+                           float u_branch, float u_a, float u_b, const float* m,
+                           float& new_ox, float& new_oy, float& new_oz,
+                           float& new_dx, float& new_dy, float& new_dz,
+                           float& wr, float& wg, float& wb) {
+    const float m_exp = m[12], m_ior = m[13], m_pd = m[14], m_ps = m[15], m_prf = m[16];
+    const float m_rough = m[17];
+    const bool pure = m[18] > 0.5f, ct = m[19] > 0.5f;
+
+    const bool outside = cos_i > 0.0f;
+    const float n1 = outside ? 1.0f : m_ior;
+    const float n2 = outside ? m_ior : 1.0f;
+    const float cos_pos = fabsf(cos_i);
+    const float n_ratio = n1 / fmaxf(n2, 1e-12f);
+    const float sin_t2 = n_ratio * n_ratio * (1.0f - cos_pos * cos_pos);
+    const bool tir = sin_t2 > 1.0f;
+    const float cos_t = sqrtf(tir ? 1.0f : fmaxf(1.0f - sin_t2, 0.0f));
+    const float rs = (n1 * cos_pos - n2 * cos_t) / fmaxf(n1 * cos_pos + n2 * cos_t, 1e-12f);
+    const float rp = (n2 * cos_pos - n1 * cos_t) / fmaxf(n2 * cos_pos + n1 * cos_t, 1e-12f);
+    const float fres = tir ? 1.0f : (rs * rs + rp * rp) * 0.5f;
+
+    const float p_diff = m_pd;
+    const float p_spec = m_ps * (pure ? 1.0f : fres);
+    const float p_refr = m_prf * (1.0f - fres);
+    const bool take_diff = u_branch < p_diff;
+    const bool take_spec = (!take_diff) && (u_branch < p_diff + p_spec);
+    const bool take_refr = (!take_diff) && (!take_spec) && (u_branch < p_diff + p_spec + p_refr);
+
+    const float theta = u_a * TWO_PI;
+
+    if (take_diff) {
+        const float yy = sqrtf(u_b);
+        const float rr = sqrtf(fmaxf(1.0f - yy * yy, 0.0f));
+        rotate_y_to(nx, ny, nz, rr * cosf(theta), yy, rr * sinf(theta), new_dx, new_dy, new_dz);
+        new_ox = px + nx * RAY_BUMP_EPSILON;
+        new_oy = py + ny * RAY_BUMP_EPSILON;
+        new_oz = pz + nz * RAY_BUMP_EPSILON;
+        wr = m[0]; wg = m[1]; wb = m[2];
+        return true;
+    }
+    if (take_spec) {
+        float spw = 1.0f;
+        if (ct) {
+            // Beckmann microfacet draw; the origin is bumped along the
+            // microfacet normal (reference quirk)
+            const float u_ac = fminf(u_a, (float)(1.0 - 1e-7));
+            const float btan = -(m_rough * m_rough) * log1pf(-u_ac);
+            const float binv = CPT_RSQRT(1.0f + btan * btan);
+            const float bphi = u_b * TWO_PI;
+            const float sb = btan * binv, cb2 = binv;
+            float mx, my, mz;
+            rotate_y_to(nx, ny, nz, sb * cosf(bphi), cb2, sb * sinf(bphi), mx, my, mz);
+            const float cos_m = fabsf(dot3(dx, dy, dz, mx, my, mz));
+            const float ctx = dx + 2.0f * cos_m * mx;
+            const float cty = dy + 2.0f * cos_m * my;
+            const float ctz = dz + 2.0f * cos_m * mz;
+            float hx, hy, hz;
+            normalize3(ctx - dx, cty - dy, ctz - dz, 1e-12f, hx, hy, hz);
+            const float nh = fabsf(dot3(nx, ny, nz, hx, hy, hz));
+            const float nl = fabsf(dot3(nx, ny, nz, ctx, cty, ctz));
+            const float vh = fmaxf(fabsf(dot3(dx, dy, dz, hx, hy, hz)), 1e-12f);
+            const float nv = fmaxf(fabsf(cos_i), 1e-6f);
+            const float geom = fminf(fminf(1.0f, 2.0f * nh * nl / vh), 2.0f * nh * nv / vh);
+            spw = geom / nv;
+            new_dx = ctx; new_dy = cty; new_dz = ctz;
+            new_ox = px + mx * RAY_BUMP_EPSILON;
+            new_oy = py + my * RAY_BUMP_EPSILON;
+            new_oz = pz + mz * RAY_BUMP_EPSILON;
+        } else {
+            // reference quirk: the mirror direction uses +|cos_i| also from
+            // inside (unnormalised, outward-bent)
+            const float mrx = dx + 2.0f * cos_pos * nx;
+            const float mry = dy + 2.0f * cos_pos * ny;
+            const float mrz = dz + 2.0f * cos_pos * nz;
+            if (isfinite(m_exp)) {
+                const float pexp = 1.0f / (m_exp + 1.0f);
+                const float s_cl = fminf(fmaxf(u_b, 1e-12f), 1.0f);
+                const float ph_y = expf(pexp * logf(s_cl));
+                const float ph_r = sqrtf(fmaxf(1.0f - ph_y * ph_y, 0.0f));
+                rotate_y_to(mrx, mry, mrz, ph_r * cosf(theta), ph_y, ph_r * sinf(theta),
+                            new_dx, new_dy, new_dz);
+            } else {
+                new_dx = mrx; new_dy = mry; new_dz = mrz;
+            }
+            new_ox = px + nx * RAY_BUMP_EPSILON;
+            new_oy = py + ny * RAY_BUMP_EPSILON;
+            new_oz = pz + nz * RAY_BUMP_EPSILON;
+        }
+        wr = m[3] * spw; wg = m[4] * spw; wb = m[5] * spw;
+        return true;
+    }
+    if (take_refr && !tir) {
+        const float k = n_ratio * cos_pos - cos_t;
+        float rfx, rfy, rfz;
+        normalize3(n_ratio * dx + k * nx, n_ratio * dy + k * ny, n_ratio * dz + k * nz, 1e-12f,
+                   rfx, rfy, rfz);
+        new_dx = rfx; new_dy = rfy; new_dz = rfz;
+        new_ox = px + rfx * RAY_BUMP_EPSILON;
+        new_oy = py + rfy * RAY_BUMP_EPSILON;
+        new_oz = pz + rfz * RAY_BUMP_EPSILON;
+        wr = 1.0f; wg = 1.0f; wb = 1.0f;
+        return true;
+    }
+    return false;
+}
+
+// ---- one pixel, all samples -------------------------------------------------------
+
+// Jittered pinhole eye ray (computeEyeRay, CudaTracer.cu:321-343); pair 0.
+CPT_HD void eye_ray(const RenderParams& p, int pixel, int sample, float pxi, float pyi,
+                    float& dx, float& dy, float& dz) {
+    float ju, jv;
+    uniform_pair(p.seed, pixel, sample, 0, ju, jv);
+    const float tan_half = p.cam[12], z_near = p.cam[13];
+    const float jx = pxi + ju;
+    const float jy = pyi + jv;
+    const float s_fov = -2.0f * tan_half;
+    const float sx = (jx * p.inv_width - 0.5f) * s_fov * z_near;
+    const float sy = (jy * p.inv_height - 0.5f) * s_fov * z_near * p.aspect;
+    const float sz = z_near;
+    const float dx0 = p.cam[0] * sx + p.cam[1] * sy + p.cam[2] * sz;
+    const float dy0 = p.cam[3] * sx + p.cam[4] * sy + p.cam[5] * sz;
+    const float dz0 = p.cam[6] * sx + p.cam[7] * sy + p.cam[8] * sz;
+    normalize3(dx0, dy0, dz0, 1e-20f, dx, dy, dz);
+}
+
+// Radiance SUM over p.spp samples of flat pixel `pixel` (= y*width + x, row 0
+// at the bottom). Every draw is a pure function of (seed, pixel,
+// sample_offset + s, pair); pairs per bounce b start at 1 + b*(2 + 2*La):
+// +0 (branch, dir a), +1 (dir b, unused), +2+2i (u1, u2), +3+2i (u3, pick).
+// A path ends when it dies or is still alive after max_bounces bounces; a
+// capped path keeps its radiance and gets no background term.
+CPT_HD void render_pixel(const SceneTables& sc, const RenderParams& p, int pixel,
+                         float& sum_r, float& sum_g, float& sum_b) {
+    sum_r = 0.0f; sum_g = 0.0f; sum_b = 0.0f;
+    if (pixel < 0 || pixel >= p.width * p.height) return;
+    const float pxi = (float)(pixel % p.width);
+    const float pyi = (float)(pixel / p.width);
+    const int ppb = 2 + 2 * sc.num_area_lights;
+    const float clamp_v = p.cam[14];
+
+    for (int s = 0; s < p.spp; ++s) {
+        const int sample = p.sample_offset + s;
+        float ox = p.cam[9], oy = p.cam[10], oz = p.cam[11];
+        float dx, dy, dz;
+        eye_ray(p, pixel, sample, pxi, pyi, dx, dy, dz);
+        float r0x = 0.0f, r0y = 0.0f, r0z = 0.0f;  // radiance gathered
+        float r1x = 1.0f, r1y = 1.0f, r1z = 1.0f;  // throughput
+        int b = 0;
+        while (true) {
+            const int pair0 = 1 + b * ppb;
+            const Hit h = intersect_sweep(sc, ox, oy, oz, dx, dy, dz);
+            if (!(h.t < INFINITY)) {  // miss: background, path ends
+                r0x += sc.background[0] * r1x;
+                r0y += sc.background[1] * r1y;
+                r0z += sc.background[2] * r1z;
+                break;
+            }
+            const float px = ox + dx * h.t, py = oy + dy * h.t, pz = oz + dz * h.t;
+            const float nx = h.nx, ny = h.ny, nz = h.nz;
+            const float* m = sc.materials + h.mat * M_COLS;
+            const float cos_i = -dot3(dx, dy, dz, nx, ny, nz);
+            const bool inside = cos_i <= 0.0f;
+
+            // emission always; NEE only from outside
+            float dir_r = m[9], dir_g = m[10], dir_b = m[11];
+            if (!inside) {
+                for (int i = 0; i < sc.num_point_lights; ++i) {
+                    const float* pl = sc.point_lights + i * PL_COLS;
+                    light_contribution(sc, px, py, pz, nx, ny, nz, m, pl[0], pl[1], pl[2],
+                                       pl[3], pl[4], pl[5], dir_r, dir_g, dir_b);
+                }
+                for (int i = 0; i < sc.num_area_lights; ++i) {
+                    const float* al = sc.area_lights + i * AL_COLS;
+                    float u1, u2, u3, upick;
+                    uniform_pair(p.seed, pixel, sample, pair0 + 2 + 2 * i, u1, u2);
+                    uniform_pair(p.seed, pixel, sample, pair0 + 3 + 2 * i, u3, upick);
+                    const float inv_tot = 1.0f / fmaxf(u1 + u2 + u3, 1e-12f);
+                    const float w0 = u1 * inv_tot, w1 = u2 * inv_tot, w2 = u3 * inv_tot;
+                    const float* a = (upick > 0.5f) ? al : al + 9;
+                    const float lx = a[0] * w0 + a[3] * w1 + a[6] * w2;
+                    const float ly = a[1] * w0 + a[4] * w1 + a[7] * w2;
+                    const float lz = a[2] * w0 + a[5] * w1 + a[8] * w2;
+                    light_contribution(sc, px, py, pz, nx, ny, nz, m, lx, ly, lz,
+                                       al[18], al[19], al[20], dir_r, dir_g, dir_b);
+                }
+            } else {
+                // Beer-Lambert absorption along the segment inside the medium
+                r1x = r1x * expf(-h.t * m[6]);
+                r1y = r1y * expf(-h.t * m[7]);
+                r1z = r1z * expf(-h.t * m[8]);
+            }
+            r0x = r0x + r1x * dir_r;
+            r0y = r0y + r1y * dir_g;
+            r0z = r0z + r1z * dir_b;
+
+            float u_branch, u_a, u_b, unused;
+            uniform_pair(p.seed, pixel, sample, pair0, u_branch, u_a);
+            uniform_pair(p.seed, pixel, sample, pair0 + 1, u_b, unused);
+            float nox, noy, noz, ndx, ndy, ndz, wr, wg, wb;
+            const bool alive = scatter_sample(dx, dy, dz, nx, ny, nz, px, py, pz, cos_i,
+                                              u_branch, u_a, u_b, m,
+                                              nox, noy, noz, ndx, ndy, ndz, wr, wg, wb);
+            ++b;
+            if (!alive || b >= p.max_bounces) break;
+            ox = nox; oy = noy; oz = noz;
+            dx = ndx; dy = ndy; dz = ndz;
+            r1x = r1x * wr; r1y = r1y * wg; r1z = r1z * wb;
+        }
+        if (clamp_v > 0.0f) {
+            r0x = fminf(r0x, clamp_v);
+            r0y = fminf(r0y, clamp_v);
+            r0z = fminf(r0z, clamp_v);
+        }
+        sum_r += r0x; sum_g += r0y; sum_b += r0z;
+    }
+}
+
+}  // namespace cpt

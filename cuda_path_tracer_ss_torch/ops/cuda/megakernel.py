@@ -1,0 +1,833 @@
+"""Whole-render megakernel: eye rays + all samples + all bounces of a pixel
+in ONE kernel launch — wrapper, scene packing, and the plain PyTorch version.
+
+The CUDA kernel (``csrc/megakernel.cu``, device math in
+``csrc/megakernel.cuh``) replaces the TPU kernel
+``cuda_path_tracer_ss_tpu/ops/pallas/megakernel.py::_make_render_kernel`` in
+its default variant (reference-parity estimator, linear sweeps, untextured,
+float32 state).
+
+What bounds it on an H100: FP32 arithmetic throughput. A launch reads a few
+KB of scene tables and writes ``12 * width * height`` bytes (7.7 MB at
+800x800), while every path-bounce tests every primitive once for the nearest
+hit and once more per light for the shadow ray. What the design does about
+it: one thread per pixel runs plain ``for sample { for bounce }`` loops on
+scalar registers and branches on its own path — a miss, an inside hit, a
+light facing away or a non-diffuse surface skips its shadow sweeps, an
+occluded shadow ray stops at the first occluder, and only the scatter branch
+that was drawn is evaluated. The tables are read through read-only global
+memory, whatever their size (a small scene's stay in L1). ``spp``,
+``max_bounces``, the seed, the offsets, the clamp and the primitive counts
+are runtime arguments: one build serves every scene and sampling
+configuration.
+
+RNG: counter-based Threefry-2x32 on (seed, pixel, sample, pair) — see
+``utils/rng.py``; the kernel and the plain version draw the same streams, so
+they agree per pixel up to float op-order noise.
+
+Device rule: ``render_megakernel`` renders on the device its packed tables
+live on. On a CUDA device it launches the kernel or raises; the plain
+version runs only for tables on the CPU, or when called by name.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ...constants import INV_PI, RAY_BUMP_EPSILON
+from ...utils import rng
+
+# table row widths
+S_COLS = 5
+T_COLS = 19
+M_COLS = 20
+PL_COLS = 6
+AL_COLS = 23
+CAM_FLOATS = 16
+
+# Launches of the CUDA kernel made by this module's wrapper (and nowhere
+# else): a run can show that it went through the kernel.
+LAUNCH_COUNT = 0
+
+_TWO_PI = 2.0 * math.pi
+
+
+def _unported(what: str, where: str):
+    raise NotImplementedError(
+        f"{what} is not ported to the PyTorch/CUDA package yet "
+        f"(ROADMAP.md {where})")
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedScene:
+    """Kernel-side scene tables, float32, contiguous, all on one device.
+    Empty tables are padded to one zero row that is never read; ``counts``
+    = (S, T, M, Lp, La) holds the true row counts.
+
+    spheres [S,5] = cx cy cz r mat; triangles [T,19] = v0 e1 e2 n0 n1 n2 mat
+    (e1 = v1-v0, e2 = v2-v0 precomputed; per-corner normals are
+    barycentrically interpolated exactly as Primitives.h:71-73);
+    materials [M,20] = diff spec absorb emit specExp ior diffAvg specAvg
+    refrAvg rough pureRefl ct; point_lights [Lp,6] = pos power;
+    area_lights [La,23] = two triangles' vertices + power + owning-triangle
+    index + light material index; background [3].
+    """
+
+    spheres: torch.Tensor
+    triangles: torch.Tensor
+    materials: torch.Tensor
+    point_lights: torch.Tensor
+    area_lights: torch.Tensor
+    background: torch.Tensor
+    counts: Tuple[int, int, int, int, int]
+
+    @property
+    def device(self) -> torch.device:
+        return self.spheres.device
+
+    def tables(self):
+        return (self.spheres, self.triangles, self.materials,
+                self.point_lights, self.area_lights, self.background)
+
+    @property
+    def table_bytes(self) -> int:
+        return 4 * sum(t.numel() for t in self.tables())
+
+
+def pack_scene(scene, device="cuda") -> PackedScene:
+    """Flatten the scene into the kernel's tables on ``device``."""
+    if scene.num_textures:
+        _unported("rendering textured scenes",
+                  "Queue 1 item 5 / Queue 2: K1 textures")
+    device = torch.device(device)
+    f32 = torch.float32
+
+    spheres = torch.cat([
+        scene.sph_center, scene.sph_radius[:, None],
+        scene.sph_mat[:, None].to(f32)], -1)
+    tris = torch.cat([
+        scene.tri_v0, scene.tri_v1 - scene.tri_v0, scene.tri_v2 - scene.tri_v0,
+        scene.tri_n0, scene.tri_n1, scene.tri_n2,
+        scene.tri_mat[:, None].to(f32)], -1)
+    m = scene.materials
+    mats = torch.cat([
+        m.diffuse, m.specular, m.absorption, m.emission,
+        m.spec_exp[:, None], m.ior[:, None], m.diff_avg[:, None],
+        m.spec_avg[:, None], m.refr_avg[:, None], m.roughness[:, None],
+        ((m.flags & 0x01) != 0).to(f32)[:, None],
+        ((m.flags & 0x03) != 0).to(f32)[:, None]], -1)
+    pls = torch.cat([scene.pl_pos, scene.pl_power], -1)
+    t0 = scene.al_tri0.long()
+    t1 = t0 + 1
+    als = torch.cat([
+        scene.tri_v0[t0], scene.tri_v1[t0], scene.tri_v2[t0],
+        scene.tri_v0[t1], scene.tri_v1[t1], scene.tri_v2[t1],
+        scene.al_power,
+        t0[:, None].to(f32), scene.tri_mat[t0][:, None].to(f32)], -1)
+
+    def put(a, cols):
+        a = a.reshape(-1, cols)
+        if not a.shape[0]:
+            a = torch.zeros((1, cols), dtype=f32)
+        return a.to(device=device, dtype=f32).contiguous()
+
+    counts = (scene.num_spheres, scene.num_triangles, m.flags.shape[0],
+              scene.num_point_lights, scene.num_area_lights)
+    return PackedScene(put(spheres, S_COLS), put(tris, T_COLS),
+                       put(mats, M_COLS), put(pls, PL_COLS),
+                       put(als, AL_COLS),
+                       scene.background.to(device=device, dtype=f32).contiguous(),
+                       counts)
+
+
+def _cam_table(cam_params, sample_clamp: float) -> np.ndarray:
+    """The 16-float camera table: rotation (row-major 9), position 3,
+    tan(fov/2), z_near, per-sample clamp (<= 0 disables), one spare."""
+    rot, pos, tan_half, z_near = cam_params
+    cam = np.zeros(CAM_FLOATS, np.float32)
+    cam[0:9] = np.asarray(rot, np.float32).reshape(-1)
+    cam[9:12] = np.asarray(pos, np.float32).reshape(-1)
+    cam[12] = np.float32(tan_half)
+    cam[13] = np.float32(z_near)
+    cam[14] = np.float32(sample_clamp)
+    return cam
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version: vectorised over pixels with masks, Python loops over
+# samples and bounces. Same counters, formulas and guards as the kernel.
+# Helper names and signatures follow the JAX package one for one.
+# ---------------------------------------------------------------------------
+
+def _dot(ax, ay, az, bx, by, bz):
+    return ax * bx + ay * by + az * bz
+
+
+def _normalize3(x, y, z, eps=1e-20):
+    inv = torch.rsqrt(torch.clamp_min(x * x + y * y + z * z, eps))
+    return x * inv, y * inv, z * inv
+
+
+def _rotate_y_to(tx, ty, tz, sx, sy, sz):
+    """rotate +Y onto target t, applied to sample s (CudaTracer.cu:579-585)."""
+    w = 1.0 + ty
+    rx, ry, rz = tz, torch.zeros_like(tz), -tx
+    n2 = w * w + rx * rx + rz * rz
+    degen = n2 < 1e-12
+    inv = torch.rsqrt(torch.where(degen, 1.0, n2))
+    w, rx, rz = w * inv, rx * inv, rz * inv
+    # t = r x s + w*s
+    t_x = ry * sz - rz * sy + w * sx
+    t_y = rz * sx - rx * sz + w * sy
+    t_z = rx * sy - ry * sx + w * sz
+    ox = sx + 2.0 * (ry * t_z - rz * t_y)
+    oy = sy + 2.0 * (rz * t_x - rx * t_z)
+    oz = sz + 2.0 * (rx * t_y - ry * t_x)
+    return (torch.where(degen, sx, ox), torch.where(degen, -sy, oy),
+            torch.where(degen, -sz, oz))
+
+
+def _sphere_t(ox, oy, oz, dx, dy, dz, cx, cy, cz, r):
+    vx, vy, vz = ox - cx, oy - cy, oz - cz
+    b = 2.0 * _dot(dx, dy, dz, vx, vy, vz)
+    c = vx * vx + vy * vy + vz * vz - r * r
+    disc = b * b - 4.0 * c
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    t0 = (-b - sq) * 0.5
+    t1 = (-b + sq) * 0.5
+    t = torch.where(t0 < 0.0, t1, t0)
+    return t, (disc >= 0.0) & (t >= 0.0)
+
+
+def _triangle_t(ox, oy, oz, dx, dy, dz, v0, e1, e2):
+    """Moller-Trumbore with precomputed edges e1 = v1-v0, e2 = v2-v0."""
+    qx = dy * e2[2] - dz * e2[1]
+    qy = dz * e2[0] - dx * e2[2]
+    qz = dx * e2[1] - dy * e2[0]
+    det = e1[0] * qx + e1[1] * qy + e1[2] * qz
+    degen = torch.abs(det) <= 1e-7
+    inv = 1.0 / torch.where(degen, 1.0, det)
+    sx, sy, sz = ox - v0[0], oy - v0[1], oz - v0[2]
+    rx = sy * e1[2] - sz * e1[1]
+    ry = sz * e1[0] - sx * e1[2]
+    rz = sx * e1[1] - sy * e1[0]
+    t = (e2[0] * rx + e2[1] * ry + e2[2] * rz) * inv
+    w1 = (sx * qx + sy * qy + sz * qz) * inv
+    w2 = (dx * rx + dy * ry + dz * rz) * inv
+    w0 = 1.0 - w1 - w2
+    valid = (~degen) & (t > 0.0) & (w0 >= 0.0) & (w1 >= 0.0) & (w2 >= 0.0)
+    return t, w1, w2, valid
+
+
+def _scatter_sample(dx, dy, dz, nx, ny, nz, px, py, pz, cos_i,
+                    u_branch, u_a, u_b, m):
+    """The branch-cascade scatter step (CudaTracer.cu:208-318).
+
+    ``m`` is the 20-tuple of per-pixel material columns in pack_scene
+    order. Returns (new origin, new direction, weight, alive, branch masks
+    take_diff/take_spec/take_refr, tir, ct mask, ct_w)."""
+    (m_dr, m_dg, m_db, m_sr, m_sg, m_sb, _m_ar, _m_ag, _m_ab,
+     _m_er, _m_eg, _m_eb, m_exp, m_ior, m_pd, m_ps, m_prf, m_rough,
+     m_pure, m_ct) = m
+
+    outside = cos_i > 0.0
+    n1 = torch.where(outside, 1.0, m_ior)
+    n2 = torch.where(outside, m_ior, 1.0)
+    cos_pos = torch.abs(cos_i)
+    n_ratio = n1 / torch.clamp_min(n2, 1e-12)
+    sin_t2 = n_ratio * n_ratio * (1.0 - cos_pos * cos_pos)
+    tir = sin_t2 > 1.0
+    cos_t = torch.sqrt(torch.where(tir, 1.0, torch.clamp_min(1.0 - sin_t2, 0.0)))
+    rs = ((n1 * cos_pos - n2 * cos_t)
+          / torch.clamp_min(n1 * cos_pos + n2 * cos_t, 1e-12))
+    rp = ((n2 * cos_pos - n1 * cos_t)
+          / torch.clamp_min(n2 * cos_pos + n1 * cos_t, 1e-12))
+    fres = torch.where(tir, 1.0, (rs * rs + rp * rp) * 0.5)
+
+    pure = m_pure > 0.5
+    ct = m_ct > 0.5
+    p_diff = m_pd
+    p_spec = m_ps * torch.where(pure, 1.0, fres)
+    p_refr = m_prf * (1.0 - fres)
+    take_diff = u_branch < p_diff
+    take_spec = (~take_diff) & (u_branch < p_diff + p_spec)
+    take_refr = ((~take_diff) & (~take_spec)
+                 & (u_branch < p_diff + p_spec + p_refr))
+
+    theta = u_a * _TWO_PI
+    yy = torch.sqrt(u_b)
+    rr = torch.sqrt(torch.clamp_min(1.0 - yy * yy, 0.0))
+    ddx, ddy, ddz = _rotate_y_to(nx, ny, nz, rr * torch.cos(theta), yy,
+                                 rr * torch.sin(theta))
+
+    # reference quirk: reflRay receives the cosine already flipped
+    # positive (CudaTracer.cu:238/484), so inside hits reflect with
+    # +|cosI| (unnormalized, outward-bent)
+    mrx = dx + 2.0 * cos_pos * nx
+    mry = dy + 2.0 * cos_pos * ny
+    mrz = dz + 2.0 * cos_pos * nz
+    fin = torch.isfinite(m_exp)
+    pexp = 1.0 / (torch.where(fin, m_exp, 0.0) + 1.0)
+    s_cl = torch.clamp(u_b, 1e-12, 1.0)
+    ph_y = torch.where(fin, torch.exp(pexp * torch.log(s_cl)), 1.0)
+    ph_r = torch.sqrt(torch.clamp_min(1.0 - ph_y * ph_y, 0.0))
+    phx, phy_, phz = _rotate_y_to(mrx, mry, mrz, ph_r * torch.cos(theta),
+                                  ph_y, ph_r * torch.sin(theta))
+    gsx = torch.where(fin, phx, mrx)
+    gsy = torch.where(fin, phy_, mry)
+    gsz = torch.where(fin, phz, mrz)
+
+    u_ac = torch.clamp_max(u_a, 1.0 - 1e-7)
+    btan = -(m_rough * m_rough) * torch.log1p(-u_ac)
+    binv = torch.rsqrt(1.0 + btan * btan)
+    bphi = u_b * _TWO_PI
+    sb, cb2 = btan * binv, binv
+    mx, my, mz = _rotate_y_to(nx, ny, nz, sb * torch.cos(bphi), cb2,
+                              sb * torch.sin(bphi))
+    cos_m = torch.abs(_dot(dx, dy, dz, mx, my, mz))
+    ctx = dx + 2.0 * cos_m * mx
+    cty = dy + 2.0 * cos_m * my
+    ctz = dz + 2.0 * cos_m * mz
+    hx, hy, hz = _normalize3(ctx - dx, cty - dy, ctz - dz, 1e-12)
+    nh = torch.abs(_dot(nx, ny, nz, hx, hy, hz))
+    nl = torch.abs(_dot(nx, ny, nz, ctx, cty, ctz))
+    vh = torch.clamp_min(torch.abs(_dot(dx, dy, dz, hx, hy, hz)), 1e-12)
+    nv = torch.clamp_min(torch.abs(cos_i), 1e-6)
+    geom = torch.minimum(torch.clamp_max(2.0 * nh * nl / vh, 1.0),
+                         2.0 * nh * nv / vh)
+    ct_w = geom / nv
+
+    eps = RAY_BUMP_EPSILON
+    spx = torch.where(ct, ctx, gsx)
+    spy = torch.where(ct, cty, gsy)
+    spz = torch.where(ct, ctz, gsz)
+    sp_ox = torch.where(ct, px + mx * eps, px + nx * eps)
+    sp_oy = torch.where(ct, py + my * eps, py + ny * eps)
+    sp_oz = torch.where(ct, pz + mz * eps, pz + nz * eps)
+    spw = torch.where(ct, ct_w, 1.0)
+
+    rfx0 = n_ratio * dx + (n_ratio * cos_pos - cos_t) * nx
+    rfy0 = n_ratio * dy + (n_ratio * cos_pos - cos_t) * ny
+    rfz0 = n_ratio * dz + (n_ratio * cos_pos - cos_t) * nz
+    rfx, rfy, rfz = _normalize3(rfx0, rfy0, rfz0, 1e-12)
+
+    new_dx = torch.where(take_diff, ddx, torch.where(take_spec, spx, rfx))
+    new_dy = torch.where(take_diff, ddy, torch.where(take_spec, spy, rfy))
+    new_dz = torch.where(take_diff, ddz, torch.where(take_spec, spz, rfz))
+    new_ox = torch.where(take_diff, px + nx * eps,
+                         torch.where(take_spec, sp_ox, px + rfx * eps))
+    new_oy = torch.where(take_diff, py + ny * eps,
+                         torch.where(take_spec, sp_oy, py + rfy * eps))
+    new_oz = torch.where(take_diff, pz + nz * eps,
+                         torch.where(take_spec, sp_oz, pz + rfz * eps))
+    refr_w = torch.where(take_refr, 1.0, 0.0)
+    wr = torch.where(take_diff, m_dr, torch.where(take_spec, m_sr * spw, refr_w))
+    wg = torch.where(take_diff, m_dg, torch.where(take_spec, m_sg * spw, refr_w))
+    wb = torch.where(take_diff, m_db, torch.where(take_spec, m_sb * spw, refr_w))
+    alive = take_diff | take_spec | (take_refr & (~tir))
+
+    return (new_ox, new_oy, new_oz, new_dx, new_dy, new_dz, wr, wg, wb,
+            alive, take_diff, take_spec, take_refr, tir, ct, ct_w)
+
+
+def _make_sweep_fns(packed: PackedScene):
+    """The two scene sweeps every bounce runs, linear form: every primitive
+    is tested for every ray, as a ``[rays, primitives]`` tensor. Tie rule of
+    the sequential sweep: ``valid & (t <= best_t)`` — the LATER primitive
+    wins equal t, spheres first then triangles."""
+    num_spheres, num_tris = packed.counts[0], packed.counts[1]
+    sph = packed.spheres[:num_spheres]
+    tri = packed.triangles[:num_tris]
+    sph_c = [sph[:, k] for k in range(S_COLS)]
+    tri_c = [tri[:, k] for k in range(T_COLS)]
+
+    def _col(v):
+        return v[:, None]
+
+    def sph_tests(ox, oy, oz, dx, dy, dz):
+        return _sphere_t(_col(ox), _col(oy), _col(oz), _col(dx), _col(dy),
+                         _col(dz), sph_c[0], sph_c[1], sph_c[2], sph_c[3])
+
+    def tri_tests(ox, oy, oz, dx, dy, dz):
+        return _triangle_t(_col(ox), _col(oy), _col(oz), _col(dx), _col(dy),
+                           _col(dz), tri_c[0:3], tri_c[3:6], tri_c[6:9])
+
+    def _last_min(t, valid):
+        """Nearest valid t per ray and the LAST primitive index reaching it."""
+        inf = torch.full_like(t, math.inf)
+        tm = torch.where(valid, t, inf)
+        best = tm.min(dim=1).values
+        is_best = valid & (tm == _col(best))
+        count = t.shape[1]
+        idx = count - 1 - torch.flip(is_best, (1,)).to(torch.int8).argmax(dim=1)
+        return best, idx, is_best.any(dim=1)
+
+    def intersect_sweep(ox, oy, oz, dx, dy, dz):
+        """(best_t, nx, ny, nz, mat index); a miss leaves t=inf, n=0, mat 0."""
+        n = ox.shape[0]
+        best_t = torch.full((n,), math.inf, dtype=torch.float32, device=ox.device)
+        nx, ny, nz = (torch.zeros_like(ox) for _ in range(3))
+        mat = torch.zeros((n,), dtype=torch.long, device=ox.device)
+        if num_spheres:
+            t, valid = sph_tests(ox, oy, oz, dx, dy, dz)
+            bt, idx, found = _last_min(t, valid)
+            px, py, pz = ox + dx * bt, oy + dy * bt, oz + dz * bt
+            snx, sny, snz = _normalize3(px - sph_c[0][idx], py - sph_c[1][idx],
+                                        pz - sph_c[2][idx])
+            best_t = torch.where(found, bt, best_t)
+            nx = torch.where(found, snx, nx)
+            ny = torch.where(found, sny, ny)
+            nz = torch.where(found, snz, nz)
+            mat = torch.where(found, sph_c[4][idx].long(), mat)
+        if num_tris:
+            t, w1, w2, valid = tri_tests(ox, oy, oz, dx, dy, dz)
+            bt, idx, found = _last_min(t, valid)
+            closer = found & (bt <= best_t)
+            w1 = torch.gather(w1, 1, _col(idx))[:, 0]
+            w2 = torch.gather(w2, 1, _col(idx))[:, 0]
+            # barycentric normal interpolation, unnormalized — exactly
+            # Primitives.h:71-73
+            w0 = 1.0 - w1 - w2
+            tnx = tri_c[9][idx] * w0 + tri_c[12][idx] * w1 + tri_c[15][idx] * w2
+            tny = tri_c[10][idx] * w0 + tri_c[13][idx] * w1 + tri_c[16][idx] * w2
+            tnz = tri_c[11][idx] * w0 + tri_c[14][idx] * w1 + tri_c[17][idx] * w2
+            best_t = torch.where(closer, bt, best_t)
+            nx = torch.where(closer, tnx, nx)
+            ny = torch.where(closer, tny, ny)
+            nz = torch.where(closer, tnz, nz)
+            mat = torch.where(closer, tri_c[18][idx].long(), mat)
+        return best_t, nx, ny, nz, mat
+
+    def occlusion_sweep(sox, soy, soz, wx, wy, wz, max_d):
+        occ = torch.zeros(sox.shape, dtype=torch.bool, device=sox.device)
+        if num_spheres:
+            t, valid = sph_tests(sox, soy, soz, wx, wy, wz)
+            occ = occ | (valid & (t <= _col(max_d))).any(dim=1)
+        if num_tris:
+            t, _, _, valid = tri_tests(sox, soy, soz, wx, wy, wz)
+            occ = occ | (valid & (t <= _col(max_d))).any(dim=1)
+        return occ
+
+    return intersect_sweep, occlusion_sweep
+
+
+def _render_sums_plain(packed: PackedScene, cam: np.ndarray, seed: int,
+                       width: int, height: int, spp: int, max_bounces: int,
+                       pixel_offset: int, n_local: int, sample_offset: int,
+                       stats: Optional[dict] = None) -> torch.Tensor:
+    """Radiance SUMS over spp for ``n_local`` pixels from ``pixel_offset``,
+    ``[n_local, 3]`` float32 on the tables' device."""
+    device = packed.device
+    num_spheres, num_tris, _, num_pls, num_als = packed.counts
+    # The camera table as Python floats: each is a float32 value, so using
+    # it against a float32 tensor rounds nothing.
+    camf = [float(v) for v in cam]
+    z_near, clamp_v = camf[13], camf[14]
+    s_fov = -2.0 * camf[12]
+    n_pixels = width * height
+    ppb = rng.pairs_per_bounce(num_als)
+    eps = RAY_BUMP_EPSILON
+    intersect_sweep, occlusion_sweep = _make_sweep_fns(packed)
+    mats, pls, als, bg = (packed.materials, packed.point_lights,
+                          packed.area_lights, packed.background)
+    pl_rows = [[float(v) for v in pls[i]] for i in range(num_pls)]
+    al_rows = [[float(v) for v in als[i]] for i in range(num_als)]
+    bgf = [float(v) for v in bg]
+
+    pixel = (pixel_offset
+             + torch.arange(n_local, dtype=torch.int64, device=device))
+    in_image = (pixel < n_pixels) & (pixel >= 0)
+    pxi = (pixel % width).to(torch.float32)
+    pyi = torch.div(pixel, width, rounding_mode="floor").to(torch.float32)
+    zero = torch.zeros(n_local, dtype=torch.float32, device=device)
+
+    def draw(sample, pair):
+        return rng.uniform_pair(seed, pixel, sample, pair)
+
+    def eye(sample):
+        """Jittered pinhole eye ray per pixel (computeEyeRay,
+        CudaTracer.cu:321-343)."""
+        ju, jv = draw(sample, rng.PAIR_EYE)
+        jx = pxi + ju
+        jy = pyi + jv
+        sx = (jx * (1.0 / width) - 0.5) * s_fov * z_near
+        sy = ((jy * (1.0 / height) - 0.5) * s_fov * z_near
+              * (height / width))
+        sz = zero + z_near
+        dx0 = camf[0] * sx + camf[1] * sy + camf[2] * sz
+        dy0 = camf[3] * sx + camf[4] * sy + camf[5] * sz
+        dz0 = camf[6] * sx + camf[7] * sy + camf[8] * sz
+        return _normalize3(dx0, dy0, dz0)
+
+    def bounce(state, sample, b_cur):
+        (ox, oy, oz, dx, dy, dz, r0x, r0y, r0z, r1x, r1y, r1z, active) = state
+        pair0 = rng.pair_base(b_cur, num_als)
+
+        best_t, nx, ny, nz, mat = intersect_sweep(ox, oy, oz, dx, dy, dz)
+        hit = best_t < math.inf
+        t_safe = torch.where(hit, best_t, 0.0)
+        px, py, pz = ox + dx * t_safe, oy + dy * t_safe, oz + dz * t_safe
+
+        mrow = mats[mat]                       # direct indexed material fetch
+        mf = tuple(mrow[:, f] for f in range(M_COLS))
+        (m_dr, m_dg, m_db, _sr, _sg, _sb, m_ar, m_ag, m_ab,
+         m_er, m_eg, m_eb, _e, _i, m_pd, _ps, _prf, _ro, _pu, _ct) = mf
+
+        cos_i = -_dot(dx, dy, dz, nx, ny, nz)
+        inside = cos_i <= 0.0
+
+        def light_contribution(lx, ly, lz, pwx, pwy, pwz):
+            offx, offy, offz = lx - px, ly - py, lz - pz
+            d2 = torch.clamp_min(offx * offx + offy * offy + offz * offz, 1e-12)
+            dist = torch.sqrt(d2)
+            inv_d = 1.0 / dist
+            wx, wy, wz = offx * inv_d, offy * inv_d, offz * inv_d
+            occ = occlusion_sweep(px + nx * eps, py + ny * eps, pz + nz * eps,
+                                  wx, wy, wz, dist - 2.0 * eps)
+            cos_l = torch.clamp_min(_dot(nx, ny, nz, wx, wy, wz), 0.0)
+            if stats is not None:
+                needed = active & hit & (~inside) & (cos_l > 0.0) & (m_pd > 0.0)
+                for key, mask in (("shadow_rays", needed),
+                                  ("shadow_rays_occluded", needed & occ)):
+                    stats[key] = stats.get(key, 0) + int(mask.sum())
+            scale = (torch.where(occ, 0.0, cos_l) * m_pd * INV_PI
+                     / (4.0 * math.pi) / d2)
+            return pwx * m_dr * scale, pwy * m_dg * scale, pwz * m_db * scale
+
+        dir_r, dir_g, dir_b = m_er, m_eg, m_eb
+        for i in range(num_pls):
+            p = pl_rows[i]
+            cr, cg, cb = light_contribution(zero + p[0], zero + p[1],
+                                            zero + p[2], p[3], p[4], p[5])
+            dir_r = dir_r + torch.where(inside, 0.0, cr)
+            dir_g = dir_g + torch.where(inside, 0.0, cg)
+            dir_b = dir_b + torch.where(inside, 0.0, cb)
+        for i in range(num_als):
+            u1, u2 = draw(sample, pair0 + 2 + 2 * i)
+            u3, upick = draw(sample, pair0 + 3 + 2 * i)
+            inv_tot = 1.0 / torch.clamp_min(u1 + u2 + u3, 1e-12)
+            w0, w1, w2 = u1 * inv_tot, u2 * inv_tot, u3 * inv_tot
+            first = upick > 0.5
+            a = al_rows[i][0:9]
+            b = al_rows[i][9:18]
+            lx = torch.where(first, a[0] * w0 + a[3] * w1 + a[6] * w2,
+                             b[0] * w0 + b[3] * w1 + b[6] * w2)
+            ly = torch.where(first, a[1] * w0 + a[4] * w1 + a[7] * w2,
+                             b[1] * w0 + b[4] * w1 + b[7] * w2)
+            lz = torch.where(first, a[2] * w0 + a[5] * w1 + a[8] * w2,
+                             b[2] * w0 + b[5] * w1 + b[8] * w2)
+            cr, cg, cb = light_contribution(lx, ly, lz, al_rows[i][18],
+                                            al_rows[i][19], al_rows[i][20])
+            dir_r = dir_r + torch.where(inside, 0.0, cr)
+            dir_g = dir_g + torch.where(inside, 0.0, cg)
+            dir_b = dir_b + torch.where(inside, 0.0, cb)
+
+        act_hit = active & hit
+        beer_mask = act_hit & inside
+        r1x = torch.where(beer_mask, r1x * torch.exp(-t_safe * m_ar), r1x)
+        r1y = torch.where(beer_mask, r1y * torch.exp(-t_safe * m_ag), r1y)
+        r1z = torch.where(beer_mask, r1z * torch.exp(-t_safe * m_ab), r1z)
+
+        r0x = r0x + torch.where(act_hit, r1x * dir_r, 0.0)
+        r0y = r0y + torch.where(act_hit, r1y * dir_g, 0.0)
+        r0z = r0z + torch.where(act_hit, r1z * dir_b, 0.0)
+        miss = active & (~hit)
+        r0x = r0x + torch.where(miss, bgf[0] * r1x, 0.0)
+        r0y = r0y + torch.where(miss, bgf[1] * r1y, 0.0)
+        r0z = r0z + torch.where(miss, bgf[2] * r1z, 0.0)
+
+        u_branch, u_a = draw(sample, pair0)
+        u_b, _unused = draw(sample, pair0 + 1)
+        (new_ox, new_oy, new_oz, new_dx, new_dy, new_dz, wr, wg, wb,
+         alive, *_rest) = _scatter_sample(dx, dy, dz, nx, ny, nz, px, py, pz,
+                                          cos_i, u_branch, u_a, u_b, mf)
+
+        ox = torch.where(act_hit, new_ox, ox)
+        oy = torch.where(act_hit, new_oy, oy)
+        oz = torch.where(act_hit, new_oz, oz)
+        dx = torch.where(act_hit, new_dx, dx)
+        dy = torch.where(act_hit, new_dy, dy)
+        dz = torch.where(act_hit, new_dz, dz)
+        r1x = torch.where(act_hit, r1x * wr, r1x)
+        r1y = torch.where(act_hit, r1y * wg, r1y)
+        r1z = torch.where(act_hit, r1z * wb, r1z)
+        return (ox, oy, oz, dx, dy, dz, r0x, r0y, r0z, r1x, r1y, r1z,
+                act_hit & alive)
+
+    acc = [zero.clone() for _ in range(3)]
+    one = torch.ones_like(zero)
+    for s in range(spp):
+        sample = sample_offset + s
+        dx, dy, dz = eye(sample)
+        state = (zero + camf[9], zero + camf[10], zero + camf[11], dx, dy, dz,
+                 zero, zero, zero, one, one, one, in_image)
+        # a path ends when it dies or is still alive after max_bounces
+        # bounces (it keeps its radiance, no background term); the first
+        # bounce always runs
+        b = 0
+        while True:
+            if stats is not None:
+                stats["path_bounces"] = (stats.get("path_bounces", 0)
+                                         + int(state[12].sum()))
+            state = bounce(state, sample, b)
+            b += 1
+            if b >= max_bounces or not bool(state[12].any()):
+                break
+        for c in range(3):
+            r0 = state[6 + c]
+            if clamp_v > 0.0:
+                r0 = torch.clamp_max(r0, clamp_v)
+            acc[c] = acc[c] + r0
+    if stats is not None:
+        stats["paths"] = stats.get("paths", 0) + int(in_image.sum()) * spp
+    return torch.stack(acc, -1)
+
+
+# Rays x primitives entries the plain version holds per tensor at most;
+# larger renders are cut into independent pixel ranges.
+_PLAIN_CHUNK_ENTRIES = 1 << 25
+
+
+def _check_render_args(packed, width, height, spp, max_bounces,
+                       pixel_offset, n_local, sample_offset, seed):
+    if not isinstance(packed, PackedScene):
+        raise TypeError("packed must be a PackedScene (see pack_scene)")
+    for name, v in (("width", width), ("height", height), ("spp", spp),
+                    ("n_local", n_local)):
+        if int(v) != v or v < 1:
+            raise ValueError(f"{name} must be a positive integer, got {v!r}")
+    if int(max_bounces) != max_bounces or max_bounces < 0:
+        raise ValueError(f"max_bounces must be >= 0, got {max_bounces!r}")
+    for name, v in (("pixel_offset", pixel_offset),
+                    ("sample_offset", sample_offset)):
+        if int(v) != v or not 0 <= v < 2 ** 31:
+            raise ValueError(f"{name} must be in [0, 2**31), got {v!r}")
+    if width * height >= 2 ** 31 or pixel_offset + n_local >= 2 ** 31:
+        raise ValueError("pixel indices must fit int32")
+    if sample_offset + spp >= 2 ** 31:
+        raise ValueError("sample indices must fit int32")
+    if not -2 ** 31 <= int(seed) < 2 ** 31:
+        raise ValueError(f"seed must fit int32, got {seed!r}")
+
+
+def render_block_sums_plain(packed: PackedScene, cam_params, seed: int,
+                            width: int, height: int, spp: int,
+                            max_bounces: int, pixel_offset: int, n_local: int,
+                            sample_offset: int = 0, sample_clamp: float = 0.0,
+                            stats: Optional[dict] = None) -> torch.Tensor:
+    """Plain PyTorch radiance sums ``[n_local, 3]`` for the pixel range
+    ``[pixel_offset, pixel_offset + n_local)``, on the tables' device."""
+    _check_render_args(packed, width, height, spp, max_bounces, pixel_offset,
+                       n_local, sample_offset, seed)
+    cam = _cam_table(cam_params, sample_clamp)
+    prims = max(packed.counts[0] + packed.counts[1], 1)
+    chunk = max(1, _PLAIN_CHUNK_ENTRIES // prims)
+    parts = [
+        _render_sums_plain(packed, cam, int(seed), width, height, spp,
+                           max_bounces, pixel_offset + start,
+                           min(chunk, n_local - start), sample_offset, stats)
+        for start in range(0, n_local, chunk)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, 0)
+
+
+def render_megakernel_plain(packed: PackedScene, cam_params, seed: int,
+                            width: int, height: int, spp: int,
+                            max_bounces: int = 15, sample_clamp: float = 0.0,
+                            sample_offset: int = 0,
+                            stats: Optional[dict] = None) -> torch.Tensor:
+    """The plain PyTorch version of the megakernel: mean radiance
+    ``[H, W, 3]`` (row 0 = bottom) on whatever device the packed tables are
+    on. ``stats``, when a dict, receives ``paths``, ``path_bounces`` (sweeps
+    for the nearest hit), ``shadow_rays`` (shadow sweeps whose result can
+    change the image) and ``shadow_rays_occluded`` — the operation count
+    behind the kernel's bound."""
+    n = width * height
+    sums = render_block_sums_plain(packed, cam_params, seed, width, height,
+                                   spp, max_bounces, 0, n, sample_offset,
+                                   sample_clamp, stats)
+    return (sums / spp).reshape(height, width, 3)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's wrapper
+# ---------------------------------------------------------------------------
+
+def _kernel_fn(fmad: bool = False):
+    """(library, launch function) of the built kernel library — built at
+    first use by utils/build.py — with the function's C types declared."""
+    from ...utils.build import load_kernels
+
+    lib = load_kernels(fmad=fmad)
+    fn = lib.cpt_render_megakernel
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, ci, vp, ci, vp, ci, vp, ci, vp, ci, vp,   # tables
+                   ctypes.POINTER(ctypes.c_float),               # camera
+                   ci, ci, ci, ci, ci, ci, ci, ci,               # scalars
+                   vp, vp]                                       # out, stream
+    fn.restype = ci
+    lib.cpt_error_string.argtypes = [ci]
+    lib.cpt_error_string.restype = ctypes.c_char_p
+    return lib, fn
+
+
+def _check_tables(packed: PackedScene):
+    device = packed.device
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs tables on a CUDA device, "
+                         f"got {device}")
+    want = (("spheres", S_COLS), ("triangles", T_COLS), ("materials", M_COLS),
+            ("point_lights", PL_COLS), ("area_lights", AL_COLS))
+    rows = packed.counts
+    for (name, cols), count in zip(want, rows):
+        t = getattr(packed, name)
+        if t.dtype != torch.float32 or t.device != device:
+            raise TypeError(f"{name}: need float32 on {device}, got "
+                            f"{t.dtype} on {t.device}")
+        if t.ndim != 2 or t.shape[1] != cols or t.shape[0] != max(count, 1):
+            raise ValueError(f"{name}: need shape [{max(count, 1)}, {cols}], "
+                             f"got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: table must be contiguous")
+    bg = packed.background
+    if (bg.dtype != torch.float32 or bg.device != device
+            or tuple(bg.shape) != (3,) or not bg.is_contiguous()):
+        raise ValueError("background: need a contiguous float32 [3] on "
+                         f"{device}")
+    if rows[2] < 1:
+        raise ValueError("materials: need at least one material")
+
+
+def render_block_sums_cuda(packed: PackedScene, cam_params, seed: int,
+                           width: int, height: int, spp: int,
+                           max_bounces: int, pixel_offset: int, n_local: int,
+                           sample_offset: int = 0, sample_clamp: float = 0.0,
+                           fmad: bool = False) -> torch.Tensor:
+    """Launch the CUDA megakernel: radiance sums ``[n_local, 3]`` float32
+    for the pixel range ``[pixel_offset, pixel_offset + n_local)``. Launches
+    on the current stream of the tables' device and does not synchronise;
+    raises if the kernel does not build or the launch is refused.
+    ``fmad=True`` selects the build that lets the compiler contract
+    ``a*b+c`` (measurement only; the default build does not)."""
+    global LAUNCH_COUNT
+    _check_render_args(packed, width, height, spp, max_bounces, pixel_offset,
+                       n_local, sample_offset, seed)
+    _check_tables(packed)
+    lib, fn = _kernel_fn(fmad)
+    cam = _cam_table(cam_params, sample_clamp)
+    cam_c = (ctypes.c_float * CAM_FLOATS)(*cam.tolist())
+    num_s, num_t, num_m, num_pl, num_al = packed.counts
+    with torch.cuda.device(packed.device):
+        out = torch.empty((n_local, 3), dtype=torch.float32,
+                          device=packed.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(packed.spheres.data_ptr(), num_s,
+                 packed.triangles.data_ptr(), num_t,
+                 packed.materials.data_ptr(), num_m,
+                 packed.point_lights.data_ptr(), num_pl,
+                 packed.area_lights.data_ptr(), num_al,
+                 packed.background.data_ptr(), cam_c,
+                 int(seed), int(pixel_offset), int(n_local),
+                 int(sample_offset), int(spp), int(max_bounces),
+                 int(width), int(height), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("megakernel launch failed: CUDA error "
+                           f"{err} ({lib.cpt_error_string(err).decode()})")
+    LAUNCH_COUNT += 1
+    return out
+
+
+def uniform_pairs_cuda(seed: torch.Tensor, pixel: torch.Tensor,
+                       sample: torch.Tensor, pair: torch.Tensor):
+    """Debug entry of the kernel library: ``uniform_pair`` as the CUDA code
+    computes it, elementwise over four equal-length int32 CUDA tensors —
+    held bit-equal against ``utils/rng.py`` to localise a fault."""
+    args = (seed, pixel, sample, pair)
+    n = seed.numel()
+    for t in args:
+        if (t.dtype != torch.int32 or t.device.type != "cuda"
+                or t.device != seed.device or t.ndim != 1 or t.numel() != n
+                or not t.is_contiguous()):
+            raise ValueError("need four contiguous 1-D int32 tensors of one "
+                             "length on one CUDA device")
+    lib, _ = _kernel_fn()
+    fn = lib.cpt_uniform_pairs
+    vp = ctypes.c_void_p
+    fn.argtypes = [vp, vp, vp, vp, ctypes.c_int, vp, vp, vp]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(seed.device):
+        u0 = torch.empty(n, dtype=torch.float32, device=seed.device)
+        u1 = torch.empty_like(u0)
+        err = fn(*(t.data_ptr() for t in args), n, u0.data_ptr(),
+                 u1.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError("uniform_pairs launch failed: CUDA error "
+                           f"{err} ({lib.cpt_error_string(err).decode()})")
+    return u0, u1
+
+
+def render_block_sums(packed: PackedScene, cam_params, seed: int, width: int,
+                      height: int, spp: int, max_bounces: int,
+                      pixel_offset: int, n_local: int, sample_offset: int = 0,
+                      sample_clamp: float = 0.0) -> torch.Tensor:
+    """Radiance SUMS over spp for ``n_local`` pixels starting at flat index
+    ``pixel_offset``. ``sample_offset`` selects the global sample range
+    [offset, offset+spp) of each pixel's counter stream — progressive passes
+    and tiles continue the exact streams a monolithic render would use.
+    CUDA tables go to the kernel; CPU tables to the plain version."""
+    if packed.device.type == "cuda":
+        return render_block_sums_cuda(packed, cam_params, seed, width, height,
+                                      spp, max_bounces, pixel_offset, n_local,
+                                      sample_offset, sample_clamp)
+    return render_block_sums_plain(packed, cam_params, seed, width, height,
+                                   spp, max_bounces, pixel_offset, n_local,
+                                   sample_offset, sample_clamp)
+
+
+def _reject_unported(packed_grid=None, physical=False, state_bf16=False,
+                     bidir_nu=None):
+    if physical:
+        _unported("the physical (unbiased MIS) estimator",
+                  "Queue 1 item 5 / Queue 2: K1 physical")
+    if packed_grid is not None:
+        _unported("the supercell-grid sweep (packed_grid / accel='grid')",
+                  "Queue 1 item 5 / Queue 2: K1 grid")
+    if state_bf16:
+        _unported("the bf16 radiance/throughput state (state_bf16)",
+                  "Queue 1 item 5 / Queue 2: K1 bf16")
+    if bidir_nu is not None:
+        _unported("the bidirectional MIS carries (bidir_nu)",
+                  "Queue 1 item 8 / Queue 2: K1 bidir carries, K3")
+
+
+def render_megakernel(packed: PackedScene, cam_params, seed: int,
+                      width: int, height: int, spp: int,
+                      max_bounces: int = 15, sample_clamp: float = 0.0,
+                      sample_offset: int = 0, packed_grid=None,
+                      physical: bool = False, state_bf16: bool = False,
+                      bidir_nu: Optional[float] = None) -> torch.Tensor:
+    """Full render in one kernel launch; returns mean radiance ``[H, W, 3]``
+    (row 0 = bottom) on the packed tables' device. ``sample_clamp > 0``
+    clamps every sample's radiance to that value before accumulation (the
+    reference's per-frame [0,1] clamp; firefly control)."""
+    _reject_unported(packed_grid, physical, state_bf16, bidir_nu)
+    n = width * height
+    sums = render_block_sums(packed, cam_params, seed, width, height, spp,
+                             max_bounces, 0, n, sample_offset, sample_clamp)
+    return (sums / spp).reshape(height, width, 3)
+
+
+def render_fast2(scene, cam_params, width: int, height: int, spp: int,
+                 seed: int, max_bounces: int = 15, sample_offset: int = 0,
+                 grid=None, physical: bool = False,
+                 device="cuda") -> torch.Tensor:
+    """Convenience wrapper: pack + launch on ``device``."""
+    _reject_unported(grid, physical)
+    packed = pack_scene(scene, device)
+    return render_megakernel(packed, cam_params, seed, width, height, spp,
+                             max_bounces=max_bounces,
+                             sample_offset=sample_offset)

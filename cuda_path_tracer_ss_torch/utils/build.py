@@ -1,0 +1,101 @@
+"""Builds and loads the package's hand-written kernels.
+
+At first use the CUDA sources under ``csrc/`` are compiled by ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface and loaded with
+``ctypes`` — no PyTorch headers, so a build takes seconds. The library lands
+in ``cuda_path_tracer_ss_torch/build/`` (git-ignored) under a name that
+carries a hash of the sources and flags: an unchanged tree reuses its
+library, a changed one builds a new file. The compiler writes to a temporary
+name that is renamed into place, so concurrent first uses are safe.
+
+A failed build raises with the compiler's output; nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from typing import Dict, List, Sequence
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "build")
+
+CUDA_SOURCES = ("megakernel.cu",)
+HEADERS = ("megakernel.cuh",)
+
+# FMA contraction stays off in the default build: the plain PyTorch version
+# rounds after every multiply, and a 1-ulp change in a hit distance can
+# reroute a glass path. Never --use_fast_math.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: $CUDA_HOME/bin, the PATH, then /usr/local/cuda."""
+    candidates = []
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(var):
+            candidates.append(os.path.join(os.environ[var], "bin", "nvcc"))
+    candidates.append(shutil.which("nvcc") or "")
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, the PATH "
+                       "and /usr/local/cuda/bin): the CUDA kernels cannot "
+                       "be built on this machine")
+
+
+def _digest(compiler: str, flags: Sequence[str], sources: Sequence[str]) -> str:
+    h = hashlib.sha256()
+    h.update(" ".join((compiler,) + tuple(flags)).encode())
+    for name in tuple(sources) + HEADERS:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
+def _build(compiler: str, flags: Sequence[str], sources: Sequence[str],
+           stem: str) -> str:
+    """Compile ``sources`` into ``BUILD_DIR/<stem>_<hash>.so`` unless that
+    file exists already; returns its path."""
+    out = os.path.join(BUILD_DIR,
+                       f"{stem}_{_digest(compiler, flags, sources)}.so")
+    if os.path.isfile(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so.tmp", prefix=stem + "_",
+                               dir=BUILD_DIR)
+    os.close(fd)
+    cmd: List[str] = [compiler, *flags, "-o", tmp,
+                      *(os.path.join(CSRC_DIR, s) for s in sources)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"kernel build failed (exit {proc.returncode}): "
+                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def load_kernels(fmad: bool = False) -> ctypes.CDLL:
+    """The CUDA kernel library, built on first use. ``fmad=True`` is a
+    second build that lets ``nvcc`` contract ``a*b+c`` into FMAs; it exists
+    to be measured against the default build."""
+    key = "cuda_fmad" if fmad else "cuda"
+    if key not in _loaded:
+        flags = NVCC_FLAGS + (("-fmad=true",) if fmad else ("-fmad=false",))
+        path = _build(find_nvcc(), flags, CUDA_SOURCES,
+                      "libcpt_kernels_fmad" if fmad else "libcpt_kernels")
+        _loaded[key] = ctypes.CDLL(path)
+    return _loaded[key]

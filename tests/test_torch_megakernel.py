@@ -1,0 +1,354 @@
+"""The port's megakernel module on the CPU: its plain PyTorch version and the
+helpers it is made of, against the JAX package (the reference) on the same
+inputs; plus a test-only host-compiler build of the CUDA kernel's device math
+(torch_port_helpers.py; needs g++) against the plain version. The CUDA kernel itself runs only on a GPU and is held
+against the plain version there by chip_smoke.py.
+
+Inputs are made from a seed with numpy. Both sides draw the same counter-RNG
+streams, so images agree per pixel up to float op-order noise.
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from cuda_path_tracer_ss_tpu.models import presets as jpresets
+from cuda_path_tracer_ss_tpu.models.camera import Camera as JCamera
+from cuda_path_tracer_ss_tpu.ops.pallas import megakernel as jmk
+from cuda_path_tracer_ss_tpu.render.integrator import camera_arrays as jcamera_arrays
+from cuda_path_tracer_ss_tpu.render.integrator import render as jrender
+from cuda_path_tracer_ss_torch.models import presets as tpresets
+from cuda_path_tracer_ss_torch.models.camera import Camera, camera_arrays
+from cuda_path_tracer_ss_torch.ops.cuda import megakernel as tmk
+from torch_port_helpers import (assert_per_pixel_parity, port_scene,
+                                render_block_sums_hostbuild)
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
+CP = camera_arrays(Camera())
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _rand(seed, n, *shape_scale):
+    g = np.random.default_rng(seed)
+    return g, [(g.standard_normal(n) * s).astype(np.float32) for s in shape_scale]
+
+
+# ---- (a) helpers, one against one -------------------------------------------
+# Tolerance: the same float32 formulas in the same order on both sides; what
+# differs is the two libraries' sqrt/rsqrt/sin/cos/exp/log, a few ulp each,
+# the reference compiler's contraction of a*b+c into FMAs, and the
+# cancellations downstream of both — rtol 1e-5 with atol 2e-6 for values that
+# cancel to near zero.
+TOL = dict(rtol=1e-5, atol=2e-6)
+
+
+def test_normalize3_matches():
+    _, (x, y, z) = _rand(1, 2000, 3.0, 3.0, 3.0)
+    x[:3] = 0.0; y[:3] = 0.0; z[:3] = 0.0          # the eps guard
+    for eps in (1e-20, 1e-12):
+        got = tmk._normalize3(*_t(x, y, z), eps)
+        want = jmk._normalize3(x, y, z, eps)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+def test_rotate_y_to_matches():
+    g, (tx, ty, tz, sx, sy, sz) = _rand(2, 2000, 1, 1, 1, 1, 1, 1)
+    n = np.sqrt(tx * tx + ty * ty + tz * tz)
+    tx, ty, tz = tx / n, ty / n, tz / n
+    tx[:4] = 0.0; ty[:4] = -1.0; tz[:4] = 0.0      # the degenerate antipode
+    got = tmk._rotate_y_to(*_t(tx, ty, tz, sx, sy, sz))
+    want = jmk._rotate_y_to(tx, ty, tz, sx, sy, sz)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), **TOL)
+    np.testing.assert_array_equal(got[1][:4].numpy(), -sy[:4])
+
+
+def test_sphere_t_matches():
+    g, (ox, oy, oz, dx, dy, dz, cx, cy, cz) = _rand(3, 4000, 2, 2, 2, 1, 1, 1, 3, 3, 3)
+    n = np.sqrt(dx * dx + dy * dy + dz * dz)
+    dx, dy, dz = dx / n, dy / n, dz / n
+    r = g.uniform(0.2, 3.0, 4000).astype(np.float32)
+    t, valid = tmk._sphere_t(*_t(ox, oy, oz, dx, dy, dz, cx, cy, cz, r))
+    jt, jvalid = jmk._sphere_t(ox, oy, oz, dx, dy, dz, cx, cy, cz, r)
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(jvalid))
+    assert 0.03 < valid.float().mean() < 0.9
+    # t comes from (-b -+ sqrt(disc)) / 2: the cancellation scales with |b|
+    np.testing.assert_allclose(t.numpy()[valid.numpy()],
+                               np.asarray(jt)[valid.numpy()], rtol=1e-5, atol=1e-5)
+
+
+def test_triangle_t_matches():
+    g, (ox, oy, oz, dx, dy, dz) = _rand(4, 4000, 1, 1, 1, 1, 1, 1)
+    v0, e1, e2 = (g.standard_normal((3, 4000)).astype(np.float32) for _ in range(3))
+    e1[:, :5] = 0.0                                 # degenerate determinant
+    args = (ox, oy, oz, dx, dy, dz)
+    got = tmk._triangle_t(*_t(*args), _t(*v0), _t(*e1), _t(*e2))
+    want = jmk._triangle_t(*args, tuple(v0), tuple(e1), tuple(e2))
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+    assert not got[3][:5].any() and 0.005 < got[3].float().mean() < 0.5
+    for a, w in zip(got[:3], want[:3]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
+
+
+def _random_materials(g, n):
+    """Per-lane material columns in pack_scene order, mixing every branch:
+    Lambert, Phong (finite exponent), delta mirror (inf), Cook-Torrance, pure
+    reflection, glass."""
+    kind = g.integers(0, 6, n)
+    col = lambda lo, hi: g.uniform(lo, hi, n).astype(np.float32)
+    m = [col(0, 1) for _ in range(12)]
+    spec_exp = np.where(kind % 2 == 0, np.float32(np.inf), col(5, 300)).astype(np.float32)
+    ior = col(1.1, 2.5)
+    pd = np.where(kind == 0, col(0.3, 0.9), col(0, 0.3)).astype(np.float32)
+    ps = col(0, 0.7)
+    prf = np.where(kind == 5, col(0.3, 0.9), np.float32(0)).astype(np.float32)
+    rough = col(0.05, 0.6)
+    pure = (kind == 4).astype(np.float32)
+    ct = ((kind == 3) | (kind == 4)).astype(np.float32)
+    return m + [spec_exp, ior, pd, ps, prf, rough, pure, ct]
+
+
+def test_scatter_sample_matches():
+    n = 6000
+    g, (dx, dy, dz, nx, ny, nz, px, py, pz) = _rand(5, n, 1, 1, 1, 1, 1, 1, 4, 4, 4)
+    dn = np.sqrt(dx * dx + dy * dy + dz * dz)
+    dx, dy, dz = dx / dn, dy / dn, dz / dn
+    nn = np.sqrt(nx * nx + ny * ny + nz * nz) * g.uniform(0.8, 1.2, n).astype(np.float32)
+    nx, ny, nz = nx / nn, ny / nn, nz / nn          # triangle normals are not unit
+    cos_i = -(dx * nx + dy * ny + dz * nz)
+    u_branch, u_a, u_b = (g.uniform(0, 1, n).astype(np.float32) for _ in range(3))
+    mats = _random_materials(g, n)
+    args = (dx, dy, dz, nx, ny, nz, px, py, pz, cos_i, u_branch, u_a, u_b)
+    got = tmk._scatter_sample(*_t(*args), tuple(_t(*mats)))
+    want = jmk._scatter_sample(*args, tuple(mats))
+    assert len(got) == len(want) == 16
+    names = ("ox oy oz dx dy dz wr wg wb alive take_diff take_spec take_refr "
+             "tir ct ct_w").split()
+    for name, a, w in zip(names, got, want):
+        a, w = a.numpy(), np.asarray(w)
+        if a.dtype == np.bool_:
+            np.testing.assert_array_equal(a, w, err_msg=name)
+        elif name in ("wr", "wg", "wb", "ct_w"):
+            # the Cook-Torrance weight divides by |d.h|, itself the result
+            # of a cancellation at grazing angles: ulps grow to ~1e-3 there
+            np.testing.assert_allclose(a, w, err_msg=name, rtol=2e-3, atol=2e-6)
+        else:
+            np.testing.assert_allclose(a, w, err_msg=name, **TOL)
+    take = {k: got[names.index(k)].float().mean() for k in
+            ("take_diff", "take_spec", "take_refr", "tir", "ct")}
+    assert all(v > 0.01 for v in take.values()), take   # every branch exercised
+
+
+# ---- (b) per-pixel parity with the reference's jnp engine -------------------
+
+def _reference(jscene, w, h, spp, bounces, seed):
+    return np.asarray(jrender(jscene, jcamera_arrays(JCamera()), w, h, spp,
+                              jnp.int32(seed), max_bounces=bounces,
+                              live_cutoff=None))
+
+
+@pytest.mark.parametrize("name", ["cornell", "showcase", "point_light_spheres",
+                                  "mesh_demo", "stress"])
+def test_plain_per_pixel_parity_with_jax(name):
+    jscene = jpresets.stress(40) if name == "stress" else getattr(jpresets, name)()
+    want = _reference(jscene, 24, 24, 2, 4, 5)
+    packed = tmk.pack_scene(port_scene(jscene), "cpu")
+    got = tmk.render_megakernel_plain(packed, CP, 5, 24, 24, 2, 4)
+    assert tuple(got.shape) == (24, 24, 3) and got.dtype == torch.float32
+    if name != "stress":
+        assert_per_pixel_parity(got.numpy(), want)
+        return
+    # stress is 40 glass / glossy spheres: the reference's compiler contracts
+    # a*b+c into FMAs and eager PyTorch does not, and a 1-ulp hit distance
+    # reroutes a glass path. Exactly these 4 of 576 pixels (y, x) may differ
+    # for it (99.31 %, under the 99.5 % line); the kernel math compiled for
+    # the host WITH contraction differs from the reference in the first alone.
+    known = {(3, 14), (16, 13), (16, 17), (18, 5)}
+    far = ~np.isclose(got.numpy(), want, rtol=1e-4, atol=1e-5).all(axis=-1)
+    assert {tuple(p) for p in np.argwhere(far).tolist()} <= known
+    np.testing.assert_allclose(got.numpy().reshape(-1, 3).mean(0),
+                               want.reshape(-1, 3).mean(0), rtol=1e-3)
+    fma = render_block_sums_hostbuild(packed, CP, 5, 24, 24, 2, 4, 0, 576,
+                                      fma=True).numpy().reshape(24, 24, 3) / 2
+    far = ~np.isclose(fma, want, rtol=1e-4, atol=1e-5).all(axis=-1)
+    assert {tuple(p) for p in np.argwhere(far).tolist()} <= {(3, 14)}
+
+
+def test_plain_parity_with_jax_megakernel_interpret():
+    """Against the TPU kernel itself, run as the reference's own CPU tests run
+    it (Pallas interpret mode), at the smallest useful size."""
+    want = np.asarray(jmk.render_fast2(jpresets.cornell(), jcamera_arrays(JCamera()),
+                                       16, 16, 2, 5, max_bounces=3, interpret=True))
+    got = tmk.render_fast2(tpresets.cornell(), CP, 16, 16, 2, 5, max_bounces=3,
+                           device="cpu")
+    assert_per_pixel_parity(got.numpy(), want)
+
+
+# ---- (c) golden --------------------------------------------------------------
+
+def test_plain_golden_image():
+    """Golden made by the reference's jnp engine on a CPU (cornell, seed 42),
+    at the tolerance of tests/test_pallas_cpu.py (rtol 1e-3 / atol 1e-5) —
+    on every pixel but four: the golden's compiler contracted a*b+c into
+    FMAs, eager PyTorch rounds after the multiply, and exactly these 4 of the
+    1024 pixels (y, x) take another path for it
+    (test_kernel_math_fma_build_matches_golden shows that this is the whole
+    difference)."""
+    img = tmk.render_fast2(tpresets.cornell(), CP, 32, 32, 8, 42, max_bounces=4,
+                           device="cpu").numpy()
+    want = np.load(os.path.join(GOLDEN, "cornell_32x32_8spp_4b.npy"))
+    known = {(22, 14), (26, 26), (29, 2), (31, 0)}
+    far = ~np.isclose(img, want, rtol=1e-3, atol=1e-5).all(axis=-1)
+    assert {tuple(p) for p in np.argwhere(far).tolist()} <= known
+    np.testing.assert_allclose(img.mean((0, 1)), want.mean((0, 1)), rtol=1e-3)
+
+
+def test_kernel_math_fma_build_matches_golden():
+    """The CUDA kernel's device math, compiled for the host WITH FMA
+    contraction as the golden's compiler had it, reproduces the golden on
+    every pixel at the reference's own tolerance."""
+    packed = tmk.pack_scene(tpresets.cornell(), "cpu")
+    sums = render_block_sums_hostbuild(packed, CP, 42, 32, 32, 8, 4, 0, 1024,
+                                       fma=True)
+    want = np.load(os.path.join(GOLDEN, "cornell_32x32_8spp_4b.npy"))
+    np.testing.assert_allclose(sums.numpy().reshape(32, 32, 3) / 8, want,
+                               rtol=1e-3, atol=1e-5)
+
+
+# ---- (d) entry-point semantics -----------------------------------------------
+
+@pytest.fixture(scope="module")
+def cornell_packed():
+    return tmk.pack_scene(tpresets.cornell(), "cpu")
+
+
+def test_sample_offset_continues_streams(cornell_packed):
+    """spp=4 at offset 0 and 4 average to the spp=8 render: progressive passes
+    reproduce a monolithic render (sum order differs: rtol 1e-6)."""
+    whole = tmk.render_megakernel(cornell_packed, CP, 3, 16, 16, 8, 4)
+    first = tmk.render_megakernel(cornell_packed, CP, 3, 16, 16, 4, 4, sample_offset=0)
+    second = tmk.render_megakernel(cornell_packed, CP, 3, 16, 16, 4, 4, sample_offset=4)
+    np.testing.assert_allclose(((first + second) / 2).numpy(), whole.numpy(),
+                               rtol=1e-6, atol=1e-7)
+    assert float((first - second).abs().max()) > 0
+
+
+def test_sample_clamp():
+    packed = tmk.pack_scene(tpresets.showcase(), "cpu")
+    raw = tmk.render_megakernel(packed, CP, 11, 16, 16, 4, 6)
+    clamped = tmk.render_megakernel(packed, CP, 11, 16, 16, 4, 6, sample_clamp=1.0)
+    assert float(raw.max()) > 1.0
+    assert float(clamped.max()) <= 1.0 + 1e-6
+    assert bool((clamped <= raw + 1e-5).all())
+
+
+def test_max_bounces_one_matches_jax(cornell_packed):
+    want = _reference(jpresets.cornell(), 16, 16, 2, 1, 9)
+    got = tmk.render_megakernel_plain(cornell_packed, CP, 9, 16, 16, 2, 1)
+    assert_per_pixel_parity(got.numpy(), want)
+    more = tmk.render_megakernel_plain(cornell_packed, CP, 9, 16, 16, 2, 4)
+    assert float(more.mean()) > float(got.mean())
+
+
+def test_non_square_image_matches_jax(cornell_packed):
+    want = _reference(jpresets.cornell(), 28, 12, 2, 3, 4)
+    got = tmk.render_megakernel_plain(cornell_packed, CP, 4, 28, 12, 2, 3)
+    assert tuple(got.shape) == (12, 28, 3)
+    assert_per_pixel_parity(got.numpy(), want)
+
+
+def test_pixel_tile_equals_same_pixels_of_whole(cornell_packed):
+    w, h, spp = 20, 14, 3
+    whole = tmk.render_block_sums(cornell_packed, CP, 6, w, h, spp, 4, 0, w * h)
+    tile = tmk.render_block_sums(cornell_packed, CP, 6, w, h, spp, 4, 57, 100)
+    assert tuple(tile.shape) == (100, 3)
+    np.testing.assert_array_equal(tile.numpy(), whole[57:157].numpy())
+    # pixels past the image render as zero sums
+    over = tmk.render_block_sums(cornell_packed, CP, 6, w, h, spp, 4, w * h - 10, 25)
+    np.testing.assert_array_equal(over[:10].numpy(), whole[-10:].numpy())
+    assert float(over[10:].abs().max()) == 0.0
+
+
+def test_plain_stats_count_the_work(cornell_packed):
+    stats = {}
+    tmk.render_megakernel_plain(cornell_packed, CP, 1, 12, 12, 2, 5, stats=stats)
+    assert stats["paths"] == 12 * 12 * 2
+    assert stats["paths"] <= stats["path_bounces"] <= 5 * stats["paths"]
+    assert 0 < stats["shadow_rays_occluded"] < stats["shadow_rays"] <= stats["path_bounces"]
+
+
+# ---- (e) what is not ported raises; (f) the device rule ----------------------
+
+@pytest.mark.parametrize("kwargs", [dict(physical=True), dict(packed_grid=object()),
+                                    dict(state_bf16=True), dict(bidir_nu=1.0)])
+def test_unported_options_raise(cornell_packed, kwargs):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmk.render_megakernel(cornell_packed, CP, 0, 8, 8, 1, 2, **kwargs)
+
+
+def test_render_fast2_unported_options_raise():
+    scene = tpresets.cornell()
+    for kwargs in (dict(physical=True), dict(grid=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tmk.render_fast2(scene, CP, 8, 8, 1, 0, device="cpu", **kwargs)
+
+
+def test_default_device_is_cuda_and_raises_without_a_card():
+    """Entry points default to the GPU and do not render on the CPU instead.
+    (This suite runs where there is no card.)"""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a machine without a GPU")
+    scene = tpresets.cornell()
+    with pytest.raises((RuntimeError, AssertionError)):
+        tmk.pack_scene(scene)
+    with pytest.raises((RuntimeError, AssertionError)):
+        tmk.render_fast2(scene, CP, 8, 8, 1, 0)
+
+
+def test_cuda_wrapper_refuses_cpu_tables(cornell_packed):
+    before = tmk.LAUNCH_COUNT
+    with pytest.raises(ValueError, match="CUDA device"):
+        tmk.render_block_sums_cuda(cornell_packed, CP, 0, 8, 8, 1, 2, 0, 64)
+    assert tmk.LAUNCH_COUNT == before
+
+
+@pytest.mark.parametrize("bad", [dict(width=0), dict(spp=0), dict(max_bounces=-1),
+                                 dict(sample_offset=-1), dict(seed=2 ** 31),
+                                 dict(pixel_offset=2 ** 31)])
+def test_bad_arguments_raise(cornell_packed, bad):
+    kw = dict(seed=0, width=8, height=8, spp=1, max_bounces=2, pixel_offset=0,
+              n_local=64, sample_offset=0)
+    kw.update(bad)
+    with pytest.raises(ValueError):
+        tmk.render_block_sums(cornell_packed, CP, **kw)
+
+
+# ---- the CUDA kernel's device math, compiled for the host --------------------
+
+@pytest.mark.parametrize("name", ["cornell", "showcase", "point_lights", "stress",
+                                  "glass", "stress_dense", "mesh_dense"])
+def test_kernel_math_host_build_matches_plain(name):
+    """csrc/megakernel.cuh compiled by the host C++ compiler (FMA contraction
+    off) and run one pixel at a time, against the plain version: the same
+    criterion the GPU build is held to on the card."""
+    scene = {"stress_dense": lambda: tpresets.stress_dense(300),
+             "mesh_dense": lambda: tpresets.mesh_dense(1)}.get(
+                 name, lambda: tpresets.get_scene(name))()
+    packed = tmk.pack_scene(scene, "cpu")
+    w, h, spp, bounces = 40, 32, 4, 6
+    for kw in (dict(), dict(sample_offset=5, sample_clamp=1.0)):
+        plain = tmk.render_block_sums_plain(packed, CP, 7, w, h, spp, bounces,
+                                            0, w * h, **kw)
+        host = render_block_sums_hostbuild(packed, CP, 7, w, h, spp, bounces,
+                                           0, w * h, **kw)
+        assert_per_pixel_parity(host.numpy() / spp, plain.numpy() / spp)
+    tile = render_block_sums_hostbuild(packed, CP, 7, w, h, spp, bounces, 301, 200)
+    full = render_block_sums_hostbuild(packed, CP, 7, w, h, spp, bounces, 0, w * h)
+    np.testing.assert_array_equal(tile.numpy(), full[301:501].numpy())
