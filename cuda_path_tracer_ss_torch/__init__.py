@@ -6,7 +6,9 @@ fused render kernel written by hand in CUDA C++ (``csrc/``) and a plain
 PyTorch version of it beside it. This package imports ``torch`` and
 ``numpy`` only. Ported so far: the forward render — presets, scene packing,
 the megakernel in its default variant, the progressive renderer with exact
-resume, and the ``render`` / ``benchmark`` commands.
+resume, the ``render`` / ``benchmark`` commands — and training: the
+replay-VJP kernel under ``render_megakernel_diff`` (grad modes linear and
+full), ``render/inverse.py`` and the ``grad-check`` / ``invert`` commands.
 """
 
 from .constants import (
@@ -34,6 +36,19 @@ from .ops.cuda.megakernel import (
     render_megakernel,
     render_megakernel_plain,
 )
+from .ops.cuda.megakernel_vjp import (
+    render_megakernel_diff,
+    render_megakernel_diff_plain,
+)
+from .render.inverse import (
+    TRAINABLE_FIELDS,
+    check_engine_fields,
+    directional_fd_check,
+    extract_params,
+    invert,
+    make_loss,
+    merge_params,
+)
 from .render.renderer import ProgressiveRenderer, RenderConfig
 
 __version__ = "0.1.0"
@@ -54,11 +69,20 @@ __all__ = [
     "RenderConfig",
     "Scene",
     "SceneBuilder",
+    "TRAINABLE_FIELDS",
     "camera_arrays",
+    "check_engine_fields",
+    "directional_fd_check",
+    "extract_params",
     "get_scene",
+    "invert",
+    "make_loss",
+    "merge_params",
     "pack_scene",
     "render_fast2",
     "render_megakernel",
+    "render_megakernel_diff",
+    "render_megakernel_diff_plain",
     "render_megakernel_plain",
     "scene_from_numpy",
     "scene_to_numpy",

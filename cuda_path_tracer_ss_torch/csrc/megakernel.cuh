@@ -184,6 +184,7 @@ struct Hit {
     float t;           // +inf on a miss
     float nx, ny, nz;  // sphere: unit; triangle: barycentric, UNNORMALISED
     int mat;           // 0 on a miss
+    int prim;          // sphere i: i; triangle i: num_spheres + i; -1 on a miss
 };
 
 // Nearest hit, linear sweep. Tie rule: valid && t <= best_t, so the LATER
@@ -208,8 +209,9 @@ CPT_HD Hit intersect_sweep(const SceneTables& sc, float ox, float oy, float oz,
         }
     }
     Hit h;
-    h.t = best_t; h.nx = 0.0f; h.ny = 0.0f; h.nz = 0.0f; h.mat = 0;
+    h.t = best_t; h.nx = 0.0f; h.ny = 0.0f; h.nz = 0.0f; h.mat = 0; h.prim = -1;
     if (best_tri >= 0) {
+        h.prim = sc.num_spheres + best_tri;
         const float* tr = sc.triangles + best_tri * T_COLS;
         const float w0 = 1.0f - bw1 - bw2;
         h.nx = tr[9] * w0 + tr[12] * bw1 + tr[15] * bw2;
@@ -217,6 +219,7 @@ CPT_HD Hit intersect_sweep(const SceneTables& sc, float ox, float oy, float oz,
         h.nz = tr[11] * w0 + tr[14] * bw1 + tr[17] * bw2;
         h.mat = (int)tr[18];
     } else if (best_s >= 0) {
+        h.prim = best_s;
         const float* s = sc.spheres + best_s * S_COLS;
         const float px = ox + dx * best_t, py = oy + dy * best_t, pz = oz + dz * best_t;
         normalize3(px - s[0], py - s[1], pz - s[2], 1e-20f, h.nx, h.ny, h.nz);
@@ -272,15 +275,24 @@ CPT_HD void light_contribution(const SceneTables& sc, float px, float py, float 
 
 // ---- BSDF cascade scatter (CudaTracer.cu:208-318) -----------------------------
 
+// Branch taken by scatter_sample.
+constexpr int BRANCH_NONE = 0, BRANCH_DIFFUSE = 1, BRANCH_COOK_TORRANCE = 2,
+              BRANCH_GLOSS = 3, BRANCH_REFRACT = 4;
+
 // One uniform picks diffuse / specular (Cook-Torrance, Phong or mirror) /
 // refraction; only the branch taken is evaluated. Returns false when the
 // path dies (no branch taken, or refraction under total internal reflection).
+// `branch` receives the branch taken (BRANCH_NONE when the path dies) and
+// `ct_w` the Cook-Torrance weight that scales the specular colour (1 on every
+// other branch): the forward render ignores both, the replay of the backward
+// kernel stores them.
 CPT_HD bool scatter_sample(float dx, float dy, float dz, float nx, float ny, float nz,
                            float px, float py, float pz, float cos_i,
                            float u_branch, float u_a, float u_b, const float* m,
                            float& new_ox, float& new_oy, float& new_oz,
                            float& new_dx, float& new_dy, float& new_dz,
-                           float& wr, float& wg, float& wb) {
+                           float& wr, float& wg, float& wb, int& branch, float& ct_w) {
+    branch = BRANCH_NONE; ct_w = 1.0f;
     const float m_exp = m[12], m_ior = m[13], m_pd = m[14], m_ps = m[15], m_prf = m[16];
     const float m_rough = m[17];
     const bool pure = m[18] > 0.5f, ct = m[19] > 0.5f;
@@ -314,6 +326,7 @@ CPT_HD bool scatter_sample(float dx, float dy, float dz, float nx, float ny, flo
         new_oy = py + ny * RAY_BUMP_EPSILON;
         new_oz = pz + nz * RAY_BUMP_EPSILON;
         wr = m[0]; wg = m[1]; wb = m[2];
+        branch = BRANCH_DIFFUSE;
         return true;
     }
     if (take_spec) {
@@ -340,6 +353,8 @@ CPT_HD bool scatter_sample(float dx, float dy, float dz, float nx, float ny, flo
             const float nv = fmaxf(fabsf(cos_i), 1e-6f);
             const float geom = fminf(fminf(1.0f, 2.0f * nh * nl / vh), 2.0f * nh * nv / vh);
             spw = geom / nv;
+            ct_w = spw;
+            branch = BRANCH_COOK_TORRANCE;
             new_dx = ctx; new_dy = cty; new_dz = ctz;
             new_ox = px + mx * RAY_BUMP_EPSILON;
             new_oy = py + my * RAY_BUMP_EPSILON;
@@ -347,6 +362,7 @@ CPT_HD bool scatter_sample(float dx, float dy, float dz, float nx, float ny, flo
         } else {
             // reference quirk: the mirror direction uses +|cos_i| also from
             // inside (unnormalised, outward-bent)
+            branch = BRANCH_GLOSS;
             const float mrx = dx + 2.0f * cos_pos * nx;
             const float mry = dy + 2.0f * cos_pos * ny;
             const float mrz = dz + 2.0f * cos_pos * nz;
@@ -377,6 +393,7 @@ CPT_HD bool scatter_sample(float dx, float dy, float dz, float nx, float ny, flo
         new_oy = py + rfy * RAY_BUMP_EPSILON;
         new_oz = pz + rfz * RAY_BUMP_EPSILON;
         wr = 1.0f; wg = 1.0f; wb = 1.0f;
+        branch = BRANCH_REFRACT;
         return true;
     }
     return false;
@@ -384,21 +401,29 @@ CPT_HD bool scatter_sample(float dx, float dy, float dz, float nx, float ny, flo
 
 // ---- one pixel, all samples -------------------------------------------------------
 
-// Jittered pinhole eye ray (computeEyeRay, CudaTracer.cu:321-343); pair 0.
-CPT_HD void eye_ray(const RenderParams& p, int pixel, int sample, float pxi, float pyi,
-                    float& dx, float& dy, float& dz) {
+// Jittered pinhole eye ray (computeEyeRay, CudaTracer.cu:321-343); pair 0:
+// the camera-space pixel vector s and the world-space direction v = R s
+// before it is normalised.
+CPT_HD void eye_ray_raw(const RenderParams& p, int pixel, int sample, float pxi, float pyi,
+                        float& sx, float& sy, float& sz, float& dx0, float& dy0, float& dz0) {
     float ju, jv;
     uniform_pair(p.seed, pixel, sample, 0, ju, jv);
     const float tan_half = p.cam[12], z_near = p.cam[13];
     const float jx = pxi + ju;
     const float jy = pyi + jv;
     const float s_fov = -2.0f * tan_half;
-    const float sx = (jx * p.inv_width - 0.5f) * s_fov * z_near;
-    const float sy = (jy * p.inv_height - 0.5f) * s_fov * z_near * p.aspect;
-    const float sz = z_near;
-    const float dx0 = p.cam[0] * sx + p.cam[1] * sy + p.cam[2] * sz;
-    const float dy0 = p.cam[3] * sx + p.cam[4] * sy + p.cam[5] * sz;
-    const float dz0 = p.cam[6] * sx + p.cam[7] * sy + p.cam[8] * sz;
+    sx = (jx * p.inv_width - 0.5f) * s_fov * z_near;
+    sy = (jy * p.inv_height - 0.5f) * s_fov * z_near * p.aspect;
+    sz = z_near;
+    dx0 = p.cam[0] * sx + p.cam[1] * sy + p.cam[2] * sz;
+    dy0 = p.cam[3] * sx + p.cam[4] * sy + p.cam[5] * sz;
+    dz0 = p.cam[6] * sx + p.cam[7] * sy + p.cam[8] * sz;
+}
+
+CPT_HD void eye_ray(const RenderParams& p, int pixel, int sample, float pxi, float pyi,
+                    float& dx, float& dy, float& dz) {
+    float sx, sy, sz, dx0, dy0, dz0;
+    eye_ray_raw(p, pixel, sample, pxi, pyi, sx, sy, sz, dx0, dy0, dz0);
     normalize3(dx0, dy0, dz0, 1e-20f, dx, dy, dz);
 }
 
@@ -475,10 +500,12 @@ CPT_HD void render_pixel(const SceneTables& sc, const RenderParams& p, int pixel
             float u_branch, u_a, u_b, unused;
             uniform_pair(p.seed, pixel, sample, pair0, u_branch, u_a);
             uniform_pair(p.seed, pixel, sample, pair0 + 1, u_b, unused);
-            float nox, noy, noz, ndx, ndy, ndz, wr, wg, wb;
+            float nox, noy, noz, ndx, ndy, ndz, wr, wg, wb, ct_w;
+            int branch;
             const bool alive = scatter_sample(dx, dy, dz, nx, ny, nz, px, py, pz, cos_i,
                                               u_branch, u_a, u_b, m,
-                                              nox, noy, noz, ndx, ndy, ndz, wr, wg, wb);
+                                              nox, noy, noz, ndx, ndy, ndz, wr, wg, wb,
+                                              branch, ct_w);
             ++b;
             if (!alive || b >= p.max_bounces) break;
             ox = nox; oy = noy; oz = noz;

@@ -1,0 +1,763 @@
+// Device math of the replay-VJP megakernel: one call of backward_pixel()
+// takes the cotangent g of one pixel's mean radiance and adds that pixel's
+// share of dL/d(scene parameters, camera) into a row accumulator.
+//
+// Replaces the per-lane body of the TPU kernel
+// cuda_path_tracer_ss_tpu/ops/pallas/megakernel_vjp.py::_make_backward_kernel
+// in its reference-parity, untextured, linear-sweep form, grad modes "linear"
+// and "full". Per sample the thread
+//   1. REPLAYS the path from the counter RNG with the forward kernel's own
+//      device functions (megakernel.cuh: sweeps, scatter_sample, uniform_pair,
+//      eye ray), so it walks the forward's path hit for hit and branch for
+//      branch, and checkpoints every bounce;
+//   2. runs the adjoint recurrence over the stored bounces, last to first:
+//        A_mid(b) = A_after(b) * w(b) + g * direct(b);  A_in(b) = A_mid(b) * beer(b)
+//      and, in full mode, carries dL/d(origin, direction) through the scatter
+//      step (scatter_chain) and the hit (hit_chain) of every bounce;
+//   3. in full mode pulls the eye ray's cotangent back into the camera rows.
+// Discrete decisions (which primitive is hit, visibility, the scatter branch,
+// the clamp of the light cosine) carry no gradient; every continuous factor
+// does.
+//
+// A thread branches on its own path: only the adjoint of the scatter branch
+// that was drawn is evaluated, a miss ends the replay and stores nothing,
+// material / sphere / triangle rows are read and written by direct index.
+//
+// Two seams keep this header usable from a host compiler too (CPT_HD collapses
+// to `inline`): the checkpoint store is a strided view over a float buffer
+// (stride = threads of the launch on the card, 1 on a host), and the row
+// accumulator is a template parameter with one method, add(row, value).
+//
+// Row layout of the accumulator (GradLayout): per material `pcols` rows
+// (diffuse 3, specular 3, absorption 3, emission 3, diff_avg; full mode adds
+// roughness, ior, spec_exp), then per point light power 3 (full: position 3,
+// power 3), per area light power 3, background 3; full mode appends camera
+// rows (rotation 9 row-major, position 3, tan_half_fov) and 4 rows per sphere
+// (centre 3, radius).
+#pragma once
+
+#include <string.h>
+
+#include "megakernel.cuh"
+
+namespace cpt {
+
+constexpr int P_COLS = 13;
+constexpr int P_COLS_FULL = 16;
+constexpr int CAM_ROWS = 13;
+
+// Checkpoint planes of one bounce. Linear mode stores the first ST_PLANES,
+// full mode all ST_PLANES_FULL. Q_MAT, Q_CODE and Q_PRIM hold integers.
+constexpr int Q_TM = 0;        // T_mid = T_in * beer (3)
+constexpr int Q_W = 3;         // sampled branch weight (3)
+constexpr int Q_BEER = 6;      // Beer-Lambert factor (3)
+constexpr int Q_DIRECT = 9;    // emission + NEE (3)
+constexpr int Q_T_IN = 12;     // hit distance on an inside hit, else 0
+constexpr int Q_MAT = 13;      // material index
+constexpr int Q_CODE = 14;     // branch taken (BRANCH_*)
+constexpr int Q_CT_W = 15;     // Cook-Torrance weight
+constexpr int ST_PLANES = 16;
+constexpr int Q_P = 16;        // hit point (3)
+constexpr int Q_D = 19;        // incoming direction (3)
+constexpr int Q_N = 22;        // surfel normal as the forward used it (3)
+constexpr int Q_T = 25;        // hit distance
+constexpr int Q_PRIM = 26;     // winning primitive
+constexpr int Q_NEE_AP = 27;   // dL/dp of the NEE terms, pre-scaled by g*T_mid (3)
+constexpr int Q_NEE_AN = 30;   // dL/dn of the NEE terms, pre-scaled (3)
+constexpr int ST_PLANES_FULL = 33;
+
+// NEE falloff constant: 1/pi (Lambert) / (4 pi) (point-light falloff)
+constexpr float K_NEE = (float)(0.31830988618 / (4.0 * 3.141592653589793));
+
+struct GradLayout {
+    int pcols, pl_stride, pl_pow_off;
+    int row_pl0, row_al0, row_bg0, row_cam0, row_geo0, rows;
+};
+
+inline GradLayout grad_layout(int num_spheres, int num_materials, int num_point_lights,
+                              int num_area_lights, bool full) {
+    GradLayout L;
+    L.pcols = full ? P_COLS_FULL : P_COLS;
+    L.pl_stride = full ? 6 : 3;
+    L.pl_pow_off = full ? 3 : 0;
+    L.row_pl0 = num_materials * L.pcols;
+    L.row_al0 = L.row_pl0 + L.pl_stride * num_point_lights;
+    L.row_bg0 = L.row_al0 + 3 * num_area_lights;
+    L.row_cam0 = L.row_bg0 + 3;
+    L.row_geo0 = L.row_cam0 + CAM_ROWS;
+    L.rows = full ? L.row_geo0 + 4 * num_spheres : L.row_cam0;
+    return L;
+}
+
+// Checkpoints of one thread: plane q of bounce b lies at
+// base[(b * planes + q) * stride]. On the card `base` points at the thread's
+// own column of a [bounce][plane][thread] buffer, so a warp's accesses are
+// coalesced.
+struct CheckpointStore {
+    float* base;
+    size_t stride;
+    int planes;
+    CPT_HD float get(int b, int q) const { return base[(size_t)(b * planes + q) * stride]; }
+    CPT_HD void put(int b, int q, float v) const { base[(size_t)(b * planes + q) * stride] = v; }
+    CPT_HD int geti(int b, int q) const {
+        const float f = get(b, q);
+        int i;
+        memcpy(&i, &f, sizeof(i));
+        return i;
+    }
+    CPT_HD void puti(int b, int q, int i) const {
+        float f;
+        memcpy(&f, &i, sizeof(f));
+        put(b, q, f);
+    }
+    CPT_HD void get3(int b, int q, float& x, float& y, float& z) const {
+        x = get(b, q); y = get(b, q + 1); z = get(b, q + 2);
+    }
+    CPT_HD void put3(int b, int q, float x, float y, float z) const {
+        put(b, q, x); put(b, q + 1, y); put(b, q + 2, z);
+    }
+};
+
+// ---- small adjoints -----------------------------------------------------------
+
+// sign with sgn(0) = +1 (not copysign: -0.0 counts as >= 0)
+CPT_HD float sgn(float x) { return x >= 0.0f ? 1.0f : -1.0f; }
+
+CPT_HD void cross3(float ax, float ay, float az, float bx, float by, float bz,
+                   float& ox, float& oy, float& oz) {
+    ox = ay * bz - az * by;
+    oy = az * bx - ax * bz;
+    oz = ax * by - ay * bx;
+}
+
+// VJP of normalize3 at v with cotangent g. Where the eps clamp is live the
+// forward is v * const, so the projection term drops.
+CPT_HD void norm3_vjp(float vx, float vy, float vz, float gx, float gy, float gz, float eps,
+                      float& ax, float& ay, float& az) {
+    const float n2 = vx * vx + vy * vy + vz * vz;
+    const float inv = CPT_RSQRT(fmaxf(n2, eps));
+    const float nx = vx * inv, ny = vy * inv, nz = vz * inv;
+    const float proj = (n2 > eps) ? (nx * gx + ny * gy + nz * gz) : 0.0f;
+    ax = (gx - nx * proj) * inv;
+    ay = (gy - ny * proj) * inv;
+    az = (gz - nz * proj) * inv;
+}
+
+// VJP of rotate_y_to(target t, sample s) with cotangent g of the rotated
+// vector: (A_target, A_sample). Recomputes the quaternion, the degenerate
+// fallback included (there the output is (sx, -sy, -sz) and t gets nothing).
+CPT_HD void rot_y_to_vjp(float tx, float ty, float tz, float sx, float sy, float sz,
+                         float gx, float gy, float gz,
+                         float& atx, float& aty, float& atz,
+                         float& asx, float& asy, float& asz) {
+    const float w0 = 1.0f + ty;
+    const float rx = tz, rz = -tx;
+    const float n2 = w0 * w0 + rx * rx + rz * rz;
+    if (n2 < 1e-12f) {
+        atx = 0.0f; aty = 0.0f; atz = 0.0f;
+        asx = gx; asy = -gy; asz = -gz;
+        return;
+    }
+    const float inv = CPT_RSQRT(n2);
+    const float w = w0 * inv;
+    const float rhx = rx * inv, rhz = rz * inv;
+    // u = r_hat x s + w*s   (r_hat's y component is 0)
+    const float ux = -rhz * sy + w * sx;
+    const float uy = rhz * sx - rhx * sz + w * sy;
+    const float uz = rhx * sy + w * sz;
+    // o = s + 2 r_hat x u:  A_rhat += u x (2g);  A_u = (2g) x r_hat
+    const float g2x = 2.0f * gx, g2y = 2.0f * gy, g2z = 2.0f * gz;
+    float arx, ary, arz, aux, auy, auz, cx, cy, cz, ex, ey, ez;
+    cross3(ux, uy, uz, g2x, g2y, g2z, arx, ary, arz);
+    cross3(g2x, g2y, g2z, rhx, 0.0f, rhz, aux, auy, auz);
+    // u = r_hat x s + w s:  A_rhat += s x A_u;  A_s = A_u x r_hat + w A_u + g
+    cross3(sx, sy, sz, aux, auy, auz, cx, cy, cz);
+    arx += cx; ary += cy; arz += cz;
+    cross3(aux, auy, auz, rhx, 0.0f, rhz, ex, ey, ez);
+    asx = ex + w * aux + gx;
+    asy = ey + w * auy + gy;
+    asz = ez + w * auz + gz;
+    const float aw = sx * aux + sy * auy + sz * auz;
+    // w = w0*inv; r_hat = r*inv  (raw r = (tz, 0, -tx): its y adjoint drops)
+    float aw0 = inv * aw;
+    float arx_r = inv * arx;
+    float arz_r = inv * arz;
+    const float ainv = w0 * aw + rx * arx + rz * arz;
+    const float an2 = -0.5f * inv * inv * inv * ainv;
+    aw0 += 2.0f * w0 * an2;
+    arx_r += 2.0f * rx * an2;
+    arz_r += 2.0f * rz * an2;
+    atx = -arz_r;
+    aty = aw0;
+    atz = arx_r;
+    (void)ary;
+}
+
+// ---- next-event estimation: q and its partials ---------------------------------
+
+// q = NEE scale / diff_avg / power / diffuse of one sampled light point l:
+// max(0, n.w) * K / d^2 where the point is visible, else 0. FULL also gives
+// dq/dp and dq/dn in the visible, unclamped region (zero elsewhere):
+//   dq/dp = K/dist^3 (3 (n.w) w - n),  dq/dn = K/dist^2 w.
+// Occlusion and the cosine clamp are discrete: no gradient through them.
+template <bool FULL>
+CPT_HD float light_q(const SceneTables& sc, float px, float py, float pz,
+                     float nx, float ny, float nz, float lx, float ly, float lz,
+                     float* dqp, float* dqn) {
+    if (FULL) {
+        dqp[0] = dqp[1] = dqp[2] = 0.0f;
+        dqn[0] = dqn[1] = dqn[2] = 0.0f;
+    }
+    const float offx = lx - px, offy = ly - py, offz = lz - pz;
+    const float d2 = fmaxf(offx * offx + offy * offy + offz * offz, 1e-12f);
+    const float dist = sqrtf(d2);
+    const float inv_d = 1.0f / dist;
+    const float wx = offx * inv_d, wy = offy * inv_d, wz = offz * inv_d;
+    const float cl_raw = dot3(nx, ny, nz, wx, wy, wz);
+    if (!(cl_raw > 0.0f)) return 0.0f;
+    if (occlusion_sweep(sc, px + nx * RAY_BUMP_EPSILON, py + ny * RAY_BUMP_EPSILON,
+                        pz + nz * RAY_BUMP_EPSILON, wx, wy, wz,
+                        dist - 2.0f * RAY_BUMP_EPSILON)) return 0.0f;
+    if (FULL) {
+        const float c3 = K_NEE * inv_d / d2;
+        dqp[0] = c3 * (3.0f * cl_raw * wx - nx);
+        dqp[1] = c3 * (3.0f * cl_raw * wy - ny);
+        dqp[2] = c3 * (3.0f * cl_raw * wz - nz);
+        const float c2 = K_NEE / d2;
+        dqn[0] = c2 * wx; dqn[1] = c2 * wy; dqn[2] = c2 * wz;
+    }
+    return cl_raw * K_NEE / d2;
+}
+
+// One light's NEE partials at an outside hit: the power rows, the hit
+// material's diffuse and diff_avg rows and, in full mode, the accumulated
+// position/normal adjoints. Adds the light's contribution to `dir` and
+// returns A_q = dL/dq of this light.
+template <bool FULL, class Sink>
+CPT_HD float nee_partials(const float* m, int mat_row, float q, const float* dqp, const float* dqn,
+                          float pwx, float pwy, float pwz, int power_row,
+                          float gtx, float gty, float gtz, float* dir, float* nee_ap,
+                          float* nee_an, Sink& acc) {
+    const float m_dr = m[0], m_dg = m[1], m_db = m[2], m_pd = m[14];
+    const float s = m_pd * q;
+    dir[0] += pwx * m_dr * s;
+    dir[1] += pwy * m_dg * s;
+    dir[2] += pwz * m_db * s;
+    // d power_l += g*T_mid (.) diffuse * diff_avg*q
+    acc.add(power_row + 0, gtx * m_dr * s);
+    acc.add(power_row + 1, gty * m_dg * s);
+    acc.add(power_row + 2, gtz * m_db * s);
+    const float gsum = gtx * pwx * m_dr + gty * pwy * m_dg + gtz * pwz * m_db;
+    // d diffuse[m] += g*T_mid * diff_avg*q*power;  d diff_avg[m] += sum_ch g*T*q*(power.diffuse)
+    acc.add(mat_row + 0, gtx * pwx * m_pd * q);
+    acc.add(mat_row + 1, gty * pwy * m_pd * q);
+    acc.add(mat_row + 2, gtz * pwz * m_pd * q);
+    acc.add(mat_row + 12, gsum * q);
+    const float aq = gsum * m_pd;
+    if (FULL) {
+        for (int c = 0; c < 3; ++c) {
+            nee_ap[c] += aq * dqp[c];
+            nee_an[c] += aq * dqn[c];
+        }
+    }
+    return aq;
+}
+
+// ---- adjoint of the scatter step (full mode) -----------------------------------
+
+// Consumes the carried cotangents of bounce b's OUTPUT ray (ao: origin, ad:
+// direction) and the weight cotangent dw = A_after * T_mid, re-deriving the
+// forward's branch math from the stored (d, n) and the replayed uniforms.
+// Gives the cotangents flowing into the hit point (ap), the surfel normal
+// (an) and the INCOMING direction (ade), and adds the roughness / ior /
+// spec_exp rows. Only the branch that was drawn is evaluated.
+template <class Sink>
+CPT_HD void scatter_chain(const SceneTables& sc, const RenderParams& p, const GradLayout& L,
+                          int pixel, int sample, int b, const CheckpointStore& st,
+                          int mat, int code, float dwx, float dwy, float dwz,
+                          const float* ao, const float* ad, float* ap, float* an, float* ade,
+                          Sink& acc) {
+    for (int c = 0; c < 3; ++c) { ap[c] = 0.0f; an[c] = 0.0f; ade[c] = 0.0f; }
+    if (code == BRANCH_NONE) return;
+    const float eps = RAY_BUMP_EPSILON;
+    float dx, dy, dz, nx, ny, nz;
+    st.get3(b, Q_D, dx, dy, dz);
+    st.get3(b, Q_N, nx, ny, nz);
+    const float* m = sc.materials + mat * M_COLS;
+    const int mat_row = mat * L.pcols;
+    const int pair0 = 1 + b * (2 + 2 * sc.num_area_lights);
+    float u_branch, u_a, u_b, unused;
+    uniform_pair(p.seed, pixel, sample, pair0, u_branch, u_a);
+    uniform_pair(p.seed, pixel, sample, pair0 + 1, u_b, unused);
+
+    const float cos_i = -dot3(dx, dy, dz, nx, ny, nz);
+    const float cos_pos = fabsf(cos_i);
+    const float s_ci = sgn(cos_i);
+    const float theta = u_a * TWO_PI;
+    const float cth = cosf(theta), sth = sinf(theta);
+    const float aopx = ao[0], aopy = ao[1], aopz = ao[2];
+    const float adpx = ad[0], adpy = ad[1], adpz = ad[2];
+    ap[0] = aopx; ap[1] = aopy; ap[2] = aopz;  // every branch starts at p (+ eps * something)
+
+    if (code == BRANCH_DIFFUSE) {
+        // d' = rot(n, cap), o' = p + eps n
+        const float yy = sqrtf(u_b);
+        const float rr = sqrtf(fmaxf(1.0f - yy * yy, 0.0f));
+        float atx, aty, atz, asx, asy, asz;
+        rot_y_to_vjp(nx, ny, nz, rr * cth, yy, rr * sth, adpx, adpy, adpz,
+                     atx, aty, atz, asx, asy, asz);
+        an[0] = atx + eps * aopx;
+        an[1] = aty + eps * aopy;
+        an[2] = atz + eps * aopz;
+        return;
+    }
+    if (code == BRANCH_COOK_TORRANCE) {
+        const float m_sr = m[3], m_sg = m[4], m_sb = m[5], m_rough = m[17];
+        const float u_ac = fminf(u_a, (float)(1.0 - 1e-7));
+        const float l1p = log1pf(-u_ac);
+        const float btan = -(m_rough * m_rough) * l1p;
+        const float binv = CPT_RSQRT(1.0f + btan * btan);
+        const float bphi = u_b * TWO_PI;
+        const float cbp = cosf(bphi), sbp = sinf(bphi);
+        const float sb_ = btan * binv;
+        const float sbx = sb_ * cbp, sby = binv, sbz = sb_ * sbp;
+        float mx, my, mz;
+        rotate_y_to(nx, ny, nz, sbx, sby, sbz, mx, my, mz);
+        const float cmu = dot3(dx, dy, dz, mx, my, mz);
+        const float cos_m = fabsf(cmu);
+        const float s_cm = sgn(cmu);
+        const float ctx = dx + 2.0f * cos_m * mx;
+        const float cty = dy + 2.0f * cos_m * my;
+        const float ctz = dz + 2.0f * cos_m * mz;
+        const float vhx_ = ctx - dx, vhy_ = cty - dy, vhz_ = ctz - dz;
+        const float hn2 = vhx_ * vhx_ + vhy_ * vhy_ + vhz_ * vhz_;
+        const float hinv = CPT_RSQRT(fmaxf(hn2, 1e-12f));
+        const float hx = vhx_ * hinv, hy = vhy_ * hinv, hz = vhz_ * hinv;
+        const float nh_u = dot3(nx, ny, nz, hx, hy, hz);
+        const float nl_u = dot3(nx, ny, nz, ctx, cty, ctz);
+        const float vh_u = dot3(dx, dy, dz, hx, hy, hz);
+        const float nh = fabsf(nh_u), nl = fabsf(nl_u);
+        const float vh = fmaxf(fabsf(vh_u), 1e-12f);
+        const float nv = fmaxf(cos_pos, 1e-6f);
+        const float a1 = 2.0f * nh * nl / vh;
+        const float b1 = 2.0f * nh * nv / vh;
+        const float inner = fminf(1.0f, a1);
+        const float geom = fminf(inner, b1);
+        // weight cotangent: w = spec * ct_w, ct_w = geom/nv
+        const float act_w = dwx * m_sr + dwy * m_sg + dwz * m_sb;
+        const float ageom = act_w / nv;
+        float anv = -act_w * geom / (nv * nv);
+        const float ab1 = (b1 < inner) ? ageom : 0.0f;
+        const float aa1 = ((a1 < 1.0f) && (b1 >= inner)) ? ageom : 0.0f;
+        const float anh = (2.0f * nl / vh) * aa1 + (2.0f * nv / vh) * ab1;
+        const float anl = (2.0f * nh / vh) * aa1;
+        anv = anv + (2.0f * nh / vh) * ab1;
+        const float avh = ((-a1 / vh) * aa1 + (-b1 / vh) * ab1)
+                          * ((fabsf(vh_u) > 1e-12f) ? 1.0f : 0.0f);
+        const float s_nh = sgn(nh_u), s_nl = sgn(nl_u), s_vh = sgn(vh_u);
+        float anCx = s_nh * hx * anh + s_nl * ctx * anl;
+        float anCy = s_nh * hy * anh + s_nl * cty * anl;
+        float anCz = s_nh * hz * anh + s_nl * ctz * anl;
+        const float ahx = s_nh * nx * anh + s_vh * dx * avh;
+        const float ahy = s_nh * ny * anh + s_vh * dy * avh;
+        const float ahz = s_nh * nz * anh + s_vh * dz * avh;
+        float adCx = s_vh * hx * avh;
+        float adCy = s_vh * hy * avh;
+        float adCz = s_vh * hz * avh;
+        // total d'(ct) adjoint: carried + nl term, then h's normalize
+        float adtx = adpx + s_nl * nx * anl;
+        float adty = adpy + s_nl * ny * anl;
+        float adtz = adpz + s_nl * nz * anl;
+        float avx, avy, avz;
+        norm3_vjp(vhx_, vhy_, vhz_, ahx, ahy, ahz, 1e-12f, avx, avy, avz);
+        adtx += avx; adty += avy; adtz += avz;
+        adCx -= avx; adCy -= avy; adCz -= avz;
+        // o' = p + eps m
+        float amx = eps * aopx, amy = eps * aopy, amz = eps * aopz;
+        // d' = d + 2 cos_m m
+        adCx += adtx; adCy += adty; adCz += adtz;
+        amx += 2.0f * cos_m * adtx;
+        amy += 2.0f * cos_m * adty;
+        amz += 2.0f * cos_m * adtz;
+        const float acos_m = 2.0f * dot3(mx, my, mz, adtx, adty, adtz);
+        adCx += s_cm * mx * acos_m;
+        adCy += s_cm * my * acos_m;
+        adCz += s_cm * mz * acos_m;
+        amx += s_cm * dx * acos_m;
+        amy += s_cm * dy * acos_m;
+        amz += s_cm * dz * acos_m;
+        float atx, aty, atz, asbx, asby, asbz;
+        rot_y_to_vjp(nx, ny, nz, sbx, sby, sbz, amx, amy, amz, atx, aty, atz, asbx, asby, asbz);
+        anCx += atx; anCy += aty; anCz += atz;
+        const float asb_ = cbp * asbx + sbp * asbz;
+        const float b3 = binv * binv * binv;
+        const float abtan = b3 * asb_ - btan * b3 * asby;
+        const float arough = abtan * (-2.0f * m_rough * l1p);
+        const float aciC = (cos_pos > 1e-6f) ? s_ci * anv : 0.0f;
+        an[0] = anCx - dx * aciC; an[1] = anCy - dy * aciC; an[2] = anCz - dz * aciC;
+        ade[0] = adCx - nx * aciC; ade[1] = adCy - ny * aciC; ade[2] = adCz - nz * aciC;
+        acc.add(mat_row + 13, arough);
+        return;
+    }
+    if (code == BRANCH_GLOSS) {
+        // Phong lobe about the quirk reflection mr = d + 2 |cos_i| n; o' = p + eps n
+        const float m_exp = m[12];
+        const float mrx = dx + 2.0f * cos_pos * nx;
+        const float mry = dy + 2.0f * cos_pos * ny;
+        const float mrz = dz + 2.0f * cos_pos * nz;
+        float amrx = adpx, amry = adpy, amrz = adpz;  // delta mirror: d' = mr
+        if (isfinite(m_exp)) {
+            const float pexp = 1.0f / (m_exp + 1.0f);
+            const float s_cl = fminf(fmaxf(u_b, 1e-12f), 1.0f);
+            const float lg = logf(s_cl);
+            const float ph_y = expf(pexp * lg);
+            const float ph_r2 = fmaxf(1.0f - ph_y * ph_y, 0.0f);
+            const float ph_r = sqrtf(ph_r2);
+            float aspx, aspy, aspz;
+            rot_y_to_vjp(mrx, mry, mrz, ph_r * cth, ph_y, ph_r * sth, adpx, adpy, adpz,
+                         amrx, amry, amrz, aspx, aspy, aspz);
+            const float aph_r = cth * aspx + sth * aspz;
+            const float aph_y = aspy + ((ph_r2 > 0.0f)
+                                            ? aph_r * (-ph_y / fmaxf(ph_r, 1e-6f)) : 0.0f);
+            acc.add(mat_row + 15, -pexp * pexp * (ph_y * lg * aph_y));
+        }
+        const float aciG = s_ci * 2.0f * dot3(nx, ny, nz, amrx, amry, amrz);
+        ade[0] = amrx - nx * aciG; ade[1] = amry - ny * aciG; ade[2] = amrz - nz * aciG;
+        an[0] = 2.0f * cos_pos * amrx + eps * aopx - dx * aciG;
+        an[1] = 2.0f * cos_pos * amry + eps * aopy - dy * aciG;
+        an[2] = 2.0f * cos_pos * amrz + eps * aopz - dz * aciG;
+        return;
+    }
+    // BRANCH_REFRACT: d' = normalize(n_ratio d + (n_ratio |cos_i| - cos_t) n), o' = p + eps d'
+    const float m_ior = m[13];
+    const bool outside = cos_i > 0.0f;
+    const float n1 = outside ? 1.0f : m_ior;
+    const float n2_ = outside ? m_ior : 1.0f;
+    const float n_ratio = n1 / fmaxf(n2_, 1e-12f);
+    const float sin_t2 = n_ratio * n_ratio * (1.0f - cos_pos * cos_pos);
+    const bool tir = sin_t2 > 1.0f;
+    const float cos_t = sqrtf(tir ? 1.0f : fmaxf(1.0f - sin_t2, 0.0f));
+    const float coef_n = n_ratio * cos_pos - cos_t;
+    const float rf0x = n_ratio * dx + coef_n * nx;
+    const float rf0y = n_ratio * dy + coef_n * ny;
+    const float rf0z = n_ratio * dz + coef_n * nz;
+    float arx, ary, arz;
+    norm3_vjp(rf0x, rf0y, rf0z, adpx + eps * aopx, adpy + eps * aopy, adpz + eps * aopz, 1e-12f,
+              arx, ary, arz);
+    const float n_dot_arf = dot3(nx, ny, nz, arx, ary, arz);
+    float anrat = dot3(dx, dy, dz, arx, ary, arz) + cos_pos * n_dot_arf;
+    float acpR = n_ratio * n_dot_arf;
+    const float acost = -n_dot_arf;
+    const float asin2 = tir ? 0.0f : -acost / (2.0f * fmaxf(cos_t, 1e-6f));
+    anrat = anrat + 2.0f * n_ratio * (1.0f - cos_pos * cos_pos) * asin2;
+    acpR = acpR - 2.0f * n_ratio * n_ratio * cos_pos * asin2;
+    const float aior = anrat * (outside ? -1.0f / fmaxf(m_ior * m_ior, 1e-12f) : 1.0f);
+    const float aciR = s_ci * acpR;
+    ade[0] = n_ratio * arx - nx * aciR;
+    ade[1] = n_ratio * ary - ny * aciR;
+    ade[2] = n_ratio * arz - nz * aciR;
+    an[0] = coef_n * arx - dx * aciR;
+    an[1] = coef_n * ary - dy * aciR;
+    an[2] = coef_n * arz - dz * aciR;
+    acc.add(mat_row + 14, aior);
+}
+
+// ---- adjoint of the hit (full mode) ---------------------------------------------
+
+// normal -> (point | barycentrics), point -> (origin, direction, t), t ->
+// (origin, direction) through the winning primitive's analytic intersection
+// Jacobian, plus the Beer factor's t adjoint. amid = A_mid, tm = T_mid of the
+// bounce. Overwrites (ao, ad) — the carried cotangent of the bounce's OUTPUT
+// ray — with the cotangent of its INPUT ray, and adds the sphere rows.
+template <class Sink>
+CPT_HD void hit_chain(const SceneTables& sc, const GradLayout& L, int b, const CheckpointStore& st,
+                      int mat, const float* amid, const float* tm, float t_in,
+                      const float* ap, const float* an, const float* ade,
+                      float* ao, float* ad, Sink& acc) {
+    float px, py, pz, dx, dy, dz, nx, ny, nz, nax, nay, naz, nnx, nny, nnz;
+    st.get3(b, Q_P, px, py, pz);
+    st.get3(b, Q_D, dx, dy, dz);
+    st.get3(b, Q_N, nx, ny, nz);
+    st.get3(b, Q_NEE_AP, nax, nay, naz);
+    st.get3(b, Q_NEE_AN, nnx, nny, nnz);
+    const float t_hit = st.get(b, Q_T);
+    const int prim = st.geti(b, Q_PRIM);
+    float apx = ap[0] + nax, apy = ap[1] + nay, apz = ap[2] + naz;
+    const float anx = an[0] + nnx, any_ = an[1] + nny, anz = an[2] + nnz;
+
+    // Beer-Lambert's t adjoint: dL/dt = sum_c A_mid_c T_mid_c (-a_c), inside hits only
+    const float* m = sc.materials + mat * M_COLS;
+    float at = 0.0f;
+    if (t_in > 0.0f) at = -(amid[0] * tm[0] * m[6] + amid[1] * tm[1] * m[7] + amid[2] * tm[2] * m[8]);
+
+    float aox, aoy, aoz, adx, ady, adz;
+    if (prim < sc.num_spheres) {
+        // sphere: n = normalize(p - c) -> A_n feeds A_p (and -A_c)
+        const float* s = sc.spheres + prim * S_COLS;
+        const float gvx = px - s[0], gvy = py - s[1], gvz = pz - s[2];
+        const float invg = CPT_RSQRT(fmaxf(gvx * gvx + gvy * gvy + gvz * gvz, 1e-18f));
+        const float ndot = nx * anx + ny * any_ + nz * anz;
+        const float apnx = (anx - nx * ndot) * invg;
+        const float apny = (any_ - ny * ndot) * invg;
+        const float apnz = (anz - nz * ndot) * invg;
+        apx += apnx; apy += apny; apz += apnz;
+        // p = o + t d
+        at = at + apx * dx + apy * dy + apz * dz;
+        // t chain. sphere_t solves t^2 + b t + c = 0 with b = 2 d.v, c = v.v - r^2,
+        // v = o - centre — the intersection for a UNIT direction. The mirror
+        // and Cook-Torrance branches hand on an unnormalised direction (reference
+        // quirk), so the adjoint is that of this formula, not of the geometric
+        // intersection: with k = t + d.v (= d.g for a unit d)
+        //   dt/do = -g/k,  dt/dd = -t v/k,  dt/dcentre = +g/k,  dt/dr = r/k.
+        const float vx = gvx - t_hit * dx, vy = gvy - t_hit * dy, vz = gvz - t_hit * dz;
+        const float denom = t_hit + dot3(dx, dy, dz, vx, vy, vz);
+        const float dsafe = sgn(denom) * fmaxf(fabsf(denom), 1e-9f);
+        const float coef = -at / dsafe;
+        aox = coef * gvx; aoy = coef * gvy; aoz = coef * gvz;
+        adx = t_hit * coef * vx; ady = t_hit * coef * vy; adz = t_hit * coef * vz;
+        // sphere rows; the normal's centre-dependence is minus its p-dependence
+        const int row = L.row_geo0 + 4 * prim;
+        acc.add(row + 0, -apnx - coef * gvx);
+        acc.add(row + 1, -apny - coef * gvy);
+        acc.add(row + 2, -apnz - coef * gvz);
+        acc.add(row + 3, at * s[3] / dsafe);
+    } else {
+        // triangle: unnormalised n = n0 + w1 (n1-n0) + w2 (n2-n0); t and the
+        // barycentrics on triple products: t = s.(e1 x e2)/det, w1 = s.(d x e2)/det,
+        // w2 = s.(e1 x d)/det, det = -d.(e1 x e2), s = o - v0
+        const float* tr = sc.triangles + (prim - sc.num_spheres) * T_COLS;
+        const float e1x = tr[3], e1y = tr[4], e1z = tr[5];
+        const float e2x = tr[6], e2y = tr[7], e2z = tr[8];
+        const float aw1 = anx * (tr[12] - tr[9]) + any_ * (tr[13] - tr[10]) + anz * (tr[14] - tr[11]);
+        const float aw2 = anx * (tr[15] - tr[9]) + any_ * (tr[16] - tr[10]) + anz * (tr[17] - tr[11]);
+        at = at + apx * dx + apy * dy + apz * dz;
+        const float sx_ = (px - t_hit * dx) - tr[0];
+        const float sy_ = (py - t_hit * dy) - tr[1];
+        const float sz_ = (pz - t_hit * dz) - tr[2];
+        float Ax, Ay, Az, qx, qy, qz, rvx, rvy, rvz, e1dx, e1dy, e1dz, e2sx, e2sy, e2sz;
+        cross3(e1x, e1y, e1z, e2x, e2y, e2z, Ax, Ay, Az);
+        const float det = -(dx * Ax + dy * Ay + dz * Az);
+        const float idet = 1.0f / (sgn(det) * fmaxf(fabsf(det), 1e-9f));
+        cross3(dx, dy, dz, e2x, e2y, e2z, qx, qy, qz);
+        cross3(sx_, sy_, sz_, e1x, e1y, e1z, rvx, rvy, rvz);
+        const float w1 = (sx_ * qx + sy_ * qy + sz_ * qz) * idet;
+        const float w2 = (dx * rvx + dy * rvy + dz * rvz) * idet;
+        cross3(e1x, e1y, e1z, dx, dy, dz, e1dx, e1dy, e1dz);
+        cross3(e2x, e2y, e2z, sx_, sy_, sz_, e2sx, e2sy, e2sz);
+        aox = (at * Ax + aw1 * qx + aw2 * e1dx) * idet;
+        aoy = (at * Ay + aw1 * qy + aw2 * e1dy) * idet;
+        aoz = (at * Az + aw1 * qz + aw2 * e1dz) * idet;
+        adx = (at * t_hit * Ax + aw1 * (e2sx + w1 * Ax) + aw2 * (rvx + w2 * Ax)) * idet;
+        ady = (at * t_hit * Ay + aw1 * (e2sy + w1 * Ay) + aw2 * (rvy + w2 * Ay)) * idet;
+        adz = (at * t_hit * Az + aw1 * (e2sz + w1 * Az) + aw2 * (rvz + w2 * Az)) * idet;
+    }
+    ao[0] = apx + aox; ao[1] = apy + aoy; ao[2] = apz + aoz;
+    ad[0] = ade[0] + t_hit * apx + adx;
+    ad[1] = ade[1] + t_hit * apy + ady;
+    ad[2] = ade[2] + t_hit * apz + adz;
+}
+
+// ---- one pixel, all samples -------------------------------------------------------
+
+// Adds pixel `pixel`'s share of the gradient for the per-SAMPLE cotangent
+// (gx, gy, gz) of its radiance (the wrapper divides the image cotangent by
+// spp: the forward returns the mean). `st` must hold max(max_bounces, 1)
+// bounces. Same streams, same path termination as render_pixel.
+template <bool FULL, class Sink>
+CPT_HD void backward_pixel(const SceneTables& sc, const RenderParams& p, const GradLayout& L,
+                           int pixel, float gx, float gy, float gz,
+                           const CheckpointStore& st, Sink& acc) {
+    if (pixel < 0 || pixel >= p.width * p.height) return;
+    const float pxi = (float)(pixel % p.width);
+    const float pyi = (float)(pixel / p.width);
+    const int ppb = 2 + 2 * sc.num_area_lights;
+
+    for (int s = 0; s < p.spp; ++s) {
+        const int sample = p.sample_offset + s;
+        float ox = p.cam[9], oy = p.cam[10], oz = p.cam[11];
+        float dx, dy, dz;
+        eye_ray(p, pixel, sample, pxi, pyi, dx, dy, dz);
+        float r1x = 1.0f, r1y = 1.0f, r1z = 1.0f;  // throughput entering the bounce
+        float ax = 0.0f, ay = 0.0f, az = 0.0f;     // A_after of the last stored bounce
+        int nb = 0;                                // bounces stored
+
+        // ---- replay -------------------------------------------------------------
+        while (true) {
+            const int b = nb;
+            const int pair0 = 1 + b * ppb;
+            const Hit h = intersect_sweep(sc, ox, oy, oz, dx, dy, dz);
+            if (!(h.t < INFINITY)) {
+                // miss: direct = background; nothing stored, the recurrence
+                // starts from A = g * background
+                acc.add(L.row_bg0 + 0, gx * r1x);
+                acc.add(L.row_bg0 + 1, gy * r1y);
+                acc.add(L.row_bg0 + 2, gz * r1z);
+                ax = gx * sc.background[0];
+                ay = gy * sc.background[1];
+                az = gz * sc.background[2];
+                break;
+            }
+            const float px = ox + dx * h.t, py = oy + dy * h.t, pz = oz + dz * h.t;
+            const float nx = h.nx, ny = h.ny, nz = h.nz;
+            const float* m = sc.materials + h.mat * M_COLS;
+            const int mat_row = h.mat * L.pcols;
+            const float cos_i = -dot3(dx, dy, dz, nx, ny, nz);
+            const bool inside = cos_i <= 0.0f;
+
+            // Beer-Lambert BEFORE the direct add
+            float beer_x = 1.0f, beer_y = 1.0f, beer_z = 1.0f;
+            if (inside) {
+                beer_x = expf(-h.t * m[6]);
+                beer_y = expf(-h.t * m[7]);
+                beer_z = expf(-h.t * m[8]);
+            }
+            const float tmx = r1x * beer_x, tmy = r1y * beer_y, tmz = r1z * beer_z;
+            // g * T_mid: the adjoint of direct(b); every replay-phase partial is linear in it
+            const float gtx = gx * tmx, gty = gy * tmy, gtz = gz * tmz;
+
+            // emission always
+            float dir[3] = {m[9], m[10], m[11]};
+            acc.add(mat_row + 9, gtx);
+            acc.add(mat_row + 10, gty);
+            acc.add(mat_row + 11, gtz);
+            float nee_ap[3] = {0.0f, 0.0f, 0.0f}, nee_an[3] = {0.0f, 0.0f, 0.0f};
+            float dqp[3], dqn[3];
+            if (!inside) {
+                for (int i = 0; i < sc.num_point_lights; ++i) {
+                    const float* pl = sc.point_lights + i * PL_COLS;
+                    const float q = light_q<FULL>(sc, px, py, pz, nx, ny, nz, pl[0], pl[1], pl[2],
+                                                  dqp, dqn);
+                    if (q == 0.0f) continue;  // invisible or facing away: every partial is 0
+                    const int row = L.row_pl0 + L.pl_stride * i;
+                    const float aq = nee_partials<FULL>(m, mat_row, q, dqp, dqn, pl[3], pl[4], pl[5],
+                                                        row + L.pl_pow_off, gtx, gty, gtz,
+                                                        dir, nee_ap, nee_an, acc);
+                    if (FULL) {
+                        // dq/d(light position) = -dq/dp: q depends on l - p only
+                        acc.add(row + 0, -aq * dqp[0]);
+                        acc.add(row + 1, -aq * dqp[1]);
+                        acc.add(row + 2, -aq * dqp[2]);
+                    }
+                }
+                for (int i = 0; i < sc.num_area_lights; ++i) {
+                    const float* al = sc.area_lights + i * AL_COLS;
+                    float u1, u2, u3, upick;
+                    uniform_pair(p.seed, pixel, sample, pair0 + 2 + 2 * i, u1, u2);
+                    uniform_pair(p.seed, pixel, sample, pair0 + 3 + 2 * i, u3, upick);
+                    const float inv_tot = 1.0f / fmaxf(u1 + u2 + u3, 1e-12f);
+                    const float w0 = u1 * inv_tot, w1 = u2 * inv_tot, w2 = u3 * inv_tot;
+                    const float* a = (upick > 0.5f) ? al : al + 9;
+                    const float lx = a[0] * w0 + a[3] * w1 + a[6] * w2;
+                    const float ly = a[1] * w0 + a[4] * w1 + a[7] * w2;
+                    const float lz = a[2] * w0 + a[5] * w1 + a[8] * w2;
+                    const float q = light_q<FULL>(sc, px, py, pz, nx, ny, nz, lx, ly, lz, dqp, dqn);
+                    if (q == 0.0f) continue;
+                    nee_partials<FULL>(m, mat_row, q, dqp, dqn, al[18], al[19], al[20],
+                                       L.row_al0 + 3 * i, gtx, gty, gtz, dir, nee_ap, nee_an, acc);
+                }
+            }
+
+            // scatter: the SAME scatter_sample the forward kernel runs
+            float u_branch, u_a, u_b, unused;
+            uniform_pair(p.seed, pixel, sample, pair0, u_branch, u_a);
+            uniform_pair(p.seed, pixel, sample, pair0 + 1, u_b, unused);
+            float nox, noy, noz, ndx, ndy, ndz, wr = 1.0f, wg = 1.0f, wb = 1.0f, ct_w;
+            int code;
+            const bool alive = scatter_sample(dx, dy, dz, nx, ny, nz, px, py, pz, cos_i,
+                                              u_branch, u_a, u_b, m,
+                                              nox, noy, noz, ndx, ndy, ndz, wr, wg, wb, code, ct_w);
+
+            // checkpoint this bounce
+            st.put3(b, Q_TM, tmx, tmy, tmz);
+            st.put3(b, Q_W, wr, wg, wb);
+            st.put3(b, Q_BEER, beer_x, beer_y, beer_z);
+            st.put3(b, Q_DIRECT, dir[0], dir[1], dir[2]);
+            st.put(b, Q_T_IN, inside ? h.t : 0.0f);
+            st.puti(b, Q_MAT, h.mat);
+            st.puti(b, Q_CODE, code);
+            st.put(b, Q_CT_W, ct_w);
+            if (FULL) {
+                st.put3(b, Q_P, px, py, pz);
+                st.put3(b, Q_D, dx, dy, dz);
+                st.put3(b, Q_N, nx, ny, nz);
+                st.put(b, Q_T, h.t);
+                st.puti(b, Q_PRIM, h.prim);
+                st.put3(b, Q_NEE_AP, nee_ap[0], nee_ap[1], nee_ap[2]);
+                st.put3(b, Q_NEE_AN, nee_an[0], nee_an[1], nee_an[2]);
+            }
+            ++nb;
+            if (!alive || nb >= p.max_bounces) break;
+            ox = nox; oy = noy; oz = noz;
+            dx = ndx; dy = ndy; dz = ndz;
+            r1x = tmx * wr; r1y = tmy * wg; r1z = tmz * wb;
+        }
+
+        // ---- reverse sweep over the stored bounces ------------------------------
+        // (ao, ad): cotangent of the ray LEAVING bounce b; zero after the last one
+        float ao[3] = {0.0f, 0.0f, 0.0f}, ad[3] = {0.0f, 0.0f, 0.0f};
+        for (int b = nb - 1; b >= 0; --b) {
+            float tm[3], wx, wy, wz, bx, by, bz, der, deg, deb;
+            st.get3(b, Q_TM, tm[0], tm[1], tm[2]);
+            st.get3(b, Q_W, wx, wy, wz);
+            st.get3(b, Q_BEER, bx, by, bz);
+            st.get3(b, Q_DIRECT, der, deg, deb);
+            const float t_in = st.get(b, Q_T_IN);
+            const int mat = st.geti(b, Q_MAT);
+            const int code = st.geti(b, Q_CODE);
+            const int mat_row = mat * L.pcols;
+
+            // scatter factor: d w = A_after * T_mid, routed by the branch taken
+            const float dwx = ax * tm[0], dwy = ay * tm[1], dwz = az * tm[2];
+            if (code == BRANCH_DIFFUSE) {
+                acc.add(mat_row + 0, dwx);
+                acc.add(mat_row + 1, dwy);
+                acc.add(mat_row + 2, dwz);
+            } else if (code == BRANCH_COOK_TORRANCE || code == BRANCH_GLOSS) {
+                const float scale = (code == BRANCH_COOK_TORRANCE) ? st.get(b, Q_CT_W) : 1.0f;
+                acc.add(mat_row + 3, dwx * scale);
+                acc.add(mat_row + 4, dwy * scale);
+                acc.add(mat_row + 5, dwz * scale);
+            }
+            float ap[3], an[3], ade[3];
+            if (FULL) {
+                scatter_chain(sc, p, L, pixel, sample, b, st, mat, code, dwx, dwy, dwz,
+                              ao, ad, ap, an, ade, acc);
+            }
+
+            // through the multiply, then this bounce's direct add
+            float amid[3];
+            amid[0] = ax * wx + gx * der;
+            amid[1] = ay * wy + gy * deg;
+            amid[2] = az * wz + gz * deb;
+
+            // Beer-Lambert: d absorption = A_mid * T_mid * (-t), inside hits only
+            if (t_in > 0.0f) {
+                acc.add(mat_row + 6, amid[0] * tm[0] * (-t_in));
+                acc.add(mat_row + 7, amid[1] * tm[1] * (-t_in));
+                acc.add(mat_row + 8, amid[2] * tm[2] * (-t_in));
+            }
+            if (FULL) hit_chain(sc, L, b, st, mat, amid, tm, t_in, ap, an, ade, ao, ad, acc);
+
+            ax = amid[0] * bx; ay = amid[1] * by; az = amid[2] * bz;
+        }
+
+        if (FULL) {
+            // eye-ray VJP -> camera rows: d0 = normalize(R u), u the camera-space
+            // pixel vector (same jitter draw); o0 = camera position
+            float sx_, sy_, sz_, vx, vy, vz, avx, avy, avz;
+            eye_ray_raw(p, pixel, sample, pxi, pyi, sx_, sy_, sz_, vx, vy, vz);
+            norm3_vjp(vx, vy, vz, ad[0], ad[1], ad[2], 1e-20f, avx, avy, avz);
+            const int row = L.row_cam0;
+            acc.add(row + 0, avx * sx_); acc.add(row + 1, avx * sy_); acc.add(row + 2, avx * sz_);
+            acc.add(row + 3, avy * sx_); acc.add(row + 4, avy * sy_); acc.add(row + 5, avy * sz_);
+            acc.add(row + 6, avz * sx_); acc.add(row + 7, avz * sy_); acc.add(row + 8, avz * sz_);
+            acc.add(row + 9, ao[0]); acc.add(row + 10, ao[1]); acc.add(row + 11, ao[2]);
+            // sx_, sy_ are both proportional to tan_half; sz_ (= z_near) is not
+            const float aux = p.cam[0] * avx + p.cam[3] * avy + p.cam[6] * avz;
+            const float auy = p.cam[1] * avx + p.cam[4] * avy + p.cam[7] * avz;
+            acc.add(row + 12, (aux * sx_ + auy * sy_) / p.cam[12]);
+        }
+    }
+}
+
+}  // namespace cpt

@@ -133,7 +133,10 @@ def pack_scene(scene, device="cuda") -> PackedScene:
     def put(a, cols):
         a = a.reshape(-1, cols)
         if not a.shape[0]:
-            a = torch.zeros((1, cols), dtype=f32)
+            # one zero row, appended so that an empty field that requires
+            # grad stays in the graph (its gradient is empty, not missing)
+            a = torch.cat([a.to(f32), torch.zeros((1, cols), dtype=f32,
+                                                  device=a.device)])
         return a.to(device=device, dtype=f32).contiguous()
 
     counts = (scene.num_spheres, scene.num_triangles, m.flags.shape[0],
@@ -145,15 +148,20 @@ def pack_scene(scene, device="cuda") -> PackedScene:
                        counts)
 
 
+def _cam_tensor(cam_params, device) -> torch.Tensor:
+    """The camera as 14 float32 values on ``device``: rotation (row-major
+    9), position 3, tan(fov/2), z_near. ``cam_params`` holds numpy values or
+    tensors; a tensor that carries an autograd graph keeps it."""
+    f32 = torch.float32
+    return torch.cat([torch.as_tensor(v, dtype=f32, device=device).reshape(-1)
+                      for v in cam_params])
+
+
 def _cam_table(cam_params, sample_clamp: float) -> np.ndarray:
-    """The 16-float camera table: rotation (row-major 9), position 3,
-    tan(fov/2), z_near, per-sample clamp (<= 0 disables), one spare."""
-    rot, pos, tan_half, z_near = cam_params
+    """The kernel's 16-float host camera table: the 14 values of
+    ``_cam_tensor``, the per-sample clamp (<= 0 disables), one spare."""
     cam = np.zeros(CAM_FLOATS, np.float32)
-    cam[0:9] = np.asarray(rot, np.float32).reshape(-1)
-    cam[9:12] = np.asarray(pos, np.float32).reshape(-1)
-    cam[12] = np.float32(tan_half)
-    cam[13] = np.float32(z_near)
+    cam[0:14] = _cam_tensor(cam_params, "cpu").detach().numpy()
     cam[14] = np.float32(sample_clamp)
     return cam
 
@@ -166,6 +174,14 @@ def _cam_table(cam_params, sample_clamp: float) -> np.ndarray:
 
 def _dot(ax, ay, az, bx, by, bz):
     return ax * bx + ay * by + az * bz
+
+
+def _sqrt0(x):
+    """``sqrt(max(x, 0))`` whose gradient is 0, not inf or NaN, where
+    ``x <= 0``: a lane that an outer ``torch.where`` drops must not poison
+    the sum of gradients."""
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
 
 
 def _normalize3(x, y, z, eps=1e-20):
@@ -197,7 +213,7 @@ def _sphere_t(ox, oy, oz, dx, dy, dz, cx, cy, cz, r):
     b = 2.0 * _dot(dx, dy, dz, vx, vy, vz)
     c = vx * vx + vy * vy + vz * vz - r * r
     disc = b * b - 4.0 * c
-    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    sq = _sqrt0(disc)
     t0 = (-b - sq) * 0.5
     t1 = (-b + sq) * 0.5
     t = torch.where(t0 < 0.0, t1, t0)
@@ -236,28 +252,38 @@ def _scatter_sample(dx, dy, dz, nx, ny, nz, px, py, pz, cos_i,
      m_pure, m_ct) = m
 
     outside = cos_i > 0.0
-    n1 = torch.where(outside, 1.0, m_ior)
-    n2 = torch.where(outside, m_ior, 1.0)
     cos_pos = torch.abs(cos_i)
-    n_ratio = n1 / torch.clamp_min(n2, 1e-12)
-    sin_t2 = n_ratio * n_ratio * (1.0 - cos_pos * cos_pos)
-    tir = sin_t2 > 1.0
-    cos_t = torch.sqrt(torch.where(tir, 1.0, torch.clamp_min(1.0 - sin_t2, 0.0)))
-    rs = ((n1 * cos_pos - n2 * cos_t)
-          / torch.clamp_min(n1 * cos_pos + n2 * cos_t, 1e-12))
-    rp = ((n2 * cos_pos - n1 * cos_t)
-          / torch.clamp_min(n2 * cos_pos + n1 * cos_t, 1e-12))
-    fres = torch.where(tir, 1.0, (rs * rs + rp * rp) * 0.5)
+    # Which branch is taken is a discrete decision, made on the material's
+    # own values outside autograd. (An infinite ior, a mirror's, gives NaN
+    # here; every comparison reads it as false.)
+    with torch.no_grad():
+        n1 = torch.where(outside, 1.0, m_ior)
+        n2 = torch.where(outside, m_ior, 1.0)
+        n_ratio = n1 / torch.clamp_min(n2, 1e-12)
+        sin_t2 = n_ratio * n_ratio * (1.0 - cos_pos * cos_pos)
+        tir = sin_t2 > 1.0
+        cos_t = _sqrt0(torch.where(tir, 1.0, 1.0 - sin_t2))
+        rs = ((n1 * cos_pos - n2 * cos_t)
+              / torch.clamp_min(n1 * cos_pos + n2 * cos_t, 1e-12))
+        rp = ((n2 * cos_pos - n1 * cos_t)
+              / torch.clamp_min(n2 * cos_pos + n1 * cos_t, 1e-12))
+        fres = torch.where(tir, 1.0, (rs * rs + rp * rp) * 0.5)
 
-    pure = m_pure > 0.5
-    ct = m_ct > 0.5
-    p_diff = m_pd
-    p_spec = m_ps * torch.where(pure, 1.0, fres)
-    p_refr = m_prf * (1.0 - fres)
-    take_diff = u_branch < p_diff
-    take_spec = (~take_diff) & (u_branch < p_diff + p_spec)
-    take_refr = ((~take_diff) & (~take_spec)
-                 & (u_branch < p_diff + p_spec + p_refr))
+        pure = m_pure > 0.5
+        ct = m_ct > 0.5
+        p_diff = m_pd
+        p_spec = m_ps * torch.where(pure, 1.0, fres)
+        p_refr = m_prf * (1.0 - fres)
+        take_diff = u_branch < p_diff
+        take_spec = (~take_diff) & (u_branch < p_diff + p_spec)
+        take_refr = ((~take_diff) & (~take_spec)
+                     & (u_branch < p_diff + p_spec + p_refr))
+        refr = take_refr & (~tir)   # the lanes that use the refracted ray
+        # ... and what every other lane hands on in its place (such a lane
+        # has died, or took another branch)
+        k = n_ratio * cos_pos - cos_t
+        rf_else = _normalize3(n_ratio * dx + k * nx, n_ratio * dy + k * ny,
+                              n_ratio * dz + k * nz, 1e-12)
 
     theta = u_a * _TWO_PI
     yy = torch.sqrt(u_b)
@@ -275,7 +301,7 @@ def _scatter_sample(dx, dy, dz, nx, ny, nz, px, py, pz, cos_i,
     pexp = 1.0 / (torch.where(fin, m_exp, 0.0) + 1.0)
     s_cl = torch.clamp(u_b, 1e-12, 1.0)
     ph_y = torch.where(fin, torch.exp(pexp * torch.log(s_cl)), 1.0)
-    ph_r = torch.sqrt(torch.clamp_min(1.0 - ph_y * ph_y, 0.0))
+    ph_r = _sqrt0(1.0 - ph_y * ph_y)
     phx, phy_, phz = _rotate_y_to(mrx, mry, mrz, ph_r * torch.cos(theta),
                                   ph_y, ph_r * torch.sin(theta))
     gsx = torch.where(fin, phx, mrx)
@@ -311,10 +337,18 @@ def _scatter_sample(dx, dy, dz, nx, ny, nz, px, py, pz, cos_i,
     sp_oz = torch.where(ct, pz + mz * eps, pz + nz * eps)
     spw = torch.where(ct, ct_w, 1.0)
 
-    rfx0 = n_ratio * dx + (n_ratio * cos_pos - cos_t) * nx
-    rfy0 = n_ratio * dy + (n_ratio * cos_pos - cos_t) * ny
-    rfz0 = n_ratio * dz + (n_ratio * cos_pos - cos_t) * nz
-    rfx, rfy, rfz = _normalize3(rfx0, rfy0, rfz0, 1e-12)
+    # The refracted ray, by the same formulas with a graph, on the lanes
+    # that use it; elsewhere the ior is replaced by 1: a NaN, even on a lane
+    # that is dropped, would turn the zero gradient that reaches it into NaN.
+    ior_r = torch.where(refr, m_ior, 1.0)
+    nr = (torch.where(outside, 1.0, ior_r)
+          / torch.clamp_min(torch.where(outside, ior_r, 1.0), 1e-12))
+    ct_r = _sqrt0(1.0 - nr * nr * (1.0 - cos_pos * cos_pos))
+    rfx0 = nr * dx + (nr * cos_pos - ct_r) * nx
+    rfy0 = nr * dy + (nr * cos_pos - ct_r) * ny
+    rfz0 = nr * dz + (nr * cos_pos - ct_r) * nz
+    rfx, rfy, rfz = (torch.where(refr, a, b) for a, b in
+                     zip(_normalize3(rfx0, rfy0, rfz0, 1e-12), rf_else))
 
     new_dx = torch.where(take_diff, ddx, torch.where(take_spec, spx, rfx))
     new_dy = torch.where(take_diff, ddy, torch.where(take_spec, spy, rfy))
@@ -329,7 +363,7 @@ def _scatter_sample(dx, dy, dz, nx, ny, nz, px, py, pz, cos_i,
     wr = torch.where(take_diff, m_dr, torch.where(take_spec, m_sr * spw, refr_w))
     wg = torch.where(take_diff, m_dg, torch.where(take_spec, m_sg * spw, refr_w))
     wb = torch.where(take_diff, m_db, torch.where(take_spec, m_sb * spw, refr_w))
-    alive = take_diff | take_spec | (take_refr & (~tir))
+    alive = take_diff | take_spec | refr
 
     return (new_ox, new_oy, new_oz, new_dx, new_dy, new_dz, wr, wg, wb,
             alive, take_diff, take_spec, take_refr, tir, ct, ct_w)
@@ -368,42 +402,60 @@ def _make_sweep_fns(packed: PackedScene):
         return best, idx, is_best.any(dim=1)
 
     def intersect_sweep(ox, oy, oz, dx, dy, dz):
-        """(best_t, nx, ny, nz, mat index); a miss leaves t=inf, n=0, mat 0."""
+        """(best_t, nx, ny, nz, mat index); a miss leaves t=inf, n=0, mat 0.
+        Which primitive wins is a discrete decision and
+        is taken outside autograd; the winner's t and normal are then
+        evaluated alone, by the same formulas, so a gradient flows through
+        the hit that was taken and through nothing else."""
         n = ox.shape[0]
-        best_t = torch.full((n,), math.inf, dtype=torch.float32, device=ox.device)
+        inf = torch.full((n,), math.inf, dtype=torch.float32, device=ox.device)
+        idx0 = torch.zeros((n,), dtype=torch.long, device=ox.device)
+        with torch.no_grad():
+            best_t, s_idx, t_idx = inf, idx0, idx0
+            is_sph = is_tri = torch.zeros((n,), dtype=torch.bool,
+                                          device=ox.device)
+            if num_spheres:
+                t, valid = sph_tests(ox, oy, oz, dx, dy, dz)
+                bt, s_idx, is_sph = _last_min(t, valid)
+                best_t = torch.where(is_sph, bt, best_t)
+            if num_tris:
+                t, _, _, valid = tri_tests(ox, oy, oz, dx, dy, dz)
+                bt, t_idx, found = _last_min(t, valid)
+                is_tri = found & (bt <= best_t)
+                is_sph = is_sph & (~is_tri)
+        best_t = inf
         nx, ny, nz = (torch.zeros_like(ox) for _ in range(3))
-        mat = torch.zeros((n,), dtype=torch.long, device=ox.device)
+        mat = idx0
         if num_spheres:
-            t, valid = sph_tests(ox, oy, oz, dx, dy, dz)
-            bt, idx, found = _last_min(t, valid)
-            px, py, pz = ox + dx * bt, oy + dy * bt, oz + dz * bt
-            snx, sny, snz = _normalize3(px - sph_c[0][idx], py - sph_c[1][idx],
-                                        pz - sph_c[2][idx])
-            best_t = torch.where(found, bt, best_t)
-            nx = torch.where(found, snx, nx)
-            ny = torch.where(found, sny, ny)
-            nz = torch.where(found, snz, nz)
-            mat = torch.where(found, sph_c[4][idx].long(), mat)
+            cx, cy, cz, r = (sph_c[k][s_idx] for k in range(4))
+            t, _ = _sphere_t(ox, oy, oz, dx, dy, dz, cx, cy, cz, r)
+            px, py, pz = ox + dx * t, oy + dy * t, oz + dz * t
+            snx, sny, snz = _normalize3(px - cx, py - cy, pz - cz)
+            best_t = torch.where(is_sph, t, best_t)
+            nx = torch.where(is_sph, snx, nx)
+            ny = torch.where(is_sph, sny, ny)
+            nz = torch.where(is_sph, snz, nz)
+            mat = torch.where(is_sph, sph_c[4][s_idx].long(), mat)
         if num_tris:
-            t, w1, w2, valid = tri_tests(ox, oy, oz, dx, dy, dz)
-            bt, idx, found = _last_min(t, valid)
-            closer = found & (bt <= best_t)
-            w1 = torch.gather(w1, 1, _col(idx))[:, 0]
-            w2 = torch.gather(w2, 1, _col(idx))[:, 0]
+            row = [c[t_idx] for c in tri_c]
+            t, w1, w2, _ = _triangle_t(ox, oy, oz, dx, dy, dz, row[0:3],
+                                       row[3:6], row[6:9])
             # barycentric normal interpolation, unnormalized — exactly
             # Primitives.h:71-73
             w0 = 1.0 - w1 - w2
-            tnx = tri_c[9][idx] * w0 + tri_c[12][idx] * w1 + tri_c[15][idx] * w2
-            tny = tri_c[10][idx] * w0 + tri_c[13][idx] * w1 + tri_c[16][idx] * w2
-            tnz = tri_c[11][idx] * w0 + tri_c[14][idx] * w1 + tri_c[17][idx] * w2
-            best_t = torch.where(closer, bt, best_t)
-            nx = torch.where(closer, tnx, nx)
-            ny = torch.where(closer, tny, ny)
-            nz = torch.where(closer, tnz, nz)
-            mat = torch.where(closer, tri_c[18][idx].long(), mat)
+            tnx = row[9] * w0 + row[12] * w1 + row[15] * w2
+            tny = row[10] * w0 + row[13] * w1 + row[16] * w2
+            tnz = row[11] * w0 + row[14] * w1 + row[17] * w2
+            best_t = torch.where(is_tri, t, best_t)
+            nx = torch.where(is_tri, tnx, nx)
+            ny = torch.where(is_tri, tny, ny)
+            nz = torch.where(is_tri, tnz, nz)
+            mat = torch.where(is_tri, row[18].long(), mat)
         return best_t, nx, ny, nz, mat
 
+    @torch.no_grad()
     def occlusion_sweep(sox, soy, soz, wx, wy, wz, max_d):
+        """Visibility is a discrete decision: no gradient passes through."""
         occ = torch.zeros(sox.shape, dtype=torch.bool, device=sox.device)
         if num_spheres:
             t, valid = sph_tests(sox, soy, soz, wx, wy, wz)
@@ -416,18 +468,22 @@ def _make_sweep_fns(packed: PackedScene):
     return intersect_sweep, occlusion_sweep
 
 
-def _render_sums_plain(packed: PackedScene, cam: np.ndarray, seed: int,
+def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
+                       clamp_v: float, seed: int,
                        width: int, height: int, spp: int, max_bounces: int,
                        pixel_offset: int, n_local: int, sample_offset: int,
                        stats: Optional[dict] = None) -> torch.Tensor:
     """Radiance SUMS over spp for ``n_local`` pixels from ``pixel_offset``,
-    ``[n_local, 3]`` float32 on the tables' device."""
+    ``[n_local, 3]`` float32 on the tables' device. ``cam`` is
+    ``_cam_tensor``'s. Differentiable: tables or a camera that carry an
+    autograd graph receive gradients, with every discrete decision (which
+    primitive is hit, visibility, the scatter branch) detached."""
     device = packed.device
     num_spheres, num_tris, _, num_pls, num_als = packed.counts
-    # The camera table as Python floats: each is a float32 value, so using
-    # it against a float32 tensor rounds nothing.
-    camf = [float(v) for v in cam]
-    z_near, clamp_v = camf[13], camf[14]
+    # Table entries enter the arithmetic as 0-d float32 tensors: against a
+    # float32 tensor that rounds nothing, and a graph stays attached.
+    camf = cam.unbind()
+    z_near = camf[13]
     s_fov = -2.0 * camf[12]
     n_pixels = width * height
     ppb = rng.pairs_per_bounce(num_als)
@@ -435,9 +491,9 @@ def _render_sums_plain(packed: PackedScene, cam: np.ndarray, seed: int,
     intersect_sweep, occlusion_sweep = _make_sweep_fns(packed)
     mats, pls, als, bg = (packed.materials, packed.point_lights,
                           packed.area_lights, packed.background)
-    pl_rows = [[float(v) for v in pls[i]] for i in range(num_pls)]
-    al_rows = [[float(v) for v in als[i]] for i in range(num_als)]
-    bgf = [float(v) for v in bg]
+    pl_rows = [pls[i].unbind() for i in range(num_pls)]
+    al_rows = [als[i].unbind() for i in range(num_als)]
+    bgf = bg.unbind()
 
     pixel = (pixel_offset
              + torch.arange(n_local, dtype=torch.int64, device=device))
@@ -624,11 +680,12 @@ def render_block_sums_plain(packed: PackedScene, cam_params, seed: int,
     ``[pixel_offset, pixel_offset + n_local)``, on the tables' device."""
     _check_render_args(packed, width, height, spp, max_bounces, pixel_offset,
                        n_local, sample_offset, seed)
-    cam = _cam_table(cam_params, sample_clamp)
+    cam = _cam_tensor(cam_params, packed.device)
     prims = max(packed.counts[0] + packed.counts[1], 1)
     chunk = max(1, _PLAIN_CHUNK_ENTRIES // prims)
     parts = [
-        _render_sums_plain(packed, cam, int(seed), width, height, spp,
+        _render_sums_plain(packed, cam, float(sample_clamp), int(seed),
+                           width, height, spp,
                            max_bounces, pixel_offset + start,
                            min(chunk, n_local - start), sample_offset, stats)
         for start in range(0, n_local, chunk)]
@@ -662,7 +719,7 @@ def _kernel_fn(fmad: bool = False):
     first use by utils/build.py — with the function's C types declared."""
     from ...utils.build import load_kernels
 
-    lib = load_kernels(fmad=fmad)
+    lib = load_kernels("megakernel", fmad=fmad)
     fn = lib.cpt_render_megakernel
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp, ci, vp, ci, vp, ci, vp, ci, vp, ci, vp,   # tables

@@ -1,0 +1,379 @@
+"""Differentiable megakernel render: the fast engine trains.
+
+``render_megakernel_diff`` renders with the forward CUDA megakernel and
+back-propagates with a SECOND hand-written CUDA kernel
+(``csrc/megakernel_vjp.cu``, device math in ``csrc/megakernel_vjp.cuh``) that
+*replays* every path from the shared counter-based RNG (``utils/rng.py``:
+uniforms are pure functions of (seed, pixel, sample, pair), so the replay is
+exact), checkpoints each bounce, and runs the adjoint recurrence
+
+    A_mid(b) = A_after(b) * w(b) + g * direct(b);   A_in(b) = A_mid(b) * beer(b)
+
+summing parameter cotangents into gradient rows. It replaces the TPU kernel
+``cuda_path_tracer_ss_tpu/ops/pallas/megakernel_vjp.py::_make_backward_kernel``
+(launched by ``_backward_grads``) in its reference-parity, untextured,
+linear-sweep form. Discrete decisions (which primitive is hit, visibility, the
+scatter branch) are detached; continuous factors are differentiated.
+
+``grad_mode="linear"`` covers the throughput-linear fields
+(``PALLAS_TRAINABLE_FIELDS``). ``grad_mode="full"`` (the default) also carries
+dL/d(origin, direction) through every scatter step and hit and into the eye
+ray: roughness, ior, spec_exp, point-light positions, sphere centres and radii
+and the camera (rotation, position, tan_half_fov) receive gradients.
+
+What bounds the kernel on an H100: the replay is one forward render's FP32
+work, the reverse sweep adds work per stored bounce, and the checkpoints
+(``max_bounces * planes * 4`` bytes per pixel, 33 planes in full mode, 16 in
+linear mode, in a global ``[bounce][plane][thread]`` buffer so that a warp's
+accesses are coalesced) are written and read once; on a small scene those
+bytes over the memory rate come out just above the operations over the FP32
+rate, and the kernel runs far from both (divergent paths, dependent
+``sqrt`` / ``div`` chains). What the design does about it: one thread per pixel
+branches on its own path — a miss ends the replay, only the adjoint of the
+scatter branch that was drawn is evaluated, material and primitive rows are
+read and written by direct index. Cross-block accumulation never depends on
+block order: each block sums its rows in shared memory with ``atomicAdd`` and
+writes them once to a ``[blocks, rows]`` buffer that ``torch.sum(0)`` reduces;
+scenes whose rows do not fit shared memory (4 rows per sphere) add into
+``[rows]`` with global atomics. Float additions therefore happen in an order
+that changes from run to run: two runs agree to rounding, not to the bit.
+
+Device rule: tables on a CUDA device go to the kernels, or the call raises;
+the plain version (``render_megakernel_diff_plain``: autograd through the
+plain forward render) runs only for tables on the CPU, or when called by name.
+
+Not ported yet, each raising ``NotImplementedError``: ``grad_mode="geo"``,
+``physical=True``, ``packed_grid``, textured scenes, the sharded entry.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import megakernel as mk
+from .megakernel import PackedScene, _unported
+
+# Material gradient rows per material, in row order: diffuse(3) specular(3)
+# absorption(3) emission(3) diff_avg(1); full mode adds roughness, ior,
+# spec_exp.
+P_COLS = 13
+P_COLS_FULL = 16
+# Camera rows appended after the background in full mode: rotation 9
+# (row-major), position 3, tan_half_fov. z_near has a structurally zero
+# gradient (the eye direction is normalize(z_near * v)).
+CAM_ROWS = 13
+# Checkpoint planes per bounce.
+ST_PLANES = 16
+ST_PLANES_FULL = 33
+
+# Fields render_megakernel_diff differentiates in grad_mode="linear" ...
+PALLAS_TRAINABLE_FIELDS = frozenset({
+    "materials.diffuse", "materials.specular", "materials.emission",
+    "materials.absorption", "materials.diff_avg",
+    "al_power", "pl_power", "background",
+})
+# ... and in grad_mode="full".
+PALLAS_TRAINABLE_FIELDS_FULL = PALLAS_TRAINABLE_FIELDS | frozenset({
+    "materials.roughness", "materials.ior", "materials.spec_exp", "pl_pos",
+    "sph_center", "sph_radius",
+})
+# Field sets of the modes that are not ported yet; they word the refusals.
+PALLAS_TRAINABLE_FIELDS_PHYS = (PALLAS_TRAINABLE_FIELDS_FULL
+                                | frozenset({"materials.spec_avg"})) - \
+    frozenset({"al_power"})
+PALLAS_TRAINABLE_FIELDS_TEX = PALLAS_TRAINABLE_FIELDS | frozenset({"textures"})
+PALLAS_TRAINABLE_FIELDS_TEX_FULL = PALLAS_TRAINABLE_FIELDS_FULL | frozenset(
+    {"textures"})
+TRI_FIELDS = frozenset({"tri_v0", "tri_v1", "tri_v2",
+                        "tri_n0", "tri_n1", "tri_n2"})
+PALLAS_TRAINABLE_FIELDS_GEO = PALLAS_TRAINABLE_FIELDS_FULL | TRI_FIELDS
+PALLAS_TRAINABLE_FIELDS_PHYS_GEO = PALLAS_TRAINABLE_FIELDS_PHYS | TRI_FIELDS
+
+# Launches of the backward CUDA kernel made by this module's wrapper (and
+# nowhere else).
+LAUNCH_COUNT = 0
+
+
+def _grad_rows(counts, full: bool = False) -> int:
+    """Total gradient rows of the backward kernel (csrc: ``grad_layout``)."""
+    num_spheres, _, num_mats, num_pls, num_als = counts
+    if full:
+        return (num_mats * P_COLS_FULL + 6 * num_pls + 3 * num_als + 3
+                + CAM_ROWS + 4 * num_spheres)
+    return num_mats * P_COLS + 3 * num_pls + 3 * num_als + 3
+
+
+def _reject_unported_diff(grad_mode: str, physical: bool = False,
+                          packed_grid=None) -> bool:
+    """Validate ``grad_mode``; returns True for the full path adjoint."""
+    if grad_mode not in ("full", "linear", "geo"):
+        raise ValueError(f"grad_mode must be 'full', 'linear' or 'geo', "
+                         f"got {grad_mode!r}")
+    if grad_mode == "geo":
+        _unported("grad_mode='geo' (triangle-geometry gradients: "
+                  f"{sorted(TRI_FIELDS)})",
+                  "Queue 1 item 6 / Queue 2: K2 geo")
+    if physical:
+        _unported("the physical (unbiased MIS) estimator's adjoint",
+                  "Queue 1 item 6 / Queue 2: K2 physical, after K1 physical")
+    if packed_grid is not None:
+        _unported("the supercell-grid sweep in the replay (packed_grid / "
+                  "accel='grid')", "Queue 1 item 6 / Queue 2: K2 grid, after "
+                  "K1 grid")
+    return grad_mode == "full"
+
+
+def _unpack_rows(rowsum: torch.Tensor, packed: PackedScene, full: bool):
+    """Gradient rows ``[rows]`` -> (PackedScene cotangent, camera cotangent
+    (rot [3,3], pos [3], tan_half [], z_near [])), all on ``rowsum``'s
+    device. Columns that the kernel does not differentiate (triangles,
+    area-light vertices, flags, spec_avg, refr_avg) are zero."""
+    counts = packed.counts
+    num_spheres, _, num_mats, num_pls, num_als = counts
+    pcols = P_COLS_FULL if full else P_COLS
+    pl_stride = 6 if full else 3
+    rowsum = rowsum.to(torch.float32)
+    if rowsum.shape != (_grad_rows(counts, full),):
+        raise ValueError(f"expected {_grad_rows(counts, full)} gradient rows, "
+                         f"got {tuple(rowsum.shape)}")
+
+    def zeros(t):
+        return torch.zeros(t.shape, dtype=torch.float32, device=rowsum.device)
+
+    m = rowsum[:num_mats * pcols].reshape(num_mats, pcols)
+    d_mats = zeros(packed.materials)
+    d_mats[:, 0:12] = m[:, 0:12]     # diffuse, specular, absorption, emission
+    d_mats[:, 14] = m[:, 12]         # diff_avg
+    if full:
+        d_mats[:, 17] = m[:, 13]     # roughness
+        d_mats[:, 13] = m[:, 14]     # ior
+        d_mats[:, 12] = m[:, 15]     # spec_exp
+
+    row_pl0 = num_mats * pcols
+    row_al0 = row_pl0 + pl_stride * num_pls
+    row_bg0 = row_al0 + 3 * num_als
+    d_pls = zeros(packed.point_lights)
+    if num_pls:
+        block = rowsum[row_pl0:row_al0].reshape(num_pls, pl_stride)
+        if full:
+            d_pls[:num_pls] = block                 # position, power
+        else:
+            d_pls[:num_pls, 3:6] = block            # power
+    d_als = zeros(packed.area_lights)
+    if num_als:
+        d_als[:num_als, 18:21] = rowsum[row_al0:row_bg0].reshape(num_als, 3)
+    d_bg = rowsum[row_bg0:row_bg0 + 3].clone()
+
+    d_sph = zeros(packed.spheres)
+    d_cam = (torch.zeros((3, 3), device=rowsum.device),
+             torch.zeros((3,), device=rowsum.device),
+             torch.zeros((), device=rowsum.device),
+             torch.zeros((), device=rowsum.device))
+    if full:
+        cam = rowsum[row_bg0 + 3:row_bg0 + 3 + CAM_ROWS]
+        d_cam = (cam[0:9].reshape(3, 3).clone(), cam[9:12].clone(),
+                 cam[12].clone(), d_cam[3])
+        if num_spheres:
+            row_geo0 = row_bg0 + 3 + CAM_ROWS
+            d_sph[:num_spheres, 0:4] = rowsum[row_geo0:].reshape(num_spheres, 4)
+    d_packed = PackedScene(d_sph, zeros(packed.triangles), d_mats, d_pls,
+                           d_als, d_bg, counts)
+    return d_packed, d_cam
+
+
+# ---------------------------------------------------------------------------
+# The plain PyTorch version
+# ---------------------------------------------------------------------------
+
+def _detach_undifferentiated(packed: PackedScene) -> PackedScene:
+    tri = packed.triangles.detach()
+    als = packed.area_lights
+    als = torch.cat([als[:, :18].detach(), als[:, 18:]], -1)
+    return PackedScene(packed.spheres, tri, packed.materials,
+                       packed.point_lights, als, packed.background,
+                       packed.counts)
+
+
+def render_megakernel_diff_plain(packed: PackedScene, cam_params, seed: int,
+                                 width: int, height: int, spp: int,
+                                 max_bounces: int = 8, sample_offset: int = 0,
+                                 grad_mode: str = "full",
+                                 packed_grid=None,
+                                 physical: bool = False) -> torch.Tensor:
+    """The plain PyTorch version of the differentiable render: autograd
+    through the plain forward render (``render_megakernel_plain``), with the
+    packed tables and the camera as differentiable tensors. It shares no
+    adjoint formula with the kernel: it is the yardstick of the kernel's
+    gradients, and what ``engine="plain"`` trains with.
+
+    The kernel gives the triangle table and the area lights' vertex columns
+    no gradient (they belong to ``grad_mode="geo"``); this version DETACHES
+    those columns, so the two agree table by table in full mode. In linear
+    mode the kernel leaves the full-only columns and the camera at zero while
+    autograd fills them: compare the linear fields only."""
+    _reject_unported_diff(grad_mode, physical, packed_grid)
+    return mk.render_megakernel_plain(_detach_undifferentiated(packed),
+                                      cam_params, seed, width, height, spp,
+                                      max_bounces, sample_offset=sample_offset)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's wrapper
+# ---------------------------------------------------------------------------
+
+def _kernel_fn():
+    """(library, launch function) of the built backward-kernel library."""
+    from ...utils.build import load_kernels
+
+    lib = load_kernels("megakernel_vjp")
+    fn = lib.cpt_backward_megakernel
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, ci, vp, ci, vp, ci, vp, ci, vp, ci, vp,   # tables
+                   ctypes.POINTER(ctypes.c_float),               # camera
+                   ci, ci, ci, ci, ci, ci, ci, ci,               # scalars
+                   ci, ci,                                       # full, shared
+                   vp, vp, vp, vp]                   # g, scratch, out, stream
+    fn.restype = ci
+    for const in (lib.cpt_backward_threads_per_block,
+                  lib.cpt_backward_shared_rows_max):
+        const.argtypes = []
+        const.restype = ci
+    lib.cpt_error_string.argtypes = [ci]
+    lib.cpt_error_string.restype = ctypes.c_char_p
+    return lib, fn
+
+
+def backward_rows_cuda(packed: PackedScene, cam_params, seed: int, width: int,
+                       height: int, spp: int, max_bounces: int,
+                       g_img: torch.Tensor, sample_offset: int = 0,
+                       full: bool = False, pixel_offset: int = 0,
+                       n_local=None) -> torch.Tensor:
+    """Launch the backward CUDA kernel: the gradient rows ``[rows]`` (float32,
+    on the tables' device) of the MEAN radiance over ``spp`` of the pixel
+    range ``[pixel_offset, pixel_offset + n_local)`` (default: the whole
+    image) for the cotangent ``g_img`` (``n_local * 3`` values). Launches on
+    the current stream of the tables' device and does not synchronise; raises
+    if the kernel does not build or the launch is refused."""
+    global LAUNCH_COUNT
+    n = width * height if n_local is None else n_local
+    mk._check_render_args(packed, width, height, spp, max_bounces,
+                          pixel_offset, n, sample_offset, seed)
+    mk._check_tables(packed)
+    device = packed.device
+    if g_img.device != device or g_img.numel() != 3 * n:
+        raise ValueError(f"g_img: need {3 * n} values on {device}, got "
+                         f"{g_img.numel()} on {g_img.device}")
+    lib, fn = _kernel_fn()
+    # per-sample cotangent: the forward returned the MEAN over spp
+    g = (g_img.detach().reshape(n, 3).to(torch.float32) / spp).contiguous()
+    cam = mk._cam_table(cam_params, 0.0)
+    cam_c = (ctypes.c_float * mk.CAM_FLOATS)(*cam.tolist())
+    rows = _grad_rows(packed.counts, full)
+    planes = ST_PLANES_FULL if full else ST_PLANES
+    threads = lib.cpt_backward_threads_per_block()
+    shared = rows <= lib.cpt_backward_shared_rows_max()
+    num_s, num_t, num_m, num_pl, num_al = packed.counts
+    tables = [t.detach() for t in packed.tables()]
+    with torch.cuda.device(device):
+        scratch = torch.empty(max(max_bounces, 1) * planes * n,
+                              dtype=torch.float32, device=device)
+        if shared:
+            out = torch.empty(((n + threads - 1) // threads, rows),
+                              dtype=torch.float32, device=device)
+        else:
+            out = torch.zeros((1, rows), dtype=torch.float32, device=device)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(tables[0].data_ptr(), num_s, tables[1].data_ptr(), num_t,
+                 tables[2].data_ptr(), num_m, tables[3].data_ptr(), num_pl,
+                 tables[4].data_ptr(), num_al, tables[5].data_ptr(), cam_c,
+                 int(seed), int(pixel_offset), int(n), int(sample_offset),
+                 int(spp), int(max_bounces), int(width), int(height),
+                 int(full), int(shared), g.data_ptr(), scratch.data_ptr(),
+                 out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("backward megakernel launch failed: CUDA error "
+                           f"{err} ({lib.cpt_error_string(err).decode()})")
+    LAUNCH_COUNT += 1
+    return out.sum(0)
+
+
+def backward_grads_cuda(packed: PackedScene, cam_params, seed: int,
+                        width: int, height: int, spp: int, max_bounces: int,
+                        g_img: torch.Tensor, sample_offset: int = 0,
+                        full: bool = False, pixel_offset: int = 0,
+                        n_local=None):
+    """Run the backward kernel; returns (PackedScene cotangent, camera
+    cotangent). The camera cotangent is zeros unless ``full``."""
+    rows = backward_rows_cuda(packed, cam_params, seed, width, height, spp,
+                              max_bounces, g_img, sample_offset, full,
+                              pixel_offset, n_local)
+    return _unpack_rows(rows, packed, full)
+
+
+class _RenderDiff(torch.autograd.Function):
+    """Forward: one launch of the forward megakernel. Backward: one launch of
+    the replay-VJP kernel. Inputs: the six tables, the four camera tensors,
+    then the non-differentiable arguments. ``launch`` is the pair (forward
+    sums, backward grads) of kernel wrappers: ``render_megakernel_diff``
+    passes the CUDA ones; the tests pass the host build of the same math."""
+
+    @staticmethod
+    def forward(ctx, spheres, triangles, materials, point_lights, area_lights,
+                background, rot, pos, tan_half, z_near, counts, seed, width,
+                height, spp, max_bounces, sample_offset, full, launch):
+        packed = PackedScene(spheres, triangles, materials, point_lights,
+                             area_lights, background, counts)
+        cam = (rot, pos, tan_half, z_near)
+        sums = launch[0](packed, cam, seed, width, height, spp, max_bounces,
+                         0, width * height, sample_offset)
+        ctx.save_for_backward(*packed.tables(), *cam)
+        ctx.args = (counts, seed, width, height, spp, max_bounces,
+                    sample_offset, full, launch[1])
+        return (sums / spp).reshape(height, width, 3)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        (counts, seed, width, height, spp, max_bounces, sample_offset, full,
+         backward_grads) = ctx.args
+        packed = PackedScene(*saved[:6], counts)
+        cam = saved[6:]
+        d_packed, d_cam = backward_grads(
+            packed, cam, seed, width, height, spp, max_bounces, g,
+            sample_offset, full)
+        # a camera tensor may live on another device than the tables
+        d_cam = tuple(d.reshape(c.shape).to(c.device) if need else None
+                      for d, c, need in zip(d_cam, cam,
+                                            ctx.needs_input_grad[6:10]))
+        return (*d_packed.tables(), *d_cam) + (None,) * 9
+
+
+def render_megakernel_diff(packed: PackedScene, cam_params, seed: int,
+                           width: int, height: int, spp: int,
+                           max_bounces: int = 8, sample_offset: int = 0,
+                           grad_mode: str = "full", packed_grid=None,
+                           physical: bool = False) -> torch.Tensor:
+    """Differentiable megakernel render — mean radiance ``[H, W, 3]`` on the
+    packed tables' device, whose backward pass is the replay-VJP kernel (see
+    the module docstring for the fields each ``grad_mode`` differentiates).
+    ``packed`` comes from ``pack_scene`` of a scene whose fields may require
+    grad; ``cam_params`` holds numpy values or tensors (tensors that require
+    grad receive gradients in full mode). ``grad_mode`` alone decides which
+    backward kernel runs. ``max_bounces`` is a runtime argument."""
+    full = _reject_unported_diff(grad_mode, physical, packed_grid)
+    if packed.device.type != "cuda":
+        return render_megakernel_diff_plain(packed, cam_params, seed, width,
+                                            height, spp, max_bounces,
+                                            sample_offset, grad_mode)
+    cam = tuple(torch.as_tensor(v, dtype=torch.float32) for v in cam_params)
+    return _RenderDiff.apply(*packed.tables(), *cam, packed.counts, int(seed),
+                             width, height, spp, max_bounces,
+                             int(sample_offset), full,
+                             (mk.render_block_sums_cuda, backward_grads_cuda))
+
+
+def render_megakernel_diff_sharded(*args, **kwargs):
+    """Pixel-sharded differentiable render over several devices."""
+    _unported("render_megakernel_diff_sharded (multi-device training)",
+              "Queue 1 item 10 / item 6: sharded")

@@ -1,0 +1,287 @@
+"""Differentiable rendering: gradients, FD checking, inverse rendering.
+
+The reference is forward-only; differentiability is a capability of this
+rewrite: dL/d(material parameters, light powers and positions, sphere
+geometry, camera) of an image loss, and gradient descent on it. A loss renders
+through ``render_megakernel_diff`` (``ops/cuda/megakernel_vjp.py``): on a CUDA
+device the forward megakernel and the replay-VJP kernel, on the CPU autograd
+through the plain PyTorch render. Discrete branch / hit / visibility decisions
+are detached and continuous factors differentiated, so gradients match finite
+differences on the same random streams.
+
+Parameters are a dict ``{field name: tensor}``; names address nested
+dataclass fields with dots, 3-vector fields are ``[N, 3]`` tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Iterable, Tuple
+
+import numpy as np
+import torch
+
+from ..constants import DEFAULT_MAX_BOUNCES
+from ..models.scene import Scene
+from ..ops.cuda import megakernel_vjp as vjp
+from ..ops.cuda.megakernel import _unported, pack_scene
+from ..utils import rng
+
+# Scene leaves it makes sense to optimize.
+TRAINABLE_FIELDS = (
+    "materials.diffuse",
+    "materials.specular",
+    "materials.emission",
+    "materials.absorption",
+    "materials.roughness",
+    "materials.spec_exp",
+    "materials.diff_avg",
+    "materials.spec_avg",
+    "materials.refr_avg",
+    "materials.ior",
+    "al_power",
+    "pl_power",
+    "pl_pos",
+    "sph_center",
+    "sph_radius",
+    "textures",   # texel values (color / normal maps): inverse texture painting
+)
+
+# "cuda": the CUDA kernels (needs a CUDA device); "plain": autograd through
+# the plain PyTorch render (any device).
+ENGINES = ("cuda", "plain")
+
+
+def get_field(scene: Scene, name: str) -> torch.Tensor:
+    obj = scene
+    for part in name.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def with_field(scene: Scene, name: str, value) -> Scene:
+    parts = name.split(".")
+
+    def rebuild(obj, parts, value):
+        if len(parts) == 1:
+            return dataclasses.replace(obj, **{parts[0]: value})
+        child = rebuild(getattr(obj, parts[0]), parts[1:], value)
+        return dataclasses.replace(obj, **{parts[0]: child})
+
+    return rebuild(scene, parts, torch.as_tensor(value))
+
+
+def extract_params(scene: Scene, names: Iterable[str]) -> Dict[str, torch.Tensor]:
+    return {n: get_field(scene, n) for n in names}
+
+
+def merge_params(scene: Scene, params: Dict[str, torch.Tensor]) -> Scene:
+    for n, v in params.items():
+        scene = with_field(scene, n, v)
+    return scene
+
+
+# Fields the replay VJP differentiates. The full path adjoint
+# (grad_mode="full", the default) covers every exposed trainable field of an
+# untextured scene on the reference-parity estimator; the cheaper "linear"
+# backward covers only the throughput-linear subset, and make_loss picks it
+# automatically when the optimized fields allow.
+def _reject_physical(physical: bool) -> None:
+    if physical:
+        _unported("gradients of the physical (unbiased MIS) estimator "
+                  f"(fields {sorted(vjp.PALLAS_TRAINABLE_FIELDS_PHYS)})",
+                  "Queue 1 item 6 / Queue 2: K2 physical")
+
+
+def pallas_trainable(physical: bool = False) -> frozenset:
+    _reject_physical(physical)
+    return vjp.PALLAS_TRAINABLE_FIELDS_FULL
+
+
+def pallas_trainable_linear() -> frozenset:
+    return vjp.PALLAS_TRAINABLE_FIELDS
+
+
+def _check_engine(engine: str) -> None:
+    if engine in ("lighttrace", "bidir"):
+        _unported(f"engine={engine!r} (training through light paths)",
+                  "Queue 1 item 8")
+    if engine == "jnp":
+        _unported("the eager engine (full autodiff of every field, the "
+                  "counterpart of the reference's jnp engine)",
+                  "Queue 1 item 7")
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; use one of {ENGINES}")
+
+
+def check_engine_fields(engine: str, field_names, physical: bool = False,
+                        scene=None) -> None:
+    """Raise early if the chosen engine cannot differentiate a field — a
+    silent zero gradient is the failure mode this guards against. Both
+    engines of this package differentiate the same set: the plain engine
+    detaches what the kernel detaches."""
+    _check_engine(engine)
+    if scene is not None and getattr(scene, "num_textures", 0) > 0:
+        _unported("training on textured scenes (fields "
+                  f"{sorted(vjp.PALLAS_TRAINABLE_FIELDS_TEX_FULL)})",
+                  "Queue 1 item 6: color-textured, normal-mapped")
+    ok = pallas_trainable(physical)
+    tri = sorted(set(field_names) & vjp.TRI_FIELDS)
+    if tri:
+        _unported(f"gradients for triangle geometry {tri} (grad_mode='geo')",
+                  "Queue 1 item 6 / Queue 2: K2 geo")
+    if "materials.spec_avg" in field_names:
+        # in the parity estimator spec_avg only gates the detached branch
+        # choice: a structurally zero gradient, refused rather than returned
+        raise ValueError(
+            f"engine='{engine}' has no gradient for ['materials.spec_avg']: "
+            "in the reference-parity estimator it only gates a detached "
+            "branch choice. It carries a real gradient in the physical "
+            "estimator, which is not ported yet (ROADMAP.md Queue 1 item 6 / "
+            "Queue 2: K2 physical)")
+    bad = [f for f in field_names if f not in ok]
+    if bad:
+        raise ValueError(
+            f"engine='{engine}' (physical={physical}) has no gradient for "
+            f"{bad}; its VJP covers {sorted(ok)}")
+
+
+def _grad_mode_for(field_names) -> str:
+    """The throughput-linear backward kernel is leaner; it is used whenever
+    the caller names its optimized fields and none needs the path adjoint."""
+    if field_names is not None and set(field_names) & vjp.TRI_FIELDS:
+        return "geo"
+    if (field_names is not None
+            and set(field_names) <= pallas_trainable_linear()):
+        return "linear"
+    return "full"
+
+
+def make_loss(scene: Scene, cam_params, target, width: int, height: int,
+              spp: int, max_bounces: int = 8, engine: str = "cuda",
+              accel: str = "none", field_names=None,
+              physical: bool = False, device=None) -> Callable:
+    """Returns ``loss(params, seed)`` — MSE between the rendered radiance
+    image and ``target`` (a 0-d tensor that back-propagates into
+    ``params``). Passing the RNG seed as an argument keeps one loss for both
+    fixed-stream (deterministic) and resampled (stochastic) optimization.
+
+    ``engine="cuda"`` renders with the forward megakernel and
+    back-propagates with the replay-VJP kernel; ``engine="plain"`` is
+    autograd through the plain PyTorch render. Both consume identical RNG
+    streams, so losses and gradients agree to float tolerance. ``device``
+    defaults to "cuda" for the cuda engine and to "cpu" for the plain one;
+    the loss lives on it. ``loss.grad_mode`` tells which backward was
+    picked."""
+    _check_engine(engine)
+    if accel not in ("none", "grid"):
+        raise ValueError(f"unknown accel {accel!r}; use 'none' or 'grid'")
+    if accel == "grid":
+        _unported("accel='grid' (the supercell grid in the replay)",
+                  "Queue 1 item 6 / Queue 2: K2 grid, after K1 grid")
+    _reject_physical(physical)
+    device = torch.device(device if device is not None
+                          else ("cuda" if engine == "cuda" else "cpu"))
+    if engine == "cuda" and device.type != "cuda":
+        raise ValueError(f"engine='cuda' needs a CUDA device, got {device}")
+    grad_mode = _grad_mode_for(field_names)
+    render = (vjp.render_megakernel_diff if engine == "cuda"
+              else vjp.render_megakernel_diff_plain)
+    if not isinstance(target, torch.Tensor):
+        target = torch.from_numpy(np.array(target, np.float32))
+    target = target.to(device=device, dtype=torch.float32)
+
+    def loss(params, seed):
+        s = merge_params(scene, params)
+        img = render(pack_scene(s, device), cam_params, int(seed), width,
+                     height, spp, max_bounces=max_bounces,
+                     grad_mode=grad_mode)
+        return torch.mean((img - target) ** 2)
+
+    loss.grad_mode = grad_mode
+    return loss
+
+
+def value_and_grad(loss: Callable, params: Dict[str, torch.Tensor], seed
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss value, {field: gradient}) at ``params``; the gradients live
+    where the parameters live."""
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+    val = loss(leaves, seed)
+    # a field of an empty table (pl_power of a scene without point lights)
+    # is never read by the render: its gradient is zeros of its (empty) shape
+    grads = (torch.autograd.grad(val, list(leaves.values()), allow_unused=True)
+             if val.requires_grad else [None] * len(leaves))
+    return val.detach(), {k: torch.zeros_like(v) if g is None else g
+                          for (k, v), g in zip(leaves.items(), grads)}
+
+
+def directional_fd_check(loss: Callable, params: Dict[str, torch.Tensor],
+                         seed, eps: float = 2e-3, num_directions: int = 3,
+                         generator: torch.Generator = None
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """Compare <grad, v> against central differences along random unit
+    directions v, with the SAME render streams on both sides. Returns
+    (ad, fd) arrays of shape [num_directions]. The directions come from
+    ``generator`` (default: a CPU generator seeded with ``seed``); they
+    never touch the render streams."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(int(seed))
+    _, grad = value_and_grad(loss, params, seed)
+    names = list(params)
+    ad, fd = [], []
+    with torch.no_grad():
+        for _ in range(num_directions):
+            vs = [torch.randn(params[n].shape, generator=generator,
+                              dtype=torch.float32) for n in names]
+            norm = torch.sqrt(sum((v * v).sum() for v in vs))
+            vs = [v / norm for v in vs]
+            plus = {n: params[n] + eps * v for n, v in zip(names, vs)}
+            minus = {n: params[n] - eps * v for n, v in zip(names, vs)}
+            fd.append(float(loss(plus, seed) - loss(minus, seed)) / (2 * eps))
+            ad.append(float(sum((grad[n].cpu() * v).sum()
+                                for n, v in zip(names, vs))))
+    return np.asarray(ad, np.float32), np.asarray(fd, np.float32)
+
+
+def invert(scene_init: Scene, cam_params, target, field_names: Iterable[str],
+           width: int, height: int, spp: int = 4, steps: int = 200,
+           lr: float = 5e-2, seed: int = 0,
+           max_bounces: int = DEFAULT_MAX_BOUNCES,
+           resample_every: int = 0, callback=None, engine: str = "cuda",
+           accel: str = "none", physical: bool = False,
+           silhouette: bool = False, device=None):
+    """Inverse rendering: gradient-descend the named scene fields toward a
+    target image with Adam. ``resample_every=k`` derives a new RNG seed every
+    k steps (stochastic gradients over sample noise); 0 keeps one fixed
+    stream (deterministic loss surface). Returns (recovered scene, params,
+    losses). The parameters stay host tensors like the scene's; each step
+    packs them onto the rendering device."""
+    field_names = tuple(field_names)
+    check_engine_fields(engine, field_names, physical=physical,
+                        scene=scene_init)
+    if silhouette:
+        _unported("silhouette=True (the edge-sampled visibility-boundary "
+                  "term of geometry gradients)", "Queue 1 item 9")
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in extract_params(scene_init, field_names).items()}
+    # the steps of optax.adam(lr): b1 0.9, b2 0.999, eps 1e-8 outside the root
+    optimizer = torch.optim.Adam(list(params.values()), lr=lr,
+                                 betas=(0.9, 0.999), eps=1e-8)
+    loss = make_loss(scene_init, cam_params, target, width, height, spp,
+                     max_bounces, engine=engine, accel=accel,
+                     field_names=field_names, physical=physical,
+                     device=device)
+    losses = []
+    for step in range(steps):
+        s = (rng.seed_for(seed, step // resample_every)
+             if resample_every else seed)
+        optimizer.zero_grad(set_to_none=True)
+        val = loss(params, s)
+        val.backward()
+        optimizer.step()
+        losses.append(float(val.detach()))
+        if callback:
+            callback(step, losses[-1], params)
+    final = {k: v.detach() for k, v in params.items()}
+    return merge_params(scene_init, final), final, losses

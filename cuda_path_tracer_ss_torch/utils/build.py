@@ -1,8 +1,9 @@
 """Builds and loads the package's hand-written kernels.
 
-At first use the CUDA sources under ``csrc/`` are compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface and loaded with
-``ctypes`` — no PyTorch headers, so a build takes seconds. The library lands
+At first use a CUDA source under ``csrc/`` is compiled by ``nvcc`` for
+``sm_90a`` into a shared library of its own with a plain C interface and
+loaded with ``ctypes`` — no PyTorch headers, so a build takes seconds, and
+the kernels' builds can run side by side (one ``nvcc`` each). A library lands
 in ``cuda_path_tracer_ss_torch/build/`` (git-ignored) under a name that
 carries a hash of the sources and flags: an unchanged tree reuses its
 library, a changed one builds a new file. The compiler writes to a temporary
@@ -24,8 +25,10 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 
-CUDA_SOURCES = ("megakernel.cu",)
-HEADERS = ("megakernel.cuh",)
+# kernel library name -> its source; every library may include every header
+CUDA_SOURCES = {"megakernel": "megakernel.cu",
+                "megakernel_vjp": "megakernel_vjp.cu"}
+HEADERS = ("megakernel.cuh", "megakernel_vjp.cuh")
 
 # FMA contraction stays off in the default build: the plain PyTorch version
 # rounds after every multiply, and a 1-ulp change in a hit distance can
@@ -88,14 +91,15 @@ def _build(compiler: str, flags: Sequence[str], sources: Sequence[str],
     return out
 
 
-def load_kernels(fmad: bool = False) -> ctypes.CDLL:
-    """The CUDA kernel library, built on first use. ``fmad=True`` is a
-    second build that lets ``nvcc`` contract ``a*b+c`` into FMAs; it exists
-    to be measured against the default build."""
-    key = "cuda_fmad" if fmad else "cuda"
+def load_kernels(name: str, fmad: bool = False) -> ctypes.CDLL:
+    """The library of kernel ``name`` (a key of ``CUDA_SOURCES``), built on
+    first use. ``fmad=True`` is a second build that lets ``nvcc`` contract
+    ``a*b+c`` into FMAs; it exists to be measured against the default
+    build."""
+    key = name + ("_fmad" if fmad else "")
     if key not in _loaded:
         flags = NVCC_FLAGS + (("-fmad=true",) if fmad else ("-fmad=false",))
-        path = _build(find_nvcc(), flags, CUDA_SOURCES,
-                      "libcpt_kernels_fmad" if fmad else "libcpt_kernels")
+        path = _build(find_nvcc(), flags, (CUDA_SOURCES[name],),
+                      "libcpt_" + key)
         _loaded[key] = ctypes.CDLL(path)
     return _loaded[key]

@@ -63,6 +63,67 @@ def test_unported_flags_raise(cmd, flag):
         main([cmd, *SMALL, "--spp", "1", *flag])
 
 
+# ---- the training commands ----------------------------------------------------
+
+TRAIN = ["--width", "10", "--height", "10", "--spp", "2", "--bounces", "3",
+         "--seed", "3"]
+
+
+def _last_json(capsys):
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_grad_check_prints_the_reference_cli_s_json(capsys):
+    from cuda_path_tracer_ss_tpu.cli import main as jmain
+
+    args = ["grad-check", "--scene", "cornell_lambert", *TRAIN, "--directions", "2"]
+    jmain([*args, "--engine", "jnp"])
+    want = _last_json(capsys)
+    main([*args, "--device", "cpu"])
+    got = _last_json(capsys)
+    assert set(got) == set(want)
+    assert got["fields"] == want["fields"] == ["materials.diffuse", "al_power"]
+    assert got["engine"] == "plain" and got["allclose"] is True
+    assert len(got["ad"]) == len(got["fd"]) == 2 and got["max_rel_err"] < 0.05
+
+
+def test_invert_prints_the_reference_cli_s_json(tmp_path, capsys):
+    """Same perturbation, same Adam, same streams: the final loss and the
+    remaining error equal the reference CLI's."""
+    from cuda_path_tracer_ss_tpu.cli import main as jmain
+
+    args = ["invert", "--scene", "cornell", *TRAIN, "--steps", "4", "--lr", "0.1",
+            "--perturb", "0.2"]
+    jmain([*args, "--engine", "jnp"])
+    want = _last_json(capsys)
+    out = str(tmp_path / "recovered.png")
+    main([*args, "--device", "cpu", "--out", out])
+    text = capsys.readouterr().out
+    assert "step    0  loss" in text and f"wrote {out}" in text
+    got = json.loads(text.strip().splitlines()[-2])
+    assert set(got) == set(want) == {"final_loss", "max_abs_err"}
+    np.testing.assert_allclose(got["final_loss"], want["final_loss"], rtol=1e-4)
+    np.testing.assert_allclose(got["max_abs_err"]["materials.diffuse"],
+                               want["max_abs_err"]["materials.diffuse"], atol=1e-4)
+    assert read_png(out).shape == (10, 10, 3)
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["--physical"], "physical"), (["--accel", "grid"], "grid"),
+    (["--fields", "tri_v0"], "K2 geo")])
+@pytest.mark.parametrize("cmd", ["grad-check", "invert"])
+def test_training_commands_refuse_what_is_not_ported(cmd, flag, item):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*" + item):
+        main([cmd, "--device", "cpu", *TRAIN, *flag])
+
+
+def test_invert_refuses_silhouette_and_spec_avg():
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
+        main(["invert", "--device", "cpu", *TRAIN, "--steps", "1", "--silhouette"])
+    with pytest.raises(ValueError, match="spec_avg"):
+        main(["invert", "--device", "cpu", *TRAIN, "--fields", "materials.spec_avg"])
+
+
 def test_default_device_is_cuda_and_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour of a machine without a GPU")

@@ -10,6 +10,8 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "cuda_path_tracer_ss_torch")
 FORBIDDEN = ("jax", "jaxlib", "optax", "cuda_path_tracer_ss_tpu")
+KERNEL_SOURCES = ("megakernel.cu", "megakernel.cuh", "megakernel_vjp.cu",
+                  "megakernel_vjp.cuh")
 
 
 def _port_files():
@@ -34,10 +36,12 @@ def test_port_has_its_modules():
     names = {os.path.relpath(p, ROOT) for p in _port_files()}
     for want in ("chip_smoke.py", "cuda_path_tracer_ss_torch/cli.py",
                  "cuda_path_tracer_ss_torch/ops/cuda/megakernel.py",
+                 "cuda_path_tracer_ss_torch/ops/cuda/megakernel_vjp.py",
+                 "cuda_path_tracer_ss_torch/render/inverse.py",
                  "cuda_path_tracer_ss_torch/render/renderer.py",
                  "cuda_path_tracer_ss_torch/utils/build.py"):
         assert want in names
-    for src in ("megakernel.cu", "megakernel.cuh"):
+    for src in KERNEL_SOURCES:
         assert os.path.isfile(os.path.join(PORT, "csrc", src))
 
 
@@ -49,7 +53,9 @@ def test_no_jax_import(path):
 
 def test_importing_the_port_leaves_jax_out():
     code = ("import sys; import cuda_path_tracer_ss_torch, "
-            "cuda_path_tracer_ss_torch.cli, cuda_path_tracer_ss_torch.utils.build; "
+            "cuda_path_tracer_ss_torch.cli, cuda_path_tracer_ss_torch.utils.build, "
+            "cuda_path_tracer_ss_torch.ops.cuda.megakernel_vjp, "
+            "cuda_path_tracer_ss_torch.render.inverse; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -63,7 +69,29 @@ def test_kernel_sources_avoid_fast_math_and_torch_headers():
     flags = " ".join(build.NVCC_FLAGS)
     assert "fast_math" not in flags and "fmad" not in flags  # -fmad is per build
     assert "arch=compute_90a,code=sm_90a" in flags
-    for src in ("megakernel.cu", "megakernel.cuh"):
+    assert set(build.CUDA_SOURCES.values()) | set(build.HEADERS) == set(KERNEL_SOURCES)
+    for src in KERNEL_SOURCES:
         with open(os.path.join(PORT, "csrc", src)) as f:
             text = f.read()
         assert "torch/" not in text and "ATen" not in text
+
+
+def test_backward_kernel_replays_with_the_forward_kernel_s_functions():
+    """The replay must walk the forward's paths: it includes megakernel.cuh
+    and defines none of its device functions anew."""
+    with open(os.path.join(PORT, "csrc", "megakernel_vjp.cuh")) as f:
+        text = f.read()
+    assert '#include "megakernel.cuh"' in text
+    for fn in ("intersect_sweep", "occlusion_sweep", "scatter_sample", "uniform_pair",
+               "eye_ray_raw", "rotate_y_to", "sphere_t", "triangle_t"):
+        assert fn + "(" in text or fn in ("sphere_t", "triangle_t"), fn
+        assert "void " + fn + "(" not in text and "bool " + fn + "(" not in text \
+            and "Hit " + fn + "(" not in text, fn
+
+
+def test_chip_smoke_drives_both_kernels():
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        text = f.read()
+    for needle in ("mk.LAUNCH_COUNT = 0", "vjp.LAUNCH_COUNT = 0", "megakernel_vjp.cu",
+                   '"platform": "gpu"'):
+        assert needle in text, needle

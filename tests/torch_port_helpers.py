@@ -2,9 +2,10 @@
 package (the reference) to the PyTorch/CUDA package (the port). Only test code
 imports both packages; data crosses as numpy arrays.
 
-Also the test-only host build of the CUDA kernel's device math
-(``csrc/megakernel.cuh`` through ``tests/torch_kernel_host.cpp``): the only way
-to exercise the CUDA source on a machine without a GPU. It needs ``g++`` (or
+Also the test-only host build of the CUDA kernels' device math
+(``csrc/megakernel.cuh`` and ``csrc/megakernel_vjp.cuh`` through
+``tests/torch_kernel_host.cpp``): the only way to exercise the CUDA source on
+a machine without a GPU. It needs ``g++`` (or
 ``c++``) on the PATH and, for the FMA variant, an x86-64 CPU with FMA3; where
 one is missing the tests that use it fail with that message."""
 import ctypes
@@ -20,6 +21,7 @@ import torch
 
 from cuda_path_tracer_ss_torch.models.scene import scene_from_numpy
 from cuda_path_tracer_ss_torch.ops.cuda import megakernel as tmk
+from cuda_path_tracer_ss_torch.ops.cuda import megakernel_vjp as tvjp
 from cuda_path_tracer_ss_torch.utils.build import CSRC_DIR
 
 _HOST_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -87,13 +89,36 @@ def _host_kernel(fma):
     proc = subprocess.run([compiler, *flags, "-o", out, _HOST_SOURCE],
                           capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
-    fn = ctypes.CDLL(out).cpt_render_megakernel_host
+    lib = ctypes.CDLL(out)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, ci, vp, ci, vp, ci, vp, ci, vp, ci, vp,
-                   ctypes.POINTER(ctypes.c_float),
-                   ci, ci, ci, ci, ci, ci, ci, ci, vp]
-    fn.restype = ci
-    return fn
+    scene_args = [vp, ci, vp, ci, vp, ci, vp, ci, vp, ci, vp,
+                  ctypes.POINTER(ctypes.c_float),
+                  ci, ci, ci, ci, ci, ci, ci, ci]
+    lib.cpt_render_megakernel_host.argtypes = scene_args + [vp]
+    lib.cpt_render_megakernel_host.restype = ci
+    lib.cpt_backward_megakernel_host.argtypes = scene_args + [ci, vp, vp]
+    lib.cpt_backward_megakernel_host.restype = ci
+    lib.cpt_norm3_vjp_host.argtypes = [ci, vp, vp, ctypes.c_float, vp]
+    lib.cpt_norm3_vjp_host.restype = None
+    lib.cpt_rot_y_to_vjp_host.argtypes = [ci, vp, vp, vp, vp, vp]
+    lib.cpt_rot_y_to_vjp_host.restype = None
+    return lib
+
+
+def _scene_args(packed, cam_params, seed, width, height, spp, max_bounces,
+                pixel_offset, n_local, sample_offset, sample_clamp):
+    """The leading arguments the host entries share, and the tables they
+    point into (to be kept alive over the call)."""
+    cam = tmk._cam_table(cam_params, sample_clamp)
+    cam_c = (ctypes.c_float * tmk.CAM_FLOATS)(*cam.tolist())
+    tables = [t.detach().contiguous() for t in packed.tables()]
+    args = []
+    for t, count in zip(tables[:5], packed.counts):
+        args += [t.data_ptr(), count]
+    args += [tables[5].data_ptr(), cam_c, int(seed), int(pixel_offset),
+             int(n_local), int(sample_offset), int(spp), int(max_bounces),
+             int(width), int(height)]
+    return args, tables
 
 
 def render_block_sums_hostbuild(packed, cam_params, seed, width, height, spp,
@@ -101,15 +126,156 @@ def render_block_sums_hostbuild(packed, cam_params, seed, width, height, spp,
                                 sample_offset=0, sample_clamp=0.0, fma=False):
     """``render_block_sums`` computed by the host build of the kernel math,
     one pixel at a time, on CPU tables."""
-    fn = _host_kernel(fma)
-    cam = tmk._cam_table(cam_params, sample_clamp)
-    cam_c = (ctypes.c_float * tmk.CAM_FLOATS)(*cam.tolist())
-    tables = [t.contiguous() for t in packed.tables()]
+    args, _tables = _scene_args(packed, cam_params, seed, width, height, spp,
+                                max_bounces, pixel_offset, n_local,
+                                sample_offset, sample_clamp)
     out = torch.empty((n_local, 3), dtype=torch.float32)
-    counts = packed.counts
-    fn(tables[0].data_ptr(), counts[0], tables[1].data_ptr(), counts[1],
-       tables[2].data_ptr(), counts[2], tables[3].data_ptr(), counts[3],
-       tables[4].data_ptr(), counts[4], tables[5].data_ptr(), cam_c,
-       int(seed), int(pixel_offset), int(n_local), int(sample_offset),
-       int(spp), int(max_bounces), int(width), int(height), out.data_ptr())
+    _host_kernel(fma).cpt_render_megakernel_host(*args, out.data_ptr())
     return out
+
+
+def backward_grads_hostbuild(packed, cam_params, seed, width, height, spp,
+                             max_bounces, g_img, sample_offset=0, full=False):
+    """``backward_grads_cuda`` computed by the host build of the backward
+    kernel's math (no FMA contraction), one pixel at a time, on CPU tables:
+    (PackedScene cotangent, camera cotangent), unpacked from the gradient
+    rows by the port's own ``_unpack_rows``."""
+    n = width * height
+    args, _tables = _scene_args(packed, cam_params, seed, width, height, spp,
+                                max_bounces, 0, n, sample_offset, 0.0)
+    g = (g_img.detach().reshape(n, 3).to(torch.float32) / spp).contiguous()
+    rows = torch.zeros(tvjp._grad_rows(packed.counts, full), dtype=torch.float64)
+    got = _host_kernel(False).cpt_backward_megakernel_host(
+        *args, int(full), g.data_ptr(), rows.data_ptr())
+    assert got == rows.numel(), (got, rows.numel())
+    return tvjp._unpack_rows(rows, packed, full)
+
+
+def _three_runs(*arrays):
+    return [np.ascontiguousarray(np.stack(a), np.float32) for a in arrays]
+
+
+def norm3_vjp_hostbuild(v, g, eps):
+    """``csrc norm3_vjp`` over n inputs; v, g: three arrays of n each."""
+    v, g = _three_runs(v, g)
+    out = np.empty_like(v)
+    _host_kernel(False).cpt_norm3_vjp_host(
+        v.shape[1], v.ctypes.data, g.ctypes.data, eps, out.ctypes.data)
+    return out
+
+
+def rot_y_to_vjp_hostbuild(t, s, g):
+    """``csrc rot_y_to_vjp`` over n inputs -> (A_target, A_sample)."""
+    t, s, g = _three_runs(t, s, g)
+    a_t, a_s = np.empty_like(t), np.empty_like(t)
+    _host_kernel(False).cpt_rot_y_to_vjp_host(
+        t.shape[1], t.ctypes.data, s.ctypes.data, g.ctypes.data,
+        a_t.ctypes.data, a_s.ctypes.data)
+    return a_t, a_s
+
+
+# ---- gradients: the reference's oracle and the port's engines ------------------
+
+# The cases of tests/test_pallas_vjp.py: its size, its seed, its fields.
+VJP_W = VJP_H = 12
+VJP_SPP = 2
+VJP_BOUNCES = 4
+VJP_SEED = 5
+VJP_FIELDS = ["materials.diffuse", "materials.specular", "materials.emission",
+              "materials.absorption", "materials.diff_avg",
+              "materials.roughness", "materials.ior", "al_power"]
+VJP_FULL_ONLY = {"materials.roughness", "materials.ior", "materials.spec_exp",
+                 "pl_pos"}
+
+
+def vjp_case_fields(jscene, grad_mode):
+    """The fields tests/test_pallas_vjp.py::_engine_pair differentiates."""
+    fields = [f for f in VJP_FIELDS
+              if f != "al_power" or jscene.num_area_lights]
+    if grad_mode == "linear":
+        fields = [f for f in fields if f not in VJP_FULL_ONLY]
+    if jscene.num_point_lights:
+        fields = fields + ["pl_power"]
+        if grad_mode == "full":
+            fields = fields + ["pl_pos"]
+    return fields
+
+
+def jax_value_and_grad(jscene, fields, width, height, spp, bounces, seed):
+    """The oracle: ``jax.value_and_grad`` of the MSE-to-zero loss over the
+    reference's jnp engine (``render(..., live_cutoff=None)``) with respect
+    to the named scene fields -> (loss, {field: numpy gradient})."""
+    import jax
+    import jax.numpy as jnp
+    from cuda_path_tracer_ss_tpu.models.camera import Camera as JCamera
+    from cuda_path_tracer_ss_tpu.render import inverse as jinverse
+    from cuda_path_tracer_ss_tpu.render.integrator import camera_arrays, render
+
+    cp = camera_arrays(JCamera())
+    params = jinverse.extract_params(jscene, fields)
+
+    def loss(params, seed):
+        s = jinverse.merge_params(jscene, params)
+        img = render(s, cp, width, height, spp, seed, max_bounces=bounces,
+                     live_cutoff=None)
+        return jnp.mean(img ** 2)
+
+    v, g = jax.device_get(jax.jit(jax.value_and_grad(loss))(params, seed))
+    return float(v), {k: np.asarray(a) for k, a in g.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def jax_preset_value_and_grad(name, grad_mode):
+    """The oracle on preset ``name`` at the VJP_* size, cached per process."""
+    from cuda_path_tracer_ss_tpu.models import presets as jpresets
+
+    jscene = getattr(jpresets, name)()
+    fields = vjp_case_fields(jscene, grad_mode)
+    v, g = jax_value_and_grad(jscene, fields, VJP_W, VJP_H, VJP_SPP,
+                              VJP_BOUNCES, VJP_SEED)
+    return jscene, fields, v, g
+
+
+def render_diff_hostbuild(packed, cam_params, seed, width, height, spp,
+                          max_bounces=8, grad_mode="full"):
+    """``render_megakernel_diff`` as the CUDA kernels would compute it, on CPU
+    tables: the package's own ``torch.autograd.Function`` with both launches
+    replaced by the host build of their device math (forward =
+    csrc/megakernel.cuh, backward = csrc/megakernel_vjp.cuh)."""
+    cam = tuple(torch.as_tensor(v, dtype=torch.float32) for v in cam_params)
+    return tvjp._RenderDiff.apply(
+        *packed.tables(), *cam, packed.counts, int(seed), width, height, spp,
+        max_bounces, 0, grad_mode == "full",
+        (render_block_sums_hostbuild, backward_grads_hostbuild))
+
+
+def port_value_and_grad(scene, cam_params, fields, width, height, spp, bounces,
+                        seed, engine, grad_mode):
+    """(loss, {field: numpy gradient}) of the MSE-to-zero loss on the port:
+    ``engine`` "plain" (autograd through the plain render) or "host" (the
+    kernels' math from the host build)."""
+    from cuda_path_tracer_ss_torch.render import inverse as tinverse
+
+    render = {"plain": tvjp.render_megakernel_diff_plain,
+              "host": render_diff_hostbuild}[engine]
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in tinverse.extract_params(scene, fields).items()}
+    packed = tmk.pack_scene(tinverse.merge_params(scene, leaves), "cpu")
+    img = render(packed, cam_params, seed, width, height, spp,
+                 max_bounces=bounces, grad_mode=grad_mode)
+    val = torch.mean(img ** 2)
+    grads = torch.autograd.grad(val, list(leaves.values()))
+    return float(val.detach()), {k: g.numpy() for k, g in zip(leaves, grads)}
+
+
+def assert_grads_close(got, want, fields):
+    """The tolerances of tests/test_pallas_vjp.py: every gradient within
+    rtol 1e-3 and atol 1e-4 * max|g_want|. Both sides evaluate the same
+    estimator on the same streams, so what remains is float op-order noise
+    through cancellations."""
+    for k in fields:
+        a, b = np.asarray(want[k]), np.asarray(got[k])
+        assert np.all(np.isfinite(b)), k
+        scale = np.abs(a).max() + 1e-12
+        np.testing.assert_allclose(b, a, atol=1e-4 * scale, rtol=1e-3,
+                                   err_msg=k)
