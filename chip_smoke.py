@@ -23,7 +23,16 @@ prints no result. It
    16 spp, 8 bounces, 30 Adam steps, once per grad mode — and counts the
    launches of both kernels,
 10. times a gradient step and both kernels apart at that size,
-11. prints one JSON line describing every kernel, then the result line.
+11. holds the forward kernel's physical (unbiased MIS) and bidirectional
+    instantiations against their plain versions on the seven scenes and
+    against goldens, and the light-tracing kernel's records, with and without
+    the bidirectional weights, against its plain version on six scenes,
+12. drives the unbiased paths at full size — Cornell 800x800, 8 bounces,
+    2000 spp through ``ProgressiveRenderer(physical=True)``;
+    ``render_bidir_fast`` on the caustic scene, 512x512, 256 spp + 2,097,152
+    light paths, 8 bounces; ``render_lighttrace_fast`` at that path count —
+    counts each instantiation's launches and times them apart,
+13. prints one JSON line describing every kernel, then the result line.
 
 Any failed phase raises: the exit code is then non-zero and the result line
 is not printed. ``--out-dir DIR`` keeps the rendered PNG and a JSON report.
@@ -33,6 +42,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -59,6 +69,26 @@ PER_PATH_FLOPS = 40        # eye ray
 PER_BOUNCE_FLOPS = 150     # hit point, cosine, radiance update, scatter
 PER_LIGHT_SAMPLE_FLOPS = 60
 
+# The physical estimator, counted the same way: per bounce the lobe
+# description, the emission weight and the continuation density on top of
+# PER_BOUNCE_FLOPS; per light sample whose lobe terms are non-zero the light's
+# geometry, the sampled point, the diffuse lobe terms, the three MIS weights
+# and the contribution (a glossy or Cook-Torrance lobe adds 25 / 60 more and
+# is not counted). One chain-model evaluation (Fresnel, unit normal, the
+# diffuse and one specular label); the bidirectional carries evaluate it
+# twice per bounce and once per light sample.
+PHYSICAL_BOUNCE_FLOPS = 75
+PHYSICAL_LIGHT_SAMPLE_FLOPS = 165
+CHAIN_MODEL_FLOPS = 60
+BIDIR_CARRY_FLOPS = 25     # per bounce, either side
+
+# The light kernel, counted from csrc/lightkernel.cuh: per path the emission
+# vertex (light geometry, point, cosine direction, emitter splat weights);
+# per bounce the camera connection (projection, importance, gates, record)
+# on top of the sweep and PER_BOUNCE_FLOPS.
+EMISSION_VERTEX_FLOPS = 145
+CAMERA_CONNECTION_FLOPS = 90
+
 # The reverse sweep of the backward kernel, counted from
 # csrc/megakernel_vjp.cuh the same way, per stored bounce: the recurrence and
 # its material rows (both modes); in full mode the scatter chain (between 120
@@ -80,6 +110,15 @@ TRAIN_FIELDS = {
              "materials.ior"],
 }
 TRAIN_PLAIN_CHUNK = 2      # samples per autograd graph of the plain training step
+
+# The unbiased paths: the physical configuration at the default one's size,
+# and the bidirectional configuration of the reference's own measurements.
+PHYSICAL_PLAIN_SPP = 8     # the plain version's share of the physical work
+BIDIR = dict(scene="caustic", width=512, height=512, max_bounces=8, spp=256,
+             n_paths=2_097_152)
+BIDIR_PLAIN_SPP = 4        # the plain version's share of the eye half
+EARLIER_DEFAULT_MS = 1200.0    # the default instantiation's 2000-spp launch before
+                           # the kernel source held three (PERF.md, 700 W card)
 
 
 def log(msg: str) -> None:
@@ -113,21 +152,91 @@ def time_launches(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def flop_count(counts, stats, scale: float = 1.0) -> float:
-    """Least float32 work for the paths ``stats`` describes: one full sweep
-    per path-bounce, one per unoccluded shadow ray, a single primitive test
-    per occluded one, plus the per-path / per-bounce / per-light math."""
+def sweep_flops(counts):
+    """(operations of one full sweep, of the cheapest single test)."""
     num_s, num_t = counts[0], counts[1]
     sweep = num_s * SPHERE_TEST_FLOPS + num_t * TRIANGLE_TEST_FLOPS
     one_test = min(SPHERE_TEST_FLOPS if num_s else TRIANGLE_TEST_FLOPS,
                    TRIANGLE_TEST_FLOPS if num_t else SPHERE_TEST_FLOPS)
+    return sweep, one_test
+
+
+def flop_count(counts, stats, scale: float = 1.0, physical: bool = False,
+               bidir: bool = False) -> float:
+    """Least float32 work for the eye paths ``stats`` describes: one full
+    sweep per path-bounce, one per unoccluded shadow ray, a single primitive
+    test per occluded one, plus the per-path / per-bounce / per-light math of
+    the estimator (reference-parity, physical, physical with the
+    bidirectional carries)."""
+    sweep, one_test = sweep_flops(counts)
     occluded = stats["shadow_rays_occluded"]
     clear = stats["shadow_rays"] - occluded
+    per_bounce = PER_BOUNCE_FLOPS + (PHYSICAL_BOUNCE_FLOPS if physical else 0)
+    per_light = PHYSICAL_LIGHT_SAMPLE_FLOPS if physical else PER_LIGHT_SAMPLE_FLOPS
+    if bidir:
+        per_bounce += 2 * CHAIN_MODEL_FLOPS + BIDIR_CARRY_FLOPS
+        per_light += CHAIN_MODEL_FLOPS
     flops = (stats["paths"] * PER_PATH_FLOPS
-             + stats["path_bounces"] * (sweep + PER_BOUNCE_FLOPS)
-             + stats["shadow_rays"] * PER_LIGHT_SAMPLE_FLOPS
+             + stats["path_bounces"] * (sweep + per_bounce)
+             + stats["shadow_rays"] * per_light
              + clear * sweep + occluded * one_test)
     return flops * scale
+
+
+def light_flop_count(counts, stats, bidir: bool = False) -> float:
+    """Least float32 work for the light paths ``stats`` describes: per path
+    the emission vertex, per path-bounce one full sweep, the camera
+    connection and the scatter, per visibility ray a full sweep (clear) or a
+    single test (occluded)."""
+    sweep, one_test = sweep_flops(counts)
+    occluded = stats["vis_rays_occluded"]
+    clear = stats["vis_rays"] - occluded
+    per_bounce = PER_BOUNCE_FLOPS + CAMERA_CONNECTION_FLOPS
+    if bidir:
+        per_bounce += 2 * CHAIN_MODEL_FLOPS + BIDIR_CARRY_FLOPS
+    return (stats["paths"] * EMISSION_VERTEX_FLOPS
+            + stats["path_bounces"] * (sweep + per_bounce)
+            + clear * sweep + occluded * one_test)
+
+
+def bound_of(flops: float, moved: float):
+    """(bound_ms, 'operations' or 'bytes', ops_ms, bytes_ms) at the card's
+    published peaks."""
+    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes",
+            ops_ms, bytes_ms)
+
+
+def record_match(got, want):
+    """Two sets of splat records slot by slot: (share of records with the
+    same pixel and every value within rtol 1e-4 / atol 1e-6 of the largest,
+    share with the same pixel, largest absolute error among the agreeing
+    pixels, the largest value)."""
+    big = max(float(x.abs().max()) for x in want[1:])
+    same_pix = got[0] == want[0]
+    ok = same_pix.clone()
+    err = 0.0
+    for g, w in zip(got[1:], want[1:]):
+        ok &= torch.isclose(g, w, rtol=1e-4, atol=1e-6 * big)
+        err = max(err, float(((g - w).abs() * same_pix).max()))
+    return float(ok.float().mean()), float(same_pix.float().mean()), err, big
+
+
+def golden_check(name: str, got: np.ndarray, want: np.ndarray, corr_min=None):
+    """A render against a golden made by an independent implementation on a
+    CPU: >= 98 % of pixels within rtol 0.02 / atol 2e-3, channel means within
+    2 %, and (where asked) the correlation of the agreeing pixels."""
+    check(bool(np.isfinite(got).all()), f"golden {name}: non-finite")
+    close = np.isclose(got, want, rtol=0.02, atol=2e-3).all(axis=-1)
+    mean_ok = np.allclose(got.mean((0, 1)), want.mean((0, 1)), rtol=0.02)
+    corr = float(np.corrcoef(got[close].ravel(), want[close].ravel())[0, 1])
+    log(f"[golden] {name:20s} {close.mean():.4%} of pixels within "
+        f"rtol 0.02 / atol 2e-3, corr {corr:.6f}")
+    check(close.mean() >= 0.98, f"golden {name}: {close.mean():.4%} match")
+    check(mean_ok, f"golden {name}: channel means off by more than 2 %")
+    if corr_min is not None:
+        check(corr > corr_min, f"golden {name}: correlation {corr}")
 
 
 def median_ms(fn, reps: int = 5) -> float:
@@ -169,9 +278,11 @@ def main() -> int:
 
     from cuda_path_tracer_ss_torch.models import presets
     from cuda_path_tracer_ss_torch.models.camera import Camera, camera_arrays
+    from cuda_path_tracer_ss_torch.ops.cuda import lightkernel as lk
     from cuda_path_tracer_ss_torch.ops.cuda import megakernel as mk
     from cuda_path_tracer_ss_torch.ops.cuda import megakernel_vjp as vjp
     from cuda_path_tracer_ss_torch.render import inverse
+    from cuda_path_tracer_ss_torch.render.bidir import render_bidir_fast
     from cuda_path_tracer_ss_torch.render.renderer import (ProgressiveRenderer,
                                                            RenderConfig)
     from cuda_path_tracer_ss_torch.utils import build, rng
@@ -201,9 +312,9 @@ def main() -> int:
         except BaseException as e:  # re-raised below, on the main thread
             errors.append(e)
 
-    threads = [threading.Thread(target=build_one, args=a)
-               for a in (("megakernel", False), ("megakernel", True),
-                         ("megakernel_vjp", False))]
+    builds = (("megakernel", False), ("megakernel", True),
+              ("megakernel_vjp", False), ("lightkernel", False))
+    threads = [threading.Thread(target=build_one, args=a) for a in builds]
     for t in threads:
         t.start()
     for t in threads:
@@ -211,9 +322,24 @@ def main() -> int:
     if errors:
         raise errors[0]
     build_s = time.time() - t0
-    log(f"[build] nvcc sm_90a: forward kernel (-fmad=false and -fmad=true) and "
-        f"backward kernel (-fmad=false), three builds side by side: {build_s:.1f} s")
+    log(f"[build] nvcc sm_90a: forward kernel (-fmad=false and -fmad=true), "
+        f"backward kernel and light kernel (-fmad=false), four builds side by "
+        f"side: {build_s:.1f} s")
     report["build_s"] = build_s
+    report["ptxas"] = {}
+    for name, fmad in builds:
+        for k in build.ptxas_report(name, fmad):
+            # a template's bool arguments read Lb0E / Lb1E in the mangled name
+            fn = next(f for f in ("render_kernel", "backward_kernel", "light_kernel",
+                                  "uniform_pairs_kernel") if f in k["kernel"])
+            bools = re.findall(r"Lb([01])E", k["kernel"].split(fn)[1].split("Ev")[0])
+            label = f"{fn}<{','.join(bools)}>" if bools else fn
+            log(f"[build] {name}{' -fmad=true' if fmad else ''}: {label}: "
+                f"{k['registers']} registers, {k['stack']} B stack, spills "
+                f"{k['spill_stores']} B stored / {k['spill_loads']} B loaded")
+            report["ptxas"][f"{name}{'_fmad' if fmad else ''}/{label}"] = k
+            check(k["spill_stores"] == 0 and k["spill_loads"] == 0,
+                  f"{label} spills registers")
 
     # ---- 3. rng: the kernel's uniform_pair, bit-equal to utils/rng.py --------
     g = np.random.default_rng(0)
@@ -278,15 +404,7 @@ def main() -> int:
         want = np.load(os.path.join(GOLDEN, f"tpu_{name}_64x64_{spp}spp_{bounces}b.npy"))
         got = mk.render_fast2(make(), cp, 64, 64, spp, 7, max_bounces=bounces,
                               device=dev).cpu().numpy()
-        check(bool(np.isfinite(got).all()), f"golden {name}: non-finite")
-        close = np.isclose(got, want, rtol=0.02, atol=2e-3).all(axis=-1)
-        mean_ok = np.allclose(got.mean((0, 1)), want.mean((0, 1)), rtol=0.02)
-        corr = float(np.corrcoef(got[close].ravel(), want[close].ravel())[0, 1])
-        log(f"[golden] {name:20s} {close.mean():.4%} of pixels within "
-            f"rtol 0.02 / atol 2e-3, corr {corr:.6f}")
-        check(close.mean() >= 0.98, f"golden {name}: {close.mean():.4%} match")
-        check(mean_ok, f"golden {name}: channel means off by more than 2 %")
-        check(corr > 0.999, f"golden {name}: correlation {corr}")
+        golden_check(name, got, want, corr_min=0.999)
 
     # ---- 6. main path at full size ----------------------------------------------
     w, h, nb, spp = FULL["width"], FULL["height"], FULL["max_bounces"], FULL["spp"]
@@ -368,6 +486,8 @@ def main() -> int:
         f"fmad=false {ms:.1f} ms = {bench_rays / ms / 1e3:.1f} M primary rays/s; "
         f"fmad=true {ms_fmad:.1f} ms = {bench_rays / ms_fmad / 1e3:.1f} M primary rays/s; "
         f"{PLAIN_SPP}-spp launch {ms_plain_shape:.2f} ms")
+    log(f"[bench] the default instantiation beside its time before the source held "
+        f"three: {ms:.1f} ms now, {EARLIER_DEFAULT_MS:.1f} ms then ({ms / EARLIER_DEFAULT_MS - 1:+.2%})")
 
     # bound: this run's operation count (the plain version's tally over
     # PLAIN_SPP samples, scaled to the timed sample count) over the FP32 peak,
@@ -615,7 +735,323 @@ def main() -> int:
             f"{scratch:.3e} bytes) would take {bench[mode]['scratch_bytes_ms']:.3f} ms "
             "at the memory rate")
 
-    # ---- 11. report ----------------------------------------------------------------
+    # ---- 11. the unbiased instantiations against their plain versions ----------------
+    VARIANTS = {"physical": dict(physical=True),
+                "bidir": dict(physical=True, bidir_nu=64.0)}
+    report["variant_vs_plain"] = {}
+    for name, (make, n_spp) in scenes.items():
+        packed_s = mk.pack_scene(make(), dev)
+        for label, kw in VARIANTS.items():
+            plain_v = mk.render_block_sums_plain(packed_s, cp, 7, W, H, n_spp, 6, 0, W * H,
+                                                 **kw) / n_spp
+            got = mk.render_block_sums_cuda(packed_s, cp, 7, W, H, n_spp, 6, 0, W * H,
+                                            **kw) / n_spp
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), f"{label} {name}: non-finite")
+            rate_v, gap_v, err_v = match_stats(got, plain_v)
+            log(f"[{label} kernel vs plain] {name:12s}: {rate_v:.4%} of pixels, mean gap "
+                f"{gap_v:.2e}, max abs err {err_v:.2e}")
+            check(rate_v >= 0.995, f"{label} {name}: only {rate_v:.4%} of pixels match")
+            check(gap_v <= 1e-3, f"{label} {name}: channel means differ by {gap_v:.2e}")
+            report["variant_vs_plain"][f"{name}/{label}"] = (rate_v, gap_v, err_v)
+
+    golden_check("physical cornell",
+                 mk.render_fast2(presets.cornell(), cp, 64, 64, 16, 7, max_bounces=6,
+                                 physical=True, device=dev).cpu().numpy(),
+                 np.load(os.path.join(GOLDEN, "tpu_physical_cornell_64x64_16spp_6b.npy")),
+                 corr_min=0.999)
+    golden_check("bidir shadowed_caustic",
+                 render_bidir_fast(mk.pack_scene(presets.shadowed_caustic(), dev), cp,
+                                   16, 16, 2, 512, 42, max_bounces=3).cpu().numpy(),
+                 np.load(os.path.join(GOLDEN,
+                                      "bidir_shadowed_caustic_16x16_2spp_512p_3b.npy")))
+
+    # the light kernel's records, slot by slot, then the image they sum to
+    LW = LH = 64
+    L_PATHS = 100_000
+    report["light_vs_plain"] = {}
+    for name in ("cornell_lambert", "caustic", "shadowed_caustic", "cornell", "showcase",
+                 "point_lights"):
+        packed_s = mk.pack_scene(presets.get_scene(name), dev)
+        for nu in (None, 512.0):
+            want = lk.light_records_plain(packed_s, cp, 3, LW, LH, L_PATHS, 6, bidir_nu=nu)
+            got = lk.light_records_cuda(packed_s, cp, 3, LW, LH, L_PATHS, 6, bidir_nu=nu)
+            torch.cuda.synchronize()
+            check(all(bool(torch.isfinite(x).all()) for x in got[1:]),
+                  f"light {name} nu={nu}: non-finite records")
+            share, same_pix, err_l, big = record_match(got, want)
+            img_k = lk.splat_records(got, LW, LH) / L_PATHS
+            img_p = lk.splat_records(want, LW, LH) / L_PATHS
+            d = (img_k - img_p).abs()
+            log(f"[light kernel vs plain] {name:16s} nu={nu}: {share:.4%} of {got[0].numel()} "
+                f"records (same pixel {same_pix:.4%}), max abs err {err_l:.2e} of values up "
+                f"to {big:.3g}; image gap mean {float(d.mean()):.2e}, max "
+                f"{float(d.max()):.2e}, {float((d < 2e-5).float().mean()):.4%} below 2e-5")
+            check(share >= 0.999, f"light {name} nu={nu}: only {share:.4%} of records match")
+            # a record whose gate flipped moves its pixel by its own value
+            flipped = round((1.0 - share) * got[0].numel())
+            check(float(d.mean()) < 1e-5
+                  and float(d.max()) < 2e-3 + flipped * big / L_PATHS
+                  and float((d < 2e-5).float().mean()) > 0.995,
+                  f"light {name} nu={nu}: images differ")
+            report["light_vs_plain"][f"{name}/{nu}"] = (share, same_pix, err_l)
+    no_light = mk.pack_scene(presets.cornell(), dev)
+    no_light = type(no_light)(*no_light.tables(), no_light.counts[:4] + (0,))
+    try:
+        lk.render_lighttrace_fast(no_light, cp, 0, 8, 8, 64)
+    except ValueError:
+        log("[light kernel vs plain] a scene without an area light is refused")
+    else:
+        check(False, "light tracing accepted a scene without an area light")
+
+    # ---- 12a. the physical main path at full size -------------------------------------
+    passes_p = []
+    mk.LAUNCH_COUNT = 0            # every count to 0 just before the path ...
+    mk.LAUNCHES_BY_VARIANT[:] = [0, 0, 0]
+    r = ProgressiveRenderer(
+        presets.cornell(), Camera(),
+        RenderConfig(width=w, height=h, max_bounces=nb, spp=spp, engine="cuda",
+                     physical=True),
+        on_pass=passes_p.append)
+    t0 = time.time()
+    r.run()
+    phys_main_s = time.time() - t0
+    png_p = os.path.join(work_dir, "cornell_800_physical.png")
+    r.save(png_p)
+    launches_p = list(mk.LAUNCHES_BY_VARIANT)   # ... and read just after
+    phys_img = torch.from_numpy(r.radiance()).to(dev)
+    check(launches_p == [0, len(passes_p), 0] and launches_p[1] > 0,
+          f"launches per instantiation {launches_p} for {len(passes_p)} physical passes")
+    check(tuple(phys_img.shape) == (h, w, 3) and bool(torch.isfinite(phys_img).all())
+          and float(phys_img.min()) >= 0.0, "physical main-path image wrong")
+    log(f"[physical main path] ProgressiveRenderer(physical=True) cornell {w}x{h} {nb} "
+        f"bounces {spp} spp: {len(passes_p)} passes, {launches_p[1]} launches of the "
+        f"physical instantiation, {phys_main_s:.2f} s, "
+        f"{w * h * spp / phys_main_s / 1e6:.1f} M primary rays/s")
+
+    stats_p = {}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    plain_p = mk.render_megakernel_plain(packed, cp, 0, w, h, PHYSICAL_PLAIN_SPP, nb,
+                                         sample_offset=spp, stats=stats_p, physical=True)
+    torch.cuda.synchronize()
+    phys_plain_ms = (time.time() - t0) * 1e3
+    same_p = mk.render_megakernel(packed, cp, 0, w, h, PHYSICAL_PLAIN_SPP, nb,
+                                  sample_offset=spp, physical=True)
+    torch.cuda.synchronize()
+    phys_rate, phys_gap, phys_err = match_stats(same_p, plain_p)
+    _, phys_main_gap, _ = match_stats(phys_img, plain_p)
+    _, est_gap, _ = match_stats(phys_img, main_img)
+    log(f"[physical main path] kernel vs plain at {w}x{h} {PHYSICAL_PLAIN_SPP} spp (same "
+        f"samples): {phys_rate:.4%} of pixels, max abs err {phys_err:.2e}; plain version "
+        f"{phys_plain_ms:.0f} ms; 2000-spp means vs plain means: gap {phys_main_gap:.3%}; "
+        f"vs the default estimator's 2000-spp means: {est_gap:.3%} (another estimator)")
+    check(phys_rate >= 0.995 and phys_gap <= 1e-3,
+          "physical kernel disagrees with plain at full width")
+    check(phys_main_gap <= 0.03, f"physical main-path means {phys_main_gap:.3%} from plain")
+
+    def launch_v(n_spp, **kw):
+        def fn(k):
+            mk.render_block_sums_cuda(packed, cp, 0, w, h, n_spp, nb, 0, w * h,
+                                      sample_offset=(k + 1) * n_spp, **kw)
+        return fn
+
+    time_launches(launch_v(PHYSICAL_PLAIN_SPP, physical=True), 1)
+    phys_ms = time_launches(launch_v(spp, physical=True), 2)
+    phys_ms_plain_shape = time_launches(launch_v(PHYSICAL_PLAIN_SPP, physical=True), 3)
+    phys_flops = flop_count(packed.counts, stats_p, spp / PHYSICAL_PLAIN_SPP, physical=True)
+    phys_bound = bound_of(phys_flops, packed.table_bytes + 12 * w * h)
+    log(f"[physical bench] cornell {w}x{h} {nb} bounces {spp} spp, one launch of the "
+        f"physical instantiation: {phys_ms:.1f} ms = {w * h * spp / phys_ms / 1e3:.1f} M "
+        f"primary rays/s ({phys_ms / ms:.2f}x the default estimator's {ms:.1f} ms); "
+        f"{PHYSICAL_PLAIN_SPP}-spp launch {phys_ms_plain_shape:.2f} ms; "
+        f"{stats_p['path_bounces'] / stats_p['paths']:.3f} bounces and "
+        f"{stats_p['shadow_rays'] / stats_p['paths']:.3f} shadow rays per path "
+        f"({stats_p['shadow_rays_occluded'] / max(stats_p['shadow_rays'], 1):.1%} occluded)")
+    log(f"[bound] physical instantiation: {phys_flops:.3e} float32 operations -> "
+        f"{phys_bound[2]:.2f} ms; bytes -> {phys_bound[3]:.4f} ms; kernel at "
+        f"{phys_bound[0] / phys_ms:.1%} of its bound")
+
+    # ---- 12b. the bidirectional main path at full size, and light tracing alone --------
+    bw, bh, bnb = BIDIR["width"], BIDIR["height"], BIDIR["max_bounces"]
+    bspp, n_paths = BIDIR["spp"], BIDIR["n_paths"]
+    nu_main = n_paths / bspp
+    light_seed = rng.seed_for(0, 1)
+    packed_b = mk.pack_scene(presets.get_scene(BIDIR["scene"]), dev)
+    mk.LAUNCH_COUNT = 0            # every count to 0 just before the path ...
+    mk.LAUNCHES_BY_VARIANT[:] = [0, 0, 0]
+    lk.LAUNCH_COUNT = 0
+    lk.LAUNCHES_BY_VARIANT[:] = [0, 0]
+    lk.SPLAT_CALLS = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    bidir_img = render_bidir_fast(packed_b, cp, bw, bh, bspp, n_paths, 0, max_bounces=bnb)
+    torch.cuda.synchronize()
+    bidir_main_s = time.time() - t0
+    launches_b = (list(mk.LAUNCHES_BY_VARIANT), list(lk.LAUNCHES_BY_VARIANT),
+                  lk.SPLAT_CALLS)   # ... and read just after
+    check(launches_b == ([0, 0, 1], [0, 1], 1),
+          f"bidir main path launched {launches_b}, not one eye-half kernel, one light "
+          "kernel and one index_add_")
+    check(tuple(bidir_img.shape) == (bh, bw, 3) and bool(torch.isfinite(bidir_img).all())
+          and float(bidir_img.min()) >= 0.0, "bidir main-path image wrong")
+    lk.LAUNCHES_BY_VARIANT[:] = [0, 0]
+    lt_img = lk.render_lighttrace_fast(packed_b, cp, light_seed, bw, bh, n_paths,
+                                       max_bounces=bnb)
+    lt_again = lk.render_lighttrace_fast(packed_b, cp, light_seed, bw, bh, n_paths,
+                                         max_bounces=bnb)
+    torch.cuda.synchronize()
+    launches_lt = list(lk.LAUNCHES_BY_VARIANT)
+    check(launches_lt == [2, 0], f"light tracing alone launched {launches_lt}")
+    two_runs_gap = float((lt_img - lt_again).abs().max())
+    check(two_runs_gap <= 1e-5 * float(lt_img.max()),
+          f"two runs of the light image differ by {two_runs_gap:.2e}")
+    from cuda_path_tracer_ss_torch.utils.image import write_png
+    png_b = os.path.join(work_dir, "caustic_512_bidir.png")
+    write_png(png_b, np.clip(bidir_img.cpu().numpy(), 0, 1) ** (1 / 2.2))
+    # the glass sphere is black without an eye-side subpath and lit with one
+    lit_b = float((bidir_img.sum(-1) > 1e-4).float().mean())
+    lit_lt = float((lt_img.sum(-1) > 1e-4).float().mean())
+    log(f"[bidir main path] render_bidir_fast {BIDIR['scene']} {bw}x{bh} {bnb} bounces "
+        f"{bspp} spp + {n_paths} light paths: launches {launches_b[0]} (eye half by "
+        f"instantiation), {launches_b[1]} (light kernel), {launches_b[2]} index_add_; "
+        f"{bidir_main_s:.3f} s; lit pixels {lit_b:.1%} (light tracing alone {lit_lt:.1%}: "
+        f"no glass); two runs of the light image differ by {two_runs_gap:.2e} at most "
+        f"(values up to {float(lt_img.max()):.3g})")
+    check(lit_b > lit_lt, "the bidirectional image lights no more pixels than light tracing")
+
+    # both halves against their plain versions at this size
+    stats_e = {}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    plain_e = mk.render_megakernel_plain(packed_b, cp, 0, bw, bh, BIDIR_PLAIN_SPP, bnb,
+                                         stats=stats_e, physical=True, bidir_nu=nu_main)
+    torch.cuda.synchronize()
+    eye_plain_ms = (time.time() - t0) * 1e3
+    same_e = mk.render_megakernel(packed_b, cp, 0, bw, bh, BIDIR_PLAIN_SPP, bnb,
+                                  physical=True, bidir_nu=nu_main)
+    torch.cuda.synchronize()
+    eye_rate, eye_gap, eye_err = match_stats(same_e, plain_e)
+    check(eye_rate >= 0.995 and eye_gap <= 1e-3,
+          "bidir instantiation disagrees with plain at full width")
+    light = {}
+    for label, nu in (("light", None), ("light_bidir", nu_main)):
+        stats_l = {}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        want = lk.light_records_plain(packed_b, cp, light_seed, bw, bh, n_paths, bnb,
+                                      bidir_nu=nu, stats=stats_l)
+        torch.cuda.synchronize()
+        l_plain_ms = (time.time() - t0) * 1e3
+        got = lk.light_records_cuda(packed_b, cp, light_seed, bw, bh, n_paths, bnb,
+                                    bidir_nu=nu)
+        torch.cuda.synchronize()
+        share, same_pix, err_l, big = record_match(got, want)
+        check(share >= 0.999, f"{label}: only {share:.4%} of records match at full size")
+        del want
+        l_ms = median_ms(lambda: lk.light_records_cuda(packed_b, cp, light_seed, bw, bh,
+                                                       n_paths, bnb, bidir_nu=nu))
+        splat_ms = median_ms(lambda: lk.splat_records(got, bw, bh))
+        record_bytes = 16 * (bnb + 1) * n_paths
+        l_flops = light_flop_count(packed_b.counts, stats_l, bidir=nu is not None)
+        l_bound = bound_of(l_flops, packed_b.table_bytes + record_bytes)
+        light[label] = dict(ms=l_ms, plain_ms=l_plain_ms, splat_ms=splat_ms, share=share,
+                            max_abs_err=err_l, bound=l_bound, stats=stats_l,
+                            record_bytes_ms=record_bytes / PEAK_BYTES_PER_S * 1e3)
+        log(f"[light bench] {BIDIR['scene']} {bw}x{bh} {bnb} bounces {n_paths} paths, "
+            f"nu={nu}: kernel {l_ms:.3f} ms = {n_paths / l_ms / 1e3:.1f} M paths/s (median "
+            f"of 5), index_add_ of its records {splat_ms:.3f} ms, plain version "
+            f"{l_plain_ms:.0f} ms; {share:.4%} of {got[0].numel()} records match plain "
+            f"(same pixel {same_pix:.4%}), max abs err {err_l:.2e} of values up to {big:.3g};"
+            f" {stats_l['path_bounces'] / stats_l['paths']:.3f} bounces, "
+            f"{stats_l['vis_rays'] / stats_l['paths']:.3f} visibility rays "
+            f"({stats_l['vis_rays_occluded'] / max(stats_l['vis_rays'], 1):.1%} occluded) and "
+            f"{stats_l['splats'] / stats_l['paths']:.3f} splats per path")
+        log(f"[bound] light kernel, nu={nu}: {l_flops:.3e} float32 operations -> "
+            f"{l_bound[2]:.3f} ms; tables in and records out ({record_bytes:.3e} B, "
+            f"{light[label]['record_bytes_ms']:.3f} ms of it) -> {l_bound[3]:.3f} ms; "
+            f"kernel at {l_bound[0] / l_ms:.1%} of its bound ({l_bound[1]})")
+        del got
+    eye_ms = median_ms(lambda: mk.render_block_sums_cuda(
+        packed_b, cp, 0, bw, bh, bspp, bnb, 0, bw * bh, physical=True, bidir_nu=nu_main))
+    eye_ms_plain_shape = median_ms(lambda: mk.render_block_sums_cuda(
+        packed_b, cp, 0, bw, bh, BIDIR_PLAIN_SPP, bnb, 0, bw * bh, physical=True,
+        bidir_nu=nu_main))
+    bidir_ms = median_ms(lambda: render_bidir_fast(packed_b, cp, bw, bh, bspp, n_paths, 0,
+                                                   max_bounces=bnb))
+    eye_flops = flop_count(packed_b.counts, stats_e, bspp / BIDIR_PLAIN_SPP, physical=True,
+                           bidir=True)
+    eye_bound = bound_of(eye_flops, packed_b.table_bytes + 12 * bw * bh)
+    log(f"[bidir bench] {BIDIR['scene']} {bw}x{bh} {bnb} bounces: eye half ({bspp} spp, "
+        f"bidir instantiation) {eye_ms:.2f} ms = {bw * bh * bspp / eye_ms / 1e3:.1f} M "
+        f"primary rays/s; light half {light['light_bidir']['ms']:.3f} ms + index_add_ "
+        f"{light['light_bidir']['splat_ms']:.3f} ms; render_bidir_fast {bidir_ms:.2f} ms "
+        f"(medians of 5). Eye half vs plain at {BIDIR_PLAIN_SPP} spp: {eye_rate:.4%} of "
+        f"pixels, max abs err {eye_err:.2e}; plain version {eye_plain_ms:.0f} ms")
+    log(f"[bound] bidir instantiation: {eye_flops:.3e} float32 operations -> "
+        f"{eye_bound[2]:.2f} ms; bytes -> {eye_bound[3]:.4f} ms; kernel at "
+        f"{eye_bound[0] / eye_ms:.1%} of its bound")
+
+    # ---- 13. report ----------------------------------------------------------------
+    k1_common = {
+        "route": "cuda",
+        "source": "cuda_path_tracer_ss_torch/csrc/megakernel.cu",
+        "replaces": "cuda_path_tracer_ss_tpu/ops/pallas/megakernel.py:1666",
+        "library_ms": None,
+    }
+    k3_common = {
+        "route": "cuda",
+        "source": "cuda_path_tracer_ss_torch/csrc/lightkernel.cu",
+        "replaces": "cuda_path_tracer_ss_tpu/ops/pallas/lightkernel.py:48",
+        # no single PyTorch call traces light paths; the index_add_ that sums
+        # the records is outside the kernel and is timed apart (splat_ms)
+        "library_ms": None,
+    }
+    variants = [{
+        **k1_common,
+        "name": "render_megakernel[physical]",
+        "launches": launches_p[1],
+        "max_abs_err": phys_err,
+        "ms": phys_ms,
+        "plain_ms": phys_plain_ms,
+        "bound_ms": phys_bound[0],
+        "bound_by": phys_bound[1],
+        "shape": f"cornell {w}x{h}, {nb} bounces, {spp} spp, one launch",
+        "plain_shape": f"cornell {w}x{h}, {nb} bounces, {PHYSICAL_PLAIN_SPP} spp",
+        "ms_at_plain_shape": phys_ms_plain_shape,
+        "match_rate": phys_rate,
+        "share_of_bound": phys_bound[0] / phys_ms,
+    }, {
+        **k1_common,
+        "name": "render_megakernel[bidir]",
+        "launches": launches_b[0][2],
+        "max_abs_err": eye_err,
+        "ms": eye_ms,
+        "plain_ms": eye_plain_ms,
+        "bound_ms": eye_bound[0],
+        "bound_by": eye_bound[1],
+        "shape": f"{BIDIR['scene']} {bw}x{bh}, {bnb} bounces, {bspp} spp, nu {nu_main:g}, "
+                 "one launch",
+        "plain_shape": f"{BIDIR['scene']} {bw}x{bh}, {bnb} bounces, {BIDIR_PLAIN_SPP} spp",
+        "ms_at_plain_shape": eye_ms_plain_shape,
+        "match_rate": eye_rate,
+        "share_of_bound": eye_bound[0] / eye_ms,
+    }] + [{
+        **k3_common,
+        "name": f"light_records[{'bidir' if label == 'light_bidir' else 'plain weights'}]",
+        "launches": launches_b[1][1] if label == "light_bidir" else launches_lt[0],
+        "max_abs_err": v["max_abs_err"],
+        "ms": v["ms"],
+        "plain_ms": v["plain_ms"],
+        "bound_ms": v["bound"][0],
+        "bound_by": v["bound"][1],
+        "shape": f"{BIDIR['scene']} {bw}x{bh}, {bnb} bounces, {n_paths} paths, one launch",
+        "plain_shape": "the same",
+        "match_rate": v["share"],
+        "splat_ms": v["splat_ms"],
+        "record_bytes_ms": v["record_bytes_ms"],
+        "share_of_bound": v["bound"][0] / v["ms"],
+    } for label, v in light.items()]
     kernels = {"kernels": [{
         "name": "render_megakernel",
         "route": "cuda",
@@ -637,7 +1073,8 @@ def main() -> int:
         "bounces_per_path": bounces_per_path,
         "launches_training_path": {m: t["k1"] for m, t in train.items()},
         "ms_training_shape": ms_k1,
-    }] + [{
+        "share_of_bound": bound_ms / ms,
+    }] + variants + [{
         "name": f"backward_megakernel[{mode}]",
         "route": "cuda",
         "source": "cuda_path_tracer_ss_torch/csrc/megakernel_vjp.cu",
@@ -656,14 +1093,19 @@ def main() -> int:
         "ms_per_training_step": train[mode]["ms_per_step"],
         "scratch_bytes_ms": b["scratch_bytes_ms"],
         "two_runs_rel_diff": determinism[mode],
+        "share_of_bound": b["bound_ms"] / b["ms"],
     } for mode, b in bench.items()]}
     report.update(kernels=kernels["kernels"], main_path_s=main_s, train=train,
+                  physical_main_path_s=phys_main_s, bidir_main_path_s=bidir_main_s,
+                  render_bidir_fast_ms=bidir_ms, light_two_runs_gap=two_runs_gap,
                   main_path_passes=[m["pass_samples"] for m in passes],
                   total_s=time.time() - t_start)
     if args.out_dir:
         os.makedirs(args.out_dir, exist_ok=True)
-        with open(png, "rb") as src, open(os.path.join(args.out_dir, "cornell_800.png"), "wb") as dst:
-            dst.write(src.read())
+        for path in (png, png_p, png_b):
+            with open(path, "rb") as src, \
+                    open(os.path.join(args.out_dir, os.path.basename(path)), "wb") as dst:
+                dst.write(src.read())
         with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as f:
             json.dump(report, f, indent=1)
     out_dir_ctx.cleanup()

@@ -1,14 +1,17 @@
 """cuda_path_tracer_ss_torch — the PyTorch/CUDA port of the path tracer.
 
 The counterpart, for one NVIDIA Hopper GPU, of ``cuda_path_tracer_ss_tpu``:
-same scenes, same counter-based random streams, same estimator, with the
-fused render kernel written by hand in CUDA C++ (``csrc/``) and a plain
-PyTorch version of it beside it. This package imports ``torch`` and
-``numpy`` only. Ported so far: the forward render — presets, scene packing,
-the megakernel in its default variant, the progressive renderer with exact
-resume, the ``render`` / ``benchmark`` commands — and training: the
-replay-VJP kernel under ``render_megakernel_diff`` (grad modes linear and
-full), ``render/inverse.py`` and the ``grad-check`` / ``invert`` commands.
+same scenes, same counter-based random streams, same estimators, with the
+fused kernels written by hand in CUDA C++ (``csrc/``) and a plain PyTorch
+version of each beside it. This package imports ``torch`` and ``numpy``
+only. Ported so far: the forward render — presets, scene packing, the
+megakernel, the progressive renderer with exact resume, the ``render`` /
+``benchmark`` commands; training — the replay-VJP kernel under
+``render_megakernel_diff`` (grad modes linear and full), ``render/inverse.py``
+and the ``grad-check`` / ``invert`` commands; and the unbiased estimators —
+the megakernel's physical (MIS) variant and its bidirectional carries, the
+light-tracing kernel under ``render_lighttrace_fast``, ``render_bidir_fast``
+and the ``lighttrace`` / ``bidir`` commands.
 """
 
 from .constants import (
@@ -29,6 +32,7 @@ from .models.scene import (
     scene_from_numpy,
     scene_to_numpy,
 )
+from .ops.cuda.lightkernel import light_records, render_lighttrace_fast
 from .ops.cuda.megakernel import (
     PackedScene,
     pack_scene,
@@ -40,6 +44,7 @@ from .ops.cuda.megakernel_vjp import (
     render_megakernel_diff,
     render_megakernel_diff_plain,
 )
+from .render.bidir import render_bidir_fast
 from .render.inverse import (
     TRAINABLE_FIELDS,
     check_engine_fields,
@@ -76,10 +81,13 @@ __all__ = [
     "extract_params",
     "get_scene",
     "invert",
+    "light_records",
     "make_loss",
     "merge_params",
     "pack_scene",
+    "render_bidir_fast",
     "render_fast2",
+    "render_lighttrace_fast",
     "render_megakernel",
     "render_megakernel_diff",
     "render_megakernel_diff_plain",

@@ -5,6 +5,8 @@ Replaces the reference's GLUT window + keyboard loop (``CudaTracer.cu:649-786``,
 
   render     progressive render of a scene preset -> PNG/TGA/NPY
   benchmark  primary rays/s of the megakernel on the chosen device
+  lighttrace adjoint render: light paths splatted through the camera
+  bidir      bidirectional render: MIS-weighted eye paths + light paths
   grad-check AD-vs-finite-difference report for chosen scene fields
   invert     inverse-rendering demo: recover perturbed scene fields
 
@@ -44,7 +46,10 @@ def _common(p: argparse.ArgumentParser):
                    help="spatial acceleration; only 'none' (linear sweeps) "
                         "is ported, 'grid' raises")
     p.add_argument("--physical", action="store_true",
-                   help="unbiased estimator mode; not ported yet, raises")
+                   help="unbiased estimator mode: correct-measure light "
+                        "sampling with power-heuristic MIS instead of the "
+                        "reference's NEE ('render', 'benchmark'; the "
+                        "training commands have no gradient for it yet)")
 
 
 def _config(args):
@@ -126,7 +131,8 @@ def cmd_benchmark(args):
         window[0] += 1
         return render(packed, cp, args.seed, args.width, args.height,
                       args.spp, args.bounces,
-                      sample_offset=(window[0] - 1) * args.spp)
+                      sample_offset=(window[0] - 1) * args.spp,
+                      physical=args.physical)
 
     t0 = time.perf_counter()
     run()
@@ -141,11 +147,84 @@ def cmd_benchmark(args):
         "wall_s": round(per_call_s * args.repeats, 4),
         "primary_rays_per_s": round(rays / per_call_s, 1),
         "engine": engine,
+        "physical": bool(args.physical),
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
         "checksum": float(img.sum()),
     }
     print(json.dumps(out))
+
+
+def _light_setup(args):
+    """(packed scene, cam_params, engine) of the two commands that trace
+    light paths. Their engine follows the device: the kernels on a CUDA
+    device, the plain versions on the CPU."""
+    import torch
+
+    from .models.camera import Camera, camera_arrays
+    from .models.presets import get_scene
+    from .ops.cuda.megakernel import pack_scene
+
+    device = torch.device(args.device)
+    engine = _config(args).resolved_engine()
+    if engine != ("cuda" if device.type == "cuda" else "plain"):
+        raise ValueError(f"'{args.cmd}' picks its engine by the device; "
+                         f"--engine {engine} needs --device "
+                         f"{'cuda' if engine == 'cuda' else 'cpu'}")
+    packed = pack_scene(get_scene(args.scene), device)
+    return packed, camera_arrays(Camera()), engine
+
+
+def _write_display(path: str, acc, batches: int):
+    import numpy as np
+
+    from .utils.image import write_png
+
+    arr = np.clip(acc / batches, 0, 1) ** (1 / 2.2)
+    write_png(path, arr.astype(np.float32))
+    print(f"wrote {path}")
+
+
+def cmd_lighttrace(args):
+    import numpy as np
+
+    from .ops.cuda.lightkernel import render_lighttrace_fast
+
+    packed, cp, engine = _light_setup(args)
+    acc = np.zeros((args.height, args.width, 3), np.float64)
+    t0 = time.time()
+    for k in range(args.batches):
+        # one path count for every batch: the kernel takes it at run time
+        img = render_lighttrace_fast(packed, cp, args.seed, args.width,
+                                     args.height, args.paths,
+                                     max_bounces=args.bounces, sample_idx=k)
+        acc += img.cpu().numpy()    # the copy waits for the device
+        print(f"batch {k + 1}/{args.batches}  "
+              f"({(k + 1) * args.paths / (time.time() - t0) / 1e6:.2f} M "
+              f"paths/s, engine {engine})")
+    _write_display(args.out, acc, args.batches)
+
+
+def cmd_bidir(args):
+    import numpy as np
+
+    from .render.bidir import render_bidir_fast
+
+    packed, cp, engine = _light_setup(args)
+    acc = np.zeros((args.height, args.width, 3), np.float64)
+    t0 = time.time()
+    for k in range(args.batches):
+        img = render_bidir_fast(packed, cp, args.width, args.height,
+                                args.spp, args.paths, args.seed,
+                                max_bounces=args.bounces,
+                                sample_offset=k * args.spp,
+                                light_sample_idx=k)
+        acc += img.cpu().numpy()    # the copy waits for the device
+        done = (k + 1) * (args.spp * args.width * args.height + args.paths)
+        print(f"batch {k + 1}/{args.batches}  "
+              f"({done / (time.time() - t0) / 1e6:.2f} M path starts/s, "
+              f"eye samples + light paths, engine {engine})")
+    _write_display(args.out, acc, args.batches)
 
 
 def _training_setup(args):
@@ -260,6 +339,29 @@ def main(argv=None):
     p.add_argument("--directions", type=int, default=3)
     p.add_argument("--tol", type=float, default=0.05)
     p.set_defaults(fn=cmd_grad_check)
+
+    p = sub.add_parser("lighttrace",
+                       help="adjoint render: light paths splatted through "
+                            "the camera (ops/cuda/lightkernel.py)")
+    _common(p)
+    p.add_argument("--paths", type=int, default=200_000,
+                   help="light paths per batch")
+    p.add_argument("--batches", type=int, default=8)
+    p.add_argument("--out", default="lighttrace.png")
+    p.set_defaults(fn=cmd_lighttrace)
+
+    p = sub.add_parser("bidir",
+                       help="bidirectional render: MIS-weighted eye paths + "
+                            "light-traced splats (render/bidir.py) — "
+                            "caustics AND camera-visible specular in one "
+                            "image")
+    _common(p)
+    p.add_argument("--paths", type=int, default=200_000,
+                   help="light paths per batch (eye samples come from "
+                        "--spp)")
+    p.add_argument("--batches", type=int, default=4)
+    p.add_argument("--out", default="bidir.png")
+    p.set_defaults(fn=cmd_bidir)
 
     p = sub.add_parser("invert", help="inverse rendering demo")
     _common(p)

@@ -9,3 +9,10 @@ INV_PI = 0.31830988618           # CudaTracer.h:4 (INVERSE_PI)
 
 DEFAULT_MAX_BOUNCES = 15         # CudaTracer.h:39 (maxIterations)
 DEFAULT_DIM = 512                # CudaUtils.h:7 (DIM)
+
+# Ceiling of every MIS density ratio and chain carry of the bidirectional
+# weights, applied before the ratio is squared or carried on: a density that
+# underflows would otherwise run a ratio to inf, and inf * 0 (a gate, a zero
+# lobe) is NaN. 1e18 squares to 1e36, inside float32; at the ceiling the
+# competing weight is already 0 to ~1e-36.
+MIS_RATIO_CLAMP = 1e18

@@ -3,9 +3,11 @@
 //
 // Replaces the TPU kernel
 // cuda_path_tracer_ss_tpu/ops/pallas/megakernel.py::_make_render_kernel
-// (launched there by _render_block_sums). One thread per pixel over a 1-D
-// grid; the ragged edge is masked by i < n_local. The per-pixel math is in
-// megakernel.cuh. The scene tables are read through read-only global memory
+// (launched there by _render_block_sums) in three of its variants, each an
+// instantiation of one source: the reference-parity estimator (default), the
+// physical (unbiased MIS) estimator, and the physical estimator with the
+// bidirectional carries. One thread per pixel over a 1-D grid; the ragged
+// edge is masked by i < n_local. The per-pixel math is in megakernel.cuh. The scene tables are read through read-only global memory
 // (const float* __restrict__): a 10k-primitive scene runs like a small one,
 // and a small scene's tables stay in L1. Bound on this card: FP32 arithmetic
 // throughput (a launch reads a few KB of tables and writes 12 bytes per pixel).
@@ -24,12 +26,13 @@ namespace {
 // latencies with warps. The launch shape is the kernel's own business.
 constexpr int THREADS_PER_BLOCK = 128;
 
+template <bool PHYSICAL, bool BIDIR>
 __global__ void render_kernel(cpt::SceneTables sc, cpt::RenderParams p,
                               float* __restrict__ out) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= p.n_local) return;
     float r, g, b;
-    cpt::render_pixel(sc, p, p.pixel_offset + i, r, g, b);
+    cpt::render_pixel_t<PHYSICAL, BIDIR>(sc, p, p.pixel_offset + i, r, g, b);
     out[3 * i + 0] = r;
     out[3 * i + 1] = g;
     out[3 * i + 2] = b;
@@ -50,7 +53,9 @@ extern "C" {
 // Radiance sums out[n_local][3] for flat pixels [pixel_offset, pixel_offset +
 // n_local). Table pointers are device pointers (float32, row-major, `num_*`
 // rows; an empty table may point at a dummy row); cam_host points at 16 host
-// floats. Everything but the code itself is a runtime argument.
+// floats (slot 15: the bidirectional count ratio nu). `variant` picks the
+// estimator: 0 reference-parity, 1 physical, 2 physical with the
+// bidirectional carries. Everything but the code itself is a runtime argument.
 int cpt_render_megakernel(const float* spheres, int num_spheres,
                           const float* triangles, int num_triangles,
                           const float* materials, int num_materials,
@@ -58,7 +63,7 @@ int cpt_render_megakernel(const float* spheres, int num_spheres,
                           const float* area_lights, int num_area_lights,
                           const float* background, const float* cam_host,
                           int seed, int pixel_offset, int n_local, int sample_offset,
-                          int spp, int max_bounces, int width, int height,
+                          int spp, int max_bounces, int width, int height, int variant,
                           float* out, void* stream) {
     cpt::SceneTables sc;
     sc.spheres = spheres; sc.num_spheres = num_spheres;
@@ -73,7 +78,16 @@ int cpt_render_megakernel(const float* spheres, int num_spheres,
     p.sample_offset = sample_offset; p.spp = spp; p.max_bounces = max_bounces;
     cpt::set_image_size(p, width, height);
     const int blocks = (n_local + THREADS_PER_BLOCK - 1) / THREADS_PER_BLOCK;
-    render_kernel<<<blocks, THREADS_PER_BLOCK, 0, (cudaStream_t)stream>>>(sc, p, out);
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (variant == 0) {
+        render_kernel<false, false><<<blocks, THREADS_PER_BLOCK, 0, st>>>(sc, p, out);
+    } else if (variant == 1) {
+        render_kernel<true, false><<<blocks, THREADS_PER_BLOCK, 0, st>>>(sc, p, out);
+    } else if (variant == 2) {
+        render_kernel<true, true><<<blocks, THREADS_PER_BLOCK, 0, st>>>(sc, p, out);
+    } else {
+        return (int)cudaErrorInvalidValue;
+    }
     return (int)cudaGetLastError();
 }
 

@@ -1,11 +1,12 @@
-// Device math of the forward-render megakernel: one call of render_pixel()
+// Device math of the forward-render megakernel: one call of render_pixel_t()
 // traces every sample of one pixel (eye ray, bounce loop, next-event
 // estimation, scatter) and returns the pixel's radiance SUM over samples.
 //
 // Replaces the per-lane body of the TPU kernel
-// cuda_path_tracer_ss_tpu/ops/pallas/megakernel.py::_make_render_kernel
-// (default variant: reference-parity estimator, linear sweeps, untextured,
-// float32 state). Scalar float32 code, one path per thread; the plain PyTorch
+// cuda_path_tracer_ss_tpu/ops/pallas/megakernel.py::_make_render_kernel in
+// three variants (reference-parity estimator; physical = unbiased MIS
+// estimator; physical with the bidirectional carries), all with linear
+// sweeps, untextured, float32 state. Scalar float32 code, one path per thread; the plain PyTorch
 // version in ops/cuda/megakernel.py states the same formulas in the same
 // operation order, so with FMA contraction off (-fmad=false) the two agree
 // per pixel up to the math library's ulps.
@@ -46,6 +47,10 @@ constexpr float INV_PI = (float)0.31830988618;
 constexpr float FOUR_PI = (float)(4.0 * 3.141592653589793);
 constexpr float TWO_PI = (float)(2.0 * 3.141592653589793);
 constexpr float INV24 = 1.0f / 16777216.0f;
+// Ceiling of every MIS density ratio and chain carry of the bidirectional
+// weights, applied before squaring or carrying on: keeps inf (and inf * 0 =
+// NaN) out where a density underflows; at the ceiling the weight is 0 anyway.
+constexpr float MIS_RATIO_CLAMP = 1e18f;
 
 // Read-only device (or, in a host build, host) tables; nothing writes them
 // while a render runs.
@@ -399,6 +404,383 @@ CPT_HD bool scatter_sample(float dx, float dy, float dz, float nx, float ny, flo
     return false;
 }
 
+// ---- physical (unbiased MIS) estimator -------------------------------------------
+//
+// Replaces the physical block of the TPU megakernel (_phong_pdf_p ...
+// _physical_direct in cuda_path_tracer_ss_tpu/ops/pallas/megakernel.py):
+// uniform-area light sampling in the correct measure with power-heuristic MIS
+// against the scatter continuation, and, under BIDIR, the three-way weights
+// against the light tracer's camera connections (render/bidir.py). A lobe
+// whose selection probability is 0 contributes an exact 0 and is skipped; a
+// shadow sweep runs only where a lobe term is non-zero.
+
+// (n+1)/(2 pi) cos^n about the unit lobe axis; an infinite exponent is a
+// delta lobe (density 0).
+CPT_HD float phong_pdf_p(float ax, float ay, float az, float exponent,
+                         float wx, float wy, float wz) {
+    const float cos_a = dot3(wx, wy, wz, ax, ay, az);
+    const bool finite = isfinite(exponent);
+    const float e = finite ? exponent : 1.0f;
+    const float safe = fmaxf(cos_a, 1e-12f);
+    const float pdf = (e + 1.0f) / TWO_PI * expf(e * logf(safe));
+    return (finite && cos_a > 0.0f) ? pdf : 0.0f;
+}
+
+// The Beckmann sampler's exact density of microfacet normal m about axis a.
+CPT_HD float beckmann_pdf_p(float ax, float ay, float az, float roughness,
+                            float mx, float my, float mz) {
+    const float cos_t = dot3(mx, my, mz, ax, ay, az);
+    const float r2 = roughness * roughness;
+    const bool valid = (cos_t > 0.0f) && (roughness > 0.0f);
+    const float cos_safe = fmaxf(cos_t, 1e-12f);
+    const float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 1e-12f));
+    const float tan_t = sin_t / cos_safe;
+    const float r2_safe = fmaxf(r2, 1e-12f);
+    const float pdf = expf(-tan_t / r2_safe) * (1.0f + tan_t * tan_t)
+                      / (TWO_PI * r2_safe * sin_t);
+    return valid ? pdf : 0.0f;
+}
+
+// The image of +Y under rotate_y_to(target): the true unit lobe axis even for
+// an unnormalised target.
+CPT_HD void lobe_axis(float tx, float ty, float tz, float& ax, float& ay, float& az) {
+    rotate_y_to(tx, ty, tz, 0.0f, 1.0f, 0.0f, ax, ay, az);
+}
+
+// Fresnel reflectance of the reference's cascade at |cos_i| for the side hit.
+CPT_HD float fresnel_p(float cos_i, float m_ior) {
+    const bool outside = cos_i > 0.0f;
+    const float n1 = outside ? 1.0f : m_ior;
+    const float n2 = outside ? m_ior : 1.0f;
+    const float cos_pos = fabsf(cos_i);
+    const float n_ratio = n1 / fmaxf(n2, 1e-12f);
+    const float sin_t2 = n_ratio * n_ratio * (1.0f - cos_pos * cos_pos);
+    const float cos_t = sqrtf((sin_t2 < 1.0f) ? fmaxf(1.0f - sin_t2, 0.0f) : 1.0f);
+    const float rs = (n1 * cos_pos - n2 * cos_t) / fmaxf(n1 * cos_pos + n2 * cos_t, 1e-12f);
+    const float rp = (n2 * cos_pos - n1 * cos_t) / fmaxf(n2 * cos_pos + n1 * cos_t, 1e-12f);
+    return (sin_t2 > 1.0f) ? 1.0f : (rs * rs + rp * rp) * 0.5f;
+}
+
+// Selection probability of the specular branch. Where the Fresnel term is
+// undefined (inf/inf at an infinite ior on a material not flagged pure) the
+// cascade's comparisons never take the branch: its probability is 0 here too.
+CPT_HD float spec_probability(float cos_i, const float* m) {
+    const float p_spec = m[15] * ((m[18] > 0.5f) ? 1.0f : fresnel_p(cos_i, m[13]));
+    return (p_spec > 0.0f) ? p_spec : 0.0f;
+}
+
+// Per-surfel lobe description shared by the physical NEE and the continuation
+// density. An axis is built only for a lobe that can be selected.
+struct Lobes {
+    float nux, nuy, nuz;   // unit normal (eps 1e-12)
+    float gax, gay, gaz;   // Phong lobe axis: the quirk mirror direction's
+    float cax, cay, caz;   // Cook-Torrance lobe axis: the raw normal's
+    float prob_g, prob_ct, nv;
+};
+
+CPT_HD Lobes physical_lobes(float dx, float dy, float dz, float nx, float ny, float nz,
+                            float cos_i, const float* m) {
+    Lobes lb;
+    normalize3(nx, ny, nz, 1e-12f, lb.nux, lb.nuy, lb.nuz);
+    const bool ct = m[19] > 0.5f;
+    const float p_spec = spec_probability(cos_i, m);
+    const float cos_pos = fabsf(cos_i);
+    lb.prob_g = ct ? 0.0f : p_spec;
+    lb.prob_ct = (ct && m[17] > 0.0f) ? p_spec : 0.0f;
+    lb.gax = lb.gay = lb.gaz = 0.0f;
+    lb.cax = lb.cay = lb.caz = 0.0f;
+    if (lb.prob_g > 0.0f) {
+        lobe_axis(dx + 2.0f * cos_pos * nx, dy + 2.0f * cos_pos * ny, dz + 2.0f * cos_pos * nz,
+                  lb.gax, lb.gay, lb.gaz);
+    }
+    if (lb.prob_ct > 0.0f) lobe_axis(nx, ny, nz, lb.cax, lb.cay, lb.caz);
+    lb.nv = fmaxf(fabsf(cos_i), 1e-6f);
+    return lb;
+}
+
+// f*cos scalars per lobe and their densities toward direction w:
+// contribution = diffuse * s_d + spec * (p_g + s_ct).
+CPT_HD void lobe_terms(const Lobes& lb, const float* m, float dx, float dy, float dz,
+                       float nx, float ny, float nz, float wx, float wy, float wz,
+                       float& s_d, float& p_g, float& s_ct, float& p_ct, float& cos_s) {
+    cos_s = fmaxf(0.0f, dot3(lb.nux, lb.nuy, lb.nuz, wx, wy, wz));
+    s_d = m[14] * INV_PI * cos_s;
+    p_g = 0.0f; s_ct = 0.0f; p_ct = 0.0f;
+    if (lb.prob_g > 0.0f) {
+        p_g = lb.prob_g * phong_pdf_p(lb.gax, lb.gay, lb.gaz, m[12], wx, wy, wz);
+    }
+    if (lb.prob_ct > 0.0f) {
+        float hx, hy, hz;
+        normalize3(wx - dx, wy - dy, wz - dz, 1e-12f, hx, hy, hz);
+        const float dh = fmaxf(fabsf(dot3(dx, dy, dz, hx, hy, hz)), 1e-12f);
+        const float p_dir = beckmann_pdf_p(lb.cax, lb.cay, lb.caz, m[17], hx, hy, hz) / (4.0f * dh);
+        p_ct = lb.prob_ct * p_dir;
+        const float nh = fabsf(dot3(nx, ny, nz, hx, hy, hz));
+        const float nl = fabsf(dot3(nx, ny, nz, wx, wy, wz));
+        const float geom = fminf(fminf(1.0f, 2.0f * nh * nl / dh), 2.0f * nh * lb.nv / dh);
+        s_ct = geom / lb.nv * p_ct;
+    }
+}
+
+// Areas and unit geometric normals of an area light's two triangles.
+struct LightGeom {
+    float area0, area1, total;
+    float n0x, n0y, n0z, n1x, n1y, n1z;
+};
+
+CPT_HD void tri_geom(const float* v, float& area, float& nx, float& ny, float& nz) {
+    const float e1x = v[3] - v[0], e1y = v[4] - v[1], e1z = v[5] - v[2];
+    const float e2x = v[6] - v[0], e2y = v[7] - v[1], e2z = v[8] - v[2];
+    const float rx = e1y * e2z - e1z * e2y;
+    const float ry = e1z * e2x - e1x * e2z;
+    const float rz = e1x * e2y - e1y * e2x;
+    const float n2 = rx * rx + ry * ry + rz * rz;
+    area = 0.5f * sqrtf(fmaxf(n2, 1e-12f));
+    const float inv = CPT_RSQRT(fmaxf(n2, 1e-12f));
+    nx = rx * inv; ny = ry * inv; nz = rz * inv;
+}
+
+CPT_HD LightGeom al_light_geom(const float* al) {
+    LightGeom g;
+    tri_geom(al, g.area0, g.n0x, g.n0y, g.n0z);
+    tri_geom(al + 9, g.area1, g.n1x, g.n1y, g.n1z);
+    g.total = g.area0 + g.area1;
+    return g;
+}
+
+// Uniform-area point on the light (area-proportional triangle pick,
+// sqrt-reparameterised barycentrics) and the picked triangle's unit normal.
+CPT_HD void al_sample_point(const LightGeom& g, const float* al, float u1, float u2, float upick,
+                            float& lx, float& ly, float& lz, float& nlx, float& nly, float& nlz) {
+    const bool first = upick < (g.area0 / g.total);
+    const float su = sqrtf(fminf(fmaxf(u1, 0.0f), 1.0f));
+    const float w0 = 1.0f - su;
+    const float w1 = su * (1.0f - u2);
+    const float w2 = su * u2;
+    const float* v = first ? al : al + 9;
+    lx = v[0] * w0 + v[3] * w1 + v[6] * w2;
+    ly = v[1] * w0 + v[4] * w1 + v[7] * w2;
+    lz = v[2] * w0 + v[5] * w1 + v[8] * w2;
+    nlx = first ? g.n0x : g.n1x;
+    nly = first ? g.n0y : g.n1y;
+    nlz = first ? g.n0z : g.n1z;
+}
+
+// Chain-model solid-angle densities per label of scattering d -> w; a delta
+// lobe reports its branch probability (the pdf-model convention of
+// render/bidir.py, evaluated by the eye side and the light side alike).
+CPT_HD void chain_model_lobes(float dx, float dy, float dz, float nx, float ny, float nz,
+                              float cos_i, float wx, float wy, float wz, const float* m,
+                              float& p_diff, float& p_gloss, float& p_ct, float& p_refr) {
+    const float m_exp = m[12], m_rough = m[17];
+    const bool ct = m[19] > 0.5f;
+    const float p_spec = spec_probability(cos_i, m);
+    const float cos_pos = fabsf(cos_i);
+
+    float nux, nuy, nuz;
+    normalize3(nx, ny, nz, 1e-12f, nux, nuy, nuz);
+    const float cos_w = fmaxf(0.0f, dot3(wx, wy, wz, nux, nuy, nuz));
+    p_diff = m[14] * cos_w * INV_PI;
+
+    p_gloss = 0.0f;
+    if (!ct) {
+        if (isfinite(m_exp)) {
+            float gax, gay, gaz;
+            lobe_axis(dx + 2.0f * cos_pos * nx, dy + 2.0f * cos_pos * ny,
+                      dz + 2.0f * cos_pos * nz, gax, gay, gaz);
+            p_gloss = p_spec * phong_pdf_p(gax, gay, gaz, m_exp, wx, wy, wz);
+        } else {
+            p_gloss = p_spec;
+        }
+    }
+    p_ct = 0.0f;
+    if (ct) {
+        float hx, hy, hz;
+        normalize3(wx - dx, wy - dy, wz - dz, 1e-12f, hx, hy, hz);
+        const float dm = dot3(dx, dy, dz, hx, hy, hz);
+        if ((m_rough > 0.0f) && (dm < 0.0f)) {
+            float cax, cay, caz;
+            lobe_axis(nx, ny, nz, cax, cay, caz);
+            const float p_ct_cont = beckmann_pdf_p(cax, cay, caz, m_rough, hx, hy, hz)
+                                    / (4.0f * fmaxf(fabsf(dm), 1e-12f));
+            p_ct = p_spec * p_ct_cont;
+        } else {
+            p_ct = p_spec;
+        }
+    }
+    p_refr = m[16] * (1.0f - fresnel_p(cos_i, m[13]));
+}
+
+// Chain-model density of the branch that scatter_sample took.
+CPT_HD float chain_model_taken(float dx, float dy, float dz, float nx, float ny, float nz,
+                               float cos_i, float wx, float wy, float wz, const float* m,
+                               int branch) {
+    float p_diff, p_gloss, p_ct, p_refr;
+    chain_model_lobes(dx, dy, dz, nx, ny, nz, cos_i, wx, wy, wz, m, p_diff, p_gloss, p_ct, p_refr);
+    if (branch == BRANCH_DIFFUSE) return p_diff;
+    if (branch == BRANCH_COOK_TORRANCE || branch == BRANCH_GLOSS) {
+        return (m[19] > 0.5f) ? p_ct : p_gloss;
+    }
+    return (branch == BRANCH_REFRACT) ? p_refr : 0.0f;
+}
+
+// Effective solid-angle density of the scatter continuation that was taken:
+// what MIS weighs an emission hit against.
+CPT_HD float physical_prev_pdf(const Lobes& lb, const float* m, float dx, float dy, float dz,
+                               float ndx, float ndy, float ndz, int branch) {
+    if (branch == BRANCH_DIFFUSE) {
+        const float cos_new = fmaxf(0.0f, dot3(ndx, ndy, ndz, lb.nux, lb.nuy, lb.nuz));
+        return m[14] * cos_new * INV_PI;
+    }
+    if (branch == BRANCH_GLOSS) {
+        return lb.prob_g * phong_pdf_p(lb.gax, lb.gay, lb.gaz, m[12], ndx, ndy, ndz);
+    }
+    if (branch == BRANCH_COOK_TORRANCE) {
+        float hx, hy, hz;
+        normalize3(ndx - dx, ndy - dy, ndz - dz, 1e-12f, hx, hy, hz);
+        const float dm = dot3(dx, dy, dz, hx, hy, hz);
+        if (!(dm < 0.0f)) return 0.0f;
+        return lb.prob_ct * beckmann_pdf_p(lb.cax, lb.cay, lb.caz, m[17], hx, hy, hz)
+               / (4.0f * fmaxf(fabsf(dm), 1e-12f));
+    }
+    return 0.0f;
+}
+
+// The eye side's bidirectional carries at a hit: the count ratio nu, the
+// chain ratio T up to this vertex, the previous vertex's outgoing cosine and
+// the squared arrival distance.
+struct BidirIn {
+    float nu, T, pco, t2;
+    bool is_primary;
+};
+
+// Physical-mode direct radiance at a hit: emission times its MIS weight plus
+// per-lobe NEE over point and area lights. Draws of bounce pair base `pair0`:
+// +2+2i (u1, u2), +3+2i (unused, pick). `prim` is the hit primitive
+// (spheres first, then triangles); area-light column 21 is the light's first
+// triangle.
+template <bool BIDIR>
+CPT_HD void physical_direct(const SceneTables& sc, int seed, int pixel, int sample, int pair0,
+                            float px, float py, float pz, float nx, float ny, float nz,
+                            float dx, float dy, float dz, float t_w, float pp,
+                            const Lobes& lb, const float* m, int prim, const BidirIn& bd,
+                            float& dir_r, float& dir_g, float& dir_b) {
+    const float cos_i = -dot3(dx, dy, dz, nx, ny, nz);
+    const bool inside = cos_i <= 0.0f;
+    const int num_als = sc.num_area_lights;
+    const float n_l = num_als ? (float)num_als : 1.0f;
+
+    // emission MIS weight for a BSDF-sampled hit on a light
+    float a_hit = 0.0f, cgx = 0.0f, cgy = 0.0f, cgz = 0.0f;
+    for (int i = 0; i < num_als; ++i) {
+        const float* al = sc.area_lights + i * AL_COLS;
+        const int t0 = (int)al[21] + sc.num_spheres;
+        if (prim == t0 || prim == t0 + 1) {
+            const LightGeom g = al_light_geom(al);
+            a_hit = g.total;
+            cgx = (prim == t0) ? g.n0x : g.n1x;
+            cgy = (prim == t0) ? g.n0y : g.n1y;
+            cgz = (prim == t0) ? g.n0z : g.n1z;
+        }
+    }
+    const float cos_l_hit = fabsf(dot3(dx, dy, dz, cgx, cgy, cgz));
+    const float p_l_hit = (t_w * t_w) / fmaxf(a_hit * cos_l_hit, 1e-12f);
+    float w_emit = 1.0f;
+    if constexpr (!BIDIR) {
+        if ((pp > 0.0f) && (a_hit > 0.0f)) {
+            w_emit = (pp * pp) / fmaxf(pp * pp + p_l_hit * p_l_hit, 1e-20f);
+        }
+    } else {
+        // three-way weight: BSDF hit vs NEE vs the light tracer's camera
+        // connection / emitter splat
+        const float r_nee = fminf((pp > 0.0f) ? p_l_hit / fmaxf(pp, 1e-20f) : 0.0f,
+                                  MIS_RATIO_CLAMP);
+        const float inv_pl_a = 1.0f / fmaxf(n_l * a_hit, 1e-20f);
+        const float l_emit_hit = 0.5f * cos_l_hit * INV_PI * bd.pco / bd.t2;
+        const float rho = fminf(bd.nu * inv_pl_a * (bd.is_primary ? 1.0f : l_emit_hit) * bd.T,
+                                MIS_RATIO_CLAMP);
+        if (a_hit > 0.0f) w_emit = 1.0f / (1.0f + r_nee * r_nee + rho * rho);
+    }
+    dir_r = m[9] * w_emit;
+    dir_g = m[10] * w_emit;
+    dir_b = m[11] * w_emit;
+    if (inside) return;  // NEE only from outside
+
+    const float sox = px + lb.nux * RAY_BUMP_EPSILON;
+    const float soy = py + lb.nuy * RAY_BUMP_EPSILON;
+    const float soz = pz + lb.nuz * RAY_BUMP_EPSILON;
+
+    for (int i = 0; i < sc.num_point_lights; ++i) {
+        const float* pl = sc.point_lights + i * PL_COLS;
+        const float offx = pl[0] - px, offy = pl[1] - py, offz = pl[2] - pz;
+        const float d2 = fmaxf(offx * offx + offy * offy + offz * offz, 1e-12f);
+        const float dist = sqrtf(d2);
+        const float inv_d = 1.0f / dist;
+        const float wx = offx * inv_d, wy = offy * inv_d, wz = offz * inv_d;
+        float s_d, p_g, s_ct, p_ct, cos_s;
+        lobe_terms(lb, m, dx, dy, dz, nx, ny, nz, wx, wy, wz, s_d, p_g, s_ct, p_ct, cos_s);
+        if (s_d == 0.0f && p_g == 0.0f && s_ct == 0.0f) continue;
+        const bool occ = occlusion_sweep(sc, sox, soy, soz, wx, wy, wz,
+                                         dist - 2.0f * RAY_BUMP_EPSILON);
+        const float vis = occ ? 0.0f : 1.0f;
+        const float irr = vis / (FOUR_PI * d2);
+        dir_r += pl[3] * irr * (m[0] * s_d + m[3] * (p_g + s_ct));
+        dir_g += pl[4] * irr * (m[1] * s_d + m[4] * (p_g + s_ct));
+        dir_b += pl[5] * irr * (m[2] * s_d + m[5] * (p_g + s_ct));
+    }
+
+    for (int i = 0; i < num_als; ++i) {
+        const float* al = sc.area_lights + i * AL_COLS;
+        const LightGeom g = al_light_geom(al);
+        float u1, u2, u3, upick;
+        uniform_pair(seed, pixel, sample, pair0 + 2 + 2 * i, u1, u2);
+        uniform_pair(seed, pixel, sample, pair0 + 3 + 2 * i, u3, upick);
+        float lx, ly, lz, nlx, nly, nlz;
+        al_sample_point(g, al, u1, u2, upick, lx, ly, lz, nlx, nly, nlz);
+        const float offx = lx - px, offy = ly - py, offz = lz - pz;
+        const float d2 = fmaxf(offx * offx + offy * offy + offz * offz, 1e-12f);
+        const float dist = sqrtf(d2);
+        const float inv_d = 1.0f / dist;
+        const float wx = offx * inv_d, wy = offy * inv_d, wz = offz * inv_d;
+        float s_d, p_g, s_ct, p_ct, cos_s;
+        lobe_terms(lb, m, dx, dy, dz, nx, ny, nz, wx, wy, wz, s_d, p_g, s_ct, p_ct, cos_s);
+        if (s_d == 0.0f && p_g == 0.0f && s_ct == 0.0f) continue;
+        const float cos_l = fabsf(dot3(nlx, nly, nlz, wx, wy, wz));
+        const bool occ = occlusion_sweep(sc, sox, soy, soz, wx, wy, wz,
+                                         dist - 2.0f * RAY_BUMP_EPSILON);
+        const float geo = occ ? 0.0f : cos_l * g.total / d2;
+        const float p_l = d2 / fmaxf(g.total * cos_l, 1e-12f);
+        const float p_b = m[14] * cos_s * INV_PI;
+        float lt_d = 0.0f, lt_g = 0.0f, lt_ct = 0.0f;  // (nu p_LT / p_NEE * p_l)^2 per label, clamped
+        if constexpr (BIDIR) {
+            const float l_emit = 0.5f * cos_l * INV_PI
+                                 * fabsf(dot3(lb.nux, lb.nuy, lb.nuz, wx, wy, wz)) / d2;
+            const float cos_rev = dot3(wx, wy, wz, nx, ny, nz);
+            float lam_d, lam_g, lam_ct, lam_r;
+            chain_model_lobes(-wx, -wy, -wz, nx, ny, nz, cos_rev, -dx, -dy, -dz, m,
+                              lam_d, lam_g, lam_ct, lam_r);
+            const float geo_prev = bd.pco / fmaxf(bd.t2, 1e-12f);
+            const float base = (bd.nu / n_l) * bd.T * l_emit;
+            const float r_lt_d = base * (bd.is_primary ? 1.0f : lam_d * geo_prev);
+            const float r_lt_g = bd.is_primary ? 0.0f : base * lam_g * geo_prev;
+            const float r_lt_ct = bd.is_primary ? 0.0f : base * lam_ct * geo_prev;
+            const float rl_d = fminf(r_lt_d * p_l, MIS_RATIO_CLAMP);
+            const float rl_g = fminf(r_lt_g * p_l, MIS_RATIO_CLAMP);
+            const float rl_ct = fminf(r_lt_ct * p_l, MIS_RATIO_CLAMP);
+            lt_d = rl_d * rl_d;
+            lt_g = rl_g * rl_g;
+            lt_ct = rl_ct * rl_ct;
+        }
+        const float w_d = (p_l * p_l) / fmaxf(p_l * p_l + p_b * p_b + lt_d, 1e-12f);
+        const float w_g = (p_l * p_l) / fmaxf(p_l * p_l + p_g * p_g + lt_g, 1e-12f);
+        const float w_ct = (p_l * p_l) / fmaxf(p_l * p_l + p_ct * p_ct + lt_ct, 1e-12f);
+        const float* le = sc.materials + (int)al[22] * M_COLS + 9;
+        dir_r += le[0] * (m[0] * s_d * geo * w_d + m[3] * (p_g * geo * w_g + s_ct * geo * w_ct));
+        dir_g += le[1] * (m[1] * s_d * geo * w_d + m[4] * (p_g * geo * w_g + s_ct * geo * w_ct));
+        dir_b += le[2] * (m[2] * s_d * geo * w_d + m[5] * (p_g * geo * w_g + s_ct * geo * w_ct));
+    }
+}
+
 // ---- one pixel, all samples -------------------------------------------------------
 
 // Jittered pinhole eye ray (computeEyeRay, CudaTracer.cu:321-343); pair 0:
@@ -427,14 +809,41 @@ CPT_HD void eye_ray(const RenderParams& p, int pixel, int sample, float pxi, flo
     normalize3(dx0, dy0, dz0, 1e-20f, dx, dy, dz);
 }
 
+// The camera importance dA_img/dOmega = W H / (s^2 aspect cos^3 theta) at
+// the angle theta off the optical axis with |cos theta| = cos_abs.
+CPT_HD float camera_j_img(float tan_half, float aspect, int width, int height, float cos_abs) {
+    const float s_fov = -2.0f * tan_half;
+    const float cos_t = fminf(fmaxf(cos_abs, 1e-4f), 1.0f);
+    return (float)(width * height) / (s_fov * s_fov * aspect * (cos_t * cos_t * cos_t));
+}
+
+// eye_ray plus the camera importance of that ray (the bidirectional carries).
+CPT_HD void eye_ray_j(const RenderParams& p, int pixel, int sample, float pxi, float pyi,
+                      float& dx, float& dy, float& dz, float& j_img) {
+    float sx, sy, sz, dx0, dy0, dz0;
+    eye_ray_raw(p, pixel, sample, pxi, pyi, sx, sy, sz, dx0, dy0, dz0);
+    const float s_len = sqrtf(fmaxf(sx * sx + sy * sy + sz * sz, 1e-20f));
+    j_img = camera_j_img(p.cam[12], p.aspect, p.width, p.height, fabsf(sz) / s_len);
+    normalize3(dx0, dy0, dz0, 1e-20f, dx, dy, dz);
+}
+
 // Radiance SUM over p.spp samples of flat pixel `pixel` (= y*width + x, row 0
 // at the bottom). Every draw is a pure function of (seed, pixel,
 // sample_offset + s, pair); pairs per bounce b start at 1 + b*(2 + 2*La):
 // +0 (branch, dir a), +1 (dir b, unused), +2+2i (u1, u2), +3+2i (u3, pick).
 // A path ends when it dies or is still alive after max_bounces bounces; a
 // capped path keeps its radiance and gets no background term.
-CPT_HD void render_pixel(const SceneTables& sc, const RenderParams& p, int pixel,
-                         float& sum_r, float& sum_g, float& sum_b) {
+//
+// PHYSICAL selects the unbiased MIS estimator (the density of the last
+// scatter is carried to weigh an emission hit); BIDIR adds the carries of the
+// bidirectional weights — chain ratio lt_S, the last scatter's chain-model
+// density pf_model, its outgoing cosine pco and the eye ray's camera
+// importance j_img — with the count ratio nu in cam[15]. The default
+// instantiation is the reference-parity estimator.
+template <bool PHYSICAL, bool BIDIR>
+CPT_HD void render_pixel_t(const SceneTables& sc, const RenderParams& p, int pixel,
+                           float& sum_r, float& sum_g, float& sum_b) {
+    static_assert(PHYSICAL || !BIDIR, "the bidirectional carries run on the physical estimator");
     sum_r = 0.0f; sum_g = 0.0f; sum_b = 0.0f;
     if (pixel < 0 || pixel >= p.width * p.height) return;
     const float pxi = (float)(pixel % p.width);
@@ -446,7 +855,13 @@ CPT_HD void render_pixel(const SceneTables& sc, const RenderParams& p, int pixel
         const int sample = p.sample_offset + s;
         float ox = p.cam[9], oy = p.cam[10], oz = p.cam[11];
         float dx, dy, dz;
-        eye_ray(p, pixel, sample, pxi, pyi, dx, dy, dz);
+        float prev_pdf = 0.0f;                                         // PHYSICAL
+        float lt_S = 0.0f, pf_model = 0.0f, pco = 1.0f, j_img = 0.0f;  // BIDIR
+        if constexpr (BIDIR) {
+            eye_ray_j(p, pixel, sample, pxi, pyi, dx, dy, dz, j_img);
+        } else {
+            eye_ray(p, pixel, sample, pxi, pyi, dx, dy, dz);
+        }
         float r0x = 0.0f, r0y = 0.0f, r0z = 0.0f;  // radiance gathered
         float r1x = 1.0f, r1y = 1.0f, r1z = 1.0f;  // throughput
         int b = 0;
@@ -465,33 +880,61 @@ CPT_HD void render_pixel(const SceneTables& sc, const RenderParams& p, int pixel
             const float cos_i = -dot3(dx, dy, dz, nx, ny, nz);
             const bool inside = cos_i <= 0.0f;
 
-            // emission always; NEE only from outside
-            float dir_r = m[9], dir_g = m[10], dir_b = m[11];
-            if (!inside) {
-                for (int i = 0; i < sc.num_point_lights; ++i) {
-                    const float* pl = sc.point_lights + i * PL_COLS;
-                    light_contribution(sc, px, py, pz, nx, ny, nz, m, pl[0], pl[1], pl[2],
-                                       pl[3], pl[4], pl[5], dir_r, dir_g, dir_b);
+            float dir_r, dir_g, dir_b;
+            Lobes lb;
+            BidirIn bd;
+            float c_a = 0.0f;
+            if constexpr (PHYSICAL) {
+                lb = physical_lobes(dx, dy, dz, nx, ny, nz, cos_i, m);
+                bd.nu = 0.0f; bd.T = 0.0f; bd.pco = 1.0f; bd.t2 = 1.0f; bd.is_primary = (b == 0);
+                if constexpr (BIDIR) {
+                    const float cos_arr = fabsf(dot3(dx, dy, dz, lb.nux, lb.nuy, lb.nuz));
+                    bd.nu = p.cam[15];
+                    bd.pco = pco;
+                    bd.t2 = fmaxf(h.t * h.t, 1e-12f);
+                    c_a = j_img * cos_arr / bd.t2;
+                    const float e_prev = pf_model * cos_arr / bd.t2;
+                    bd.T = fminf(bd.is_primary ? 1.0f / fmaxf(c_a, 1e-20f)
+                                               : lt_S / fmaxf(e_prev, 1e-20f),
+                                 MIS_RATIO_CLAMP);
                 }
-                for (int i = 0; i < sc.num_area_lights; ++i) {
-                    const float* al = sc.area_lights + i * AL_COLS;
-                    float u1, u2, u3, upick;
-                    uniform_pair(p.seed, pixel, sample, pair0 + 2 + 2 * i, u1, u2);
-                    uniform_pair(p.seed, pixel, sample, pair0 + 3 + 2 * i, u3, upick);
-                    const float inv_tot = 1.0f / fmaxf(u1 + u2 + u3, 1e-12f);
-                    const float w0 = u1 * inv_tot, w1 = u2 * inv_tot, w2 = u3 * inv_tot;
-                    const float* a = (upick > 0.5f) ? al : al + 9;
-                    const float lx = a[0] * w0 + a[3] * w1 + a[6] * w2;
-                    const float ly = a[1] * w0 + a[4] * w1 + a[7] * w2;
-                    const float lz = a[2] * w0 + a[5] * w1 + a[8] * w2;
-                    light_contribution(sc, px, py, pz, nx, ny, nz, m, lx, ly, lz,
-                                       al[18], al[19], al[20], dir_r, dir_g, dir_b);
+                physical_direct<BIDIR>(sc, p.seed, pixel, sample, pair0, px, py, pz, nx, ny, nz,
+                                       dx, dy, dz, h.t, prev_pdf, lb, m, h.prim, bd,
+                                       dir_r, dir_g, dir_b);
+                if (inside) {
+                    r1x = r1x * expf(-h.t * m[6]);
+                    r1y = r1y * expf(-h.t * m[7]);
+                    r1z = r1z * expf(-h.t * m[8]);
                 }
             } else {
-                // Beer-Lambert absorption along the segment inside the medium
-                r1x = r1x * expf(-h.t * m[6]);
-                r1y = r1y * expf(-h.t * m[7]);
-                r1z = r1z * expf(-h.t * m[8]);
+                // emission always; NEE only from outside
+                dir_r = m[9]; dir_g = m[10]; dir_b = m[11];
+                if (!inside) {
+                    for (int i = 0; i < sc.num_point_lights; ++i) {
+                        const float* pl = sc.point_lights + i * PL_COLS;
+                        light_contribution(sc, px, py, pz, nx, ny, nz, m, pl[0], pl[1], pl[2],
+                                           pl[3], pl[4], pl[5], dir_r, dir_g, dir_b);
+                    }
+                    for (int i = 0; i < sc.num_area_lights; ++i) {
+                        const float* al = sc.area_lights + i * AL_COLS;
+                        float u1, u2, u3, upick;
+                        uniform_pair(p.seed, pixel, sample, pair0 + 2 + 2 * i, u1, u2);
+                        uniform_pair(p.seed, pixel, sample, pair0 + 3 + 2 * i, u3, upick);
+                        const float inv_tot = 1.0f / fmaxf(u1 + u2 + u3, 1e-12f);
+                        const float w0 = u1 * inv_tot, w1 = u2 * inv_tot, w2 = u3 * inv_tot;
+                        const float* a = (upick > 0.5f) ? al : al + 9;
+                        const float lx = a[0] * w0 + a[3] * w1 + a[6] * w2;
+                        const float ly = a[1] * w0 + a[4] * w1 + a[7] * w2;
+                        const float lz = a[2] * w0 + a[5] * w1 + a[8] * w2;
+                        light_contribution(sc, px, py, pz, nx, ny, nz, m, lx, ly, lz,
+                                           al[18], al[19], al[20], dir_r, dir_g, dir_b);
+                    }
+                } else {
+                    // Beer-Lambert absorption along the segment inside the medium
+                    r1x = r1x * expf(-h.t * m[6]);
+                    r1y = r1y * expf(-h.t * m[7]);
+                    r1z = r1z * expf(-h.t * m[8]);
+                }
             }
             r0x = r0x + r1x * dir_r;
             r0y = r0y + r1y * dir_g;
@@ -508,6 +951,27 @@ CPT_HD void render_pixel(const SceneTables& sc, const RenderParams& p, int pixel
                                               branch, ct_w);
             ++b;
             if (!alive || b >= p.max_bounces) break;
+            if constexpr (PHYSICAL) {
+                // a path that goes on carries the density of the continuation it took
+                prev_pdf = inside ? 0.0f
+                                  : physical_prev_pdf(lb, m, dx, dy, dz, ndx, ndy, ndz, branch);
+            }
+            if constexpr (BIDIR) {
+                // chain-model densities of the taken branch, both directions
+                const float pdf_fwd_m = chain_model_taken(dx, dy, dz, nx, ny, nz, cos_i,
+                                                          ndx, ndy, ndz, m, branch);
+                const float cos_rev = dot3(ndx, ndy, ndz, nx, ny, nz);
+                const float pdf_rev_m = chain_model_taken(-ndx, -ndy, -ndz, nx, ny, nz, cos_rev,
+                                                          -dx, -dy, -dz, m, branch);
+                const float lam_full = pdf_rev_m * pco / bd.t2;
+                lt_S = fminf(bd.is_primary
+                                 ? (((branch == BRANCH_DIFFUSE) && (cos_i > 0.0f)) ? 1.0f : 0.0f)
+                                       / fmaxf(c_a, 1e-20f)
+                                 : bd.T * lam_full,
+                             MIS_RATIO_CLAMP);
+                pf_model = pdf_fwd_m;
+                pco = fabsf(dot3(ndx, ndy, ndz, lb.nux, lb.nuy, lb.nuz));
+            }
             ox = nox; oy = noy; oz = noz;
             dx = ndx; dy = ndy; dz = ndz;
             r1x = r1x * wr; r1y = r1y * wg; r1z = r1z * wb;
@@ -519,6 +983,12 @@ CPT_HD void render_pixel(const SceneTables& sc, const RenderParams& p, int pixel
         }
         sum_r += r0x; sum_g += r0y; sum_b += r0z;
     }
+}
+
+// The reference-parity estimator (the default variant).
+CPT_HD void render_pixel(const SceneTables& sc, const RenderParams& p, int pixel,
+                         float& sum_r, float& sum_g, float& sum_b) {
+    render_pixel_t<false, false>(sc, p, pixel, sum_r, sum_g, sum_b);
 }
 
 }  // namespace cpt

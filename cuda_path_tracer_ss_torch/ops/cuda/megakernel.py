@@ -4,8 +4,12 @@ in ONE kernel launch — wrapper, scene packing, and the plain PyTorch version.
 The CUDA kernel (``csrc/megakernel.cu``, device math in
 ``csrc/megakernel.cuh``) replaces the TPU kernel
 ``cuda_path_tracer_ss_tpu/ops/pallas/megakernel.py::_make_render_kernel`` in
-its default variant (reference-parity estimator, linear sweeps, untextured,
-float32 state).
+three variants, each an instantiation of the one kernel source: the default
+(reference-parity estimator), ``physical=True`` (the unbiased estimator:
+uniform-area light sampling with power-heuristic MIS) and ``physical=True,
+bidir_nu=nu`` (the same with the carries of the bidirectional weights, the
+eye half of ``render/bidir.py``). All take linear sweeps, untextured scenes
+and float32 state.
 
 What bounds it on an H100: FP32 arithmetic throughput. A launch reads a few
 KB of scene tables and writes ``12 * width * height`` bytes (7.7 MB at
@@ -39,7 +43,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ...constants import INV_PI, RAY_BUMP_EPSILON
+from ...constants import INV_PI, MIS_RATIO_CLAMP, RAY_BUMP_EPSILON
 from ...utils import rng
 
 # table row widths
@@ -53,6 +57,8 @@ CAM_FLOATS = 16
 # Launches of the CUDA kernel made by this module's wrapper (and nowhere
 # else): a run can show that it went through the kernel.
 LAUNCH_COUNT = 0
+# ... and the same count per instantiation: [default, physical, bidir]
+LAUNCHES_BY_VARIANT = [0, 0, 0]
 
 _TWO_PI = 2.0 * math.pi
 
@@ -75,7 +81,8 @@ class PackedScene:
     materials [M,20] = diff spec absorb emit specExp ior diffAvg specAvg
     refrAvg rough pureRefl ct; point_lights [Lp,6] = pos power;
     area_lights [La,23] = two triangles' vertices + power + owning-triangle
-    index + light material index; background [3].
+    index + light material index; background [3]. ``tex_counts`` =
+    (textures, texels) is (0, 0): a textured scene does not pack yet.
     """
 
     spheres: torch.Tensor
@@ -85,6 +92,7 @@ class PackedScene:
     area_lights: torch.Tensor
     background: torch.Tensor
     counts: Tuple[int, int, int, int, int]
+    tex_counts: Tuple[int, int] = (0, 0)
 
     @property
     def device(self) -> torch.device:
@@ -157,13 +165,28 @@ def _cam_tensor(cam_params, device) -> torch.Tensor:
                       for v in cam_params])
 
 
-def _cam_table(cam_params, sample_clamp: float) -> np.ndarray:
-    """The kernel's 16-float host camera table: the 14 values of
-    ``_cam_tensor``, the per-sample clamp (<= 0 disables), one spare."""
+def _cam_table(cam_params, sample_clamp: float,
+               bidir_nu: Optional[float] = None) -> np.ndarray:
+    """The kernels' 16-float host camera table: the 14 values of
+    ``_cam_tensor``, the per-sample clamp (<= 0 disables), and the
+    bidirectional count ratio nu (0 when off)."""
     cam = np.zeros(CAM_FLOATS, np.float32)
     cam[0:14] = _cam_tensor(cam_params, "cpu").detach().numpy()
     cam[14] = np.float32(sample_clamp)
+    cam[15] = np.float32(0.0 if bidir_nu is None else bidir_nu)
     return cam
+
+
+def _check_variant(physical: bool, bidir_nu: Optional[float]) -> int:
+    """The kernel instantiation of an estimator choice: 0 reference-parity,
+    1 physical, 2 physical with the bidirectional carries."""
+    if bidir_nu is None:
+        return 1 if physical else 0
+    if not physical:
+        raise ValueError("bidir mode runs on the physical estimator")
+    if not float(bidir_nu) > 0.0:
+        raise ValueError(f"bidir_nu must be positive, got {bidir_nu!r}")
+    return 2
 
 
 # ---------------------------------------------------------------------------
@@ -369,11 +392,392 @@ def _scatter_sample(dx, dy, dz, nx, ny, nz, px, py, pz, cos_i,
             alive, take_diff, take_spec, take_refr, tir, ct, ct_w)
 
 
-def _make_sweep_fns(packed: PackedScene):
+# ---------------------------------------------------------------------------
+# Physical (unbiased MIS) estimator math: uniform-area light sampling in the
+# correct measure with power-heuristic MIS against the scatter continuation,
+# and, with ``bd``, the three-way weights against the light tracer's camera
+# connections (render/bidir.py). Function for function the JAX package's
+# ``_phong_pdf_p`` ... ``_physical_direct``; csrc/megakernel.cuh states the
+# same formulas in the same operation order. Forward values only: nothing
+# here is differentiated.
+# ---------------------------------------------------------------------------
+
+def _phong_pdf_p(ax, ay, az, exponent, wx, wy, wz):
+    """(n+1)/(2 pi) cos^n about the unit lobe axis; an infinite exponent is
+    a delta lobe (density 0)."""
+    cos_a = _dot(wx, wy, wz, ax, ay, az)
+    finite = torch.isfinite(exponent)
+    e = torch.where(finite, exponent, 1.0)
+    safe = torch.clamp_min(cos_a, 1e-12)
+    pdf = (e + 1.0) / _TWO_PI * torch.exp(e * torch.log(safe))
+    return torch.where(finite & (cos_a > 0.0), pdf, 0.0)
+
+
+def _beckmann_pdf_p(ax, ay, az, roughness, mx, my, mz):
+    """The Beckmann sampler's exact density of microfacet normal m about
+    axis a (not the textbook NDF)."""
+    cos_t = _dot(mx, my, mz, ax, ay, az)
+    r2 = roughness * roughness
+    valid = (cos_t > 0.0) & (roughness > 0.0)
+    cos_safe = torch.clamp_min(cos_t, 1e-12)
+    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 1e-12))
+    tan_t = sin_t / cos_safe
+    r2_safe = torch.clamp_min(r2, 1e-12)
+    pdf = (torch.exp(-tan_t / r2_safe) * (1.0 + tan_t * tan_t)
+           / (_TWO_PI * r2_safe * sin_t))
+    return torch.where(valid, pdf, 0.0)
+
+
+def _lobe_axis(tx, ty, tz):
+    """The image of +Y under rotate_y_to(target): the true unit lobe axis
+    even for an unnormalised target."""
+    zero = torch.zeros_like(tx)
+    return _rotate_y_to(tx, ty, tz, zero, torch.ones_like(tx), zero)
+
+
+def _fresnel_p(cos_i, m_ior):
+    """Fresnel reflectance of the reference's cascade at |cos_i| for the
+    side that was hit."""
+    outside = cos_i > 0.0
+    n1 = torch.where(outside, 1.0, m_ior)
+    n2 = torch.where(outside, m_ior, 1.0)
+    cos_pos = torch.abs(cos_i)
+    n_ratio = n1 / torch.clamp_min(n2, 1e-12)
+    sin_t2 = n_ratio * n_ratio * (1.0 - cos_pos * cos_pos)
+    cos_t = torch.sqrt(torch.where(sin_t2 < 1.0,
+                                   torch.clamp_min(1.0 - sin_t2, 0.0), 1.0))
+    rs = ((n1 * cos_pos - n2 * cos_t)
+          / torch.clamp_min(n1 * cos_pos + n2 * cos_t, 1e-12))
+    rp = ((n2 * cos_pos - n1 * cos_t)
+          / torch.clamp_min(n2 * cos_pos + n1 * cos_t, 1e-12))
+    return torch.where(sin_t2 > 1.0, 1.0, (rs * rs + rp * rp) * 0.5)
+
+
+def _spec_probability(cos_i, m_ps, m_ior, m_pure):
+    """Selection probability of the specular branch. Where the Fresnel term
+    is undefined (inf/inf at an infinite ior on a material not flagged pure)
+    the cascade's comparisons never take the branch: its probability is 0
+    here too."""
+    p_spec = m_ps * torch.where(m_pure > 0.5, 1.0, _fresnel_p(cos_i, m_ior))
+    return torch.where(p_spec > 0.0, p_spec, 0.0)
+
+
+def _physical_lobes(dx, dy, dz, nx, ny, nz, cos_i, m):
+    """Per-surfel lobe description the physical NEE and the continuation
+    density share; a dict of per-lane tensors."""
+    (m_dr, m_dg, m_db, m_sr, m_sg, m_sb, _a, _b, _c, _d, _e, _f,
+     m_exp, m_ior, m_pd, m_ps, _m_prf, m_rough, m_pure, m_ct) = m
+    nux, nuy, nuz = _normalize3(nx, ny, nz, 1e-12)
+    cos_pos = torch.abs(cos_i)
+    ct = m_ct > 0.5
+    p_spec = _spec_probability(cos_i, m_ps, m_ior, m_pure)
+    # Phong glossy lobe about the quirk mirror direction (raw normal)
+    mrx = dx + 2.0 * cos_pos * nx
+    mry = dy + 2.0 * cos_pos * ny
+    mrz = dz + 2.0 * cos_pos * nz
+    gax, gay, gaz = _lobe_axis(mrx, mry, mrz)
+    prob_g = torch.where(ct, 0.0, p_spec)
+    # Cook-Torrance / Beckmann lobe about the raw surfel normal
+    cax, cay, caz = _lobe_axis(nx, ny, nz)
+    prob_ct = torch.where(ct & (m_rough > 0.0), p_spec, 0.0)
+    nv = torch.clamp_min(torch.abs(cos_i), 1e-6)
+    return dict(n_unit=(nux, nuy, nuz), gloss_axis=(gax, gay, gaz),
+                prob_g=prob_g, ct_axis=(cax, cay, caz), prob_ct=prob_ct,
+                nv=nv, spec=(m_sr, m_sg, m_sb), diffuse=(m_dr, m_dg, m_db),
+                diff_avg=m_pd, exponent=m_exp, roughness=m_rough)
+
+
+def _lobe_terms(lb, dx, dy, dz, nx, ny, nz, wx, wy, wz):
+    """(s_d, p_g, s_ct, p_ct, cos_s) toward direction w: f*cos scalars per
+    lobe and their densities; contribution = diffuse * s_d + spec *
+    (p_g + s_ct)."""
+    nux, nuy, nuz = lb["n_unit"]
+    cos_s = torch.clamp_min(_dot(nux, nuy, nuz, wx, wy, wz), 0.0)
+    s_d = lb["diff_avg"] * INV_PI * cos_s
+    gax, gay, gaz = lb["gloss_axis"]
+    p_g = lb["prob_g"] * _phong_pdf_p(gax, gay, gaz, lb["exponent"],
+                                      wx, wy, wz)
+    # Cook-Torrance reflection branch: h = normalize(w - d)
+    hx, hy, hz = _normalize3(wx - dx, wy - dy, wz - dz, 1e-12)
+    dh = torch.clamp_min(torch.abs(_dot(dx, dy, dz, hx, hy, hz)), 1e-12)
+    cax, cay, caz = lb["ct_axis"]
+    p_dir = _beckmann_pdf_p(cax, cay, caz, lb["roughness"],
+                            hx, hy, hz) / (4.0 * dh)
+    p_ct = lb["prob_ct"] * p_dir
+    nh = torch.abs(_dot(nx, ny, nz, hx, hy, hz))
+    nl = torch.abs(_dot(nx, ny, nz, wx, wy, wz))
+    geom = torch.minimum(torch.clamp_max(2.0 * nh * nl / dh, 1.0),
+                         2.0 * nh * lb["nv"] / dh)
+    s_ct = geom / lb["nv"] * p_ct
+    return s_d, p_g, s_ct, p_ct, cos_s
+
+
+def _al_light_geom(al_vals):
+    """Per-light geometry from one area-light row (23 values): triangle
+    areas, unit geometric normals, total area."""
+    a = al_vals
+
+    def tri_geom(v0, v1, v2):
+        e1 = (v1[0] - v0[0], v1[1] - v0[1], v1[2] - v0[2])
+        e2 = (v2[0] - v0[0], v2[1] - v0[1], v2[2] - v0[2])
+        rx = e1[1] * e2[2] - e1[2] * e2[1]
+        ry = e1[2] * e2[0] - e1[0] * e2[2]
+        rz = e1[0] * e2[1] - e1[1] * e2[0]
+        n2 = rx * rx + ry * ry + rz * rz
+        area = 0.5 * torch.sqrt(torch.clamp_min(n2, 1e-12))
+        inv = torch.rsqrt(torch.clamp_min(n2, 1e-12))
+        return area, (rx * inv, ry * inv, rz * inv)
+
+    v = [(a[3 * k], a[3 * k + 1], a[3 * k + 2]) for k in range(6)]
+    area0, n0 = tri_geom(v[0], v[1], v[2])
+    area1, n1 = tri_geom(v[3], v[4], v[5])
+    return dict(v=v, area0=area0, area1=area1, total=area0 + area1,
+                n0=n0, n1=n1)
+
+
+def _al_sample_point(geom, u1, u2, upick):
+    """Uniform-area point on the light (area-proportional triangle pick,
+    sqrt-reparameterised barycentrics): (point, unit geometric normal of
+    the picked triangle), per lane."""
+    first = upick < (geom["area0"] / geom["total"])
+    su = torch.sqrt(torch.clamp(u1, 0.0, 1.0))
+    w0 = 1.0 - su
+    w1 = su * (1.0 - u2)
+    w2 = su * u2
+    v = geom["v"]
+    point = tuple(
+        torch.where(first, v[0][c] * w0 + v[1][c] * w1 + v[2][c] * w2,
+                    v[3][c] * w0 + v[4][c] * w1 + v[5][c] * w2)
+        for c in range(3))
+    n0, n1 = geom["n0"], geom["n1"]
+    normal = tuple(torch.where(first, n0[c] + torch.zeros_like(point[0]), n1[c])
+                   for c in range(3))
+    return point, normal
+
+
+def _chain_model_lobes(dx, dy, dz, nx, ny, nz, cos_i, wx, wy, wz, mf):
+    """Chain-model solid-angle densities per label (p_diff, p_gloss, p_ct,
+    p_refr) of scattering d -> w; a delta lobe reports its branch
+    probability — the pdf-model convention of render/bidir.py. The eye side
+    and the light side evaluate this one function at the same (in, out)
+    pairs, so their MIS weights sum to 1."""
+    (_dr, _dg, _db, _sr, _sg, _sb, _aa, _ab, _ac, _e0, _e1, _e2,
+     m_exp, m_ior, m_pd, m_ps, m_prf, m_rough, m_pure, m_ct) = mf
+    cos_pos = torch.abs(cos_i)
+    ct = m_ct > 0.5
+    p_spec = _spec_probability(cos_i, m_ps, m_ior, m_pure)
+
+    nux, nuy, nuz = _normalize3(nx, ny, nz, 1e-12)
+    cos_w = torch.clamp_min(_dot(wx, wy, wz, nux, nuy, nuz), 0.0)
+    p_diff = m_pd * cos_w * INV_PI
+
+    mrx = dx + 2.0 * cos_pos * nx
+    mry = dy + 2.0 * cos_pos * ny
+    mrz = dz + 2.0 * cos_pos * nz
+    gax, gay, gaz = _lobe_axis(mrx, mry, mrz)
+    fin = torch.isfinite(m_exp)
+    p_gloss_cont = _phong_pdf_p(gax, gay, gaz, m_exp, wx, wy, wz)
+    p_gloss = torch.where(ct, 0.0,
+                          torch.where(fin, p_spec * p_gloss_cont, p_spec))
+    hx, hy, hz = _normalize3(wx - dx, wy - dy, wz - dz, 1e-12)
+    dm = _dot(dx, dy, dz, hx, hy, hz)
+    cax, cay, caz = _lobe_axis(nx, ny, nz)
+    p_ct_cont = (_beckmann_pdf_p(cax, cay, caz, m_rough, hx, hy, hz)
+                 / (4.0 * torch.clamp_min(torch.abs(dm), 1e-12)))
+    p_ct = torch.where(ct, torch.where((m_rough > 0.0) & (dm < 0.0),
+                                       p_spec * p_ct_cont, p_spec), 0.0)
+    p_refr = m_prf * (1.0 - _fresnel_p(cos_i, m_ior))
+    return p_diff, p_gloss, p_ct, p_refr
+
+
+def _chain_model_taken(dx, dy, dz, nx, ny, nz, cos_i, wx, wy, wz, mf,
+                       take_diff, take_spec, take_refr, ct_m):
+    """Chain-model density of the branch that was taken."""
+    p_diff, p_gloss, p_ct, p_refr = _chain_model_lobes(
+        dx, dy, dz, nx, ny, nz, cos_i, wx, wy, wz, mf)
+    p_sp = torch.where(ct_m, p_ct, p_gloss)
+    return torch.where(take_diff, p_diff,
+                       torch.where(take_spec, p_sp,
+                                   torch.where(take_refr, p_refr, 0.0)))
+
+
+def _physical_prev_pdf(lb, dx, dy, dz, ndx, ndy, ndz,
+                       take_diff, gloss_br, ct_br):
+    """Effective solid-angle density of the scatter continuation: what MIS
+    weighs an emission hit against."""
+    nux, nuy, nuz = lb["n_unit"]
+    cos_new = torch.clamp_min(_dot(ndx, ndy, ndz, nux, nuy, nuz), 0.0)
+    pdf_diff = lb["diff_avg"] * cos_new * INV_PI
+    gax, gay, gaz = lb["gloss_axis"]
+    pdf_gloss = lb["prob_g"] * _phong_pdf_p(gax, gay, gaz, lb["exponent"],
+                                            ndx, ndy, ndz)
+    hx, hy, hz = _normalize3(ndx - dx, ndy - dy, ndz - dz, 1e-12)
+    dm = _dot(dx, dy, dz, hx, hy, hz)
+    cax, cay, caz = lb["ct_axis"]
+    pdf_ct = torch.where(
+        dm < 0.0,
+        lb["prob_ct"] * _beckmann_pdf_p(cax, cay, caz, lb["roughness"],
+                                        hx, hy, hz)
+        / (4.0 * torch.clamp_min(torch.abs(dm), 1e-12)),
+        0.0)
+    return torch.where(take_diff, pdf_diff,
+                       torch.where(gloss_br, pdf_gloss,
+                                   torch.where(ct_br, pdf_ct, 0.0)))
+
+
+def _light_direction(lx, ly, lz, px, py, pz):
+    """Unit direction from p to the light point, with the clamped squared
+    distance and the distance."""
+    offx, offy, offz = lx - px, ly - py, lz - pz
+    d2 = torch.clamp_min(offx * offx + offy * offy + offz * offz, 1e-12)
+    dist = torch.sqrt(d2)
+    inv_d = 1.0 / dist
+    return offx * inv_d, offy * inv_d, offz * inv_d, d2, dist
+
+
+def _physical_direct(num_spheres, num_pls, num_als,
+                     px, py, pz, nx, ny, nz, dx, dy, dz, t_w, pp,
+                     lb, mf, pl_planes, le_planes, geoms, al_draws,
+                     occ_pl, occ_al, prim_f, al_t0f, bd=None):
+    """Physical-mode direct radiance at the hit — emission times its MIS
+    weight plus per-lobe NEE over point and area lights — as elementwise
+    math; the occlusion booleans and the area-light draws come in.
+
+    ``t_w`` is the hit distance (1.0 on a miss), ``pp`` the carried density
+    of the last scatter, ``lb`` the ``_physical_lobes`` of (d, n, mf),
+    ``pl_planes`` 6 values per point light, ``le_planes`` 3 emission values
+    per area light, ``geoms`` the ``_al_light_geom`` dicts, ``al_draws``
+    (u1, u2, upick) per light, ``al_t0f`` each light's first-triangle index,
+    ``bd`` the bidirectional carries (nu, T, pco, t2, is_primary) or None.
+    Returns (dir_r, dir_g, dir_b), not masked by hit or activity."""
+    zero = torch.zeros_like(px)
+    cos_i = -_dot(dx, dy, dz, nx, ny, nz)
+    inside = cos_i <= 0.0
+    n_l = float(len(geoms)) if geoms else 1.0
+
+    # emission MIS weight for a BSDF-sampled hit on a light
+    a_hit = zero
+    cgx = cgy = cgz = zero
+    for i in range(num_als):
+        g = geoms[i]
+        t0f = al_t0f[i] + float(num_spheres)
+        is0 = prim_f == t0f
+        is1 = prim_f == t0f + 1.0
+        a_hit = torch.where(is0 | is1, g["total"], a_hit)
+        cgx = torch.where(is0, g["n0"][0], torch.where(is1, g["n1"][0], cgx))
+        cgy = torch.where(is0, g["n0"][1], torch.where(is1, g["n1"][1], cgy))
+        cgz = torch.where(is0, g["n0"][2], torch.where(is1, g["n1"][2], cgz))
+    cos_l_hit = torch.abs(_dot(dx, dy, dz, cgx, cgy, cgz))
+    p_l_hit = (t_w * t_w) / torch.clamp_min(a_hit * cos_l_hit, 1e-12)
+    if bd is None:
+        w_emit = torch.where(
+            (pp > 0.0) & (a_hit > 0.0),
+            (pp * pp) / torch.clamp_min(pp * pp + p_l_hit * p_l_hit, 1e-20),
+            1.0)
+    else:
+        # three-way weight: BSDF hit vs NEE vs the light tracer's camera
+        # connection / emitter splat
+        r_nee = torch.where(pp > 0.0,
+                            p_l_hit / torch.clamp_min(pp, 1e-20), 0.0)
+        inv_pl_a = 1.0 / torch.clamp_min(n_l * a_hit, 1e-20)
+        l_emit_hit = 0.5 * cos_l_hit * INV_PI * bd["pco"] / bd["t2"]
+        rho = (bd["nu"] * inv_pl_a
+               * torch.where(bd["is_primary"], 1.0, l_emit_hit) * bd["T"])
+        # every ratio is clamped before it is squared (MIS_RATIO_CLAMP)
+        r_nee = torch.clamp_max(r_nee, MIS_RATIO_CLAMP)
+        rho = torch.clamp_max(rho, MIS_RATIO_CLAMP)
+        w_emit = torch.where(a_hit > 0.0,
+                             1.0 / (1.0 + r_nee * r_nee + rho * rho), 1.0)
+
+    dir_r = mf[9] * w_emit
+    dir_g = mf[10] * w_emit
+    dir_b = mf[11] * w_emit
+    m_dr_, m_dg_, m_db_ = lb["diffuse"]
+    m_sr_, m_sg_, m_sb_ = lb["spec"]
+
+    for i in range(num_pls):
+        wx, wy, wz, d2, _dist = _light_direction(
+            pl_planes[6 * i + 0], pl_planes[6 * i + 1], pl_planes[6 * i + 2],
+            px, py, pz)
+        s_d, p_g, s_ct, _p_ct, _cs = _lobe_terms(lb, dx, dy, dz, nx, ny, nz,
+                                                 wx, wy, wz)
+        vis = torch.where(occ_pl[i], 0.0, 1.0)
+        irr = vis / (4.0 * math.pi * d2)
+        cr = pl_planes[6 * i + 3] * irr * (m_dr_ * s_d + m_sr_ * (p_g + s_ct))
+        cg = pl_planes[6 * i + 4] * irr * (m_dg_ * s_d + m_sg_ * (p_g + s_ct))
+        cb = pl_planes[6 * i + 5] * irr * (m_db_ * s_d + m_sb_ * (p_g + s_ct))
+        dir_r = dir_r + torch.where(inside, 0.0, cr)
+        dir_g = dir_g + torch.where(inside, 0.0, cg)
+        dir_b = dir_b + torch.where(inside, 0.0, cb)
+
+    for i in range(num_als):
+        g = geoms[i]
+        (lx, ly, lz), (nlx, nly, nlz) = _al_sample_point(g, *al_draws[i])
+        wx, wy, wz, d2, _dist = _light_direction(lx, ly, lz, px, py, pz)
+        s_d, p_g, s_ct, p_ct, cos_s = _lobe_terms(lb, dx, dy, dz, nx, ny, nz,
+                                                  wx, wy, wz)
+        cos_l = torch.abs(_dot(nlx, nly, nlz, wx, wy, wz))
+        geo = torch.where(occ_al[i], 0.0, cos_l * g["total"] / d2)
+        p_l = d2 / torch.clamp_min(g["total"] * cos_l, 1e-12)
+        p_b = lb["diff_avg"] * cos_s * INV_PI
+        if bd is None:
+            lt_d = lt_g = lt_ct = 0.0
+        else:
+            # nu * p_LT / p_NEE of this labelled path
+            nux, nuy, nuz = lb["n_unit"]
+            l_emit = (0.5 * cos_l * INV_PI
+                      * torch.abs(_dot(nux, nuy, nuz, wx, wy, wz)) / d2)
+            cos_rev = _dot(wx, wy, wz, nx, ny, nz)
+            lam_d, lam_g, lam_ct, _lr = _chain_model_lobes(
+                -wx, -wy, -wz, nx, ny, nz, cos_rev, -dx, -dy, -dz, mf)
+            geo_prev = bd["pco"] / torch.clamp_min(bd["t2"], 1e-12)
+            base = (bd["nu"] / n_l) * bd["T"] * l_emit
+            r_lt_d = base * torch.where(bd["is_primary"], 1.0,
+                                        lam_d * geo_prev)
+            r_lt_g = torch.where(bd["is_primary"], 0.0,
+                                 base * lam_g * geo_prev)
+            r_lt_ct = torch.where(bd["is_primary"], 0.0,
+                                  base * lam_ct * geo_prev)
+            rl_d = torch.clamp_max(r_lt_d * p_l, MIS_RATIO_CLAMP)
+            rl_g = torch.clamp_max(r_lt_g * p_l, MIS_RATIO_CLAMP)
+            rl_ct = torch.clamp_max(r_lt_ct * p_l, MIS_RATIO_CLAMP)
+            lt_d = rl_d * rl_d
+            lt_g = rl_g * rl_g
+            lt_ct = rl_ct * rl_ct
+        w_d = (p_l * p_l) / torch.clamp_min(p_l * p_l + p_b * p_b + lt_d, 1e-12)
+        w_g = (p_l * p_l) / torch.clamp_min(p_l * p_l + p_g * p_g + lt_g, 1e-12)
+        w_ct = (p_l * p_l) / torch.clamp_min(p_l * p_l + p_ct * p_ct + lt_ct,
+                                             1e-12)
+        ler, leg, leb = le_planes[3 * i:3 * i + 3]
+        cr = ler * (m_dr_ * s_d * geo * w_d
+                    + m_sr_ * (p_g * geo * w_g + s_ct * geo * w_ct))
+        cg = leg * (m_dg_ * s_d * geo * w_d
+                    + m_sg_ * (p_g * geo * w_g + s_ct * geo * w_ct))
+        cb = leb * (m_db_ * s_d * geo * w_d
+                    + m_sb_ * (p_g * geo * w_g + s_ct * geo * w_ct))
+        dir_r = dir_r + torch.where(inside, 0.0, cr)
+        dir_g = dir_g + torch.where(inside, 0.0, cg)
+        dir_b = dir_b + torch.where(inside, 0.0, cb)
+
+    return dir_r, dir_g, dir_b
+
+
+def _camera_j_img(tan_half, width: int, height: int, cos_abs):
+    """The camera importance dA_img/dOmega = W H / (s^2 aspect cos^3 theta)
+    at |cos theta| = ``cos_abs`` off the optical axis."""
+    s_fov = -2.0 * tan_half
+    cos_t = torch.clamp(cos_abs, 1e-4, 1.0)
+    return (width * height) / (s_fov * s_fov * (height / width)
+                               * (cos_t * cos_t * cos_t))
+
+
+def _make_sweep_fns(packed: PackedScene, track_index: bool = False):
     """The two scene sweeps every bounce runs, linear form: every primitive
     is tested for every ray, as a ``[rays, primitives]`` tensor. Tie rule of
     the sequential sweep: ``valid & (t <= best_t)`` — the LATER primitive
-    wins equal t, spheres first then triangles."""
+    wins equal t, spheres first then triangles. ``track_index=True`` makes
+    ``intersect_sweep`` also return the winning primitive's index as float32
+    (sphere i: i; triangle i: num_spheres + i; -1 on a miss)."""
     num_spheres, num_tris = packed.counts[0], packed.counts[1]
     sph = packed.spheres[:num_spheres]
     tri = packed.triangles[:num_tris]
@@ -451,6 +855,10 @@ def _make_sweep_fns(packed: PackedScene):
             ny = torch.where(is_tri, tny, ny)
             nz = torch.where(is_tri, tnz, nz)
             mat = torch.where(is_tri, row[18].long(), mat)
+        if track_index:
+            prim = torch.where(is_tri, num_spheres + t_idx,
+                               torch.where(is_sph, s_idx, -1))
+            return best_t, nx, ny, nz, mat, prim.to(torch.float32)
         return best_t, nx, ny, nz, mat
 
     @torch.no_grad()
@@ -472,12 +880,18 @@ def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
                        clamp_v: float, seed: int,
                        width: int, height: int, spp: int, max_bounces: int,
                        pixel_offset: int, n_local: int, sample_offset: int,
-                       stats: Optional[dict] = None) -> torch.Tensor:
+                       stats: Optional[dict] = None, physical: bool = False,
+                       bidir_nu: Optional[float] = None) -> torch.Tensor:
     """Radiance SUMS over spp for ``n_local`` pixels from ``pixel_offset``,
     ``[n_local, 3]`` float32 on the tables' device. ``cam`` is
-    ``_cam_tensor``'s. Differentiable: tables or a camera that carry an
-    autograd graph receive gradients, with every discrete decision (which
-    primitive is hit, visibility, the scatter branch) detached."""
+    ``_cam_tensor``'s. Differentiable in the default variant: tables or a
+    camera that carry an autograd graph receive gradients, with every
+    discrete decision (which primitive is hit, visibility, the scatter
+    branch) detached. ``physical`` selects the unbiased MIS estimator (state
+    gains the density of the last scatter), ``bidir_nu`` adds the carries of
+    the bidirectional weights (chain ratio, chain-model density and outgoing
+    cosine of the last scatter, the eye ray's camera importance)."""
+    bidir = bidir_nu is not None
     device = packed.device
     num_spheres, num_tris, _, num_pls, num_als = packed.counts
     # Table entries enter the arithmetic as 0-d float32 tensors: against a
@@ -488,12 +902,21 @@ def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
     n_pixels = width * height
     ppb = rng.pairs_per_bounce(num_als)
     eps = RAY_BUMP_EPSILON
-    intersect_sweep, occlusion_sweep = _make_sweep_fns(packed)
+    intersect_sweep, occlusion_sweep = _make_sweep_fns(packed,
+                                                       track_index=physical)
     mats, pls, als, bg = (packed.materials, packed.point_lights,
                           packed.area_lights, packed.background)
     pl_rows = [pls[i].unbind() for i in range(num_pls)]
     al_rows = [als[i].unbind() for i in range(num_als)]
     bgf = bg.unbind()
+    if physical:
+        al_geoms = [_al_light_geom(row) for row in al_rows]
+        pl_planes = [v for row in pl_rows for v in row]
+        le_planes = [v for row in al_rows
+                     for v in mats[int(row[22])][9:12].unbind()]
+        al_t0f = [row[21] for row in al_rows]
+    if bidir:
+        nu_b = torch.tensor(bidir_nu, dtype=torch.float32, device=device)
 
     pixel = (pixel_offset
              + torch.arange(n_local, dtype=torch.int64, device=device))
@@ -518,13 +941,24 @@ def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
         dx0 = camf[0] * sx + camf[1] * sy + camf[2] * sz
         dy0 = camf[3] * sx + camf[4] * sy + camf[5] * sz
         dz0 = camf[6] * sx + camf[7] * sy + camf[8] * sz
-        return _normalize3(dx0, dy0, dz0)
+        j_img = None
+        if bidir:
+            s_len = torch.sqrt(torch.clamp_min(sx * sx + sy * sy + sz * sz,
+                                               1e-20))
+            j_img = _camera_j_img(camf[12], width, height,
+                                  torch.abs(sz) / s_len)
+        return _normalize3(dx0, dy0, dz0) + (j_img,)
 
     def bounce(state, sample, b_cur):
-        (ox, oy, oz, dx, dy, dz, r0x, r0y, r0z, r1x, r1y, r1z, active) = state
+        (ox, oy, oz, dx, dy, dz, r0x, r0y, r0z, r1x, r1y, r1z, active,
+         prev_pdf, lt_S, pf_model, pco, j_img) = state
         pair0 = rng.pair_base(b_cur, num_als)
 
-        best_t, nx, ny, nz, mat = intersect_sweep(ox, oy, oz, dx, dy, dz)
+        if physical:
+            best_t, nx, ny, nz, mat, prim_f = intersect_sweep(ox, oy, oz,
+                                                              dx, dy, dz)
+        else:
+            best_t, nx, ny, nz, mat = intersect_sweep(ox, oy, oz, dx, dy, dz)
         hit = best_t < math.inf
         t_safe = torch.where(hit, best_t, 0.0)
         px, py, pz = ox + dx * t_safe, oy + dy * t_safe, oz + dz * t_safe
@@ -555,33 +989,98 @@ def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
                      / (4.0 * math.pi) / d2)
             return pwx * m_dr * scale, pwy * m_dg * scale, pwz * m_db * scale
 
-        dir_r, dir_g, dir_b = m_er, m_eg, m_eb
-        for i in range(num_pls):
-            p = pl_rows[i]
-            cr, cg, cb = light_contribution(zero + p[0], zero + p[1],
-                                            zero + p[2], p[3], p[4], p[5])
-            dir_r = dir_r + torch.where(inside, 0.0, cr)
-            dir_g = dir_g + torch.where(inside, 0.0, cg)
-            dir_b = dir_b + torch.where(inside, 0.0, cb)
-        for i in range(num_als):
-            u1, u2 = draw(sample, pair0 + 2 + 2 * i)
-            u3, upick = draw(sample, pair0 + 3 + 2 * i)
-            inv_tot = 1.0 / torch.clamp_min(u1 + u2 + u3, 1e-12)
-            w0, w1, w2 = u1 * inv_tot, u2 * inv_tot, u3 * inv_tot
-            first = upick > 0.5
-            a = al_rows[i][0:9]
-            b = al_rows[i][9:18]
-            lx = torch.where(first, a[0] * w0 + a[3] * w1 + a[6] * w2,
-                             b[0] * w0 + b[3] * w1 + b[6] * w2)
-            ly = torch.where(first, a[1] * w0 + a[4] * w1 + a[7] * w2,
-                             b[1] * w0 + b[4] * w1 + b[7] * w2)
-            lz = torch.where(first, a[2] * w0 + a[5] * w1 + a[8] * w2,
-                             b[2] * w0 + b[5] * w1 + b[8] * w2)
-            cr, cg, cb = light_contribution(lx, ly, lz, al_rows[i][18],
-                                            al_rows[i][19], al_rows[i][20])
-            dir_r = dir_r + torch.where(inside, 0.0, cr)
-            dir_g = dir_g + torch.where(inside, 0.0, cg)
-            dir_b = dir_b + torch.where(inside, 0.0, cb)
+        def parity_direct():
+            """The reference-parity direct term: emission always, NEE from
+            outside with the reference's falloff."""
+            dir_r, dir_g, dir_b = m_er, m_eg, m_eb
+            for i in range(num_pls):
+                p = pl_rows[i]
+                cr, cg, cb = light_contribution(zero + p[0], zero + p[1],
+                                                zero + p[2], p[3], p[4], p[5])
+                dir_r = dir_r + torch.where(inside, 0.0, cr)
+                dir_g = dir_g + torch.where(inside, 0.0, cg)
+                dir_b = dir_b + torch.where(inside, 0.0, cb)
+            for i in range(num_als):
+                u1, u2 = draw(sample, pair0 + 2 + 2 * i)
+                u3, upick = draw(sample, pair0 + 3 + 2 * i)
+                inv_tot = 1.0 / torch.clamp_min(u1 + u2 + u3, 1e-12)
+                w0, w1, w2 = u1 * inv_tot, u2 * inv_tot, u3 * inv_tot
+                first = upick > 0.5
+                a = al_rows[i][0:9]
+                b = al_rows[i][9:18]
+                lx = torch.where(first, a[0] * w0 + a[3] * w1 + a[6] * w2,
+                                 b[0] * w0 + b[3] * w1 + b[6] * w2)
+                ly = torch.where(first, a[1] * w0 + a[4] * w1 + a[7] * w2,
+                                 b[1] * w0 + b[4] * w1 + b[7] * w2)
+                lz = torch.where(first, a[2] * w0 + a[5] * w1 + a[8] * w2,
+                                 b[2] * w0 + b[5] * w1 + b[8] * w2)
+                cr, cg, cb = light_contribution(lx, ly, lz, al_rows[i][18],
+                                                al_rows[i][19], al_rows[i][20])
+                dir_r = dir_r + torch.where(inside, 0.0, cr)
+                dir_g = dir_g + torch.where(inside, 0.0, cg)
+                dir_b = dir_b + torch.where(inside, 0.0, cb)
+            return dir_r, dir_g, dir_b
+
+        def physical_direct():
+            """The physical estimator's direct term, its occlusion sweeps
+            taken here from the hit point bumped along the UNIT normal."""
+            nux, nuy, nuz = lb["n_unit"]
+            al_draws = []
+            for i in range(num_als):
+                u1, u2 = draw(sample, pair0 + 2 + 2 * i)
+                _u3, upick = draw(sample, pair0 + 3 + 2 * i)
+                al_draws.append((u1, u2, upick))
+
+            def occ_of(lx, ly, lz):
+                wx, wy, wz, _d2, dist = _light_direction(lx, ly, lz,
+                                                         px, py, pz)
+                occ = occlusion_sweep(px + nux * eps, py + nuy * eps,
+                                      pz + nuz * eps, wx, wy, wz,
+                                      dist - 2.0 * eps)
+                if stats is not None:
+                    # the sweeps whose result can change the image
+                    s_d, p_g, s_ct, _p, _c = _lobe_terms(
+                        lb, dx, dy, dz, nx, ny, nz, wx, wy, wz)
+                    needed = (active & hit & (~inside)
+                              & ((s_d != 0.0) | (p_g != 0.0) | (s_ct != 0.0)))
+                    for key, mask in (("shadow_rays", needed),
+                                      ("shadow_rays_occluded", needed & occ)):
+                        stats[key] = stats.get(key, 0) + int(mask.sum())
+                return occ
+
+            occ_pl = [occ_of(zero + p[0], zero + p[1], zero + p[2])
+                      for p in pl_rows]
+            occ_al = [occ_of(*_al_sample_point(al_geoms[i], *al_draws[i])[0])
+                      for i in range(num_als)]
+            t_w = torch.where(hit, best_t, 1.0)
+            return _physical_direct(
+                num_spheres, num_pls, num_als, px, py, pz, nx, ny, nz,
+                dx, dy, dz, t_w, prev_pdf, lb, mf, pl_planes, le_planes,
+                al_geoms, al_draws, occ_pl, occ_al, prim_f, al_t0f, bd=bd)
+
+        if physical:
+            lb = _physical_lobes(dx, dy, dz, nx, ny, nz, cos_i, mf)
+            bd = None
+            if bidir:
+                # the chain ratio T up to this vertex: p_LT prefix over
+                # p_eye prefix, without nu
+                nux, nuy, nuz = lb["n_unit"]
+                cos_arr = torch.abs(_dot(dx, dy, dz, nux, nuy, nuz))
+                t_w = torch.where(hit, best_t, 1.0)
+                t2_arr = torch.clamp_min(t_w * t_w, 1e-12)
+                is_primary = torch.full_like(hit, b_cur == 0)
+                c_a = j_img * cos_arr / t2_arr
+                e_prev = pf_model * cos_arr / t2_arr
+                T_bd = torch.clamp_max(
+                    torch.where(is_primary,
+                                1.0 / torch.clamp_min(c_a, 1e-20),
+                                lt_S / torch.clamp_min(e_prev, 1e-20)),
+                    MIS_RATIO_CLAMP)
+                bd = dict(nu=nu_b, T=T_bd, pco=pco, t2=t2_arr,
+                          is_primary=is_primary)
+            dir_r, dir_g, dir_b = physical_direct()
+        else:
+            dir_r, dir_g, dir_b = parity_direct()
 
         act_hit = active & hit
         beer_mask = act_hit & inside
@@ -600,8 +1099,37 @@ def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
         u_branch, u_a = draw(sample, pair0)
         u_b, _unused = draw(sample, pair0 + 1)
         (new_ox, new_oy, new_oz, new_dx, new_dy, new_dz, wr, wg, wb,
-         alive, *_rest) = _scatter_sample(dx, dy, dz, nx, ny, nz, px, py, pz,
-                                          cos_i, u_branch, u_a, u_b, mf)
+         alive, take_diff, take_spec, take_refr, _tir, ct_m,
+         _ctw) = _scatter_sample(dx, dy, dz, nx, ny, nz, px, py, pz,
+                                 cos_i, u_branch, u_a, u_b, mf)
+
+        if physical:
+            pdf_new = _physical_prev_pdf(
+                lb, dx, dy, dz, new_dx, new_dy, new_dz,
+                take_diff, take_spec & (~ct_m), take_spec & ct_m)
+            prev_pdf = torch.where(act_hit,
+                                   torch.where(~inside, pdf_new, 0.0),
+                                   prev_pdf)
+        if bidir:
+            # chain-model densities of the taken branch, both directions
+            pdf_fwd_m = _chain_model_taken(
+                dx, dy, dz, nx, ny, nz, cos_i, new_dx, new_dy, new_dz, mf,
+                take_diff, take_spec, take_refr, ct_m)
+            cos_rev = _dot(new_dx, new_dy, new_dz, nx, ny, nz)
+            pdf_rev_m = _chain_model_taken(
+                -new_dx, -new_dy, -new_dz, nx, ny, nz, cos_rev,
+                -dx, -dy, -dz, mf, take_diff, take_spec, take_refr, ct_m)
+            lam_full = pdf_rev_m * pco / t2_arr
+            s_new = torch.clamp_max(torch.where(
+                is_primary,
+                torch.where(take_diff & (cos_i > 0.0), 1.0, 0.0)
+                / torch.clamp_min(c_a, 1e-20),
+                T_bd * lam_full), MIS_RATIO_CLAMP)
+            lt_S = torch.where(act_hit, s_new, lt_S)
+            pf_model = torch.where(act_hit, pdf_fwd_m, pf_model)
+            pco = torch.where(
+                act_hit, torch.abs(_dot(new_dx, new_dy, new_dz, *lb["n_unit"])),
+                pco)
 
         ox = torch.where(act_hit, new_ox, ox)
         oy = torch.where(act_hit, new_oy, oy)
@@ -613,15 +1141,18 @@ def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
         r1y = torch.where(act_hit, r1y * wg, r1y)
         r1z = torch.where(act_hit, r1z * wb, r1z)
         return (ox, oy, oz, dx, dy, dz, r0x, r0y, r0z, r1x, r1y, r1z,
-                act_hit & alive)
+                act_hit & alive, prev_pdf, lt_S, pf_model, pco, j_img)
 
     acc = [zero.clone() for _ in range(3)]
     one = torch.ones_like(zero)
     for s in range(spp):
         sample = sample_offset + s
-        dx, dy, dz = eye(sample)
+        dx, dy, dz, j_img = eye(sample)
+        # a camera ray carries density 0, chain ratio 0, chain-model density
+        # 0, outgoing cosine 1 and its own camera importance
         state = (zero + camf[9], zero + camf[10], zero + camf[11], dx, dy, dz,
-                 zero, zero, zero, one, one, one, in_image)
+                 zero, zero, zero, one, one, one, in_image,
+                 zero, zero, zero, one, j_img)
         # a path ends when it dies or is still alive after max_bounces
         # bounces (it keeps its radiance, no background term); the first
         # bounce always runs
@@ -675,11 +1206,14 @@ def render_block_sums_plain(packed: PackedScene, cam_params, seed: int,
                             width: int, height: int, spp: int,
                             max_bounces: int, pixel_offset: int, n_local: int,
                             sample_offset: int = 0, sample_clamp: float = 0.0,
-                            stats: Optional[dict] = None) -> torch.Tensor:
+                            stats: Optional[dict] = None,
+                            physical: bool = False,
+                            bidir_nu: Optional[float] = None) -> torch.Tensor:
     """Plain PyTorch radiance sums ``[n_local, 3]`` for the pixel range
     ``[pixel_offset, pixel_offset + n_local)``, on the tables' device."""
     _check_render_args(packed, width, height, spp, max_bounces, pixel_offset,
                        n_local, sample_offset, seed)
+    _check_variant(physical, bidir_nu)
     cam = _cam_tensor(cam_params, packed.device)
     prims = max(packed.counts[0] + packed.counts[1], 1)
     chunk = max(1, _PLAIN_CHUNK_ENTRIES // prims)
@@ -687,7 +1221,8 @@ def render_block_sums_plain(packed: PackedScene, cam_params, seed: int,
         _render_sums_plain(packed, cam, float(sample_clamp), int(seed),
                            width, height, spp,
                            max_bounces, pixel_offset + start,
-                           min(chunk, n_local - start), sample_offset, stats)
+                           min(chunk, n_local - start), sample_offset, stats,
+                           physical, bidir_nu)
         for start in range(0, n_local, chunk)]
     return parts[0] if len(parts) == 1 else torch.cat(parts, 0)
 
@@ -696,7 +1231,9 @@ def render_megakernel_plain(packed: PackedScene, cam_params, seed: int,
                             width: int, height: int, spp: int,
                             max_bounces: int = 15, sample_clamp: float = 0.0,
                             sample_offset: int = 0,
-                            stats: Optional[dict] = None) -> torch.Tensor:
+                            stats: Optional[dict] = None,
+                            physical: bool = False,
+                            bidir_nu: Optional[float] = None) -> torch.Tensor:
     """The plain PyTorch version of the megakernel: mean radiance
     ``[H, W, 3]`` (row 0 = bottom) on whatever device the packed tables are
     on. ``stats``, when a dict, receives ``paths``, ``path_bounces`` (sweeps
@@ -706,7 +1243,7 @@ def render_megakernel_plain(packed: PackedScene, cam_params, seed: int,
     n = width * height
     sums = render_block_sums_plain(packed, cam_params, seed, width, height,
                                    spp, max_bounces, 0, n, sample_offset,
-                                   sample_clamp, stats)
+                                   sample_clamp, stats, physical, bidir_nu)
     return (sums / spp).reshape(height, width, 3)
 
 
@@ -724,7 +1261,7 @@ def _kernel_fn(fmad: bool = False):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp, ci, vp, ci, vp, ci, vp, ci, vp, ci, vp,   # tables
                    ctypes.POINTER(ctypes.c_float),               # camera
-                   ci, ci, ci, ci, ci, ci, ci, ci,               # scalars
+                   ci, ci, ci, ci, ci, ci, ci, ci, ci,           # scalars
                    vp, vp]                                       # out, stream
     fn.restype = ci
     lib.cpt_error_string.argtypes = [ci]
@@ -763,19 +1300,22 @@ def render_block_sums_cuda(packed: PackedScene, cam_params, seed: int,
                            width: int, height: int, spp: int,
                            max_bounces: int, pixel_offset: int, n_local: int,
                            sample_offset: int = 0, sample_clamp: float = 0.0,
-                           fmad: bool = False) -> torch.Tensor:
+                           fmad: bool = False, physical: bool = False,
+                           bidir_nu: Optional[float] = None) -> torch.Tensor:
     """Launch the CUDA megakernel: radiance sums ``[n_local, 3]`` float32
     for the pixel range ``[pixel_offset, pixel_offset + n_local)``. Launches
     on the current stream of the tables' device and does not synchronise;
     raises if the kernel does not build or the launch is refused.
+    ``physical`` / ``bidir_nu`` pick the kernel's instantiation.
     ``fmad=True`` selects the build that lets the compiler contract
     ``a*b+c`` (measurement only; the default build does not)."""
     global LAUNCH_COUNT
     _check_render_args(packed, width, height, spp, max_bounces, pixel_offset,
                        n_local, sample_offset, seed)
+    variant = _check_variant(physical, bidir_nu)
     _check_tables(packed)
     lib, fn = _kernel_fn(fmad)
-    cam = _cam_table(cam_params, sample_clamp)
+    cam = _cam_table(cam_params, sample_clamp, bidir_nu)
     cam_c = (ctypes.c_float * CAM_FLOATS)(*cam.tolist())
     num_s, num_t, num_m, num_pl, num_al = packed.counts
     with torch.cuda.device(packed.device):
@@ -790,11 +1330,12 @@ def render_block_sums_cuda(packed: PackedScene, cam_params, seed: int,
                  packed.background.data_ptr(), cam_c,
                  int(seed), int(pixel_offset), int(n_local),
                  int(sample_offset), int(spp), int(max_bounces),
-                 int(width), int(height), out.data_ptr(), stream)
+                 int(width), int(height), variant, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("megakernel launch failed: CUDA error "
                            f"{err} ({lib.cpt_error_string(err).decode()})")
     LAUNCH_COUNT += 1
+    LAUNCHES_BY_VARIANT[variant] += 1
     return out
 
 
@@ -830,7 +1371,8 @@ def uniform_pairs_cuda(seed: torch.Tensor, pixel: torch.Tensor,
 def render_block_sums(packed: PackedScene, cam_params, seed: int, width: int,
                       height: int, spp: int, max_bounces: int,
                       pixel_offset: int, n_local: int, sample_offset: int = 0,
-                      sample_clamp: float = 0.0) -> torch.Tensor:
+                      sample_clamp: float = 0.0, physical: bool = False,
+                      bidir_nu: Optional[float] = None) -> torch.Tensor:
     """Radiance SUMS over spp for ``n_local`` pixels starting at flat index
     ``pixel_offset``. ``sample_offset`` selects the global sample range
     [offset, offset+spp) of each pixel's counter stream — progressive passes
@@ -839,26 +1381,21 @@ def render_block_sums(packed: PackedScene, cam_params, seed: int, width: int,
     if packed.device.type == "cuda":
         return render_block_sums_cuda(packed, cam_params, seed, width, height,
                                       spp, max_bounces, pixel_offset, n_local,
-                                      sample_offset, sample_clamp)
+                                      sample_offset, sample_clamp,
+                                      physical=physical, bidir_nu=bidir_nu)
     return render_block_sums_plain(packed, cam_params, seed, width, height,
                                    spp, max_bounces, pixel_offset, n_local,
-                                   sample_offset, sample_clamp)
+                                   sample_offset, sample_clamp,
+                                   physical=physical, bidir_nu=bidir_nu)
 
 
-def _reject_unported(packed_grid=None, physical=False, state_bf16=False,
-                     bidir_nu=None):
-    if physical:
-        _unported("the physical (unbiased MIS) estimator",
-                  "Queue 1 item 5 / Queue 2: K1 physical")
+def _reject_unported(packed_grid=None, state_bf16=False):
     if packed_grid is not None:
         _unported("the supercell-grid sweep (packed_grid / accel='grid')",
                   "Queue 1 item 5 / Queue 2: K1 grid")
     if state_bf16:
         _unported("the bf16 radiance/throughput state (state_bf16)",
                   "Queue 1 item 5 / Queue 2: K1 bf16")
-    if bidir_nu is not None:
-        _unported("the bidirectional MIS carries (bidir_nu)",
-                  "Queue 1 item 8 / Queue 2: K1 bidir carries, K3")
 
 
 def render_megakernel(packed: PackedScene, cam_params, seed: int,
@@ -870,11 +1407,15 @@ def render_megakernel(packed: PackedScene, cam_params, seed: int,
     """Full render in one kernel launch; returns mean radiance ``[H, W, 3]``
     (row 0 = bottom) on the packed tables' device. ``sample_clamp > 0``
     clamps every sample's radiance to that value before accumulation (the
-    reference's per-frame [0,1] clamp; firefly control)."""
-    _reject_unported(packed_grid, physical, state_bf16, bidir_nu)
+    reference's per-frame [0,1] clamp; firefly control). ``physical=True``
+    runs the unbiased MIS estimator; ``bidir_nu`` (with ``physical``) weights
+    it against ``bidir_nu`` light paths per eye sample — the eye half of
+    ``render/bidir.py``."""
+    _reject_unported(packed_grid, state_bf16)
     n = width * height
     sums = render_block_sums(packed, cam_params, seed, width, height, spp,
-                             max_bounces, 0, n, sample_offset, sample_clamp)
+                             max_bounces, 0, n, sample_offset, sample_clamp,
+                             physical=physical, bidir_nu=bidir_nu)
     return (sums / spp).reshape(height, width, 3)
 
 
@@ -883,8 +1424,8 @@ def render_fast2(scene, cam_params, width: int, height: int, spp: int,
                  grid=None, physical: bool = False,
                  device="cuda") -> torch.Tensor:
     """Convenience wrapper: pack + launch on ``device``."""
-    _reject_unported(grid, physical)
+    _reject_unported(grid)
     packed = pack_scene(scene, device)
     return render_megakernel(packed, cam_params, seed, width, height, spp,
                              max_bounces=max_bounces,
-                             sample_offset=sample_offset)
+                             sample_offset=sample_offset, physical=physical)

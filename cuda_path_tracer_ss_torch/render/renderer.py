@@ -60,7 +60,9 @@ class RenderConfig:
     accel: str = "none"
     # optional structured per-pass log (see utils/profiling.PassMeter)
     metrics_jsonl: Optional[str] = None
-    # Unbiased estimator mode: not ported yet.
+    # Unbiased estimator mode: uniform-area light sampling in the correct
+    # measure with power-heuristic MIS (the megakernel's physical variant)
+    # instead of the reference's NEE. Both engines.
     physical: bool = False
     # Where the render runs. The CPU is used only when asked for; on "cuda"
     # without a card the renderer raises.
@@ -88,11 +90,6 @@ class RenderConfig:
                 "accel='grid' (supercell-grid sweeps) is not ported to the "
                 "PyTorch/CUDA package yet (ROADMAP.md Queue 1 item 5 / "
                 "Queue 2: K1 grid)")
-        if self.physical:
-            raise NotImplementedError(
-                "physical=True (the unbiased MIS estimator) is not ported "
-                "to the PyTorch/CUDA package yet (ROADMAP.md Queue 1 item 5 "
-                "/ Queue 2: K1 physical)")
 
     def base_pass_size(self) -> int:
         """Per-step pass size: the explicit setting, or the AUTO base (1 in
@@ -143,7 +140,7 @@ class ProgressiveRenderer:
                   else megakernel.render_megakernel_plain)
         img = render(self._packed, cam_params, self._seed, cfg.width,
                      cfg.height, pass_spp, max_bounces=bounces,
-                     sample_offset=first_sample)
+                     sample_offset=first_sample, physical=cfg.physical)
         return img.reshape(-1, 3)
 
     # -- control --------------------------------------------------------------

@@ -58,9 +58,64 @@ def test_unknown_and_unported_scenes_raise():
 
 @pytest.mark.parametrize("flag", [["--physical"], ["--accel", "grid"]])
 @pytest.mark.parametrize("cmd", ["render", "benchmark"])
-def test_unported_flags_raise(cmd, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main([cmd, *SMALL, "--spp", "1", *flag])
+def test_unported_flags_raise(cmd, flag, tmp_path, capsys):
+    """The grid is not ported and says so; the physical estimator runs."""
+    args = [cmd, *SMALL, "--spp", "1", *flag]
+    if cmd == "render":
+        args += ["--out", str(tmp_path / "r.png")]
+    if flag != ["--physical"]:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            main(args)
+        return
+    main(args)
+    text = capsys.readouterr().out
+    if cmd == "render":
+        assert read_png(str(tmp_path / "r.png")).max() > 0
+    else:
+        assert json.loads(text.strip().splitlines()[-1])["physical"] is True
+
+
+def test_physical_render_differs_from_the_default_estimator(tmp_path, capsys):
+    a, b = str(tmp_path / "a.npy"), str(tmp_path / "b.npy")
+    main(["render", *SMALL, "--spp", "4", "--out", a])
+    main(["render", *SMALL, "--spp", "4", "--out", b, "--physical"])
+    default, physical = np.load(a), np.load(b)
+    assert default.shape == physical.shape == (16, 16, 3)
+    assert np.isfinite(physical).all() and physical.mean() > 0
+    assert np.abs(default - physical).max() > 1e-3
+
+
+# ---- light tracing and the bidirectional render ------------------------------
+
+LIGHT = ["--device", "cpu", "--scene", "caustic", "--width", "12", "--height", "12",
+         "--bounces", "3", "--paths", "1500", "--batches", "2"]
+
+
+def test_lighttrace_writes_png(tmp_path, capsys):
+    out = str(tmp_path / "lt.png")
+    main(["lighttrace", *LIGHT, "--out", out])
+    text = capsys.readouterr().out
+    assert "batch 2/2" in text and "engine plain" in text and f"wrote {out}" in text
+    img = read_png(out)
+    assert img.shape == (12, 12, 3) and img.max() > 0
+
+
+def test_bidir_writes_png_and_shows_what_lighttrace_cannot(tmp_path, capsys):
+    """The glass sphere of `caustic` is black in a light-trace-only render
+    (no eye-side subpath) and lit in the bidirectional one."""
+    lt, bd = str(tmp_path / "lt.png"), str(tmp_path / "bd.png")
+    main(["lighttrace", *LIGHT, "--out", lt])
+    main(["bidir", *LIGHT, "--spp", "2", "--out", bd])
+    assert "eye samples + light paths" in capsys.readouterr().out
+    a, b = read_png(lt).astype(float), read_png(bd).astype(float)
+    assert b.shape == (12, 12, 3)
+    assert b.mean() > a.mean() and (b > 0).mean() > (a > 0).mean()
+
+
+@pytest.mark.parametrize("cmd", ["lighttrace", "bidir"])
+def test_light_commands_pick_their_engine_by_the_device(cmd):
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        main([cmd, *LIGHT, "--engine", "cuda"])
 
 
 # ---- the training commands ----------------------------------------------------

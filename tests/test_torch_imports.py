@@ -11,7 +11,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "cuda_path_tracer_ss_torch")
 FORBIDDEN = ("jax", "jaxlib", "optax", "cuda_path_tracer_ss_tpu")
 KERNEL_SOURCES = ("megakernel.cu", "megakernel.cuh", "megakernel_vjp.cu",
-                  "megakernel_vjp.cuh")
+                  "megakernel_vjp.cuh", "lightkernel.cu", "lightkernel.cuh")
 
 
 def _port_files():
@@ -37,6 +37,8 @@ def test_port_has_its_modules():
     for want in ("chip_smoke.py", "cuda_path_tracer_ss_torch/cli.py",
                  "cuda_path_tracer_ss_torch/ops/cuda/megakernel.py",
                  "cuda_path_tracer_ss_torch/ops/cuda/megakernel_vjp.py",
+                 "cuda_path_tracer_ss_torch/ops/cuda/lightkernel.py",
+                 "cuda_path_tracer_ss_torch/render/bidir.py",
                  "cuda_path_tracer_ss_torch/render/inverse.py",
                  "cuda_path_tracer_ss_torch/render/renderer.py",
                  "cuda_path_tracer_ss_torch/utils/build.py"):
@@ -55,6 +57,8 @@ def test_importing_the_port_leaves_jax_out():
     code = ("import sys; import cuda_path_tracer_ss_torch, "
             "cuda_path_tracer_ss_torch.cli, cuda_path_tracer_ss_torch.utils.build, "
             "cuda_path_tracer_ss_torch.ops.cuda.megakernel_vjp, "
+            "cuda_path_tracer_ss_torch.ops.cuda.lightkernel, "
+            "cuda_path_tracer_ss_torch.render.bidir, "
             "cuda_path_tracer_ss_torch.render.inverse; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
@@ -89,9 +93,23 @@ def test_backward_kernel_replays_with_the_forward_kernel_s_functions():
             and "Hit " + fn + "(" not in text, fn
 
 
+def test_light_kernel_traces_with_the_forward_kernel_s_functions():
+    """Light paths and eye paths must evaluate the same sweeps, scatter
+    cascade, light geometry and chain model: lightkernel.cuh includes
+    megakernel.cuh and defines none of those anew."""
+    with open(os.path.join(PORT, "csrc", "lightkernel.cuh")) as f:
+        text = f.read()
+    assert '#include "megakernel.cuh"' in text
+    for fn in ("intersect_sweep", "occlusion_sweep", "scatter_sample", "uniform_pair",
+               "al_light_geom", "al_sample_point", "chain_model_taken", "camera_j_img"):
+        assert fn + "(" in text, fn
+        for kind in ("void ", "bool ", "float ", "Hit ", "LightGeom "):
+            assert kind + fn + "(" not in text, fn
+
+
 def test_chip_smoke_drives_both_kernels():
     with open(os.path.join(ROOT, "chip_smoke.py")) as f:
         text = f.read()
     for needle in ("mk.LAUNCH_COUNT = 0", "vjp.LAUNCH_COUNT = 0", "megakernel_vjp.cu",
-                   '"platform": "gpu"'):
+                   "lk.LAUNCH_COUNT = 0", "lightkernel.cu", '"platform": "gpu"'):
         assert needle in text, needle

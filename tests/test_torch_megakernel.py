@@ -289,15 +289,29 @@ def test_plain_stats_count_the_work(cornell_packed):
 @pytest.mark.parametrize("kwargs", [dict(physical=True), dict(packed_grid=object()),
                                     dict(state_bf16=True), dict(bidir_nu=1.0)])
 def test_unported_options_raise(cornell_packed, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmk.render_megakernel(cornell_packed, CP, 0, 8, 8, 1, 2, **kwargs)
+    """The grid and the bf16 state are not ported and say so; the physical
+    estimator renders; the bidirectional carries need it."""
+    render = lambda: tmk.render_megakernel(cornell_packed, CP, 0, 8, 8, 1, 2, **kwargs)
+    if "physical" in kwargs:
+        img = render()
+        assert tuple(img.shape) == (8, 8, 3) and bool(torch.isfinite(img).all())
+        assert float(img.mean()) > 0
+    elif "bidir_nu" in kwargs:
+        with pytest.raises(ValueError, match="physical estimator"):
+            render()
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            render()
 
 
 def test_render_fast2_unported_options_raise():
     scene = tpresets.cornell()
-    for kwargs in (dict(physical=True), dict(grid=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmk.render_fast2(scene, CP, 8, 8, 1, 0, device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmk.render_fast2(scene, CP, 8, 8, 1, 0, device="cpu", grid=object())
+    got = tmk.render_fast2(scene, CP, 8, 8, 1, 0, device="cpu", physical=True)
+    want = tmk.render_megakernel(tmk.pack_scene(scene, "cpu"), CP, 0, 8, 8, 1,
+                                 physical=True)
+    assert torch.equal(got, want)
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():

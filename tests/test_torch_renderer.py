@@ -210,8 +210,6 @@ def test_config_engine_and_unported_options():
     with pytest.raises(ValueError, match="unknown engine"):
         _cfg(engine="jnp").resolved_engine()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _renderer(physical=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         _renderer(accel="grid")
     with pytest.raises(ValueError, match="unknown accel"):
         _renderer(accel="bvh")
@@ -237,3 +235,40 @@ def test_pass_meter_and_timed(tmp_path):
     assert len(open(log).read().splitlines()) == 2
     out, sec = timed(lambda: torch.ones(3).sum(), reps=2, warmup=1, device="cpu")
     assert float(out) == 3.0 and sec > 0
+
+
+# ---- the physical estimator through the frame loop ---------------------------
+
+def test_physical_renderer_matches_jax_renderer(capsys):
+    """RenderConfig(physical=True), 16x16, 4 spp in 2 passes, against the
+    reference's jnp engine in physical mode: per-pixel parity."""
+    jr = JProgressiveRenderer(
+        jpresets.cornell(), JCamera(),
+        JRenderConfig(width=16, height=16, spp=4, samples_per_pass=2,
+                      max_bounces=3, seed=9, live_cutoff=None, engine="jnp",
+                      physical=True))
+    jr.run()
+    r = _renderer(samples_per_pass=2, physical=True)
+    r.run()
+    assert_per_pixel_parity(r.radiance(), jr.radiance())
+    default = _renderer(samples_per_pass=2)
+    default.run()
+    assert np.abs(default.radiance() - r.radiance()).max() > 1e-3
+
+
+@pytest.mark.parametrize("compat", [False, True])
+def test_physical_checkpoint_resume_bit_identical(tmp_path, capsys, compat):
+    kw = dict(physical=True, spp=12)
+    if compat:
+        kw.update(compat_int_accum=True, samples_per_pass=1, spp=5)
+    whole = _renderer(**kw)
+    whole.run()
+    first = _renderer(**kw)
+    first.run(3 if compat else 4)
+    ck = str(tmp_path / "ck.npz")
+    first.checkpoint(ck)
+    second = _renderer(**kw)
+    second.restore(ck)
+    second.run()
+    np.testing.assert_array_equal(second.radiance(), whole.radiance())
+    assert whole.radiance().max() > 0

@@ -1,11 +1,14 @@
 // Test-only host build of the CUDA kernels' device math: the package's
-// csrc/megakernel.cuh (forward render) and csrc/megakernel_vjp.cuh (replay
-// VJP) compiled by a host C++ compiler, one loop iteration per pixel, so that
+// csrc/megakernel.cuh (forward render, all three estimator variants),
+// csrc/megakernel_vjp.cuh (replay VJP) and csrc/lightkernel.cuh (light
+// tracing) compiled by a host C++ compiler, one loop iteration per pixel or
+// light path, so that
 // the kernels' arithmetic can be held against the plain PyTorch version on a
 // machine without a GPU. Built by torch_port_helpers.py:
 //   g++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC -I <package>/csrc ...
 #include <vector>
 
+#include "lightkernel.cuh"
 #include "megakernel_vjp.cuh"
 
 namespace {
@@ -47,8 +50,9 @@ cpt::RenderParams make_params(const float* cam_host, int seed, int pixel_offset,
 
 extern "C" {
 
-// Same arguments as cpt_render_megakernel, every pointer a host pointer,
-// without the launch parameters.
+// Same arguments as cpt_render_megakernel (variant: 0 reference-parity, 1
+// physical, 2 physical with the bidirectional carries), every pointer a host
+// pointer, without the launch parameters.
 int cpt_render_megakernel_host(const float* spheres, int num_spheres,
                                const float* triangles, int num_triangles,
                                const float* materials, int num_materials,
@@ -56,7 +60,8 @@ int cpt_render_megakernel_host(const float* spheres, int num_spheres,
                                const float* area_lights, int num_area_lights,
                                const float* background, const float* cam_host,
                                int seed, int pixel_offset, int n_local, int sample_offset,
-                               int spp, int max_bounces, int width, int height, float* out) {
+                               int spp, int max_bounces, int width, int height, int variant,
+                               float* out) {
     const cpt::SceneTables sc = make_tables(spheres, num_spheres, triangles, num_triangles,
                                             materials, num_materials, point_lights,
                                             num_point_lights, area_lights, num_area_lights,
@@ -64,7 +69,49 @@ int cpt_render_megakernel_host(const float* spheres, int num_spheres,
     const cpt::RenderParams p = make_params(cam_host, seed, pixel_offset, n_local, sample_offset,
                                             spp, max_bounces, width, height);
     for (int i = 0; i < n_local; ++i) {
-        cpt::render_pixel(sc, p, pixel_offset + i, out[3 * i], out[3 * i + 1], out[3 * i + 2]);
+        float& r = out[3 * i];
+        float& g = out[3 * i + 1];
+        float& b = out[3 * i + 2];
+        if (variant == 0) {
+            cpt::render_pixel_t<false, false>(sc, p, pixel_offset + i, r, g, b);
+        } else if (variant == 1) {
+            cpt::render_pixel_t<true, false>(sc, p, pixel_offset + i, r, g, b);
+        } else {
+            cpt::render_pixel_t<true, true>(sc, p, pixel_offset + i, r, g, b);
+        }
+    }
+    return 0;
+}
+
+// Same arguments as cpt_light_records, every pointer a host pointer, without
+// the stream.
+int cpt_light_records_host(const float* spheres, int num_spheres,
+                           const float* triangles, int num_triangles,
+                           const float* materials, int num_materials,
+                           const float* point_lights, int num_point_lights,
+                           const float* area_lights, int num_area_lights,
+                           const float* cam_host,
+                           int seed, int path_offset, int n_local, int sample_idx,
+                           int n_paths, int max_bounces, int width, int height, int bidir,
+                           int* pix, float* r, float* g, float* b) {
+    const cpt::SceneTables sc = make_tables(spheres, num_spheres, triangles, num_triangles,
+                                            materials, num_materials, point_lights,
+                                            num_point_lights, area_lights, num_area_lights,
+                                            nullptr);
+    cpt::LightParams p;
+    for (int k = 0; k < cpt::CAM_FLOATS; ++k) p.cam[k] = cam_host[k];
+    p.seed = seed; p.path_offset = path_offset; p.n_local = n_local;
+    p.sample_idx = sample_idx; p.n_paths = n_paths; p.max_bounces = max_bounces;
+    cpt::set_light_image_size(p, width, height);
+    for (int i = 0; i < n_local; ++i) {
+        cpt::RecordOut out;
+        out.pix = pix + i; out.r = r + i; out.g = g + i; out.b = b + i;
+        out.stride = (size_t)n_local;
+        if (bidir) {
+            cpt::light_path<true>(sc, p, path_offset + i, out);
+        } else {
+            cpt::light_path<false>(sc, p, path_offset + i, out);
+        }
     }
     return 0;
 }

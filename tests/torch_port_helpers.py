@@ -3,8 +3,8 @@ package (the reference) to the PyTorch/CUDA package (the port). Only test code
 imports both packages; data crosses as numpy arrays.
 
 Also the test-only host build of the CUDA kernels' device math
-(``csrc/megakernel.cuh`` and ``csrc/megakernel_vjp.cuh`` through
-``tests/torch_kernel_host.cpp``): the only way to exercise the CUDA source on
+(``csrc/megakernel.cuh``, ``csrc/megakernel_vjp.cuh`` and
+``csrc/lightkernel.cuh`` through ``tests/torch_kernel_host.cpp``): the only way to exercise the CUDA source on
 a machine without a GPU. It needs ``g++`` (or
 ``c++``) on the PATH and, for the FMA variant, an x86-64 CPU with FMA3; where
 one is missing the tests that use it fail with that message."""
@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from cuda_path_tracer_ss_torch.models.scene import scene_from_numpy
+from cuda_path_tracer_ss_torch.ops.cuda import lightkernel as tlk
 from cuda_path_tracer_ss_torch.ops.cuda import megakernel as tmk
 from cuda_path_tracer_ss_torch.ops.cuda import megakernel_vjp as tvjp
 from cuda_path_tracer_ss_torch.utils.build import CSRC_DIR
@@ -94,10 +95,13 @@ def _host_kernel(fma):
     scene_args = [vp, ci, vp, ci, vp, ci, vp, ci, vp, ci, vp,
                   ctypes.POINTER(ctypes.c_float),
                   ci, ci, ci, ci, ci, ci, ci, ci]
-    lib.cpt_render_megakernel_host.argtypes = scene_args + [vp]
+    lib.cpt_render_megakernel_host.argtypes = scene_args + [ci, vp]
     lib.cpt_render_megakernel_host.restype = ci
     lib.cpt_backward_megakernel_host.argtypes = scene_args + [ci, vp, vp]
     lib.cpt_backward_megakernel_host.restype = ci
+    lib.cpt_light_records_host.argtypes = (
+        [vp, ci] * 5 + [ctypes.POINTER(ctypes.c_float)] + [ci] * 9 + [vp] * 4)
+    lib.cpt_light_records_host.restype = ci
     lib.cpt_norm3_vjp_host.argtypes = [ci, vp, vp, ctypes.c_float, vp]
     lib.cpt_norm3_vjp_host.restype = None
     lib.cpt_rot_y_to_vjp_host.argtypes = [ci, vp, vp, vp, vp, vp]
@@ -106,10 +110,11 @@ def _host_kernel(fma):
 
 
 def _scene_args(packed, cam_params, seed, width, height, spp, max_bounces,
-                pixel_offset, n_local, sample_offset, sample_clamp):
+                pixel_offset, n_local, sample_offset, sample_clamp,
+                bidir_nu=None):
     """The leading arguments the host entries share, and the tables they
     point into (to be kept alive over the call)."""
-    cam = tmk._cam_table(cam_params, sample_clamp)
+    cam = tmk._cam_table(cam_params, sample_clamp, bidir_nu)
     cam_c = (ctypes.c_float * tmk.CAM_FLOATS)(*cam.tolist())
     tables = [t.detach().contiguous() for t in packed.tables()]
     args = []
@@ -123,15 +128,41 @@ def _scene_args(packed, cam_params, seed, width, height, spp, max_bounces,
 
 def render_block_sums_hostbuild(packed, cam_params, seed, width, height, spp,
                                 max_bounces, pixel_offset, n_local,
-                                sample_offset=0, sample_clamp=0.0, fma=False):
+                                sample_offset=0, sample_clamp=0.0, fma=False,
+                                physical=False, bidir_nu=None):
     """``render_block_sums`` computed by the host build of the kernel math,
     one pixel at a time, on CPU tables."""
     args, _tables = _scene_args(packed, cam_params, seed, width, height, spp,
                                 max_bounces, pixel_offset, n_local,
-                                sample_offset, sample_clamp)
+                                sample_offset, sample_clamp, bidir_nu)
+    variant = tmk._check_variant(physical, bidir_nu)
     out = torch.empty((n_local, 3), dtype=torch.float32)
-    _host_kernel(fma).cpt_render_megakernel_host(*args, out.data_ptr())
+    _host_kernel(fma).cpt_render_megakernel_host(*args, variant,
+                                                 out.data_ptr())
     return out
+
+
+def light_records_hostbuild(packed, cam_params, seed, width, height, n_paths,
+                            max_bounces, path_offset=0, n_local=None,
+                            sample_idx=0, bidir_nu=None, fma=False):
+    """``light_records`` computed by the host build of the light kernel's
+    math, one path at a time, on CPU tables."""
+    n_local = n_paths - path_offset if n_local is None else n_local
+    cam = tmk._cam_table(cam_params, 0.0, bidir_nu)
+    cam_c = (ctypes.c_float * tmk.CAM_FLOATS)(*cam.tolist())
+    tables = [t.detach().contiguous() for t in packed.tables()[:5]]
+    args = []
+    for t, count in zip(tables, packed.counts):
+        args += [t.data_ptr(), count]
+    shape = (max_bounces + 1, n_local)
+    pix = torch.empty(shape, dtype=torch.int32)
+    r, g, b = (torch.empty(shape, dtype=torch.float32) for _ in range(3))
+    _host_kernel(fma).cpt_light_records_host(
+        *args, cam_c, int(seed), int(path_offset), int(n_local),
+        int(sample_idx), int(n_paths), int(max_bounces), int(width),
+        int(height), int(bidir_nu is not None),
+        pix.data_ptr(), r.data_ptr(), g.data_ptr(), b.data_ptr())
+    return pix, r, g, b
 
 
 def backward_grads_hostbuild(packed, cam_params, seed, width, height, spp,
