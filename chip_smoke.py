@@ -32,7 +32,16 @@ prints no result. It
     ``render_bidir_fast`` on the caustic scene, 512x512, 256 spp + 2,097,152
     light paths, 8 bounces; ``render_lighttrace_fast`` at that path count —
     counts each instantiation's launches and times them apart,
-13. prints one JSON line describing every kernel, then the result line.
+13. the textured path: holds the forward kernel's textured instantiations
+    (default, physical, bidir) against their plain versions on four textured
+    scenes, drives ``ProgressiveRenderer`` on the ``textured`` preset at
+    800x800, 8 bounces, 2000 spp and times single launches, holds the
+    backward kernel's textured replay against the plain engine's autograd
+    (color- and normal-mapped, linear and full, with and without texel
+    gradients), times gradient steps in the reference's textured
+    configurations and trains the ``textured`` preset's texels from a grey
+    atlas with ``invert``,
+14. prints one JSON line describing every kernel, then the result line.
 
 Any failed phase raises: the exit code is then non-zero and the result line
 is not printed. ``--out-dir DIR`` keeps the rendered PNG and a JSON report.
@@ -40,6 +49,7 @@ is not printed. ``--out-dir DIR`` keeps the rendered PNG and a JSON report.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -119,6 +129,36 @@ BIDIR = dict(scene="caustic", width=512, height=512, max_bounces=8, spp=256,
 BIDIR_PLAIN_SPP = 4        # the plain version's share of the eye half
 EARLIER_DEFAULT_MS = 1200.0    # the default instantiation's 2000-spp launch before
                            # the kernel source held three (PERF.md, 700 W card)
+# ... and on the last tree before the textured instantiations (PERF.md, PR 3)
+PR3_DEFAULT_MS = (1195.2, 1208.1)
+PR3_DEFAULT_REGISTERS = 87
+
+# The texture block, counted from csrc/megakernel.cuh the same way: per hit of
+# a textured scene the unit normal, the UVs and the tangent (a sphere: the
+# polynomial atan2 / asin; a triangle: the barycentric recompute and the UV
+# tangent); per bilinear fetch its weights and the 3-channel sum, plus the
+# albedo product (color map) or the tangent-frame perturbation (normal map).
+TEX_SPHERE_HIT_FLOPS = 75
+TEX_TRIANGLE_HIT_FLOPS = 95
+COLOR_FETCH_FLOPS = 45
+NORMAL_FETCH_FLOPS = 115
+# The textured backward kernel adds per stored bounce the albedo split (and
+# in full mode the UV swim, 30) and per normal-map hit in full mode the
+# perturbation pullback (170).
+TEX_REVERSE_FLOPS = {"linear": 15, "full": 45}
+NMAP_PULLBACK_FLOPS = 170
+
+# The textured path: the forward at the default one's size; the texture
+# scenes of the reference's tests; its textured gradient configurations.
+TEX_PLAIN_SPP = 16
+TEX_GRAD_BENCH = [  # (scene, size, spp, bounces, fields): docs/PERF.md of the reference
+    ("color quad", 64, 8, 2, ["textures", "materials.diffuse"]),
+    ("color quad", 128, 8, 2, ["textures", "materials.diffuse"]),
+    ("color quad", 192, 8, 2, ["textures", "materials.diffuse"]),
+    ("color+normal quad", 128, 16, 4, ["textures", "materials.diffuse", "pl_pos"]),
+    ("color+normal quad", 256, 32, 4, ["textures", "materials.diffuse", "pl_pos"]),
+]
+TEX_TRAIN = dict(width=96, height=96, spp=8, max_bounces=4, steps=40)
 
 
 def log(msg: str) -> None:
@@ -262,6 +302,45 @@ def grad_gap(got: dict, want: dict):
         if err / scale >= worst_rel:
             worst, worst_rel = k, err / scale
     return worst, worst_rel, worst_abs, ok
+
+
+def textured_quad(tex=True, nmap=False, sphere=False):
+    """The reference's texture test scene: a 2x2 red/blue checker color map
+    and / or a constant tilted normal map on a UV-mapped quad (or a sphere
+    with procedural UVs) lit by a point light."""
+    from cuda_path_tracer_ss_torch.models.scene import MaterialSpec, SceneBuilder
+
+    b = SceneBuilder()
+    checker = np.zeros((2, 2, 3), np.float32)
+    checker[:, 0] = (1.0, 0.1, 0.1)
+    checker[:, 1] = (0.1, 0.1, 1.0)
+    tid = b.add_texture(checker) if tex else -1
+    nid = -1
+    if nmap:
+        nm = np.zeros((2, 2, 3), np.float32)
+        nm[..., 0], nm[..., 1], nm[..., 2] = 0.85, 0.5, 0.9
+        nid = b.add_texture(nm)
+    m = b.add_material(MaterialSpec(diffuse=(1.0, 1.0, 1.0), diff_avg=0.8,
+                                    texture=tid, normal_map=nid))
+    if sphere:
+        b.add_sphere((0.0, 0.0, -4.0), 1.6, m)
+    else:
+        v = [(-2, -2, -4), (2, -2, -4), (2, 2, -4), (-2, 2, -4)]
+        uv = [(0, 0), (1, 0), (1, 1), (0, 1)]
+        n = (0, 0, 1)
+        b.add_triangle(v[0], v[1], v[2], n, n, n, m, uv=(uv[0], uv[1], uv[2]))
+        b.add_triangle(v[0], v[2], v[3], n, n, n, m, uv=(uv[0], uv[2], uv[3]))
+    b.add_point_light((0.0, 0.0, -1.0), (60.0, 60.0, 60.0))
+    b.background = np.zeros(3, np.float32)
+    return b.build()
+
+
+def texture_flops(stats) -> float:
+    """The texture block's float32 work in the paths ``stats`` describes."""
+    return (stats.get("tex_sphere_hits", 0) * TEX_SPHERE_HIT_FLOPS
+            + stats.get("tex_triangle_hits", 0) * TEX_TRIANGLE_HIT_FLOPS
+            + stats.get("color_fetches", 0) * COLOR_FETCH_FLOPS
+            + stats.get("normal_fetches", 0) * NORMAL_FETCH_FLOPS)
 
 
 def main() -> int:
@@ -488,6 +567,11 @@ def main() -> int:
         f"{PLAIN_SPP}-spp launch {ms_plain_shape:.2f} ms")
     log(f"[bench] the default instantiation beside its time before the source held "
         f"three: {ms:.1f} ms now, {EARLIER_DEFAULT_MS:.1f} ms then ({ms / EARLIER_DEFAULT_MS - 1:+.2%})")
+    default_regs = report["ptxas"]["megakernel/render_kernel<0,0,0>"]["registers"]
+    log(f"[bench] untextured default instantiation beside the last tree without textured "
+        f"instantiations: {ms:.1f} ms and {default_regs} registers now, "
+        f"{PR3_DEFAULT_MS[0]:.1f}-{PR3_DEFAULT_MS[1]:.1f} ms and {PR3_DEFAULT_REGISTERS} "
+        f"registers then (PERF.md, PR 3)")
 
     # bound: this run's operation count (the plain version's tally over
     # PLAIN_SPP samples, scaled to the timed sample count) over the FP32 peak,
@@ -992,7 +1076,294 @@ def main() -> int:
         f"{eye_bound[2]:.2f} ms; bytes -> {eye_bound[3]:.4f} ms; kernel at "
         f"{eye_bound[0] / eye_ms:.1%} of its bound")
 
-    # ---- 13. report ----------------------------------------------------------------
+    # ---- 13a. the textured instantiations against their plain versions -----------------
+    tex_scenes = {"textured": presets.textured, "mesh": presets.mesh_demo,
+                  "color+normal quad": lambda: textured_quad(nmap=True),
+                  "color sphere": lambda: textured_quad(sphere=True)}
+    report["texture_vs_plain"] = {}
+    for name, make in tex_scenes.items():
+        packed_s = mk.pack_scene(make(), dev)
+        for label, kw in (("default", {}),) + tuple(VARIANTS.items()):
+            plain_v = mk.render_block_sums_plain(packed_s, cp, 7, W, H, 8, 6, 0, W * H,
+                                                 **kw) / 8
+            got = mk.render_block_sums_cuda(packed_s, cp, 7, W, H, 8, 6, 0, W * H, **kw) / 8
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), f"texture {label} {name}: non-finite")
+            rate_v, gap_v, err_v = match_stats(got, plain_v)
+            log(f"[texture kernel vs plain] {name:18s} {label:8s} "
+                f"({'textured' if packed_s.textured else 'untextured'} instantiation): "
+                f"{rate_v:.4%} of pixels, mean gap {gap_v:.2e}, max abs err {err_v:.2e}")
+            check(rate_v >= 0.995, f"texture {label} {name}: only {rate_v:.4%} of pixels match")
+            check(gap_v <= 1e-3, f"texture {label} {name}: channel means differ by {gap_v:.2e}")
+            report["texture_vs_plain"][f"{name}/{label}"] = (rate_v, gap_v, err_v)
+
+    # ---- 13b. the textured main path at full size ---------------------------------------
+    passes_t = []
+    mk.LAUNCH_COUNT = 0            # every count to 0 just before the path ...
+    mk.LAUNCHES_BY_VARIANT[:] = [0, 0, 0]
+    mk.LAUNCHES_TEXTURED[:] = [0, 0, 0]
+    r = ProgressiveRenderer(
+        presets.textured(), Camera(),
+        RenderConfig(width=w, height=h, max_bounces=nb, spp=spp, engine="cuda"),
+        on_pass=passes_t.append)
+    t0 = time.time()
+    r.run()
+    tex_main_s = time.time() - t0
+    png_t = os.path.join(work_dir, "textured_800.png")
+    r.save(png_t)
+    launches_t = list(mk.LAUNCHES_TEXTURED)   # ... and read just after
+    tex_img = torch.from_numpy(r.radiance()).to(dev)
+    check(launches_t == [len(passes_t), 0, 0] and launches_t[0] > 0,
+          f"textured launches {launches_t} for {len(passes_t)} passes")
+    check(tuple(tex_img.shape) == (h, w, 3) and bool(torch.isfinite(tex_img).all())
+          and float(tex_img.min()) >= 0.0, "textured main-path image wrong")
+    log(f"[textured main path] ProgressiveRenderer textured {w}x{h} {nb} bounces {spp} spp: "
+        f"{len(passes_t)} passes, {launches_t[0]} launches of the textured default "
+        f"instantiation, {tex_main_s:.2f} s, {w * h * spp / tex_main_s / 1e6:.1f} M primary "
+        f"rays/s")
+
+    # the same with the physical estimator, sample count cut to 256
+    mk.LAUNCHES_TEXTURED[:] = [0, 0, 0]   # every count to 0 just before the path ...
+    r = ProgressiveRenderer(
+        presets.textured(), Camera(),
+        RenderConfig(width=w, height=h, max_bounces=nb, spp=256, engine="cuda",
+                     physical=True))
+    t0 = time.time()
+    r.run()
+    tex_phys_s = time.time() - t0
+    launches_tp = list(mk.LAUNCHES_TEXTURED)  # ... and read just after
+    check(launches_tp[1] > 0 and launches_tp[0] == launches_tp[2] == 0
+          and bool(np.isfinite(r.radiance()).all()), f"textured physical {launches_tp}")
+    log(f"[textured main path] ProgressiveRenderer(physical=True) textured {w}x{h} {nb} "
+        f"bounces 256 spp: {launches_tp[1]} launches of the textured physical instantiation, "
+        f"{tex_phys_s:.2f} s, {w * h * 256 / tex_phys_s / 1e6:.1f} M primary rays/s")
+
+    packed_t = mk.pack_scene(presets.textured(), dev)
+    tex_bench = {}
+    for label, kw in (("default", {}), ("physical", dict(physical=True))):
+        stats_x = {}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        plain_x = mk.render_megakernel_plain(packed_t, cp, 0, w, h, TEX_PLAIN_SPP, nb,
+                                             sample_offset=spp, stats=stats_x, **kw)
+        torch.cuda.synchronize()
+        x_plain_ms = (time.time() - t0) * 1e3
+        same_x = mk.render_megakernel(packed_t, cp, 0, w, h, TEX_PLAIN_SPP, nb,
+                                      sample_offset=spp, **kw)
+        torch.cuda.synchronize()
+        x_rate, x_gap, x_err = match_stats(same_x, plain_x)
+        check(x_rate >= 0.995 and x_gap <= 1e-3,
+              f"textured {label} kernel disagrees with plain at full width")
+        def launch_x(k, kw=kw):
+            mk.render_block_sums_cuda(packed_t, cp, 0, w, h, spp, nb, 0, w * h,
+                                      sample_offset=(k + 1) * spp, **kw)
+
+        time_launches(launch_x, 1)
+        x_ms = time_launches(launch_x, 2)
+        x_flops = (flop_count(packed_t.counts, stats_x, spp / TEX_PLAIN_SPP,
+                              physical=bool(kw))
+                   + texture_flops(stats_x) * spp / TEX_PLAIN_SPP)
+        x_bound = bound_of(x_flops, packed_t.table_bytes + 12 * w * h)
+        regs = report["ptxas"][f"megakernel/render_kernel<{int(bool(kw))},0,1>"]["registers"]
+        tex_bench[label] = dict(ms=x_ms, plain_ms=x_plain_ms, max_abs_err=x_err,
+                                match_rate=x_rate, bound=x_bound, registers=regs)
+        log(f"[textured bench] textured {w}x{h} {nb} bounces {spp} spp, one launch of the "
+            f"textured {label} instantiation ({regs} registers): {x_ms:.1f} ms = "
+            f"{w * h * spp / x_ms / 1e3:.1f} M primary rays/s; vs plain at {TEX_PLAIN_SPP} spp "
+            f"(same samples): {x_rate:.4%} of pixels, max abs err {x_err:.2e}, plain version "
+            f"{x_plain_ms:.0f} ms; per path {stats_x['path_bounces'] / stats_x['paths']:.3f} "
+            f"bounces, {stats_x['color_fetches'] / stats_x['paths']:.3f} color and "
+            f"{stats_x['normal_fetches'] / stats_x['paths']:.3f} normal-map fetches")
+        log(f"[bound] textured {label} instantiation: {x_flops:.3e} float32 operations -> "
+            f"{x_bound[2]:.2f} ms; {packed_t.table_bytes + 12 * w * h} bytes -> "
+            f"{x_bound[3]:.4f} ms; kernel at {x_bound[0] / x_ms:.1%} of its bound")
+
+    # the textured bidir instantiation: the eye half's entry on a textured scene
+    # (render_bidir_fast refuses one: the light kernel has no texture block)
+    mk.LAUNCHES_TEXTURED[:] = [0, 0, 0]   # every count to 0 just before the path ...
+    nu_t = n_paths / bspp
+    eye_t = mk.render_megakernel(packed_t, cp, 0, bw, bh, bspp, bnb, physical=True,
+                                 bidir_nu=nu_t)
+    torch.cuda.synchronize()
+    launches_tb = list(mk.LAUNCHES_TEXTURED)  # ... and read just after
+    check(launches_tb == [0, 0, 1] and bool(torch.isfinite(eye_t).all()),
+          f"textured eye half launched {launches_tb}")
+    stats_tb = {}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    plain_tb = mk.render_megakernel_plain(packed_t, cp, 0, bw, bh, BIDIR_PLAIN_SPP, bnb,
+                                          stats=stats_tb, physical=True, bidir_nu=nu_t)
+    torch.cuda.synchronize()
+    tb_plain_ms = (time.time() - t0) * 1e3
+    tb_rate, tb_gap, tb_err = match_stats(
+        mk.render_megakernel(packed_t, cp, 0, bw, bh, BIDIR_PLAIN_SPP, bnb, physical=True,
+                             bidir_nu=nu_t), plain_tb)
+    check(tb_rate >= 0.995 and tb_gap <= 1e-3, "textured bidir disagrees with plain")
+    tb_ms = median_ms(lambda: mk.render_block_sums_cuda(
+        packed_t, cp, 0, bw, bh, bspp, bnb, 0, bw * bh, physical=True, bidir_nu=nu_t))
+    tb_flops = (flop_count(packed_t.counts, stats_tb, bspp / BIDIR_PLAIN_SPP, physical=True,
+                           bidir=True) + texture_flops(stats_tb) * bspp / BIDIR_PLAIN_SPP)
+    tb_bound = bound_of(tb_flops, packed_t.table_bytes + 12 * bw * bh)
+    log(f"[textured bench] textured {bw}x{bh} {bnb} bounces {bspp} spp, nu {nu_t:g}, the "
+        f"textured bidir instantiation ({report['ptxas']['megakernel/render_kernel<1,1,1>']['registers']} "
+        f"registers): {tb_ms:.2f} ms (median of 5); vs plain at {BIDIR_PLAIN_SPP} spp "
+        f"{tb_rate:.4%} of pixels, plain version {tb_plain_ms:.0f} ms; bound "
+        f"{tb_bound[0]:.3f} ms ({tb_bound[1]}), kernel at {tb_bound[0] / tb_ms:.1%} of it")
+
+    # ---- 13c. the textured backward kernel against the plain engine's autograd -------------
+    report["textured_vjp_vs_plain"] = {}
+    tex_vjp_cases = [
+        ("color quad", lambda: textured_quad(), ["textures", "materials.diffuse"]),
+        ("color quad", lambda: textured_quad(),
+         ["textures", "materials.roughness", "pl_pos"]),
+        ("color sphere", lambda: textured_quad(sphere=True),
+         ["sph_center", "sph_radius", "textures"]),
+        ("color+normal quad", lambda: textured_quad(nmap=True),
+         ["textures", "materials.diffuse", "pl_pos"]),
+        ("textured", presets.textured, ["textures", "materials.diffuse"]),
+    ]
+    for name, make, fields_t in tex_vjp_cases:
+        scene = make()
+        for with_tex in (True, False):
+            fields = fields_t if with_tex else [f for f in fields_t if f != "textures"]
+            (v_k, g_k), (v_p, g_p) = both_engines(scene, fields, rand_target, gw, gh, 2, 4, 5)
+            torch.cuda.synchronize()
+            route = vjp.LAST_ROUTE
+            mode = inverse.make_loss(scene, cp, rand_target, gw, gh, 2, 4, engine="plain",
+                                     field_names=fields).grad_mode
+            worst, rel, _, ok = grad_gap(g_k, g_p)
+            loss_gap = abs(float(v_k) - float(v_p)) / abs(float(v_p))
+            log(f"[textured vjp vs plain] {name:18s} {mode:6s} {','.join(fields)}: loss gap "
+                f"{loss_gap:.1e}; worst field {worst} at {rel:.2e} of its max|g|; rows "
+                f"{route} route")
+            check(loss_gap <= 1e-5, f"textured vjp {name} {fields}: loss differs by {loss_gap}")
+            check(ok, f"textured vjp {name} {fields}: {worst} off by {rel:.2e} of max|g|")
+            report["textured_vjp_vs_plain"][f"{name}/{','.join(fields)}"] = (mode, worst, rel,
+                                                                           route)
+
+    scene = presets.textured()
+    fields = ["textures", "materials.diffuse"]
+    loss = inverse.make_loss(scene, cp, rand_target, gw, gh, 2, 4, engine="cuda",
+                             field_names=fields)
+    (v1, g1), (v2, g2) = (inverse.value_and_grad(loss, inverse.extract_params(scene, fields),
+                                                 5) for _ in range(2))
+    torch.cuda.synchronize()
+    _, tex_det, _, _ = grad_gap(g1, g2)
+    check(float(v1) == float(v2) and tex_det <= 1e-4,
+          f"two runs of one textured step differ by {tex_det:.2e} of max|g|")
+    log(f"[vjp determinism] textured {gw}x{gh} {loss.grad_mode}, the same step twice: "
+        f"largest difference {tex_det:.2e} of a field's max|g|; losses bit-equal")
+
+    # ---- 13d. textured gradient steps in the reference's configurations -------------------
+    tex_grad_bench = []
+    for name, size, b_spp, b_nb, fields in TEX_GRAD_BENCH:
+        scene = textured_quad(nmap="normal" in name)
+        packed_g = mk.pack_scene(scene, dev)
+        target_g = mk.render_megakernel(packed_g, cp, 0, size, size, b_spp, b_nb)
+        loss = inverse.make_loss(scene, cp, target_g, size, size, b_spp, b_nb, engine="cuda",
+                                 field_names=fields)
+        full = loss.grad_mode == "full"
+        params = inverse.extract_params(scene, fields)
+        mk.LAUNCHES_TEXTURED[:] = [0, 0, 0]   # every count to 0 just before the path ...
+        vjp.LAUNCH_COUNT = 0
+        ms_step = median_ms(lambda: inverse.value_and_grad(loss, params, 1))
+        k_launches = (mk.LAUNCHES_TEXTURED[0], vjp.LAUNCH_COUNT)   # ... read just after
+        check(k_launches == (6, 6), f"textured grad bench: launches {k_launches} for 6 steps")
+        g_img = torch.rand((size, size, 3), generator=g).to(dev)
+        n_g = size * size
+        ms_k1g = median_ms(lambda: mk.render_block_sums_cuda(packed_g, cp, 1, size, size, b_spp,
+                                                             b_nb, 0, n_g))
+        ms_k2g = median_ms(lambda: vjp.backward_rows_cuda(packed_g, cp, 1, size, size, b_spp,
+                                                          b_nb, g_img, full=full,
+                                                          tex_grads=True))
+        stats_g = {}
+        mk.render_megakernel_plain(packed_g, cp, 1, size, size, b_spp, b_nb, stats=stats_g)
+        visible = stats_g["shadow_rays"] - stats_g["shadow_rays_occluded"]
+        mode = loss.grad_mode
+        k2_flops = (flop_count(packed_g.counts, stats_g) + texture_flops(stats_g)
+                    + stats_g["path_bounces"] * (REVERSE_BOUNCE_FLOPS[mode]
+                                                 + TEX_REVERSE_FLOPS[mode])
+                    + (stats_g["normal_fetches"] * NMAP_PULLBACK_FLOPS if full else 0)
+                    + visible * NEE_PARTIAL_FLOPS[mode] + stats_g["paths"] * EYE_VJP_FLOPS[mode])
+        texels = packed_g.tex_counts[1]
+        rows = vjp._grad_rows(packed_g.counts, full, texels)
+        k2_bound = bound_of(k2_flops, packed_g.table_bytes + 12 * n_g + 4 * rows)
+        entry = dict(name=name, size=size, spp=b_spp, bounces=b_nb, mode=mode,
+                     fields=fields, ms_step=ms_step, ms_k1=ms_k1g, ms_k2=ms_k2g,
+                     bound=k2_bound, route=vjp.LAST_ROUTE, packed=packed_g, g_img=g_img,
+                     launches=k_launches[1])
+        tex_grad_bench.append(entry)
+        log(f"[textured grad bench] {name} {size}x{size} {b_spp} spp {b_nb} bounces, {mode} "
+            f"({', '.join(fields)}): value_and_grad step {ms_step:.2f} ms = forward kernel "
+            f"{ms_k1g:.2f} + backward kernel {ms_k2g:.2f} + the rest {ms_step - ms_k1g - ms_k2g:.2f}"
+            f" (medians of 5); backward kernel's bound {k2_bound[0]:.4f} ms ({k2_bound[1]}), "
+            f"kernel at {k2_bound[0] / ms_k2g:.1%} of it; rows {vjp.LAST_ROUTE} route")
+
+    # the plain engine on two of these steps' inputs: its time and the kernel's error
+    tex_k2 = {}
+    for entry in (tex_grad_bench[1], tex_grad_bench[3]):
+        size, b_spp, b_nb = entry["size"], entry["spp"], entry["bounces"]
+        packed_g, g_img = entry["packed"], entry["g_img"]
+        full = entry["mode"] == "full"
+        rows_k = vjp.backward_rows_cuda(packed_g, cp, 1, size, size, b_spp, b_nb, g_img,
+                                        full=full, tex_grads=True)
+        d_k, _ = vjp._unpack_rows(rows_k, packed_g, full, True)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (packed_g.materials, packed_g.point_lights, packed_g.tex_atlas)]
+        pk = dataclasses.replace(packed_g, materials=leaves[0], point_lights=leaves[1],
+                                 tex_atlas=leaves[2])
+        img_p = vjp.render_megakernel_diff_plain(pk, cp, 1, size, size, b_spp, b_nb,
+                                                 grad_mode=entry["mode"])
+        d_p = torch.autograd.grad((img_p * g_img).sum(), leaves)
+        torch.cuda.synchronize()
+        plain_ms_t = (time.time() - t0) * 1e3
+        # linear mode leaves the full-only columns at zero: compare what it computes
+        cols = (slice(None) if full else [*range(12), 14], slice(None) if full else slice(3, 6))
+        got_k = {"materials": d_k.materials[:, cols[0]],
+                 "point_lights": d_k.point_lights[:, cols[1]], "textures": d_k.tex_atlas}
+        want_p = {"materials": d_p[0][:, cols[0]], "point_lights": d_p[1][:, cols[1]],
+                  "textures": d_p[2]}
+        worst, rel, err, ok = grad_gap(got_k, want_p)
+        check(ok, f"textured grad bench {entry['name']}: {worst} off by {rel:.2e} of max|g|")
+        tex_k2[entry["mode"]] = dict(entry, plain_ms=plain_ms_t, max_abs_err=err)
+        log(f"[textured grad bench] kernels vs plain engine at {entry['name']} {size}x{size} "
+            f"{b_spp} spp {b_nb} bounces ({entry['mode']}): worst {worst} at {rel:.2e} of its "
+            f"max|g| (max abs err {err:.2e}); plain version's forward + backward "
+            f"{plain_ms_t:.0f} ms")
+
+    # ---- 13e. textured training: paint the textured preset's texels from grey ------------
+    tt = TEX_TRAIN
+    scene_true = presets.textured()
+    target_tt = mk.render_megakernel(mk.pack_scene(scene_true, dev), cp, 0, tt["width"],
+                                     tt["height"], tt["spp"], tt["max_bounces"])
+    start_tt = scene_true.replace(textures=torch.full_like(scene_true.textures, 0.5))
+    stamps = []
+    mk.LAUNCH_COUNT = 0             # every count to 0 just before the path ...
+    mk.LAUNCHES_TEXTURED[:] = [0, 0, 0]
+    vjp.LAUNCH_COUNT = 0
+    t0 = time.time()
+    _, params_tt, losses_tt = inverse.invert(
+        start_tt, cp, target_tt, ["textures"], tt["width"], tt["height"], spp=tt["spp"],
+        steps=tt["steps"], lr=0.05, seed=0, max_bounces=tt["max_bounces"], engine="cuda",
+        callback=lambda step, val, p: stamps.append(time.time()))
+    torch.cuda.synchronize()
+    train_t = dict(k1=mk.LAUNCHES_TEXTURED[0], k2=vjp.LAUNCH_COUNT,   # ... read just after
+                   first_step_s=stamps[0] - t0,
+                   ms_per_step=(stamps[-1] - stamps[0]) / (tt["steps"] - 1) * 1e3)
+    log(f"[textured train] invert textured {tt['width']}x{tt['height']} {tt['spp']} spp "
+        f"{tt['max_bounces']} bounces, fields textures from a grey atlas, {tt['steps']} Adam "
+        f"steps: loss {losses_tt[0]:.3e} -> {losses_tt[-1]:.3e} "
+        f"({losses_tt[-1] / losses_tt[0]:.3f} of the first); {train_t['ms_per_step']:.2f} ms "
+        f"per step after a {train_t['first_step_s']:.2f} s first step; {train_t['k1']} forward "
+        f"and {train_t['k2']} backward launches")
+    check(all(np.isfinite(losses_tt)) and losses_tt[-1] < losses_tt[0],
+          "textured train: the loss did not fall")
+    check(train_t["k1"] == tt["steps"] and train_t["k2"] == tt["steps"],
+          f"textured train: {train_t['k1']} / {train_t['k2']} launches")
+
+    # ---- 14. report ----------------------------------------------------------------
     k1_common = {
         "route": "cuda",
         "source": "cuda_path_tracer_ss_torch/csrc/megakernel.cu",
@@ -1094,7 +1465,59 @@ def main() -> int:
         "scratch_bytes_ms": b["scratch_bytes_ms"],
         "two_runs_rel_diff": determinism[mode],
         "share_of_bound": b["bound_ms"] / b["ms"],
-    } for mode, b in bench.items()]}
+    } for mode, b in bench.items()] + [{
+        **k1_common,
+        "name": f"render_megakernel[{label}, textured]",
+        "launches": launches_t[0] if label == "default" else launches_tp[1],
+        "max_abs_err": v["max_abs_err"],
+        "ms": v["ms"],
+        "plain_ms": v["plain_ms"],
+        "bound_ms": v["bound"][0],
+        "bound_by": v["bound"][1],
+        "shape": f"textured {w}x{h}, {nb} bounces, {spp} spp, one launch",
+        "plain_shape": f"textured {w}x{h}, {nb} bounces, {TEX_PLAIN_SPP} spp",
+        "registers": v["registers"],
+        "match_rate": v["match_rate"],
+        "share_of_bound": v["bound"][0] / v["ms"],
+    } for label, v in tex_bench.items()] + [{
+        **k1_common,
+        "name": "render_megakernel[bidir, textured]",
+        "launches": launches_tb[2],
+        "max_abs_err": tb_err,
+        "ms": tb_ms,
+        "plain_ms": tb_plain_ms,
+        "bound_ms": tb_bound[0],
+        "bound_by": tb_bound[1],
+        "shape": f"textured {bw}x{bh}, {bnb} bounces, {bspp} spp, nu {nu_t:g}, one launch",
+        "plain_shape": f"textured {bw}x{bh}, {bnb} bounces, {BIDIR_PLAIN_SPP} spp",
+        "match_rate": tb_rate,
+        "share_of_bound": tb_bound[0] / tb_ms,
+    }] + [{
+        "name": f"backward_megakernel[{mode}, textured]",
+        "route": "cuda",
+        "source": "cuda_path_tracer_ss_torch/csrc/megakernel_vjp.cu",
+        "replaces": "cuda_path_tracer_ss_tpu/ops/pallas/megakernel_vjp.py:269",
+        "launches": b["launches"] if mode == "linear" else train_t["k2"],
+        "max_abs_err": b["max_abs_err"],
+        "ms": b["ms_k2"],
+        "plain_ms": b["plain_ms"],
+        "bound_ms": b["bound"][0],
+        "bound_by": b["bound"][1],
+        "library_ms": None,
+        "shape": f"{b['name']} {b['size']}x{b['size']}, {b['bounces']} bounces, "
+                 f"{b['spp']} spp, texel gradients on, one launch",
+        "plain_shape": "the same, the plain engine's forward + backward",
+        "launches_on": ("the textured grad bench's value_and_grad steps" if mode == "linear"
+                        else "invert on the textured preset, fields textures"),
+        "ms_value_and_grad_step": b["ms_step"],
+        "rows_route": b["route"],
+        "share_of_bound": b["bound"][0] / b["ms_k2"],
+    } for mode, b in tex_k2.items()]}
+    report.update(textured_main_path_s=tex_main_s, textured_train=train_t,
+                  textured_grad_bench=[{k: v for k, v in e.items()
+                                        if k not in ("packed", "g_img")}
+                                       for e in tex_grad_bench],
+                  textured_train_losses=(losses_tt[0], losses_tt[-1]))
     report.update(kernels=kernels["kernels"], main_path_s=main_s, train=train,
                   physical_main_path_s=phys_main_s, bidir_main_path_s=bidir_main_s,
                   render_bidir_fast_ms=bidir_ms, light_two_runs_gap=two_runs_gap,
@@ -1102,7 +1525,7 @@ def main() -> int:
                   total_s=time.time() - t_start)
     if args.out_dir:
         os.makedirs(args.out_dir, exist_ok=True)
-        for path in (png, png_p, png_b):
+        for path in (png, png_p, png_b, png_t):
             with open(path, "rb") as src, \
                     open(os.path.join(args.out_dir, os.path.basename(path)), "wb") as dst:
                 dst.write(src.read())

@@ -11,7 +11,9 @@ megakernel, the progressive renderer with exact resume, the ``render`` /
 and the ``grad-check`` / ``invert`` commands; and the unbiased estimators —
 the megakernel's physical (MIS) variant and its bidirectional carries, the
 light-tracing kernel under ``render_lighttrace_fast``, ``render_bidir_fast``
-and the ``lighttrace`` / ``bidir`` commands.
+and the ``lighttrace`` / ``bidir`` commands; and textures — color and normal
+maps in both kernels (forward render and training, the texels trainable),
+the ``textured`` and ``mesh`` presets, the OBJ/MTL loader and ``--obj``.
 """
 
 from .constants import (

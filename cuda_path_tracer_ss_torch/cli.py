@@ -24,6 +24,14 @@ import time
 
 def _common(p: argparse.ArgumentParser):
     p.add_argument("--scene", default="cornell", help="scene preset name")
+    p.add_argument("--obj", default=None, metavar="FILE",
+                   help="render a Wavefront OBJ instead of a preset: the "
+                        "mesh (with its mtllib materials and their map_Kd / "
+                        "bump textures, if any) is auto-centered in the "
+                        "Cornell shell")
+    p.add_argument("--obj-scale", type=float, default=1.0,
+                   help="size multiplier for --obj (1.0 fits the mesh's "
+                        "largest extent to 4 units)")
     p.add_argument("--width", type=int, default=512)
     p.add_argument("--height", type=int, default=512)
     p.add_argument("--spp", type=int, default=64)
@@ -63,12 +71,42 @@ def _config(args):
                         physical=args.physical, device=args.device)
 
 
+def _obj_scene(args):
+    """User OBJ (+ its .mtl library) auto-centered inside the Cornell shell."""
+    import numpy as np
+
+    from .models.presets import add_cornell_box
+    from .models.scene import MaterialSpec, SceneBuilder
+    from .utils.obj import add_obj_with_mtl, load_obj
+
+    b = SceneBuilder()
+    fallback = b.add_material(MaterialSpec(diffuse=(0.7, 0.6, 0.5),
+                                           diff_avg=0.75))
+    v, _, _ = load_obj(args.obj)
+    center = (v.min(0) + v.max(0)) / 2
+    extent = float((v.max(0) - v.min(0)).max())
+    s = args.obj_scale * 4.0 / max(extent, 1e-9)
+    t = np.diag([s, s, s, 1.0]).astype(np.float32)
+    t[:3, 3] = np.asarray([0.0, -1.0, -5.5], np.float32) - s * center
+    n, mmap = add_obj_with_mtl(b, args.obj, fallback, transform=t)
+    add_cornell_box(b, 10.0)
+    print(f"loaded {args.obj}: {n} triangles, "
+          f"materials: {sorted(mmap) if mmap else '(fallback)'}")
+    return b.build()
+
+
+def _scene(args):
+    """The scene of a command: ``--obj`` if given, else preset ``--scene``."""
+    from .models.presets import get_scene
+
+    return _obj_scene(args) if args.obj else get_scene(args.scene)
+
+
 def _build(args):
     from .models.camera import Camera
-    from .models.presets import get_scene
     from .render.renderer import ProgressiveRenderer
 
-    return ProgressiveRenderer(get_scene(args.scene), Camera(), _config(args))
+    return ProgressiveRenderer(_scene(args), Camera(), _config(args))
 
 
 def _checkpoint_paths(path: str):
@@ -111,7 +149,6 @@ def cmd_benchmark(args):
     import torch
 
     from .models.camera import Camera, camera_arrays
-    from .models.presets import get_scene
     from .ops.cuda.megakernel import (pack_scene, render_megakernel,
                                       render_megakernel_plain)
     from .utils.profiling import sync, timed
@@ -122,7 +159,7 @@ def cmd_benchmark(args):
     device = torch.device(args.device)
     cp = camera_arrays(Camera())
     # pack once: per-repeat packing would be counted in the timing
-    packed = pack_scene(get_scene(args.scene), device)
+    packed = pack_scene(_scene(args), device)
     render = render_megakernel if engine == "cuda" else render_megakernel_plain
     window = [0]
 
@@ -162,7 +199,6 @@ def _light_setup(args):
     import torch
 
     from .models.camera import Camera, camera_arrays
-    from .models.presets import get_scene
     from .ops.cuda.megakernel import pack_scene
 
     device = torch.device(args.device)
@@ -171,7 +207,7 @@ def _light_setup(args):
         raise ValueError(f"'{args.cmd}' picks its engine by the device; "
                          f"--engine {engine} needs --device "
                          f"{'cuda' if engine == 'cuda' else 'cpu'}")
-    packed = pack_scene(get_scene(args.scene), device)
+    packed = pack_scene(_scene(args), device)
     return packed, camera_arrays(Camera()), engine
 
 
@@ -231,13 +267,12 @@ def _training_setup(args):
     """(scene, cam_params, engine, fields) of the two training commands; the
     options whose slice has not landed are refused here, before any work."""
     from .models.camera import Camera, camera_arrays
-    from .models.presets import get_scene
     from .render import inverse
 
     cfg = _config(args)
     engine = cfg.resolved_engine()
     cfg.check_ported()
-    scene = get_scene(args.scene)
+    scene = _scene(args)
     fields = args.fields.split(",")
     inverse.check_engine_fields(engine, fields, physical=args.physical,
                                 scene=scene)

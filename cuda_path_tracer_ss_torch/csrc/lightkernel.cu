@@ -63,6 +63,8 @@ int cpt_light_records(const float* spheres, int num_spheres,
     sc.point_lights = point_lights; sc.num_point_lights = num_point_lights;
     sc.area_lights = area_lights; sc.num_area_lights = num_area_lights;
     sc.background = nullptr;
+    sc.tex_atlas = sc.tex_meta = sc.tex_triuv = sc.tex_matids = nullptr;
+    sc.num_textures = 0;  // the light kernel has no texture block
     cpt::LightParams p;
     for (int k = 0; k < cpt::CAM_FLOATS; ++k) p.cam[k] = cam_host[k];
     p.seed = seed; p.path_offset = path_offset; p.n_local = n_local;

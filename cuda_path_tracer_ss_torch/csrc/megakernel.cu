@@ -6,7 +6,9 @@
 // (launched there by _render_block_sums) in three of its variants, each an
 // instantiation of one source: the reference-parity estimator (default), the
 // physical (unbiased MIS) estimator, and the physical estimator with the
-// bidirectional carries. One thread per pixel over a 1-D grid; the ragged
+// bidirectional carries; each once for untextured and once for textured scenes
+// (the texture block applies color and normal maps at every hit, with direct
+// indexed loads from a flat texel atlas). One thread per pixel over a 1-D grid; the ragged
 // edge is masked by i < n_local. The per-pixel math is in megakernel.cuh. The scene tables are read through read-only global memory
 // (const float* __restrict__): a 10k-primitive scene runs like a small one,
 // and a small scene's tables stay in L1. Bound on this card: FP32 arithmetic
@@ -26,13 +28,13 @@ namespace {
 // latencies with warps. The launch shape is the kernel's own business.
 constexpr int THREADS_PER_BLOCK = 128;
 
-template <bool PHYSICAL, bool BIDIR>
+template <bool PHYSICAL, bool BIDIR, bool TEXTURED>
 __global__ void render_kernel(cpt::SceneTables sc, cpt::RenderParams p,
                               float* __restrict__ out) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= p.n_local) return;
     float r, g, b;
-    cpt::render_pixel_t<PHYSICAL, BIDIR>(sc, p, p.pixel_offset + i, r, g, b);
+    cpt::render_pixel_t<PHYSICAL, BIDIR, TEXTURED>(sc, p, p.pixel_offset + i, r, g, b);
     out[3 * i + 0] = r;
     out[3 * i + 1] = g;
     out[3 * i + 2] = b;
@@ -46,13 +48,26 @@ __global__ void uniform_pairs_kernel(const int* __restrict__ seed, const int* __
     cpt::uniform_pair(seed[i], pixel[i], sample[i], pair[i], u0[i], u1[i]);
 }
 
+template <bool PHYSICAL, bool BIDIR>
+void launch_render(const cpt::SceneTables& sc, const cpt::RenderParams& p, float* out,
+                   int blocks, cudaStream_t st) {
+    if (sc.num_textures > 0) {
+        render_kernel<PHYSICAL, BIDIR, true><<<blocks, THREADS_PER_BLOCK, 0, st>>>(sc, p, out);
+    } else {
+        render_kernel<PHYSICAL, BIDIR, false><<<blocks, THREADS_PER_BLOCK, 0, st>>>(sc, p, out);
+    }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Radiance sums out[n_local][3] for flat pixels [pixel_offset, pixel_offset +
 // n_local). Table pointers are device pointers (float32, row-major, `num_*`
-// rows; an empty table may point at a dummy row); cam_host points at 16 host
+// rows; an empty table may point at a dummy row); the texture bundle (atlas,
+// meta, triuv, matids; megakernel.cuh: SceneTables) is null with
+// num_textures 0 on an untextured scene and selects the textured
+// instantiation otherwise; cam_host points at 16 host
 // floats (slot 15: the bidirectional count ratio nu). `variant` picks the
 // estimator: 0 reference-parity, 1 physical, 2 physical with the
 // bidirectional carries. Everything but the code itself is a runtime argument.
@@ -61,7 +76,10 @@ int cpt_render_megakernel(const float* spheres, int num_spheres,
                           const float* materials, int num_materials,
                           const float* point_lights, int num_point_lights,
                           const float* area_lights, int num_area_lights,
-                          const float* background, const float* cam_host,
+                          const float* background,
+                          const float* tex_atlas, const float* tex_meta,
+                          const float* tex_triuv, const float* tex_matids, int num_textures,
+                          const float* cam_host,
                           int seed, int pixel_offset, int n_local, int sample_offset,
                           int spp, int max_bounces, int width, int height, int variant,
                           float* out, void* stream) {
@@ -72,6 +90,8 @@ int cpt_render_megakernel(const float* spheres, int num_spheres,
     sc.point_lights = point_lights; sc.num_point_lights = num_point_lights;
     sc.area_lights = area_lights; sc.num_area_lights = num_area_lights;
     sc.background = background;
+    sc.tex_atlas = tex_atlas; sc.tex_meta = tex_meta;
+    sc.tex_triuv = tex_triuv; sc.tex_matids = tex_matids; sc.num_textures = num_textures;
     cpt::RenderParams p;
     for (int k = 0; k < cpt::CAM_FLOATS; ++k) p.cam[k] = cam_host[k];
     p.seed = seed; p.pixel_offset = pixel_offset; p.n_local = n_local;
@@ -80,11 +100,11 @@ int cpt_render_megakernel(const float* spheres, int num_spheres,
     const int blocks = (n_local + THREADS_PER_BLOCK - 1) / THREADS_PER_BLOCK;
     const cudaStream_t st = (cudaStream_t)stream;
     if (variant == 0) {
-        render_kernel<false, false><<<blocks, THREADS_PER_BLOCK, 0, st>>>(sc, p, out);
+        launch_render<false, false>(sc, p, out, blocks, st);
     } else if (variant == 1) {
-        render_kernel<true, false><<<blocks, THREADS_PER_BLOCK, 0, st>>>(sc, p, out);
+        launch_render<true, false>(sc, p, out, blocks, st);
     } else if (variant == 2) {
-        render_kernel<true, true><<<blocks, THREADS_PER_BLOCK, 0, st>>>(sc, p, out);
+        launch_render<true, true>(sc, p, out, blocks, st);
     } else {
         return (int)cudaErrorInvalidValue;
     }

@@ -5,8 +5,10 @@
 // Replaces the per-lane body of the TPU kernel
 // cuda_path_tracer_ss_tpu/ops/pallas/megakernel.py::_make_render_kernel in
 // three variants (reference-parity estimator; physical = unbiased MIS
-// estimator; physical with the bidirectional carries), all with linear
-// sweeps, untextured, float32 state. Scalar float32 code, one path per thread; the plain PyTorch
+// estimator; physical with the bidirectional carries), each untextured or
+// textured (the TPU kernel's _texture_block: color and normal maps), all
+// with linear sweeps and float32 state. Scalar float32 code, one path per
+// thread; the plain PyTorch
 // version in ops/cuda/megakernel.py states the same formulas in the same
 // operation order, so with FMA contraction off (-fmad=false) the two agree
 // per pixel up to the math library's ulps.
@@ -62,6 +64,15 @@ struct SceneTables {
     const float* __restrict__ area_lights;
     const float* __restrict__ background;
     int num_spheres, num_triangles, num_materials, num_point_lights, num_area_lights;
+    // The texture bundle (null / 0 on an untextured scene): atlas [texels][3]
+    // (every texture's h x w texels, row-major from the top row), meta [K][3]
+    // = (first texel, h, w), triuv [T][6] corner UVs, matids [M][2] = (color
+    // map, normal map) per material, -1 = none.
+    const float* __restrict__ tex_atlas;
+    const float* __restrict__ tex_meta;
+    const float* __restrict__ tex_triuv;
+    const float* __restrict__ tex_matids;
+    int num_textures;
 };
 
 struct RenderParams {
@@ -247,6 +258,301 @@ CPT_HD bool occlusion_sweep(const SceneTables& sc, float ox, float oy, float oz,
             && t <= max_d) return true;
     }
     return false;
+}
+
+// ---- color and normal mapping (the TPU kernel's _texture_block) ----------------
+//
+// ops/texture.py states the same functions on tensors. The arctangent and
+// arcsine are the reference's branchless polynomials, never the math
+// library's atan2f / asinf: both engines of the reference evaluate these, so
+// sphere UVs agree per pixel. The atlas is read by direct indexed loads.
+
+constexpr float PI_F = (float)3.141592653589793;
+constexpr float HALF_PI = (float)(3.141592653589793 / 2);
+constexpr float QUARTER_PI = (float)(3.141592653589793 / 4);
+constexpr float ATAN_BIG = (float)2.414213562373095;   // tan(3 pi / 8)
+constexpr float ATAN_MID = (float)0.4142135623730950;  // tan(pi / 8)
+constexpr float ATAN_C0 = (float)8.05374449538e-2;
+constexpr float ATAN_C1 = (float)1.38776856032e-1;
+constexpr float ATAN_C2 = (float)1.99777106478e-1;
+constexpr float ATAN_C3 = (float)3.33329491539e-1;
+
+// sign with sign(0) = 0
+CPT_HD float sign0(float x) { return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f); }
+
+// Branchless float32 arctangent (Cephes atanf coefficients, max error ~1e-7).
+CPT_HD float poly_atan(float x) {
+    const float ax = fabsf(x);
+    const bool big = ax > ATAN_BIG;
+    const bool mid = ax > ATAN_MID;
+    const float safe_ax = fmaxf(ax, 1e-12f);
+    const float t = big ? -1.0f / safe_ax : (mid ? (ax - 1.0f) / (ax + 1.0f) : ax);
+    const float y0 = big ? HALF_PI : (mid ? QUARTER_PI : 0.0f);
+    const float z = t * t;
+    const float p = ((((ATAN_C0 * z - ATAN_C1) * z + ATAN_C2) * z - ATAN_C3) * z) * t + t;
+    return sign0(x) * (y0 + p);
+}
+
+// Four-quadrant arctangent on poly_atan; |x| floored at 1e-12 (the uv pole).
+CPT_HD float poly_atan2(float y, float x) {
+    const float safe_x = (fabsf(x) < 1e-12f) ? ((x < 0.0f) ? -1e-12f : 1e-12f) : x;
+    const float a = poly_atan(y / safe_x);
+    return (x < 0.0f) ? a + ((y >= 0.0f) ? PI_F : -PI_F) : a;
+}
+
+// arcsin on [-1, 1] via poly_atan.
+CPT_HD float poly_asin(float x) {
+    const float xc = fminf(fmaxf(x, -1.0f), 1.0f);
+    return poly_atan(xc / sqrtf(fmaxf(1.0f - xc * xc, 1e-12f)));
+}
+
+// Floor modulo: -1 wraps to n - 1 (C's % would give -1).
+CPT_HD int wrap_index(int x, int n) { return ((x % n) + n) % n; }
+
+// One bilinear, wrap-around fetch of texture `tid` at (u, v); v = 0 at the
+// BOTTOM of the image. With AUX also the four corners' flat atlas indices and
+// weights (order 00, 10, 01, 11) and d sample / d u, d v per channel (floor and
+// the wrap carry no derivative).
+struct TexFetch {
+    float val[3];
+    int idx[4];
+    float w[4];
+    float du[3], dv[3];
+};
+
+template <bool AUX>
+CPT_HD void tex_fetch(const SceneTables& sc, float tid, float u, float v, TexFetch& f) {
+    const int k = (int)fminf(fmaxf(tid, 0.0f), (float)(sc.num_textures - 1));
+    const float* meta = sc.tex_meta + 3 * k;
+    const float th = meta[1], tw = meta[2];
+    const int base = (int)meta[0], hi = (int)th, wi = (int)tw;
+    const float uu = (u - floorf(u)) * tw - 0.5f;
+    const float vv = (1.0f - (v - floorf(v))) * th - 0.5f;
+    const float x0 = floorf(uu);
+    const float y0 = floorf(vv);
+    const float fx = uu - x0;
+    const float fy = vv - y0;
+    const int xa = wrap_index((int)x0, wi), xb = wrap_index((int)(x0 + 1.0f), wi);
+    const int ya = wrap_index((int)y0, hi), yb = wrap_index((int)(y0 + 1.0f), hi);
+    const int i00 = base + ya * wi + xa, i10 = base + ya * wi + xb;
+    const int i01 = base + yb * wi + xa, i11 = base + yb * wi + xb;
+    const float w00 = (1.0f - fx) * (1.0f - fy);
+    const float w10 = fx * (1.0f - fy);
+    const float w01 = (1.0f - fx) * fy;
+    const float w11 = fx * fy;
+    const float* a = sc.tex_atlas;
+    for (int c = 0; c < 3; ++c) {
+        const float c00 = a[3 * i00 + c], c10 = a[3 * i10 + c];
+        const float c01 = a[3 * i01 + c], c11 = a[3 * i11 + c];
+        f.val[c] = c00 * w00 + c10 * w10 + c01 * w01 + c11 * w11;
+        if (AUX) {
+            f.du[c] = ((c10 - c00) * (1.0f - fy) + (c11 - c01) * fy) * tw;
+            f.dv[c] = -((c01 - c00) * (1.0f - fx) + (c11 - c10) * fx) * th;
+        }
+    }
+    if (AUX) {
+        f.idx[0] = i00; f.idx[1] = i10; f.idx[2] = i01; f.idx[3] = i11;
+        f.w[0] = w00; f.w[1] = w10; f.w[2] = w01; f.w[3] = w11;
+    }
+}
+
+// UV-aligned tangent of triangle row `tri` (v0 e1 e2 ...) with corner UVs `uv`:
+// (e1 dv2 - e2 dv1) / det, or the unit e1 where the UV map is degenerate.
+CPT_HD void tri_uv_tangent(const float* tri, const float* uv, float& tx, float& ty, float& tz) {
+    const float e1x = tri[3], e1y = tri[4], e1z = tri[5];
+    const float e2x = tri[6], e2y = tri[7], e2z = tri[8];
+    const float du1 = uv[2] - uv[0], dv1 = uv[3] - uv[1];
+    const float du2 = uv[4] - uv[0], dv2 = uv[5] - uv[1];
+    const float det = du1 * dv2 - du2 * dv1;
+    const bool det_bad = fabsf(det) < 1e-12f;
+    const float inv_det = det_bad ? 0.0f : 1.0f / det;
+    tx = (e1x * dv2 - e2x * dv1) * inv_det;
+    ty = (e1y * dv2 - e2y * dv1) * inv_det;
+    tz = (e1z * dv2 - e2z * dv1) * inv_det;
+    if (det_bad || (tx * tx + ty * ty + tz * tz) < 1e-16f) {
+        const float e1inv = CPT_RSQRT(fmaxf(e1x * e1x + e1y * e1y + e1z * e1z, 1e-20f));
+        tx = e1x * e1inv; ty = e1y * e1inv; tz = e1z * e1inv;
+    }
+}
+
+// Sphere tangent (longitude circles) of the unit normal, with a pole fallback.
+CPT_HD void sphere_tangent(float nux, float nuz, float& tx, float& ty, float& tz) {
+    const float st2 = nuz * nuz + nux * nux;
+    const bool st_deg = st2 < 1e-12f;
+    const float st_inv = CPT_RSQRT(fmaxf(st2, 1e-20f));
+    tx = st_deg ? 1.0f : -nuz * st_inv;
+    ty = 0.0f;
+    tz = st_deg ? 0.0f : nux * st_inv;
+}
+
+// The normal map's perturbation of raw normal n by texel t, tangent source tg
+// orthonormalised against the unit normal; the result keeps n's length.
+CPT_HD void perturb_normal(float nx, float ny, float nz, float tgx, float tgy, float tgz,
+                           float t0, float t1, float t2, float& ox, float& oy, float& oz) {
+    const float n2 = nx * nx + ny * ny + nz * nz;
+    const float inv_nl = CPT_RSQRT(fmaxf(n2, 1e-20f));
+    const float nux = nx * inv_nl, nuy = ny * inv_nl, nuz = nz * inv_nl;
+    const float tdn = tgx * nux + tgy * nuy + tgz * nuz;
+    float pox = tgx - nux * tdn, poy = tgy - nuy * tdn, poz = tgz - nuz * tdn;
+    const float po_inv = CPT_RSQRT(fmaxf(pox * pox + poy * poy + poz * poz, 1e-20f));
+    pox = pox * po_inv; poy = poy * po_inv; poz = poz * po_inv;
+    const float bx = nuy * poz - nuz * poy;
+    const float by = nuz * pox - nux * poz;
+    const float bz = nux * poy - nuy * pox;
+    const float tnx = t0 * 2.0f - 1.0f;
+    const float tny = t1 * 2.0f - 1.0f;
+    const float tnz = fmaxf(t2 * 2.0f - 1.0f, 1e-3f);
+    const float ppx = pox * tnx + bx * tny + nux * tnz;
+    const float ppy = poy * tnx + by * tny + nuy * tnz;
+    const float ppz = poz * tnx + bz * tny + nuz * tnz;
+    const float pp_inv = CPT_RSQRT(fmaxf(ppx * ppx + ppy * ppy + ppz * ppz, 1e-20f));
+    const float s = pp_inv * sqrtf(fmaxf(n2, 1e-20f));
+    ox = ppx * s; oy = ppy * s; oz = ppz * s;
+}
+
+// ---- derivatives of the polynomial arctangent / arcsine (the backward kernel's
+// UV-swim chain), in the convention of reverse-mode autodiff of the same
+// formulas: |x|' = +1 at 0, sign' = 0, a clamped input carries nothing.
+
+CPT_HD float poly_atan_d(float x) {
+    const float ax = fabsf(x);
+    const bool big = ax > ATAN_BIG;
+    const bool mid = ax > ATAN_MID;
+    float t, dt;  // t(|x|) and dt / d|x|
+    if (big) {
+        t = -1.0f / ax;
+        dt = 1.0f / (ax * ax);
+    } else if (mid) {
+        t = (ax - 1.0f) / (ax + 1.0f);
+        dt = 2.0f / ((ax + 1.0f) * (ax + 1.0f));
+    } else {
+        t = ax;
+        dt = 1.0f;
+    }
+    const float z = t * t;
+    const float P = ((ATAN_C0 * z - ATAN_C1) * z + ATAN_C2) * z - ATAN_C3;
+    const float dP = (3.0f * ATAN_C0 * z - 2.0f * ATAN_C1) * z + ATAN_C2;
+    // p = P(z) t^3 + t
+    const float dp = 2.0f * dP * z * z + 3.0f * P * z + 1.0f;
+    return sign0(x) * dp * dt * ((x >= 0.0f) ? 1.0f : -1.0f);
+}
+
+// d poly_atan2(y, x) / dy and / dx
+CPT_HD void poly_atan2_d(float y, float x, float& d_y, float& d_x) {
+    const bool floored = fabsf(x) < 1e-12f;
+    const float safe_x = floored ? ((x < 0.0f) ? -1e-12f : 1e-12f) : x;
+    const float q = y / safe_x;
+    const float da = poly_atan_d(q);
+    d_y = da / safe_x;
+    d_x = floored ? 0.0f : -da * q / safe_x;
+}
+
+CPT_HD float poly_asin_d(float x) {
+    const float xc = fminf(fmaxf(x, -1.0f), 1.0f);
+    const float dxc = (x > -1.0f && x < 1.0f) ? 1.0f : ((x == -1.0f || x == 1.0f) ? 0.5f : 0.0f);
+    const float m_raw = 1.0f - xc * xc;
+    const float dm = (m_raw > 1e-12f) ? 1.0f : ((m_raw == 1e-12f) ? 0.5f : 0.0f);
+    const float r = sqrtf(fmaxf(m_raw, 1e-12f));
+    const float q = xc / r;
+    return poly_atan_d(q) * (1.0f / r + xc * xc * dm / (r * r * r)) * dxc;
+}
+
+// What the replay of the backward kernel keeps of the texture block.
+struct TexAux {
+    bool has_c, has_n;
+    float tex[3];     // texel multiplier of the diffuse albedo (1 without a color map)
+    TexFetch c, n;    // the color and normal-map fetches (idx / w / du / dv)
+    float uvg[6];     // triangle: du/dp, dv/dp; sphere: du/dnux, du/dnuz, dv/dnuy, 0, 0, 0
+    float raw[3];     // the normal before the perturbation
+};
+
+// Color and normal mapping at a hit (primitive `prim`, material `mat`) of the
+// ray (o, d): m (M_COLS material columns, a local copy) gets its diffuse
+// columns multiplied by the color map, (nx, ny, nz) is perturbed by the normal
+// map. AUX (the backward kernel's replay) also fills `aux`, with the UV-swim
+// partials when UVG.
+template <bool AUX, bool UVG>
+CPT_HD void texture_block(const SceneTables& sc, float ox, float oy, float oz,
+                          float dx, float dy, float dz, int prim, int mat, float* m,
+                          float& nx, float& ny, float& nz, TexAux* aux) {
+    const float n2 = nx * nx + ny * ny + nz * nz;
+    const float inv_nl = CPT_RSQRT(fmaxf(n2, 1e-20f));
+    const float nux = nx * inv_nl, nuy = ny * inv_nl, nuz = nz * inv_nl;
+    float u, v, tgx, tgy, tgz;
+    if (prim < sc.num_spheres) {
+        // procedural spherical UVs of the unit normal
+        u = 0.5f + poly_atan2(nuz, nux) / TWO_PI;
+        v = 0.5f + poly_asin(nuy) / PI_F;
+        sphere_tangent(nux, nuz, tgx, tgy, tgz);
+        if (AUX && UVG) {
+            float a_dz, a_dx;
+            poly_atan2_d(nuz, nux, a_dz, a_dx);
+            aux->uvg[0] = a_dx / TWO_PI;
+            aux->uvg[1] = a_dz / TWO_PI;
+            aux->uvg[2] = poly_asin_d(nuy) / PI_F;
+            aux->uvg[3] = aux->uvg[4] = aux->uvg[5] = 0.0f;
+        }
+    } else {
+        // barycentric recompute of the winning triangle
+        const int ti = prim - sc.num_spheres;
+        const float* tri = sc.triangles + ti * T_COLS;
+        const float* uv = sc.tex_triuv + ti * 6;
+        float t, w1, w2;
+        triangle_t(ox, oy, oz, dx, dy, dz, tri, t, w1, w2);
+        const float w0 = 1.0f - (w1 + w2);
+        u = uv[0] * w0 + uv[2] * w1 + uv[4] * w2;
+        v = uv[1] * w0 + uv[3] * w1 + uv[5] * w2;
+        tri_uv_tangent(tri, uv, tgx, tgy, tgz);
+        if (AUX && UVG) {
+            // uv is affine in the hit point on a fixed triangle: the gradients
+            // of its plane barycentrics are the dual basis of (e1, e2)
+            const float e1x = tri[3], e1y = tri[4], e1z = tri[5];
+            const float e2x = tri[6], e2y = tri[7], e2z = tri[8];
+            const float d11 = e1x * e1x + e1y * e1y + e1z * e1z;
+            const float d22 = e2x * e2x + e2y * e2y + e2z * e2z;
+            const float d12 = e1x * e2x + e1y * e2y + e1z * e2z;
+            const float detm = d11 * d22 - d12 * d12;
+            const float inv_m = (fabsf(detm) < 1e-18f) ? 0.0f : 1.0f / detm;
+            const float gax = (d22 * e1x - d12 * e2x) * inv_m;
+            const float gay = (d22 * e1y - d12 * e2y) * inv_m;
+            const float gaz = (d22 * e1z - d12 * e2z) * inv_m;
+            const float gbx = (d11 * e2x - d12 * e1x) * inv_m;
+            const float gby = (d11 * e2y - d12 * e1y) * inv_m;
+            const float gbz = (d11 * e2z - d12 * e1z) * inv_m;
+            const float du1 = uv[2] - uv[0], dv1 = uv[3] - uv[1];
+            const float du2 = uv[4] - uv[0], dv2 = uv[5] - uv[1];
+            aux->uvg[0] = du1 * gax + du2 * gbx;
+            aux->uvg[1] = du1 * gay + du2 * gby;
+            aux->uvg[2] = du1 * gaz + du2 * gbz;
+            aux->uvg[3] = dv1 * gax + dv2 * gbx;
+            aux->uvg[4] = dv1 * gay + dv2 * gby;
+            aux->uvg[5] = dv1 * gaz + dv2 * gbz;
+        }
+    }
+    const float m_tex = sc.tex_matids[2 * mat], m_nmap = sc.tex_matids[2 * mat + 1];
+    const bool has_c = m_tex >= 0.0f, has_n = m_nmap >= 0.0f;
+    if (AUX) {
+        aux->has_c = has_c; aux->has_n = has_n;
+        aux->tex[0] = aux->tex[1] = aux->tex[2] = 1.0f;
+        aux->raw[0] = nx; aux->raw[1] = ny; aux->raw[2] = nz;
+    }
+    if (has_c) {
+        TexFetch f;
+        tex_fetch<AUX>(sc, m_tex, u, v, f);
+        m[0] = m[0] * f.val[0];
+        m[1] = m[1] * f.val[1];
+        m[2] = m[2] * f.val[2];
+        if (AUX) {
+            aux->c = f;
+            aux->tex[0] = f.val[0]; aux->tex[1] = f.val[1]; aux->tex[2] = f.val[2];
+        }
+    }
+    if (has_n) {
+        TexFetch f;
+        tex_fetch<AUX>(sc, m_nmap, u, v, f);
+        perturb_normal(nx, ny, nz, tgx, tgy, tgz, f.val[0], f.val[1], f.val[2], nx, ny, nz);
+        if (AUX) aux->n = f;
+    }
 }
 
 // ---- next-event estimation ---------------------------------------------------------
@@ -838,9 +1144,11 @@ CPT_HD void eye_ray_j(const RenderParams& p, int pixel, int sample, float pxi, f
 // scatter is carried to weigh an emission hit); BIDIR adds the carries of the
 // bidirectional weights — chain ratio lt_S, the last scatter's chain-model
 // density pf_model, its outgoing cosine pco and the eye ray's camera
-// importance j_img — with the count ratio nu in cam[15]. The default
-// instantiation is the reference-parity estimator.
-template <bool PHYSICAL, bool BIDIR>
+// importance j_img — with the count ratio nu in cam[15]. TEXTURED applies
+// the scene's color and normal maps at every hit (on a local copy of the hit
+// material's columns). The default instantiation is the reference-parity
+// estimator on an untextured scene.
+template <bool PHYSICAL, bool BIDIR, bool TEXTURED>
 CPT_HD void render_pixel_t(const SceneTables& sc, const RenderParams& p, int pixel,
                            float& sum_r, float& sum_g, float& sum_b) {
     static_assert(PHYSICAL || !BIDIR, "the bidirectional carries run on the physical estimator");
@@ -875,8 +1183,17 @@ CPT_HD void render_pixel_t(const SceneTables& sc, const RenderParams& p, int pix
                 break;
             }
             const float px = ox + dx * h.t, py = oy + dy * h.t, pz = oz + dz * h.t;
-            const float nx = h.nx, ny = h.ny, nz = h.nz;
+            float nx = h.nx, ny = h.ny, nz = h.nz;
             const float* m = sc.materials + h.mat * M_COLS;
+            float mt[TEXTURED ? M_COLS : 1];
+            if constexpr (TEXTURED) {
+                // color map on the diffuse albedo, normal map on the shading
+                // normal, before the cosine, NEE and the scatter
+                for (int k = 0; k < M_COLS; ++k) mt[k] = m[k];
+                texture_block<false, false>(sc, ox, oy, oz, dx, dy, dz, h.prim, h.mat, mt,
+                                            nx, ny, nz, nullptr);
+                m = mt;
+            }
             const float cos_i = -dot3(dx, dy, dz, nx, ny, nz);
             const bool inside = cos_i <= 0.0f;
 
@@ -985,10 +1302,10 @@ CPT_HD void render_pixel_t(const SceneTables& sc, const RenderParams& p, int pix
     }
 }
 
-// The reference-parity estimator (the default variant).
+// The reference-parity estimator on an untextured scene (the default variant).
 CPT_HD void render_pixel(const SceneTables& sc, const RenderParams& p, int pixel,
                          float& sum_r, float& sum_g, float& sum_b) {
-    render_pixel_t<false, false>(sc, p, pixel, sum_r, sum_g, sum_b);
+    render_pixel_t<false, false, false>(sc, p, pixel, sum_r, sum_g, sum_b);
 }
 
 }  // namespace cpt

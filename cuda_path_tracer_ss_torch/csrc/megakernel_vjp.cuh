@@ -4,8 +4,9 @@
 //
 // Replaces the per-lane body of the TPU kernel
 // cuda_path_tracer_ss_tpu/ops/pallas/megakernel_vjp.py::_make_backward_kernel
-// in its reference-parity, untextured, linear-sweep form, grad modes "linear"
-// and "full". Per sample the thread
+// in its reference-parity, linear-sweep form, grad modes "linear" and "full",
+// on untextured and on textured (color-mapped, normal-mapped) scenes. Per
+// sample the thread
 //   1. REPLAYS the path from the counter RNG with the forward kernel's own
 //      device functions (megakernel.cuh: sweeps, scatter_sample, uniform_pair,
 //      eye ray), so it walks the forward's path hit for hit and branch for
@@ -33,7 +34,20 @@
 // roughness, ior, spec_exp), then per point light power 3 (full: position 3,
 // power 3), per area light power 3, background 3; full mode appends camera
 // rows (rotation 9 row-major, position 3, tan_half_fov) and 4 rows per sphere
-// (centre 3, radius).
+// (centre 3, radius); with texel gradients 3 rows per atlas texel come last
+// (texel i, channel c at row_tex0 + 3 i + c: the atlas's own layout).
+//
+// A textured scene (TEXTURED) replays the texture block with its adjoint
+// bundle (texel multipliers, bilinear corners, UV partials). The cotangent of
+// the EFFECTIVE albedo (material diffuse x texel) is summed over the bounce's
+// NEE at replay and over its diffuse-branch weight in the reverse sweep, then
+// split: material rows get it times the texel, texel rows (one atomicAdd per
+// corner and channel) times the material's diffuse and the corner weight, and
+// in full mode the UV-swim chain moves it with the hit point (triangles: the
+// dual basis of the edges; spheres: the polynomial UVs of the unit normal).
+// On a normal-mapped scene in full mode the total cotangent of the perturbed
+// normal is pulled back through the tangent-frame perturbation by hand
+// (perturb_normal_vjp) into the raw normal and the normal map's texels.
 #pragma once
 
 #include <string.h>
@@ -66,16 +80,60 @@ constexpr int Q_NEE_AP = 27;   // dL/dp of the NEE terms, pre-scaled by g*T_mid 
 constexpr int Q_NEE_AN = 30;   // dL/dn of the NEE terms, pre-scaled (3)
 constexpr int ST_PLANES_FULL = 33;
 
+// Planes a textured replay adds after those (offsets within each block):
+// the color block, 6 planes (14 with texel gradients) ...
+constexpr int QT_ALB = 0;      // the bounce's NEE cotangent of the effective albedo (3)
+constexpr int QT_TEX = 3;      // texel multiplier of the albedo, 1 without a color map (3)
+constexpr int QT_CIDX = 6;     // color corners' atlas texel indices (4)  } texel
+constexpr int QT_CW = 10;      // their weights, 0 without a color map (4) } gradients
+constexpr int TEX_PLANES = 6;
+constexpr int TEX_PLANES_GRADS = 14;
+// ... in full mode the UV-swim block, 12 planes ...
+constexpr int QU_DU = 0;       // d texel / du of the color fetch, 0 without a color map (3)
+constexpr int QU_DV = 3;       // d texel / dv (3)
+constexpr int QU_G = 6;        // triangle: du/dp, dv/dp; sphere: du/dnux, du/dnuz, dv/dnuy, 0 (6)
+constexpr int UVG_PLANES = 12;
+// ... and in full mode on a normal-mapped scene the normal-map block, 12
+// planes (20 with texel gradients).
+constexpr int QN_RAW = 0;      // the normal before the perturbation (3)
+constexpr int QN_VAL = 3;      // the normal map's texel sample (3)
+constexpr int QN_DU = 6;       // d texel / du, 0 without a normal map (3)
+constexpr int QN_DV = 9;       // d texel / dv (3)
+constexpr int QN_CIDX = 12;    // corners (4)  } texel
+constexpr int QN_CW = 16;      // weights (4)  } gradients
+constexpr int NMAP_PLANES = 12;
+constexpr int NMAP_PLANES_GRADS = 20;
+
+// Where a textured replay keeps what; `on` is false on an untextured scene.
+struct TexLayout {
+    bool on, grads, nmap;   // textured; texel gradients; normal-map block
+    int q_tex, q_uvg, q_nm; // first plane of each block
+    int planes;             // planes per bounce in all
+};
+
+inline TexLayout tex_layout(bool full, bool textured, bool grads, bool nmap_scene) {
+    TexLayout T;
+    T.on = textured;
+    T.grads = textured && grads;
+    T.nmap = textured && full && nmap_scene;
+    T.q_tex = full ? ST_PLANES_FULL : ST_PLANES;
+    T.q_uvg = T.q_tex + (textured ? (T.grads ? TEX_PLANES_GRADS : TEX_PLANES) : 0);
+    T.q_nm = T.q_uvg + ((textured && full) ? UVG_PLANES : 0);
+    T.planes = T.q_nm + (T.nmap ? (T.grads ? NMAP_PLANES_GRADS : NMAP_PLANES) : 0);
+    return T;
+}
+
 // NEE falloff constant: 1/pi (Lambert) / (4 pi) (point-light falloff)
 constexpr float K_NEE = (float)(0.31830988618 / (4.0 * 3.141592653589793));
 
 struct GradLayout {
     int pcols, pl_stride, pl_pow_off;
-    int row_pl0, row_al0, row_bg0, row_cam0, row_geo0, rows;
+    int row_pl0, row_al0, row_bg0, row_cam0, row_geo0, row_tex0, rows;
 };
 
+// `texels`: atlas texels that get gradient rows (0 without texel gradients).
 inline GradLayout grad_layout(int num_spheres, int num_materials, int num_point_lights,
-                              int num_area_lights, bool full) {
+                              int num_area_lights, bool full, int texels = 0) {
     GradLayout L;
     L.pcols = full ? P_COLS_FULL : P_COLS;
     L.pl_stride = full ? 6 : 3;
@@ -85,7 +143,8 @@ inline GradLayout grad_layout(int num_spheres, int num_materials, int num_point_
     L.row_bg0 = L.row_al0 + 3 * num_area_lights;
     L.row_cam0 = L.row_bg0 + 3;
     L.row_geo0 = L.row_cam0 + CAM_ROWS;
-    L.rows = full ? L.row_geo0 + 4 * num_spheres : L.row_cam0;
+    L.row_tex0 = full ? L.row_geo0 + 4 * num_spheres : L.row_cam0;
+    L.rows = L.row_tex0 + 3 * texels;
     return L;
 }
 
@@ -232,12 +291,14 @@ CPT_HD float light_q(const SceneTables& sc, float px, float py, float pz,
 // One light's NEE partials at an outside hit: the power rows, the hit
 // material's diffuse and diff_avg rows and, in full mode, the accumulated
 // position/normal adjoints. Adds the light's contribution to `dir` and
-// returns A_q = dL/dq of this light.
-template <bool FULL, class Sink>
+// returns A_q = dL/dq of this light. DEFER (a textured scene) sums the
+// diffuse cotangent, that of the effective albedo, into `alb` instead of the
+// material rows: the reverse sweep splits it.
+template <bool FULL, bool DEFER, class Sink>
 CPT_HD float nee_partials(const float* m, int mat_row, float q, const float* dqp, const float* dqn,
                           float pwx, float pwy, float pwz, int power_row,
                           float gtx, float gty, float gtz, float* dir, float* nee_ap,
-                          float* nee_an, Sink& acc) {
+                          float* nee_an, float* alb, Sink& acc) {
     const float m_dr = m[0], m_dg = m[1], m_db = m[2], m_pd = m[14];
     const float s = m_pd * q;
     dir[0] += pwx * m_dr * s;
@@ -249,9 +310,15 @@ CPT_HD float nee_partials(const float* m, int mat_row, float q, const float* dqp
     acc.add(power_row + 2, gtz * m_db * s);
     const float gsum = gtx * pwx * m_dr + gty * pwy * m_dg + gtz * pwz * m_db;
     // d diffuse[m] += g*T_mid * diff_avg*q*power;  d diff_avg[m] += sum_ch g*T*q*(power.diffuse)
-    acc.add(mat_row + 0, gtx * pwx * m_pd * q);
-    acc.add(mat_row + 1, gty * pwy * m_pd * q);
-    acc.add(mat_row + 2, gtz * pwz * m_pd * q);
+    if (DEFER) {
+        alb[0] += gtx * pwx * m_pd * q;
+        alb[1] += gty * pwy * m_pd * q;
+        alb[2] += gtz * pwz * m_pd * q;
+    } else {
+        acc.add(mat_row + 0, gtx * pwx * m_pd * q);
+        acc.add(mat_row + 1, gty * pwy * m_pd * q);
+        acc.add(mat_row + 2, gtz * pwz * m_pd * q);
+    }
     acc.add(mat_row + 12, gsum * q);
     const float aq = gsum * m_pd;
     if (FULL) {
@@ -462,24 +529,122 @@ CPT_HD void scatter_chain(const SceneTables& sc, const RenderParams& p, const Gr
     acc.add(mat_row + 14, aior);
 }
 
+// ---- the normal map's perturbation, pulled back (full mode) ----------------------
+
+// VJP of perturb_normal (megakernel.cuh) at raw normal n and texel t, with the
+// tangent source the sphere tangent of the unit normal (`sphere`) or the fixed
+// triangle tangent tg: cotangent g of the perturbed normal -> cotangents of
+// the raw normal (an) and of the texel values (at). Recomputes the forward;
+// every max(x, eps) clamp passes its cotangent only where x > eps.
+CPT_HD void perturb_normal_vjp(float nx, float ny, float nz, bool sphere,
+                               float tgx, float tgy, float tgz, float t0, float t1, float t2,
+                               float gx, float gy, float gz, float* an, float* at) {
+    const float n2 = nx * nx + ny * ny + nz * nz;
+    const float inv_nl = CPT_RSQRT(fmaxf(n2, 1e-20f));
+    const float nux = nx * inv_nl, nuy = ny * inv_nl, nuz = nz * inv_nl;
+    const float st2 = nuz * nuz + nux * nux;
+    const bool st_live = sphere && !(st2 < 1e-12f);
+    const float st_inv = CPT_RSQRT(fmaxf(st2, 1e-20f));
+    if (sphere) sphere_tangent(nux, nuz, tgx, tgy, tgz);
+    const float tdn = tgx * nux + tgy * nuy + tgz * nuz;
+    const float rx = tgx - nux * tdn, ry = tgy - nuy * tdn, rz = tgz - nuz * tdn;
+    const float po_inv = CPT_RSQRT(fmaxf(rx * rx + ry * ry + rz * rz, 1e-20f));
+    const float pox = rx * po_inv, poy = ry * po_inv, poz = rz * po_inv;
+    float bx, by, bz;
+    cross3(nux, nuy, nuz, pox, poy, poz, bx, by, bz);
+    const float tnx = t0 * 2.0f - 1.0f;
+    const float tny = t1 * 2.0f - 1.0f;
+    const float tnz_raw = t2 * 2.0f - 1.0f;
+    const float tnz = fmaxf(tnz_raw, 1e-3f);
+    const float ppx = pox * tnx + bx * tny + nux * tnz;
+    const float ppy = poy * tnx + by * tny + nuy * tnz;
+    const float ppz = poz * tnx + bz * tny + nuz * tnz;
+    const float pp2 = ppx * ppx + ppy * ppy + ppz * ppz;
+    const float pp_inv = CPT_RSQRT(fmaxf(pp2, 1e-20f));
+    const float n_len = sqrtf(fmaxf(n2, 1e-20f));
+    const float s = pp_inv * n_len;
+    // out = pp s,  s = pp_inv n_len
+    float apx = gx * s, apy = gy * s, apz = gz * s;
+    const float as = dot3(gx, gy, gz, ppx, ppy, ppz);
+    if (pp2 > 1e-20f) {
+        const float app2 = -0.5f * pp_inv * pp_inv * pp_inv * (as * n_len);
+        apx += 2.0f * ppx * app2; apy += 2.0f * ppy * app2; apz += 2.0f * ppz * app2;
+    }
+    const float an2 = (n2 > 1e-20f) ? as * pp_inv * 0.5f / n_len : 0.0f;
+    // pp = po tnx + b tny + nu tnz
+    float apox = apx * tnx, apoy = apy * tnx, apoz = apz * tnx;
+    const float abx = apx * tny, aby = apy * tny, abz = apz * tny;
+    float anux = apx * tnz, anuy = apy * tnz, anuz = apz * tnz;
+    at[0] = 2.0f * dot3(apx, apy, apz, pox, poy, poz);
+    at[1] = 2.0f * dot3(apx, apy, apz, bx, by, bz);
+    at[2] = (tnz_raw > 1e-3f) ? 2.0f * dot3(apx, apy, apz, nux, nuy, nuz) : 0.0f;
+    // b = nu x po:  A_nu += po x A_b,  A_po += A_b x nu
+    float cx, cy, cz;
+    cross3(pox, poy, poz, abx, aby, abz, cx, cy, cz);
+    anux += cx; anuy += cy; anuz += cz;
+    cross3(abx, aby, abz, nux, nuy, nuz, cx, cy, cz);
+    apox += cx; apoy += cy; apoz += cz;
+    // po = normalize(r),  r = tg - nu tdn,  tdn = tg . nu
+    float arx, ary, arz;
+    norm3_vjp(rx, ry, rz, apox, apoy, apoz, 1e-20f, arx, ary, arz);
+    const float atdn = -dot3(arx, ary, arz, nux, nuy, nuz);
+    anux += -arx * tdn + atdn * tgx;
+    anuy += -ary * tdn + atdn * tgy;
+    anuz += -arz * tdn + atdn * tgz;
+    if (st_live) {
+        // tg = (-nuz st_inv, 0, nux st_inv),  st_inv = rsqrt(max(nuz^2 + nux^2, eps))
+        const float atgx = arx + atdn * nux, atgz = arz + atdn * nuz;
+        const float ast_inv = -atgx * nuz + atgz * nux;
+        anuz += -atgx * st_inv;
+        anux += atgz * st_inv;
+        if (st2 > 1e-20f) {
+            const float ast2 = -0.5f * st_inv * st_inv * st_inv * ast_inv;
+            anux += 2.0f * nux * ast2;
+            anuz += 2.0f * nuz * ast2;
+        }
+    }
+    // nu = normalize(n);  n_len = sqrt(max(|n|^2, eps))
+    norm3_vjp(nx, ny, nz, anux, anuy, anuz, 1e-20f, an[0], an[1], an[2]);
+    an[0] += 2.0f * nx * an2; an[1] += 2.0f * ny * an2; an[2] += 2.0f * nz * an2;
+}
+
+// The texel rows of one fetch: value vals[c] times each stored corner weight
+// into the corner texel's channel-c row.
+template <class Sink>
+CPT_HD void scatter_texels(const CheckpointStore& st, int b, int q_idx, int q_w, const float* vals,
+                           int row_tex0, Sink& acc) {
+    for (int k = 0; k < 4; ++k) {
+        const float w = st.get(b, q_w + k);
+        if (w == 0.0f) continue;
+        const int row = row_tex0 + 3 * st.geti(b, q_idx + k);
+        acc.add(row + 0, vals[0] * w);
+        acc.add(row + 1, vals[1] * w);
+        acc.add(row + 2, vals[2] * w);
+    }
+}
+
 // ---- adjoint of the hit (full mode) ---------------------------------------------
 
 // normal -> (point | barycentrics), point -> (origin, direction, t), t ->
 // (origin, direction) through the winning primitive's analytic intersection
 // Jacobian, plus the Beer factor's t adjoint. amid = A_mid, tm = T_mid of the
 // bounce. Overwrites (ao, ad) — the carried cotangent of the bounce's OUTPUT
-// ray — with the cotangent of its INPUT ray, and adds the sphere rows.
+// ray — with the cotangent of its INPUT ray, and adds the sphere rows. `an`
+// is the cotangent of the geometric (raw) normal, kept at plane `q_normal`;
+// `nee_an_in` says that the NEE normal partials are in it already (the
+// normal-map pullback folded them in).
 template <class Sink>
 CPT_HD void hit_chain(const SceneTables& sc, const GradLayout& L, int b, const CheckpointStore& st,
                       int mat, const float* amid, const float* tm, float t_in,
                       const float* ap, const float* an, const float* ade,
-                      float* ao, float* ad, Sink& acc) {
-    float px, py, pz, dx, dy, dz, nx, ny, nz, nax, nay, naz, nnx, nny, nnz;
+                      float* ao, float* ad, Sink& acc, int q_normal = Q_N,
+                      bool nee_an_in = false) {
+    float px, py, pz, dx, dy, dz, nx, ny, nz, nax, nay, naz, nnx = 0.0f, nny = 0.0f, nnz = 0.0f;
     st.get3(b, Q_P, px, py, pz);
     st.get3(b, Q_D, dx, dy, dz);
-    st.get3(b, Q_N, nx, ny, nz);
+    st.get3(b, q_normal, nx, ny, nz);
     st.get3(b, Q_NEE_AP, nax, nay, naz);
-    st.get3(b, Q_NEE_AN, nnx, nny, nnz);
+    if (!nee_an_in) st.get3(b, Q_NEE_AN, nnx, nny, nnz);
     const float t_hit = st.get(b, Q_T);
     const int prim = st.geti(b, Q_PRIM);
     float apx = ap[0] + nax, apy = ap[1] + nay, apz = ap[2] + naz;
@@ -557,15 +722,75 @@ CPT_HD void hit_chain(const SceneTables& sc, const GradLayout& L, int b, const C
     ad[2] = ade[2] + t_hit * apz + adz;
 }
 
+// ---- the textured scene's share of the path adjoint (full mode) -------------------
+
+// After scatter_chain: on a normal-mapped scene folds the NEE normal partials
+// into `an` (the cotangent of the PERTURBED normal) and pulls the total back
+// through the perturbation into the raw normal and the normal map's texels;
+// then the UV swim: the effective albedo's texel factor (a_alb x the
+// material's diffuse) and the normal map's texels move with the UVs, which
+// move with the hit point (triangles: A_p += A_u du/dp + A_v dv/dp) or with
+// the unit normal (spheres: into the raw normal through its normalize).
+template <class Sink>
+CPT_HD void tex_chain(const SceneTables& sc, const GradLayout& L, const TexLayout& T, int b,
+                      const CheckpointStore& st, int mat, const float* a_alb, float* ap,
+                      float* an, Sink& acc) {
+    const int prim = st.geti(b, Q_PRIM);
+    const bool sphere = prim < sc.num_spheres;
+    int q_raw = Q_N;
+    float a_u = 0.0f, a_v = 0.0f;
+    if (T.nmap) {
+        const int n = T.q_nm;
+        q_raw = n + QN_RAW;
+        for (int c = 0; c < 3; ++c) an[c] += st.get(b, Q_NEE_AN + c);
+        if (sc.tex_matids[2 * mat + 1] >= 0.0f) {
+            float rx, ry, rz, tgx = 0.0f, tgy = 0.0f, tgz = 0.0f, nt[3], an_raw[3];
+            st.get3(b, n + QN_RAW, rx, ry, rz);
+            if (!sphere) {
+                const int ti = prim - sc.num_spheres;
+                tri_uv_tangent(sc.triangles + ti * T_COLS, sc.tex_triuv + ti * 6, tgx, tgy, tgz);
+            }
+            perturb_normal_vjp(rx, ry, rz, sphere, tgx, tgy, tgz, st.get(b, n + QN_VAL),
+                               st.get(b, n + QN_VAL + 1), st.get(b, n + QN_VAL + 2),
+                               an[0], an[1], an[2], an_raw, nt);
+            an[0] = an_raw[0]; an[1] = an_raw[1]; an[2] = an_raw[2];
+            if (T.grads) scatter_texels(st, b, n + QN_CIDX, n + QN_CW, nt, L.row_tex0, acc);
+            for (int c = 0; c < 3; ++c) {
+                a_u += nt[c] * st.get(b, n + QN_DU + c);
+                a_v += nt[c] * st.get(b, n + QN_DV + c);
+            }
+        }
+    }
+    const float* md = sc.materials + mat * M_COLS;
+    const int u = T.q_uvg;
+    for (int c = 0; c < 3; ++c) {
+        a_u += a_alb[c] * md[c] * st.get(b, u + QU_DU + c);
+        a_v += a_alb[c] * md[c] * st.get(b, u + QU_DV + c);
+    }
+    if (a_u == 0.0f && a_v == 0.0f) return;
+    float g[6];
+    for (int k = 0; k < 6; ++k) g[k] = st.get(b, u + QU_G + k);
+    if (!sphere) {
+        for (int c = 0; c < 3; ++c) ap[c] += a_u * g[c] + a_v * g[3 + c];
+    } else {
+        float rx, ry, rz, anx, any_, anz;
+        st.get3(b, q_raw, rx, ry, rz);
+        norm3_vjp(rx, ry, rz, a_u * g[0], a_v * g[2], a_u * g[1], 1e-20f, anx, any_, anz);
+        an[0] += anx; an[1] += any_; an[2] += anz;
+    }
+}
+
 // ---- one pixel, all samples -------------------------------------------------------
 
 // Adds pixel `pixel`'s share of the gradient for the per-SAMPLE cotangent
 // (gx, gy, gz) of its radiance (the wrapper divides the image cotangent by
 // spp: the forward returns the mean). `st` must hold max(max_bounces, 1)
-// bounces. Same streams, same path termination as render_pixel.
-template <bool FULL, class Sink>
+// bounces of T.planes planes. Same streams, same path termination as
+// render_pixel; TEXTURED (a scene with textures) as its textured
+// instantiation, with the planes and rows of `T` / `L`.
+template <bool FULL, bool TEXTURED, class Sink>
 CPT_HD void backward_pixel(const SceneTables& sc, const RenderParams& p, const GradLayout& L,
-                           int pixel, float gx, float gy, float gz,
+                           const TexLayout& T, int pixel, float gx, float gy, float gz,
                            const CheckpointStore& st, Sink& acc) {
     if (pixel < 0 || pixel >= p.width * p.height) return;
     const float pxi = (float)(pixel % p.width);
@@ -598,9 +823,18 @@ CPT_HD void backward_pixel(const SceneTables& sc, const RenderParams& p, const G
                 break;
             }
             const float px = ox + dx * h.t, py = oy + dy * h.t, pz = oz + dz * h.t;
-            const float nx = h.nx, ny = h.ny, nz = h.nz;
+            float nx = h.nx, ny = h.ny, nz = h.nz;
             const float* m = sc.materials + h.mat * M_COLS;
             const int mat_row = h.mat * L.pcols;
+            // textured: the forward's texture block, with its adjoint bundle
+            float mt[TEXTURED ? M_COLS : 1];
+            TexAux ta;
+            if constexpr (TEXTURED) {
+                for (int k = 0; k < M_COLS; ++k) mt[k] = m[k];
+                texture_block<true, FULL>(sc, ox, oy, oz, dx, dy, dz, h.prim, h.mat, mt,
+                                          nx, ny, nz, &ta);
+                m = mt;
+            }
             const float cos_i = -dot3(dx, dy, dz, nx, ny, nz);
             const bool inside = cos_i <= 0.0f;
 
@@ -621,6 +855,7 @@ CPT_HD void backward_pixel(const SceneTables& sc, const RenderParams& p, const G
             acc.add(mat_row + 10, gty);
             acc.add(mat_row + 11, gtz);
             float nee_ap[3] = {0.0f, 0.0f, 0.0f}, nee_an[3] = {0.0f, 0.0f, 0.0f};
+            float alb[3] = {0.0f, 0.0f, 0.0f};  // textured: NEE cotangent of the albedo
             float dqp[3], dqn[3];
             if (!inside) {
                 for (int i = 0; i < sc.num_point_lights; ++i) {
@@ -629,9 +864,9 @@ CPT_HD void backward_pixel(const SceneTables& sc, const RenderParams& p, const G
                                                   dqp, dqn);
                     if (q == 0.0f) continue;  // invisible or facing away: every partial is 0
                     const int row = L.row_pl0 + L.pl_stride * i;
-                    const float aq = nee_partials<FULL>(m, mat_row, q, dqp, dqn, pl[3], pl[4], pl[5],
-                                                        row + L.pl_pow_off, gtx, gty, gtz,
-                                                        dir, nee_ap, nee_an, acc);
+                    const float aq = nee_partials<FULL, TEXTURED>(
+                        m, mat_row, q, dqp, dqn, pl[3], pl[4], pl[5], row + L.pl_pow_off,
+                        gtx, gty, gtz, dir, nee_ap, nee_an, alb, acc);
                     if (FULL) {
                         // dq/d(light position) = -dq/dp: q depends on l - p only
                         acc.add(row + 0, -aq * dqp[0]);
@@ -652,8 +887,9 @@ CPT_HD void backward_pixel(const SceneTables& sc, const RenderParams& p, const G
                     const float lz = a[2] * w0 + a[5] * w1 + a[8] * w2;
                     const float q = light_q<FULL>(sc, px, py, pz, nx, ny, nz, lx, ly, lz, dqp, dqn);
                     if (q == 0.0f) continue;
-                    nee_partials<FULL>(m, mat_row, q, dqp, dqn, al[18], al[19], al[20],
-                                       L.row_al0 + 3 * i, gtx, gty, gtz, dir, nee_ap, nee_an, acc);
+                    nee_partials<FULL, TEXTURED>(m, mat_row, q, dqp, dqn, al[18], al[19], al[20],
+                                                 L.row_al0 + 3 * i, gtx, gty, gtz, dir, nee_ap,
+                                                 nee_an, alb, acc);
                 }
             }
 
@@ -685,6 +921,40 @@ CPT_HD void backward_pixel(const SceneTables& sc, const RenderParams& p, const G
                 st.put3(b, Q_NEE_AP, nee_ap[0], nee_ap[1], nee_ap[2]);
                 st.put3(b, Q_NEE_AN, nee_an[0], nee_an[1], nee_an[2]);
             }
+            if constexpr (TEXTURED) {
+                const int q = T.q_tex;
+                st.put3(b, q + QT_ALB, alb[0], alb[1], alb[2]);
+                st.put3(b, q + QT_TEX, ta.tex[0], ta.tex[1], ta.tex[2]);
+                if (T.grads) {
+                    for (int k = 0; k < 4; ++k) {
+                        st.puti(b, q + QT_CIDX + k, ta.has_c ? ta.c.idx[k] : 0);
+                        st.put(b, q + QT_CW + k, ta.has_c ? ta.c.w[k] : 0.0f);
+                    }
+                }
+                if (FULL) {
+                    const int u = T.q_uvg;
+                    for (int c = 0; c < 3; ++c) {
+                        st.put(b, u + QU_DU + c, ta.has_c ? ta.c.du[c] : 0.0f);
+                        st.put(b, u + QU_DV + c, ta.has_c ? ta.c.dv[c] : 0.0f);
+                    }
+                    for (int k = 0; k < 6; ++k) st.put(b, u + QU_G + k, ta.uvg[k]);
+                }
+                if (T.nmap) {
+                    const int n = T.q_nm;
+                    st.put3(b, n + QN_RAW, ta.raw[0], ta.raw[1], ta.raw[2]);
+                    for (int c = 0; c < 3; ++c) {
+                        st.put(b, n + QN_VAL + c, ta.has_n ? ta.n.val[c] : 0.0f);
+                        st.put(b, n + QN_DU + c, ta.has_n ? ta.n.du[c] : 0.0f);
+                        st.put(b, n + QN_DV + c, ta.has_n ? ta.n.dv[c] : 0.0f);
+                    }
+                    if (T.grads) {
+                        for (int k = 0; k < 4; ++k) {
+                            st.puti(b, n + QN_CIDX + k, ta.has_n ? ta.n.idx[k] : 0);
+                            st.put(b, n + QN_CW + k, ta.has_n ? ta.n.w[k] : 0.0f);
+                        }
+                    }
+                }
+            }
             ++nb;
             if (!alive || nb >= p.max_bounces) break;
             ox = nox; oy = noy; oz = noz;
@@ -708,20 +978,45 @@ CPT_HD void backward_pixel(const SceneTables& sc, const RenderParams& p, const G
 
             // scatter factor: d w = A_after * T_mid, routed by the branch taken
             const float dwx = ax * tm[0], dwy = ay * tm[1], dwz = az * tm[2];
-            if (code == BRANCH_DIFFUSE) {
+            float a_alb[3];  // textured: cotangent of the effective albedo
+            if constexpr (TEXTURED) {
+                // NEE's share (replay) + the diffuse branch weight's, split into
+                // the material rows (x texel) and the texel rows (x the material's
+                // diffuse x corner weight)
+                const float df = (code == BRANCH_DIFFUSE) ? 1.0f : 0.0f;
+                const int q = T.q_tex;
+                a_alb[0] = st.get(b, q + QT_ALB + 0) + dwx * df;
+                a_alb[1] = st.get(b, q + QT_ALB + 1) + dwy * df;
+                a_alb[2] = st.get(b, q + QT_ALB + 2) + dwz * df;
+                acc.add(mat_row + 0, a_alb[0] * st.get(b, q + QT_TEX + 0));
+                acc.add(mat_row + 1, a_alb[1] * st.get(b, q + QT_TEX + 1));
+                acc.add(mat_row + 2, a_alb[2] * st.get(b, q + QT_TEX + 2));
+                if (T.grads) {
+                    const float* md = sc.materials + mat * M_COLS;
+                    const float v[3] = {a_alb[0] * md[0], a_alb[1] * md[1], a_alb[2] * md[2]};
+                    scatter_texels(st, b, q + QT_CIDX, q + QT_CW, v, L.row_tex0, acc);
+                }
+            } else if (code == BRANCH_DIFFUSE) {
                 acc.add(mat_row + 0, dwx);
                 acc.add(mat_row + 1, dwy);
                 acc.add(mat_row + 2, dwz);
-            } else if (code == BRANCH_COOK_TORRANCE || code == BRANCH_GLOSS) {
+            }
+            if (code == BRANCH_COOK_TORRANCE || code == BRANCH_GLOSS) {
                 const float scale = (code == BRANCH_COOK_TORRANCE) ? st.get(b, Q_CT_W) : 1.0f;
                 acc.add(mat_row + 3, dwx * scale);
                 acc.add(mat_row + 4, dwy * scale);
                 acc.add(mat_row + 5, dwz * scale);
             }
             float ap[3], an[3], ade[3];
+            int q_normal = Q_N;      // the raw normal's planes
+            bool nee_an_in = false;  // the NEE normal partials folded into an
             if (FULL) {
                 scatter_chain(sc, p, L, pixel, sample, b, st, mat, code, dwx, dwy, dwz,
                               ao, ad, ap, an, ade, acc);
+                if constexpr (TEXTURED) {
+                    tex_chain(sc, L, T, b, st, mat, a_alb, ap, an, acc);
+                    if (T.nmap) { q_normal = T.q_nm + QN_RAW; nee_an_in = true; }
+                }
             }
 
             // through the multiply, then this bounce's direct add
@@ -736,7 +1031,10 @@ CPT_HD void backward_pixel(const SceneTables& sc, const RenderParams& p, const G
                 acc.add(mat_row + 7, amid[1] * tm[1] * (-t_in));
                 acc.add(mat_row + 8, amid[2] * tm[2] * (-t_in));
             }
-            if (FULL) hit_chain(sc, L, b, st, mat, amid, tm, t_in, ap, an, ade, ao, ad, acc);
+            if (FULL) {
+                hit_chain(sc, L, b, st, mat, amid, tm, t_in, ap, an, ade, ao, ad, acc, q_normal,
+                          nee_an_in);
+            }
 
             ax = amid[0] * bx; ay = amid[1] * by; az = amid[2] * bz;
         }

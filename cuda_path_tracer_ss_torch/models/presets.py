@@ -223,6 +223,61 @@ def cornell_lambert() -> Scene:
     return b.build()
 
 
+def textured() -> Scene:
+    """Color + normal mapping showcase: checkered floor panel, UV-striped
+    sphere, and a dimple-normal-mapped back panel inside the Cornell shell
+    (the JAX package's preset of the same name, array for array)."""
+    b = SceneBuilder()
+    rng = np.random.default_rng(7)
+    # 16x16 checker (color map)
+    c = np.indices((16, 16)).sum(0) % 2
+    checker = np.stack([0.9 * c + 0.1, 0.5 * np.ones_like(c),
+                        0.9 * (1 - c) + 0.1], -1).astype(np.float32)
+    tid_floor = b.add_texture(checker)
+    # 32x32 longitude stripes (sphere color map)
+    s = (np.indices((32, 32))[1] // 4) % 2
+    stripes = np.stack([0.95 * s + 0.05, 0.2 + 0.6 * (1 - s),
+                        0.95 * (1 - s) + 0.05], -1).astype(np.float32)
+    tid_sph = b.add_texture(stripes)
+    # 32x32 dimple normal map: smooth random tangent perturbations
+    ang = rng.uniform(0, 2 * np.pi, (32, 32))
+    amp = 0.35
+    nmap = np.stack([0.5 + amp * np.cos(ang) * 0.5,
+                     0.5 + amp * np.sin(ang) * 0.5,
+                     0.9 * np.ones_like(ang)], -1).astype(np.float32)
+    nid = b.add_texture(nmap)
+
+    m_floor = b.add_material(MaterialSpec(diffuse=(1.0, 1.0, 1.0),
+                                          diff_avg=0.8, texture=tid_floor))
+    m_sph = b.add_material(MaterialSpec(diffuse=(1.0, 1.0, 1.0),
+                                        diff_avg=0.8, texture=tid_sph))
+    m_panel = b.add_material(MaterialSpec(diffuse=(0.85, 0.8, 0.6),
+                                          diff_avg=0.8, normal_map=nid))
+    # floor panel (two triangles with explicit UVs), slightly above the
+    # cornell floor
+    y = -3.95
+    v = [(-3.0, y, -7.0), (3.0, y, -7.0), (3.0, y, -2.5), (-3.0, y, -2.5)]
+    uv = [(0, 0), (3, 0), (3, 2), (0, 2)]
+    n = (0.0, 1.0, 0.0)
+    b.add_triangle(v[0], v[1], v[2], n, n, n, m_floor,
+                   uv=(uv[0], uv[1], uv[2]))
+    b.add_triangle(v[0], v[2], v[3], n, n, n, m_floor,
+                   uv=(uv[0], uv[2], uv[3]))
+    # striped sphere (procedural spherical UVs)
+    b.add_sphere((-1.6, -2.5, -5.0), 1.5, m_sph)
+    # normal-mapped panel leaning on the back wall
+    nz = (0.0, 0.0, 1.0)
+    pv = [(0.6, -3.9, -7.6), (3.4, -3.9, -7.6), (3.4, -1.2, -7.9),
+          (0.6, -1.2, -7.9)]
+    puv = [(0, 0), (2, 0), (2, 2), (0, 2)]
+    b.add_triangle(pv[0], pv[1], pv[2], nz, nz, nz, m_panel,
+                   uv=(puv[0], puv[1], puv[2]))
+    b.add_triangle(pv[0], pv[2], pv[3], nz, nz, nz, m_panel,
+                   uv=(puv[0], puv[2], puv[3]))
+    add_cornell_box(b, 8.0)
+    return b.build()
+
+
 def caustic() -> Scene:
     """Cornell box with a clear glass sphere between the ceiling light and
     the floor — the canonical bidirectional test scene: the sphere focuses
@@ -310,6 +365,40 @@ def stress(num_spheres: int = 120) -> Scene:
                 r = 0.25 + rng.rnd(0.25)
                 b.add_sphere((x, y, z), r, (m_glass, m_ct, m_diff)[count % 3])
                 count += 1
+    add_cornell_box(b, 8.0)
+    return b.build()
+
+
+def _icosahedron_obj() -> str:
+    """Icosahedron as OBJ text (smooth normals computed by the loader)."""
+    import math
+    phi = (1 + math.sqrt(5)) / 2
+    raw = [(-1, phi, 0), (1, phi, 0), (-1, -phi, 0), (1, -phi, 0),
+           (0, -1, phi), (0, 1, phi), (0, -1, -phi), (0, 1, -phi),
+           (phi, 0, -1), (phi, 0, 1), (-phi, 0, -1), (-phi, 0, 1)]
+    faces = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
+             (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
+             (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
+             (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
+    norm = math.sqrt(1 + phi * phi)
+    lines = [f"v {x/norm} {y/norm} {z/norm}" for x, y, z in raw]
+    lines += [f"f {a+1} {b+1} {c+1}" for a, b, c in faces]
+    return "\n".join(lines)
+
+
+def mesh_demo() -> Scene:
+    """Smooth-shaded icosahedron mesh (OBJ path) in the Cornell box —
+    barycentric normal interpolation (Primitives.h:71-73) with genuinely
+    varying per-vertex normals, which no rect-built preset has."""
+    from ..utils.obj import add_obj_mesh
+
+    b = SceneBuilder()
+    m_gold = b.add_material(MaterialSpec(
+        diffuse=(0.9, 0.7, 0.2), diff_avg=0.5, specular=(1.0, 0.9, 0.5),
+        spec_exp=80.0, spec_avg=0.35, ior=2.5))
+    add_obj_mesh(b, _icosahedron_obj(), m_gold,
+                 transform=translate((0.0, -1.6, -5.0)) @ scale((1.6,) * 3),
+                 from_text=True)
     add_cornell_box(b, 8.0)
     return b.build()
 
@@ -418,25 +507,17 @@ PRESETS = {
     "cornell_lambert": cornell_lambert,
     "caustic": caustic,
     "shadowed_caustic": shadowed_caustic,
+    "textured": textured,
     "glass": glass_showcase,
     "point_lights": point_light_spheres,
     "stress": stress,
     "stress_dense": stress_dense,
+    "mesh": mesh_demo,
     "mesh_dense": mesh_dense,
 }
 
 
-# Presets of the JAX package that wait for their slice of the port.
-NOT_YET_PORTED = {
-    "textured": "textures (ROADMAP Queue 1 item 5, K1 textures)",
-    "mesh": "the OBJ loader utils/obj.py (ROADMAP Queue 1 item 5)",
-}
-
-
 def get_scene(name: str) -> Scene:
-    if name in NOT_YET_PORTED:
-        raise KeyError(f"scene preset {name!r} is not ported yet: it needs "
-                       f"{NOT_YET_PORTED[name]}; have {sorted(PRESETS)}")
     if name not in PRESETS:
         raise KeyError(f"unknown scene preset {name!r}; have {sorted(PRESETS)}")
     return PRESETS[name]()

@@ -8,8 +8,10 @@ three variants, each an instantiation of the one kernel source: the default
 (reference-parity estimator), ``physical=True`` (the unbiased estimator:
 uniform-area light sampling with power-heuristic MIS) and ``physical=True,
 bidir_nu=nu`` (the same with the carries of the bidirectional weights, the
-eye half of ``render/bidir.py``). All take linear sweeps, untextured scenes
-and float32 state.
+eye half of ``render/bidir.py``). Each comes in an untextured and a textured
+build (``_texture_block`` of the TPU kernel: color-map albedo and normal-map
+perturbation at every hit, before the cosine, NEE and the scatter); all take
+linear sweeps and float32 state.
 
 What bounds it on an H100: FP32 arithmetic throughput. A launch reads a few
 KB of scene tables and writes ``12 * width * height`` bytes (7.7 MB at
@@ -45,6 +47,8 @@ import torch
 
 from ...constants import INV_PI, MIS_RATIO_CLAMP, RAY_BUMP_EPSILON
 from ...utils import rng
+from ..texture import (_sphere_tangent, bilinear, perturb_normal, sphere_uv,
+                       triangle_uv_tangent, wrap)
 
 # table row widths
 S_COLS = 5
@@ -57,8 +61,10 @@ CAM_FLOATS = 16
 # Launches of the CUDA kernel made by this module's wrapper (and nowhere
 # else): a run can show that it went through the kernel.
 LAUNCH_COUNT = 0
-# ... and the same count per instantiation: [default, physical, bidir]
+# ... and the same count per estimator: [default, physical, bidir] ...
 LAUNCHES_BY_VARIANT = [0, 0, 0]
+# ... of which the textured instantiations (a scene with textures)
+LAUNCHES_TEXTURED = [0, 0, 0]
 
 _TWO_PI = 2.0 * math.pi
 
@@ -81,8 +87,15 @@ class PackedScene:
     materials [M,20] = diff spec absorb emit specExp ior diffAvg specAvg
     refrAvg rough pureRefl ct; point_lights [Lp,6] = pos power;
     area_lights [La,23] = two triangles' vertices + power + owning-triangle
-    index + light material index; background [3]. ``tex_counts`` =
-    (textures, texels) is (0, 0): a textured scene does not pack yet.
+    index + light material index; background [3].
+
+    A textured scene adds its texture bundle (``None`` without textures):
+    ``tex_atlas [texels, 3]`` every texture's true h x w texels, row-major
+    from the top row, one texture after the other; ``tex_meta [K, 3]`` =
+    (first texel, h, w); ``tex_triuv [T, 6]`` the corner UVs; ``tex_matids
+    [M, 2]`` = (color map, normal map) per material, -1 = none.
+    ``tex_counts`` = (K, texels); ``tex_nmap``: some material has a normal
+    map.
     """
 
     spheres: torch.Tensor
@@ -93,25 +106,40 @@ class PackedScene:
     background: torch.Tensor
     counts: Tuple[int, int, int, int, int]
     tex_counts: Tuple[int, int] = (0, 0)
+    tex_atlas: Optional[torch.Tensor] = None
+    tex_meta: Optional[torch.Tensor] = None
+    tex_triuv: Optional[torch.Tensor] = None
+    tex_matids: Optional[torch.Tensor] = None
+    tex_nmap: bool = False
 
     @property
     def device(self) -> torch.device:
         return self.spheres.device
 
+    @property
+    def textured(self) -> bool:
+        return self.tex_counts[0] > 0
+
     def tables(self):
         return (self.spheres, self.triangles, self.materials,
                 self.point_lights, self.area_lights, self.background)
 
+    def tex_tables(self):
+        """(atlas, meta, triuv, matids); all None without textures."""
+        return (self.tex_atlas, self.tex_meta, self.tex_triuv,
+                self.tex_matids)
+
     @property
     def table_bytes(self) -> int:
-        return 4 * sum(t.numel() for t in self.tables())
+        return 4 * sum(t.numel() for t in self.tables() + self.tex_tables()
+                       if t is not None)
 
 
 def pack_scene(scene, device="cuda") -> PackedScene:
-    """Flatten the scene into the kernel's tables on ``device``."""
-    if scene.num_textures:
-        _unported("rendering textured scenes",
-                  "Queue 1 item 5 / Queue 2: K1 textures")
+    """Flatten the scene into the kernel's tables on ``device``. Built from
+    ``torch.cat`` and indexing alone: a scene field that requires grad keeps
+    its graph (a texel cotangent flows back into ``scene.textures``; padding
+    texels get 0)."""
     device = torch.device(device)
     f32 = torch.float32
 
@@ -149,11 +177,29 @@ def pack_scene(scene, device="cuda") -> PackedScene:
 
     counts = (scene.num_spheres, scene.num_triangles, m.flags.shape[0],
               scene.num_point_lights, scene.num_area_lights)
+    tex = {}
+    if scene.num_textures:
+        # the true sizes are scene structure, never trained: read on the host
+        hw = scene.tex_hw.detach().cpu().numpy().astype(np.int64)
+        flats, meta, off = [], [], 0
+        for k, (h, w) in enumerate(hw):
+            flats.append(scene.textures[k, :h, :w, :].reshape(h * w, 3))
+            meta.append((off, h, w))
+            off += int(h * w)
+        tex = dict(
+            tex_atlas=put(torch.cat(flats), 3),
+            tex_meta=put(torch.tensor(meta, dtype=f32), 3),
+            tex_triuv=put(torch.cat([scene.tri_uv0, scene.tri_uv1,
+                                     scene.tri_uv2], -1), 6),
+            tex_matids=put(torch.stack([m.tex_id.to(f32),
+                                        m.nmap_id.to(f32)], -1), 2),
+            tex_counts=(len(hw), off),
+            tex_nmap=bool((m.nmap_id >= 0).any()))
     return PackedScene(put(spheres, S_COLS), put(tris, T_COLS),
                        put(mats, M_COLS), put(pls, PL_COLS),
                        put(als, AL_COLS),
                        scene.background.to(device=device, dtype=f32).contiguous(),
-                       counts)
+                       counts, **tex)
 
 
 def _cam_tensor(cam_params, device) -> torch.Tensor:
@@ -876,6 +922,58 @@ def _make_sweep_fns(packed: PackedScene, track_index: bool = False):
     return intersect_sweep, occlusion_sweep
 
 
+def _texture_block_plain(packed: PackedScene, ox, oy, oz, dx, dy, dz, prim,
+                         mat, nx, ny, nz, m_d):
+    """Color and normal mapping at the hit, the kernel's ``texture_block``
+    formula for formula: sphere UVs from the polynomial ``atan2f`` /
+    ``asinf`` of the unit normal, triangle UVs from a barycentric recompute
+    of the winning triangle, the bilinear fetch from the flat atlas, the
+    tangent-frame perturbation. ``prim`` [N] int64 (-1 on a miss), ``mat``
+    [N] int64, ``m_d`` the three diffuse columns. Returns (diffuse r/g/b,
+    normal x/y/z). Differentiable in the atlas, the diffuse columns and the
+    ray and normal (the UVs move with the hit)."""
+    num_spheres, num_tris = packed.counts[0], packed.counts[1]
+    atlas, meta, triuv, matids = packed.tex_tables()
+    n2 = nx * nx + ny * ny + nz * nz
+    inv_nl = torch.rsqrt(torch.clamp_min(n2, 1e-20))
+    nux, nuy, nuz = nx * inv_nl, ny * inv_nl, nz * inv_nl
+    is_tri = prim >= num_spheres
+    u, v = sphere_uv(nux, nuy, nuz)
+    tg = _sphere_tangent(nux, nuy, nuz)
+    if num_tris:
+        ti = torch.clamp(prim - num_spheres, 0, num_tris - 1)
+        rc = packed.triangles[ti].unbind(-1)
+        uc = triuv[ti].unbind(-1)
+        _, w1, w2, _ = _triangle_t(ox, oy, oz, dx, dy, dz, rc[0:3], rc[3:6],
+                                   rc[6:9])
+        w0 = 1.0 - (w1 + w2)
+        u = torch.where(is_tri, uc[0] * w0 + uc[2] * w1 + uc[4] * w2, u)
+        v = torch.where(is_tri, uc[1] * w0 + uc[3] * w1 + uc[5] * w2, v)
+        tt = triangle_uv_tangent(rc[3:6], rc[6:9], uc[0:2], uc[2:4], uc[4:6])
+        tg = tuple(torch.where(is_tri, a, b) for a, b in zip(tt, tg))
+    ids = matids[mat]
+    num_tex = packed.tex_counts[0]
+
+    def sample(tid):
+        k = torch.clamp(tid, 0.0, float(num_tex - 1)).to(torch.int64)
+        base, h, w = meta[k].unbind(-1)
+        bi, hi, wi = base.to(torch.int64), h.to(torch.int64), w.to(torch.int64)
+
+        def texel(xi, yi):
+            return atlas[bi + wrap(yi, hi) * wi + wrap(xi, wi)]
+
+        return bilinear(texel, h, w, u, v).unbind(-1)
+
+    a = sample(ids[:, 0])
+    has_c = ids[:, 0] >= 0.0
+    new_d = tuple(m_d[c] * torch.where(has_c, a[c], 1.0) for c in range(3))
+    t0, t1, t2 = sample(ids[:, 1])
+    has_n = ids[:, 1] >= 0.0
+    pert = perturb_normal(nx, ny, nz, *tg, t0, t1, t2)
+    new_n = tuple(torch.where(has_n, p, n) for p, n in zip(pert, (nx, ny, nz)))
+    return new_d, new_n
+
+
 def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
                        clamp_v: float, seed: int,
                        width: int, height: int, spp: int, max_bounces: int,
@@ -892,6 +990,7 @@ def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
     the bidirectional weights (chain ratio, chain-model density and outgoing
     cosine of the last scatter, the eye ray's camera importance)."""
     bidir = bidir_nu is not None
+    textured = packed.textured
     device = packed.device
     num_spheres, num_tris, _, num_pls, num_als = packed.counts
     # Table entries enter the arithmetic as 0-d float32 tensors: against a
@@ -902,8 +1001,8 @@ def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
     n_pixels = width * height
     ppb = rng.pairs_per_bounce(num_als)
     eps = RAY_BUMP_EPSILON
-    intersect_sweep, occlusion_sweep = _make_sweep_fns(packed,
-                                                       track_index=physical)
+    intersect_sweep, occlusion_sweep = _make_sweep_fns(
+        packed, track_index=physical or textured)
     mats, pls, als, bg = (packed.materials, packed.point_lights,
                           packed.area_lights, packed.background)
     pl_rows = [pls[i].unbind() for i in range(num_pls)]
@@ -954,17 +1053,32 @@ def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
          prev_pdf, lt_S, pf_model, pco, j_img) = state
         pair0 = rng.pair_base(b_cur, num_als)
 
-        if physical:
-            best_t, nx, ny, nz, mat, prim_f = intersect_sweep(ox, oy, oz,
-                                                              dx, dy, dz)
-        else:
-            best_t, nx, ny, nz, mat = intersect_sweep(ox, oy, oz, dx, dy, dz)
+        best_t, nx, ny, nz, mat, *prim_f = intersect_sweep(ox, oy, oz,
+                                                           dx, dy, dz)
+        prim_f = prim_f[0] if prim_f else None
         hit = best_t < math.inf
         t_safe = torch.where(hit, best_t, 0.0)
         px, py, pz = ox + dx * t_safe, oy + dy * t_safe, oz + dz * t_safe
 
         mrow = mats[mat]                       # direct indexed material fetch
         mf = tuple(mrow[:, f] for f in range(M_COLS))
+        if textured:
+            # color map on the diffuse albedo, normal map on the shading
+            # normal, before the cosine, NEE and the scatter
+            (m_d, (nx, ny, nz)) = _texture_block_plain(
+                packed, ox, oy, oz, dx, dy, dz, prim_f.to(torch.int64), mat,
+                nx, ny, nz, mf[0:3])
+            mf = m_d + mf[3:]
+            if stats is not None:
+                # the texture block's work: one per hit, a fetch per map
+                ids = packed.tex_matids[mat]
+                live = active & hit
+                on_sphere = live & (prim_f < num_spheres)
+                for key, mask in (("tex_sphere_hits", on_sphere),
+                                  ("tex_triangle_hits", live & ~on_sphere),
+                                  ("color_fetches", live & (ids[:, 0] >= 0)),
+                                  ("normal_fetches", live & (ids[:, 1] >= 0))):
+                    stats[key] = stats.get(key, 0) + int(mask.sum())
         (m_dr, m_dg, m_db, _sr, _sg, _sb, m_ar, m_ag, m_ab,
          m_er, m_eg, m_eb, _e, _i, m_pd, _ps, _prf, _ro, _pu, _ct) = mf
 
@@ -1238,8 +1352,10 @@ def render_megakernel_plain(packed: PackedScene, cam_params, seed: int,
     ``[H, W, 3]`` (row 0 = bottom) on whatever device the packed tables are
     on. ``stats``, when a dict, receives ``paths``, ``path_bounces`` (sweeps
     for the nearest hit), ``shadow_rays`` (shadow sweeps whose result can
-    change the image) and ``shadow_rays_occluded`` — the operation count
-    behind the kernel's bound."""
+    change the image) and ``shadow_rays_occluded``, and on a textured scene
+    ``tex_sphere_hits`` / ``tex_triangle_hits`` (texture blocks run) and
+    ``color_fetches`` / ``normal_fetches`` — the operation count behind the
+    kernel's bound."""
     n = width * height
     sums = render_block_sums_plain(packed, cam_params, seed, width, height,
                                    spp, max_bounces, 0, n, sample_offset,
@@ -1260,6 +1376,7 @@ def _kernel_fn(fmad: bool = False):
     fn = lib.cpt_render_megakernel
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp, ci, vp, ci, vp, ci, vp, ci, vp, ci, vp,   # tables
+                   vp, vp, vp, vp, ci,                           # textures
                    ctypes.POINTER(ctypes.c_float),               # camera
                    ci, ci, ci, ci, ci, ci, ci, ci, ci,           # scalars
                    vp, vp]                                       # out, stream
@@ -1294,6 +1411,25 @@ def _check_tables(packed: PackedScene):
                          f"{device}")
     if rows[2] < 1:
         raise ValueError("materials: need at least one material")
+    if packed.textured:
+        num_tex, texels = packed.tex_counts
+        for name, shape in (("tex_atlas", (texels, 3)), ("tex_meta", (num_tex, 3)),
+                            ("tex_triuv", (max(rows[1], 1), 6)),
+                            ("tex_matids", (rows[2], 2))):
+            t = getattr(packed, name)
+            if (t is None or t.dtype != torch.float32 or t.device != device
+                    or tuple(t.shape) != shape or not t.is_contiguous()):
+                raise ValueError(f"{name}: need a contiguous float32 {list(shape)} "
+                                 f"on {device}")
+
+
+def tex_args(packed: PackedScene):
+    """The texture arguments of the kernels' C entries: four table pointers
+    and the texture count; null pointers and 0 for an untextured scene."""
+    if not packed.textured:
+        return (None, None, None, None, 0)
+    return tuple(t.detach().data_ptr() for t in packed.tex_tables()) + (
+        packed.tex_counts[0],)
 
 
 def render_block_sums_cuda(packed: PackedScene, cam_params, seed: int,
@@ -1306,7 +1442,8 @@ def render_block_sums_cuda(packed: PackedScene, cam_params, seed: int,
     for the pixel range ``[pixel_offset, pixel_offset + n_local)``. Launches
     on the current stream of the tables' device and does not synchronise;
     raises if the kernel does not build or the launch is refused.
-    ``physical`` / ``bidir_nu`` pick the kernel's instantiation.
+    ``physical`` / ``bidir_nu`` pick the kernel's estimator, a textured scene
+    its textured instantiation.
     ``fmad=True`` selects the build that lets the compiler contract
     ``a*b+c`` (measurement only; the default build does not)."""
     global LAUNCH_COUNT
@@ -1327,7 +1464,7 @@ def render_block_sums_cuda(packed: PackedScene, cam_params, seed: int,
                  packed.materials.data_ptr(), num_m,
                  packed.point_lights.data_ptr(), num_pl,
                  packed.area_lights.data_ptr(), num_al,
-                 packed.background.data_ptr(), cam_c,
+                 packed.background.data_ptr(), *tex_args(packed), cam_c,
                  int(seed), int(pixel_offset), int(n_local),
                  int(sample_offset), int(spp), int(max_bounces),
                  int(width), int(height), variant, out.data_ptr(), stream)
@@ -1336,6 +1473,8 @@ def render_block_sums_cuda(packed: PackedScene, cam_params, seed: int,
                            f"{err} ({lib.cpt_error_string(err).decode()})")
     LAUNCH_COUNT += 1
     LAUNCHES_BY_VARIANT[variant] += 1
+    if packed.textured:
+        LAUNCHES_TEXTURED[variant] += 1
     return out
 
 

@@ -11,9 +11,10 @@ exact), checkpoints each bounce, and runs the adjoint recurrence
 
 summing parameter cotangents into gradient rows. It replaces the TPU kernel
 ``cuda_path_tracer_ss_tpu/ops/pallas/megakernel_vjp.py::_make_backward_kernel``
-(launched by ``_backward_grads``) in its reference-parity, untextured,
-linear-sweep form. Discrete decisions (which primitive is hit, visibility, the
-scatter branch) are detached; continuous factors are differentiated.
+(launched by ``_backward_grads``) in its reference-parity, linear-sweep form,
+on untextured and textured scenes. Discrete decisions (which primitive is hit,
+visibility, the scatter branch) are detached; continuous factors are
+differentiated.
 
 ``grad_mode="linear"`` covers the throughput-linear fields
 (``PALLAS_TRAINABLE_FIELDS``). ``grad_mode="full"`` (the default) also carries
@@ -21,10 +22,22 @@ dL/d(origin, direction) through every scatter step and hit and into the eye
 ray: roughness, ior, spec_exp, point-light positions, sphere centres and radii
 and the camera (rotation, position, tan_half_fov) receive gradients.
 
+On a textured scene the replay re-runs the forward's texture block, and
+the texel rows are computed when the atlas requires grad: ``textures`` trains
+in both modes on a color-mapped scene. The effective
+albedo's cotangent is split into material rows (times the texel) and texel
+rows (times the material's diffuse, one ``atomicAdd`` per bilinear corner and
+channel). Full mode adds the UV swim (the texel factor moves with the hit) and,
+on a normal-mapped scene, the hand-written pullback of the tangent-frame
+perturbation into the raw normal and the normal map's texels. Linear mode
+cannot reach normal-map texels: training them in linear mode raises
+``ValueError`` rather than returning zeros.
+
 What bounds the kernel on an H100: the replay is one forward render's FP32
 work, the reverse sweep adds work per stored bounce, and the checkpoints
 (``max_bounces * planes * 4`` bytes per pixel, 33 planes in full mode, 16 in
-linear mode, in a global ``[bounce][plane][thread]`` buffer so that a warp's
+linear mode, plus the textured blocks of ``_st_planes``, in a global
+``[bounce][plane][thread]`` buffer so that a warp's
 accesses are coalesced) are written and read once; on a small scene those
 bytes over the memory rate come out just above the operations over the FP32
 rate, and the kernel runs far from both (divergent paths, dependent
@@ -42,13 +55,13 @@ Device rule: tables on a CUDA device go to the kernels, or the call raises;
 the plain version (``render_megakernel_diff_plain``: autograd through the
 plain forward render) runs only for tables on the CPU, or when called by name.
 
-Not ported yet, each raising ``NotImplementedError``: ``grad_mode="geo"``,
-``physical=True``, ``packed_grid``, textured scenes, the sharded entry.
+Not ported yet, each raising ``NotImplementedError``: ``grad_mode="geo"``
+(textured or not), ``physical=True``, ``packed_grid``, the sharded entry.
 """
 from __future__ import annotations
 
 import ctypes
-
+import dataclasses
 import torch
 
 from . import megakernel as mk
@@ -63,9 +76,15 @@ P_COLS_FULL = 16
 # (row-major), position 3, tan_half_fov. z_near has a structurally zero
 # gradient (the eye direction is normalize(z_near * v)).
 CAM_ROWS = 13
-# Checkpoint planes per bounce.
+# Checkpoint planes per bounce; a textured scene adds the color block (6, 14
+# with texel gradients), in full mode the UV-swim block (12) and, on a
+# normal-mapped scene, the normal-map block (12, 20 with texel gradients)
+# (csrc: tex_layout).
 ST_PLANES = 16
 ST_PLANES_FULL = 33
+TEX_PLANES, TEX_PLANES_GRADS = 6, 14
+UVG_PLANES = 12
+NMAP_PLANES, NMAP_PLANES_GRADS = 12, 20
 
 # Fields render_megakernel_diff differentiates in grad_mode="linear" ...
 PALLAS_TRAINABLE_FIELDS = frozenset({
@@ -95,13 +114,45 @@ PALLAS_TRAINABLE_FIELDS_PHYS_GEO = PALLAS_TRAINABLE_FIELDS_PHYS | TRI_FIELDS
 LAUNCH_COUNT = 0
 
 
-def _grad_rows(counts, full: bool = False) -> int:
-    """Total gradient rows of the backward kernel (csrc: ``grad_layout``)."""
+def _grad_rows(counts, full: bool = False, texels: int = 0) -> int:
+    """Total gradient rows of the backward kernel (csrc: ``grad_layout``);
+    ``texels`` atlas texels with gradient rows (3 each, last)."""
     num_spheres, _, num_mats, num_pls, num_als = counts
     if full:
         return (num_mats * P_COLS_FULL + 6 * num_pls + 3 * num_als + 3
-                + CAM_ROWS + 4 * num_spheres)
-    return num_mats * P_COLS + 3 * num_pls + 3 * num_als + 3
+                + CAM_ROWS + 4 * num_spheres + 3 * texels)
+    return num_mats * P_COLS + 3 * num_pls + 3 * num_als + 3 + 3 * texels
+
+
+def _st_planes(full: bool, textured: bool = False, tex_grads: bool = False,
+               nmap: bool = False) -> int:
+    """Checkpoint planes per bounce (csrc: ``tex_layout``): only the blocks
+    the mode needs — the normal-map block only in full mode on a
+    normal-mapped scene, its corner planes only with texel gradients."""
+    planes = ST_PLANES_FULL if full else ST_PLANES
+    if textured:
+        planes += TEX_PLANES_GRADS if tex_grads else TEX_PLANES
+        if full:
+            planes += UVG_PLANES
+            if nmap:
+                planes += NMAP_PLANES_GRADS if tex_grads else NMAP_PLANES
+    return planes
+
+
+def _tex_grads(packed: PackedScene, full: bool) -> bool:
+    """Whether the texel rows are computed: when the atlas requires grad.
+    Refuses a silent zero gradient: texel gradients in linear mode on a
+    normal-mapped scene (the normal map's texels need the full mode's
+    perturbation pullback)."""
+    atlas = packed.tex_atlas
+    tex_grads = (atlas is not None and atlas.requires_grad
+                 and torch.is_grad_enabled())
+    if tex_grads and not full and packed.tex_nmap:
+        raise ValueError(
+            "grad_mode='linear' has no gradient for the texels of a normal "
+            "map (they need the full path adjoint's perturbation pullback); "
+            "use grad_mode='full', or leave 'textures' out of the fields")
+    return tex_grads
 
 
 def _reject_unported_diff(grad_mode: str, physical: bool = False,
@@ -124,18 +175,22 @@ def _reject_unported_diff(grad_mode: str, physical: bool = False,
     return grad_mode == "full"
 
 
-def _unpack_rows(rowsum: torch.Tensor, packed: PackedScene, full: bool):
+def _unpack_rows(rowsum: torch.Tensor, packed: PackedScene, full: bool,
+                 tex_grads: bool = False):
     """Gradient rows ``[rows]`` -> (PackedScene cotangent, camera cotangent
     (rot [3,3], pos [3], tan_half [], z_near [])), all on ``rowsum``'s
     device. Columns that the kernel does not differentiate (triangles,
-    area-light vertices, flags, spec_avg, refr_avg) are zero."""
+    area-light vertices, flags, spec_avg, refr_avg, the texture meta, UV and
+    map-id tables) are zero; so is the atlas without ``tex_grads``."""
     counts = packed.counts
     num_spheres, _, num_mats, num_pls, num_als = counts
     pcols = P_COLS_FULL if full else P_COLS
     pl_stride = 6 if full else 3
+    texels = packed.tex_counts[1] if tex_grads else 0
+    rows = _grad_rows(counts, full, texels)
     rowsum = rowsum.to(torch.float32)
-    if rowsum.shape != (_grad_rows(counts, full),):
-        raise ValueError(f"expected {_grad_rows(counts, full)} gradient rows, "
+    if rowsum.shape != (rows,):
+        raise ValueError(f"expected {rows} gradient rows, "
                          f"got {tuple(rowsum.shape)}")
 
     def zeros(t):
@@ -166,6 +221,12 @@ def _unpack_rows(rowsum: torch.Tensor, packed: PackedScene, full: bool):
     d_bg = rowsum[row_bg0:row_bg0 + 3].clone()
 
     d_sph = zeros(packed.spheres)
+    tex = {}
+    if packed.textured:
+        tex = dict(zip(("tex_atlas", "tex_meta", "tex_triuv", "tex_matids"),
+                       (zeros(t) for t in packed.tex_tables())))
+        if texels:
+            tex["tex_atlas"] = rowsum[rows - 3 * texels:].reshape(texels, 3)
     d_cam = (torch.zeros((3, 3), device=rowsum.device),
              torch.zeros((3,), device=rowsum.device),
              torch.zeros((), device=rowsum.device),
@@ -176,9 +237,12 @@ def _unpack_rows(rowsum: torch.Tensor, packed: PackedScene, full: bool):
                  cam[12].clone(), d_cam[3])
         if num_spheres:
             row_geo0 = row_bg0 + 3 + CAM_ROWS
-            d_sph[:num_spheres, 0:4] = rowsum[row_geo0:].reshape(num_spheres, 4)
-    d_packed = PackedScene(d_sph, zeros(packed.triangles), d_mats, d_pls,
-                           d_als, d_bg, counts)
+            d_sph[:num_spheres, 0:4] = rowsum[
+                row_geo0:row_geo0 + 4 * num_spheres].reshape(num_spheres, 4)
+    d_packed = dataclasses.replace(
+        packed, spheres=d_sph, triangles=zeros(packed.triangles),
+        materials=d_mats, point_lights=d_pls, area_lights=d_als,
+        background=d_bg, **tex)
     return d_packed, d_cam
 
 
@@ -187,12 +251,15 @@ def _unpack_rows(rowsum: torch.Tensor, packed: PackedScene, full: bool):
 # ---------------------------------------------------------------------------
 
 def _detach_undifferentiated(packed: PackedScene) -> PackedScene:
-    tri = packed.triangles.detach()
     als = packed.area_lights
     als = torch.cat([als[:, :18].detach(), als[:, 18:]], -1)
-    return PackedScene(packed.spheres, tri, packed.materials,
-                       packed.point_lights, als, packed.background,
-                       packed.counts)
+    tex = {}
+    if packed.textured:
+        tex = dict(tex_meta=packed.tex_meta.detach(),
+                   tex_triuv=packed.tex_triuv.detach(),
+                   tex_matids=packed.tex_matids.detach())
+    return dataclasses.replace(packed, triangles=packed.triangles.detach(),
+                               area_lights=als, **tex)
 
 
 def render_megakernel_diff_plain(packed: PackedScene, cam_params, seed: int,
@@ -211,8 +278,10 @@ def render_megakernel_diff_plain(packed: PackedScene, cam_params, seed: int,
     no gradient (they belong to ``grad_mode="geo"``); this version DETACHES
     those columns, so the two agree table by table in full mode. In linear
     mode the kernel leaves the full-only columns and the camera at zero while
-    autograd fills them: compare the linear fields only."""
-    _reject_unported_diff(grad_mode, physical, packed_grid)
+    autograd fills them: compare the linear fields only. Texel gradients are
+    refused where the kernel refuses them."""
+    full = _reject_unported_diff(grad_mode, physical, packed_grid)
+    _tex_grads(packed, full)
     return mk.render_megakernel_plain(_detach_undifferentiated(packed),
                                       cam_params, seed, width, height, spp,
                                       max_bounces, sample_offset=sample_offset)
@@ -230,9 +299,10 @@ def _kernel_fn():
     fn = lib.cpt_backward_megakernel
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp, ci, vp, ci, vp, ci, vp, ci, vp, ci, vp,   # tables
+                   vp, vp, vp, vp, ci, ci,                       # textures, texels
                    ctypes.POINTER(ctypes.c_float),               # camera
                    ci, ci, ci, ci, ci, ci, ci, ci,               # scalars
-                   ci, ci,                                       # full, shared
+                   ci, ci, ci, ci,          # full, tex_grads, tex_nmap, shared
                    vp, vp, vp, vp]                   # g, scratch, out, stream
     fn.restype = ci
     for const in (lib.cpt_backward_threads_per_block,
@@ -244,18 +314,25 @@ def _kernel_fn():
     return lib, fn
 
 
+# Which accumulation route the last launch took: "shared" (per-block rows in
+# shared memory) or "global" (global atomics, rows above the shared limit).
+LAST_ROUTE = None
+
+
 def backward_rows_cuda(packed: PackedScene, cam_params, seed: int, width: int,
                        height: int, spp: int, max_bounces: int,
                        g_img: torch.Tensor, sample_offset: int = 0,
                        full: bool = False, pixel_offset: int = 0,
-                       n_local=None) -> torch.Tensor:
+                       n_local=None, tex_grads: bool = False) -> torch.Tensor:
     """Launch the backward CUDA kernel: the gradient rows ``[rows]`` (float32,
     on the tables' device) of the MEAN radiance over ``spp`` of the pixel
     range ``[pixel_offset, pixel_offset + n_local)`` (default: the whole
-    image) for the cotangent ``g_img`` (``n_local * 3`` values). Launches on
-    the current stream of the tables' device and does not synchronise; raises
-    if the kernel does not build or the launch is refused."""
-    global LAUNCH_COUNT
+    image) for the cotangent ``g_img`` (``n_local * 3`` values); with
+    ``tex_grads`` (a textured scene) 3 texel rows per atlas texel come last.
+    Launches on the current stream of the tables' device and does not
+    synchronise; raises if the kernel does not build or the launch is
+    refused."""
+    global LAUNCH_COUNT, LAST_ROUTE
     n = width * height if n_local is None else n_local
     mk._check_render_args(packed, width, height, spp, max_bounces,
                           pixel_offset, n, sample_offset, seed)
@@ -269,8 +346,13 @@ def backward_rows_cuda(packed: PackedScene, cam_params, seed: int, width: int,
     g = (g_img.detach().reshape(n, 3).to(torch.float32) / spp).contiguous()
     cam = mk._cam_table(cam_params, 0.0)
     cam_c = (ctypes.c_float * mk.CAM_FLOATS)(*cam.tolist())
-    rows = _grad_rows(packed.counts, full)
-    planes = ST_PLANES_FULL if full else ST_PLANES
+    tex_grads = bool(tex_grads) and packed.textured
+    if tex_grads and not full and packed.tex_nmap:
+        raise ValueError("texel gradients of a normal-mapped scene need "
+                         "full=True (the perturbation pullback)")
+    texels = packed.tex_counts[1]
+    rows = _grad_rows(packed.counts, full, texels if tex_grads else 0)
+    planes = _st_planes(full, packed.textured, tex_grads, packed.tex_nmap)
     threads = lib.cpt_backward_threads_per_block()
     shared = rows <= lib.cpt_backward_shared_rows_max()
     num_s, num_t, num_m, num_pl, num_al = packed.counts
@@ -286,67 +368,78 @@ def backward_rows_cuda(packed: PackedScene, cam_params, seed: int, width: int,
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(tables[0].data_ptr(), num_s, tables[1].data_ptr(), num_t,
                  tables[2].data_ptr(), num_m, tables[3].data_ptr(), num_pl,
-                 tables[4].data_ptr(), num_al, tables[5].data_ptr(), cam_c,
+                 tables[4].data_ptr(), num_al, tables[5].data_ptr(),
+                 *mk.tex_args(packed), texels, cam_c,
                  int(seed), int(pixel_offset), int(n), int(sample_offset),
                  int(spp), int(max_bounces), int(width), int(height),
-                 int(full), int(shared), g.data_ptr(), scratch.data_ptr(),
-                 out.data_ptr(), stream)
+                 int(full), int(tex_grads), int(packed.tex_nmap), int(shared),
+                 g.data_ptr(), scratch.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("backward megakernel launch failed: CUDA error "
                            f"{err} ({lib.cpt_error_string(err).decode()})")
     LAUNCH_COUNT += 1
+    LAST_ROUTE = "shared" if shared else "global"
     return out.sum(0)
 
 
 def backward_grads_cuda(packed: PackedScene, cam_params, seed: int,
                         width: int, height: int, spp: int, max_bounces: int,
                         g_img: torch.Tensor, sample_offset: int = 0,
-                        full: bool = False, pixel_offset: int = 0,
-                        n_local=None):
+                        full: bool = False, tex_grads: bool = False,
+                        pixel_offset: int = 0, n_local=None):
     """Run the backward kernel; returns (PackedScene cotangent, camera
     cotangent). The camera cotangent is zeros unless ``full``."""
     rows = backward_rows_cuda(packed, cam_params, seed, width, height, spp,
                               max_bounces, g_img, sample_offset, full,
-                              pixel_offset, n_local)
-    return _unpack_rows(rows, packed, full)
+                              pixel_offset, n_local, tex_grads)
+    return _unpack_rows(rows, packed, full, tex_grads)
 
 
 class _RenderDiff(torch.autograd.Function):
     """Forward: one launch of the forward megakernel. Backward: one launch of
-    the replay-VJP kernel. Inputs: the six tables, the four camera tensors,
-    then the non-differentiable arguments. ``launch`` is the pair (forward
-    sums, backward grads) of kernel wrappers: ``render_megakernel_diff``
-    passes the CUDA ones; the tests pass the host build of the same math."""
+    the replay-VJP kernel. Inputs: the six tables, the texel atlas (None
+    without textures), the four camera tensors, then the non-differentiable
+    arguments (``layout``: the packed scene whose texture tables and counts
+    the tensors above belong to). ``launch`` is the pair (forward sums,
+    backward grads) of kernel wrappers: ``render_megakernel_diff`` passes the
+    CUDA ones; the tests pass the host build of the same math."""
 
     @staticmethod
     def forward(ctx, spheres, triangles, materials, point_lights, area_lights,
-                background, rot, pos, tan_half, z_near, counts, seed, width,
-                height, spp, max_bounces, sample_offset, full, launch):
-        packed = PackedScene(spheres, triangles, materials, point_lights,
-                             area_lights, background, counts)
+                background, tex_atlas, rot, pos, tan_half, z_near, layout,
+                seed, width, height, spp, max_bounces, sample_offset, full,
+                tex_grads, launch):
+        packed = dataclasses.replace(
+            layout, spheres=spheres, triangles=triangles, materials=materials,
+            point_lights=point_lights, area_lights=area_lights,
+            background=background, tex_atlas=tex_atlas)
         cam = (rot, pos, tan_half, z_near)
         sums = launch[0](packed, cam, seed, width, height, spp, max_bounces,
                          0, width * height, sample_offset)
         ctx.save_for_backward(*packed.tables(), *cam)
-        ctx.args = (counts, seed, width, height, spp, max_bounces,
-                    sample_offset, full, launch[1])
+        ctx.packed = packed
+        ctx.args = (seed, width, height, spp, max_bounces, sample_offset,
+                    full, tex_grads, launch[1])
         return (sums / spp).reshape(height, width, 3)
 
     @staticmethod
     def backward(ctx, g):
         saved = ctx.saved_tensors
-        (counts, seed, width, height, spp, max_bounces, sample_offset, full,
-         backward_grads) = ctx.args
-        packed = PackedScene(*saved[:6], counts)
+        (seed, width, height, spp, max_bounces, sample_offset, full,
+         tex_grads, backward_grads) = ctx.args
+        packed = dataclasses.replace(ctx.packed, **dict(zip(
+            ("spheres", "triangles", "materials", "point_lights",
+             "area_lights", "background"), saved[:6])))
         cam = saved[6:]
         d_packed, d_cam = backward_grads(
             packed, cam, seed, width, height, spp, max_bounces, g,
-            sample_offset, full)
+            sample_offset, full, tex_grads)
         # a camera tensor may live on another device than the tables
         d_cam = tuple(d.reshape(c.shape).to(c.device) if need else None
                       for d, c, need in zip(d_cam, cam,
-                                            ctx.needs_input_grad[6:10]))
-        return (*d_packed.tables(), *d_cam) + (None,) * 9
+                                            ctx.needs_input_grad[7:11]))
+        d_atlas = d_packed.tex_atlas if ctx.needs_input_grad[6] else None
+        return (*d_packed.tables(), d_atlas, *d_cam) + (None,) * 10
 
 
 def render_megakernel_diff(packed: PackedScene, cam_params, seed: int,
@@ -360,16 +453,19 @@ def render_megakernel_diff(packed: PackedScene, cam_params, seed: int,
     ``packed`` comes from ``pack_scene`` of a scene whose fields may require
     grad; ``cam_params`` holds numpy values or tensors (tensors that require
     grad receive gradients in full mode). ``grad_mode`` alone decides which
-    backward kernel runs. ``max_bounces`` is a runtime argument."""
+    backward kernel runs. ``max_bounces`` is a runtime argument. On a
+    textured scene the texel gradients are computed when the atlas requires
+    grad."""
     full = _reject_unported_diff(grad_mode, physical, packed_grid)
     if packed.device.type != "cuda":
         return render_megakernel_diff_plain(packed, cam_params, seed, width,
                                             height, spp, max_bounces,
                                             sample_offset, grad_mode)
+    tex_grads = _tex_grads(packed, full)
     cam = tuple(torch.as_tensor(v, dtype=torch.float32) for v in cam_params)
-    return _RenderDiff.apply(*packed.tables(), *cam, packed.counts, int(seed),
-                             width, height, spp, max_bounces,
-                             int(sample_offset), full,
+    return _RenderDiff.apply(*packed.tables(), packed.tex_atlas, *cam, packed,
+                             int(seed), width, height, spp, max_bounces,
+                             int(sample_offset), full, tex_grads,
                              (mk.render_block_sums_cuda, backward_grads_cuda))
 
 

@@ -44,6 +44,10 @@ def render_bidir_fast(packed: PackedScene, cam_params, width: int,
     average."""
     if packed.counts[4] == 0:
         raise ValueError("bidirectional rendering needs an area light")
+    if packed.textured:
+        # checked before the eye half runs: the light half would refuse
+        raise ValueError("textured light tracing is not on this kernel "
+                         "(the light kernel has no texture block)")
     nu = float(n_paths) / float(spp)
     fwd = render_megakernel(packed, cam_params, seed, width, height, spp,
                             max_bounces=max_bounces,

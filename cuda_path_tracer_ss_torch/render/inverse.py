@@ -81,10 +81,11 @@ def merge_params(scene: Scene, params: Dict[str, torch.Tensor]) -> Scene:
 
 
 # Fields the replay VJP differentiates. The full path adjoint
-# (grad_mode="full", the default) covers every exposed trainable field of an
-# untextured scene on the reference-parity estimator; the cheaper "linear"
-# backward covers only the throughput-linear subset, and make_loss picks it
-# automatically when the optimized fields allow.
+# (grad_mode="full", the default) covers every exposed trainable field on the
+# reference-parity estimator (on a textured scene the texels too); the cheaper
+# "linear" backward covers only the throughput-linear subset (plus the texels
+# of a color-mapped scene), and make_loss picks it automatically when the
+# optimized fields allow.
 def _reject_physical(physical: bool) -> None:
     if physical:
         _unported("gradients of the physical (unbiased MIS) estimator "
@@ -118,16 +119,17 @@ def check_engine_fields(engine: str, field_names, physical: bool = False,
     """Raise early if the chosen engine cannot differentiate a field — a
     silent zero gradient is the failure mode this guards against. Both
     engines of this package differentiate the same set: the plain engine
-    detaches what the kernel detaches."""
+    detaches what the kernel detaches. Pass ``scene`` so that a textured
+    scene gets its field set (the texels as well)."""
     _check_engine(engine)
-    if scene is not None and getattr(scene, "num_textures", 0) > 0:
-        _unported("training on textured scenes (fields "
-                  f"{sorted(vjp.PALLAS_TRAINABLE_FIELDS_TEX_FULL)})",
-                  "Queue 1 item 6: color-textured, normal-mapped")
+    textured = scene is not None and getattr(scene, "num_textures", 0) > 0
     ok = pallas_trainable(physical)
+    if textured:
+        ok = vjp.PALLAS_TRAINABLE_FIELDS_TEX_FULL
     tri = sorted(set(field_names) & vjp.TRI_FIELDS)
     if tri:
-        _unported(f"gradients for triangle geometry {tri} (grad_mode='geo')",
+        _unported(f"gradients for triangle geometry {tri} (grad_mode='geo'"
+                  f"{', textured scenes included' if textured else ''})",
                   "Queue 1 item 6 / Queue 2: K2 geo")
     if "materials.spec_avg" in field_names:
         # in the parity estimator spec_avg only gates the detached branch
@@ -145,13 +147,20 @@ def check_engine_fields(engine: str, field_names, physical: bool = False,
             f"{bad}; its VJP covers {sorted(ok)}")
 
 
-def _grad_mode_for(field_names) -> str:
+def _grad_mode_for(field_names, scene=None) -> str:
     """The throughput-linear backward kernel is leaner; it is used whenever
-    the caller names its optimized fields and none needs the path adjoint."""
+    the caller names its optimized fields and none needs the path adjoint.
+    On a textured scene the linear backward also trains the texels of color
+    maps, but not those of normal maps (they need the full path adjoint's
+    perturbation pullback)."""
     if field_names is not None and set(field_names) & vjp.TRI_FIELDS:
         return "geo"
-    if (field_names is not None
-            and set(field_names) <= pallas_trainable_linear()):
+    lean = pallas_trainable_linear()
+    if scene is not None and getattr(scene, "num_textures", 0) > 0:
+        has_nmap = bool((scene.materials.nmap_id >= 0).any())
+        if not has_nmap:
+            lean = vjp.PALLAS_TRAINABLE_FIELDS_TEX
+    if field_names is not None and set(field_names) <= lean:
         return "linear"
     return "full"
 
@@ -183,7 +192,7 @@ def make_loss(scene: Scene, cam_params, target, width: int, height: int,
                           else ("cuda" if engine == "cuda" else "cpu"))
     if engine == "cuda" and device.type != "cuda":
         raise ValueError(f"engine='cuda' needs a CUDA device, got {device}")
-    grad_mode = _grad_mode_for(field_names)
+    grad_mode = _grad_mode_for(field_names, scene)
     render = (vjp.render_megakernel_diff if engine == "cuda"
               else vjp.render_megakernel_diff_plain)
     if not isinstance(target, torch.Tensor):

@@ -116,7 +116,8 @@ def test_spec_avg_raises_and_never_returns_a_silent_zero():
     (lambda s: tinverse.check_engine_fields("bidir", ["materials.emission"]), "item 8"),
     (lambda s: tinverse.check_engine_fields("jnp", ["materials.diffuse"]), "item 7"),
     (lambda s: tinverse.check_engine_fields(
-        "cuda", ["textures"], scene=port_scene(jpresets.textured())), "textured"),
+        "cuda", ["textures", "tri_v0"], scene=port_scene(jpresets.textured())),
+     "K2 geo"),
     (lambda s: tinverse.make_loss(s, CP, torch.zeros(8, 8, 3), 8, 8, 1,
                                   engine="plain", accel="grid"), "K2 grid"),
     (lambda s: tinverse.make_loss(s, CP, torch.zeros(8, 8, 3), 8, 8, 1,

@@ -46,10 +46,13 @@ def test_preset_equals_jax_preset_bitwise(name):
 
 
 def test_preset_names_and_missing_presets():
-    assert set(PORTED) == set(jpresets.PRESETS) - {"textured", "mesh"}
+    """Every preset of the JAX package is served, ``textured`` and ``mesh``
+    (the OBJ loader's) included; an unknown name raises."""
+    assert set(PORTED) == set(jpresets.PRESETS)
     for name in ("textured", "mesh"):
-        with pytest.raises(KeyError, match="not ported yet"):
-            tpresets.get_scene(name)
+        _assert_dicts_bitwise(scene_to_numpy(tpresets.get_scene(name)),
+                              jax_scene_to_numpy(jpresets.get_scene(name)))
+    assert tpresets.get_scene("textured").num_textures == 3
     with pytest.raises(KeyError, match="unknown scene preset"):
         tpresets.get_scene("nope")
 
@@ -68,10 +71,12 @@ def test_scene_numpy_round_trip(name):
 
 
 def test_jax_built_mesh_scene_crosses_over():
-    """mesh_demo needs the OBJ loader, which is not ported: the JAX-built
-    scene reaches the port through scene_from_numpy."""
+    """A scene built by the JAX package reaches the port through
+    scene_from_numpy, and mesh_demo so built equals the port's own."""
     js = jpresets.mesh_demo()
     _assert_dicts_bitwise(scene_to_numpy(port_scene(js)), jax_scene_to_numpy(js))
+    _assert_dicts_bitwise(scene_to_numpy(port_scene(js)),
+                          scene_to_numpy(tpresets.mesh_demo()))
 
 
 @pytest.mark.parametrize("name", ["cornell", "showcase", "point_lights",
@@ -97,9 +102,18 @@ def test_pack_scene_pads_empty_tables_and_refuses_textures():
     assert tuple(packed.spheres.shape) == (1, 5)
     assert tuple(packed.triangles.shape) == (1, 19)
     assert tuple(packed.area_lights.shape) == (1, 23)
-    b.add_texture(np.zeros((2, 2, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pack_scene(b.build(), "cpu")
+    assert packed.tex_counts == (0, 0) and packed.tex_atlas is None
+    # a texture packs: its texels, (first texel, h, w), the padded UV table,
+    # the material's map ids
+    b.add_texture(np.arange(18, dtype=np.float32).reshape(2, 3, 3) / 18)
+    b.materials[0] = MaterialSpec(diffuse=(1, 1, 1), diff_avg=0.5, texture=0)
+    packed = pack_scene(b.build(), "cpu")
+    assert packed.tex_counts == (1, 6) and not packed.tex_nmap
+    np.testing.assert_array_equal(packed.tex_atlas.numpy(),
+                                  np.arange(18, dtype=np.float32).reshape(6, 3) / 18)
+    np.testing.assert_array_equal(packed.tex_meta.numpy(), [[0, 2, 3]])
+    np.testing.assert_array_equal(packed.tex_matids.numpy(), [[0, -1]])
+    assert tuple(packed.tex_triuv.shape) == (1, 6)
 
 
 def test_camera_moves_and_arrays_equal():

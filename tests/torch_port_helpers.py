@@ -52,6 +52,39 @@ def port_scene(jax_scene):
     return scene_from_numpy(jax_scene_to_numpy(jax_scene))
 
 
+def jax_textured_quad(tex=True, nmap=False, sphere=False):
+    """The JAX package's test scene of tests/test_texture.py::_quad_scene: a
+    2x2 red/blue checker color map and / or a constant tilted normal map on a
+    UV-mapped quad (or a sphere with procedural UVs) lit by a point light."""
+    from cuda_path_tracer_ss_tpu.models.scene import MaterialSpec, SceneBuilder
+
+    b = SceneBuilder()
+    checker = np.zeros((2, 2, 3), np.float32)
+    checker[:, 0] = (1.0, 0.1, 0.1)
+    checker[:, 1] = (0.1, 0.1, 1.0)
+    tid = b.add_texture(checker) if tex else -1
+    nid = -1
+    if nmap:
+        nm = np.zeros((2, 2, 3), np.float32)
+        nm[..., 0] = 0.85
+        nm[..., 1] = 0.5
+        nm[..., 2] = 0.9
+        nid = b.add_texture(nm)
+    m = b.add_material(MaterialSpec(diffuse=(1.0, 1.0, 1.0), diff_avg=0.8,
+                                    texture=tid, normal_map=nid))
+    if sphere:
+        b.add_sphere((0.0, 0.0, -4.0), 1.6, m)
+    else:
+        v = [(-2, -2, -4), (2, -2, -4), (2, 2, -4), (-2, 2, -4)]
+        uv = [(0, 0), (1, 0), (1, 1), (0, 1)]
+        n = (0, 0, 1)
+        b.add_triangle(v[0], v[1], v[2], n, n, n, m, uv=(uv[0], uv[1], uv[2]))
+        b.add_triangle(v[0], v[2], v[3], n, n, n, m, uv=(uv[0], uv[2], uv[3]))
+    b.add_point_light((0.0, 0.0, -1.0), (60.0, 60.0, 60.0))
+    b.background = np.zeros(3, np.float32)
+    return b.build()
+
+
 def assert_per_pixel_parity(got, want):
     """The repo's per-pixel criterion (tests/test_pallas_cpu.py): same random
     streams on both sides, so only float op-order noise remains — all
@@ -93,11 +126,12 @@ def _host_kernel(fma):
     lib = ctypes.CDLL(out)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     scene_args = [vp, ci, vp, ci, vp, ci, vp, ci, vp, ci, vp,
+                  vp, vp, vp, vp, ci,
                   ctypes.POINTER(ctypes.c_float),
                   ci, ci, ci, ci, ci, ci, ci, ci]
     lib.cpt_render_megakernel_host.argtypes = scene_args + [ci, vp]
     lib.cpt_render_megakernel_host.restype = ci
-    lib.cpt_backward_megakernel_host.argtypes = scene_args + [ci, vp, vp]
+    lib.cpt_backward_megakernel_host.argtypes = scene_args + [ci] * 4 + [vp, vp]
     lib.cpt_backward_megakernel_host.restype = ci
     lib.cpt_light_records_host.argtypes = (
         [vp, ci] * 5 + [ctypes.POINTER(ctypes.c_float)] + [ci] * 9 + [vp] * 4)
@@ -106,6 +140,15 @@ def _host_kernel(fma):
     lib.cpt_norm3_vjp_host.restype = None
     lib.cpt_rot_y_to_vjp_host.argtypes = [ci, vp, vp, vp, vp, vp]
     lib.cpt_rot_y_to_vjp_host.restype = None
+    lib.cpt_poly_host.argtypes = [ci, vp, vp, vp]
+    lib.cpt_poly_host.restype = None
+    lib.cpt_tex_fetch_host.argtypes = [vp, vp, ci, ci] + [vp] * 8
+    lib.cpt_tex_fetch_host.restype = None
+    lib.cpt_texture_block_host.argtypes = [vp, ci, vp, ci, vp, ci, vp, vp, vp, vp,
+                                           ci, ci] + [vp] * 8
+    lib.cpt_texture_block_host.restype = ci
+    lib.cpt_perturb_normal_vjp_host.argtypes = [vp, ci, vp, ci] + [vp] * 6
+    lib.cpt_perturb_normal_vjp_host.restype = None
     return lib
 
 
@@ -120,7 +163,8 @@ def _scene_args(packed, cam_params, seed, width, height, spp, max_bounces,
     args = []
     for t, count in zip(tables[:5], packed.counts):
         args += [t.data_ptr(), count]
-    args += [tables[5].data_ptr(), cam_c, int(seed), int(pixel_offset),
+    args += [tables[5].data_ptr(), *tmk.tex_args(packed), cam_c, int(seed),
+             int(pixel_offset),
              int(n_local), int(sample_offset), int(spp), int(max_bounces),
              int(width), int(height)]
     return args, tables
@@ -166,7 +210,8 @@ def light_records_hostbuild(packed, cam_params, seed, width, height, n_paths,
 
 
 def backward_grads_hostbuild(packed, cam_params, seed, width, height, spp,
-                             max_bounces, g_img, sample_offset=0, full=False):
+                             max_bounces, g_img, sample_offset=0, full=False,
+                             tex_grads=False):
     """``backward_grads_cuda`` computed by the host build of the backward
     kernel's math (no FMA contraction), one pixel at a time, on CPU tables:
     (PackedScene cotangent, camera cotangent), unpacked from the gradient
@@ -175,11 +220,16 @@ def backward_grads_hostbuild(packed, cam_params, seed, width, height, spp,
     args, _tables = _scene_args(packed, cam_params, seed, width, height, spp,
                                 max_bounces, 0, n, sample_offset, 0.0)
     g = (g_img.detach().reshape(n, 3).to(torch.float32) / spp).contiguous()
-    rows = torch.zeros(tvjp._grad_rows(packed.counts, full), dtype=torch.float64)
+    tex_grads = bool(tex_grads) and packed.textured
+    texels = packed.tex_counts[1]
+    rows = torch.zeros(tvjp._grad_rows(packed.counts, full,
+                                       texels if tex_grads else 0),
+                       dtype=torch.float64)
     got = _host_kernel(False).cpt_backward_megakernel_host(
-        *args, int(full), g.data_ptr(), rows.data_ptr())
+        *args, int(full), texels, int(tex_grads), int(packed.tex_nmap),
+        g.data_ptr(), rows.data_ptr())
     assert got == rows.numel(), (got, rows.numel())
-    return tvjp._unpack_rows(rows, packed, full)
+    return tvjp._unpack_rows(rows, packed, full, tex_grads)
 
 
 def _three_runs(*arrays):
@@ -203,6 +253,73 @@ def rot_y_to_vjp_hostbuild(t, s, g):
         t.shape[1], t.ctypes.data, s.ctypes.data, g.ctypes.data,
         a_t.ctypes.data, a_s.ctypes.data)
     return a_t, a_s
+
+
+def _runs(a, dtype=np.float32):
+    """[n] or [n, k] -> k contiguous runs of n values (the host entries' layout)."""
+    a = np.asarray(a, dtype)
+    return np.ascontiguousarray(a.T if a.ndim == 2 else a)
+
+
+def _ptr(a):
+    return a.ctypes.data
+
+
+def poly_hostbuild(x, y):
+    """``csrc`` poly_atan(x), poly_atan2(y, x), poly_asin(x) and their
+    derivatives atan'(x), d atan2/dy, d atan2/dx, asin'(x): [7, n]."""
+    x, y = _runs(x), _runs(y)
+    out = np.empty((7, x.size), np.float32)
+    _host_kernel(False).cpt_poly_host(x.size, _ptr(x), _ptr(y), _ptr(out))
+    return out
+
+
+def tex_fetch_hostbuild(packed, tid, u, v):
+    """``csrc tex_fetch<true>`` per lane: (val [n, 3], idx [n, 4], w [n, 4],
+    du [n, 3], dv [n, 3])."""
+    tid, u, v = _runs(tid), _runs(u), _runs(v)
+    n = tid.size
+    val, du, dv = (np.empty((3, n), np.float32) for _ in range(3))
+    idx = np.empty((4, n), np.int32)
+    w = np.empty((4, n), np.float32)
+    atlas, meta = (t.detach().contiguous() for t in packed.tex_tables()[:2])
+    _host_kernel(False).cpt_tex_fetch_host(
+        atlas.data_ptr(), meta.data_ptr(), packed.tex_counts[0], n, _ptr(tid),
+        _ptr(u), _ptr(v), _ptr(val), _ptr(idx), _ptr(w), _ptr(du), _ptr(dv))
+    return val.T, idx.T, w.T, du.T, dv.T
+
+
+def texture_block_hostbuild(packed, o, d, prim, mat, nrm):
+    """``csrc texture_block<true, true>`` at n hits: (diffuse' [n, 3], normal'
+    [n, 3], UV partials [n, 6])."""
+    o, d, nrm = _runs(o), _runs(d), _runs(nrm)
+    prim, mat = _runs(prim, np.int32), _runs(mat, np.int32)
+    n = prim.size
+    diffuse, nrm_out = np.empty((3, n), np.float32), np.empty((3, n), np.float32)
+    uvg = np.empty((6, n), np.float32)
+    tabs = [t.detach().contiguous() for t in
+            (packed.spheres, packed.triangles, packed.materials)
+            + packed.tex_tables()]
+    c = packed.counts
+    _host_kernel(False).cpt_texture_block_host(
+        tabs[0].data_ptr(), c[0], tabs[1].data_ptr(), c[1], tabs[2].data_ptr(), c[2],
+        *(t.data_ptr() for t in tabs[3:]), packed.tex_counts[0], n, _ptr(o), _ptr(d),
+        _ptr(prim), _ptr(mat), _ptr(nrm), _ptr(diffuse), _ptr(nrm_out), _ptr(uvg))
+    return diffuse.T, nrm_out.T, uvg.T
+
+
+def perturb_normal_vjp_hostbuild(packed, prim, raw, t, g):
+    """``csrc perturb_normal_vjp`` at n hits, the tangent source taken as the
+    backward kernel takes it: (A_raw_normal [n, 3], A_texel [n, 3])."""
+    prim = _runs(prim, np.int32)
+    raw, t, g = _runs(raw), _runs(t), _runs(g)
+    n = prim.size
+    an, at = np.empty((3, n), np.float32), np.empty((3, n), np.float32)
+    tri, triuv = (x.detach().contiguous() for x in (packed.triangles, packed.tex_triuv))
+    _host_kernel(False).cpt_perturb_normal_vjp_host(
+        tri.data_ptr(), packed.counts[0], triuv.data_ptr(), n, _ptr(prim), _ptr(raw),
+        _ptr(t), _ptr(g), _ptr(an), _ptr(at))
+    return an.T, at.T
 
 
 # ---- gradients: the reference's oracle and the port's engines ------------------
@@ -273,10 +390,12 @@ def render_diff_hostbuild(packed, cam_params, seed, width, height, spp,
     tables: the package's own ``torch.autograd.Function`` with both launches
     replaced by the host build of their device math (forward =
     csrc/megakernel.cuh, backward = csrc/megakernel_vjp.cuh)."""
+    full = grad_mode == "full"
+    tex_grads = tvjp._tex_grads(packed, full)
     cam = tuple(torch.as_tensor(v, dtype=torch.float32) for v in cam_params)
     return tvjp._RenderDiff.apply(
-        *packed.tables(), *cam, packed.counts, int(seed), width, height, spp,
-        max_bounces, 0, grad_mode == "full",
+        *packed.tables(), packed.tex_atlas, *cam, packed, int(seed), width,
+        height, spp, max_bounces, 0, full, tex_grads,
         (render_block_sums_hostbuild, backward_grads_hostbuild))
 
 
