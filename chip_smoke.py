@@ -41,7 +41,17 @@ prints no result. It
     gradients), times gradient steps in the reference's textured
     configurations and trains the ``textured`` preset's texels from a grey
     atlas with ``invert``,
-14. prints one JSON line describing every kernel, then the result line.
+14. the accelerated path: holds the forward kernel's grid instantiations
+    (default, physical, bidir; untextured and textured) against their plain
+    grid versions and against the linear kernel on five scenes and against
+    two goldens, the backward kernel through the grid against the plain
+    engine and the linear kernel, drives ``ProgressiveRenderer(accel="grid")``
+    on Cornell 800x800, 8 bounces, 2000 spp (and the physical and textured
+    grid instantiations at 256 spp), times the 10k-primitive matrix (linear
+    against grid, ``stress_dense(10000)`` and ``mesh_dense(4)`` at 400x400, 16
+    spp, 1 and 8 bounces), trains through the grid, and renders with the
+    bfloat16 carries (``state_bf16``) against the float32 image,
+15. prints one JSON line describing every kernel, then the result line.
 
 Any failed phase raises: the exit code is then non-zero and the result line
 is not printed. ``--out-dir DIR`` keeps the rendered PNG and a JSON report.
@@ -110,7 +120,7 @@ NEE_PARTIAL_FLOPS = {"linear": 40, "full": 75}
 EYE_VJP_FLOPS = {"linear": 0, "full": 70}
 
 FULL = dict(width=800, height=800, max_bounces=8, spp=2000)
-PLAIN_SPP = 32             # the plain version's share of the full-size work
+PLAIN_SPP = 16             # the plain version's share of the full-size work
 
 # The training path: the gradient-bench configuration of the reference.
 TRAIN = dict(width=256, height=256, max_bounces=8, spp=16)
@@ -129,9 +139,10 @@ BIDIR = dict(scene="caustic", width=512, height=512, max_bounces=8, spp=256,
 BIDIR_PLAIN_SPP = 4        # the plain version's share of the eye half
 EARLIER_DEFAULT_MS = 1200.0    # the default instantiation's 2000-spp launch before
                            # the kernel source held three (PERF.md, 700 W card)
-# ... and on the last tree before the textured instantiations (PERF.md, PR 3)
-PR3_DEFAULT_MS = (1195.2, 1208.1)
-PR3_DEFAULT_REGISTERS = 87
+# ... and its range and registers on the trees before the grid instantiations
+# (PERF.md)
+EARLIER_DEFAULT_RANGE_MS = (1195.2, 1209.4)
+EARLIER_DEFAULT_REGISTERS = 87
 
 # The texture block, counted from csrc/megakernel.cuh the same way: per hit of
 # a textured scene the unit normal, the UVs and the tangent (a sphere: the
@@ -150,7 +161,7 @@ NMAP_PULLBACK_FLOPS = 170
 
 # The textured path: the forward at the default one's size; the texture
 # scenes of the reference's tests; its textured gradient configurations.
-TEX_PLAIN_SPP = 16
+TEX_PLAIN_SPP = 8
 TEX_GRAD_BENCH = [  # (scene, size, spp, bounces, fields): docs/PERF.md of the reference
     ("color quad", 64, 8, 2, ["textures", "materials.diffuse"]),
     ("color quad", 128, 8, 2, ["textures", "materials.diffuse"]),
@@ -159,6 +170,20 @@ TEX_GRAD_BENCH = [  # (scene, size, spp, bounces, fields): docs/PERF.md of the r
     ("color+normal quad", 256, 32, 4, ["textures", "materials.diffuse", "pl_pos"]),
 ]
 TEX_TRAIN = dict(width=96, height=96, spp=8, max_bounces=4, steps=40)
+
+# The supercell grid's sweeps, counted from csrc/megakernel.cuh the same way:
+# per grid sweep the guarded inverse direction (three safe_inv); per box gate
+# (a non-empty box a live ray reaches) the slab test; the primitive tests are
+# the plain grid version's tally (grid_sphere_tests / grid_triangle_tests).
+GRID_SWEEP_FLOPS = 15
+SLAB_TEST_FLOPS = 43
+# bfloat16 stores of the six carries per bounce (a rounding and a widening each)
+BF16_BOUNCE_FLOPS = 12
+# The 10k-primitive matrix (docs/PERF.md of the reference, "10k-primitive
+# regime"), uncut: scene, 400x400, 16 spp, bounce caps 1 and 8, linear and grid.
+GRID_BENCH = dict(width=400, height=400, spp=16, bounces=(1, 8))
+GRID_TALLY = dict(width=64, height=64)   # the plain grid version's share of it
+GRID_TRAIN_STEPS = 10
 
 
 def log(msg: str) -> None:
@@ -202,24 +227,31 @@ def sweep_flops(counts):
 
 
 def flop_count(counts, stats, scale: float = 1.0, physical: bool = False,
-               bidir: bool = False) -> float:
+               bidir: bool = False, grid: bool = False) -> float:
     """Least float32 work for the eye paths ``stats`` describes: one full
     sweep per path-bounce, one per unoccluded shadow ray, a single primitive
     test per occluded one, plus the per-path / per-bounce / per-light math of
     the estimator (reference-parity, physical, physical with the
-    bidirectional carries)."""
-    sweep, one_test = sweep_flops(counts)
-    occluded = stats["shadow_rays_occluded"]
-    clear = stats["shadow_rays"] - occluded
+    bidirectional carries). Through the ``grid`` the sweeps are the tests the
+    plain grid version tallied, one slab test per box gate and the
+    per-sweep setup."""
     per_bounce = PER_BOUNCE_FLOPS + (PHYSICAL_BOUNCE_FLOPS if physical else 0)
     per_light = PHYSICAL_LIGHT_SAMPLE_FLOPS if physical else PER_LIGHT_SAMPLE_FLOPS
     if bidir:
         per_bounce += 2 * CHAIN_MODEL_FLOPS + BIDIR_CARRY_FLOPS
         per_light += CHAIN_MODEL_FLOPS
-    flops = (stats["paths"] * PER_PATH_FLOPS
-             + stats["path_bounces"] * (sweep + per_bounce)
-             + stats["shadow_rays"] * per_light
-             + clear * sweep + occluded * one_test)
+    if grid:
+        sweeps = ((stats["path_bounces"] + stats["shadow_rays"]) * GRID_SWEEP_FLOPS
+                  + stats.get("grid_sphere_tests", 0) * SPHERE_TEST_FLOPS
+                  + stats.get("grid_triangle_tests", 0) * TRIANGLE_TEST_FLOPS
+                  + stats.get("grid_slab_tests", 0) * SLAB_TEST_FLOPS)
+    else:
+        sweep, one_test = sweep_flops(counts)
+        occluded = stats["shadow_rays_occluded"]
+        clear = stats["shadow_rays"] - occluded
+        sweeps = (stats["path_bounces"] + clear) * sweep + occluded * one_test
+    flops = (stats["paths"] * PER_PATH_FLOPS + stats["path_bounces"] * per_bounce
+             + stats["shadow_rays"] * per_light + sweeps)
     return flops * scale
 
 
@@ -246,6 +278,20 @@ def bound_of(flops: float, moved: float):
     bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
     return (max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes",
             ops_ms, bytes_ms)
+
+
+def least_bound(counts, stats, scale: float, moved: float, idx_bytes: float,
+                extra_flops: float = 0.0, **kw):
+    """(bound, bound of the grid's own work) of a render through the grid.
+    The image is the same function whether it sweeps linearly or through
+    the grid, so its bound is the smaller of the two ways' bounds: linear
+    sweeps over ``moved`` bytes, or the grid's tallied work over ``moved``
+    plus its ``idx_bytes``. ``extra_flops`` (already scaled) is work both
+    ways do (textures, the backward kernel's reverse sweep)."""
+    lin = bound_of(flop_count(counts, stats, scale, **kw) + extra_flops, moved)
+    grd = bound_of(flop_count(counts, stats, scale, grid=True, **kw) + extra_flops,
+                   moved + idx_bytes)
+    return min(lin, grd, key=lambda b: b[0]), grd
 
 
 def record_match(got, want):
@@ -567,11 +613,11 @@ def main() -> int:
         f"{PLAIN_SPP}-spp launch {ms_plain_shape:.2f} ms")
     log(f"[bench] the default instantiation beside its time before the source held "
         f"three: {ms:.1f} ms now, {EARLIER_DEFAULT_MS:.1f} ms then ({ms / EARLIER_DEFAULT_MS - 1:+.2%})")
-    default_regs = report["ptxas"]["megakernel/render_kernel<0,0,0>"]["registers"]
-    log(f"[bench] untextured default instantiation beside the last tree without textured "
-        f"instantiations: {ms:.1f} ms and {default_regs} registers now, "
-        f"{PR3_DEFAULT_MS[0]:.1f}-{PR3_DEFAULT_MS[1]:.1f} ms and {PR3_DEFAULT_REGISTERS} "
-        f"registers then (PERF.md, PR 3)")
+    default_regs = report["ptxas"]["megakernel/render_kernel<0,0,0,0,0>"]["registers"]
+    log(f"[bench] untextured linear default instantiation beside the trees before the grid: "
+        f"{ms:.1f} ms and {default_regs} registers now, {EARLIER_DEFAULT_RANGE_MS[0]:.1f}-"
+        f"{EARLIER_DEFAULT_RANGE_MS[1]:.1f} ms and {EARLIER_DEFAULT_REGISTERS} registers then "
+        "(PERF.md)")
 
     # bound: this run's operation count (the plain version's tally over
     # PLAIN_SPP samples, scaled to the timed sample count) over the FP32 peak,
@@ -615,11 +661,11 @@ def main() -> int:
                 "sph_radius": scene.num_spheres}
         return sorted(n for n in names if have.get(n, 1))
 
-    def both_engines(scene, fields, target, w, h, n_spp, nb, seed):
+    def both_engines(scene, fields, target, w, h, n_spp, nb, seed, accel="none"):
         out = []
         for engine in ("cuda", "plain"):
             loss = inverse.make_loss(scene, cp, target, w, h, n_spp, nb, engine=engine,
-                                     field_names=fields, device=dev)
+                                     field_names=fields, device=dev, accel=accel)
             out.append(inverse.value_and_grad(loss, inverse.extract_params(scene, fields),
                                               seed))
         return out
@@ -744,11 +790,12 @@ def main() -> int:
             f"kernel {ms_k1:.2f} ms, backward kernel {ms_k2:.2f} ms, the rest (pack, host, "
             f"loss, autograd) {ms_step - ms_k1 - ms_k2:.2f} ms")
 
-    def plain_step_in_chunks(fields):
+    def plain_step_in_chunks(fields, packed_grid=None):
         """``value_and_grad`` of the plain engine's loss on the training step's
         inputs, all ``tspp`` samples, taken TRAIN_PLAIN_CHUNK at a time so
         that autograd holds one chunk's graph at once: the first pass renders
-        the image, the second sends the loss's cotangent through every chunk."""
+        the image, the second sends the loss's cotangent through every chunk
+        (through ``packed_grid``'s sweeps when given)."""
         leaves = {k: v.detach().clone().requires_grad_(True)
                   for k, v in inverse.extract_params(start, fields).items()}
         offsets = range(0, tspp, TRAIN_PLAIN_CHUNK)
@@ -756,7 +803,8 @@ def main() -> int:
         def chunk_image(offset):
             packed = mk.pack_scene(inverse.merge_params(start, leaves), dev)
             return vjp.render_megakernel_diff_plain(packed, cp, 0, tw, th, TRAIN_PLAIN_CHUNK,
-                                                    tnb, sample_offset=offset)
+                                                    tnb, sample_offset=offset,
+                                                    packed_grid=packed_grid)
 
         with torch.no_grad():
             img = sum(chunk_image(o) for o in offsets) / len(offsets)
@@ -1164,7 +1212,7 @@ def main() -> int:
                               physical=bool(kw))
                    + texture_flops(stats_x) * spp / TEX_PLAIN_SPP)
         x_bound = bound_of(x_flops, packed_t.table_bytes + 12 * w * h)
-        regs = report["ptxas"][f"megakernel/render_kernel<{int(bool(kw))},0,1>"]["registers"]
+        regs = report["ptxas"][f"megakernel/render_kernel<{int(bool(kw))},0,1,0,0>"]["registers"]
         tex_bench[label] = dict(ms=x_ms, plain_ms=x_plain_ms, max_abs_err=x_err,
                                 match_rate=x_rate, bound=x_bound, registers=regs)
         log(f"[textured bench] textured {w}x{h} {nb} bounces {spp} spp, one launch of the "
@@ -1205,7 +1253,7 @@ def main() -> int:
                            bidir=True) + texture_flops(stats_tb) * bspp / BIDIR_PLAIN_SPP)
     tb_bound = bound_of(tb_flops, packed_t.table_bytes + 12 * bw * bh)
     log(f"[textured bench] textured {bw}x{bh} {bnb} bounces {bspp} spp, nu {nu_t:g}, the "
-        f"textured bidir instantiation ({report['ptxas']['megakernel/render_kernel<1,1,1>']['registers']} "
+        f"textured bidir instantiation ({report['ptxas']['megakernel/render_kernel<1,1,1,0,0>']['registers']} "
         f"registers): {tb_ms:.2f} ms (median of 5); vs plain at {BIDIR_PLAIN_SPP} spp "
         f"{tb_rate:.4%} of pixels, plain version {tb_plain_ms:.0f} ms; bound "
         f"{tb_bound[0]:.3f} ms ({tb_bound[1]}), kernel at {tb_bound[0] / tb_ms:.1%} of it")
@@ -1363,7 +1411,354 @@ def main() -> int:
     check(train_t["k1"] == tt["steps"] and train_t["k2"] == tt["steps"],
           f"textured train: {train_t['k1']} / {train_t['k2']} launches")
 
-    # ---- 14. report ----------------------------------------------------------------
+    # ---- 14. the accelerated path: the supercell grid, and the bf16 carries ----------
+    from cuda_path_tracer_ss_torch.ops.grid import build_grid
+
+    def grid_of(scene):
+        return mk.pack_grid(build_grid(scene), dev)
+
+    # registers per instantiation, keyed by its (physical, bidir, textured, grid, bf16) flags
+    regs = {tuple(int(c) for c in k.split("<")[1][:-1].split(",")): v["registers"]
+            for k, v in report["ptxas"].items() if k.startswith("megakernel/render_kernel")}
+    log("[build] grid instantiations beside the linear ones (registers): "
+        + ", ".join(f"<{k[0]},{k[1]},{k[2]}> {regs[k[:3] + (0, 0)]} -> {regs[k]}"
+                    for k in sorted(regs) if k[3:] == (1, 0))
+        + f"; the bf16 ones beside the float32 ones: "
+        + ", ".join(f"<{k[0]},{k[1]},{k[2]},{k[3]}> {regs[k[:4] + (0,)]} -> {regs[k]}"
+                    for k in sorted(regs) if k[4])
+        + f"; the linear float32 default keeps {regs[(0, 0, 0, 0, 0)]} "
+        f"({EARLIER_DEFAULT_REGISTERS} before the grid). A grid instantiation is what a runtime "
+        "branch on the grid pointer alone would build: it holds both sweeps")
+
+    # 14a. every grid instantiation against its plain version and against linear
+    grid_scenes = {"cornell": presets.cornell, "stress": presets.stress,
+                   "stress_dense": lambda: presets.stress_dense(3000),
+                   "mesh_dense": lambda: presets.mesh_dense(3), "textured": presets.textured}
+    report["grid_vs_plain"] = {}
+    for name, make in grid_scenes.items():
+        scene = make()
+        t0 = time.time()
+        pg = grid_of(scene)
+        grid_build_s = time.time() - t0
+        packed_s = mk.pack_scene(scene, dev)
+        for label, kw in (("default", {}),) + tuple(VARIANTS.items()):
+            plain_g = mk.render_block_sums_plain(packed_s, cp, 7, W, H, 4, 6, 0, W * H,
+                                                 packed_grid=pg, **kw) / 4
+            got = mk.render_block_sums_cuda(packed_s, cp, 7, W, H, 4, 6, 0, W * H,
+                                            packed_grid=pg, **kw) / 4
+            lin = mk.render_block_sums_cuda(packed_s, cp, 7, W, H, 4, 6, 0, W * H, **kw) / 4
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), f"grid {label} {name}: non-finite")
+            rate_p, gap_p, err_p = match_stats(got, plain_g)
+            rate_l, gap_l, err_l = match_stats(got, lin)
+            log(f"[grid kernel vs plain] {name:12s} {label:8s} "
+                f"({'textured' if packed_s.textured else 'untextured'}, grid {pg.meta[:3]}, "
+                f"built and packed in {grid_build_s:.2f} s): vs plain grid {rate_p:.4%} of "
+                f"pixels, max abs err {err_p:.2e}; vs the linear kernel {rate_l:.4%}, max abs "
+                f"err {err_l:.2e}")
+            for rate, gap, what in ((rate_p, gap_p, "plain"), (rate_l, gap_l, "linear")):
+                check(rate >= 0.995 and gap <= 1e-3,
+                      f"grid {label} {name}: {rate:.4%} of pixels match {what}")
+            report["grid_vs_plain"][f"{name}/{label}"] = (rate_p, err_p, rate_l, err_l)
+    for name, make, g_spp, g_nb in (("stress", presets.stress, 8, 6),
+                                    ("mesh_demo", presets.mesh_demo, 16, 6)):
+        scene = make()
+        want = np.load(os.path.join(GOLDEN, f"tpu_{name}_64x64_{g_spp}spp_{g_nb}b.npy"))
+        got = mk.render_fast2(scene, cp, 64, 64, g_spp, 7, max_bounces=g_nb,
+                              grid=build_grid(scene), device=dev).cpu().numpy()
+        golden_check(f"{name} grid", got, want, corr_min=0.999)
+
+    # 14b. the backward kernel through the grid
+    report["grid_vjp_vs_plain"] = {}
+    for name, make in (("cornell", presets.cornell), ("stress", presets.stress),
+                       ("color+normal quad", lambda: textured_quad(nmap=True))):
+        scene = make()
+        for mode in ("linear", "full"):
+            fields = scene_fields(scene, mode)
+            if scene.num_textures:
+                fields = (["materials.diffuse", "pl_power"] if mode == "linear"
+                          else ["textures", "materials.diffuse", "pl_pos"])
+            (v_k, g_k), (v_p, g_p) = both_engines(scene, fields, rand_target, gw, gh, 2, 4, 5,
+                                                  accel="grid")
+            v_l, g_l = inverse.value_and_grad(
+                inverse.make_loss(scene, cp, rand_target, gw, gh, 2, 4, engine="cuda",
+                                  field_names=fields), inverse.extract_params(scene, fields), 5)
+            torch.cuda.synchronize()
+            worst, rel, _, ok = grad_gap(g_k, g_p)
+            worst_l, rel_l, _, ok_l = grad_gap(g_k, g_l)
+            loss_gap = abs(float(v_k) - float(v_p)) / abs(float(v_p))
+            log(f"[grid vjp vs plain] {name:18s} {mode:6s}: loss gap {loss_gap:.1e}; vs the "
+                f"plain engine's autograd worst {worst} at {rel:.2e} of its max|g|; vs the "
+                f"linear backward kernel worst {worst_l} at {rel_l:.2e}")
+            check(loss_gap <= 1e-5 and float(v_k) == float(v_l),
+                  f"grid vjp {name} {mode}: loss gap {loss_gap:.2e}")
+            check(ok and ok_l, f"grid vjp {name} {mode}: {worst} {rel:.2e} / {worst_l} "
+                  f"{rel_l:.2e} of max|g|")
+            report["grid_vjp_vs_plain"][f"{name}/{mode}"] = (worst, rel, worst_l, rel_l)
+
+    # 14c. the grid main path at full size, beside the linear one (section 6)
+    passes_g = []
+    mk.LAUNCH_COUNT = 0            # every count to 0 just before the path ...
+    mk.LAUNCHES_GRID[:] = [0, 0, 0]
+    r = ProgressiveRenderer(
+        presets.cornell(), Camera(),
+        RenderConfig(width=w, height=h, max_bounces=nb, spp=spp, engine="cuda",
+                     accel="grid"),
+        on_pass=passes_g.append)
+    t0 = time.time()
+    r.run()
+    grid_main_s = time.time() - t0
+    launches_g = list(mk.LAUNCHES_GRID)   # ... and read just after
+    grid_img = torch.from_numpy(r.radiance()).to(dev)
+    check(launches_g == [len(passes_g), 0, 0] and mk.LAUNCH_COUNT == len(passes_g),
+          f"grid main path: grid launches {launches_g} for {len(passes_g)} passes")
+    rate_gm, _, err_gm = match_stats(grid_img, main_img)
+    check(rate_gm >= 0.995, f"grid main path: {rate_gm:.4%} of pixels match the linear one")
+    log(f"[grid main path] ProgressiveRenderer(accel='grid') cornell {w}x{h} {nb} bounces "
+        f"{spp} spp: {len(passes_g)} passes, {launches_g[0]} launches of the grid "
+        f"instantiation, {grid_main_s:.2f} s ({w * h * spp / grid_main_s / 1e6:.1f} M primary "
+        f"rays/s) beside the linear run's {main_s:.2f} s; {rate_gm:.4%} of pixels equal the "
+        f"linear image within rtol 1e-4 / atol 1e-5 (max abs err {err_gm:.2e})")
+    pg_c = grid_of(presets.cornell())
+    stats_gc = {}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    plain_gc = mk.render_megakernel_plain(packed, cp, 0, w, h, PHYSICAL_PLAIN_SPP, nb,
+                                          sample_offset=spp, stats=stats_gc,
+                                          packed_grid=pg_c)
+    torch.cuda.synchronize()
+    grid_plain_ms = (time.time() - t0) * 1e3
+    same_gc = mk.render_megakernel(packed, cp, 0, w, h, PHYSICAL_PLAIN_SPP, nb,
+                                   sample_offset=spp, packed_grid=pg_c)
+    rate_gc, gap_gc, err_gc = match_stats(same_gc, plain_gc)
+    check(rate_gc >= 0.995 and gap_gc <= 1e-3, "grid kernel disagrees with plain at full width")
+
+    def launch_g(n_spp, **kw):
+        def fn(k):
+            mk.render_block_sums_cuda(packed, cp, 0, w, h, n_spp, nb, 0, w * h,
+                                      sample_offset=(k + 1) * n_spp, **kw)
+        return fn
+
+    time_launches(launch_g(spp, packed_grid=pg_c), 1)
+    grid_ms = time_launches(launch_g(spp, packed_grid=pg_c), 2)
+    ms_again = time_launches(launch_g(spp), 2)
+    grid_bound, grid_work = least_bound(packed.counts, stats_gc, spp / PHYSICAL_PLAIN_SPP,
+                                        packed.table_bytes + 12 * w * h, 4 * pg_c.idx.numel())
+    log(f"[grid main path] one launch, cornell {w}x{h} {nb} bounces {spp} spp: grid "
+        f"{grid_ms:.1f} ms, linear {ms_again:.1f} ms (and {ms:.1f} ms in [bench]; "
+        f"{EARLIER_DEFAULT_RANGE_MS[0]}-{EARLIER_DEFAULT_RANGE_MS[1]} ms before the grid); grid vs plain at "
+        f"{PHYSICAL_PLAIN_SPP} spp (same samples) {rate_gc:.4%} of pixels, max abs err "
+        f"{err_gc:.2e}, plain grid version {grid_plain_ms:.0f} ms; per path "
+        f"{stats_gc['grid_slab_tests'] / stats_gc['paths']:.1f} box gates, "
+        f"{(stats_gc.get('grid_sphere_tests', 0) + stats_gc.get('grid_triangle_tests', 0)) / stats_gc['paths']:.1f}"
+        f" primitive tests; bound {grid_bound[0]:.2f} ms ({grid_bound[1]}; the grid's own "
+        f"work {grid_work[0]:.2f} ms), kernel at {grid_bound[0] / grid_ms:.1%} of it")
+
+    # the physical and the textured grid instantiations through the renderer
+    grid_more = {}
+    for label, scene_make, kw, idx, m_spp in (
+            ("physical", presets.cornell, dict(physical=True), 1, PHYSICAL_PLAIN_SPP),
+            ("textured", presets.textured, {}, 0, TEX_PLAIN_SPP)):
+        scene = scene_make()
+        mk.LAUNCHES_GRID[:] = [0, 0, 0]       # every count to 0 just before the path ...
+        mk.LAUNCHES_TEXTURED[:] = [0, 0, 0]
+        r = ProgressiveRenderer(scene, Camera(),
+                                RenderConfig(width=w, height=h, max_bounces=nb, spp=256,
+                                             engine="cuda", accel="grid", **kw))
+        t0 = time.time()
+        r.run()
+        more_s = time.time() - t0
+        launched = list(mk.LAUNCHES_GRID)      # ... and read just after
+        check(launched[idx] > 0 and sum(launched) == launched[idx]
+              and (label != "textured" or mk.LAUNCHES_TEXTURED[0] == launched[0])
+              and bool(np.isfinite(r.radiance()).all()), f"grid {label} main path {launched}")
+        packed_m, pg_m = mk.pack_scene(scene, dev), grid_of(scene)
+        # the plain grid version at the path's width, another sample window
+        stats_m = {}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        plain_m = mk.render_megakernel_plain(packed_m, cp, 0, w, h, m_spp, nb, stats=stats_m,
+                                             sample_offset=256, packed_grid=pg_m, **kw)
+        torch.cuda.synchronize()
+        m_plain_ms = (time.time() - t0) * 1e3
+        m_rate, m_gap, m_err = match_stats(
+            mk.render_megakernel(packed_m, cp, 0, w, h, m_spp, nb, sample_offset=256,
+                                 packed_grid=pg_m, **kw), plain_m)
+        check(m_rate >= 0.995 and m_gap <= 1e-3, f"grid {label} disagrees with plain")
+        m_ms = median_ms(lambda: mk.render_block_sums_cuda(packed_m, cp, 0, w, h, 256, nb, 0,
+                                                           w * h, packed_grid=pg_m, **kw))
+        m_bound, m_work = least_bound(packed_m.counts, stats_m, 256 / m_spp,
+                                      packed_m.table_bytes + 12 * w * h, 4 * pg_m.idx.numel(),
+                                      texture_flops(stats_m) * 256 / m_spp, physical=bool(kw))
+        grid_more[label] = dict(launches=launched[idx], ms=m_ms, plain_ms=m_plain_ms,
+                                max_abs_err=m_err, bound=m_bound, grid_work=m_work,
+                                match_rate=m_rate, plain_spp=m_spp)
+        log(f"[grid main path] ProgressiveRenderer(accel='grid'{', physical=True' if kw else ''}"
+            f") {'textured' if label == 'textured' else 'cornell'} {w}x{h} {nb} bounces 256 spp:"
+            f" {launched[idx]} launches, {more_s:.2f} s; one launch {m_ms:.1f} ms (median of "
+            f"5); vs plain at {w}x{h} {m_spp} spp (same samples) {m_rate:.4%} of pixels, max abs "
+            f"err {m_err:.2e}, plain version {m_plain_ms:.0f} ms; bound {m_bound[0]:.2f} ms "
+            f"({m_bound[1]}; the grid's own work {m_work[0]:.2f} ms), kernel at "
+            f"{m_bound[0] / m_ms:.1%} of it")
+
+    # 14d. the 10k-primitive matrix: linear against grid
+    gbw, gbh, gb_spp = GRID_BENCH["width"], GRID_BENCH["height"], GRID_BENCH["spp"]
+    tw_, th_ = GRID_TALLY["width"], GRID_TALLY["height"]
+    report["grid_bench"] = []
+    for name, make in (("stress_dense(10000)", lambda: presets.stress_dense(10000)),
+                       ("mesh_dense(4)", lambda: presets.mesh_dense(4))):
+        scene = make()
+        packed_b10 = mk.pack_scene(scene, dev)
+        t0 = time.time()
+        pg_b = grid_of(scene)
+        b_build_s = time.time() - t0
+        for b_nb in GRID_BENCH["bounces"]:
+            stats_b = {}
+            mk.render_megakernel_plain(packed_b10, cp, 0, tw_, th_, gb_spp, b_nb,
+                                       stats=stats_b, packed_grid=pg_b)
+            scale = gbw * gbh / (tw_ * th_)
+            # one image either way: one bound for both, the smaller work's
+            bnd, work_g = least_bound(packed_b10.counts, stats_b, scale,
+                                      packed_b10.table_bytes + 12 * gbw * gbh,
+                                      4 * pg_b.idx.numel())
+            work_l = bound_of(flop_count(packed_b10.counts, stats_b, scale),
+                              packed_b10.table_bytes + 12 * gbw * gbh)
+            row = dict(scene=name, bounces=b_nb, grid_res=pg_b.meta[:3],
+                       build_s=b_build_s, bound_ms=bnd[0], bound_by=bnd[1])
+            for accel, kw in (("linear", {}), ("grid", dict(packed_grid=pg_b))):
+                b_ms = median_ms(lambda: mk.render_block_sums_cuda(
+                    packed_b10, cp, 0, gbw, gbh, gb_spp, b_nb, 0, gbw * gbh, **kw))
+                if accel == "grid":
+                    work = work_g
+                    tests = (stats_b.get("grid_sphere_tests", 0)
+                             + stats_b.get("grid_triangle_tests", 0))
+                else:
+                    work = work_l
+                    sweep_prims = packed_b10.counts[0] + packed_b10.counts[1]
+                    clear = stats_b["shadow_rays"] - stats_b["shadow_rays_occluded"]
+                    tests = ((stats_b["path_bounces"] + clear) * sweep_prims
+                             + stats_b["shadow_rays_occluded"])
+                row[accel] = dict(ms=b_ms, mrays=gbw * gbh * gb_spp / b_ms / 1e3,
+                                  tests_per_path=tests / stats_b["paths"],
+                                  work_bound_ms=work[0])
+            torch.cuda.synchronize()
+            report["grid_bench"].append(row)
+            lin, grd = row["linear"], row["grid"]
+            log(f"[grid bench] {name} {gbw}x{gbh} {gb_spp} spp b={b_nb} (grid {pg_b.meta[:3]}, "
+                f"{pg_b.meta[6]} + {pg_b.meta[8]} global primitives, built in {b_build_s:.2f} s):"
+                f" linear {lin['ms']:.1f} ms = {lin['mrays']:.1f} M primary rays/s, "
+                f"{lin['tests_per_path']:.0f} primitive tests per path, its work "
+                f"{lin['work_bound_ms']:.2f} ms; grid {grd['ms']:.1f} ms = {grd['mrays']:.1f} M "
+                f"primary rays/s, {grd['tests_per_path']:.0f} primitive tests per path, its work "
+                f"{grd['work_bound_ms']:.3f} ms; bound {row['bound_ms']:.3f} ms ({row['bound_by']}"
+                f"); grid / linear time {grd['ms'] / lin['ms']:.3f} "
+                f"(tallies from the plain grid version at {tw_}x{th_} {gb_spp} spp)")
+
+    # 14e. training through the grid
+    grid_train = {}
+    g_train = torch.rand((th, tw, 3), generator=g).to(dev)
+    stats_tg = {}
+    mk.render_megakernel_plain(packed_train, cp, 0, tw, th, tspp, tnb, stats=stats_tg,
+                               packed_grid=grid_of(cornell))
+    for mode, fields in TRAIN_FIELDS.items():
+        stamps = []
+        mk.LAUNCHES_GRID[:] = [0, 0, 0]   # every count to 0 just before the path ...
+        vjp.LAUNCHES_GRID[:] = [0, 0]
+        t0 = time.time()
+        _, params, losses = inverse.invert(
+            start, cp, target_train, fields, tw, th, spp=tspp, steps=GRID_TRAIN_STEPS,
+            lr=0.02, seed=0, max_bounces=tnb, engine="cuda", accel="grid",
+            callback=lambda step, val, p: stamps.append(time.time()))
+        torch.cuda.synchronize()
+        k1g, k2g = mk.LAUNCHES_GRID[0], vjp.LAUNCHES_GRID[int(mode == "full")]  # ... after
+        check(k1g == GRID_TRAIN_STEPS and k2g == GRID_TRAIN_STEPS,
+              f"grid train {mode}: {k1g} / {k2g} grid launches")
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"grid train {mode}: the loss did not fall")
+        pg_t = grid_of(cornell)
+        k2_ms = median_ms(lambda: vjp.backward_rows_cuda(packed_train, cp, 0, tw, th, tspp,
+                                                         tnb, g_train, full=mode == "full",
+                                                         packed_grid=pg_t))
+        # the kernels against the plain engine on the training step's own
+        # inputs, as [grad bench] holds the linear ones
+        loss_k = inverse.make_loss(start, cp, target_train, tw, th, tspp, tnb, engine="cuda",
+                                   field_names=fields, accel="grid")
+        v_kk, g_kk = inverse.value_and_grad(loss_k, inverse.extract_params(start, fields), 0)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        v_pp, g_pp = plain_step_in_chunks(fields, pg_t)
+        torch.cuda.synchronize()
+        p_ms = (time.time() - t0) * 1e3
+        worst_t, rel_t, err_t, ok_t = grad_gap(g_kk, g_pp)
+        check(ok_t, f"grid train {mode}: kernels vs plain at full size: {worst_t} off by "
+              f"{rel_t:.2e} of max|g|")
+        check(abs(float(v_kk) - float(v_pp)) <= 1e-5 * abs(float(v_pp)),
+              f"grid train {mode}: losses differ ({float(v_kk)} vs {float(v_pp)})")
+        visible = stats_tg["shadow_rays"] - stats_tg["shadow_rays_occluded"]
+        rows = vjp._grad_rows(packed_train.counts, mode == "full")
+        k2_bound, k2_work = least_bound(
+            packed_train.counts, stats_tg, 1.0, packed_train.table_bytes + 12 * tw * th
+            + 4 * rows, 4 * pg_t.idx.numel(),
+            stats_tg["path_bounces"] * REVERSE_BOUNCE_FLOPS[mode]
+            + visible * NEE_PARTIAL_FLOPS[mode] + stats_tg["paths"] * EYE_VJP_FLOPS[mode])
+        grid_train[mode] = dict(k1=k1g, k2=k2g, ms=k2_ms, plain_ms=p_ms, max_abs_err=err_t,
+                                bound=k2_bound, grid_work=k2_work,
+                                ms_per_step=(stamps[-1] - stamps[0]) / (len(stamps) - 1) * 1e3)
+        log(f"[grid train] invert(accel='grid') cornell {tw}x{th} {tspp} spp {tnb} bounces, "
+            f"{mode}, {GRID_TRAIN_STEPS} Adam steps: loss {losses[0]:.3e} -> {losses[-1]:.3e}; "
+            f"{grid_train[mode]['ms_per_step']:.2f} ms per step (linear: "
+            f"{train[mode]['ms_per_step']:.2f} ms in [train]); {k1g} forward and {k2g} backward "
+            f"grid launches; backward kernel through the grid {k2_ms:.2f} ms (linear "
+            f"{bench[mode]['ms']:.2f} ms in [grad bench]), bound {k2_bound[0]:.3f} ms (the grid's "
+            f"own work {k2_work[0]:.3f} ms); vs the plain engine at {tw}x{th} {tspp} spp worst "
+            f"{worst_t} at {rel_t:.2e} of its max|g| (max abs err {err_t:.2e}), plain "
+            f"value_and_grad step through the grid, {TRAIN_PLAIN_CHUNK} samples at a time, "
+            f"{p_ms:.0f} ms")
+
+    # 14f. the bf16 carries
+    mk.LAUNCHES_BF16[:] = [0, 0, 0]   # every count to 0 just before the path ...
+    torch.cuda.synchronize()
+    t0 = time.time()
+    bf_img = mk.render_megakernel(packed, cp, 0, w, h, spp, nb, state_bf16=True)
+    torch.cuda.synchronize()
+    bf_main_s = time.time() - t0
+    launches_bf = list(mk.LAUNCHES_BF16)   # ... and read just after
+    check(launches_bf == [1, 0, 0] and bool(torch.isfinite(bf_img).all()),
+          f"bf16 main path launched {launches_bf}")
+    bf_gap = (bf_img - main_img).abs()
+    stats_bf = {}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    plain_bf = mk.render_megakernel_plain(packed, cp, 0, w, h, PHYSICAL_PLAIN_SPP, nb,
+                                          sample_offset=spp, stats=stats_bf, state_bf16=True)
+    torch.cuda.synchronize()
+    bf_plain_ms = (time.time() - t0) * 1e3
+    bf_rate, bf_mgap, bf_err = match_stats(
+        mk.render_megakernel(packed, cp, 0, w, h, PHYSICAL_PLAIN_SPP, nb, sample_offset=spp,
+                             state_bf16=True), plain_bf)
+    check(bf_rate >= 0.995 and bf_mgap <= 1e-3, "bf16 kernel disagrees with plain")
+    time_launches(launch_g(spp, state_bf16=True), 1)
+    bf_ms = time_launches(launch_g(spp, state_bf16=True), 2)
+    bf_flops = (flop_count(packed.counts, stats_bf, spp / PHYSICAL_PLAIN_SPP)
+                + stats_bf["path_bounces"] * BF16_BOUNCE_FLOPS * spp / PHYSICAL_PLAIN_SPP)
+    bf_bound = bound_of(bf_flops, packed.table_bytes + 12 * w * h)
+    # the same samples in both images: what differs is the storage rounding
+    # alone (2^-9 relative per store); the reference's bound (0.02 on a
+    # 16x16 image, tests/test_pallas_cpu.py) taken relative above 1, where
+    # the light's own pixels are
+    bf_scaled = float((bf_gap / main_img.clamp_min(1.0)).max())
+    bf_mean_gap = abs(float(bf_img.mean()) / float(main_img.mean()) - 1)
+    log(f"[bf16] render_megakernel(state_bf16=True) cornell {w}x{h} {nb} bounces {spp} spp: "
+        f"{launches_bf[0]} launch, {bf_main_s:.2f} s; vs the float32 2000-spp image (same "
+        f"samples) max gap {float(bf_gap.max()):.2e} (at values up to "
+        f"{float(main_img.max()):.3g}; {bf_scaled:.2e} relative above 1), mean gap "
+        f"{float(bf_gap.mean()):.2e}, image means {bf_mean_gap:.2e} apart; vs plain bf16 at "
+        f"{PHYSICAL_PLAIN_SPP} spp {bf_rate:.4%} of pixels, max abs err {bf_err:.2e}, plain "
+        f"version {bf_plain_ms:.0f} ms; one launch {bf_ms:.1f} ms beside float32 "
+        f"{ms_again:.1f} ms; bound {bf_bound[0]:.2f} ms")
+    check(bf_scaled < 0.02 and bf_mean_gap < 0.01, "bf16 image too far from the float32 one")
+
+    # ---- 15. report ----------------------------------------------------------------
     k1_common = {
         "route": "cuda",
         "source": "cuda_path_tracer_ss_torch/csrc/megakernel.cu",
@@ -1512,7 +1907,73 @@ def main() -> int:
         "ms_value_and_grad_step": b["ms_step"],
         "rows_route": b["route"],
         "share_of_bound": b["bound"][0] / b["ms_k2"],
-    } for mode, b in tex_k2.items()]}
+    } for mode, b in tex_k2.items()] + [{
+        **k1_common,
+        "name": "render_megakernel[grid]",
+        "launches": launches_g[0],
+        "max_abs_err": err_gc,
+        "ms": grid_ms,
+        "plain_ms": grid_plain_ms,
+        "bound_ms": grid_bound[0],
+        "bound_by": grid_bound[1],
+        "shape": f"cornell {w}x{h}, {nb} bounces, {spp} spp, one launch, grid {pg_c.meta[:3]}",
+        "plain_shape": f"cornell {w}x{h}, {nb} bounces, {PHYSICAL_PLAIN_SPP} spp",
+        "registers": regs[(0, 0, 0, 1, 0)],
+        "grid_work_bound_ms": grid_work[0],
+        "match_rate": rate_gc,
+        "share_of_bound": grid_bound[0] / grid_ms,
+    }] + [{
+        **k1_common,
+        "name": f"render_megakernel[grid, {label}]",
+        "launches": v["launches"],
+        "max_abs_err": v["max_abs_err"],
+        "ms": v["ms"],
+        "plain_ms": v["plain_ms"],
+        "bound_ms": v["bound"][0],
+        "bound_by": v["bound"][1],
+        "shape": f"{'textured' if label == 'textured' else 'cornell'} {w}x{h}, {nb} bounces, "
+                 "256 spp, one launch",
+        "plain_shape": f"the same scene at {w}x{h}, {nb} bounces, {v['plain_spp']} spp",
+        "grid_work_bound_ms": v["grid_work"][0],
+        "match_rate": v["match_rate"],
+        "share_of_bound": v["bound"][0] / v["ms"],
+    } for label, v in grid_more.items()] + [{
+        **k1_common,
+        "name": "render_megakernel[bf16]",
+        "launches": launches_bf[0],
+        "max_abs_err": bf_err,
+        "ms": bf_ms,
+        "plain_ms": bf_plain_ms,
+        "bound_ms": bf_bound[0],
+        "bound_by": bf_bound[1],
+        "shape": f"cornell {w}x{h}, {nb} bounces, {spp} spp, one launch, state_bf16",
+        "plain_shape": f"cornell {w}x{h}, {nb} bounces, {PHYSICAL_PLAIN_SPP} spp",
+        "max_gap_to_float32": float(bf_gap.max()),
+        "mean_gap_to_float32": float(bf_gap.mean()),
+        "match_rate": bf_rate,
+        "share_of_bound": bf_bound[0] / bf_ms,
+    }] + [{
+        "name": f"backward_megakernel[{mode}, grid]",
+        "route": "cuda",
+        "source": "cuda_path_tracer_ss_torch/csrc/megakernel_vjp.cu",
+        "replaces": "cuda_path_tracer_ss_tpu/ops/pallas/megakernel_vjp.py:269",
+        "launches": v["k2"],
+        "max_abs_err": v["max_abs_err"],
+        "ms": v["ms"],
+        "plain_ms": v["plain_ms"],
+        "bound_ms": v["bound"][0],
+        "bound_by": v["bound"][1],
+        "library_ms": None,
+        "shape": f"cornell {tw}x{th}, {tnb} bounces, {tspp} spp, one launch, grid",
+        "plain_shape": (f"the same, value_and_grad step of the plain engine through the grid, "
+                        f"{TRAIN_PLAIN_CHUNK} samples at a time"),
+        "ms_per_training_step": v["ms_per_step"],
+        "grid_work_bound_ms": v["grid_work"][0],
+        "share_of_bound": v["bound"][0] / v["ms"],
+    } for mode, v in grid_train.items()]}
+    report.update(grid_main_path_s=grid_main_s, grid_train={
+        m: {k: v for k, v in t.items() if k != "bound"} for m, t in grid_train.items()},
+        bf16_main_path_s=bf_main_s)
     report.update(textured_main_path_s=tex_main_s, textured_train=train_t,
                   textured_grad_bench=[{k: v for k, v in e.items()
                                         if k not in ("packed", "g_img")}

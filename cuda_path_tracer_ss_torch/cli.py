@@ -51,8 +51,10 @@ def _common(p: argparse.ArgumentParser):
                         "(slow; the yardstick of correctness), auto = cuda "
                         "on a CUDA device, plain on --device cpu")
     p.add_argument("--accel", default="none", choices=["none", "grid"],
-                   help="spatial acceleration; only 'none' (linear sweeps) "
-                        "is ported, 'grid' raises")
+                   help="spatial acceleration: grid = the supercell grid's "
+                        "culled sweeps (ops/grid.py; the same image; faster "
+                        "on scenes of thousands of primitives, slower on "
+                        "small ones — see PERF.md), none = linear sweeps")
     p.add_argument("--physical", action="store_true",
                    help="unbiased estimator mode: correct-measure light "
                         "sampling with power-heuristic MIS instead of the "
@@ -149,8 +151,9 @@ def cmd_benchmark(args):
     import torch
 
     from .models.camera import Camera, camera_arrays
-    from .ops.cuda.megakernel import (pack_scene, render_megakernel,
+    from .ops.cuda.megakernel import (pack_grid, pack_scene, render_megakernel,
                                       render_megakernel_plain)
+    from .ops.grid import build_grid
     from .utils.profiling import sync, timed
 
     cfg = _config(args)
@@ -159,7 +162,10 @@ def cmd_benchmark(args):
     device = torch.device(args.device)
     cp = camera_arrays(Camera())
     # pack once: per-repeat packing would be counted in the timing
-    packed = pack_scene(_scene(args), device)
+    scene = _scene(args)
+    packed = pack_scene(scene, device)
+    grid = (pack_grid(build_grid(scene), device) if args.accel == "grid"
+            else None)
     render = render_megakernel if engine == "cuda" else render_megakernel_plain
     window = [0]
 
@@ -169,7 +175,7 @@ def cmd_benchmark(args):
         return render(packed, cp, args.seed, args.width, args.height,
                       args.spp, args.bounces,
                       sample_offset=(window[0] - 1) * args.spp,
-                      physical=args.physical)
+                      physical=args.physical, packed_grid=grid)
 
     t0 = time.perf_counter()
     run()
@@ -185,6 +191,7 @@ def cmd_benchmark(args):
         "primary_rays_per_s": round(rays / per_call_s, 1),
         "engine": engine,
         "physical": bool(args.physical),
+        "accel": args.accel,
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
         "checksum": float(img.sum()),

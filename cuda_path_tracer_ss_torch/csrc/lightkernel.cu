@@ -36,7 +36,8 @@ __global__ void light_kernel(cpt::SceneTables sc, cpt::LightParams p,
     cpt::RecordOut out;
     out.pix = pix + i; out.r = r + i; out.g = g + i; out.b = b + i;
     out.stride = (size_t)p.n_local;
-    cpt::light_path<BIDIR>(sc, p, p.path_offset + i, out);
+    // the JAX light kernel takes no grid: linear sweeps, folded at compile time
+    cpt::light_path<BIDIR>(cpt::grid_tables<false>(sc), p, p.path_offset + i, out);
 }
 
 }  // namespace

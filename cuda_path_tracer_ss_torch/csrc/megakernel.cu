@@ -3,16 +3,22 @@
 //
 // Replaces the TPU kernel
 // cuda_path_tracer_ss_tpu/ops/pallas/megakernel.py::_make_render_kernel
-// (launched there by _render_block_sums) in three of its variants, each an
+// (launched there by _render_block_sums) in all of its variants, each an
 // instantiation of one source: the reference-parity estimator (default), the
 // physical (unbiased MIS) estimator, and the physical estimator with the
-// bidirectional carries; each once for untextured and once for textured scenes
-// (the texture block applies color and normal maps at every hit, with direct
-// indexed loads from a flat texel atlas). One thread per pixel over a 1-D grid; the ragged
-// edge is masked by i < n_local. The per-pixel math is in megakernel.cuh. The scene tables are read through read-only global memory
-// (const float* __restrict__): a 10k-primitive scene runs like a small one,
-// and a small scene's tables stay in L1. Bound on this card: FP32 arithmetic
-// throughput (a launch reads a few KB of tables and writes 12 bytes per pixel).
+// bidirectional carries; each for untextured and for textured scenes (the
+// texture block applies color and normal maps at every hit, with direct
+// indexed loads from a flat texel atlas); each with linear sweeps or with the
+// supercell grid's; each with float32 or bfloat16 storage of the carries
+// (state_bf16; 24 kernels). One thread
+// per pixel over a 1-D grid; the ragged edge is masked by i < n_local. The
+// per-pixel math is in megakernel.cuh. The scene tables and the grid's CSR
+// table are read through read-only global memory (const __restrict__): a
+// 10k-primitive scene runs like a small one, and a small scene's tables stay
+// in L1. Bound on this card: FP32 arithmetic throughput (a launch reads a few
+// KB of tables and writes 12 bytes per pixel). With the grid a thread tests
+// only the primitives of the boxes its own ray reaches: divergence instead of
+// a block vote.
 //
 // Plain C interface, loaded with ctypes: no PyTorch headers. Each launch
 // function enqueues on the given stream, does not synchronise, and returns
@@ -28,13 +34,15 @@ namespace {
 // latencies with warps. The launch shape is the kernel's own business.
 constexpr int THREADS_PER_BLOCK = 128;
 
-template <bool PHYSICAL, bool BIDIR, bool TEXTURED>
+template <bool PHYSICAL, bool BIDIR, bool TEXTURED, bool GRID, bool BF16>
 __global__ void render_kernel(cpt::SceneTables sc, cpt::RenderParams p,
                               float* __restrict__ out) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= p.n_local) return;
     float r, g, b;
-    cpt::render_pixel_t<PHYSICAL, BIDIR, TEXTURED>(sc, p, p.pixel_offset + i, r, g, b);
+    cpt::render_pixel_t<PHYSICAL, BIDIR, TEXTURED>(cpt::grid_tables<GRID>(sc),
+                                                   cpt::bf16_params<BF16>(p),
+                                                   p.pixel_offset + i, r, g, b);
     out[3 * i + 0] = r;
     out[3 * i + 1] = g;
     out[3 * i + 2] = b;
@@ -48,13 +56,35 @@ __global__ void uniform_pairs_kernel(const int* __restrict__ seed, const int* __
     cpt::uniform_pair(seed[i], pixel[i], sample[i], pair[i], u0[i], u1[i]);
 }
 
+template <bool PHYSICAL, bool BIDIR, bool TEXTURED, bool GRID>
+void launch_render_g(const cpt::SceneTables& sc, const cpt::RenderParams& p, float* out,
+                     int blocks, cudaStream_t st) {
+    if (p.state_bf16) {
+        render_kernel<PHYSICAL, BIDIR, TEXTURED, GRID, true>
+            <<<blocks, THREADS_PER_BLOCK, 0, st>>>(sc, p, out);
+    } else {
+        render_kernel<PHYSICAL, BIDIR, TEXTURED, GRID, false>
+            <<<blocks, THREADS_PER_BLOCK, 0, st>>>(sc, p, out);
+    }
+}
+
+template <bool PHYSICAL, bool BIDIR, bool TEXTURED>
+void launch_render_t(const cpt::SceneTables& sc, const cpt::RenderParams& p, float* out,
+                     int blocks, cudaStream_t st) {
+    if (sc.grid.idx != nullptr) {
+        launch_render_g<PHYSICAL, BIDIR, TEXTURED, true>(sc, p, out, blocks, st);
+    } else {
+        launch_render_g<PHYSICAL, BIDIR, TEXTURED, false>(sc, p, out, blocks, st);
+    }
+}
+
 template <bool PHYSICAL, bool BIDIR>
 void launch_render(const cpt::SceneTables& sc, const cpt::RenderParams& p, float* out,
                    int blocks, cudaStream_t st) {
     if (sc.num_textures > 0) {
-        render_kernel<PHYSICAL, BIDIR, true><<<blocks, THREADS_PER_BLOCK, 0, st>>>(sc, p, out);
+        launch_render_t<PHYSICAL, BIDIR, true>(sc, p, out, blocks, st);
     } else {
-        render_kernel<PHYSICAL, BIDIR, false><<<blocks, THREADS_PER_BLOCK, 0, st>>>(sc, p, out);
+        launch_render_t<PHYSICAL, BIDIR, false>(sc, p, out, blocks, st);
     }
 }
 
@@ -67,10 +97,15 @@ extern "C" {
 // rows; an empty table may point at a dummy row); the texture bundle (atlas,
 // meta, triuv, matids; megakernel.cuh: SceneTables) is null with
 // num_textures 0 on an untextured scene and selects the textured
-// instantiation otherwise; cam_host points at 16 host
-// floats (slot 15: the bidirectional count ratio nu). `variant` picks the
-// estimator: 0 reference-parity, 1 physical, 2 physical with the
-// bidirectional carries. Everything but the code itself is a runtime argument.
+// instantiation otherwise; the grid bundle (grid_idx int32 and grid_scal
+// float32 device pointers, grid_meta 9 host ints; megakernel.cuh: set_grid)
+// has a null grid_idx for linear sweeps and selects the grid instantiation
+// otherwise; cam_host points at 16 host floats (slot 15: the bidirectional
+// count ratio nu). `variant` picks the estimator: 0 reference-parity, 1
+// physical, 2 physical with the bidirectional carries; state_bf16 != 0 selects
+// the instantiation that stores the radiance / throughput carries as
+// bfloat16. Everything but the code
+// itself is a runtime argument.
 int cpt_render_megakernel(const float* spheres, int num_spheres,
                           const float* triangles, int num_triangles,
                           const float* materials, int num_materials,
@@ -79,10 +114,11 @@ int cpt_render_megakernel(const float* spheres, int num_spheres,
                           const float* background,
                           const float* tex_atlas, const float* tex_meta,
                           const float* tex_triuv, const float* tex_matids, int num_textures,
+                          const int* grid_idx, const float* grid_scal, const int* grid_meta,
                           const float* cam_host,
                           int seed, int pixel_offset, int n_local, int sample_offset,
                           int spp, int max_bounces, int width, int height, int variant,
-                          float* out, void* stream) {
+                          int state_bf16, float* out, void* stream) {
     cpt::SceneTables sc;
     sc.spheres = spheres; sc.num_spheres = num_spheres;
     sc.triangles = triangles; sc.num_triangles = num_triangles;
@@ -92,10 +128,12 @@ int cpt_render_megakernel(const float* spheres, int num_spheres,
     sc.background = background;
     sc.tex_atlas = tex_atlas; sc.tex_meta = tex_meta;
     sc.tex_triuv = tex_triuv; sc.tex_matids = tex_matids; sc.num_textures = num_textures;
+    cpt::set_grid(sc, grid_idx, grid_scal, grid_meta);
     cpt::RenderParams p;
     for (int k = 0; k < cpt::CAM_FLOATS; ++k) p.cam[k] = cam_host[k];
     p.seed = seed; p.pixel_offset = pixel_offset; p.n_local = n_local;
     p.sample_offset = sample_offset; p.spp = spp; p.max_bounces = max_bounces;
+    p.state_bf16 = state_bf16;
     cpt::set_image_size(p, width, height);
     const int blocks = (n_local + THREADS_PER_BLOCK - 1) / THREADS_PER_BLOCK;
     const cudaStream_t st = (cudaStream_t)stream;

@@ -6,9 +6,10 @@
 // cuda_path_tracer_ss_tpu/ops/pallas/megakernel.py::_make_render_kernel in
 // three variants (reference-parity estimator; physical = unbiased MIS
 // estimator; physical with the bidirectional carries), each untextured or
-// textured (the TPU kernel's _texture_block: color and normal maps), all
-// with linear sweeps and float32 state. Scalar float32 code, one path per
-// thread; the plain PyTorch
+// textured (the TPU kernel's _texture_block: color and normal maps), each
+// with linear sweeps or the supercell grid's, and with float32 or bfloat16
+// storage of the radiance / throughput carries (state_bf16).
+// Scalar float32 code, one path per thread; the plain PyTorch
 // version in ops/cuda/megakernel.py states the same formulas in the same
 // operation order, so with FMA contraction off (-fmad=false) the two agree
 // per pixel up to the math library's ulps.
@@ -27,7 +28,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <string.h>
+
 #if defined(__CUDACC__)
+#include <cuda_bf16.h>
 #define CPT_HD __host__ __device__ __forceinline__
 #define CPT_RSQRT(x) rsqrtf(x)
 #else
@@ -54,6 +58,18 @@ constexpr float INV24 = 1.0f / 16777216.0f;
 // NaN) out where a density underflows; at the ceiling the weight is 0 anyway.
 constexpr float MIS_RATIO_CLAMP = 1e18f;
 
+// The supercell grid (ops/cuda/megakernel.py: PackedGrid). `idx` is the CSR
+// table [sc_sph_start (SC+1), sc_tri_start (SC+1), supercell sphere ids,
+// supercell triangle ids, global sphere ids, global triangle ids] (start
+// tables at sc_off, absolute offsets into idx); `scal` = origin (3), cell
+// size (3). res: grid cells per axis; F: cells per supercell axis; sc:
+// supercells per axis, SC of them. A null idx selects the linear sweeps.
+struct GridTables {
+    const int* __restrict__ idx = nullptr;
+    const float* __restrict__ scal;
+    int res[3], F, sc[3], SC, sc_off, gs_off, n_gs, gt_off, n_gt;
+};
+
 // Read-only device (or, in a host build, host) tables; nothing writes them
 // while a render runs.
 struct SceneTables {
@@ -73,13 +89,54 @@ struct SceneTables {
     const float* __restrict__ tex_triuv;
     const float* __restrict__ tex_matids;
     int num_textures;
+    GridTables grid;
 };
+
+// The tables as a kernel instantiation sees them: with GRID false the grid is
+// null at compile time, so every grid branch of the inlined sweeps folds away
+// and the linear instantiation is the code without a grid.
+template <bool GRID>
+CPT_HD SceneTables grid_tables(const SceneTables& sc) {
+    SceneTables s = sc;
+    if (!GRID) s.grid.idx = nullptr;
+    return s;
+}
 
 struct RenderParams {
     float cam[CAM_FLOATS];  // rot 9, pos 3, tan(fov/2), z_near, sample clamp, spare
     int seed, pixel_offset, n_local, sample_offset, spp, max_bounces, width, height;
     float inv_width, inv_height, aspect;  // 1/width, 1/height, height/width
+    // Store the radiance / throughput carries as bfloat16 between bounces
+    // (the TPU kernel's state_bf16); the arithmetic stays float32.
+    int state_bf16 = 0;
 };
+
+// The parameters as a kernel instantiation sees them: state_bf16 fixed at
+// compile time, so the float32 instantiations carry no bfloat16 stores.
+template <bool BF16>
+CPT_HD RenderParams bf16_params(const RenderParams& p) {
+    RenderParams q = p;
+    q.state_bf16 = BF16 ? 1 : 0;
+    return q;
+}
+
+// The grid of `sc` from a packed bundle: idx and scal (null idx: linear
+// sweeps) and meta = (rx, ry, rz, F, sc_off, gs_off, n_gs, gt_off, n_gt).
+inline void set_grid(SceneTables& sc, const int* idx, const float* scal, const int* meta) {
+    GridTables& g = sc.grid;
+    g.idx = idx;
+    g.scal = scal;
+    if (idx == nullptr) return;
+    g.F = meta[3];
+    for (int k = 0; k < 3; ++k) {
+        g.res[k] = meta[k];
+        g.sc[k] = (meta[k] + g.F - 1) / g.F;
+    }
+    g.SC = g.sc[0] * g.sc[1] * g.sc[2];
+    g.sc_off = meta[4];
+    g.gs_off = meta[5]; g.n_gs = meta[6];
+    g.gt_off = meta[7]; g.n_gt = meta[8];
+}
 
 // The three derived floats are rounded from double quotients, as the tensor
 // version rounds its Python-float constants.
@@ -203,27 +260,10 @@ struct Hit {
     int prim;          // sphere i: i; triangle i: num_spheres + i; -1 on a miss
 };
 
-// Nearest hit, linear sweep. Tie rule: valid && t <= best_t, so the LATER
-// primitive wins equal t; spheres first, then triangles.
-CPT_HD Hit intersect_sweep(const SceneTables& sc, float ox, float oy, float oz,
-                           float dx, float dy, float dz) {
-    float best_t = INFINITY;
-    int best_s = -1, best_tri = -1;
-    float bw1 = 0.0f, bw2 = 0.0f;
-    for (int i = 0; i < sc.num_spheres; ++i) {
-        const float* s = sc.spheres + i * S_COLS;
-        float t;
-        if (sphere_t(ox, oy, oz, dx, dy, dz, s[0], s[1], s[2], s[3], t) && t <= best_t) {
-            best_t = t; best_s = i;
-        }
-    }
-    for (int i = 0; i < sc.num_triangles; ++i) {
-        float t, w1, w2;
-        if (triangle_t(ox, oy, oz, dx, dy, dz, sc.triangles + i * T_COLS, t, w1, w2)
-            && t <= best_t) {
-            best_t = t; best_tri = i; bw1 = w1; bw2 = w2;
-        }
-    }
+// The Hit of the winner: sphere best_s, or triangle best_tri (barycentrics
+// bw1, bw2), or a miss when both are -1.
+CPT_HD Hit hit_of(const SceneTables& sc, float ox, float oy, float oz, float dx, float dy,
+                  float dz, float best_t, int best_s, int best_tri, float bw1, float bw2) {
     Hit h;
     h.t = best_t; h.nx = 0.0f; h.ny = 0.0f; h.nz = 0.0f; h.mat = 0; h.prim = -1;
     if (best_tri >= 0) {
@@ -244,9 +284,172 @@ CPT_HD Hit intersect_sweep(const SceneTables& sc, float ox, float oy, float oz,
     return h;
 }
 
+// ---- supercell-grid sweeps (the TPU kernel's grid branch of _make_sweep_fns) ----
+//
+// The global (wide) primitives first, then every supercell box in turn. Each
+// thread gates a box on its OWN ray: the box must hold primitives and its
+// slab interval must reach [0, t_limit] (the thread's best t so far, or the
+// shadow distance). Only then does the thread walk the box's CSR ranges,
+// reading the ids straight from global memory. Visit order differs from the
+// linear sweep's, so the tie rule is explicit and index-based: a triangle's
+// index is num_spheres + its id, and (t < best) || (t == best && idx >=
+// best_idx) makes the largest index of the nearest t win, as the linear
+// sweep's t <= best_t does.
+
+CPT_HD float safe_inv(float d) {
+    return 1.0f / ((fabsf(d) < 1e-12f) ? ((d < 0.0f) ? -1e-12f : 1e-12f) : d);
+}
+
+// Whether the ray segment [0, t_limit] overlaps supercell (bx, by, bz)'s box
+// (clipped to the grid on the high side); iv is the guarded inverse direction.
+CPT_HD bool supercell_slab(const GridTables& g, int bx, int by, int bz, float ox, float oy,
+                           float oz, float ivx, float ivy, float ivz, float t_limit) {
+    const float fF = (float)g.F;
+    const float fx = (float)(bx * g.F), fy = (float)(by * g.F), fz = (float)(bz * g.F);
+    const float hx = fminf(fx + fF, (float)g.res[0]);
+    const float hy = fminf(fy + fF, (float)g.res[1]);
+    const float hz = fminf(fz + fF, (float)g.res[2]);
+    const float* s = g.scal;
+    const float t0x = (s[0] + fx * s[3] - ox) * ivx, t1x = (s[0] + hx * s[3] - ox) * ivx;
+    const float t0y = (s[1] + fy * s[4] - oy) * ivy, t1y = (s[1] + hy * s[4] - oy) * ivy;
+    const float t0z = (s[2] + fz * s[5] - oz) * ivz, t1z = (s[2] + hz * s[5] - oz) * ivz;
+    const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                           fmaxf(fminf(t0z, t1z), 0.0f));
+    const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+    return (tn <= tf) && (tn <= t_limit);
+}
+
+CPT_HD void grid_sphere(const SceneTables& sc, int i, float ox, float oy, float oz, float dx,
+                        float dy, float dz, float& best_t, int& best_i) {
+    const float* s = sc.spheres + i * S_COLS;
+    float t;
+    if (sphere_t(ox, oy, oz, dx, dy, dz, s[0], s[1], s[2], s[3], t)
+        && (t < best_t || (t == best_t && i >= best_i))) {
+        best_t = t; best_i = i;
+    }
+}
+
+CPT_HD void grid_triangle(const SceneTables& sc, int i, float ox, float oy, float oz, float dx,
+                          float dy, float dz, float& best_t, int& best_i, float& bw1, float& bw2) {
+    const int id = sc.num_spheres + i;
+    float t, w1, w2;
+    if (triangle_t(ox, oy, oz, dx, dy, dz, sc.triangles + i * T_COLS, t, w1, w2)
+        && (t < best_t || (t == best_t && id >= best_i))) {
+        best_t = t; best_i = id; bw1 = w1; bw2 = w2;
+    }
+}
+
+// The walk both grid sweeps take: the global lists, then every non-empty
+// supercell whose box the ray segment [0, t_limit] reaches, spheres before
+// triangles. t_limit is read anew at each box (the nearest-hit sweep lowers
+// it as it goes). visit(is_triangle, id) returns true to stop the walk, and
+// the walk then returns true.
+template <class Visit>
+CPT_HD bool grid_walk(const GridTables& g, float ox, float oy, float oz, float dx, float dy,
+                      float dz, const float& t_limit, Visit visit) {
+    const int* idx = g.idx;
+    for (int j = g.gs_off; j < g.gs_off + g.n_gs; ++j) {
+        if (visit(false, idx[j])) return true;
+    }
+    for (int j = g.gt_off; j < g.gt_off + g.n_gt; ++j) {
+        if (visit(true, idx[j])) return true;
+    }
+    const float ivx = safe_inv(dx), ivy = safe_inv(dy), ivz = safe_inv(dz);
+    const int* sph_start = idx + g.sc_off;
+    const int* tri_start = sph_start + g.SC + 1;
+    int bi = 0;
+    for (int bz = 0; bz < g.sc[2]; ++bz) {
+        for (int by = 0; by < g.sc[1]; ++by) {
+            for (int bx = 0; bx < g.sc[0]; ++bx, ++bi) {
+                const int s0 = sph_start[bi], s1 = sph_start[bi + 1];
+                const int t0 = tri_start[bi], t1 = tri_start[bi + 1];
+                if ((s1 == s0 && t1 == t0)
+                    || !supercell_slab(g, bx, by, bz, ox, oy, oz, ivx, ivy, ivz, t_limit)) {
+                    continue;
+                }
+                for (int j = s0; j < s1; ++j) {
+                    if (visit(false, idx[j])) return true;
+                }
+                for (int j = t0; j < t1; ++j) {
+                    if (visit(true, idx[j])) return true;
+                }
+            }
+        }
+    }
+    return false;
+}
+
+CPT_HD Hit intersect_sweep_grid(const SceneTables& sc, float ox, float oy, float oz,
+                                float dx, float dy, float dz) {
+    float best_t = INFINITY, bw1 = 0.0f, bw2 = 0.0f;
+    int best_i = -1;
+    grid_walk(sc.grid, ox, oy, oz, dx, dy, dz, best_t, [&](bool tri, int i) {
+        if (tri) {
+            grid_triangle(sc, i, ox, oy, oz, dx, dy, dz, best_t, best_i, bw1, bw2);
+        } else {
+            grid_sphere(sc, i, ox, oy, oz, dx, dy, dz, best_t, best_i);
+        }
+        return false;
+    });
+    const int S = sc.num_spheres;
+    return hit_of(sc, ox, oy, oz, dx, dy, dz, best_t, best_i < S ? best_i : -1,
+                  best_i >= S ? best_i - S : -1, bw1, bw2);
+}
+
+CPT_HD bool occludes_sphere(const SceneTables& sc, int i, float ox, float oy, float oz,
+                            float wx, float wy, float wz, float max_d) {
+    const float* s = sc.spheres + i * S_COLS;
+    float t;
+    return sphere_t(ox, oy, oz, wx, wy, wz, s[0], s[1], s[2], s[3], t) && t <= max_d;
+}
+
+CPT_HD bool occludes_triangle(const SceneTables& sc, int i, float ox, float oy, float oz,
+                              float wx, float wy, float wz, float max_d) {
+    float t, w1, w2;
+    return triangle_t(ox, oy, oz, wx, wy, wz, sc.triangles + i * T_COLS, t, w1, w2)
+           && t <= max_d;
+}
+
+CPT_HD bool occlusion_sweep_grid(const SceneTables& sc, float ox, float oy, float oz,
+                                 float wx, float wy, float wz, float max_d) {
+    return grid_walk(sc.grid, ox, oy, oz, wx, wy, wz, max_d, [&](bool tri, int i) {
+        return tri ? occludes_triangle(sc, i, ox, oy, oz, wx, wy, wz, max_d)
+                   : occludes_sphere(sc, i, ox, oy, oz, wx, wy, wz, max_d);
+    });
+}
+
+// ---- the two sweeps every call site takes: the grid's when the tables carry
+// one, else linear ------------------------------------------------------------
+
+// Nearest hit. Linear sweep tie rule: valid && t <= best_t, so the LATER
+// primitive wins equal t; spheres first, then triangles.
+CPT_HD Hit intersect_sweep(const SceneTables& sc, float ox, float oy, float oz,
+                           float dx, float dy, float dz) {
+    if (sc.grid.idx != nullptr) return intersect_sweep_grid(sc, ox, oy, oz, dx, dy, dz);
+    float best_t = INFINITY;
+    int best_s = -1, best_tri = -1;
+    float bw1 = 0.0f, bw2 = 0.0f;
+    for (int i = 0; i < sc.num_spheres; ++i) {
+        const float* s = sc.spheres + i * S_COLS;
+        float t;
+        if (sphere_t(ox, oy, oz, dx, dy, dz, s[0], s[1], s[2], s[3], t) && t <= best_t) {
+            best_t = t; best_s = i;
+        }
+    }
+    for (int i = 0; i < sc.num_triangles; ++i) {
+        float t, w1, w2;
+        if (triangle_t(ox, oy, oz, dx, dy, dz, sc.triangles + i * T_COLS, t, w1, w2)
+            && t <= best_t) {
+            best_t = t; best_tri = i; bw1 = w1; bw2 = w2;
+        }
+    }
+    return hit_of(sc, ox, oy, oz, dx, dy, dz, best_t, best_s, best_tri, bw1, bw2);
+}
+
 // Any hit within max_d; stops at the first occluder.
 CPT_HD bool occlusion_sweep(const SceneTables& sc, float ox, float oy, float oz,
                             float wx, float wy, float wz, float max_d) {
+    if (sc.grid.idx != nullptr) return occlusion_sweep_grid(sc, ox, oy, oz, wx, wy, wz, max_d);
     for (int i = 0; i < sc.num_spheres; ++i) {
         const float* s = sc.spheres + i * S_COLS;
         float t;
@@ -1089,6 +1292,30 @@ CPT_HD void physical_direct(const SceneTables& sc, int seed, int pixel, int samp
 
 // ---- one pixel, all samples -------------------------------------------------------
 
+// x rounded to the nearest bfloat16 (ties to even) and widened back: the
+// storage precision of the carries under state_bf16.
+CPT_HD float round_bf16(float x) {
+#if defined(__CUDA_ARCH__)
+    return __bfloat162float(__float2bfloat16_rn(x));
+#else
+    uint32_t u;
+    memcpy(&u, &x, sizeof u);
+    if ((u & 0x7fffffffu) > 0x7f800000u) return x;  // NaN
+    u = (u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u;
+    float y;
+    memcpy(&y, &u, sizeof y);
+    return y;
+#endif
+}
+
+// Where the TPU kernel stores a carry at the end of a bounce: rounded to
+// bfloat16 under state_bf16, unchanged otherwise.
+CPT_HD void store_carry(const RenderParams& p, float& x, float& y, float& z) {
+    if (p.state_bf16) {
+        x = round_bf16(x); y = round_bf16(y); z = round_bf16(z);
+    }
+}
+
 // Jittered pinhole eye ray (computeEyeRay, CudaTracer.cu:321-343); pair 0:
 // the camera-space pixel vector s and the world-space direction v = R s
 // before it is normalised.
@@ -1146,8 +1373,10 @@ CPT_HD void eye_ray_j(const RenderParams& p, int pixel, int sample, float pxi, f
 // density pf_model, its outgoing cosine pco and the eye ray's camera
 // importance j_img — with the count ratio nu in cam[15]. TEXTURED applies
 // the scene's color and normal maps at every hit (on a local copy of the hit
-// material's columns). The default instantiation is the reference-parity
-// estimator on an untextured scene.
+// material's columns). Tables that carry a grid sweep through it (see
+// grid_tables); p.state_bf16 stores r0 / r1 as bfloat16 at the end of every
+// bounce (a kernel fixes it at compile time, see bf16_params). The default instantiation is the reference-parity estimator on an
+// untextured scene with linear sweeps.
 template <bool PHYSICAL, bool BIDIR, bool TEXTURED>
 CPT_HD void render_pixel_t(const SceneTables& sc, const RenderParams& p, int pixel,
                            float& sum_r, float& sum_g, float& sum_b) {
@@ -1180,6 +1409,7 @@ CPT_HD void render_pixel_t(const SceneTables& sc, const RenderParams& p, int pix
                 r0x += sc.background[0] * r1x;
                 r0y += sc.background[1] * r1y;
                 r0z += sc.background[2] * r1z;
+                store_carry(p, r0x, r0y, r0z);
                 break;
             }
             const float px = ox + dx * h.t, py = oy + dy * h.t, pz = oz + dz * h.t;
@@ -1256,6 +1486,7 @@ CPT_HD void render_pixel_t(const SceneTables& sc, const RenderParams& p, int pix
             r0x = r0x + r1x * dir_r;
             r0y = r0y + r1y * dir_g;
             r0z = r0z + r1z * dir_b;
+            store_carry(p, r0x, r0y, r0z);
 
             float u_branch, u_a, u_b, unused;
             uniform_pair(p.seed, pixel, sample, pair0, u_branch, u_a);
@@ -1292,6 +1523,7 @@ CPT_HD void render_pixel_t(const SceneTables& sc, const RenderParams& p, int pix
             ox = nox; oy = noy; oz = noz;
             dx = ndx; dy = ndy; dz = ndz;
             r1x = r1x * wr; r1y = r1y * wg; r1z = r1z * wb;
+            store_carry(p, r1x, r1y, r1z);
         }
         if (clamp_v > 0.0f) {
             r0x = fminf(r0x, clamp_v);

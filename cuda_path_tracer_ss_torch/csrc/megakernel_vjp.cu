@@ -5,7 +5,9 @@
 // cuda_path_tracer_ss_tpu/ops/pallas/megakernel_vjp.py::_make_backward_kernel
 // (launched there by _backward_grads) in grad modes "linear" and "full", each
 // for untextured and for textured scenes (color maps; normal maps in full
-// mode). One thread per pixel over a 1-D grid, the ragged edge masked by
+// mode), each replaying through linear sweeps or the supercell grid's (the
+// forward's own sweeps, megakernel.cuh). One thread per pixel over a 1-D grid,
+// the ragged edge masked by
 // i < n_local; the
 // per-pixel math is in megakernel_vjp.cuh and replays the path with the
 // forward kernel's own device functions (megakernel.cuh).
@@ -51,7 +53,7 @@ struct AtomicSink {
     }
 };
 
-template <bool FULL, bool SHARED, bool TEXTURED>
+template <bool FULL, bool SHARED, bool TEXTURED, bool GRID>
 __global__ void backward_kernel(cpt::SceneTables sc, cpt::RenderParams p, cpt::GradLayout L,
                                 cpt::TexLayout T, const float* __restrict__ g,
                                 float* __restrict__ scratch, float* __restrict__ out) {
@@ -68,8 +70,9 @@ __global__ void backward_kernel(cpt::SceneTables sc, cpt::RenderParams p, cpt::G
         st.planes = T.planes;
         AtomicSink sink;
         sink.rows = SHARED ? block_rows : out;
-        cpt::backward_pixel<FULL, TEXTURED>(sc, p, L, T, p.pixel_offset + i, g[3 * i],
-                                            g[3 * i + 1], g[3 * i + 2], st, sink);
+        cpt::backward_pixel<FULL, TEXTURED>(cpt::grid_tables<GRID>(sc), p, L, T,
+                                            p.pixel_offset + i, g[3 * i], g[3 * i + 1],
+                                            g[3 * i + 2], st, sink);
     }
     if (SHARED) {
         __syncthreads();
@@ -78,16 +81,27 @@ __global__ void backward_kernel(cpt::SceneTables sc, cpt::RenderParams p, cpt::G
     }
 }
 
+template <bool FULL, bool SHARED, bool TEXTURED>
+void launch_backward_t(const cpt::SceneTables& sc, const cpt::RenderParams& p,
+                       const cpt::GradLayout& L, const cpt::TexLayout& T, const float* g,
+                       float* scratch, float* out, int blocks, size_t smem, cudaStream_t s) {
+    if (sc.grid.idx != nullptr) {
+        backward_kernel<FULL, SHARED, TEXTURED, true><<<blocks, THREADS_PER_BLOCK, smem, s>>>(
+            sc, p, L, T, g, scratch, out);
+    } else {
+        backward_kernel<FULL, SHARED, TEXTURED, false><<<blocks, THREADS_PER_BLOCK, smem, s>>>(
+            sc, p, L, T, g, scratch, out);
+    }
+}
+
 template <bool FULL, bool SHARED>
 void launch_backward(const cpt::SceneTables& sc, const cpt::RenderParams& p,
                      const cpt::GradLayout& L, const cpt::TexLayout& T, const float* g,
                      float* scratch, float* out, int blocks, size_t smem, cudaStream_t s) {
     if (T.on) {
-        backward_kernel<FULL, SHARED, true><<<blocks, THREADS_PER_BLOCK, smem, s>>>(
-            sc, p, L, T, g, scratch, out);
+        launch_backward_t<FULL, SHARED, true>(sc, p, L, T, g, scratch, out, blocks, smem, s);
     } else {
-        backward_kernel<FULL, SHARED, false><<<blocks, THREADS_PER_BLOCK, smem, s>>>(
-            sc, p, L, T, g, scratch, out);
+        launch_backward_t<FULL, SHARED, false>(sc, p, L, T, g, scratch, out, blocks, smem, s);
     }
 }
 
@@ -100,8 +114,8 @@ int cpt_backward_shared_rows_max() { return SHARED_ROWS_MAX; }
 
 // Gradient rows (megakernel_vjp.cuh: GradLayout) of the render of flat pixels
 // [pixel_offset, pixel_offset + n_local) for the per-sample cotangent
-// g[n_local][3]. Tables, texture bundle and camera as cpt_render_megakernel
-// takes them. `full` selects the path adjoint; on a textured scene
+// g[n_local][3]. Tables, texture bundle, grid bundle and camera as
+// cpt_render_megakernel takes them (a grid selects the grid instantiation). `full` selects the path adjoint; on a textured scene
 // `tex_grads` adds the texel rows (3 per atlas texel) and `tex_nmap` says that
 // some material has a normal map. scratch holds max(max_bounces, 1) * planes *
 // n_local floats (planes: tex_layout(...).planes; 33 in full mode, 16 in
@@ -117,7 +131,8 @@ int cpt_backward_megakernel(const float* spheres, int num_spheres,
                             const float* background,
                             const float* tex_atlas, const float* tex_meta,
                             const float* tex_triuv, const float* tex_matids, int num_textures,
-                            int texels, const float* cam_host,
+                            int texels, const int* grid_idx, const float* grid_scal,
+                            const int* grid_meta, const float* cam_host,
                             int seed, int pixel_offset, int n_local, int sample_offset,
                             int spp, int max_bounces, int width, int height,
                             int full, int tex_grads, int tex_nmap, int shared, const float* g,
@@ -131,6 +146,7 @@ int cpt_backward_megakernel(const float* spheres, int num_spheres,
     sc.background = background;
     sc.tex_atlas = tex_atlas; sc.tex_meta = tex_meta;
     sc.tex_triuv = tex_triuv; sc.tex_matids = tex_matids; sc.num_textures = num_textures;
+    cpt::set_grid(sc, grid_idx, grid_scal, grid_meta);
     cpt::RenderParams p;
     for (int k = 0; k < cpt::CAM_FLOATS; ++k) p.cam[k] = cam_host[k];
     p.seed = seed; p.pixel_offset = pixel_offset; p.n_local = n_local;

@@ -10,8 +10,11 @@ uniform-area light sampling with power-heuristic MIS) and ``physical=True,
 bidir_nu=nu`` (the same with the carries of the bidirectional weights, the
 eye half of ``render/bidir.py``). Each comes in an untextured and a textured
 build (``_texture_block`` of the TPU kernel: color-map albedo and normal-map
-perturbation at every hit, before the cosine, NEE and the scatter); all take
-linear sweeps and float32 state.
+perturbation at every hit, before the cosine, NEE and the scatter), and each
+with linear sweeps or with the supercell grid's (``packed_grid``: ``pack_grid``
+of ``ops/grid.py::build_grid``), and each with float32 carries or, under
+``state_bf16``, radiance and throughput carries stored as bfloat16 between
+bounces (an instantiation of its own, so the float32 ones carry no rounding).
 
 What bounds it on an H100: FP32 arithmetic throughput. A launch reads a few
 KB of scene tables and writes ``12 * width * height`` bytes (7.7 MB at
@@ -22,10 +25,13 @@ scalar registers and branches on its own path — a miss, an inside hit, a
 light facing away or a non-diffuse surface skips its shadow sweeps, an
 occluded shadow ray stops at the first occluder, and only the scatter branch
 that was drawn is evaluated. The tables are read through read-only global
-memory, whatever their size (a small scene's stay in L1). ``spp``,
-``max_bounces``, the seed, the offsets, the clamp and the primitive counts
-are runtime arguments: one build serves every scene and sampling
-configuration.
+memory, whatever their size (a small scene's stay in L1). With the grid a
+thread tests the few wide primitives, then gates each supercell box on its
+OWN ray (one slab test against its best t so far) and tests only the lists of
+the boxes it reaches — no block vote: rays that go different ways diverge
+instead of dragging each other through every box. ``spp``, ``max_bounces``,
+the seed, the offsets, the clamp, the primitive counts and the grid are
+runtime arguments: one build serves every scene and sampling configuration.
 
 RNG: counter-based Threefry-2x32 on (seed, pixel, sample, pair) — see
 ``utils/rng.py``; the kernel and the plain version draw the same streams, so
@@ -63,8 +69,12 @@ CAM_FLOATS = 16
 LAUNCH_COUNT = 0
 # ... and the same count per estimator: [default, physical, bidir] ...
 LAUNCHES_BY_VARIANT = [0, 0, 0]
-# ... of which the textured instantiations (a scene with textures)
+# ... of which the textured instantiations (a scene with textures) ...
 LAUNCHES_TEXTURED = [0, 0, 0]
+# ... the grid instantiations ...
+LAUNCHES_GRID = [0, 0, 0]
+# ... and the launches with bfloat16 carries
+LAUNCHES_BF16 = [0, 0, 0]
 
 _TWO_PI = 2.0 * math.pi
 
@@ -200,6 +210,92 @@ def pack_scene(scene, device="cuda") -> PackedScene:
                        put(als, AL_COLS),
                        scene.background.to(device=device, dtype=f32).contiguous(),
                        counts, **tex)
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedGrid:
+    """Kernel-side uniform grid (``ops/grid.py``), all on one device.
+
+    ``scal`` [8] float32 = origin (3), cell size (3), 2 spare. ``idx`` int32
+    is one CSR table: ``[sc_sph_start (SC+1), sc_tri_start (SC+1), supercell
+    sphere ids, supercell triangle ids, global sphere ids, global triangle
+    ids]``, the start tables holding absolute offsets into ``idx``. A
+    supercell is a box of F^3 grid cells; its lists are the deduplicated union
+    of its cells' lists. Primitives spanning more than GLOBAL_SPAN_CELLS
+    cells (the Cornell walls) would land in nearly every box and are swept
+    for every ray instead: the global lists. ``meta`` = (rx, ry, rz, F,
+    sc_off, gs_off, n_gs, gt_off, n_gt): resolution, supercell factor, the
+    start tables' offset, and the global lists' offsets and lengths. A CUDA
+    thread reads the table with direct loads."""
+
+    scal: torch.Tensor
+    idx: torch.Tensor
+    meta: Tuple[int, ...]
+
+    @property
+    def device(self) -> torch.device:
+        return self.idx.device
+
+    @property
+    def supercells(self) -> Tuple[int, int, int]:
+        """Supercells per axis."""
+        rx, ry, rz, f = self.meta[:4]
+        return ((rx + f - 1) // f, (ry + f - 1) // f, (rz + f - 1) // f)
+
+
+SUPERCELL_F = 4          # grid cells per supercell axis
+GLOBAL_SPAN_CELLS = 16   # primitives in more cells go to the global lists
+
+
+def pack_grid(grid, device="cuda") -> PackedGrid:
+    """``ops/grid.UniformGrid`` -> the kernels' CSR bundle on ``device``: the
+    supercell union lists (deduplicated, global primitives removed) and the
+    global lists. Bit-equal to the reference's ``pack_grid``."""
+    scal = torch.cat([grid.origin.to(torch.float32),
+                      grid.cell_size.to(torch.float32),
+                      torch.zeros(2, dtype=torch.float32)])
+    sph_list = grid.sph_list.cpu().numpy()
+    tri_list = grid.tri_list.cpu().numpy()
+    rx, ry, rz = grid.res
+    F = SUPERCELL_F
+    scx, scy, scz = (rx + F - 1) // F, (ry + F - 1) // F, (rz + F - 1) // F
+    SC = scx * scy * scz
+
+    def wide(lists):
+        """Ids listed in more than GLOBAL_SPAN_CELLS cells."""
+        ids = lists[lists >= 0]
+        span = np.bincount(ids, minlength=max(1, int(lists.max() + 1)
+                                              if lists.size else 1))
+        return np.nonzero(span > GLOBAL_SPAN_CELLS)[0].astype(np.int64)
+
+    glob_sph, glob_tri = wide(sph_list), wide(tri_list)
+    gs, gt = set(glob_sph.tolist()), set(glob_tri.tolist())
+    sph3 = sph_list.reshape(rz, ry, rx, -1)
+    tri3 = tri_list.reshape(rz, ry, rx, -1)
+    sc_sph, sc_tri = [], []
+    for bz in range(scz):
+        for by in range(scy):
+            for bx in range(scx):
+                box = (slice(bz * F, (bz + 1) * F), slice(by * F, (by + 1) * F),
+                       slice(bx * F, (bx + 1) * F))
+                s = np.unique(sph3[box].reshape(-1))
+                t = np.unique(tri3[box].reshape(-1))
+                sc_sph.append(np.asarray([i for i in s[s >= 0] if i not in gs],
+                                         np.int64))
+                sc_tri.append(np.asarray([i for i in t[t >= 0] if i not in gt],
+                                         np.int64))
+    sph_start = 2 * (SC + 1) + np.concatenate(
+        [[0], np.cumsum([len(l) for l in sc_sph])])
+    tri_start = sph_start[-1] + np.concatenate(
+        [[0], np.cumsum([len(l) for l in sc_tri])])
+    gs_off = int(tri_start[-1])
+    gt_off = gs_off + len(glob_sph)
+    idx = np.concatenate([sph_start, tri_start] + sc_sph + sc_tri
+                         + [glob_sph, glob_tri]).astype(np.int32)
+    device = torch.device(device)
+    return PackedGrid(scal.to(device), torch.from_numpy(idx).to(device),
+                      (rx, ry, rz, F, 0, gs_off, len(glob_sph), gt_off,
+                       len(glob_tri)))
 
 
 def _cam_tensor(cam_params, device) -> torch.Tensor:
@@ -817,29 +913,98 @@ def _camera_j_img(tan_half, width: int, height: int, cos_abs):
                                * (cos_t * cos_t * cos_t))
 
 
-def _make_sweep_fns(packed: PackedScene, track_index: bool = False):
-    """The two scene sweeps every bounce runs, linear form: every primitive
+def _safe_inv(d):
+    """1 / d with |d| floored at 1e-12 (the grid's slab test)."""
+    return 1.0 / torch.where(torch.abs(d) < 1e-12,
+                             torch.where(d < 0.0, -1e-12, 1e-12), d)
+
+
+def _supercell_slab(scal, lo, hi, ox, oy, oz, ivx, ivy, ivz, t_limit):
+    """Per ray: does the segment [0, t_limit] overlap the box whose corners
+    are grid cells ``lo`` and ``hi`` (float cell coordinates per axis)?
+    The kernel's ``supercell_slab`` formula for formula."""
+    ts = []
+    for a, (o, iv) in enumerate(((ox, ivx), (oy, ivy), (oz, ivz))):
+        ts.append(((scal[a] + lo[a] * scal[3 + a] - o) * iv,
+                   (scal[a] + hi[a] * scal[3 + a] - o) * iv))
+    (t0x, t1x), (t0y, t1y), (t0z, t1z) = ts
+    mn, mx = torch.minimum, torch.maximum
+    tn = mx(mx(mn(t0x, t1x), mn(t0y, t1y)), mx(mn(t0z, t1z), torch.zeros_like(ox)))
+    tf = mn(mn(mx(t0x, t1x), mx(t0y, t1y)), mx(t0z, t1z))
+    return (tn <= tf) & (tn <= t_limit)
+
+
+def _grid_boxes(grid: PackedGrid):
+    """The supercells in the kernel's visit order: (cell-coordinate corners lo
+    and hi as float32 tensors, sphere ids, triangle ids), empty boxes left
+    out (the kernel skips them before their slab test)."""
+    rx, ry, rz, F, sc_off = grid.meta[:5]
+    scx, scy, scz = grid.supercells
+    SC = scx * scy * scz
+    idx = grid.idx.long()
+    start = idx[sc_off:sc_off + 2 * (SC + 1)].tolist()
+    boxes, bi = [], 0
+    for bz in range(scz):
+        for by in range(scy):
+            for bx in range(scx):
+                s0, s1 = start[bi], start[bi + 1]
+                t0, t1 = start[SC + 1 + bi], start[SC + 2 + bi]
+                bi += 1
+                if s1 == s0 and t1 == t0:
+                    continue
+                lo = [float(bx * F), float(by * F), float(bz * F)]
+                hi = [min(lo[0] + F, float(rx)), min(lo[1] + F, float(ry)),
+                      min(lo[2] + F, float(rz))]
+                boxes.append((torch.tensor(lo, dtype=torch.float32, device=idx.device),
+                              torch.tensor(hi, dtype=torch.float32, device=idx.device),
+                              idx[s0:s1], idx[t0:t1]))
+    return boxes
+
+
+def _make_sweep_fns(packed: PackedScene, track_index: bool = False,
+                    grid: Optional[PackedGrid] = None,
+                    stats: Optional[dict] = None):
+    """The two scene sweeps every bounce runs. Linear form: every primitive
     is tested for every ray, as a ``[rays, primitives]`` tensor. Tie rule of
     the sequential sweep: ``valid & (t <= best_t)`` — the LATER primitive
     wins equal t, spheres first then triangles. ``track_index=True`` makes
     ``intersect_sweep`` also return the winning primitive's index as float32
-    (sphere i: i; triangle i: num_spheres + i; -1 on a miss)."""
+    (sphere i: i; triangle i: num_spheres + i; -1 on a miss).
+
+    With ``grid`` (``pack_grid``'s bundle on the tables' device) the sweeps
+    are the kernel's grid sweeps in tensor form: the global lists for every
+    ray, then per supercell box, in the kernel's order, a mask of the rays
+    whose slab test passes against their best t so far (the shadow distance
+    for occlusion; occluded rays drop out) and the box's lists tested on
+    those rays alone, with the index-based tie rule ``(t < best) | (t == best
+    & idx >= best_idx)``: the same winner as the linear sweep. ``stats``
+    then receives the kernel's work on the rays a sweep is given as ``live``:
+    ``grid_slab_tests``, ``grid_sphere_tests`` and ``grid_triangle_tests``
+    (an occlusion test list counts up to its first occluder)."""
     num_spheres, num_tris = packed.counts[0], packed.counts[1]
     sph = packed.spheres[:num_spheres]
     tri = packed.triangles[:num_tris]
     sph_c = [sph[:, k] for k in range(S_COLS)]
     tri_c = [tri[:, k] for k in range(T_COLS)]
+    if grid is not None:
+        boxes = _grid_boxes(grid)
+        scal = grid.scal.unbind()
+        _, _, _, _, _, gs_off, n_gs, gt_off, n_gt = grid.meta
+        glob_sph = grid.idx[gs_off:gs_off + n_gs].long()
+        glob_tri = grid.idx[gt_off:gt_off + n_gt].long()
 
     def _col(v):
         return v[:, None]
 
-    def sph_tests(ox, oy, oz, dx, dy, dz):
+    def sph_tests(ox, oy, oz, dx, dy, dz, ids=None):
+        c = sph_c if ids is None else [col[ids] for col in sph_c]
         return _sphere_t(_col(ox), _col(oy), _col(oz), _col(dx), _col(dy),
-                         _col(dz), sph_c[0], sph_c[1], sph_c[2], sph_c[3])
+                         _col(dz), c[0], c[1], c[2], c[3])
 
-    def tri_tests(ox, oy, oz, dx, dy, dz):
+    def tri_tests(ox, oy, oz, dx, dy, dz, ids=None):
+        c = tri_c if ids is None else [col[ids] for col in tri_c[:9]]
         return _triangle_t(_col(ox), _col(oy), _col(oz), _col(dx), _col(dy),
-                           _col(dz), tri_c[0:3], tri_c[3:6], tri_c[6:9])
+                           _col(dz), c[0:3], c[3:6], c[6:9])
 
     def _last_min(t, valid):
         """Nearest valid t per ray and the LAST primitive index reaching it."""
@@ -851,28 +1016,97 @@ def _make_sweep_fns(packed: PackedScene, track_index: bool = False):
         idx = count - 1 - torch.flip(is_best, (1,)).to(torch.int8).argmax(dim=1)
         return best, idx, is_best.any(dim=1)
 
-    def intersect_sweep(ox, oy, oz, dx, dy, dz):
+    def tally(key, count):
+        if stats is not None:
+            stats[key] = stats.get(key, 0) + int(count)
+
+    def grid_walk(ray, live, t_limit, consider, done=None):
+        """The kernel's ``grid_walk`` on tensors: ``consider(rows, ids,
+        tri_list)`` for the global lists on every ray, then per box, in the
+        kernel's order, for the rays whose slab test passes against
+        ``t_limit`` (read anew at each box: ``consider`` may lower it in
+        place), spheres before triangles. ``done`` (updated in place by
+        ``consider``) marks rays that have returned: they gate and test
+        nothing more. Tallies one slab test per box for every live ray still
+        walking."""
+        def walking(rows):
+            return rows if done is None else rows[~done[rows]]
+
+        everyone = torch.arange(ray[0].shape[0], device=ray[0].device)
+        consider(everyone, glob_sph, False)
+        consider(walking(everyone), glob_tri, True)
+        iv = [_safe_inv(d) for d in ray[3:]]
+        for lo, hi, s_ids, t_ids in boxes:
+            tally("grid_slab_tests", (live if done is None else live & ~done).sum())
+            rows = walking(torch.nonzero(_supercell_slab(scal, lo, hi, *ray[:3], *iv,
+                                                         t_limit))[:, 0])
+            consider(rows, s_ids, False)
+            consider(walking(rows), t_ids, True)
+
+    def grid_nearest(ray, live):
+        """(best_t, best index) per ray through the grid: index i < S a
+        sphere, S + j triangle j, -1 a miss."""
+        n = ray[0].shape[0]
+        best_t = torch.full((n,), math.inf, dtype=torch.float32, device=ray[0].device)
+        best_i = torch.full((n,), -1, dtype=torch.long, device=ray[0].device)
+
+        def consider(rows, ids, tri_list):
+            if not ids.numel() or not rows.numel():
+                return
+            r = [v[rows] for v in ray]
+            if tri_list:
+                t, _, _, valid = tri_tests(*r, ids)
+                index = ids + num_spheres
+            else:
+                t, valid = sph_tests(*r, ids)
+                index = ids
+            tally("grid_triangle_tests" if tri_list else "grid_sphere_tests",
+                  int(live[rows].sum()) * ids.numel())
+            tm = torch.where(valid, t, math.inf)
+            m = tm.min(dim=1).values
+            at_min = valid & (tm == _col(m))
+            cand = torch.where(at_min, index[None, :], -1).max(dim=1).values
+            bt, bi = best_t[rows], best_i[rows]
+            better = at_min.any(dim=1) & ((m < bt) | ((m == bt) & (cand >= bi)))
+            best_t[rows] = torch.where(better, m, bt)
+            best_i[rows] = torch.where(better, cand, bi)
+
+        grid_walk(ray, live, best_t, consider)
+        return best_t, best_i
+
+    def intersect_sweep(ox, oy, oz, dx, dy, dz, live=None):
         """(best_t, nx, ny, nz, mat index); a miss leaves t=inf, n=0, mat 0.
         Which primitive wins is a discrete decision and
         is taken outside autograd; the winner's t and normal are then
         evaluated alone, by the same formulas, so a gradient flows through
-        the hit that was taken and through nothing else."""
+        the hit that was taken and through nothing else. ``live`` marks the
+        rays whose grid work is tallied (default: all)."""
         n = ox.shape[0]
         inf = torch.full((n,), math.inf, dtype=torch.float32, device=ox.device)
         idx0 = torch.zeros((n,), dtype=torch.long, device=ox.device)
         with torch.no_grad():
-            best_t, s_idx, t_idx = inf, idx0, idx0
-            is_sph = is_tri = torch.zeros((n,), dtype=torch.bool,
-                                          device=ox.device)
-            if num_spheres:
-                t, valid = sph_tests(ox, oy, oz, dx, dy, dz)
-                bt, s_idx, is_sph = _last_min(t, valid)
-                best_t = torch.where(is_sph, bt, best_t)
-            if num_tris:
-                t, _, _, valid = tri_tests(ox, oy, oz, dx, dy, dz)
-                bt, t_idx, found = _last_min(t, valid)
-                is_tri = found & (bt <= best_t)
-                is_sph = is_sph & (~is_tri)
+            if grid is not None:
+                ray = [v.detach() for v in (ox, oy, oz, dx, dy, dz)]
+                _, best_i = grid_nearest(ray, torch.ones((n,), dtype=torch.bool,
+                                                         device=ox.device)
+                                         if live is None else live)
+                is_sph = (best_i >= 0) & (best_i < num_spheres)
+                is_tri = best_i >= num_spheres
+                s_idx = torch.where(is_sph, best_i, 0)
+                t_idx = torch.where(is_tri, best_i - num_spheres, 0)
+            else:
+                best_t, s_idx, t_idx = inf, idx0, idx0
+                is_sph = is_tri = torch.zeros((n,), dtype=torch.bool,
+                                              device=ox.device)
+                if num_spheres:
+                    t, valid = sph_tests(ox, oy, oz, dx, dy, dz)
+                    bt, s_idx, is_sph = _last_min(t, valid)
+                    best_t = torch.where(is_sph, bt, best_t)
+                if num_tris:
+                    t, _, _, valid = tri_tests(ox, oy, oz, dx, dy, dz)
+                    bt, t_idx, found = _last_min(t, valid)
+                    is_tri = found & (bt <= best_t)
+                    is_sph = is_sph & (~is_tri)
         best_t = inf
         nx, ny, nz = (torch.zeros_like(ox) for _ in range(3))
         mat = idx0
@@ -907,9 +1141,39 @@ def _make_sweep_fns(packed: PackedScene, track_index: bool = False):
             return best_t, nx, ny, nz, mat, prim.to(torch.float32)
         return best_t, nx, ny, nz, mat
 
+    def grid_occlusion(ray, max_d, live):
+        occ = torch.zeros(ray[0].shape, dtype=torch.bool, device=ray[0].device)
+
+        def consider(rows, ids, tri_list):
+            if not ids.numel() or not rows.numel():
+                return
+            r = [v[rows] for v in ray]
+            if tri_list:
+                t, _, _, valid = tri_tests(*r, ids)
+            else:
+                t, valid = sph_tests(*r, ids)
+            hits = valid & (t <= _col(max_d[rows]))
+            found = hits.any(dim=1)
+            # the kernel stops at the first occluder of the list
+            tests = torch.where(found, hits.to(torch.int8).argmax(dim=1) + 1,
+                                ids.numel())
+            tally("grid_triangle_tests" if tri_list else "grid_sphere_tests",
+                  (tests * live[rows]).sum())
+            occ[rows] |= found
+
+        # an occluded ray has returned: it gates and tests nothing more
+        grid_walk(ray, live, max_d, consider, done=occ)
+        return occ
+
     @torch.no_grad()
-    def occlusion_sweep(sox, soy, soz, wx, wy, wz, max_d):
-        """Visibility is a discrete decision: no gradient passes through."""
+    def occlusion_sweep(sox, soy, soz, wx, wy, wz, max_d, live=None):
+        """Visibility is a discrete decision: no gradient passes through.
+        ``live`` marks the rays whose grid work is tallied (default: all)."""
+        if grid is not None:
+            return grid_occlusion(
+                (sox, soy, soz, wx, wy, wz), max_d,
+                torch.ones(sox.shape, dtype=torch.bool, device=sox.device)
+                if live is None else live)
         occ = torch.zeros(sox.shape, dtype=torch.bool, device=sox.device)
         if num_spheres:
             t, valid = sph_tests(sox, soy, soz, wx, wy, wz)
@@ -979,7 +1243,9 @@ def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
                        width: int, height: int, spp: int, max_bounces: int,
                        pixel_offset: int, n_local: int, sample_offset: int,
                        stats: Optional[dict] = None, physical: bool = False,
-                       bidir_nu: Optional[float] = None) -> torch.Tensor:
+                       bidir_nu: Optional[float] = None,
+                       packed_grid: Optional[PackedGrid] = None,
+                       state_bf16: bool = False) -> torch.Tensor:
     """Radiance SUMS over spp for ``n_local`` pixels from ``pixel_offset``,
     ``[n_local, 3]`` float32 on the tables' device. ``cam`` is
     ``_cam_tensor``'s. Differentiable in the default variant: tables or a
@@ -988,7 +1254,10 @@ def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
     branch) detached. ``physical`` selects the unbiased MIS estimator (state
     gains the density of the last scatter), ``bidir_nu`` adds the carries of
     the bidirectional weights (chain ratio, chain-model density and outgoing
-    cosine of the last scatter, the eye ray's camera importance)."""
+    cosine of the last scatter, the eye ray's camera importance).
+    ``packed_grid`` sweeps through the supercell grid; ``state_bf16`` rounds
+    the radiance and throughput carries to bfloat16 at the end of every
+    bounce, as the kernel stores them."""
     bidir = bidir_nu is not None
     textured = packed.textured
     device = packed.device
@@ -1002,7 +1271,7 @@ def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
     ppb = rng.pairs_per_bounce(num_als)
     eps = RAY_BUMP_EPSILON
     intersect_sweep, occlusion_sweep = _make_sweep_fns(
-        packed, track_index=physical or textured)
+        packed, track_index=physical or textured, grid=packed_grid, stats=stats)
     mats, pls, als, bg = (packed.materials, packed.point_lights,
                           packed.area_lights, packed.background)
     pl_rows = [pls[i].unbind() for i in range(num_pls)]
@@ -1054,7 +1323,7 @@ def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
         pair0 = rng.pair_base(b_cur, num_als)
 
         best_t, nx, ny, nz, mat, *prim_f = intersect_sweep(ox, oy, oz,
-                                                           dx, dy, dz)
+                                                           dx, dy, dz, active)
         prim_f = prim_f[0] if prim_f else None
         hit = best_t < math.inf
         t_safe = torch.where(hit, best_t, 0.0)
@@ -1091,11 +1360,12 @@ def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
             dist = torch.sqrt(d2)
             inv_d = 1.0 / dist
             wx, wy, wz = offx * inv_d, offy * inv_d, offz * inv_d
-            occ = occlusion_sweep(px + nx * eps, py + ny * eps, pz + nz * eps,
-                                  wx, wy, wz, dist - 2.0 * eps)
             cos_l = torch.clamp_min(_dot(nx, ny, nz, wx, wy, wz), 0.0)
+            # the shadow sweeps the kernel runs: where the result can matter
+            needed = active & hit & (~inside) & (cos_l > 0.0) & (m_pd > 0.0)
+            occ = occlusion_sweep(px + nx * eps, py + ny * eps, pz + nz * eps,
+                                  wx, wy, wz, dist - 2.0 * eps, needed)
             if stats is not None:
-                needed = active & hit & (~inside) & (cos_l > 0.0) & (m_pd > 0.0)
                 for key, mask in (("shadow_rays", needed),
                                   ("shadow_rays_occluded", needed & occ)):
                     stats[key] = stats.get(key, 0) + int(mask.sum())
@@ -1148,15 +1418,17 @@ def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
             def occ_of(lx, ly, lz):
                 wx, wy, wz, _d2, dist = _light_direction(lx, ly, lz,
                                                          px, py, pz)
-                occ = occlusion_sweep(px + nux * eps, py + nuy * eps,
-                                      pz + nuz * eps, wx, wy, wz,
-                                      dist - 2.0 * eps)
+                needed = None
                 if stats is not None:
                     # the sweeps whose result can change the image
                     s_d, p_g, s_ct, _p, _c = _lobe_terms(
                         lb, dx, dy, dz, nx, ny, nz, wx, wy, wz)
                     needed = (active & hit & (~inside)
                               & ((s_d != 0.0) | (p_g != 0.0) | (s_ct != 0.0)))
+                occ = occlusion_sweep(px + nux * eps, py + nuy * eps,
+                                      pz + nuz * eps, wx, wy, wz,
+                                      dist - 2.0 * eps, needed)
+                if stats is not None:
                     for key, mask in (("shadow_rays", needed),
                                       ("shadow_rays_occluded", needed & occ)):
                         stats[key] = stats.get(key, 0) + int(mask.sum())
@@ -1254,6 +1526,11 @@ def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
         r1x = torch.where(act_hit, r1x * wr, r1x)
         r1y = torch.where(act_hit, r1y * wg, r1y)
         r1z = torch.where(act_hit, r1z * wb, r1z)
+        if state_bf16:
+            # the kernel's stores of the carries (idempotent on a ray whose
+            # carries did not change)
+            r0x, r0y, r0z, r1x, r1y, r1z = (
+                v.to(torch.bfloat16).float() for v in (r0x, r0y, r0z, r1x, r1y, r1z))
         return (ox, oy, oz, dx, dy, dz, r0x, r0y, r0z, r1x, r1y, r1z,
                 act_hit & alive, prev_pdf, lt_S, pf_model, pco, j_img)
 
@@ -1322,12 +1599,15 @@ def render_block_sums_plain(packed: PackedScene, cam_params, seed: int,
                             sample_offset: int = 0, sample_clamp: float = 0.0,
                             stats: Optional[dict] = None,
                             physical: bool = False,
-                            bidir_nu: Optional[float] = None) -> torch.Tensor:
+                            bidir_nu: Optional[float] = None,
+                            packed_grid: Optional[PackedGrid] = None,
+                            state_bf16: bool = False) -> torch.Tensor:
     """Plain PyTorch radiance sums ``[n_local, 3]`` for the pixel range
     ``[pixel_offset, pixel_offset + n_local)``, on the tables' device."""
     _check_render_args(packed, width, height, spp, max_bounces, pixel_offset,
                        n_local, sample_offset, seed)
     _check_variant(physical, bidir_nu)
+    _check_grid(packed, packed_grid)
     cam = _cam_tensor(cam_params, packed.device)
     prims = max(packed.counts[0] + packed.counts[1], 1)
     chunk = max(1, _PLAIN_CHUNK_ENTRIES // prims)
@@ -1336,7 +1616,7 @@ def render_block_sums_plain(packed: PackedScene, cam_params, seed: int,
                            width, height, spp,
                            max_bounces, pixel_offset + start,
                            min(chunk, n_local - start), sample_offset, stats,
-                           physical, bidir_nu)
+                           physical, bidir_nu, packed_grid, bool(state_bf16))
         for start in range(0, n_local, chunk)]
     return parts[0] if len(parts) == 1 else torch.cat(parts, 0)
 
@@ -1347,19 +1627,24 @@ def render_megakernel_plain(packed: PackedScene, cam_params, seed: int,
                             sample_offset: int = 0,
                             stats: Optional[dict] = None,
                             physical: bool = False,
-                            bidir_nu: Optional[float] = None) -> torch.Tensor:
+                            bidir_nu: Optional[float] = None,
+                            packed_grid: Optional[PackedGrid] = None,
+                            state_bf16: bool = False) -> torch.Tensor:
     """The plain PyTorch version of the megakernel: mean radiance
     ``[H, W, 3]`` (row 0 = bottom) on whatever device the packed tables are
     on. ``stats``, when a dict, receives ``paths``, ``path_bounces`` (sweeps
     for the nearest hit), ``shadow_rays`` (shadow sweeps whose result can
-    change the image) and ``shadow_rays_occluded``, and on a textured scene
+    change the image) and ``shadow_rays_occluded``, on a textured scene
     ``tex_sphere_hits`` / ``tex_triangle_hits`` (texture blocks run) and
-    ``color_fetches`` / ``normal_fetches`` — the operation count behind the
-    kernel's bound."""
+    ``color_fetches`` / ``normal_fetches``, and with ``packed_grid``
+    ``grid_slab_tests`` / ``grid_sphere_tests`` / ``grid_triangle_tests``
+    (the grid sweeps' box gates and primitive tests on those sweeps) — the
+    operation count behind the kernel's bound."""
     n = width * height
     sums = render_block_sums_plain(packed, cam_params, seed, width, height,
                                    spp, max_bounces, 0, n, sample_offset,
-                                   sample_clamp, stats, physical, bidir_nu)
+                                   sample_clamp, stats, physical, bidir_nu,
+                                   packed_grid, state_bf16)
     return (sums / spp).reshape(height, width, 3)
 
 
@@ -1377,8 +1662,9 @@ def _kernel_fn(fmad: bool = False):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp, ci, vp, ci, vp, ci, vp, ci, vp, ci, vp,   # tables
                    vp, vp, vp, vp, ci,                           # textures
+                   vp, vp, ctypes.POINTER(ctypes.c_int),         # grid
                    ctypes.POINTER(ctypes.c_float),               # camera
-                   ci, ci, ci, ci, ci, ci, ci, ci, ci,           # scalars
+                   ci, ci, ci, ci, ci, ci, ci, ci, ci, ci,       # scalars
                    vp, vp]                                       # out, stream
     fn.restype = ci
     lib.cpt_error_string.argtypes = [ci]
@@ -1423,6 +1709,34 @@ def _check_tables(packed: PackedScene):
                                  f"on {device}")
 
 
+def _check_grid(packed: PackedScene, grid: Optional[PackedGrid]):
+    if grid is None:
+        return
+    if not isinstance(grid, PackedGrid):
+        raise TypeError("packed_grid must be a PackedGrid (see pack_grid)")
+    if len(grid.meta) != 9:
+        raise ValueError("packed grid meta must be (rx, ry, rz, F, sc_off, "
+                         "gs_off, n_gs, gt_off, n_gt): re-pack with pack_grid()")
+    if grid.device != packed.device:
+        raise ValueError(f"the grid is on {grid.device}, the tables on "
+                         f"{packed.device}: pack both for one device")
+    if (grid.idx.dtype != torch.int32 or grid.scal.dtype != torch.float32
+            or grid.scal.shape != (8,) or grid.idx.ndim != 1
+            or not grid.idx.is_contiguous() or not grid.scal.is_contiguous()):
+        raise ValueError("packed grid: need a contiguous int32 idx and a float32 "
+                         "scal[8]")
+
+
+def grid_args(grid: Optional[PackedGrid]):
+    """The grid arguments of the kernels' C entries: the CSR table and the
+    scalars (device pointers) and the nine meta ints; null pointers for
+    linear sweeps."""
+    if grid is None:
+        return (None, None, None)
+    return (grid.idx.data_ptr(), grid.scal.data_ptr(),
+            (ctypes.c_int * 9)(*grid.meta))
+
+
 def tex_args(packed: PackedScene):
     """The texture arguments of the kernels' C entries: four table pointers
     and the texture count; null pointers and 0 for an untextured scene."""
@@ -1437,13 +1751,16 @@ def render_block_sums_cuda(packed: PackedScene, cam_params, seed: int,
                            max_bounces: int, pixel_offset: int, n_local: int,
                            sample_offset: int = 0, sample_clamp: float = 0.0,
                            fmad: bool = False, physical: bool = False,
-                           bidir_nu: Optional[float] = None) -> torch.Tensor:
+                           bidir_nu: Optional[float] = None,
+                           packed_grid: Optional[PackedGrid] = None,
+                           state_bf16: bool = False) -> torch.Tensor:
     """Launch the CUDA megakernel: radiance sums ``[n_local, 3]`` float32
     for the pixel range ``[pixel_offset, pixel_offset + n_local)``. Launches
     on the current stream of the tables' device and does not synchronise;
     raises if the kernel does not build or the launch is refused.
     ``physical`` / ``bidir_nu`` pick the kernel's estimator, a textured scene
-    its textured instantiation.
+    its textured instantiation, ``packed_grid`` its grid instantiation;
+    ``state_bf16`` stores the carries as bfloat16.
     ``fmad=True`` selects the build that lets the compiler contract
     ``a*b+c`` (measurement only; the default build does not)."""
     global LAUNCH_COUNT
@@ -1451,6 +1768,7 @@ def render_block_sums_cuda(packed: PackedScene, cam_params, seed: int,
                        n_local, sample_offset, seed)
     variant = _check_variant(physical, bidir_nu)
     _check_tables(packed)
+    _check_grid(packed, packed_grid)
     lib, fn = _kernel_fn(fmad)
     cam = _cam_table(cam_params, sample_clamp, bidir_nu)
     cam_c = (ctypes.c_float * CAM_FLOATS)(*cam.tolist())
@@ -1464,10 +1782,12 @@ def render_block_sums_cuda(packed: PackedScene, cam_params, seed: int,
                  packed.materials.data_ptr(), num_m,
                  packed.point_lights.data_ptr(), num_pl,
                  packed.area_lights.data_ptr(), num_al,
-                 packed.background.data_ptr(), *tex_args(packed), cam_c,
+                 packed.background.data_ptr(), *tex_args(packed),
+                 *grid_args(packed_grid), cam_c,
                  int(seed), int(pixel_offset), int(n_local),
                  int(sample_offset), int(spp), int(max_bounces),
-                 int(width), int(height), variant, out.data_ptr(), stream)
+                 int(width), int(height), variant, int(bool(state_bf16)),
+                 out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("megakernel launch failed: CUDA error "
                            f"{err} ({lib.cpt_error_string(err).decode()})")
@@ -1475,6 +1795,10 @@ def render_block_sums_cuda(packed: PackedScene, cam_params, seed: int,
     LAUNCHES_BY_VARIANT[variant] += 1
     if packed.textured:
         LAUNCHES_TEXTURED[variant] += 1
+    if packed_grid is not None:
+        LAUNCHES_GRID[variant] += 1
+    if state_bf16:
+        LAUNCHES_BF16[variant] += 1
     return out
 
 
@@ -1511,30 +1835,23 @@ def render_block_sums(packed: PackedScene, cam_params, seed: int, width: int,
                       height: int, spp: int, max_bounces: int,
                       pixel_offset: int, n_local: int, sample_offset: int = 0,
                       sample_clamp: float = 0.0, physical: bool = False,
-                      bidir_nu: Optional[float] = None) -> torch.Tensor:
+                      bidir_nu: Optional[float] = None,
+                      packed_grid: Optional[PackedGrid] = None,
+                      state_bf16: bool = False) -> torch.Tensor:
     """Radiance SUMS over spp for ``n_local`` pixels starting at flat index
     ``pixel_offset``. ``sample_offset`` selects the global sample range
     [offset, offset+spp) of each pixel's counter stream — progressive passes
     and tiles continue the exact streams a monolithic render would use.
     CUDA tables go to the kernel; CPU tables to the plain version."""
+    kw = dict(physical=physical, bidir_nu=bidir_nu, packed_grid=packed_grid,
+              state_bf16=state_bf16)
     if packed.device.type == "cuda":
         return render_block_sums_cuda(packed, cam_params, seed, width, height,
                                       spp, max_bounces, pixel_offset, n_local,
-                                      sample_offset, sample_clamp,
-                                      physical=physical, bidir_nu=bidir_nu)
+                                      sample_offset, sample_clamp, **kw)
     return render_block_sums_plain(packed, cam_params, seed, width, height,
                                    spp, max_bounces, pixel_offset, n_local,
-                                   sample_offset, sample_clamp,
-                                   physical=physical, bidir_nu=bidir_nu)
-
-
-def _reject_unported(packed_grid=None, state_bf16=False):
-    if packed_grid is not None:
-        _unported("the supercell-grid sweep (packed_grid / accel='grid')",
-                  "Queue 1 item 5 / Queue 2: K1 grid")
-    if state_bf16:
-        _unported("the bf16 radiance/throughput state (state_bf16)",
-                  "Queue 1 item 5 / Queue 2: K1 bf16")
+                                   sample_offset, sample_clamp, **kw)
 
 
 def render_megakernel(packed: PackedScene, cam_params, seed: int,
@@ -1549,12 +1866,16 @@ def render_megakernel(packed: PackedScene, cam_params, seed: int,
     reference's per-frame [0,1] clamp; firefly control). ``physical=True``
     runs the unbiased MIS estimator; ``bidir_nu`` (with ``physical``) weights
     it against ``bidir_nu`` light paths per eye sample — the eye half of
-    ``render/bidir.py``."""
-    _reject_unported(packed_grid, state_bf16)
+    ``render/bidir.py``. ``packed_grid`` (``pack_grid(build_grid(scene))`` on
+    the tables' device) sweeps through the supercell grid: the same image,
+    less work per ray on a large scene. ``state_bf16`` stores the radiance /
+    throughput carries as bfloat16 between bounces (another image: the
+    storage precision changes, the arithmetic stays float32)."""
     n = width * height
     sums = render_block_sums(packed, cam_params, seed, width, height, spp,
                              max_bounces, 0, n, sample_offset, sample_clamp,
-                             physical=physical, bidir_nu=bidir_nu)
+                             physical=physical, bidir_nu=bidir_nu,
+                             packed_grid=packed_grid, state_bf16=state_bf16)
     return (sums / spp).reshape(height, width, 3)
 
 
@@ -1562,9 +1883,12 @@ def render_fast2(scene, cam_params, width: int, height: int, spp: int,
                  seed: int, max_bounces: int = 15, sample_offset: int = 0,
                  grid=None, physical: bool = False,
                  device="cuda") -> torch.Tensor:
-    """Convenience wrapper: pack + launch on ``device``."""
-    _reject_unported(grid)
+    """Convenience wrapper: pack + launch on ``device``. ``grid`` is an
+    ``ops/grid.UniformGrid`` or an already packed ``PackedGrid``."""
     packed = pack_scene(scene, device)
+    if grid is not None and not isinstance(grid, PackedGrid):
+        grid = pack_grid(grid, device)
     return render_megakernel(packed, cam_params, seed, width, height, spp,
                              max_bounces=max_bounces,
-                             sample_offset=sample_offset, physical=physical)
+                             sample_offset=sample_offset, packed_grid=grid,
+                             physical=physical)

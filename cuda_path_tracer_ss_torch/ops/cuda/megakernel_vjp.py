@@ -11,8 +11,10 @@ exact), checkpoints each bounce, and runs the adjoint recurrence
 
 summing parameter cotangents into gradient rows. It replaces the TPU kernel
 ``cuda_path_tracer_ss_tpu/ops/pallas/megakernel_vjp.py::_make_backward_kernel``
-(launched by ``_backward_grads``) in its reference-parity, linear-sweep form,
-on untextured and textured scenes. Discrete decisions (which primitive is hit,
+(launched by ``_backward_grads``) in its reference-parity form, on untextured
+and textured scenes, replaying through linear sweeps or through the supercell
+grid (``packed_grid``: the forward kernel's own grid sweeps; the grid gets no
+gradient). Discrete decisions (which primitive is hit,
 visibility, the scatter branch) are detached; continuous factors are
 differentiated.
 
@@ -56,7 +58,7 @@ the plain version (``render_megakernel_diff_plain``: autograd through the
 plain forward render) runs only for tables on the CPU, or when called by name.
 
 Not ported yet, each raising ``NotImplementedError``: ``grad_mode="geo"``
-(textured or not), ``physical=True``, ``packed_grid``, the sharded entry.
+(textured or not), ``physical=True``, the sharded entry.
 """
 from __future__ import annotations
 
@@ -110,8 +112,10 @@ PALLAS_TRAINABLE_FIELDS_GEO = PALLAS_TRAINABLE_FIELDS_FULL | TRI_FIELDS
 PALLAS_TRAINABLE_FIELDS_PHYS_GEO = PALLAS_TRAINABLE_FIELDS_PHYS | TRI_FIELDS
 
 # Launches of the backward CUDA kernel made by this module's wrapper (and
-# nowhere else).
+# nowhere else) ...
 LAUNCH_COUNT = 0
+# ... of which through the grid, per grad mode [linear, full]
+LAUNCHES_GRID = [0, 0]
 
 
 def _grad_rows(counts, full: bool = False, texels: int = 0) -> int:
@@ -155,8 +159,7 @@ def _tex_grads(packed: PackedScene, full: bool) -> bool:
     return tex_grads
 
 
-def _reject_unported_diff(grad_mode: str, physical: bool = False,
-                          packed_grid=None) -> bool:
+def _reject_unported_diff(grad_mode: str, physical: bool = False) -> bool:
     """Validate ``grad_mode``; returns True for the full path adjoint."""
     if grad_mode not in ("full", "linear", "geo"):
         raise ValueError(f"grad_mode must be 'full', 'linear' or 'geo', "
@@ -168,10 +171,6 @@ def _reject_unported_diff(grad_mode: str, physical: bool = False,
     if physical:
         _unported("the physical (unbiased MIS) estimator's adjoint",
                   "Queue 1 item 6 / Queue 2: K2 physical, after K1 physical")
-    if packed_grid is not None:
-        _unported("the supercell-grid sweep in the replay (packed_grid / "
-                  "accel='grid')", "Queue 1 item 6 / Queue 2: K2 grid, after "
-                  "K1 grid")
     return grad_mode == "full"
 
 
@@ -279,12 +278,14 @@ def render_megakernel_diff_plain(packed: PackedScene, cam_params, seed: int,
     those columns, so the two agree table by table in full mode. In linear
     mode the kernel leaves the full-only columns and the camera at zero while
     autograd fills them: compare the linear fields only. Texel gradients are
-    refused where the kernel refuses them."""
-    full = _reject_unported_diff(grad_mode, physical, packed_grid)
+    refused where the kernel refuses them. ``packed_grid`` sweeps through the
+    grid (the same hits, so the same gradients)."""
+    full = _reject_unported_diff(grad_mode, physical)
     _tex_grads(packed, full)
     return mk.render_megakernel_plain(_detach_undifferentiated(packed),
                                       cam_params, seed, width, height, spp,
-                                      max_bounces, sample_offset=sample_offset)
+                                      max_bounces, sample_offset=sample_offset,
+                                      packed_grid=packed_grid)
 
 
 # ---------------------------------------------------------------------------
@@ -300,6 +301,7 @@ def _kernel_fn():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp, ci, vp, ci, vp, ci, vp, ci, vp, ci, vp,   # tables
                    vp, vp, vp, vp, ci, ci,                       # textures, texels
+                   vp, vp, ctypes.POINTER(ctypes.c_int),         # grid
                    ctypes.POINTER(ctypes.c_float),               # camera
                    ci, ci, ci, ci, ci, ci, ci, ci,               # scalars
                    ci, ci, ci, ci,          # full, tex_grads, tex_nmap, shared
@@ -323,20 +325,22 @@ def backward_rows_cuda(packed: PackedScene, cam_params, seed: int, width: int,
                        height: int, spp: int, max_bounces: int,
                        g_img: torch.Tensor, sample_offset: int = 0,
                        full: bool = False, pixel_offset: int = 0,
-                       n_local=None, tex_grads: bool = False) -> torch.Tensor:
+                       n_local=None, tex_grads: bool = False,
+                       packed_grid=None) -> torch.Tensor:
     """Launch the backward CUDA kernel: the gradient rows ``[rows]`` (float32,
     on the tables' device) of the MEAN radiance over ``spp`` of the pixel
     range ``[pixel_offset, pixel_offset + n_local)`` (default: the whole
     image) for the cotangent ``g_img`` (``n_local * 3`` values); with
-    ``tex_grads`` (a textured scene) 3 texel rows per atlas texel come last.
-    Launches on the current stream of the tables' device and does not
-    synchronise; raises if the kernel does not build or the launch is
-    refused."""
+    ``tex_grads`` (a textured scene) 3 texel rows per atlas texel come last;
+    ``packed_grid`` replays through the grid. Launches on the current stream
+    of the tables' device and does not synchronise; raises if the kernel does
+    not build or the launch is refused."""
     global LAUNCH_COUNT, LAST_ROUTE
     n = width * height if n_local is None else n_local
     mk._check_render_args(packed, width, height, spp, max_bounces,
                           pixel_offset, n, sample_offset, seed)
     mk._check_tables(packed)
+    mk._check_grid(packed, packed_grid)
     device = packed.device
     if g_img.device != device or g_img.numel() != 3 * n:
         raise ValueError(f"g_img: need {3 * n} values on {device}, got "
@@ -369,7 +373,7 @@ def backward_rows_cuda(packed: PackedScene, cam_params, seed: int, width: int,
         err = fn(tables[0].data_ptr(), num_s, tables[1].data_ptr(), num_t,
                  tables[2].data_ptr(), num_m, tables[3].data_ptr(), num_pl,
                  tables[4].data_ptr(), num_al, tables[5].data_ptr(),
-                 *mk.tex_args(packed), texels, cam_c,
+                 *mk.tex_args(packed), texels, *mk.grid_args(packed_grid), cam_c,
                  int(seed), int(pixel_offset), int(n), int(sample_offset),
                  int(spp), int(max_bounces), int(width), int(height),
                  int(full), int(tex_grads), int(packed.tex_nmap), int(shared),
@@ -378,6 +382,8 @@ def backward_rows_cuda(packed: PackedScene, cam_params, seed: int, width: int,
         raise RuntimeError("backward megakernel launch failed: CUDA error "
                            f"{err} ({lib.cpt_error_string(err).decode()})")
     LAUNCH_COUNT += 1
+    if packed_grid is not None:
+        LAUNCHES_GRID[int(full)] += 1
     LAST_ROUTE = "shared" if shared else "global"
     return out.sum(0)
 
@@ -386,12 +392,12 @@ def backward_grads_cuda(packed: PackedScene, cam_params, seed: int,
                         width: int, height: int, spp: int, max_bounces: int,
                         g_img: torch.Tensor, sample_offset: int = 0,
                         full: bool = False, tex_grads: bool = False,
-                        pixel_offset: int = 0, n_local=None):
+                        pixel_offset: int = 0, n_local=None, packed_grid=None):
     """Run the backward kernel; returns (PackedScene cotangent, camera
     cotangent). The camera cotangent is zeros unless ``full``."""
     rows = backward_rows_cuda(packed, cam_params, seed, width, height, spp,
                               max_bounces, g_img, sample_offset, full,
-                              pixel_offset, n_local, tex_grads)
+                              pixel_offset, n_local, tex_grads, packed_grid)
     return _unpack_rows(rows, packed, full, tex_grads)
 
 
@@ -400,46 +406,49 @@ class _RenderDiff(torch.autograd.Function):
     the replay-VJP kernel. Inputs: the six tables, the texel atlas (None
     without textures), the four camera tensors, then the non-differentiable
     arguments (``layout``: the packed scene whose texture tables and counts
-    the tensors above belong to). ``launch`` is the pair (forward sums,
-    backward grads) of kernel wrappers: ``render_megakernel_diff`` passes the
-    CUDA ones; the tests pass the host build of the same math."""
+    the tensors above belong to; ``packed_grid``: the grid both kernels sweep
+    through, or None). ``launch`` is the pair (forward sums, backward grads)
+    of kernel wrappers: ``render_megakernel_diff`` passes the CUDA ones; the
+    tests pass the host build of the same math."""
 
     @staticmethod
     def forward(ctx, spheres, triangles, materials, point_lights, area_lights,
                 background, tex_atlas, rot, pos, tan_half, z_near, layout,
                 seed, width, height, spp, max_bounces, sample_offset, full,
-                tex_grads, launch):
+                tex_grads, packed_grid, launch):
         packed = dataclasses.replace(
             layout, spheres=spheres, triangles=triangles, materials=materials,
             point_lights=point_lights, area_lights=area_lights,
             background=background, tex_atlas=tex_atlas)
         cam = (rot, pos, tan_half, z_near)
         sums = launch[0](packed, cam, seed, width, height, spp, max_bounces,
-                         0, width * height, sample_offset)
+                         0, width * height, sample_offset,
+                         packed_grid=packed_grid)
         ctx.save_for_backward(*packed.tables(), *cam)
         ctx.packed = packed
         ctx.args = (seed, width, height, spp, max_bounces, sample_offset,
-                    full, tex_grads, launch[1])
+                    full, tex_grads, packed_grid, launch[1])
         return (sums / spp).reshape(height, width, 3)
 
     @staticmethod
     def backward(ctx, g):
         saved = ctx.saved_tensors
         (seed, width, height, spp, max_bounces, sample_offset, full,
-         tex_grads, backward_grads) = ctx.args
+         tex_grads, packed_grid, backward_grads) = ctx.args
         packed = dataclasses.replace(ctx.packed, **dict(zip(
             ("spheres", "triangles", "materials", "point_lights",
              "area_lights", "background"), saved[:6])))
         cam = saved[6:]
         d_packed, d_cam = backward_grads(
             packed, cam, seed, width, height, spp, max_bounces, g,
-            sample_offset, full, tex_grads)
+            sample_offset, full, tex_grads, packed_grid=packed_grid)
         # a camera tensor may live on another device than the tables
         d_cam = tuple(d.reshape(c.shape).to(c.device) if need else None
                       for d, c, need in zip(d_cam, cam,
                                             ctx.needs_input_grad[7:11]))
         d_atlas = d_packed.tex_atlas if ctx.needs_input_grad[6] else None
-        return (*d_packed.tables(), d_atlas, *d_cam) + (None,) * 10
+        # the grid is discrete structure: no gradient
+        return (*d_packed.tables(), d_atlas, *d_cam) + (None,) * 11
 
 
 def render_megakernel_diff(packed: PackedScene, cam_params, seed: int,
@@ -455,17 +464,20 @@ def render_megakernel_diff(packed: PackedScene, cam_params, seed: int,
     grad receive gradients in full mode). ``grad_mode`` alone decides which
     backward kernel runs. ``max_bounces`` is a runtime argument. On a
     textured scene the texel gradients are computed when the atlas requires
-    grad."""
-    full = _reject_unported_diff(grad_mode, physical, packed_grid)
+    grad. ``packed_grid`` (``pack_grid`` on the tables' device) makes both
+    kernels sweep through the supercell grid; it gets no gradient."""
+    full = _reject_unported_diff(grad_mode, physical)
     if packed.device.type != "cuda":
         return render_megakernel_diff_plain(packed, cam_params, seed, width,
                                             height, spp, max_bounces,
-                                            sample_offset, grad_mode)
+                                            sample_offset, grad_mode,
+                                            packed_grid=packed_grid)
     tex_grads = _tex_grads(packed, full)
+    mk._check_grid(packed, packed_grid)
     cam = tuple(torch.as_tensor(v, dtype=torch.float32) for v in cam_params)
     return _RenderDiff.apply(*packed.tables(), packed.tex_atlas, *cam, packed,
                              int(seed), width, height, spp, max_bounces,
-                             int(sample_offset), full, tex_grads,
+                             int(sample_offset), full, tex_grads, packed_grid,
                              (mk.render_block_sums_cuda, backward_grads_cuda))
 
 

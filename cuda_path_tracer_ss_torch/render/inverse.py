@@ -23,7 +23,8 @@ import torch
 from ..constants import DEFAULT_MAX_BOUNCES
 from ..models.scene import Scene
 from ..ops.cuda import megakernel_vjp as vjp
-from ..ops.cuda.megakernel import _unported, pack_scene
+from ..ops.cuda.megakernel import _unported, pack_grid, pack_scene
+from ..ops.grid import build_grid
 from ..utils import rng
 
 # Scene leaves it makes sense to optimize.
@@ -114,6 +115,12 @@ def _check_engine(engine: str) -> None:
         raise ValueError(f"unknown engine {engine!r}; use one of {ENGINES}")
 
 
+def _check_grid_engine(engine: str) -> None:
+    if engine in ("lighttrace", "bidir"):
+        raise ValueError(f"engine='{engine}' does not take accel='grid'"
+                         " (the adjoint tracer uses the linear sweeps)")
+
+
 def check_engine_fields(engine: str, field_names, physical: bool = False,
                         scene=None) -> None:
     """Raise early if the chosen engine cannot differentiate a field — a
@@ -180,13 +187,17 @@ def make_loss(scene: Scene, cam_params, target, width: int, height: int,
     streams, so losses and gradients agree to float tolerance. ``device``
     defaults to "cuda" for the cuda engine and to "cpu" for the plain one;
     the loss lives on it. ``loss.grad_mode`` tells which backward was
-    picked."""
-    _check_engine(engine)
+    picked.
+
+    ``accel="grid"`` builds the uniform grid (``ops/grid.py``) ONCE from the
+    initial scene and sweeps through it in every evaluation, forward and
+    backward. Valid while the optimized fields leave geometry fixed; moving
+    spheres across cell boundaries needs a rebuild."""
     if accel not in ("none", "grid"):
         raise ValueError(f"unknown accel {accel!r}; use 'none' or 'grid'")
     if accel == "grid":
-        _unported("accel='grid' (the supercell grid in the replay)",
-                  "Queue 1 item 6 / Queue 2: K2 grid, after K1 grid")
+        _check_grid_engine(engine)
+    _check_engine(engine)
     _reject_physical(physical)
     device = torch.device(device if device is not None
                           else ("cuda" if engine == "cuda" else "cpu"))
@@ -195,6 +206,7 @@ def make_loss(scene: Scene, cam_params, target, width: int, height: int,
     grad_mode = _grad_mode_for(field_names, scene)
     render = (vjp.render_megakernel_diff if engine == "cuda"
               else vjp.render_megakernel_diff_plain)
+    grid = pack_grid(build_grid(scene), device) if accel == "grid" else None
     if not isinstance(target, torch.Tensor):
         target = torch.from_numpy(np.array(target, np.float32))
     target = target.to(device=device, dtype=torch.float32)
@@ -203,7 +215,7 @@ def make_loss(scene: Scene, cam_params, target, width: int, height: int,
         s = merge_params(scene, params)
         img = render(pack_scene(s, device), cam_params, int(seed), width,
                      height, spp, max_bounces=max_bounces,
-                     grad_mode=grad_mode)
+                     grad_mode=grad_mode, packed_grid=grid)
         return torch.mean((img - target) ** 2)
 
     loss.grad_mode = grad_mode
@@ -265,8 +277,22 @@ def invert(scene_init: Scene, cam_params, target, field_names: Iterable[str],
     k steps (stochastic gradients over sample noise); 0 keeps one fixed
     stream (deterministic loss surface). Returns (recovered scene, params,
     losses). The parameters stay host tensors like the scene's; each step
-    packs them onto the rendering device."""
+    packs them onto the rendering device. ``accel="grid"`` is valid when no
+    geometry field is optimized (the grid is built once from the initial
+    scene — see make_loss); its gates come first, in the reference's order,
+    so that they raise what the reference raises."""
     field_names = tuple(field_names)
+    if accel == "grid":
+        if silhouette:
+            raise ValueError("silhouette=True moves geometry; accel='grid' "
+                             "would go stale (same rule as geometry fields)")
+        geom = [f for f in field_names
+                if f.startswith(("sph_", "tri_")) or "center" in f
+                or "radius" in f]
+        if geom:
+            raise ValueError(f"accel='grid' with geometry fields {geom}: the "
+                             "cell lists would go stale; use accel='none'")
+        _check_grid_engine(engine)
     check_engine_fields(engine, field_names, physical=physical,
                         scene=scene_init)
     if silhouette:

@@ -24,6 +24,7 @@ from ..models.camera import Camera, camera_arrays
 from ..models.scene import scene_to_numpy
 from ..ops import tonemap
 from ..ops.cuda import megakernel
+from ..ops.grid import build_grid
 from ..utils import image as image_io
 from ..utils.profiling import PassMeter, sync
 
@@ -56,7 +57,9 @@ class RenderConfig:
     # quantize -> integer accumulation (writeToPixelsKernel,
     # CudaTracer.cu:63-104). Forces samples_per_pass == 1.
     compat_int_accum: bool = False
-    # Spatial acceleration: only "none" (linear sweeps) is ported.
+    # Spatial acceleration: "none" = linear primitive sweeps (the reference's
+    # behaviour); "grid" = the supercell grid's sweeps (ops/grid.py, built
+    # once per scene; the same image). See PERF.md for where each is faster.
     accel: str = "none"
     # optional structured per-pass log (see utils/profiling.PassMeter)
     metrics_jsonl: Optional[str] = None
@@ -81,15 +84,10 @@ class RenderConfig:
         return self.engine
 
     def check_ported(self) -> None:
-        """Raise for the options whose slice of the port has not landed."""
+        """Raise for an option the port does not know."""
         if self.accel not in ("none", "grid"):
             raise ValueError(f"unknown accel {self.accel!r}; "
                              "use 'none' or 'grid'")
-        if self.accel == "grid":
-            raise NotImplementedError(
-                "accel='grid' (supercell-grid sweeps) is not ported to the "
-                "PyTorch/CUDA package yet (ROADMAP.md Queue 1 item 5 / "
-                "Queue 2: K1 grid)")
 
     def base_pass_size(self) -> int:
         """Per-step pass size: the explicit setting, or the AUTO base (1 in
@@ -121,9 +119,11 @@ class ProgressiveRenderer:
         config.check_ported()
         self._engine = config.resolved_engine()
         self._device = torch.device(config.device)
-        # pack ONCE: the tables live on the rendering device for the
-        # renderer's lifetime
+        # pack ONCE: the tables (and the grid, built once per scene) live on
+        # the rendering device for the renderer's lifetime
         self._packed = megakernel.pack_scene(scene, self._device)
+        self._grid = (megakernel.pack_grid(build_grid(scene), self._device)
+                      if config.accel == "grid" else None)
         self._seed = int(config.seed)
         # Space-key mode switch (CudaTracer.cu:760-765): ray-trace mode caps
         # paths at 1 bounce (usePathTracer=false ran 1 iteration).
@@ -140,7 +140,8 @@ class ProgressiveRenderer:
                   else megakernel.render_megakernel_plain)
         img = render(self._packed, cam_params, self._seed, cfg.width,
                      cfg.height, pass_spp, max_bounces=bounces,
-                     sample_offset=first_sample, physical=cfg.physical)
+                     sample_offset=first_sample, physical=cfg.physical,
+                     packed_grid=self._grid)
         return img.reshape(-1, 3)
 
     # -- control --------------------------------------------------------------

@@ -62,20 +62,27 @@ def test_unknown_and_unported_scenes_raise(tmp_path):
 @pytest.mark.parametrize("flag", [["--physical"], ["--accel", "grid"]])
 @pytest.mark.parametrize("cmd", ["render", "benchmark"])
 def test_unported_flags_raise(cmd, flag, tmp_path, capsys):
-    """The grid is not ported and says so; the physical estimator runs."""
-    args = [cmd, *SMALL, "--spp", "1", *flag]
-    if cmd == "render":
-        args += ["--out", str(tmp_path / "r.png")]
-    if flag != ["--physical"]:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(args)
-        return
-    main(args)
-    text = capsys.readouterr().out
-    if cmd == "render":
-        assert read_png(str(tmp_path / "r.png")).max() > 0
+    """Both flags run: the physical estimator renders; the grid renders the
+    linear sweeps' image (the same file, the same checksum)."""
+    outs = []
+    for extra in ([], flag):
+        out = str(tmp_path / f"r{len(outs)}.npy")
+        args = [cmd, *SMALL, "--spp", "1", *extra]
+        if cmd == "render":
+            args += ["--out", out]
+        main(args)
+        text = capsys.readouterr().out
+        outs.append(np.load(out) if cmd == "render"
+                    else json.loads(text.strip().splitlines()[-1]))
+    if flag == ["--physical"]:
+        if cmd == "render":
+            assert outs[1].max() > 0
+        else:
+            assert outs[1]["physical"] is True
+    elif cmd == "render":
+        np.testing.assert_array_equal(outs[1], outs[0])
     else:
-        assert json.loads(text.strip().splitlines()[-1])["physical"] is True
+        assert outs[1]["accel"] == "grid" and outs[1]["checksum"] == outs[0]["checksum"]
 
 
 def test_physical_render_differs_from_the_default_estimator(tmp_path, capsys):
@@ -170,9 +177,19 @@ def test_invert_prints_the_reference_cli_s_json(tmp_path, capsys):
     (["--physical"], "physical"), (["--accel", "grid"], "grid"),
     (["--fields", "tri_v0"], "K2 geo")])
 @pytest.mark.parametrize("cmd", ["grad-check", "invert"])
-def test_training_commands_refuse_what_is_not_ported(cmd, flag, item):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*" + item):
-        main([cmd, "--device", "cpu", *TRAIN, *flag])
+def test_training_commands_refuse_what_is_not_ported(cmd, flag, item, capsys):
+    """Gradients of the physical estimator and of triangle geometry raise
+    naming the ROADMAP; the grid trains, to the linear sweeps' numbers."""
+    if flag[0] != "--accel":
+        with pytest.raises(NotImplementedError, match="ROADMAP.*" + item):
+            main([cmd, "--device", "cpu", *TRAIN, *flag])
+        return
+    extra = ["--steps", "2"] if cmd == "invert" else ["--directions", "1"]
+    got = []
+    for accel in ("none", "grid"):
+        main([cmd, "--device", "cpu", *TRAIN, *extra, "--accel", accel])
+        got.append(json.loads(capsys.readouterr().out.strip().splitlines()[-1]))
+    assert got[0] == got[1]
 
 
 def test_invert_refuses_silhouette_and_spec_avg():

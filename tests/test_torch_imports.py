@@ -39,6 +39,7 @@ def test_port_has_its_modules():
                  "cuda_path_tracer_ss_torch/ops/cuda/megakernel_vjp.py",
                  "cuda_path_tracer_ss_torch/ops/cuda/lightkernel.py",
                  "cuda_path_tracer_ss_torch/ops/texture.py",
+                 "cuda_path_tracer_ss_torch/ops/grid.py",
                  "cuda_path_tracer_ss_torch/utils/obj.py",
                  "cuda_path_tracer_ss_torch/render/bidir.py",
                  "cuda_path_tracer_ss_torch/render/inverse.py",
@@ -63,6 +64,7 @@ def test_importing_the_port_leaves_jax_out():
             "cuda_path_tracer_ss_torch.render.bidir, "
             "cuda_path_tracer_ss_torch.render.inverse, "
             "cuda_path_tracer_ss_torch.ops.texture, "
+            "cuda_path_tracer_ss_torch.ops.grid, "
             "cuda_path_tracer_ss_torch.utils.obj; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")

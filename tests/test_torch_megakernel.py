@@ -23,8 +23,9 @@ from cuda_path_tracer_ss_tpu.render.integrator import render as jrender
 from cuda_path_tracer_ss_torch.models import presets as tpresets
 from cuda_path_tracer_ss_torch.models.camera import Camera, camera_arrays
 from cuda_path_tracer_ss_torch.ops.cuda import megakernel as tmk
+from cuda_path_tracer_ss_torch.ops.grid import build_grid
 from torch_port_helpers import (assert_per_pixel_parity, port_scene,
-                                render_block_sums_hostbuild)
+                                render_block_sums_hostbuild, round_bf16_hostbuild)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 CP = camera_arrays(Camera())
@@ -284,30 +285,43 @@ def test_plain_stats_count_the_work(cornell_packed):
     assert 0 < stats["shadow_rays_occluded"] < stats["shadow_rays"] <= stats["path_bounces"]
 
 
-# ---- (e) what is not ported raises; (f) the device rule ----------------------
+# ---- (e) every option renders; (f) the device rule ---------------------------
 
-@pytest.mark.parametrize("kwargs", [dict(physical=True), dict(packed_grid=object()),
+@pytest.mark.parametrize("kwargs", [dict(physical=True), dict(packed_grid="grid"),
                                     dict(state_bf16=True), dict(bidir_nu=1.0)])
 def test_unported_options_raise(cornell_packed, kwargs):
-    """The grid and the bf16 state are not ported and say so; the physical
-    estimator renders; the bidirectional carries need it."""
-    render = lambda: tmk.render_megakernel(cornell_packed, CP, 0, 8, 8, 1, 2, **kwargs)
-    if "physical" in kwargs:
-        img = render()
-        assert tuple(img.shape) == (8, 8, 3) and bool(torch.isfinite(img).all())
-        assert float(img.mean()) > 0
-    elif "bidir_nu" in kwargs:
+    """Every option of the reference's entry renders: the physical estimator;
+    the grid, to the linear sweeps' image bit for bit; the bf16 carries,
+    within bf16 rounding of the float32 image (the bound of
+    tests/test_pallas_cpu.py: mean gap below 2e-3 of the mean); the
+    bidirectional carries need the physical estimator."""
+    if kwargs.get("packed_grid") == "grid":
+        kwargs = dict(packed_grid=tmk.pack_grid(build_grid(tpresets.cornell()), "cpu"))
+    render = lambda **kw: tmk.render_megakernel(cornell_packed, CP, 0, 8, 8, 1, 2, **kw)
+    if "bidir_nu" in kwargs:
         with pytest.raises(ValueError, match="physical estimator"):
-            render()
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            render()
+            render(**kwargs)
+        return
+    img = render(**kwargs)
+    assert tuple(img.shape) == (8, 8, 3) and bool(torch.isfinite(img).all())
+    assert float(img.mean()) > 0
+    if "packed_grid" in kwargs:
+        assert torch.equal(img, render())
+    if "state_bf16" in kwargs:
+        f32 = render()
+        assert not torch.equal(img, f32)
+        assert float((img - f32).abs().mean()) < 2e-3 * float(f32.mean())
 
 
 def test_render_fast2_unported_options_raise():
+    """render_fast2 takes a UniformGrid or a PackedGrid (as the reference's
+    does) and renders the linear image; physical=True renders too."""
     scene = tpresets.cornell()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmk.render_fast2(scene, CP, 8, 8, 1, 0, device="cpu", grid=object())
+    want = tmk.render_megakernel(tmk.pack_scene(scene, "cpu"), CP, 0, 8, 8, 1)
+    grid = build_grid(scene)
+    for g in (grid, tmk.pack_grid(grid, "cpu")):
+        got = tmk.render_fast2(scene, CP, 8, 8, 1, 0, device="cpu", grid=g)
+        assert torch.equal(got, want)
     got = tmk.render_fast2(scene, CP, 8, 8, 1, 0, device="cpu", physical=True)
     want = tmk.render_megakernel(tmk.pack_scene(scene, "cpu"), CP, 0, 8, 8, 1,
                                  physical=True)
@@ -366,3 +380,66 @@ def test_kernel_math_host_build_matches_plain(name):
     tile = render_block_sums_hostbuild(packed, CP, 7, w, h, spp, bounces, 301, 200)
     full = render_block_sums_hostbuild(packed, CP, 7, w, h, spp, bounces, 0, w * h)
     np.testing.assert_array_equal(tile.numpy(), full[301:501].numpy())
+
+
+# ---- bfloat16 carries (state_bf16) ---------------------------------------------
+
+def test_round_bf16_matches_torch():
+    """The host build's round_bf16 (the bit operation the host compiles; the
+    card uses __float2bfloat16_rn) against torch's float -> bfloat16 cast,
+    bit for bit: random magnitudes, exact ties both ways, zeros, infinities,
+    the largest float, subnormals; NaN stays NaN."""
+    g = np.random.default_rng(4)
+    rand = (g.standard_normal(4000) * 10.0 ** g.integers(-30, 30, 4000)).astype(np.float32)
+    ties = ((g.integers(0, 1 << 15, 2000, dtype=np.uint32) << 16) | 0x8000).view(np.float32)
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.finfo(np.float32).max, 1e-40,
+                        -3e-42, np.nan], np.float32)
+    x = np.concatenate([rand, ties, special])
+    got = round_bf16_hostbuild(x)
+    want = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    nan = np.isnan(want)
+    assert np.array_equal(np.isnan(got), nan)
+    assert np.array_equal(got[~nan].view(np.uint32), want[~nan].view(np.uint32))
+
+
+@pytest.mark.parametrize("case", ["cornell-default", "cornell-physical", "cornell-bidir",
+                                  "textured-default"])
+def test_kernel_math_bf16_matches_plain(case):
+    """The kernel's bfloat16 stores (host build) against the plain version's,
+    per pixel."""
+    name, variant = case.split("-")
+    kw = {"default": {}, "physical": dict(physical=True),
+          "bidir": dict(physical=True, bidir_nu=64.0)}[variant]
+    packed = tmk.pack_scene(tpresets.get_scene(name), "cpu")
+    w, h, spp, nb = 16, 16, 2, 4
+    plain = tmk.render_block_sums_plain(packed, CP, 7, w, h, spp, nb, 0, w * h,
+                                        state_bf16=True, **kw)
+    host = render_block_sums_hostbuild(packed, CP, 7, w, h, spp, nb, 0, w * h,
+                                       state_bf16=True, **kw)
+    assert_per_pixel_parity(host.numpy() / spp, plain.numpy() / spp)
+    f32 = render_block_sums_hostbuild(packed, CP, 7, w, h, spp, nb, 0, w * h, **kw)
+    assert not torch.equal(host, f32)
+
+
+def test_plain_bf16_matches_the_pallas_kernel_in_interpret_mode():
+    """Against the TPU kernel's state_bf16 variant, as the reference's CPU
+    tests run it (cornell, 8x8, 2 spp, 3 bounces), per pixel."""
+    want = np.asarray(jmk.render_megakernel(jmk.pack_scene(jpresets.cornell()),
+                                            jcamera_arrays(JCamera()), 5, 8, 8, 2,
+                                            max_bounces=3, interpret=True,
+                                            state_bf16=True))
+    got = tmk.render_megakernel(tmk.pack_scene(tpresets.cornell(), "cpu"), CP, 5, 8, 8, 2,
+                                max_bounces=3, state_bf16=True)
+    assert_per_pixel_parity(got.numpy(), want)
+
+
+def test_bf16_approximates_f32(cornell_packed):
+    """The bound of tests/test_pallas_cpu.py::test_state_bf16_runs_and_
+    approximates_f32 (cornell 16x16, 4 spp, 4 bounces): every pixel within
+    0.02 of the float32 image, the mean within 1 %."""
+    f32 = tmk.render_megakernel(cornell_packed, CP, 0, 16, 16, 4, max_bounces=4).numpy()
+    b16 = tmk.render_megakernel(cornell_packed, CP, 0, 16, 16, 4, max_bounces=4,
+                                state_bf16=True).numpy()
+    assert np.all(np.isfinite(b16))
+    assert np.abs(f32 - b16).max() < 0.02, np.abs(f32 - b16).max()
+    np.testing.assert_allclose(b16.mean(), f32.mean(), rtol=0.01)

@@ -209,10 +209,17 @@ def test_config_engine_and_unported_options():
         _cfg(engine="cuda").resolved_engine()
     with pytest.raises(ValueError, match="unknown engine"):
         _cfg(engine="jnp").resolved_engine()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _renderer(accel="grid")
     with pytest.raises(ValueError, match="unknown accel"):
         _renderer(accel="bvh")
+    # the grid is ported: the linear sweeps' image, in both accumulation
+    # modes, and a resume through it is exact
+    for kw in (dict(), dict(physical=True), dict(compat_int_accum=True, samples_per_pass=1)):
+        images = []
+        for accel in ("none", "grid"):
+            r = _renderer(presets.stress(), accel=accel, spp=2, **kw)
+            r.run()
+            images.append(r.radiance())
+        np.testing.assert_array_equal(images[0], images[1])
 
 
 def test_default_device_raises_without_a_card():
@@ -272,3 +279,19 @@ def test_physical_checkpoint_resume_bit_identical(tmp_path, capsys, compat):
     second.run()
     np.testing.assert_array_equal(second.radiance(), whole.radiance())
     assert whole.radiance().max() > 0
+
+
+def test_grid_checkpoint_resume_bit_identical(tmp_path, capsys):
+    """accel='grid' keeps the checkpoint / resume contract: a grid render
+    stopped, checkpointed and resumed equals the linear render in one go."""
+    kw = dict(spp=6, max_bounces=2)
+    whole = _renderer(presets.stress(), **kw)
+    whole.run()
+    first = _renderer(presets.stress(), accel="grid", **kw)
+    first.run(4)     # a pass boundary of the AUTO schedule (4, then 2)
+    ck = str(tmp_path / "ck.npz")
+    first.checkpoint(ck)
+    second = _renderer(presets.stress(), accel="grid", **kw)
+    second.restore(ck)
+    second.run()
+    np.testing.assert_array_equal(second.radiance(), whole.radiance())

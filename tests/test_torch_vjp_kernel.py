@@ -6,6 +6,8 @@ that file's tolerances: loss rtol 1e-5; every gradient rtol 1e-3, atol
 1e-4 * max|g|. The CUDA kernel itself runs only on a GPU and is held against
 the plain version there by chip_smoke.py; its wrapper's rules are tested here.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,7 @@ from cuda_path_tracer_ss_torch.models import presets as tpresets
 from cuda_path_tracer_ss_torch.models.camera import Camera, camera_arrays
 from cuda_path_tracer_ss_torch.ops.cuda import megakernel as tmk
 from cuda_path_tracer_ss_torch.ops.cuda import megakernel_vjp as tvjp
+from cuda_path_tracer_ss_torch.ops.grid import build_grid
 from cuda_path_tracer_ss_torch.render import inverse as tinverse
 from torch_port_helpers import (VJP_BOUNCES, VJP_H, VJP_SEED, VJP_SPP, VJP_W,
                                 assert_grads_close, jax_preset_value_and_grad,
@@ -184,13 +187,28 @@ def test_cpu_tables_take_the_plain_version_and_the_cuda_wrapper_refuses_them():
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(grad_mode="geo"), "K2 geo"), (dict(physical=True), "K2 physical"),
-    (dict(packed_grid=object()), "K2 grid")])
+    (dict(packed_grid="grid"), "K2 grid")])
 @pytest.mark.parametrize("entry", ["render_megakernel_diff",
                                    "render_megakernel_diff_plain"])
 def test_unported_modes_raise(entry, kwargs, item):
-    packed = tmk.pack_scene(tpresets.cornell(), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*" + item):
-        getattr(tvjp, entry)(packed, CP, 0, 8, 8, 1, **kwargs)
+    """geo and physical raise naming the ROADMAP; the grid renders the linear
+    image and gives the linear gradients (the same hits, so bit for bit on
+    the plain engine)."""
+    scene = tpresets.cornell()
+    packed = tmk.pack_scene(scene, "cpu")
+    if "packed_grid" not in kwargs:
+        with pytest.raises(NotImplementedError, match="ROADMAP.*" + item):
+            getattr(tvjp, entry)(packed, CP, 0, 8, 8, 1, **kwargs)
+        return
+    grid = tmk.pack_grid(build_grid(scene), "cpu")
+    out = []
+    for g in (None, grid):
+        diffuse = packed.materials.detach().clone().requires_grad_(True)
+        img = getattr(tvjp, entry)(dataclasses.replace(packed, materials=diffuse), CP, 0,
+                                   8, 8, 1, max_bounces=3, packed_grid=g)
+        out.append((img.detach(), torch.autograd.grad((img ** 2).mean(), diffuse)[0]))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1]) and float(out[0][1].abs().max()) > 0
 
 
 def test_unknown_grad_mode_and_sharded_entry_raise():

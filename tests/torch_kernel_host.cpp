@@ -1,5 +1,6 @@
 // Test-only host build of the CUDA kernels' device math: the package's
-// csrc/megakernel.cuh (forward render, all three estimator variants),
+// csrc/megakernel.cuh (forward render, all three estimator variants, linear
+// and grid sweeps),
 // csrc/megakernel_vjp.cuh (replay VJP) and csrc/lightkernel.cuh (light
 // tracing) compiled by a host C++ compiler, one loop iteration per pixel or
 // light path, so that
@@ -27,7 +28,9 @@ cpt::SceneTables make_tables(const float* spheres, int num_spheres,
                              const float* area_lights, int num_area_lights,
                              const float* background, const float* tex_atlas = nullptr,
                              const float* tex_meta = nullptr, const float* tex_triuv = nullptr,
-                             const float* tex_matids = nullptr, int num_textures = 0) {
+                             const float* tex_matids = nullptr, int num_textures = 0,
+                             const int* grid_idx = nullptr, const float* grid_scal = nullptr,
+                             const int* grid_meta = nullptr) {
     cpt::SceneTables sc;
     sc.spheres = spheres; sc.num_spheres = num_spheres;
     sc.triangles = triangles; sc.num_triangles = num_triangles;
@@ -37,12 +40,15 @@ cpt::SceneTables make_tables(const float* spheres, int num_spheres,
     sc.background = background;
     sc.tex_atlas = tex_atlas; sc.tex_meta = tex_meta;
     sc.tex_triuv = tex_triuv; sc.tex_matids = tex_matids; sc.num_textures = num_textures;
+    cpt::set_grid(sc, grid_idx, grid_scal, grid_meta);
     return sc;
 }
 
 cpt::RenderParams make_params(const float* cam_host, int seed, int pixel_offset, int n_local,
-                              int sample_offset, int spp, int max_bounces, int width, int height) {
+                              int sample_offset, int spp, int max_bounces, int width, int height,
+                              int state_bf16 = 0) {
     cpt::RenderParams p;
+    p.state_bf16 = state_bf16;
     for (int k = 0; k < cpt::CAM_FLOATS; ++k) p.cam[k] = cam_host[k];
     p.seed = seed; p.pixel_offset = pixel_offset; p.n_local = n_local;
     p.sample_offset = sample_offset; p.spp = spp; p.max_bounces = max_bounces;
@@ -73,8 +79,8 @@ extern "C" {
 
 // Same arguments as cpt_render_megakernel (variant: 0 reference-parity, 1
 // physical, 2 physical with the bidirectional carries; a texture count > 0
-// picks the textured instantiation), every pointer a host pointer, without
-// the launch parameters.
+// picks the textured instantiation, a grid_idx the grid sweeps), every pointer
+// a host pointer, without the launch parameters.
 int cpt_render_megakernel_host(const float* spheres, int num_spheres,
                                const float* triangles, int num_triangles,
                                const float* materials, int num_materials,
@@ -83,17 +89,19 @@ int cpt_render_megakernel_host(const float* spheres, int num_spheres,
                                const float* background,
                                const float* tex_atlas, const float* tex_meta,
                                const float* tex_triuv, const float* tex_matids,
-                               int num_textures, const float* cam_host,
+                               int num_textures, const int* grid_idx, const float* grid_scal,
+                               const int* grid_meta, const float* cam_host,
                                int seed, int pixel_offset, int n_local, int sample_offset,
                                int spp, int max_bounces, int width, int height, int variant,
-                               float* out) {
+                               int state_bf16, float* out) {
     const cpt::SceneTables sc = make_tables(spheres, num_spheres, triangles, num_triangles,
                                             materials, num_materials, point_lights,
                                             num_point_lights, area_lights, num_area_lights,
                                             background, tex_atlas, tex_meta, tex_triuv,
-                                            tex_matids, num_textures);
+                                            tex_matids, num_textures, grid_idx, grid_scal,
+                                            grid_meta);
     const cpt::RenderParams p = make_params(cam_host, seed, pixel_offset, n_local, sample_offset,
-                                            spp, max_bounces, width, height);
+                                            spp, max_bounces, width, height, state_bf16);
     if (num_textures > 0) {
         render_pixels<true>(sc, p, variant, out);
     } else {
@@ -146,7 +154,8 @@ int cpt_backward_megakernel_host(const float* spheres, int num_spheres,
                                  const float* background,
                                  const float* tex_atlas, const float* tex_meta,
                                  const float* tex_triuv, const float* tex_matids,
-                                 int num_textures, const float* cam_host,
+                                 int num_textures, const int* grid_idx, const float* grid_scal,
+                                 const int* grid_meta, const float* cam_host,
                                  int seed, int pixel_offset, int n_local, int sample_offset,
                                  int spp, int max_bounces, int width, int height,
                                  int full, int texels, int tex_grads, int tex_nmap,
@@ -155,7 +164,8 @@ int cpt_backward_megakernel_host(const float* spheres, int num_spheres,
                                             materials, num_materials, point_lights,
                                             num_point_lights, area_lights, num_area_lights,
                                             background, tex_atlas, tex_meta, tex_triuv,
-                                            tex_matids, num_textures);
+                                            tex_matids, num_textures, grid_idx, grid_scal,
+                                            grid_meta);
     const cpt::RenderParams p = make_params(cam_host, seed, pixel_offset, n_local, sample_offset,
                                             spp, max_bounces, width, height);
     const cpt::TexLayout T = cpt::tex_layout(full != 0, num_textures > 0, tex_grads != 0,
@@ -183,6 +193,33 @@ int cpt_backward_megakernel_host(const float* spheres, int num_spheres,
         }
     }
     return L.rows;
+}
+
+// The two scene sweeps on n rays (o, d: three runs of n floats each; max_d
+// per ray), with the grid bundle when grid_idx is non-null, else linear:
+// t[n], prim[n] of the nearest hit (intersect_sweep) and occ[n] (0 / 1) of
+// occlusion_sweep within max_d.
+void cpt_sweeps_host(const float* spheres, int num_spheres, const float* triangles,
+                     int num_triangles, const int* grid_idx, const float* grid_scal,
+                     const int* grid_meta, int n, const float* o, const float* d,
+                     const float* max_d, float* t, int* prim, int* occ) {
+    const cpt::SceneTables sc = make_tables(spheres, num_spheres, triangles, num_triangles,
+                                            nullptr, 0, nullptr, 0, nullptr, 0, nullptr, nullptr,
+                                            nullptr, nullptr, nullptr, 0, grid_idx, grid_scal,
+                                            grid_meta);
+    for (int i = 0; i < n; ++i) {
+        const cpt::Hit h = cpt::intersect_sweep(sc, o[i], o[n + i], o[2 * n + i], d[i],
+                                                d[n + i], d[2 * n + i]);
+        t[i] = h.t;
+        prim[i] = h.prim;
+        occ[i] = cpt::occlusion_sweep(sc, o[i], o[n + i], o[2 * n + i], d[i], d[n + i],
+                                      d[2 * n + i], max_d[i]) ? 1 : 0;
+    }
+}
+
+// round_bf16 elementwise: what the state_bf16 carries store.
+void cpt_round_bf16_host(int n, const float* x, float* y) {
+    for (int i = 0; i < n; ++i) y[i] = cpt::round_bf16(x[i]);
 }
 
 // norm3_vjp / rot_y_to_vjp elementwise over n inputs; every array holds its

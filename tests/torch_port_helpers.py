@@ -4,8 +4,9 @@ imports both packages; data crosses as numpy arrays.
 
 Also the test-only host build of the CUDA kernels' device math
 (``csrc/megakernel.cuh``, ``csrc/megakernel_vjp.cuh`` and
-``csrc/lightkernel.cuh`` through ``tests/torch_kernel_host.cpp``): the only way to exercise the CUDA source on
-a machine without a GPU. It needs ``g++`` (or
+``csrc/lightkernel.cuh`` through ``tests/torch_kernel_host.cpp``): the only
+way to exercise the CUDA source on a machine without a GPU. It is built once
+per test process. It needs ``g++`` (or
 ``c++``) on the PATH and, for the FMA variant, an x86-64 CPU with FMA3; where
 one is missing the tests that use it fail with that message."""
 import ctypes
@@ -127,15 +128,21 @@ def _host_kernel(fma):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     scene_args = [vp, ci, vp, ci, vp, ci, vp, ci, vp, ci, vp,
                   vp, vp, vp, vp, ci,
+                  vp, vp, ctypes.POINTER(ctypes.c_int),
                   ctypes.POINTER(ctypes.c_float),
                   ci, ci, ci, ci, ci, ci, ci, ci]
-    lib.cpt_render_megakernel_host.argtypes = scene_args + [ci, vp]
+    lib.cpt_render_megakernel_host.argtypes = scene_args + [ci, ci, vp]
     lib.cpt_render_megakernel_host.restype = ci
     lib.cpt_backward_megakernel_host.argtypes = scene_args + [ci] * 4 + [vp, vp]
     lib.cpt_backward_megakernel_host.restype = ci
     lib.cpt_light_records_host.argtypes = (
         [vp, ci] * 5 + [ctypes.POINTER(ctypes.c_float)] + [ci] * 9 + [vp] * 4)
     lib.cpt_light_records_host.restype = ci
+    lib.cpt_sweeps_host.argtypes = [vp, ci, vp, ci, vp, vp,
+                                    ctypes.POINTER(ctypes.c_int)] + [ci] + [vp] * 6
+    lib.cpt_sweeps_host.restype = None
+    lib.cpt_round_bf16_host.argtypes = [ci, vp, vp]
+    lib.cpt_round_bf16_host.restype = None
     lib.cpt_norm3_vjp_host.argtypes = [ci, vp, vp, ctypes.c_float, vp]
     lib.cpt_norm3_vjp_host.restype = None
     lib.cpt_rot_y_to_vjp_host.argtypes = [ci, vp, vp, vp, vp, vp]
@@ -154,16 +161,18 @@ def _host_kernel(fma):
 
 def _scene_args(packed, cam_params, seed, width, height, spp, max_bounces,
                 pixel_offset, n_local, sample_offset, sample_clamp,
-                bidir_nu=None):
+                bidir_nu=None, packed_grid=None):
     """The leading arguments the host entries share, and the tables they
     point into (to be kept alive over the call)."""
     cam = tmk._cam_table(cam_params, sample_clamp, bidir_nu)
     cam_c = (ctypes.c_float * tmk.CAM_FLOATS)(*cam.tolist())
     tables = [t.detach().contiguous() for t in packed.tables()]
+    tmk._check_grid(packed, packed_grid)
     args = []
     for t, count in zip(tables[:5], packed.counts):
         args += [t.data_ptr(), count]
-    args += [tables[5].data_ptr(), *tmk.tex_args(packed), cam_c, int(seed),
+    args += [tables[5].data_ptr(), *tmk.tex_args(packed),
+             *tmk.grid_args(packed_grid), cam_c, int(seed),
              int(pixel_offset),
              int(n_local), int(sample_offset), int(spp), int(max_bounces),
              int(width), int(height)]
@@ -173,17 +182,45 @@ def _scene_args(packed, cam_params, seed, width, height, spp, max_bounces,
 def render_block_sums_hostbuild(packed, cam_params, seed, width, height, spp,
                                 max_bounces, pixel_offset, n_local,
                                 sample_offset=0, sample_clamp=0.0, fma=False,
-                                physical=False, bidir_nu=None):
+                                physical=False, bidir_nu=None, packed_grid=None,
+                                state_bf16=False):
     """``render_block_sums`` computed by the host build of the kernel math,
-    one pixel at a time, on CPU tables."""
+    one pixel at a time, on CPU tables (and a CPU grid)."""
     args, _tables = _scene_args(packed, cam_params, seed, width, height, spp,
                                 max_bounces, pixel_offset, n_local,
-                                sample_offset, sample_clamp, bidir_nu)
+                                sample_offset, sample_clamp, bidir_nu,
+                                packed_grid)
     variant = tmk._check_variant(physical, bidir_nu)
     out = torch.empty((n_local, 3), dtype=torch.float32)
-    _host_kernel(fma).cpt_render_megakernel_host(*args, variant,
+    _host_kernel(fma).cpt_render_megakernel_host(*args, variant, int(state_bf16),
                                                  out.data_ptr())
     return out
+
+
+def sweeps_hostbuild(packed, o, d, max_d, packed_grid=None):
+    """The kernels' two scene sweeps from the host build on n rays (``o``,
+    ``d`` [n, 3], ``max_d`` [n] numpy): (t [n], prim [n], occluded [n] bool)
+    through the grid when one is given, else linear."""
+    o, d = _runs(o), _runs(d)
+    max_d = np.ascontiguousarray(max_d, np.float32)
+    n = max_d.size
+    t = np.empty(n, np.float32)
+    prim, occ = np.empty(n, np.int32), np.empty(n, np.int32)
+    tmk._check_grid(packed, packed_grid)
+    sph, tri = (x.detach().contiguous() for x in (packed.spheres, packed.triangles))
+    _host_kernel(False).cpt_sweeps_host(
+        sph.data_ptr(), packed.counts[0], tri.data_ptr(), packed.counts[1],
+        *tmk.grid_args(packed_grid), n, _ptr(o), _ptr(d), _ptr(max_d), _ptr(t),
+        _ptr(prim), _ptr(occ))
+    return t, prim, occ.astype(bool)
+
+
+def round_bf16_hostbuild(x):
+    """``csrc round_bf16`` elementwise on a float32 numpy array."""
+    x = np.ascontiguousarray(x, np.float32)
+    y = np.empty_like(x)
+    _host_kernel(False).cpt_round_bf16_host(x.size, _ptr(x), _ptr(y))
+    return y
 
 
 def light_records_hostbuild(packed, cam_params, seed, width, height, n_paths,
@@ -211,14 +248,15 @@ def light_records_hostbuild(packed, cam_params, seed, width, height, n_paths,
 
 def backward_grads_hostbuild(packed, cam_params, seed, width, height, spp,
                              max_bounces, g_img, sample_offset=0, full=False,
-                             tex_grads=False):
+                             tex_grads=False, packed_grid=None):
     """``backward_grads_cuda`` computed by the host build of the backward
     kernel's math (no FMA contraction), one pixel at a time, on CPU tables:
     (PackedScene cotangent, camera cotangent), unpacked from the gradient
     rows by the port's own ``_unpack_rows``."""
     n = width * height
     args, _tables = _scene_args(packed, cam_params, seed, width, height, spp,
-                                max_bounces, 0, n, sample_offset, 0.0)
+                                max_bounces, 0, n, sample_offset, 0.0,
+                                packed_grid=packed_grid)
     g = (g_img.detach().reshape(n, 3).to(torch.float32) / spp).contiguous()
     tex_grads = bool(tex_grads) and packed.textured
     texels = packed.tex_counts[1]
@@ -385,7 +423,7 @@ def jax_preset_value_and_grad(name, grad_mode):
 
 
 def render_diff_hostbuild(packed, cam_params, seed, width, height, spp,
-                          max_bounces=8, grad_mode="full"):
+                          max_bounces=8, grad_mode="full", packed_grid=None):
     """``render_megakernel_diff`` as the CUDA kernels would compute it, on CPU
     tables: the package's own ``torch.autograd.Function`` with both launches
     replaced by the host build of their device math (forward =
@@ -395,15 +433,16 @@ def render_diff_hostbuild(packed, cam_params, seed, width, height, spp,
     cam = tuple(torch.as_tensor(v, dtype=torch.float32) for v in cam_params)
     return tvjp._RenderDiff.apply(
         *packed.tables(), packed.tex_atlas, *cam, packed, int(seed), width,
-        height, spp, max_bounces, 0, full, tex_grads,
+        height, spp, max_bounces, 0, full, tex_grads, packed_grid,
         (render_block_sums_hostbuild, backward_grads_hostbuild))
 
 
 def port_value_and_grad(scene, cam_params, fields, width, height, spp, bounces,
-                        seed, engine, grad_mode):
+                        seed, engine, grad_mode, packed_grid=None):
     """(loss, {field: numpy gradient}) of the MSE-to-zero loss on the port:
     ``engine`` "plain" (autograd through the plain render) or "host" (the
-    kernels' math from the host build)."""
+    kernels' math from the host build); ``packed_grid`` sweeps through the
+    grid."""
     from cuda_path_tracer_ss_torch.render import inverse as tinverse
 
     render = {"plain": tvjp.render_megakernel_diff_plain,
@@ -412,7 +451,7 @@ def port_value_and_grad(scene, cam_params, fields, width, height, spp, bounces,
               for k, v in tinverse.extract_params(scene, fields).items()}
     packed = tmk.pack_scene(tinverse.merge_params(scene, leaves), "cpu")
     img = render(packed, cam_params, seed, width, height, spp,
-                 max_bounces=bounces, grad_mode=grad_mode)
+                 max_bounces=bounces, grad_mode=grad_mode, packed_grid=packed_grid)
     val = torch.mean(img ** 2)
     grads = torch.autograd.grad(val, list(leaves.values()))
     return float(val.detach()), {k: g.numpy() for k, g in zip(leaves, grads)}
