@@ -17,7 +17,7 @@ prints no result. It
    and times the single-launch form,
 7. checks that checkpoint / resume is bit-identical,
 8. holds the backward kernel's gradients against its plain PyTorch version
-   (autograd through the plain render) on four scenes, in grad modes linear
+   (autograd through the plain render) on five scenes, in grad modes linear
    and full, and runs the same step twice,
 9. drives the training path at full size — ``invert`` on Cornell, 256x256,
    16 spp, 8 bounces, 30 Adam steps, once per grad mode — and counts the
@@ -51,7 +51,16 @@ prints no result. It
     against grid, ``stress_dense(10000)`` and ``mesh_dense(4)`` at 400x400, 16
     spp, 1 and 8 bounces), trains through the grid, and renders with the
     bfloat16 carries (``state_bf16``) against the float32 image,
-15. prints one JSON line describing every kernel, then the result line.
+15. K2's geo and physical modes: holds them against the plain engine's
+    autograd on textured quads, through the grid and on ``stress_dense``
+    at 32x32, and at the training step's size (Cornell 256x256, 16 spp, 8
+    bounces: geo, physical, both, physical through the grid; a textured
+    quad at 128x128), runs each step twice, times gradient steps (forward
+    kernel, backward kernel, the rest), runs geo on ``mesh_dense(4)``
+    (5,120 triangles: the global-atomics route), fits a textured quad's
+    vertices (``[geo train]``, 250 Adam steps) and trains Cornell through
+    the physical estimator (``[physical train]``, 30 Adam steps),
+16. prints one JSON line describing every kernel, then the result line.
 
 Any failed phase raises: the exit code is then non-zero and the result line
 is not printed. ``--out-dir DIR`` keeps the rendered PNG and a JSON report.
@@ -184,6 +193,36 @@ BF16_BOUNCE_FLOPS = 12
 GRID_BENCH = dict(width=400, height=400, spp=16, bounces=(1, 8))
 GRID_TALLY = dict(width=64, height=64)   # the plain grid version's share of it
 GRID_TRAIN_STEPS = 10
+
+# K2's geo and physical modes (csrc/megakernel_vjp.cuh, the adjoints of
+# csrc/megakernel.cuh), counted the same way. Geo adds per triangle hit in
+# the reverse sweep the Moller-Trumbore adjoint's edge terms and the 18 rows
+# (80), on a textured scene the UVs' vertex terms (60) and per normal-map hit
+# the tangent's edge terms (30), and per visible parity light sample the
+# light-vertex rows (30). Physical adds per bounce the lobes with both axes
+# and their adjoint (the Fresnel term's included, 110) and the pdf chain
+# (the continuation density's adjoint and its lobes', 150); per light sample
+# the direct phase's adjoint (the contribution, the MIS weights, the diffuse
+# lobe's terms and the light direction, 100; the glossy / Cook-Torrance
+# lobes' adjoints, 40 / 150, are not counted), and under geo the light
+# geometry's adjoint (90).
+GEO_TRI_HIT_FLOPS = 80
+GEO_UV_VERTEX_FLOPS = 60
+GEO_TANGENT_EDGE_FLOPS = 30
+GEO_LIGHT_VERTEX_FLOPS = 30
+PHYS_REVERSE_BOUNCE_FLOPS = 110 + 150
+PHYS_LIGHT_VJP_FLOPS = 100
+PHYS_GEO_LIGHT_FLOPS = 90
+# The new modes' main paths: their field sets (the reference's tests), the
+# mesh the global-atomics route runs on, and the two training demonstrations.
+GEO_FIELDS = ["tri_v0", "tri_v1", "tri_v2", "tri_n0", "tri_n1", "tri_n2",
+              "materials.diffuse"]
+PHYS_FIELDS = ["materials.diffuse", "materials.specular", "materials.emission",
+               "materials.absorption", "materials.diff_avg", "materials.spec_avg",
+               "materials.ior", "sph_center", "sph_radius"]
+GEO_TRAIN = dict(width=128, height=128, spp=4, max_bounces=2, steps=250, lr=0.01,
+                 shift=0.45)
+PHYS_TRAIN_STEPS = 30
 
 
 def log(msg: str) -> None:
@@ -661,11 +700,13 @@ def main() -> int:
                 "sph_radius": scene.num_spheres}
         return sorted(n for n in names if have.get(n, 1))
 
-    def both_engines(scene, fields, target, w, h, n_spp, nb, seed, accel="none"):
+    def both_engines(scene, fields, target, w, h, n_spp, nb, seed, accel="none",
+                     physical=False):
         out = []
         for engine in ("cuda", "plain"):
             loss = inverse.make_loss(scene, cp, target, w, h, n_spp, nb, engine=engine,
-                                     field_names=fields, device=dev, accel=accel)
+                                     field_names=fields, device=dev, accel=accel,
+                                     physical=physical)
             out.append(inverse.value_and_grad(loss, inverse.extract_params(scene, fields),
                                               seed))
         return out
@@ -790,25 +831,35 @@ def main() -> int:
             f"kernel {ms_k1:.2f} ms, backward kernel {ms_k2:.2f} ms, the rest (pack, host, "
             f"loss, autograd) {ms_step - ms_k1 - ms_k2:.2f} ms")
 
-    def plain_step_in_chunks(fields, packed_grid=None):
+    def plain_step_in_chunks(fields, packed_grid=None, scene=None, target=None,
+                             physical=False, dims=None):
         """``value_and_grad`` of the plain engine's loss on the training step's
-        inputs, all ``tspp`` samples, taken TRAIN_PLAIN_CHUNK at a time so
-        that autograd holds one chunk's graph at once: the first pass renders
-        the image, the second sends the loss's cotangent through every chunk
-        (through ``packed_grid``'s sweeps when given)."""
+        inputs (or ``scene`` / ``target`` at ``dims`` = (width, height, spp,
+        bounces)), all samples, taken TRAIN_PLAIN_CHUNK at a time so that
+        autograd holds one chunk's graph at once: the first pass renders the
+        image, the second sends the loss's cotangent through every chunk
+        (through ``packed_grid``'s sweeps when given; ``physical`` the
+        unbiased estimator; triangle fields in grad mode geo)."""
+        scene = start if scene is None else scene
+        target = target_train if target is None else target
+        c_w, c_h, c_spp, c_nb = (tw, th, tspp, tnb) if dims is None else dims
+        grad_mode = "geo" if set(fields) & vjp.TRI_FIELDS else "full"
         leaves = {k: v.detach().clone().requires_grad_(True)
-                  for k, v in inverse.extract_params(start, fields).items()}
-        offsets = range(0, tspp, TRAIN_PLAIN_CHUNK)
+                  for k, v in inverse.extract_params(scene, fields).items()}
+        offsets = range(0, c_spp, TRAIN_PLAIN_CHUNK)
 
         def chunk_image(offset):
-            packed = mk.pack_scene(inverse.merge_params(start, leaves), dev)
-            return vjp.render_megakernel_diff_plain(packed, cp, 0, tw, th, TRAIN_PLAIN_CHUNK,
-                                                    tnb, sample_offset=offset,
-                                                    packed_grid=packed_grid)
+            packed = mk.pack_scene(inverse.merge_params(scene, leaves), dev)
+            return vjp.render_megakernel_diff_plain(packed, cp, 0, c_w, c_h,
+                                                    TRAIN_PLAIN_CHUNK, c_nb,
+                                                    sample_offset=offset,
+                                                    grad_mode=grad_mode,
+                                                    packed_grid=packed_grid,
+                                                    physical=physical)
 
         with torch.no_grad():
             img = sum(chunk_image(o) for o in offsets) / len(offsets)
-        residual = img - target_train
+        residual = img - target
         cot = 2.0 * residual / residual.numel() / len(offsets)
         grads = {k: torch.zeros_like(v) for k, v in leaves.items()}
         for o in offsets:
@@ -1663,14 +1714,14 @@ def main() -> int:
     for mode, fields in TRAIN_FIELDS.items():
         stamps = []
         mk.LAUNCHES_GRID[:] = [0, 0, 0]   # every count to 0 just before the path ...
-        vjp.LAUNCHES_GRID[:] = [0, 0]
+        vjp.LAUNCHES_BY_MODE.clear()
         t0 = time.time()
         _, params, losses = inverse.invert(
             start, cp, target_train, fields, tw, th, spp=tspp, steps=GRID_TRAIN_STEPS,
             lr=0.02, seed=0, max_bounces=tnb, engine="cuda", accel="grid",
             callback=lambda step, val, p: stamps.append(time.time()))
         torch.cuda.synchronize()
-        k1g, k2g = mk.LAUNCHES_GRID[0], vjp.LAUNCHES_GRID[int(mode == "full")]  # ... after
+        k1g, k2g = mk.LAUNCHES_GRID[0], vjp.LAUNCHES_BY_MODE[(mode, False, True)]  # ... after
         check(k1g == GRID_TRAIN_STEPS and k2g == GRID_TRAIN_STEPS,
               f"grid train {mode}: {k1g} / {k2g} grid launches")
         check(all(np.isfinite(losses)) and losses[-1] < losses[0],
@@ -1758,7 +1809,299 @@ def main() -> int:
         f"{ms_again:.1f} ms; bound {bf_bound[0]:.2f} ms")
     check(bf_scaled < 0.02 and bf_mean_gap < 0.01, "bf16 image too far from the float32 one")
 
-    # ---- 15. report ----------------------------------------------------------------
+    # ---- 15. K2's geo and physical modes ---------------------------------------------
+    def k2_flops(counts, stats, mode, physical, geo, textured=False):
+        """The backward kernel's float32 work in the paths ``stats`` describes
+        (replay = one forward render of the estimator; the reverse sweep per
+        stored bounce; per visible light sample; per path)."""
+        visible = stats["shadow_rays"] - stats["shadow_rays_occluded"]
+        flops = (flop_count(counts, stats, physical=physical)
+                 + stats["path_bounces"] * REVERSE_BOUNCE_FLOPS[mode]
+                 + visible * NEE_PARTIAL_FLOPS[mode] + stats["paths"] * EYE_VJP_FLOPS[mode])
+        if textured:
+            flops += (texture_flops(stats) + stats["path_bounces"] * TEX_REVERSE_FLOPS[mode]
+                      + stats["normal_fetches"] * NMAP_PULLBACK_FLOPS)
+        if physical:
+            flops += (stats["path_bounces"] * PHYS_REVERSE_BOUNCE_FLOPS
+                      + stats["shadow_rays"] * (PHYS_LIGHT_VJP_FLOPS
+                                                + (PHYS_GEO_LIGHT_FLOPS if geo else 0)))
+        if geo:
+            flops += stats["triangle_hits"] * GEO_TRI_HIT_FLOPS
+            if textured:
+                flops += (stats.get("tex_triangle_hits", 0) * GEO_UV_VERTEX_FLOPS
+                          + stats["normal_fetches"] * GEO_TANGENT_EDGE_FLOPS)
+            if not physical:
+                flops += visible * GEO_LIGHT_VERTEX_FLOPS
+        return flops
+
+    def k2_registers(shared, textured, grid, physical, geo):
+        """ptxas's registers of the backward kernel with these flags."""
+        key = (f"megakernel_vjp/backward_kernel<1,{int(shared)},{int(textured)},{int(grid)},"
+               f"{int(physical)},{int(geo)}>")
+        return report["ptxas"][key]["registers"]
+
+    new_k2 = {}   # the kernels line's entries of the new instantiations
+
+    def new_mode_bench(label, scene, fields, dims, physical, accel="none", plain=True,
+                       launches_from=None):
+        """One gradient step of K2 in a new mode at ``dims`` = (w, h, spp,
+        bounces): the value_and_grad step, the forward and backward kernels
+        apart (medians of 5, launches counted over those six steps), registers,
+        bound and, with ``plain``, the kernel's loss and gradients against
+        the plain engine on the same inputs (2 samples per autograd graph)."""
+        b_w, b_h, b_spp, b_nb = dims
+        geo = bool(set(fields) & vjp.TRI_FIELDS)
+        textured = scene.num_textures > 0
+        grid = grid_of(scene) if accel == "grid" else None
+        packed_b = mk.pack_scene(scene, dev)
+        target_b = mk.render_megakernel(packed_b, cp, 1, b_w, b_h, b_spp, b_nb,
+                                        physical=physical, packed_grid=grid)
+        loss = inverse.make_loss(scene, cp, target_b * 0.5, b_w, b_h, b_spp, b_nb,
+                                 engine="cuda", field_names=fields, accel=accel,
+                                 physical=physical)
+        check(loss.grad_mode == ("geo" if geo else "full"),
+              f"{label}: make_loss picked {loss.grad_mode}")
+        params = inverse.extract_params(scene, fields)
+        vjp.LAUNCHES_BY_MODE.clear()   # every count to 0 just before the path ...
+        ms_step = median_ms(lambda: inverse.value_and_grad(loss, params, 0))
+        launched = dict(vjp.LAUNCHES_BY_MODE)   # ... and read just after
+        key = (vjp._mode_name(True, physical, geo), textured, grid is not None)
+        check(launched == {key: 6}, f"{label}: backward launches {launched} for 6 steps")
+        n_b = b_w * b_h
+        g_img = torch.rand((b_h, b_w, 3), generator=g).to(dev)
+        ms_k1 = median_ms(lambda: mk.render_block_sums_cuda(packed_b, cp, 0, b_w, b_h, b_spp,
+                                                            b_nb, 0, n_b, physical=physical,
+                                                            packed_grid=grid))
+        ms_k2 = median_ms(lambda: vjp.backward_rows_cuda(
+            packed_b, cp, 0, b_w, b_h, b_spp, b_nb, g_img, full=True, physical=physical,
+            geo=geo, tex_grads="textures" in fields, packed_grid=grid))
+        route = vjp.LAST_ROUTE
+        # the paths' tally from the plain version, on up to 4 of the samples
+        stats_b, s_spp = {}, min(b_spp, 4)
+        mk.render_megakernel_plain(packed_b, cp, 0, b_w, b_h, s_spp, b_nb, stats=stats_b,
+                                   physical=physical, packed_grid=grid)
+        stats_b = {k: v * b_spp / s_spp for k, v in stats_b.items()}
+        mode = "full"
+        flops = k2_flops(packed_b.counts, stats_b, mode, physical, geo, textured)
+        texels = packed_b.tex_counts[1] if "textures" in fields else 0
+        rows = vjp._grad_rows(packed_b.counts, True, texels, physical, geo)
+        planes = vjp._st_planes(True, textured, "textures" in fields, packed_b.tex_nmap,
+                                physical)
+        bound = bound_of(flops, packed_b.table_bytes + 12 * n_b + 4 * rows)
+        entry = dict(label=label, dims=dims, ms_step=ms_step, ms_k1=ms_k1, ms=ms_k2,
+                     bound=bound, route=route, rows=rows, launches=launched[key],
+                     registers=k2_registers(route == "shared", textured, grid is not None,
+                                            physical, geo),
+                     scratch_bytes_ms=2 * 4 * planes * stats_b["path_bounces"]
+                     / PEAK_BYTES_PER_S * 1e3, plain_ms=None, max_abs_err=None)
+        if plain:
+            v_k, g_k = inverse.value_and_grad(loss, params, 0)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            v_p, g_p = plain_step_in_chunks(fields, grid, scene=scene, target=target_b * 0.5,
+                                            physical=physical, dims=dims)
+            torch.cuda.synchronize()
+            entry["plain_ms"] = (time.time() - t0) * 1e3
+            worst, rel, err, ok = grad_gap(g_k, g_p)
+            entry.update(max_abs_err=err, worst=worst, rel=rel)
+            loss_gap = abs(float(v_k) - float(v_p)) / abs(float(v_p))
+            log(f"[{'geo' if geo and not physical else 'physical'} vjp vs plain] {label} "
+                f"{b_w}x{b_h} {b_spp} spp {b_nb} bounces ({len(fields)} fields, "
+                f"{TRAIN_PLAIN_CHUNK} samples per autograd graph): loss gap {loss_gap:.1e}; "
+                f"worst field {worst} at {rel:.2e} of its max|g| (max abs err {err:.2e}); "
+                f"plain value_and_grad step {entry['plain_ms']:.0f} ms")
+            check(loss_gap <= 1e-5, f"{label}: loss differs by {loss_gap:.2e}")
+            check(ok, f"{label}: {worst} off by {rel:.2e} of max|g| at full size")
+        if launches_from is not None:
+            entry["launches_on"] = launches_from
+        log(f"[{'geo' if geo and not physical else 'physical'} grad bench] {label} {b_w}x{b_h} "
+            f"{b_spp} spp {b_nb} bounces ({', '.join(fields)}): value_and_grad step "
+            f"{ms_step:.2f} ms = forward kernel {ms_k1:.2f} + backward kernel {ms_k2:.2f} + the "
+            f"rest {ms_step - ms_k1 - ms_k2:.2f} (medians of 5); backward kernel "
+            f"{entry['registers']} registers, {rows} gradient rows ({route} route), bound "
+            f"{bound[0]:.4f} ms ({bound[1]}; {flops:.3e} float32 operations), kernel at "
+            f"{bound[0] / ms_k2:.1%} of it; its checkpoints ({planes} planes per stored bounce) "
+            f"{entry['scratch_bytes_ms']:.3f} ms at the memory rate; {launched[key]} backward "
+            "launches over the six steps")
+        return entry
+
+    # 15a. the new modes against the plain engine on small inputs
+    report["new_modes_vs_plain"] = {}
+    small_cases = [
+        ("color quad", lambda: textured_quad(), GEO_FIELDS + ["textures"], False, "none"),
+        ("color+normal quad", lambda: textured_quad(nmap=True), GEO_FIELDS + ["textures"],
+         False, "none"),
+        ("color quad", lambda: textured_quad(), ["materials.diffuse", "textures", "pl_pos"],
+         True, "none"),
+        ("color+normal quad", lambda: textured_quad(nmap=True),
+         ["materials.diffuse", "textures", "tri_v0", "tri_v1"], True, "none"),
+        ("cornell", presets.cornell, PHYS_FIELDS, True, "grid"),
+        ("stress_dense", lambda: presets.stress_dense(3000), PHYS_FIELDS, True, "none"),
+    ]
+    for name, make, fields, physical, accel in small_cases:
+        scene = make()
+        (v_k, g_k), (v_p, g_p) = both_engines(scene, fields, rand_target, gw, gh, 2, 4, 5,
+                                              accel=accel, physical=physical)
+        torch.cuda.synchronize()
+        worst, rel, _, ok = grad_gap(g_k, g_p)
+        loss_gap = abs(float(v_k) - float(v_p)) / abs(float(v_p))
+        tag = "physical" if physical else "geo"
+        log(f"[{tag} vjp vs plain] {name:18s} {gw}x{gh} {'through the grid ' if accel == 'grid' else ''}"
+            f"{','.join(fields)}: loss gap {loss_gap:.1e}; worst field {worst} at {rel:.2e} "
+            f"of its max|g|; rows {vjp.LAST_ROUTE} route")
+        check(loss_gap <= 1e-5, f"{tag} vjp {name}: loss differs by {loss_gap:.2e}")
+        check(ok, f"{tag} vjp {name}: {worst} off by {rel:.2e} of max|g|")
+        report["new_modes_vs_plain"][f"{tag}/{name}/{accel}"] = (worst, rel)
+
+    # 15b. each mode's gradient step at the training step's size, against the
+    # plain engine there, and the same step twice
+    train_dims = (tw, th, tspp, tnb)
+    new_k2["geo"] = new_mode_bench("cornell", start, GEO_FIELDS, train_dims, False)
+    new_k2["physical"] = new_mode_bench("cornell", start, PHYS_FIELDS, train_dims, True)
+    new_k2["physical, geo"] = new_mode_bench(
+        "cornell", start, PHYS_FIELDS + ["tri_v0", "tri_v1", "tri_v2"], train_dims, True)
+    new_k2["physical, grid"] = new_mode_bench("cornell", start, PHYS_FIELDS, train_dims, True,
+                                              accel="grid")
+    new_k2["physical, textured"] = new_mode_bench(
+        "color+normal quad", textured_quad(nmap=True),
+        ["materials.diffuse", "textures", "pl_pos"], (128, 128, 16, 4), True)
+    for mode, fields, physical in (("geo", GEO_FIELDS, False), ("physical", PHYS_FIELDS, True)):
+        loss = inverse.make_loss(start, cp, target_train, tw, th, tspp, tnb, engine="cuda",
+                                 field_names=fields, physical=physical)
+        params = inverse.extract_params(start, fields)
+        (v1, g1), (v2, g2) = (inverse.value_and_grad(loss, params, 0) for _ in range(2))
+        torch.cuda.synchronize()
+        _, rel, _, _ = grad_gap(g1, g2)
+        new_k2[mode]["two_runs_rel_diff"] = rel
+        log(f"[{mode} vjp determinism] cornell {tw}x{th} {tspp} spp {tnb} bounces, the same "
+            f"{loss.grad_mode} step twice: largest difference {rel:.2e} of a field's max|g|; "
+            f"losses {'bit-equal' if float(v1) == float(v2) else 'differ'}")
+        check(float(v1) == float(v2), f"{mode}: the forward render differs between two runs")
+        check(rel <= 1e-4, f"two runs of one {mode} step differ by {rel:.2e} of max|g|")
+
+    # 15c. the global-atomics route: geo rows of a 5,120-triangle mesh
+    mesh = presets.mesh_dense(4)
+    mesh_rows = vjp._grad_rows(mk.pack_scene(mesh, "cpu").counts, True, tri=True)
+    # the plain engine's autograd graph at this size: the reckoning of its memory
+    # from a 32x32 x 2 spp probe (the graph grows with pixels x samples)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    both_engines(mesh, GEO_FIELDS, rand_target, gw, gh, 2, tnb, 5)
+    torch.cuda.synchronize()
+    per_sample_px = (torch.cuda.max_memory_allocated() - base) / (gw * gh * 2)
+    free = torch.cuda.mem_get_info()[0]
+    fits = int(0.5 * free / per_sample_px)   # pixel-samples whose graph fits in half the free memory
+    chunk_fits = fits >= tw * th * TRAIN_PLAIN_CHUNK
+    shared_max = vjp._kernel_fn()[0].cpt_backward_shared_rows_max()
+    log(f"[geo mesh] mesh_dense(4): {mesh.num_triangles} triangles, {mesh_rows} gradient rows "
+        f"(a block's shared memory holds {shared_max}: global atomics); the plain engine's graph "
+        f"takes {per_sample_px / 1e3:.1f} kB per pixel-sample (a {gw}x{gh} x 2 spp probe), "
+        f"half the free {free / 1e9:.1f} GB holds {fits} pixel-samples: "
+        f"{'one 2-sample chunk of the full step fits, so the plain engine runs the whole step' if chunk_fits else 'the full step does not fit'}")
+    mesh_dims = train_dims if chunk_fits else (64, 64, 2, tnb)
+    new_k2["geo, mesh"] = new_mode_bench("mesh_dense(4)", mesh, GEO_FIELDS, train_dims, False,
+                                         plain=mesh_dims == train_dims)
+    if mesh_dims != train_dims:
+        # the largest share that fits: the kernel against the plain engine there
+        e = new_mode_bench("mesh_dense(4) share", mesh, GEO_FIELDS, mesh_dims, False)
+        new_k2["geo, mesh"].update(plain_ms=e["plain_ms"], max_abs_err=e["max_abs_err"],
+                                   plain_shape=f"{mesh_dims}")
+    check(new_k2["geo, mesh"]["route"] == "global", "geo mesh: rows took the shared route")
+
+    # 15d. geo training: fit a mesh's vertices through a texture
+    def meshfit_quad(shift):
+        """A quad that fills the view, its random 16x16 texture the only
+        image signal; ``shift`` moves its vertices along x."""
+        from cuda_path_tracer_ss_torch.models.scene import MaterialSpec, SceneBuilder
+
+        b = SceneBuilder()
+        tex = np.random.default_rng(3).uniform(0.05, 1.0, (16, 16, 3)).astype(np.float32)
+        m = b.add_material(MaterialSpec(diffuse=(1.0, 1.0, 1.0), diff_avg=0.9,
+                                        texture=b.add_texture(tex)))
+        s, n = 6.0, (0, 0, 1)
+        v = [(-s + shift, -s, -4.0), (s + shift, -s, -4.0), (s + shift, s, -4.0),
+             (-s + shift, s, -4.0)]
+        uv = [(0, 0), (1, 0), (1, 1), (0, 1)]
+        b.add_triangle(v[0], v[1], v[2], n, n, n, m, uv=(uv[0], uv[1], uv[2]))
+        b.add_triangle(v[0], v[2], v[3], n, n, n, m, uv=(uv[0], uv[2], uv[3]))
+        b.add_point_light((0.0, 0.0, -0.5), (40.0, 40.0, 40.0))
+        b.background = np.zeros(3, np.float32)
+        return b.build()
+
+    gt = GEO_TRAIN
+    mf_truth, mf_start = meshfit_quad(0.0), meshfit_quad(gt["shift"])
+    mf_fields = ["tri_v0", "tri_v1", "tri_v2"]
+    mf_target = mk.render_megakernel(mk.pack_scene(mf_truth, dev), cp, 0, gt["width"],
+                                     gt["height"], gt["spp"], gt["max_bounces"])
+    want_v = inverse.extract_params(mf_truth, mf_fields)
+    stamps = []
+    vjp.LAUNCHES_BY_MODE.clear()   # every count to 0 just before the path ...
+    t0 = time.time()
+    _, mf_params, mf_losses = inverse.invert(
+        mf_start, cp, mf_target, mf_fields, gt["width"], gt["height"], spp=gt["spp"],
+        steps=gt["steps"], lr=gt["lr"], seed=0, max_bounces=gt["max_bounces"], engine="cuda",
+        callback=lambda step, val, p: stamps.append(time.time()))
+    torch.cuda.synchronize()
+    mf_launches = dict(vjp.LAUNCHES_BY_MODE)   # ... and read just after
+    err0 = max(float((inverse.get_field(mf_start, k) - want_v[k]).abs().max()) for k in mf_fields)
+    err1 = max(float((mf_params[k] - want_v[k]).abs().max()) for k in mf_fields)
+    geo_train = dict(ms_per_step=(stamps[-1] - stamps[0]) / (len(stamps) - 1) * 1e3,
+                     first_step_s=stamps[0] - t0, err0=err0, err1=err1,
+                     launches=mf_launches.get(("geo", True, False), 0),
+                     losses=(mf_losses[0], mf_losses[-1]))
+    log(f"[geo train] invert a random-texture quad filling the view, {gt['width']}x"
+        f"{gt['height']} {gt['spp']} spp {gt['max_bounces']} bounces, fields "
+        f"{', '.join(mf_fields)} shifted {gt['shift']} along x, {gt['steps']} Adam steps (lr "
+        f"{gt['lr']}): max vertex error {err0:.4f} -> {err1:.4f} ({err0 / err1:.1f}x), loss "
+        f"{mf_losses[0]:.3e} -> {mf_losses[-1]:.3e}; {geo_train['ms_per_step']:.2f} ms per step "
+        f"after a first step of {geo_train['first_step_s']:.2f} s; backward launches "
+        f"{mf_launches}")
+    check(all(np.isfinite(mf_losses)), "geo train: non-finite loss")
+    check(err1 <= 0.1 * err0, f"geo train: the vertex error only fell {err0 / err1:.1f}x")
+    check(mf_launches == {("geo", True, False): gt["steps"]},
+          f"geo train: backward launches {mf_launches}")
+    e = new_mode_bench("meshfit quad", mf_start, mf_fields, (gt["width"], gt["height"],
+                                                             gt["spp"], gt["max_bounces"]),
+                       False)
+    new_k2["geo, textured"] = dict(e, launches=geo_train["launches"],
+                                   launches_on=f"[geo train], {gt['steps']} Adam steps")
+
+    # 15e. physical training: cornell's diffuse colours through the unbiased estimator
+    phys_target = mk.render_megakernel(packed_train, cp, 0, tw, th, tspp, tnb, physical=True)
+    phys_fields = ["materials.diffuse", "materials.spec_avg"]
+    stamps = []
+    vjp.LAUNCHES_BY_MODE.clear()   # every count to 0 just before the path ...
+    mk.LAUNCHES_BY_VARIANT[:] = [0, 0, 0]
+    t0 = time.time()
+    _, pt_params, pt_losses = inverse.invert(
+        start, cp, phys_target, phys_fields, tw, th, spp=tspp, steps=PHYS_TRAIN_STEPS, lr=0.02,
+        seed=0, max_bounces=tnb, engine="cuda", physical=True,
+        callback=lambda step, val, p: stamps.append(time.time()))
+    torch.cuda.synchronize()
+    pt_launches = (list(mk.LAUNCHES_BY_VARIANT), dict(vjp.LAUNCHES_BY_MODE))   # ... read after
+    pt_err = float((pt_params["materials.diffuse"] - truth).abs()[lit].max())
+    phys_train = dict(ms_per_step=(stamps[-1] - stamps[0]) / (len(stamps) - 1) * 1e3,
+                      first_step_s=stamps[0] - t0, losses=(pt_losses[0], pt_losses[-1]),
+                      launches=pt_launches[1].get(("physical", False, False), 0))
+    log(f"[physical train] invert(physical=True) cornell {tw}x{th} {tspp} spp {tnb} bounces, "
+        f"fields {', '.join(phys_fields)}, diffuse + 0.2, {PHYS_TRAIN_STEPS} Adam steps: loss "
+        f"{pt_losses[0]:.3e} -> {pt_losses[-1]:.3e} ({pt_losses[-1] / pt_losses[0]:.3f} of the "
+        f"first), max|diffuse - truth| 0.2 -> {pt_err:.4f}; {phys_train['ms_per_step']:.2f} ms "
+        f"per step; forward launches per variant {pt_launches[0]}, backward {pt_launches[1]}")
+    check(all(np.isfinite(pt_losses)), "physical train: non-finite loss")
+    check(pt_losses[-1] < 0.1 * pt_losses[0], f"physical train: loss only fell to "
+          f"{pt_losses[-1] / pt_losses[0]:.3f} of its first value")
+    check(pt_launches[0] == [0, PHYS_TRAIN_STEPS, 0]
+          and pt_launches[1] == {("physical", False, False): PHYS_TRAIN_STEPS},
+          f"physical train: launches {pt_launches}")
+    new_k2["physical"].update(launches=phys_train["launches"],
+                              launches_on=f"[physical train], {PHYS_TRAIN_STEPS} Adam steps")
+    report.update(geo_train=geo_train, phys_train=phys_train,
+                  new_k2={k: {kk: vv for kk, vv in v.items() if kk != "bound"}
+                          for k, v in new_k2.items()})
+
+    # ---- 16. report ----------------------------------------------------------------
     k1_common = {
         "route": "cuda",
         "source": "cuda_path_tracer_ss_torch/csrc/megakernel.cu",
@@ -1970,7 +2313,30 @@ def main() -> int:
         "ms_per_training_step": v["ms_per_step"],
         "grid_work_bound_ms": v["grid_work"][0],
         "share_of_bound": v["bound"][0] / v["ms"],
-    } for mode, v in grid_train.items()]}
+    } for mode, v in grid_train.items()] + [{
+        "name": f"backward_megakernel[{label}]",
+        "route": "cuda",
+        "source": "cuda_path_tracer_ss_torch/csrc/megakernel_vjp.cu",
+        "replaces": "cuda_path_tracer_ss_tpu/ops/pallas/megakernel_vjp.py:269",
+        "launches": v["launches"],
+        "max_abs_err": v["max_abs_err"],
+        "ms": v["ms"],
+        "plain_ms": v["plain_ms"],
+        "bound_ms": v["bound"][0],
+        "bound_by": v["bound"][1],
+        "library_ms": None,
+        "shape": f"{v['label']} {v['dims'][0]}x{v['dims'][1]}, {v['dims'][3]} bounces, "
+                 f"{v['dims'][2]} spp, one launch",
+        "plain_shape": v.get("plain_shape", (f"the same, value_and_grad step of the plain "
+                                             f"engine, {TRAIN_PLAIN_CHUNK} samples at a time")),
+        "launches_on": v.get("launches_on", "six value_and_grad steps at that shape"),
+        "ms_value_and_grad_step": v["ms_step"],
+        "registers": v["registers"],
+        "rows": v["rows"],
+        "rows_route": v["route"],
+        "scratch_bytes_ms": v["scratch_bytes_ms"],
+        "share_of_bound": v["bound"][0] / v["ms"],
+    } for label, v in new_k2.items()]}
     report.update(grid_main_path_s=grid_main_s, grid_train={
         m: {k: v for k, v in t.items() if k != "bound"} for m, t in grid_train.items()},
         bf16_main_path_s=bf_main_s)

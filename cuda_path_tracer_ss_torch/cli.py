@@ -325,7 +325,8 @@ def cmd_invert(args):
 
     def image(scene):
         return render(pack_scene(scene, args.device), cp, args.seed,
-                      args.width, args.height, args.spp, args.bounces)
+                      args.width, args.height, args.spp, args.bounces,
+                      physical=args.physical)
 
     target = image(scene_true)
 

@@ -1290,6 +1290,703 @@ CPT_HD void physical_direct(const SceneTables& sc, int seed, int pixel, int samp
     }
 }
 
+// ---- adjoints of the physical estimator (the backward kernel's physical mode) ----
+//
+// Hand-written reverse-mode derivatives of the physical estimator above: what
+// the TPU backward kernel takes with jax.vjp over _physical_direct (its
+// direct_fn) and _physical_prev_pdf (its pdf_fn) in
+// cuda_path_tracer_ss_tpu/ops/pallas/megakernel_vjp.py. The conventions are
+// those of reverse-mode autodiff of the same formulas: a max(x, eps) clamp
+// passes its cotangent only where x > eps, a branch choice, a mask, an
+// occlusion or a light draw carries nothing, |x|' = sgn(x). Every output
+// cotangent is ADDED to. A lobe whose selection probability is 0 still has a
+// gradient in that probability (spec_avg's at spec_avg = 0), so an adjoint
+// evaluates a lobe wherever the material's flags allow it, where the forward
+// skips it. The clamps the reference lacks stay: where the Fresnel term is
+// undefined (an infinite ior not flagged pure) the specular probability is 0
+// and passes nothing.
+
+// sign with sgn(0) = +1 (not copysign: -0.0 counts as >= 0)
+CPT_HD float sgn(float x) { return x >= 0.0f ? 1.0f : -1.0f; }
+
+CPT_HD void cross3(float ax, float ay, float az, float bx, float by, float bz,
+                   float& ox, float& oy, float& oz) {
+    ox = ay * bz - az * by;
+    oy = az * bx - ax * bz;
+    oz = ax * by - ay * bx;
+}
+
+// VJP of normalize3 at v with cotangent g. Where the eps clamp is live the
+// forward is v * const, so the projection term drops.
+CPT_HD void norm3_vjp(float vx, float vy, float vz, float gx, float gy, float gz, float eps,
+                      float& ax, float& ay, float& az) {
+    const float n2 = vx * vx + vy * vy + vz * vz;
+    const float inv = CPT_RSQRT(fmaxf(n2, eps));
+    const float nx = vx * inv, ny = vy * inv, nz = vz * inv;
+    const float proj = (n2 > eps) ? (nx * gx + ny * gy + nz * gz) : 0.0f;
+    ax = (gx - nx * proj) * inv;
+    ay = (gy - ny * proj) * inv;
+    az = (gz - nz * proj) * inv;
+}
+
+// VJP of rotate_y_to(target t, sample s) with cotangent g of the rotated
+// vector: (A_target, A_sample). Recomputes the quaternion, the degenerate
+// fallback included (there the output is (sx, -sy, -sz) and t gets nothing).
+CPT_HD void rot_y_to_vjp(float tx, float ty, float tz, float sx, float sy, float sz,
+                         float gx, float gy, float gz,
+                         float& atx, float& aty, float& atz,
+                         float& asx, float& asy, float& asz) {
+    const float w0 = 1.0f + ty;
+    const float rx = tz, rz = -tx;
+    const float n2 = w0 * w0 + rx * rx + rz * rz;
+    if (n2 < 1e-12f) {
+        atx = 0.0f; aty = 0.0f; atz = 0.0f;
+        asx = gx; asy = -gy; asz = -gz;
+        return;
+    }
+    const float inv = CPT_RSQRT(n2);
+    const float w = w0 * inv;
+    const float rhx = rx * inv, rhz = rz * inv;
+    // u = r_hat x s + w*s   (r_hat's y component is 0)
+    const float ux = -rhz * sy + w * sx;
+    const float uy = rhz * sx - rhx * sz + w * sy;
+    const float uz = rhx * sy + w * sz;
+    // o = s + 2 r_hat x u:  A_rhat += u x (2g);  A_u = (2g) x r_hat
+    const float g2x = 2.0f * gx, g2y = 2.0f * gy, g2z = 2.0f * gz;
+    float arx, ary, arz, aux, auy, auz, cx, cy, cz, ex, ey, ez;
+    cross3(ux, uy, uz, g2x, g2y, g2z, arx, ary, arz);
+    cross3(g2x, g2y, g2z, rhx, 0.0f, rhz, aux, auy, auz);
+    // u = r_hat x s + w s:  A_rhat += s x A_u;  A_s = A_u x r_hat + w A_u + g
+    cross3(sx, sy, sz, aux, auy, auz, cx, cy, cz);
+    arx += cx; ary += cy; arz += cz;
+    cross3(aux, auy, auz, rhx, 0.0f, rhz, ex, ey, ez);
+    asx = ex + w * aux + gx;
+    asy = ey + w * auy + gy;
+    asz = ez + w * auz + gz;
+    const float aw = sx * aux + sy * auy + sz * auz;
+    // w = w0*inv; r_hat = r*inv  (raw r = (tz, 0, -tx): its y adjoint drops)
+    float aw0 = inv * aw;
+    float arx_r = inv * arx;
+    float arz_r = inv * arz;
+    const float ainv = w0 * aw + rx * arx + rz * arz;
+    const float an2 = -0.5f * inv * inv * inv * ainv;
+    aw0 += 2.0f * w0 * an2;
+    arx_r += 2.0f * rx * an2;
+    arz_r += 2.0f * rz * an2;
+    atx = -arz_r;
+    aty = aw0;
+    atz = arx_r;
+    (void)ary;
+}
+
+// Adds the adjoint of a unit lobe axis (lobe_axis(t) = rotate_y_to(t, +Y)) to
+// the cotangent of its target t.
+CPT_HD void lobe_axis_vjp(float tx, float ty, float tz, float gx, float gy, float gz, float* a_t) {
+    if (gx == 0.0f && gy == 0.0f && gz == 0.0f) return;
+    float ax, ay, az, u0, u1, u2;
+    rot_y_to_vjp(tx, ty, tz, 0.0f, 1.0f, 0.0f, gx, gy, gz, ax, ay, az, u0, u1, u2);
+    a_t[0] += ax; a_t[1] += ay; a_t[2] += az;
+}
+
+// w = A / max(S, eps) with S = A + B: cotangent a_w -> a_A, a_B.
+CPT_HD void mis_ratio_vjp(float A, float S, float eps, float a_w, float& a_A, float& a_B) {
+    const float sc = fmaxf(S, eps);
+    a_A = a_w / sc;
+    a_B = (S > eps) ? -a_w * A / (sc * sc) : 0.0f;
+    a_A += a_B;
+}
+
+// Adjoint of phong_pdf_p: cotangent a_pdf -> the axis, the exponent, w.
+CPT_HD void phong_pdf_vjp(float ax, float ay, float az, float exponent, float wx, float wy,
+                          float wz, float a_pdf, float* a_axis, float& a_exp, float* a_w) {
+    const float cos_a = dot3(wx, wy, wz, ax, ay, az);
+    if (a_pdf == 0.0f || !isfinite(exponent) || !(cos_a > 0.0f)) return;
+    const float safe = fmaxf(cos_a, 1e-12f);
+    const float lg = logf(safe);
+    const float pdf = (exponent + 1.0f) / TWO_PI * expf(exponent * lg);
+    a_exp += a_pdf * (pdf / (exponent + 1.0f) + pdf * lg);
+    if (cos_a > 1e-12f) {
+        const float a_c = a_pdf * pdf * exponent / safe;
+        a_w[0] += a_c * ax; a_w[1] += a_c * ay; a_w[2] += a_c * az;
+        a_axis[0] += a_c * wx; a_axis[1] += a_c * wy; a_axis[2] += a_c * wz;
+    }
+}
+
+// Adjoint of beckmann_pdf_p: cotangent a_pdf -> the axis, the roughness, m.
+CPT_HD void beckmann_pdf_vjp(float ax, float ay, float az, float roughness, float mx, float my,
+                             float mz, float a_pdf, float* a_axis, float& a_rough, float* a_m) {
+    const float cos_t = dot3(mx, my, mz, ax, ay, az);
+    if (a_pdf == 0.0f || !(cos_t > 0.0f) || !(roughness > 0.0f)) return;
+    const float r2 = roughness * roughness;
+    const float cos_safe = fmaxf(cos_t, 1e-12f);
+    const float s2 = 1.0f - cos_t * cos_t;
+    const float sin_t = sqrtf(fmaxf(s2, 1e-12f));
+    const float tan_t = sin_t / cos_safe;
+    const float r2_safe = fmaxf(r2, 1e-12f);
+    const float pdf = expf(-tan_t / r2_safe) * (1.0f + tan_t * tan_t)
+                      / (TWO_PI * r2_safe * sin_t);
+    // ln pdf = -tan/r2 + ln(1 + tan^2) - ln(2 pi r2) - ln sin
+    const float a_tan = a_pdf * pdf * (-1.0f / r2_safe + 2.0f * tan_t / (1.0f + tan_t * tan_t));
+    const float a_sin = -a_pdf * pdf / sin_t + a_tan / cos_safe;
+    float a_c = (s2 > 1e-12f) ? -a_sin * cos_t / sin_t : 0.0f;
+    if (cos_t > 1e-12f) a_c += -a_tan * tan_t / cos_safe;
+    if (r2 > 1e-12f) {
+        a_rough += a_pdf * pdf * (tan_t / (r2_safe * r2_safe) - 1.0f / r2_safe) * 2.0f * roughness;
+    }
+    a_m[0] += a_c * ax; a_m[1] += a_c * ay; a_m[2] += a_c * az;
+    a_axis[0] += a_c * mx; a_axis[1] += a_c * my; a_axis[2] += a_c * mz;
+}
+
+// Adjoint of fresnel_p: cotangent a_f of the reflectance -> cos_i, the ior.
+CPT_HD void fresnel_p_vjp(float cos_i, float m_ior, float a_f, float& a_cos, float& a_ior) {
+    const bool outside = cos_i > 0.0f;
+    const float n1 = outside ? 1.0f : m_ior;
+    const float n2 = outside ? m_ior : 1.0f;
+    const float cos_pos = fabsf(cos_i);
+    const float n2s = fmaxf(n2, 1e-12f);
+    const float n_ratio = n1 / n2s;
+    const float sin_t2 = n_ratio * n_ratio * (1.0f - cos_pos * cos_pos);
+    if (sin_t2 > 1.0f) return;  // total internal reflection: a constant 1
+    const float cos_t = sqrtf((sin_t2 < 1.0f) ? fmaxf(1.0f - sin_t2, 0.0f) : 1.0f);
+    const float ds_raw = n1 * cos_pos + n2 * cos_t, dp_raw = n2 * cos_pos + n1 * cos_t;
+    const float ds = fmaxf(ds_raw, 1e-12f), dp = fmaxf(dp_raw, 1e-12f);
+    const float rs = (n1 * cos_pos - n2 * cos_t) / ds;
+    const float rp = (n2 * cos_pos - n1 * cos_t) / dp;
+    // F = (rs^2 + rp^2) / 2; rs = (n1 c - n2 ct) / ds, rp = (n2 c - n1 ct) / dp
+    const float a_ns = a_f * rs / ds, a_np = a_f * rp / dp;
+    const float a_ds = (ds_raw > 1e-12f) ? -a_f * rs * rs / ds : 0.0f;
+    const float a_dp = (dp_raw > 1e-12f) ? -a_f * rp * rp / dp : 0.0f;
+    float a_n1 = (a_ns + a_ds) * cos_pos + (a_dp - a_np) * cos_t;
+    float a_n2 = (a_ds - a_ns) * cos_t + (a_np + a_dp) * cos_pos;
+    float a_c = (a_ns + a_ds) * n1 + (a_np + a_dp) * n2;
+    const float a_ct = (a_ds - a_ns) * n2 + (a_dp - a_np) * n1;
+    if (sin_t2 < 1.0f) {
+        // cos_t = sqrt(1 - sin_t2), sin_t2 = n_ratio^2 (1 - c^2), n_ratio = n1 / n2
+        const float a_st2 = -a_ct / (2.0f * cos_t);
+        const float a_nr = a_st2 * 2.0f * n_ratio * (1.0f - cos_pos * cos_pos);
+        a_c += a_st2 * n_ratio * n_ratio * (-2.0f * cos_pos);
+        a_n1 += a_nr / n2s;
+        if (n2 > 1e-12f) a_n2 += -a_nr * n_ratio / n2s;
+    }
+    a_ior += outside ? a_n2 : a_n1;
+    a_cos += sgn(cos_i) * a_c;
+}
+
+// Adjoint of spec_probability: -> cos_i and the spec_avg / ior columns of a_m.
+CPT_HD void spec_probability_vjp(float cos_i, const float* m, float a_p, float& a_cos,
+                                 float* a_m) {
+    if (a_p == 0.0f) return;
+    const bool pure = m[18] > 0.5f;
+    const float f = pure ? 1.0f : fresnel_p(cos_i, m[13]);
+    if (isnan(m[15] * f)) return;
+    a_m[15] += a_p * f;
+    if (!pure) fresnel_p_vjp(cos_i, m[13], a_p * m[15], a_cos, a_m[13]);
+}
+
+// Cotangents of the fields of a Lobes.
+struct LobesAdj {
+    float nux = 0.0f, nuy = 0.0f, nuz = 0.0f;
+    float gax = 0.0f, gay = 0.0f, gaz = 0.0f;
+    float cax = 0.0f, cay = 0.0f, caz = 0.0f;
+    float prob_g = 0.0f, prob_ct = 0.0f, nv = 0.0f;
+};
+
+// physical_lobes with the axis of every lobe the material's flags allow (the
+// Phong lobe's unless Cook-Torrance, the Cook-Torrance lobe's at a roughness
+// above 0), also where its probability is 0: what the adjoints evaluate. The
+// values the forward reads are the same.
+CPT_HD Lobes physical_lobes_all(float dx, float dy, float dz, float nx, float ny, float nz,
+                                float cos_i, const float* m) {
+    Lobes lb = physical_lobes(dx, dy, dz, nx, ny, nz, cos_i, m);
+    const bool ct = m[19] > 0.5f;
+    const float cos_pos = fabsf(cos_i);
+    if (!ct && !(lb.prob_g > 0.0f)) {
+        lobe_axis(dx + 2.0f * cos_pos * nx, dy + 2.0f * cos_pos * ny, dz + 2.0f * cos_pos * nz,
+                  lb.gax, lb.gay, lb.gaz);
+    }
+    if (ct && m[17] > 0.0f && !(lb.prob_ct > 0.0f)) lobe_axis(nx, ny, nz, lb.cax, lb.cay, lb.caz);
+    return lb;
+}
+
+// Adjoint of physical_lobes: cotangent `a` of the lobes -> d, n, cos_i and the
+// material columns (spec_avg, ior).
+CPT_HD void physical_lobes_vjp(float dx, float dy, float dz, float nx, float ny, float nz,
+                               float cos_i, const float* m, const LobesAdj& a,
+                               float* a_d, float* a_n, float& a_cos, float* a_m) {
+    float t0, t1, t2;
+    norm3_vjp(nx, ny, nz, a.nux, a.nuy, a.nuz, 1e-12f, t0, t1, t2);
+    a_n[0] += t0; a_n[1] += t1; a_n[2] += t2;
+    const bool ct = m[19] > 0.5f;
+    const float a_ps = (ct ? 0.0f : a.prob_g) + ((ct && m[17] > 0.0f) ? a.prob_ct : 0.0f);
+    spec_probability_vjp(cos_i, m, a_ps, a_cos, a_m);
+    const float cos_pos = fabsf(cos_i);
+    // the Phong axis about the quirk mirror direction d + 2 |cos_i| n
+    float a_mr[3] = {0.0f, 0.0f, 0.0f};
+    lobe_axis_vjp(dx + 2.0f * cos_pos * nx, dy + 2.0f * cos_pos * ny, dz + 2.0f * cos_pos * nz,
+                  a.gax, a.gay, a.gaz, a_mr);
+    for (int c = 0; c < 3; ++c) {
+        a_d[c] += a_mr[c];
+        a_n[c] += 2.0f * cos_pos * a_mr[c];
+    }
+    a_cos += sgn(cos_i) * 2.0f * dot3(nx, ny, nz, a_mr[0], a_mr[1], a_mr[2]);
+    // the Cook-Torrance axis about the raw normal
+    lobe_axis_vjp(nx, ny, nz, a.cax, a.cay, a.caz, a_n);
+    if (cos_pos > 1e-6f) a_cos += sgn(cos_i) * a.nv;
+}
+
+// Adjoint of lobe_terms toward w: cotangents of (s_d, p_g, s_ct, p_ct,
+// cos_s) -> the lobes (alb), the material columns (diff_avg, spec_exp,
+// roughness), d, the raw normal n and w.
+CPT_HD void lobe_terms_vjp(const Lobes& lb, const float* m, float dx, float dy, float dz,
+                           float nx, float ny, float nz, float wx, float wy, float wz,
+                           float a_sd, float a_pg, float a_sct, float a_pct, float a_cs,
+                           LobesAdj& alb, float* a_m, float* a_d, float* a_n, float* a_w) {
+    const float craw = dot3(lb.nux, lb.nuy, lb.nuz, wx, wy, wz);
+    const float cos_s = fmaxf(0.0f, craw);
+    a_m[14] += a_sd * INV_PI * cos_s;
+    const float a_c = a_cs + a_sd * m[14] * INV_PI;
+    if (craw > 0.0f) {
+        alb.nux += a_c * wx; alb.nuy += a_c * wy; alb.nuz += a_c * wz;
+        a_w[0] += a_c * lb.nux; a_w[1] += a_c * lb.nuy; a_w[2] += a_c * lb.nuz;
+    }
+    if (!(m[19] > 0.5f)) {
+        // p_g = prob_g * phong(gloss axis, spec_exp, w)
+        if (a_pg == 0.0f) return;
+        alb.prob_g += a_pg * phong_pdf_p(lb.gax, lb.gay, lb.gaz, m[12], wx, wy, wz);
+        float a_ax[3] = {0.0f, 0.0f, 0.0f};
+        phong_pdf_vjp(lb.gax, lb.gay, lb.gaz, m[12], wx, wy, wz, a_pg * lb.prob_g, a_ax, a_m[12],
+                      a_w);
+        alb.gax += a_ax[0]; alb.gay += a_ax[1]; alb.gaz += a_ax[2];
+        return;
+    }
+    if (!(m[17] > 0.0f) || (a_sct == 0.0f && a_pct == 0.0f)) return;
+    // the Cook-Torrance reflection branch: h = normalize(w - d)
+    const float hvx = wx - dx, hvy = wy - dy, hvz = wz - dz;
+    float hx, hy, hz;
+    normalize3(hvx, hvy, hvz, 1e-12f, hx, hy, hz);
+    const float dh_raw = dot3(dx, dy, dz, hx, hy, hz);
+    const float dh = fmaxf(fabsf(dh_raw), 1e-12f);
+    const float beck = beckmann_pdf_p(lb.cax, lb.cay, lb.caz, m[17], hx, hy, hz);
+    const float p_dir = beck / (4.0f * dh);
+    const float p_ct = lb.prob_ct * p_dir;
+    const float nh_r = dot3(nx, ny, nz, hx, hy, hz), nl_r = dot3(nx, ny, nz, wx, wy, wz);
+    const float nh = fabsf(nh_r), nl = fabsf(nl_r);
+    const float a1 = 2.0f * nh * nl / dh;
+    const float b1 = 2.0f * nh * lb.nv / dh;
+    const float inner = fminf(1.0f, a1);
+    const float geom = fminf(inner, b1);
+    // s_ct = geom / nv * p_ct, p_ct = prob_ct * p_dir, p_dir = beck / (4 dh)
+    const float a_pct_all = a_pct + a_sct * geom / lb.nv;
+    const float a_geom = a_sct * p_ct / lb.nv;
+    alb.nv += -a_sct * geom * p_ct / (lb.nv * lb.nv);
+    alb.prob_ct += a_pct_all * p_dir;
+    const float a_pdir = a_pct_all * lb.prob_ct;
+    const float a_beck = a_pdir / (4.0f * dh);
+    float a_dh = -a_pdir * p_dir / dh;
+    // geom = min(min(1, a1), b1)
+    const float ab1 = (b1 < inner) ? a_geom : 0.0f;
+    const float aa1 = ((a1 < 1.0f) && (b1 >= inner)) ? a_geom : 0.0f;
+    const float a_nh = aa1 * 2.0f * nl / dh + ab1 * 2.0f * lb.nv / dh;
+    const float a_nl = aa1 * 2.0f * nh / dh;
+    alb.nv += ab1 * 2.0f * nh / dh;
+    a_dh += -aa1 * a1 / dh - ab1 * b1 / dh;
+    float a_h[3] = {0.0f, 0.0f, 0.0f};
+    const float snh = sgn(nh_r) * a_nh, snl = sgn(nl_r) * a_nl;
+    a_n[0] += snh * hx + snl * wx; a_n[1] += snh * hy + snl * wy; a_n[2] += snh * hz + snl * wz;
+    a_h[0] += snh * nx; a_h[1] += snh * ny; a_h[2] += snh * nz;
+    a_w[0] += snl * nx; a_w[1] += snl * ny; a_w[2] += snl * nz;
+    if (fabsf(dh_raw) > 1e-12f) {
+        const float adr = sgn(dh_raw) * a_dh;
+        a_d[0] += adr * hx; a_d[1] += adr * hy; a_d[2] += adr * hz;
+        a_h[0] += adr * dx; a_h[1] += adr * dy; a_h[2] += adr * dz;
+    }
+    float a_ax[3] = {0.0f, 0.0f, 0.0f};
+    beckmann_pdf_vjp(lb.cax, lb.cay, lb.caz, m[17], hx, hy, hz, a_beck, a_ax, a_m[17], a_h);
+    alb.cax += a_ax[0]; alb.cay += a_ax[1]; alb.caz += a_ax[2];
+    float avx, avy, avz;
+    norm3_vjp(hvx, hvy, hvz, a_h[0], a_h[1], a_h[2], 1e-12f, avx, avy, avz);
+    a_w[0] += avx; a_w[1] += avy; a_w[2] += avz;
+    a_d[0] -= avx; a_d[1] -= avy; a_d[2] -= avz;
+}
+
+// Whether a light sample toward w can contribute or carry a gradient: some
+// lobe the material's flags allow has a non-zero density (or cosine) there.
+CPT_HD bool lobes_reach(const Lobes& lb, const float* m, float dx, float dy, float dz,
+                        float wx, float wy, float wz, float cos_s) {
+    if (cos_s > 0.0f) return true;
+    if (!(m[19] > 0.5f)) return phong_pdf_p(lb.gax, lb.gay, lb.gaz, m[12], wx, wy, wz) != 0.0f;
+    if (!(m[17] > 0.0f)) return false;
+    float hx, hy, hz;
+    normalize3(wx - dx, wy - dy, wz - dz, 1e-12f, hx, hy, hz);
+    return beckmann_pdf_p(lb.cax, lb.cay, lb.caz, m[17], hx, hy, hz) != 0.0f;
+}
+
+// Cotangents of the fields of a LightGeom.
+struct LightGeomAdj {
+    float area0 = 0.0f, area1 = 0.0f, total = 0.0f;
+    float n0x = 0.0f, n0y = 0.0f, n0z = 0.0f, n1x = 0.0f, n1y = 0.0f, n1z = 0.0f;
+};
+
+// Adjoint of tri_geom at the triangle v[9]: cotangents of the area and the
+// unit normal -> the three vertices' (added to rows row .. row + 8).
+template <class Sink>
+CPT_HD void tri_geom_vjp(const float* v, float a_area, float anx, float any, float anz, int row,
+                         Sink& acc) {
+    const float e1x = v[3] - v[0], e1y = v[4] - v[1], e1z = v[5] - v[2];
+    const float e2x = v[6] - v[0], e2y = v[7] - v[1], e2z = v[8] - v[2];
+    float rx, ry, rz;
+    cross3(e1x, e1y, e1z, e2x, e2y, e2z, rx, ry, rz);
+    const float n2 = rx * rx + ry * ry + rz * rz;
+    const float inv = CPT_RSQRT(fmaxf(n2, 1e-12f));
+    float arx = anx * inv, ary = any * inv, arz = anz * inv;
+    if (n2 > 1e-12f) {
+        // area = sqrt(n2) / 2, unit normal = r n2^-1/2
+        const float a_n2 = a_area * 0.25f * inv
+                           - 0.5f * inv * inv * inv * (anx * rx + any * ry + anz * rz);
+        arx += 2.0f * rx * a_n2; ary += 2.0f * ry * a_n2; arz += 2.0f * rz * a_n2;
+    }
+    // r = e1 x e2
+    float a1x, a1y, a1z, a2x, a2y, a2z;
+    cross3(e2x, e2y, e2z, arx, ary, arz, a1x, a1y, a1z);
+    cross3(arx, ary, arz, e1x, e1y, e1z, a2x, a2y, a2z);
+    acc.add(row + 0, -(a1x + a2x)); acc.add(row + 1, -(a1y + a2y)); acc.add(row + 2, -(a1z + a2z));
+    acc.add(row + 3, a1x); acc.add(row + 4, a1y); acc.add(row + 5, a1z);
+    acc.add(row + 6, a2x); acc.add(row + 7, a2y); acc.add(row + 8, a2z);
+}
+
+// Adjoint of al_light_geom at area-light row `al`: -> its six vertices'
+// (added to rows row .. row + 17).
+template <class Sink>
+CPT_HD void al_light_geom_vjp(const float* al, const LightGeomAdj& a, int row, Sink& acc) {
+    tri_geom_vjp(al, a.area0 + a.total, a.n0x, a.n0y, a.n0z, row, acc);
+    tri_geom_vjp(al + 9, a.area1 + a.total, a.n1x, a.n1y, a.n1z, row + 9, acc);
+}
+
+// Adjoint of al_sample_point: cotangents of the point (a_l) and of the
+// picked triangle's normal (a_nl) -> the six vertices' (added to rows row ..
+// row + 17) and the geometry's (ag). The pick and the draws carry nothing.
+template <class Sink>
+CPT_HD void al_sample_point_vjp(const LightGeom& g, float u1, float u2, float upick,
+                                const float* a_l, const float* a_nl, LightGeomAdj& ag, int row,
+                                Sink& acc) {
+    const bool first = upick < (g.area0 / g.total);
+    const float su = sqrtf(fminf(fmaxf(u1, 0.0f), 1.0f));
+    const float w[3] = {1.0f - su, su * (1.0f - u2), su * u2};
+    const int v0 = row + (first ? 0 : 9);
+    for (int k = 0; k < 3; ++k) {
+        for (int c = 0; c < 3; ++c) acc.add(v0 + 3 * k + c, a_l[c] * w[k]);
+    }
+    if (first) {
+        ag.n0x += a_nl[0]; ag.n0y += a_nl[1]; ag.n0z += a_nl[2];
+    } else {
+        ag.n1x += a_nl[0]; ag.n1y += a_nl[1]; ag.n1z += a_nl[2];
+    }
+}
+
+// Adjoint of the unit direction w = (l - p) / |l - p| with d2 = max(|l - p|^2,
+// eps): cotangents of w and d2 -> of the offset l - p.
+CPT_HD void light_direction_vjp(float offx, float offy, float offz, float d2, float dist,
+                                const float* a_w, float a_d2, float* a_off) {
+    const float inv_d = 1.0f / dist;
+    const float a_inv = dot3(a_w[0], a_w[1], a_w[2], offx, offy, offz);
+    a_d2 += -a_inv * inv_d * inv_d * 0.5f / dist;
+    a_off[0] = a_w[0] * inv_d; a_off[1] = a_w[1] * inv_d; a_off[2] = a_w[2] * inv_d;
+    if (offx * offx + offy * offy + offz * offz > 1e-12f) {
+        a_off[0] += 2.0f * offx * a_d2; a_off[1] += 2.0f * offy * a_d2; a_off[2] += 2.0f * offz * a_d2;
+    }
+    (void)d2;
+}
+
+// Adjoint of physical_prev_pdf of the branch taken at (d, raw normal n,
+// material m) toward the continuation nd, the lobes built from (d, n, m):
+// cotangent a_pdf -> d, n, nd and the material columns.
+CPT_HD void physical_prev_pdf_vjp(float dx, float dy, float dz, float nx, float ny, float nz,
+                                  float ndx, float ndy, float ndz, const float* m, int branch,
+                                  float a_pdf, float* a_d, float* a_n, float* a_nd, float* a_m) {
+    if (a_pdf == 0.0f) return;
+    const float cos_i = -dot3(dx, dy, dz, nx, ny, nz);
+    const Lobes lb = physical_lobes_all(dx, dy, dz, nx, ny, nz, cos_i, m);
+    LobesAdj alb;
+    if (branch == BRANCH_DIFFUSE) {
+        // m_pd max(0, nd . nu) / pi
+        const float craw = dot3(ndx, ndy, ndz, lb.nux, lb.nuy, lb.nuz);
+        a_m[14] += a_pdf * fmaxf(0.0f, craw) * INV_PI;
+        if (craw > 0.0f) {
+            const float a_c = a_pdf * m[14] * INV_PI;
+            a_nd[0] += a_c * lb.nux; a_nd[1] += a_c * lb.nuy; a_nd[2] += a_c * lb.nuz;
+            alb.nux += a_c * ndx; alb.nuy += a_c * ndy; alb.nuz += a_c * ndz;
+        }
+    } else if (branch == BRANCH_GLOSS) {
+        alb.prob_g += a_pdf * phong_pdf_p(lb.gax, lb.gay, lb.gaz, m[12], ndx, ndy, ndz);
+        float a_ax[3] = {0.0f, 0.0f, 0.0f};
+        phong_pdf_vjp(lb.gax, lb.gay, lb.gaz, m[12], ndx, ndy, ndz, a_pdf * lb.prob_g, a_ax,
+                      a_m[12], a_nd);
+        alb.gax += a_ax[0]; alb.gay += a_ax[1]; alb.gaz += a_ax[2];
+    } else if (branch == BRANCH_COOK_TORRANCE) {
+        const float hvx = ndx - dx, hvy = ndy - dy, hvz = ndz - dz;
+        float hx, hy, hz;
+        normalize3(hvx, hvy, hvz, 1e-12f, hx, hy, hz);
+        const float dm = dot3(dx, dy, dz, hx, hy, hz);
+        if (!(dm < 0.0f)) return;
+        // prob_ct beck(h) / (4 max(|dm|, eps))
+        const float den = 4.0f * fmaxf(fabsf(dm), 1e-12f);
+        const float beck = beckmann_pdf_p(lb.cax, lb.cay, lb.caz, m[17], hx, hy, hz);
+        alb.prob_ct += a_pdf * beck / den;
+        const float a_beck = a_pdf * lb.prob_ct / den;
+        float a_h[3] = {0.0f, 0.0f, 0.0f}, a_ax[3] = {0.0f, 0.0f, 0.0f};
+        if (fabsf(dm) > 1e-12f) {
+            // d/d dm of 1/(4|dm|) at dm < 0: +1/(4 dm^2)
+            const float a_dm = a_pdf * lb.prob_ct * beck * 4.0f / (den * den);
+            a_d[0] += a_dm * hx; a_d[1] += a_dm * hy; a_d[2] += a_dm * hz;
+            a_h[0] += a_dm * dx; a_h[1] += a_dm * dy; a_h[2] += a_dm * dz;
+        }
+        beckmann_pdf_vjp(lb.cax, lb.cay, lb.caz, m[17], hx, hy, hz, a_beck, a_ax, a_m[17], a_h);
+        alb.cax += a_ax[0]; alb.cay += a_ax[1]; alb.caz += a_ax[2];
+        float avx, avy, avz;
+        norm3_vjp(hvx, hvy, hvz, a_h[0], a_h[1], a_h[2], 1e-12f, avx, avy, avz);
+        a_nd[0] += avx; a_nd[1] += avy; a_nd[2] += avz;
+        a_d[0] -= avx; a_d[1] -= avy; a_d[2] -= avz;
+    } else {
+        return;
+    }
+    float a_cos = 0.0f;
+    physical_lobes_vjp(dx, dy, dz, nx, ny, nz, cos_i, m, alb, a_d, a_n, a_cos, a_m);
+    // cos_i = -d . n
+    a_d[0] -= a_cos * nx; a_d[1] -= a_cos * ny; a_d[2] -= a_cos * nz;
+    a_n[0] -= a_cos * dx; a_n[1] -= a_cos * dy; a_n[2] -= a_cos * dz;
+}
+
+// Where physical_direct_vjp adds the rows it owns: per point light
+// `pl_stride` rows from row_pl0 (position 3, power 3); the emission rows of an
+// area light's material at mat * pcols + 9; under GEO per area light
+// `al_stride` rows from row_al0, its six vertices from +3.
+struct DirectRows {
+    int row_pl0, pl_stride, pcols, row_al0, al_stride;
+};
+
+// Adjoint of physical_direct<false> at one hit, and its value: `dir`
+// receives the direct radiance by physical_direct's own arithmetic, (gx, gy,
+// gz) is its cotangent. Adds the cotangents of the hit point (a_p), the
+// shading normal (a_n), the incoming direction (a_d), the hit distance (a_t),
+// the carried density (a_pp) and the hit material's 20 columns (a_m), and
+// adds the point-light rows, the emission rows of the area lights' materials
+// and, under GEO, the area lights' vertex rows into `acc`. `lb` receives the
+// lobes (physical_lobes_all). Occlusion, the light draws and the picks carry
+// nothing. `occ_out` (point lights first, then area lights), when given,
+// receives 1 where a shadow ray ran and was occluded, else 0.
+template <bool GEO, class Sink>
+CPT_HD void physical_direct_vjp(const SceneTables& sc, int seed, int pixel, int sample,
+                                int pair0, float px, float py, float pz, float nx, float ny,
+                                float nz, float dx, float dy, float dz, float t_w, float pp,
+                                const float* m, int prim, const DirectRows& R, float gx,
+                                float gy, float gz, Sink& acc, float* dir, float* a_p,
+                                float* a_n, float* a_d, float& a_t, float& a_pp, float* a_m,
+                                Lobes& lb, int* occ_out = nullptr) {
+    const float cos_i = -dot3(dx, dy, dz, nx, ny, nz);
+    const bool inside = cos_i <= 0.0f;
+    const int num_pls = sc.num_point_lights, num_als = sc.num_area_lights;
+    lb = physical_lobes_all(dx, dy, dz, nx, ny, nz, cos_i, m);
+    if (occ_out) {
+        for (int i = 0; i < num_pls + num_als; ++i) occ_out[i] = 0;
+    }
+
+    // emission MIS weight for a BSDF-sampled hit on a light
+    float a_hit = 0.0f, cgx = 0.0f, cgy = 0.0f, cgz = 0.0f;
+    int hit_light = -1;
+    bool hit_first = false;
+    for (int i = 0; i < num_als; ++i) {
+        const float* al = sc.area_lights + i * AL_COLS;
+        const int t0 = (int)al[21] + sc.num_spheres;
+        if (prim == t0 || prim == t0 + 1) {
+            const LightGeom g = al_light_geom(al);
+            a_hit = g.total;
+            cgx = (prim == t0) ? g.n0x : g.n1x;
+            cgy = (prim == t0) ? g.n0y : g.n1y;
+            cgz = (prim == t0) ? g.n0z : g.n1z;
+            hit_light = i;
+            hit_first = prim == t0;
+        }
+    }
+    const float cdot = dot3(dx, dy, dz, cgx, cgy, cgz);
+    const float cos_l_hit = fabsf(cdot);
+    const float den_h = fmaxf(a_hit * cos_l_hit, 1e-12f);
+    const float p_l_hit = (t_w * t_w) / den_h;
+    float w_emit = 1.0f;
+    const bool mis = (pp > 0.0f) && (a_hit > 0.0f);
+    const float s_h = pp * pp + p_l_hit * p_l_hit;
+    if (mis) w_emit = (pp * pp) / fmaxf(s_h, 1e-20f);
+    dir[0] = m[9] * w_emit;
+    dir[1] = m[10] * w_emit;
+    dir[2] = m[11] * w_emit;
+    a_m[9] += gx * w_emit; a_m[10] += gy * w_emit; a_m[11] += gz * w_emit;
+    if (mis) {
+        float a_A, a_B;
+        mis_ratio_vjp(pp * pp, s_h, 1e-20f, gx * m[9] + gy * m[10] + gz * m[11], a_A, a_B);
+        a_pp += a_A * 2.0f * pp;
+        const float a_plh = a_B * 2.0f * p_l_hit;
+        a_t += a_plh * 2.0f * t_w / den_h;
+        if (a_hit * cos_l_hit > 1e-12f) {
+            const float a_den = -a_plh * p_l_hit / den_h;
+            const float a_cl = sgn(cdot) * a_den * a_hit;
+            a_d[0] += a_cl * cgx; a_d[1] += a_cl * cgy; a_d[2] += a_cl * cgz;
+            if (GEO) {
+                LightGeomAdj ag;
+                ag.total = a_den * cos_l_hit;
+                if (hit_first) {
+                    ag.n0x = a_cl * dx; ag.n0y = a_cl * dy; ag.n0z = a_cl * dz;
+                } else {
+                    ag.n1x = a_cl * dx; ag.n1y = a_cl * dy; ag.n1z = a_cl * dz;
+                }
+                al_light_geom_vjp(sc.area_lights + hit_light * AL_COLS, ag,
+                                  R.row_al0 + R.al_stride * hit_light + 3, acc);
+            }
+        }
+    }
+    if (inside) return;  // NEE only from outside
+
+    LobesAdj alb;
+    const float sox = px + lb.nux * RAY_BUMP_EPSILON;
+    const float soy = py + lb.nuy * RAY_BUMP_EPSILON;
+    const float soz = pz + lb.nuz * RAY_BUMP_EPSILON;
+    const float gv[3] = {gx, gy, gz};
+
+    for (int i = 0; i < num_pls; ++i) {
+        const float* pl = sc.point_lights + i * PL_COLS;
+        const float offx = pl[0] - px, offy = pl[1] - py, offz = pl[2] - pz;
+        const float d2 = fmaxf(offx * offx + offy * offy + offz * offz, 1e-12f);
+        const float dist = sqrtf(d2);
+        const float inv_d = 1.0f / dist;
+        const float wx = offx * inv_d, wy = offy * inv_d, wz = offz * inv_d;
+        float s_d, p_g, s_ct, p_ct, cos_s;
+        lobe_terms(lb, m, dx, dy, dz, nx, ny, nz, wx, wy, wz, s_d, p_g, s_ct, p_ct, cos_s);
+        if (!lobes_reach(lb, m, dx, dy, dz, wx, wy, wz, cos_s)) continue;
+        const bool occ = occlusion_sweep(sc, sox, soy, soz, wx, wy, wz,
+                                         dist - 2.0f * RAY_BUMP_EPSILON);
+        if (occ_out) occ_out[i] = occ ? 1 : 0;
+        if (occ) continue;  // zero, with every derivative
+        const float irr = 1.0f / (FOUR_PI * d2);
+        dir[0] += pl[3] * irr * (m[0] * s_d + m[3] * (p_g + s_ct));
+        dir[1] += pl[4] * irr * (m[1] * s_d + m[4] * (p_g + s_ct));
+        dir[2] += pl[5] * irr * (m[2] * s_d + m[5] * (p_g + s_ct));
+        // contribution_c = power_c irr (diffuse_c s_d + spec_c (p_g + s_ct))
+        const int row = R.row_pl0 + R.pl_stride * i;
+        float a_irr = 0.0f, a_sd = 0.0f, a_sp = 0.0f;
+        for (int c = 0; c < 3; ++c) {
+            const float lc = m[c] * s_d + m[3 + c] * (p_g + s_ct);
+            const float gc = gv[c] * pl[3 + c] * irr;
+            acc.add(row + 3 + c, gv[c] * irr * lc);
+            a_irr += gv[c] * pl[3 + c] * lc;
+            a_m[c] += gc * s_d;
+            a_m[3 + c] += gc * (p_g + s_ct);
+            a_sd += gc * m[c];
+            a_sp += gc * m[3 + c];
+        }
+        float a_w[3] = {0.0f, 0.0f, 0.0f}, a_off[3];
+        lobe_terms_vjp(lb, m, dx, dy, dz, nx, ny, nz, wx, wy, wz, a_sd, a_sp, a_sp, 0.0f, 0.0f,
+                       alb, a_m, a_d, a_n, a_w);
+        light_direction_vjp(offx, offy, offz, d2, dist, a_w, -a_irr * irr / d2, a_off);
+        for (int c = 0; c < 3; ++c) {
+            acc.add(row + c, a_off[c]);
+            a_p[c] -= a_off[c];
+        }
+    }
+
+    for (int i = 0; i < num_als; ++i) {
+        const float* al = sc.area_lights + i * AL_COLS;
+        const LightGeom g = al_light_geom(al);
+        float u1, u2, u3, upick;
+        uniform_pair(seed, pixel, sample, pair0 + 2 + 2 * i, u1, u2);
+        uniform_pair(seed, pixel, sample, pair0 + 3 + 2 * i, u3, upick);
+        float lx, ly, lz, nlx, nly, nlz;
+        al_sample_point(g, al, u1, u2, upick, lx, ly, lz, nlx, nly, nlz);
+        const float offx = lx - px, offy = ly - py, offz = lz - pz;
+        const float d2 = fmaxf(offx * offx + offy * offy + offz * offz, 1e-12f);
+        const float dist = sqrtf(d2);
+        const float inv_d = 1.0f / dist;
+        const float wx = offx * inv_d, wy = offy * inv_d, wz = offz * inv_d;
+        float s_d, p_g, s_ct, p_ct, cos_s;
+        lobe_terms(lb, m, dx, dy, dz, nx, ny, nz, wx, wy, wz, s_d, p_g, s_ct, p_ct, cos_s);
+        if (!lobes_reach(lb, m, dx, dy, dz, wx, wy, wz, cos_s)) continue;
+        const float cl_raw = dot3(nlx, nly, nlz, wx, wy, wz);
+        const float cos_l = fabsf(cl_raw);
+        const bool occ = occlusion_sweep(sc, sox, soy, soz, wx, wy, wz,
+                                         dist - 2.0f * RAY_BUMP_EPSILON);
+        if (occ_out) occ_out[num_pls + i] = occ ? 1 : 0;
+        if (occ) continue;  // zero, with every derivative
+        const float geo = cos_l * g.total / d2;
+        const float den_l = fmaxf(g.total * cos_l, 1e-12f);
+        const float p_l = d2 / den_l;
+        const float p_b = m[14] * cos_s * INV_PI;
+        const float s_d2 = p_l * p_l + p_b * p_b;
+        const float s_g2 = p_l * p_l + p_g * p_g;
+        const float s_c2 = p_l * p_l + p_ct * p_ct;
+        const float w_d = (p_l * p_l) / fmaxf(s_d2, 1e-12f);
+        const float w_g = (p_l * p_l) / fmaxf(s_g2, 1e-12f);
+        const float w_ct = (p_l * p_l) / fmaxf(s_c2, 1e-12f);
+        const int lmat = (int)al[22];
+        const float* le = sc.materials + lmat * M_COLS + 9;
+        dir[0] += le[0] * (m[0] * s_d * geo * w_d + m[3] * (p_g * geo * w_g + s_ct * geo * w_ct));
+        dir[1] += le[1] * (m[1] * s_d * geo * w_d + m[4] * (p_g * geo * w_g + s_ct * geo * w_ct));
+        dir[2] += le[2] * (m[2] * s_d * geo * w_d + m[5] * (p_g * geo * w_g + s_ct * geo * w_ct));
+        // contribution_c = le_c (diffuse_c X_d + spec_c (X_g + X_ct)), X_d = s_d geo w_d, ...
+        const float xd = s_d * geo * w_d, xg = p_g * geo * w_g, xc = s_ct * geo * w_ct;
+        float a_xd = 0.0f, a_xs = 0.0f;
+        for (int c = 0; c < 3; ++c) {
+            const float ec = gv[c] * le[c];
+            acc.add(lmat * R.pcols + 9 + c, gv[c] * (m[c] * xd + m[3 + c] * (xg + xc)));
+            a_m[c] += ec * xd;
+            a_m[3 + c] += ec * (xg + xc);
+            a_xd += ec * m[c];
+            a_xs += ec * m[3 + c];
+        }
+        float a_sd = a_xd * geo * w_d, a_pg = a_xs * geo * w_g, a_sct = a_xs * geo * w_ct;
+        const float a_geo = a_xd * s_d * w_d + a_xs * (p_g * w_g + s_ct * w_ct);
+        float a_pl = 0.0f, a_pct = 0.0f, a_A, a_B;
+        mis_ratio_vjp(p_l * p_l, s_d2, 1e-12f, a_xd * s_d * geo, a_A, a_B);
+        a_pl += a_A * 2.0f * p_l;
+        const float a_pb = a_B * 2.0f * p_b;
+        mis_ratio_vjp(p_l * p_l, s_g2, 1e-12f, a_xs * p_g * geo, a_A, a_B);
+        a_pl += a_A * 2.0f * p_l;
+        a_pg += a_B * 2.0f * p_g;
+        mis_ratio_vjp(p_l * p_l, s_c2, 1e-12f, a_xs * s_ct * geo, a_A, a_B);
+        a_pl += a_A * 2.0f * p_l;
+        a_pct += a_B * 2.0f * p_ct;
+        // p_b = diff_avg cos_s / pi
+        a_m[14] += a_pb * cos_s * INV_PI;
+        const float a_cs = a_pb * m[14] * INV_PI;
+        // p_l = d2 / max(total cos_l, eps), geo = cos_l total / d2
+        float a_d2 = a_pl / den_l - a_geo * geo / d2;
+        float a_total = a_geo * cos_l / d2, a_cl = a_geo * g.total / d2;
+        if (g.total * cos_l > 1e-12f) {
+            const float a_den = -a_pl * p_l / den_l;
+            a_total += a_den * cos_l;
+            a_cl += a_den * g.total;
+        }
+        // cos_l = |nl . w|
+        const float scl = sgn(cl_raw) * a_cl;
+        float a_w[3] = {scl * nlx, scl * nly, scl * nlz}, a_off[3];
+        lobe_terms_vjp(lb, m, dx, dy, dz, nx, ny, nz, wx, wy, wz, a_sd, a_pg, a_sct, a_pct, a_cs,
+                       alb, a_m, a_d, a_n, a_w);
+        light_direction_vjp(offx, offy, offz, d2, dist, a_w, a_d2, a_off);
+        for (int c = 0; c < 3; ++c) a_p[c] -= a_off[c];
+        if (GEO) {
+            LightGeomAdj ag;
+            ag.total = a_total;
+            const float a_nl[3] = {scl * wx, scl * wy, scl * wz};
+            const int row = R.row_al0 + R.al_stride * i + 3;
+            al_sample_point_vjp(g, u1, u2, upick, a_off, a_nl, ag, row, acc);
+            al_light_geom_vjp(al, ag, row, acc);
+        }
+        (void)u3;
+    }
+
+    float a_cos = 0.0f;
+    physical_lobes_vjp(dx, dy, dz, nx, ny, nz, cos_i, m, alb, a_d, a_n, a_cos, a_m);
+    // cos_i = -d . n
+    a_d[0] -= a_cos * nx; a_d[1] -= a_cos * ny; a_d[2] -= a_cos * nz;
+    a_n[0] -= a_cos * dx; a_n[1] -= a_cos * dy; a_n[2] -= a_cos * dz;
+}
+
 // ---- one pixel, all samples -------------------------------------------------------
 
 // x rounded to the nearest bfloat16 (ties to even) and widened back: the

@@ -3,10 +3,15 @@
 //
 // Replaces the TPU kernel
 // cuda_path_tracer_ss_tpu/ops/pallas/megakernel_vjp.py::_make_backward_kernel
-// (launched there by _backward_grads) in grad modes "linear" and "full", each
-// for untextured and for textured scenes (color maps; normal maps in full
-// mode), each replaying through linear sweeps or the supercell grid's (the
-// forward's own sweeps, megakernel.cuh). One thread per pixel over a 1-D grid,
+// (launched there by _backward_grads) in every grad mode: "linear" and "full"
+// of the reference-parity estimator, "geo" (full plus the triangle and
+// area-light vertex rows) and the physical estimator's adjoint with or without
+// geo, each for untextured and for textured scenes (color maps; normal maps
+// in full, geo and physical mode), replaying through linear sweeps or the
+// supercell grid's (the forward's own sweeps, megakernel.cuh). Only what can
+// be reached is instantiated: geo and physical imply the full path adjoint,
+// and geo never takes the grid (geometry that moves would leave its cell lists
+// stale). One thread per pixel over a 1-D grid,
 // the ragged edge masked by
 // i < n_local; the
 // per-pixel math is in megakernel_vjp.cuh and replays the path with the
@@ -22,7 +27,8 @@
 // sums into its own rows in shared memory with atomicAdd and writes them once
 // to out[block][rows]; the caller sums over blocks. Larger row counts (4 rows
 // per sphere on a scene of thousands of spheres, 3 per texel of a large atlas)
-// add straight into out[rows] with global atomicAdd. Either way the order of
+// add straight into out[rows] with global atomicAdd (as do geo mode's 18 rows
+// per triangle on a mesh of a few hundred triangles). Either way the order of
 // float additions differs from run to run: results agree to rounding, not to
 // the bit. Texel rows take one atomicAdd per bilinear corner and channel.
 //
@@ -53,7 +59,7 @@ struct AtomicSink {
     }
 };
 
-template <bool FULL, bool SHARED, bool TEXTURED, bool GRID>
+template <bool FULL, bool SHARED, bool TEXTURED, bool GRID, bool PHYSICAL, bool GEO>
 __global__ void backward_kernel(cpt::SceneTables sc, cpt::RenderParams p, cpt::GradLayout L,
                                 cpt::TexLayout T, const float* __restrict__ g,
                                 float* __restrict__ scratch, float* __restrict__ out) {
@@ -70,9 +76,9 @@ __global__ void backward_kernel(cpt::SceneTables sc, cpt::RenderParams p, cpt::G
         st.planes = T.planes;
         AtomicSink sink;
         sink.rows = SHARED ? block_rows : out;
-        cpt::backward_pixel<FULL, TEXTURED>(cpt::grid_tables<GRID>(sc), p, L, T,
-                                            p.pixel_offset + i, g[3 * i], g[3 * i + 1],
-                                            g[3 * i + 2], st, sink);
+        cpt::backward_pixel<FULL, TEXTURED, PHYSICAL, GEO>(cpt::grid_tables<GRID>(sc), p, L, T,
+                                                           p.pixel_offset + i, g[3 * i],
+                                                           g[3 * i + 1], g[3 * i + 2], st, sink);
     }
     if (SHARED) {
         __syncthreads();
@@ -81,29 +87,51 @@ __global__ void backward_kernel(cpt::SceneTables sc, cpt::RenderParams p, cpt::G
     }
 }
 
-template <bool FULL, bool SHARED, bool TEXTURED>
-void launch_backward_t(const cpt::SceneTables& sc, const cpt::RenderParams& p,
-                       const cpt::GradLayout& L, const cpt::TexLayout& T, const float* g,
-                       float* scratch, float* out, int blocks, size_t smem, cudaStream_t s) {
-    if (sc.grid.idx != nullptr) {
-        backward_kernel<FULL, SHARED, TEXTURED, true><<<blocks, THREADS_PER_BLOCK, smem, s>>>(
-            sc, p, L, T, g, scratch, out);
-    } else {
-        backward_kernel<FULL, SHARED, TEXTURED, false><<<blocks, THREADS_PER_BLOCK, smem, s>>>(
-            sc, p, L, T, g, scratch, out);
-    }
-}
+// One launch of the instantiation the flags select.
+struct Launch {
+    cpt::SceneTables sc;
+    cpt::RenderParams p;
+    cpt::GradLayout L;
+    cpt::TexLayout T;
+    const float* g;
+    float* scratch;
+    float* out;
+    int blocks;
+    size_t smem;
+    cudaStream_t s;
 
-template <bool FULL, bool SHARED>
-void launch_backward(const cpt::SceneTables& sc, const cpt::RenderParams& p,
-                     const cpt::GradLayout& L, const cpt::TexLayout& T, const float* g,
-                     float* scratch, float* out, int blocks, size_t smem, cudaStream_t s) {
-    if (T.on) {
-        launch_backward_t<FULL, SHARED, true>(sc, p, L, T, g, scratch, out, blocks, smem, s);
-    } else {
-        launch_backward_t<FULL, SHARED, false>(sc, p, L, T, g, scratch, out, blocks, smem, s);
+    template <bool FULL, bool SHARED, bool TEXTURED, bool GRID, bool PHYSICAL, bool GEO>
+    void run() const {
+        backward_kernel<FULL, SHARED, TEXTURED, GRID, PHYSICAL, GEO>
+            <<<blocks, THREADS_PER_BLOCK, smem, s>>>(sc, p, L, T, g, scratch, out);
     }
-}
+
+    // textured or not, grid or not (geo: never the grid)
+    template <bool FULL, bool SHARED, bool PHYSICAL, bool GEO>
+    int mode() const {
+        const bool grid = sc.grid.idx != nullptr;
+        if constexpr (GEO) {
+            if (grid) return (int)cudaErrorInvalidValue;
+            if (T.on) run<FULL, SHARED, true, false, PHYSICAL, GEO>();
+            else run<FULL, SHARED, false, false, PHYSICAL, GEO>();
+        } else {
+            if (T.on && grid) run<FULL, SHARED, true, true, PHYSICAL, GEO>();
+            else if (T.on) run<FULL, SHARED, true, false, PHYSICAL, GEO>();
+            else if (grid) run<FULL, SHARED, false, true, PHYSICAL, GEO>();
+            else run<FULL, SHARED, false, false, PHYSICAL, GEO>();
+        }
+        return 0;
+    }
+
+    template <bool SHARED>
+    int grad_mode(bool full, bool physical, bool geo) const {
+        if (physical && geo) return mode<true, SHARED, true, true>();
+        if (physical) return mode<true, SHARED, true, false>();
+        if (geo) return mode<true, SHARED, false, true>();
+        if (full) return mode<true, SHARED, false, false>();
+        return mode<false, SHARED, false, false>();
+    }
+};
 
 }  // namespace
 
@@ -115,11 +143,13 @@ int cpt_backward_shared_rows_max() { return SHARED_ROWS_MAX; }
 // Gradient rows (megakernel_vjp.cuh: GradLayout) of the render of flat pixels
 // [pixel_offset, pixel_offset + n_local) for the per-sample cotangent
 // g[n_local][3]. Tables, texture bundle, grid bundle and camera as
-// cpt_render_megakernel takes them (a grid selects the grid instantiation). `full` selects the path adjoint; on a textured scene
-// `tex_grads` adds the texel rows (3 per atlas texel) and `tex_nmap` says that
-// some material has a normal map. scratch holds max(max_bounces, 1) * planes *
-// n_local floats (planes: tex_layout(...).planes; 33 in full mode, 16 in
-// linear mode without textures). With
+// cpt_render_megakernel takes them (a grid selects the grid instantiation).
+// `full` selects the path adjoint, `physical` the physical estimator's and
+// `geo` the triangle rows (both imply full; geo takes no grid); on a textured
+// scene `tex_grads` adds the texel rows (3 per atlas texel) and `tex_nmap` says
+// that some material has a normal map. scratch holds max(max_bounces, 1) *
+// planes * n_local floats (planes: tex_layout(...).planes; 16 in linear mode,
+// 33 in full and geo mode, 38 in physical mode, without textures). With
 // `shared` != 0, out is [blocks][rows], every entry written, blocks =
 // ceil(n_local / cpt_backward_threads_per_block()); with `shared` == 0, out is
 // [rows], zeroed by the caller and added to atomically.
@@ -135,8 +165,9 @@ int cpt_backward_megakernel(const float* spheres, int num_spheres,
                             const int* grid_meta, const float* cam_host,
                             int seed, int pixel_offset, int n_local, int sample_offset,
                             int spp, int max_bounces, int width, int height,
-                            int full, int tex_grads, int tex_nmap, int shared, const float* g,
-                            float* scratch, float* out, void* stream) {
+                            int full, int physical, int geo, int tex_grads, int tex_nmap,
+                            int shared, const float* g, float* scratch, float* out,
+                            void* stream) {
     cpt::SceneTables sc;
     sc.spheres = spheres; sc.num_spheres = num_spheres;
     sc.triangles = triangles; sc.num_triangles = num_triangles;
@@ -152,22 +183,22 @@ int cpt_backward_megakernel(const float* spheres, int num_spheres,
     p.seed = seed; p.pixel_offset = pixel_offset; p.n_local = n_local;
     p.sample_offset = sample_offset; p.spp = spp; p.max_bounces = max_bounces;
     cpt::set_image_size(p, width, height);
-    const cpt::TexLayout T = cpt::tex_layout(full != 0, num_textures > 0, tex_grads != 0,
-                                             tex_nmap != 0);
-    const cpt::GradLayout L = cpt::grad_layout(num_spheres, num_materials, num_point_lights,
-                                               num_area_lights, full != 0,
-                                               T.grads ? texels : 0);
+    const bool any_full = full || physical || geo;
+    const cpt::TexLayout T = cpt::tex_layout(any_full, num_textures > 0, tex_grads != 0,
+                                             tex_nmap != 0, physical != 0);
+    const cpt::GradLayout L = cpt::grad_layout(num_spheres, num_triangles, num_materials,
+                                               num_point_lights, num_area_lights, any_full,
+                                               T.grads ? texels : 0, physical != 0, geo != 0);
     if (shared && L.rows > SHARED_ROWS_MAX) return (int)cudaErrorInvalidValue;
-    const int blocks = (n_local + THREADS_PER_BLOCK - 1) / THREADS_PER_BLOCK;
-    const size_t smem = shared ? (size_t)L.rows * sizeof(float) : 0;
-    cudaStream_t s = (cudaStream_t)stream;
-    if (full) {
-        if (shared) launch_backward<true, true>(sc, p, L, T, g, scratch, out, blocks, smem, s);
-        else launch_backward<true, false>(sc, p, L, T, g, scratch, out, blocks, 0, s);
-    } else {
-        if (shared) launch_backward<false, true>(sc, p, L, T, g, scratch, out, blocks, smem, s);
-        else launch_backward<false, false>(sc, p, L, T, g, scratch, out, blocks, 0, s);
-    }
+    Launch launch;
+    launch.sc = sc; launch.p = p; launch.L = L; launch.T = T;
+    launch.g = g; launch.scratch = scratch; launch.out = out;
+    launch.blocks = (n_local + THREADS_PER_BLOCK - 1) / THREADS_PER_BLOCK;
+    launch.smem = shared ? (size_t)L.rows * sizeof(float) : 0;
+    launch.s = (cudaStream_t)stream;
+    const int refused = shared ? launch.grad_mode<true>(full, physical, geo)
+                               : launch.grad_mode<false>(full, physical, geo);
+    if (refused) return refused;
     return (int)cudaGetLastError();
 }
 

@@ -4,8 +4,10 @@
 //
 // Replaces the per-lane body of the TPU kernel
 // cuda_path_tracer_ss_tpu/ops/pallas/megakernel_vjp.py::_make_backward_kernel
-// in its reference-parity, linear-sweep form, grad modes "linear" and "full",
-// on untextured and on textured (color-mapped, normal-mapped) scenes. Per
+// in every grad mode: "linear" and "full" on the reference-parity estimator,
+// "geo" (full plus the triangle and area-light vertex rows) and the exact
+// adjoint of the physical estimator (PHYSICAL, with or without geo), on
+// untextured and on textured (color-mapped, normal-mapped) scenes. Per
 // sample the thread
 //   1. REPLAYS the path from the counter RNG with the forward kernel's own
 //      device functions (megakernel.cuh: sweeps, scatter_sample, uniform_pair,
@@ -17,8 +19,20 @@
 //      step (scatter_chain) and the hit (hit_chain) of every bounce;
 //   3. in full mode pulls the eye ray's cotangent back into the camera rows.
 // Discrete decisions (which primitive is hit, visibility, the scatter branch,
-// the clamp of the light cosine) carry no gradient; every continuous factor
-// does.
+// the clamp of the light cosine, the light draws) carry no gradient; every
+// continuous factor does.
+//
+// PHYSICAL replays the unbiased estimator: at every hit physical_direct_vjp
+// (megakernel.cuh) gives the direct radiance with its exact adjoint, whose
+// (p, n) cotangents take the NEE planes, and whose (d, t, prev_pdf)
+// cotangents take three planes more; the reverse sweep feeds the prev_pdf
+// cotangent of bounce b+1 through physical_prev_pdf_vjp of bounce b (the
+// emission-MIS pdf chain). GEO adds the rows of every triangle's packed
+// (v0, e1, e2, n0, n1, n2): the Moller-Trumbore adjoint of the winning
+// triangle (triangle_t_vjp), the corner normals' barycentric weights, on a
+// textured scene the UV's fixed-point vertex terms and the tangent frame's
+// edge terms; and the rows of every area light's six vertices, through the
+// NEE sample point (parity) or through the light geometry (physical).
 //
 // A thread branches on its own path: only the adjoint of the scatter branch
 // that was drawn is evaluated, a miss ends the replay and stores nothing,
@@ -31,11 +45,13 @@
 //
 // Row layout of the accumulator (GradLayout): per material `pcols` rows
 // (diffuse 3, specular 3, absorption 3, emission 3, diff_avg; full mode adds
-// roughness, ior, spec_exp), then per point light power 3 (full: position 3,
-// power 3), per area light power 3, background 3; full mode appends camera
-// rows (rotation 9 row-major, position 3, tan_half_fov) and 4 rows per sphere
-// (centre 3, radius); with texel gradients 3 rows per atlas texel come last
-// (texel i, channel c at row_tex0 + 3 i + c: the atlas's own layout).
+// roughness, ior, spec_exp; physical spec_avg), then per point light power 3
+// (full: position 3, power 3), per area light power 3 (geo: then its six
+// vertices, 18), background 3; full mode appends camera rows (rotation 9
+// row-major, position 3, tan_half_fov) and 4 rows per sphere (centre 3,
+// radius), geo 18 per triangle (v0, e1, e2, n0, n1, n2); with texel gradients
+// 3 rows per atlas texel come last (texel i, channel c at row_tex0 + 3 i + c:
+// the atlas's own layout).
 //
 // A textured scene (TEXTURED) replays the texture block with its adjoint
 // bundle (texel multipliers, bilinear corners, UV partials). The cotangent of
@@ -58,10 +74,14 @@ namespace cpt {
 
 constexpr int P_COLS = 13;
 constexpr int P_COLS_FULL = 16;
+constexpr int P_COLS_PHYS = 17;
 constexpr int CAM_ROWS = 13;
+constexpr int TRI_ROWS = 18;   // geo: per triangle v0 e1 e2 n0 n1 n2
+constexpr int AL_ROWS_GEO = 21; // geo: per area light power 3, six vertices 18
 
 // Checkpoint planes of one bounce. Linear mode stores the first ST_PLANES,
-// full mode all ST_PLANES_FULL. Q_MAT, Q_CODE and Q_PRIM hold integers.
+// full and geo mode ST_PLANES_FULL, physical mode ST_PLANES_PHYS. Q_MAT,
+// Q_CODE and Q_PRIM hold integers.
 constexpr int Q_TM = 0;        // T_mid = T_in * beer (3)
 constexpr int Q_W = 3;         // sampled branch weight (3)
 constexpr int Q_BEER = 6;      // Beer-Lambert factor (3)
@@ -71,7 +91,7 @@ constexpr int Q_MAT = 13;      // material index
 constexpr int Q_CODE = 14;     // branch taken (BRANCH_*)
 constexpr int Q_CT_W = 15;     // Cook-Torrance weight
 constexpr int ST_PLANES = 16;
-constexpr int Q_P = 16;        // hit point (3)
+constexpr int Q_O = 16;        // origin of the bounce's ray (3): p = o + t d as the forward has it
 constexpr int Q_D = 19;        // incoming direction (3)
 constexpr int Q_N = 22;        // surfel normal as the forward used it (3)
 constexpr int Q_T = 25;        // hit distance
@@ -79,6 +99,10 @@ constexpr int Q_PRIM = 26;     // winning primitive
 constexpr int Q_NEE_AP = 27;   // dL/dp of the NEE terms, pre-scaled by g*T_mid (3)
 constexpr int Q_NEE_AN = 30;   // dL/dn of the NEE terms, pre-scaled (3)
 constexpr int ST_PLANES_FULL = 33;
+constexpr int Q_PA_D = 33;     // physical: dL/dd of the direct phase (3)
+constexpr int Q_PA_T = 36;     // physical: dL/dt of the direct phase (the emission MIS)
+constexpr int Q_PA_PP = 37;    // physical: dL/d prev_pdf, read by the previous bounce
+constexpr int ST_PLANES_PHYS = 38;
 
 // Planes a textured replay adds after those (offsets within each block):
 // the color block, 6 planes (14 with texel gradients) ...
@@ -111,12 +135,15 @@ struct TexLayout {
     int planes;             // planes per bounce in all
 };
 
-inline TexLayout tex_layout(bool full, bool textured, bool grads, bool nmap_scene) {
+// `full` is true for the geo and physical modes too (they build on the full
+// path adjoint).
+inline TexLayout tex_layout(bool full, bool textured, bool grads, bool nmap_scene,
+                            bool physical = false) {
     TexLayout T;
     T.on = textured;
     T.grads = textured && grads;
     T.nmap = textured && full && nmap_scene;
-    T.q_tex = full ? ST_PLANES_FULL : ST_PLANES;
+    T.q_tex = physical ? ST_PLANES_PHYS : (full ? ST_PLANES_FULL : ST_PLANES);
     T.q_uvg = T.q_tex + (textured ? (T.grads ? TEX_PLANES_GRADS : TEX_PLANES) : 0);
     T.q_nm = T.q_uvg + ((textured && full) ? UVG_PLANES : 0);
     T.planes = T.q_nm + (T.nmap ? (T.grads ? NMAP_PLANES_GRADS : NMAP_PLANES) : 0);
@@ -127,23 +154,27 @@ inline TexLayout tex_layout(bool full, bool textured, bool grads, bool nmap_scen
 constexpr float K_NEE = (float)(0.31830988618 / (4.0 * 3.141592653589793));
 
 struct GradLayout {
-    int pcols, pl_stride, pl_pow_off;
-    int row_pl0, row_al0, row_bg0, row_cam0, row_geo0, row_tex0, rows;
+    int pcols, pl_stride, pl_pow_off, al_stride;
+    int row_pl0, row_al0, row_bg0, row_cam0, row_geo0, row_tri0, row_tex0, rows;
 };
 
-// `texels`: atlas texels that get gradient rows (0 without texel gradients).
-inline GradLayout grad_layout(int num_spheres, int num_materials, int num_point_lights,
-                              int num_area_lights, bool full, int texels = 0) {
+// `texels`: atlas texels that get gradient rows (0 without texel gradients);
+// `full` is true for the geo and physical modes too.
+inline GradLayout grad_layout(int num_spheres, int num_triangles, int num_materials,
+                              int num_point_lights, int num_area_lights, bool full,
+                              int texels = 0, bool physical = false, bool geo = false) {
     GradLayout L;
-    L.pcols = full ? P_COLS_FULL : P_COLS;
+    L.pcols = physical ? P_COLS_PHYS : (full ? P_COLS_FULL : P_COLS);
     L.pl_stride = full ? 6 : 3;
     L.pl_pow_off = full ? 3 : 0;
+    L.al_stride = geo ? AL_ROWS_GEO : 3;
     L.row_pl0 = num_materials * L.pcols;
     L.row_al0 = L.row_pl0 + L.pl_stride * num_point_lights;
-    L.row_bg0 = L.row_al0 + 3 * num_area_lights;
+    L.row_bg0 = L.row_al0 + L.al_stride * num_area_lights;
     L.row_cam0 = L.row_bg0 + 3;
     L.row_geo0 = L.row_cam0 + CAM_ROWS;
-    L.row_tex0 = full ? L.row_geo0 + 4 * num_spheres : L.row_cam0;
+    L.row_tri0 = L.row_geo0 + 4 * num_spheres;
+    L.row_tex0 = full ? L.row_tri0 + (geo ? TRI_ROWS * num_triangles : 0) : L.row_cam0;
     L.rows = L.row_tex0 + 3 * texels;
     return L;
 }
@@ -176,81 +207,6 @@ struct CheckpointStore {
         put(b, q, x); put(b, q + 1, y); put(b, q + 2, z);
     }
 };
-
-// ---- small adjoints -----------------------------------------------------------
-
-// sign with sgn(0) = +1 (not copysign: -0.0 counts as >= 0)
-CPT_HD float sgn(float x) { return x >= 0.0f ? 1.0f : -1.0f; }
-
-CPT_HD void cross3(float ax, float ay, float az, float bx, float by, float bz,
-                   float& ox, float& oy, float& oz) {
-    ox = ay * bz - az * by;
-    oy = az * bx - ax * bz;
-    oz = ax * by - ay * bx;
-}
-
-// VJP of normalize3 at v with cotangent g. Where the eps clamp is live the
-// forward is v * const, so the projection term drops.
-CPT_HD void norm3_vjp(float vx, float vy, float vz, float gx, float gy, float gz, float eps,
-                      float& ax, float& ay, float& az) {
-    const float n2 = vx * vx + vy * vy + vz * vz;
-    const float inv = CPT_RSQRT(fmaxf(n2, eps));
-    const float nx = vx * inv, ny = vy * inv, nz = vz * inv;
-    const float proj = (n2 > eps) ? (nx * gx + ny * gy + nz * gz) : 0.0f;
-    ax = (gx - nx * proj) * inv;
-    ay = (gy - ny * proj) * inv;
-    az = (gz - nz * proj) * inv;
-}
-
-// VJP of rotate_y_to(target t, sample s) with cotangent g of the rotated
-// vector: (A_target, A_sample). Recomputes the quaternion, the degenerate
-// fallback included (there the output is (sx, -sy, -sz) and t gets nothing).
-CPT_HD void rot_y_to_vjp(float tx, float ty, float tz, float sx, float sy, float sz,
-                         float gx, float gy, float gz,
-                         float& atx, float& aty, float& atz,
-                         float& asx, float& asy, float& asz) {
-    const float w0 = 1.0f + ty;
-    const float rx = tz, rz = -tx;
-    const float n2 = w0 * w0 + rx * rx + rz * rz;
-    if (n2 < 1e-12f) {
-        atx = 0.0f; aty = 0.0f; atz = 0.0f;
-        asx = gx; asy = -gy; asz = -gz;
-        return;
-    }
-    const float inv = CPT_RSQRT(n2);
-    const float w = w0 * inv;
-    const float rhx = rx * inv, rhz = rz * inv;
-    // u = r_hat x s + w*s   (r_hat's y component is 0)
-    const float ux = -rhz * sy + w * sx;
-    const float uy = rhz * sx - rhx * sz + w * sy;
-    const float uz = rhx * sy + w * sz;
-    // o = s + 2 r_hat x u:  A_rhat += u x (2g);  A_u = (2g) x r_hat
-    const float g2x = 2.0f * gx, g2y = 2.0f * gy, g2z = 2.0f * gz;
-    float arx, ary, arz, aux, auy, auz, cx, cy, cz, ex, ey, ez;
-    cross3(ux, uy, uz, g2x, g2y, g2z, arx, ary, arz);
-    cross3(g2x, g2y, g2z, rhx, 0.0f, rhz, aux, auy, auz);
-    // u = r_hat x s + w s:  A_rhat += s x A_u;  A_s = A_u x r_hat + w A_u + g
-    cross3(sx, sy, sz, aux, auy, auz, cx, cy, cz);
-    arx += cx; ary += cy; arz += cz;
-    cross3(aux, auy, auz, rhx, 0.0f, rhz, ex, ey, ez);
-    asx = ex + w * aux + gx;
-    asy = ey + w * auy + gy;
-    asz = ez + w * auz + gz;
-    const float aw = sx * aux + sy * auy + sz * auz;
-    // w = w0*inv; r_hat = r*inv  (raw r = (tz, 0, -tx): its y adjoint drops)
-    float aw0 = inv * aw;
-    float arx_r = inv * arx;
-    float arz_r = inv * arz;
-    const float ainv = w0 * aw + rx * arx + rz * arz;
-    const float an2 = -0.5f * inv * inv * inv * ainv;
-    aw0 += 2.0f * w0 * an2;
-    arx_r += 2.0f * rx * an2;
-    arz_r += 2.0f * rz * an2;
-    atx = -arz_r;
-    aty = aw0;
-    atz = arx_r;
-    (void)ary;
-}
 
 // ---- next-event estimation: q and its partials ---------------------------------
 
@@ -535,10 +491,12 @@ CPT_HD void scatter_chain(const SceneTables& sc, const RenderParams& p, const Gr
 // tangent source the sphere tangent of the unit normal (`sphere`) or the fixed
 // triangle tangent tg: cotangent g of the perturbed normal -> cotangents of
 // the raw normal (an) and of the texel values (at). Recomputes the forward;
-// every max(x, eps) clamp passes its cotangent only where x > eps.
+// every max(x, eps) clamp passes its cotangent only where x > eps. `atg`,
+// when given (a triangle's tangent: geo mode), receives the cotangent of tg.
 CPT_HD void perturb_normal_vjp(float nx, float ny, float nz, bool sphere,
                                float tgx, float tgy, float tgz, float t0, float t1, float t2,
-                               float gx, float gy, float gz, float* an, float* at) {
+                               float gx, float gy, float gz, float* an, float* at,
+                               float* atg = nullptr) {
     const float n2 = nx * nx + ny * ny + nz * nz;
     const float inv_nl = CPT_RSQRT(fmaxf(n2, 1e-20f));
     const float nux = nx * inv_nl, nuy = ny * inv_nl, nuz = nz * inv_nl;
@@ -588,6 +546,9 @@ CPT_HD void perturb_normal_vjp(float nx, float ny, float nz, bool sphere,
     float arx, ary, arz;
     norm3_vjp(rx, ry, rz, apox, apoy, apoz, 1e-20f, arx, ary, arz);
     const float atdn = -dot3(arx, ary, arz, nux, nuy, nuz);
+    if (atg) {
+        atg[0] = arx + atdn * nux; atg[1] = ary + atdn * nuy; atg[2] = arz + atdn * nuz;
+    }
     anux += -arx * tdn + atdn * tgx;
     anuy += -ary * tdn + atdn * tgy;
     anuz += -arz * tdn + atdn * tgz;
@@ -608,6 +569,33 @@ CPT_HD void perturb_normal_vjp(float nx, float ny, float nz, bool sphere,
     an[0] += 2.0f * nx * an2; an[1] += 2.0f * ny * an2; an[2] += 2.0f * nz * an2;
 }
 
+// Adjoint of tri_uv_tangent (megakernel.cuh): cotangent a_t of the tangent ->
+// the edges' (added to ae1, ae2). The UVs are constants.
+CPT_HD void tri_uv_tangent_vjp(const float* tri, const float* uv, const float* a_t, float* ae1,
+                               float* ae2) {
+    const float e1x = tri[3], e1y = tri[4], e1z = tri[5];
+    const float e2x = tri[6], e2y = tri[7], e2z = tri[8];
+    const float du1 = uv[2] - uv[0], dv1 = uv[3] - uv[1];
+    const float du2 = uv[4] - uv[0], dv2 = uv[5] - uv[1];
+    const float det = du1 * dv2 - du2 * dv1;
+    const bool det_bad = fabsf(det) < 1e-12f;
+    const float inv_det = det_bad ? 0.0f : 1.0f / det;
+    const float tx = (e1x * dv2 - e2x * dv1) * inv_det;
+    const float ty = (e1y * dv2 - e2y * dv1) * inv_det;
+    const float tz = (e1z * dv2 - e2z * dv1) * inv_det;
+    if (det_bad || (tx * tx + ty * ty + tz * tz) < 1e-16f) {
+        // the unit e1
+        float ax, ay, az;
+        norm3_vjp(e1x, e1y, e1z, a_t[0], a_t[1], a_t[2], 1e-20f, ax, ay, az);
+        ae1[0] += ax; ae1[1] += ay; ae1[2] += az;
+        return;
+    }
+    for (int c = 0; c < 3; ++c) {
+        ae1[c] += a_t[c] * dv2 * inv_det;
+        ae2[c] -= a_t[c] * dv1 * inv_det;
+    }
+}
+
 // The texel rows of one fetch: value vals[c] times each stored corner weight
 // into the corner texel's channel-c row.
 template <class Sink>
@@ -625,22 +613,73 @@ CPT_HD void scatter_texels(const CheckpointStore& st, int b, int q_idx, int q_w,
 
 // ---- adjoint of the hit (full mode) ---------------------------------------------
 
+// Adjoint of the winning triangle's hit distance and barycentrics
+// (triangle_t, Moller-Trumbore) at s = o - v0, direction d, edge rows tr[3..8]
+// and hit distance t: cotangents (at, aw1, aw2) -> those of s (the origin's;
+// v0 gets -a_s) and of d and, with EDGES, of e1 and e2 (set, not added). On
+// triple products t = s.A / det, w1 = s.(d x e2) / det, w2 = d.(s x e1) / det
+// with A = e1 x e2 and det = -d.A (= e1.(d x e2), as triangle_t has it), A
+// reaches t through the numerator and the determinant. Interior hits only: which triangle is hit carries nothing.
+// (w1, w2) receive the barycentrics.
+template <bool EDGES>
+CPT_HD void triangle_t_vjp(float sx, float sy, float sz, float dx, float dy, float dz,
+                           const float* tr, float t, float at, float aw1, float aw2,
+                           float* as, float* ad, float* ae1, float* ae2, float& w1, float& w2) {
+    const float e1x = tr[3], e1y = tr[4], e1z = tr[5];
+    const float e2x = tr[6], e2y = tr[7], e2z = tr[8];
+    float Ax, Ay, Az, qx, qy, qz, rvx, rvy, rvz, e1dx, e1dy, e1dz, e2sx, e2sy, e2sz;
+    cross3(e1x, e1y, e1z, e2x, e2y, e2z, Ax, Ay, Az);
+    cross3(dx, dy, dz, e2x, e2y, e2z, qx, qy, qz);
+    // det = -d.A, taken as the forward takes it (e1.q): bit for bit the value
+    // whose |det| > 1e-7 made this a hit. On a grazing hit the two forms
+    // differ by more than det itself, and the reverse sweep divides by it.
+    const float det = e1x * qx + e1y * qy + e1z * qz;
+    const float idet = 1.0f / (sgn(det) * fmaxf(fabsf(det), 1e-9f));
+    cross3(sx, sy, sz, e1x, e1y, e1z, rvx, rvy, rvz);
+    w1 = (sx * qx + sy * qy + sz * qz) * idet;
+    w2 = (dx * rvx + dy * rvy + dz * rvz) * idet;
+    cross3(e1x, e1y, e1z, dx, dy, dz, e1dx, e1dy, e1dz);
+    cross3(e2x, e2y, e2z, sx, sy, sz, e2sx, e2sy, e2sz);
+    as[0] = (at * Ax + aw1 * qx + aw2 * e1dx) * idet;
+    as[1] = (at * Ay + aw1 * qy + aw2 * e1dy) * idet;
+    as[2] = (at * Az + aw1 * qz + aw2 * e1dz) * idet;
+    ad[0] = (at * t * Ax + aw1 * (e2sx + w1 * Ax) + aw2 * (rvx + w2 * Ax)) * idet;
+    ad[1] = (at * t * Ay + aw1 * (e2sy + w1 * Ay) + aw2 * (rvy + w2 * Ay)) * idet;
+    ad[2] = (at * t * Az + aw1 * (e2sz + w1 * Az) + aw2 * (rvz + w2 * Az)) * idet;
+    if (EDGES) {
+        // A_A = (at (s + t d) + (aw1 w1 + aw2 w2) d) / det; A = e1 x e2;
+        // w1's d x e2 gives e2 the term aw1 (s x d) / det, w2's s x e1 gives
+        // e1 the term aw2 (d x s) / det
+        const float kw = aw1 * w1 + aw2 * w2;
+        const float aAx = idet * (at * (sx + t * dx) + kw * dx);
+        const float aAy = idet * (at * (sy + t * dy) + kw * dy);
+        const float aAz = idet * (at * (sz + t * dz) + kw * dz);
+        float dsx, dsy, dsz;
+        cross3(e2x, e2y, e2z, aAx, aAy, aAz, ae1[0], ae1[1], ae1[2]);
+        cross3(aAx, aAy, aAz, e1x, e1y, e1z, ae2[0], ae2[1], ae2[2]);
+        cross3(dx, dy, dz, sx, sy, sz, dsx, dsy, dsz);
+        ae1[0] += aw2 * idet * dsx; ae1[1] += aw2 * idet * dsy; ae1[2] += aw2 * idet * dsz;
+        ae2[0] -= aw1 * idet * dsx; ae2[1] -= aw1 * idet * dsy; ae2[2] -= aw1 * idet * dsz;
+    }
+}
+
 // normal -> (point | barycentrics), point -> (origin, direction, t), t ->
 // (origin, direction) through the winning primitive's analytic intersection
-// Jacobian, plus the Beer factor's t adjoint. amid = A_mid, tm = T_mid of the
-// bounce. Overwrites (ao, ad) — the carried cotangent of the bounce's OUTPUT
-// ray — with the cotangent of its INPUT ray, and adds the sphere rows. `an`
-// is the cotangent of the geometric (raw) normal, kept at plane `q_normal`;
-// `nee_an_in` says that the NEE normal partials are in it already (the
-// normal-map pullback folded them in).
-template <class Sink>
+// Jacobian, plus the Beer factor's t adjoint (and, PHYSICAL, the direct
+// phase's, plane Q_PA_T). amid = A_mid, tm = T_mid of the bounce. Overwrites
+// (ao, ad) — the carried cotangent of the bounce's OUTPUT ray — with the
+// cotangent of its INPUT ray, and adds the sphere rows (GEO: the triangle
+// rows). `an` is the cotangent of the geometric (raw) normal, kept at plane
+// `q_normal`; `nee_an_in` says that the NEE normal partials are in it already
+// (the normal-map pullback folded them in).
+template <bool GEO, bool PHYSICAL, class Sink>
 CPT_HD void hit_chain(const SceneTables& sc, const GradLayout& L, int b, const CheckpointStore& st,
                       int mat, const float* amid, const float* tm, float t_in,
                       const float* ap, const float* an, const float* ade,
                       float* ao, float* ad, Sink& acc, int q_normal = Q_N,
                       bool nee_an_in = false) {
-    float px, py, pz, dx, dy, dz, nx, ny, nz, nax, nay, naz, nnx = 0.0f, nny = 0.0f, nnz = 0.0f;
-    st.get3(b, Q_P, px, py, pz);
+    float ox, oy, oz, dx, dy, dz, nx, ny, nz, nax, nay, naz, nnx = 0.0f, nny = 0.0f, nnz = 0.0f;
+    st.get3(b, Q_O, ox, oy, oz);
     st.get3(b, Q_D, dx, dy, dz);
     st.get3(b, q_normal, nx, ny, nz);
     st.get3(b, Q_NEE_AP, nax, nay, naz);
@@ -654,12 +693,14 @@ CPT_HD void hit_chain(const SceneTables& sc, const GradLayout& L, int b, const C
     const float* m = sc.materials + mat * M_COLS;
     float at = 0.0f;
     if (t_in > 0.0f) at = -(amid[0] * tm[0] * m[6] + amid[1] * tm[1] * m[7] + amid[2] * tm[2] * m[8]);
+    if (PHYSICAL) at += st.get(b, Q_PA_T);
 
     float aox, aoy, aoz, adx, ady, adz;
     if (prim < sc.num_spheres) {
-        // sphere: n = normalize(p - c) -> A_n feeds A_p (and -A_c)
+        // sphere: n = normalize(p - c) -> A_n feeds A_p (and -A_c); p - c = v + t d
         const float* s = sc.spheres + prim * S_COLS;
-        const float gvx = px - s[0], gvy = py - s[1], gvz = pz - s[2];
+        const float vx = ox - s[0], vy = oy - s[1], vz = oz - s[2];
+        const float gvx = vx + t_hit * dx, gvy = vy + t_hit * dy, gvz = vz + t_hit * dz;
         const float invg = CPT_RSQRT(fmaxf(gvx * gvx + gvy * gvy + gvz * gvz, 1e-18f));
         const float ndot = nx * anx + ny * any_ + nz * anz;
         const float apnx = (anx - nx * ndot) * invg;
@@ -672,49 +713,63 @@ CPT_HD void hit_chain(const SceneTables& sc, const GradLayout& L, int b, const C
         // v = o - centre — the intersection for a UNIT direction. The mirror
         // and Cook-Torrance branches hand on an unnormalised direction (reference
         // quirk), so the adjoint is that of this formula, not of the geometric
-        // intersection: with k = t + d.v (= d.g for a unit d)
+        // intersection: with k = t + d.v (= d.g for a unit d, = -/+ sqrt(disc) / 2
+        // for the root taken)
         //   dt/do = -g/k,  dt/dd = -t v/k,  dt/dcentre = +g/k,  dt/dr = r/k.
-        const float vx = gvx - t_hit * dx, vy = gvy - t_hit * dy, vz = gvz - t_hit * dz;
-        const float denom = t_hit + dot3(dx, dy, dz, vx, vy, vz);
-        const float dsafe = sgn(denom) * fmaxf(fabsf(denom), 1e-9f);
-        const float coef = -at / dsafe;
-        aox = coef * gvx; aoy = coef * gvy; aoz = coef * gvz;
-        adx = t_hit * coef * vx; ady = t_hit * coef * vy; adz = t_hit * coef * vz;
+        // k is the forward's own sqrt(disc): at a grazing hit it is tiny, and
+        // a k rebuilt from t would keep nothing of it. Where disc <= 0 the
+        // root -b/2 is all that moves: dt/do = -d, dt/dd = -v.
+        const float bq = 2.0f * dot3(dx, dy, dz, vx, vy, vz);
+        const float cq = vx * vx + vy * vy + vz * vz - s[3] * s[3];
+        const float sq = sqrtf(fmaxf(bq * bq - 4.0f * cq, 0.0f));
+        // 1/k of the root taken (t0 = (-b - sq) / 2 unless it is negative);
+        // `flat` is 1 where disc <= 0
+        const float ik = (sq > 0.0f) ? (((-bq - sq) * 0.5f < 0.0f) ? 2.0f / sq : -2.0f / sq) : 0.0f;
+        const float flat = (sq > 0.0f) ? 0.0f : 1.0f;
+        aox = -at * (gvx * ik + dx * flat);
+        aoy = -at * (gvy * ik + dy * flat);
+        aoz = -at * (gvz * ik + dz * flat);
+        adx = -at * vx * (t_hit * ik + flat);
+        ady = -at * vy * (t_hit * ik + flat);
+        adz = -at * vz * (t_hit * ik + flat);
+        const float dr = s[3] * ik;
         // sphere rows; the normal's centre-dependence is minus its p-dependence
         const int row = L.row_geo0 + 4 * prim;
-        acc.add(row + 0, -apnx - coef * gvx);
-        acc.add(row + 1, -apny - coef * gvy);
-        acc.add(row + 2, -apnz - coef * gvz);
-        acc.add(row + 3, at * s[3] / dsafe);
+        acc.add(row + 0, -apnx - aox);
+        acc.add(row + 1, -apny - aoy);
+        acc.add(row + 2, -apnz - aoz);
+        acc.add(row + 3, at * dr);
     } else {
         // triangle: unnormalised n = n0 + w1 (n1-n0) + w2 (n2-n0); t and the
         // barycentrics on triple products: t = s.(e1 x e2)/det, w1 = s.(d x e2)/det,
         // w2 = s.(e1 x d)/det, det = -d.(e1 x e2), s = o - v0
-        const float* tr = sc.triangles + (prim - sc.num_spheres) * T_COLS;
-        const float e1x = tr[3], e1y = tr[4], e1z = tr[5];
-        const float e2x = tr[6], e2y = tr[7], e2z = tr[8];
+        const int ti = prim - sc.num_spheres;
+        const float* tr = sc.triangles + ti * T_COLS;
         const float aw1 = anx * (tr[12] - tr[9]) + any_ * (tr[13] - tr[10]) + anz * (tr[14] - tr[11]);
         const float aw2 = anx * (tr[15] - tr[9]) + any_ * (tr[16] - tr[10]) + anz * (tr[17] - tr[11]);
         at = at + apx * dx + apy * dy + apz * dz;
-        const float sx_ = (px - t_hit * dx) - tr[0];
-        const float sy_ = (py - t_hit * dy) - tr[1];
-        const float sz_ = (pz - t_hit * dz) - tr[2];
-        float Ax, Ay, Az, qx, qy, qz, rvx, rvy, rvz, e1dx, e1dy, e1dz, e2sx, e2sy, e2sz;
-        cross3(e1x, e1y, e1z, e2x, e2y, e2z, Ax, Ay, Az);
-        const float det = -(dx * Ax + dy * Ay + dz * Az);
-        const float idet = 1.0f / (sgn(det) * fmaxf(fabsf(det), 1e-9f));
-        cross3(dx, dy, dz, e2x, e2y, e2z, qx, qy, qz);
-        cross3(sx_, sy_, sz_, e1x, e1y, e1z, rvx, rvy, rvz);
-        const float w1 = (sx_ * qx + sy_ * qy + sz_ * qz) * idet;
-        const float w2 = (dx * rvx + dy * rvy + dz * rvz) * idet;
-        cross3(e1x, e1y, e1z, dx, dy, dz, e1dx, e1dy, e1dz);
-        cross3(e2x, e2y, e2z, sx_, sy_, sz_, e2sx, e2sy, e2sz);
-        aox = (at * Ax + aw1 * qx + aw2 * e1dx) * idet;
-        aoy = (at * Ay + aw1 * qy + aw2 * e1dy) * idet;
-        aoz = (at * Az + aw1 * qz + aw2 * e1dz) * idet;
-        adx = (at * t_hit * Ax + aw1 * (e2sx + w1 * Ax) + aw2 * (rvx + w2 * Ax)) * idet;
-        ady = (at * t_hit * Ay + aw1 * (e2sy + w1 * Ay) + aw2 * (rvy + w2 * Ay)) * idet;
-        adz = (at * t_hit * Az + aw1 * (e2sz + w1 * Az) + aw2 * (rvz + w2 * Az)) * idet;
+        const float sx_ = ox - tr[0];
+        const float sy_ = oy - tr[1];
+        const float sz_ = oz - tr[2];
+        float as[3], adt[3], ae1[3], ae2[3], w1, w2;
+        triangle_t_vjp<GEO>(sx_, sy_, sz_, dx, dy, dz, tr, t_hit, at, aw1, aw2, as, adt, ae1, ae2,
+                            w1, w2);
+        aox = as[0]; aoy = as[1]; aoz = as[2];
+        adx = adt[0]; ady = adt[1]; adz = adt[2];
+        if (GEO) {
+            // v0 (= -a_s), e1, e2, and the corner normals' barycentric weights
+            const int row = L.row_tri0 + TRI_ROWS * ti;
+            const float w0 = 1.0f - w1 - w2;
+            const float anv[3] = {anx, any_, anz};
+            for (int c = 0; c < 3; ++c) {
+                acc.add(row + c, -as[c]);
+                acc.add(row + 3 + c, ae1[c]);
+                acc.add(row + 6 + c, ae2[c]);
+                acc.add(row + 9 + c, anv[c] * w0);
+                acc.add(row + 12 + c, anv[c] * w1);
+                acc.add(row + 15 + c, anv[c] * w2);
+            }
+        }
     }
     ao[0] = apx + aox; ao[1] = apy + aoy; ao[2] = apz + aoz;
     ad[0] = ade[0] + t_hit * apx + adx;
@@ -724,14 +779,49 @@ CPT_HD void hit_chain(const SceneTables& sc, const GradLayout& L, int b, const C
 
 // ---- the textured scene's share of the path adjoint (full mode) -------------------
 
+// Geo mode: the cotangents (a_u, a_v) of the UVs of triangle row `tr` (corner
+// UVs `uv`) at the hit point p, at that FIXED point, pulled into the
+// triangle's packed (v0, e1, e2): a9 receives their cotangents. The plane
+// barycentrics are (a, b) = M^-1 [e1.q, e2.q], q = p - v0, M = [[e1.e1,
+// e1.e2], [e1.e2, e2.e2]], and uv = uv0 + a duv1 + b duv2. The VJP of the
+// solve: A_s = M^-1 A_(a,b), A_M = -A_s (a, b)^T (M symmetric).
+CPT_HD void uv_vertex_vjp(const float* tr, const float* uv, float px, float py, float pz,
+                          float a_u, float a_v, float* a9) {
+    const float e1[3] = {tr[3], tr[4], tr[5]}, e2[3] = {tr[6], tr[7], tr[8]};
+    const float q[3] = {px - tr[0], py - tr[1], pz - tr[2]};
+    const float d11 = dot3(e1[0], e1[1], e1[2], e1[0], e1[1], e1[2]);
+    const float d22 = dot3(e2[0], e2[1], e2[2], e2[0], e2[1], e2[2]);
+    const float d12 = dot3(e1[0], e1[1], e1[2], e2[0], e2[1], e2[2]);
+    const float detm = d11 * d22 - d12 * d12;
+    const float inv_m = (fabsf(detm) < 1e-18f) ? 0.0f : 1.0f / detm;
+    const float s1 = dot3(e1[0], e1[1], e1[2], q[0], q[1], q[2]);
+    const float s2 = dot3(e2[0], e2[1], e2[2], q[0], q[1], q[2]);
+    const float ba = (d22 * s1 - d12 * s2) * inv_m;
+    const float bb = (d11 * s2 - d12 * s1) * inv_m;
+    const float a_a = a_u * (uv[2] - uv[0]) + a_v * (uv[3] - uv[1]);
+    const float a_b = a_u * (uv[4] - uv[0]) + a_v * (uv[5] - uv[1]);
+    const float a_s1 = (d22 * a_a - d12 * a_b) * inv_m;
+    const float a_s2 = (d11 * a_b - d12 * a_a) * inv_m;
+    const float a_d11 = -a_s1 * ba, a_d22 = -a_s2 * bb, a_d12 = -(a_s1 * bb + a_s2 * ba);
+    for (int c = 0; c < 3; ++c) {
+        a9[c] = -(a_s1 * e1[c] + a_s2 * e2[c]);
+        a9[3 + c] = a_s1 * q[c] + 2.0f * a_d11 * e1[c] + a_d12 * e2[c];
+        a9[6 + c] = a_s2 * q[c] + 2.0f * a_d22 * e2[c] + a_d12 * e1[c];
+    }
+}
+
 // After scatter_chain: on a normal-mapped scene folds the NEE normal partials
 // into `an` (the cotangent of the PERTURBED normal) and pulls the total back
 // through the perturbation into the raw normal and the normal map's texels;
 // then the UV swim: the effective albedo's texel factor (a_alb x the
 // material's diffuse) and the normal map's texels move with the UVs, which
 // move with the hit point (triangles: A_p += A_u du/dp + A_v dv/dp) or with
-// the unit normal (spheres: into the raw normal through its normalize).
-template <class Sink>
+// the unit normal (spheres: into the raw normal through its normalize). GEO
+// adds the triangle rows of what moves with the vertices at a fixed hit point:
+// the tangent frame (its edges) and the UVs (the VJP of the plane
+// barycentrics' metric solve (a, b) = M^-1 [e1.q, e2.q], q = p - v0, M the
+// edges' Gram matrix; the hit point's own motion is in A_p already).
+template <bool GEO, class Sink>
 CPT_HD void tex_chain(const SceneTables& sc, const GradLayout& L, const TexLayout& T, int b,
                       const CheckpointStore& st, int mat, const float* a_alb, float* ap,
                       float* an, Sink& acc) {
@@ -750,9 +840,19 @@ CPT_HD void tex_chain(const SceneTables& sc, const GradLayout& L, const TexLayou
                 const int ti = prim - sc.num_spheres;
                 tri_uv_tangent(sc.triangles + ti * T_COLS, sc.tex_triuv + ti * 6, tgx, tgy, tgz);
             }
+            float atg[3];
             perturb_normal_vjp(rx, ry, rz, sphere, tgx, tgy, tgz, st.get(b, n + QN_VAL),
                                st.get(b, n + QN_VAL + 1), st.get(b, n + QN_VAL + 2),
-                               an[0], an[1], an[2], an_raw, nt);
+                               an[0], an[1], an[2], an_raw, nt,
+                               (GEO && !sphere) ? atg : nullptr);
+            if (GEO && !sphere) {
+                // the tangent frame moves with the triangle's edges
+                const int ti = prim - sc.num_spheres;
+                float ae[6] = {};
+                tri_uv_tangent_vjp(sc.triangles + ti * T_COLS, sc.tex_triuv + ti * 6, atg, ae,
+                                   ae + 3);
+                for (int k = 0; k < 6; ++k) acc.add(L.row_tri0 + TRI_ROWS * ti + 3 + k, ae[k]);
+            }
             an[0] = an_raw[0]; an[1] = an_raw[1]; an[2] = an_raw[2];
             if (T.grads) scatter_texels(st, b, n + QN_CIDX, n + QN_CW, nt, L.row_tex0, acc);
             for (int c = 0; c < 3; ++c) {
@@ -772,12 +872,82 @@ CPT_HD void tex_chain(const SceneTables& sc, const GradLayout& L, const TexLayou
     for (int k = 0; k < 6; ++k) g[k] = st.get(b, u + QU_G + k);
     if (!sphere) {
         for (int c = 0; c < 3; ++c) ap[c] += a_u * g[c] + a_v * g[3 + c];
+        if (GEO) {
+            const int ti = prim - sc.num_spheres;
+            float ox, oy, oz, dx, dy, dz, a9[9];
+            st.get3(b, Q_O, ox, oy, oz);
+            st.get3(b, Q_D, dx, dy, dz);
+            const float t = st.get(b, Q_T);
+            const float px = ox + dx * t, py = oy + dy * t, pz = oz + dz * t;
+            uv_vertex_vjp(sc.triangles + ti * T_COLS, sc.tex_triuv + ti * 6, px, py, pz, a_u, a_v,
+                          a9);
+            for (int k = 0; k < 9; ++k) acc.add(L.row_tri0 + TRI_ROWS * ti + k, a9[k]);
+        }
     } else {
         float rx, ry, rz, anx, any_, anz;
         st.get3(b, q_raw, rx, ry, rz);
         norm3_vjp(rx, ry, rz, a_u * g[0], a_v * g[2], a_u * g[1], 1e-20f, anx, any_, anz);
         an[0] += anx; an[1] += any_; an[2] += anz;
     }
+}
+
+// The texture block's checkpoint planes of bounce b (all but the albedo
+// cotangent's): its texel multipliers, corners, UV partials and normal-map
+// bundle.
+template <bool FULL>
+CPT_HD void put_tex_aux(const CheckpointStore& st, const TexLayout& T, int b, const TexAux& ta) {
+    const int q = T.q_tex;
+    st.put3(b, q + QT_TEX, ta.tex[0], ta.tex[1], ta.tex[2]);
+    if (T.grads) {
+        for (int k = 0; k < 4; ++k) {
+            st.puti(b, q + QT_CIDX + k, ta.has_c ? ta.c.idx[k] : 0);
+            st.put(b, q + QT_CW + k, ta.has_c ? ta.c.w[k] : 0.0f);
+        }
+    }
+    if (FULL) {
+        const int u = T.q_uvg;
+        for (int c = 0; c < 3; ++c) {
+            st.put(b, u + QU_DU + c, ta.has_c ? ta.c.du[c] : 0.0f);
+            st.put(b, u + QU_DV + c, ta.has_c ? ta.c.dv[c] : 0.0f);
+        }
+        for (int k = 0; k < 6; ++k) st.put(b, u + QU_G + k, ta.uvg[k]);
+    }
+    if (T.nmap) {
+        const int n = T.q_nm;
+        st.put3(b, n + QN_RAW, ta.raw[0], ta.raw[1], ta.raw[2]);
+        for (int c = 0; c < 3; ++c) {
+            st.put(b, n + QN_VAL + c, ta.has_n ? ta.n.val[c] : 0.0f);
+            st.put(b, n + QN_DU + c, ta.has_n ? ta.n.du[c] : 0.0f);
+            st.put(b, n + QN_DV + c, ta.has_n ? ta.n.dv[c] : 0.0f);
+        }
+        if (T.grads) {
+            for (int k = 0; k < 4; ++k) {
+                st.puti(b, n + QN_CIDX + k, ta.has_n ? ta.n.idx[k] : 0);
+                st.put(b, n + QN_CW + k, ta.has_n ? ta.n.w[k] : 0.0f);
+            }
+        }
+    }
+}
+
+// Physical mode: adds the cotangent a_m of the 20 material columns (in
+// pack_scene's column order) to the hit material's rows from `mat_row`. With
+// DEFER (a textured scene) the diffuse columns are the effective albedo's:
+// they go to `alb`, for the reverse sweep to split.
+template <bool DEFER, class Sink>
+CPT_HD void add_material_cols(const float* a_m, int mat_row, float* alb, Sink& acc) {
+    for (int c = 0; c < 3; ++c) {
+        if (DEFER) {
+            alb[c] += a_m[c];
+        } else {
+            acc.add(mat_row + c, a_m[c]);
+        }
+    }
+    for (int k = 3; k < 12; ++k) acc.add(mat_row + k, a_m[k]);  // specular, absorption, emission
+    acc.add(mat_row + 12, a_m[14]);  // diff_avg
+    acc.add(mat_row + 13, a_m[17]);  // roughness
+    acc.add(mat_row + 14, a_m[13]);  // ior
+    acc.add(mat_row + 15, a_m[12]);  // spec_exp
+    acc.add(mat_row + 16, a_m[15]);  // spec_avg
 }
 
 // ---- one pixel, all samples -------------------------------------------------------
@@ -787,11 +957,13 @@ CPT_HD void tex_chain(const SceneTables& sc, const GradLayout& L, const TexLayou
 // spp: the forward returns the mean). `st` must hold max(max_bounces, 1)
 // bounces of T.planes planes. Same streams, same path termination as
 // render_pixel; TEXTURED (a scene with textures) as its textured
-// instantiation, with the planes and rows of `T` / `L`.
-template <bool FULL, bool TEXTURED, class Sink>
+// instantiation, PHYSICAL as the physical one, with the planes and rows of `T`
+// / `L`. PHYSICAL and GEO build on the full path adjoint.
+template <bool FULL, bool TEXTURED, bool PHYSICAL = false, bool GEO = false, class Sink>
 CPT_HD void backward_pixel(const SceneTables& sc, const RenderParams& p, const GradLayout& L,
                            const TexLayout& T, int pixel, float gx, float gy, float gz,
                            const CheckpointStore& st, Sink& acc) {
+    static_assert(FULL || !(PHYSICAL || GEO), "geo and physical build on the full adjoint");
     if (pixel < 0 || pixel >= p.width * p.height) return;
     const float pxi = (float)(pixel % p.width);
     const float pyi = (float)(pixel / p.width);
@@ -805,6 +977,7 @@ CPT_HD void backward_pixel(const SceneTables& sc, const RenderParams& p, const G
         float r1x = 1.0f, r1y = 1.0f, r1z = 1.0f;  // throughput entering the bounce
         float ax = 0.0f, ay = 0.0f, az = 0.0f;     // A_after of the last stored bounce
         int nb = 0;                                // bounces stored
+        float pp = 0.0f;                           // PHYSICAL: density of the last scatter
 
         // ---- replay -------------------------------------------------------------
         while (true) {
@@ -834,6 +1007,9 @@ CPT_HD void backward_pixel(const SceneTables& sc, const RenderParams& p, const G
                 texture_block<true, FULL>(sc, ox, oy, oz, dx, dy, dz, h.prim, h.mat, mt,
                                           nx, ny, nz, &ta);
                 m = mt;
+                // the physical direct phase needs many registers: store the
+                // bundle before it
+                if (PHYSICAL) put_tex_aux<FULL>(st, T, b, ta);
             }
             const float cos_i = -dot3(dx, dy, dz, nx, ny, nz);
             const bool inside = cos_i <= 0.0f;
@@ -849,47 +1025,73 @@ CPT_HD void backward_pixel(const SceneTables& sc, const RenderParams& p, const G
             // g * T_mid: the adjoint of direct(b); every replay-phase partial is linear in it
             const float gtx = gx * tmx, gty = gy * tmy, gtz = gz * tmz;
 
-            // emission always
-            float dir[3] = {m[9], m[10], m[11]};
-            acc.add(mat_row + 9, gtx);
-            acc.add(mat_row + 10, gty);
-            acc.add(mat_row + 11, gtz);
+            float dir[3];
             float nee_ap[3] = {0.0f, 0.0f, 0.0f}, nee_an[3] = {0.0f, 0.0f, 0.0f};
             float alb[3] = {0.0f, 0.0f, 0.0f};  // textured: NEE cotangent of the albedo
-            float dqp[3], dqn[3];
-            if (!inside) {
-                for (int i = 0; i < sc.num_point_lights; ++i) {
-                    const float* pl = sc.point_lights + i * PL_COLS;
-                    const float q = light_q<FULL>(sc, px, py, pz, nx, ny, nz, pl[0], pl[1], pl[2],
-                                                  dqp, dqn);
-                    if (q == 0.0f) continue;  // invisible or facing away: every partial is 0
-                    const int row = L.row_pl0 + L.pl_stride * i;
-                    const float aq = nee_partials<FULL, TEXTURED>(
-                        m, mat_row, q, dqp, dqn, pl[3], pl[4], pl[5], row + L.pl_pow_off,
-                        gtx, gty, gtz, dir, nee_ap, nee_an, alb, acc);
-                    if (FULL) {
-                        // dq/d(light position) = -dq/dp: q depends on l - p only
-                        acc.add(row + 0, -aq * dqp[0]);
-                        acc.add(row + 1, -aq * dqp[1]);
-                        acc.add(row + 2, -aq * dqp[2]);
+            Lobes lb;                            // PHYSICAL: the hit's lobes ...
+            float pa_d[3] = {0.0f, 0.0f, 0.0f}, pa_t = 0.0f, pa_pp = 0.0f;  // ... and cotangents
+            if constexpr (PHYSICAL) {
+                // the physical direct phase and its exact adjoint
+                float a_m[M_COLS] = {};
+                const DirectRows R = {L.row_pl0, L.pl_stride, L.pcols, L.row_al0, L.al_stride};
+                physical_direct_vjp<GEO>(sc, p.seed, pixel, sample, pair0, px, py, pz, nx, ny, nz,
+                                         dx, dy, dz, h.t, pp, m, h.prim, R, gtx, gty, gtz, acc,
+                                         dir, nee_ap, nee_an, pa_d, pa_t, pa_pp, a_m, lb);
+                add_material_cols<TEXTURED>(a_m, mat_row, alb, acc);
+            } else {
+                // emission always
+                dir[0] = m[9]; dir[1] = m[10]; dir[2] = m[11];
+                acc.add(mat_row + 9, gtx);
+                acc.add(mat_row + 10, gty);
+                acc.add(mat_row + 11, gtz);
+                float dqp[3], dqn[3];
+                if (!inside) {
+                    for (int i = 0; i < sc.num_point_lights; ++i) {
+                        const float* pl = sc.point_lights + i * PL_COLS;
+                        const float q = light_q<FULL>(sc, px, py, pz, nx, ny, nz, pl[0], pl[1],
+                                                      pl[2], dqp, dqn);
+                        if (q == 0.0f) continue;  // invisible or facing away: every partial is 0
+                        const int row = L.row_pl0 + L.pl_stride * i;
+                        const float aq = nee_partials<FULL, TEXTURED>(
+                            m, mat_row, q, dqp, dqn, pl[3], pl[4], pl[5], row + L.pl_pow_off,
+                            gtx, gty, gtz, dir, nee_ap, nee_an, alb, acc);
+                        if (FULL) {
+                            // dq/d(light position) = -dq/dp: q depends on l - p only
+                            acc.add(row + 0, -aq * dqp[0]);
+                            acc.add(row + 1, -aq * dqp[1]);
+                            acc.add(row + 2, -aq * dqp[2]);
+                        }
                     }
-                }
-                for (int i = 0; i < sc.num_area_lights; ++i) {
-                    const float* al = sc.area_lights + i * AL_COLS;
-                    float u1, u2, u3, upick;
-                    uniform_pair(p.seed, pixel, sample, pair0 + 2 + 2 * i, u1, u2);
-                    uniform_pair(p.seed, pixel, sample, pair0 + 3 + 2 * i, u3, upick);
-                    const float inv_tot = 1.0f / fmaxf(u1 + u2 + u3, 1e-12f);
-                    const float w0 = u1 * inv_tot, w1 = u2 * inv_tot, w2 = u3 * inv_tot;
-                    const float* a = (upick > 0.5f) ? al : al + 9;
-                    const float lx = a[0] * w0 + a[3] * w1 + a[6] * w2;
-                    const float ly = a[1] * w0 + a[4] * w1 + a[7] * w2;
-                    const float lz = a[2] * w0 + a[5] * w1 + a[8] * w2;
-                    const float q = light_q<FULL>(sc, px, py, pz, nx, ny, nz, lx, ly, lz, dqp, dqn);
-                    if (q == 0.0f) continue;
-                    nee_partials<FULL, TEXTURED>(m, mat_row, q, dqp, dqn, al[18], al[19], al[20],
-                                                 L.row_al0 + 3 * i, gtx, gty, gtz, dir, nee_ap,
-                                                 nee_an, alb, acc);
+                    for (int i = 0; i < sc.num_area_lights; ++i) {
+                        const float* al = sc.area_lights + i * AL_COLS;
+                        float u1, u2, u3, upick;
+                        uniform_pair(p.seed, pixel, sample, pair0 + 2 + 2 * i, u1, u2);
+                        uniform_pair(p.seed, pixel, sample, pair0 + 3 + 2 * i, u3, upick);
+                        const float inv_tot = 1.0f / fmaxf(u1 + u2 + u3, 1e-12f);
+                        const float w0 = u1 * inv_tot, w1 = u2 * inv_tot, w2 = u3 * inv_tot;
+                        const float* a = (upick > 0.5f) ? al : al + 9;
+                        const float lx = a[0] * w0 + a[3] * w1 + a[6] * w2;
+                        const float ly = a[1] * w0 + a[4] * w1 + a[7] * w2;
+                        const float lz = a[2] * w0 + a[5] * w1 + a[8] * w2;
+                        const float q = light_q<FULL>(sc, px, py, pz, nx, ny, nz, lx, ly, lz,
+                                                      dqp, dqn);
+                        if (q == 0.0f) continue;
+                        const int row = L.row_al0 + (GEO ? AL_ROWS_GEO : 3) * i;
+                        const float aq = nee_partials<FULL, TEXTURED>(
+                            m, mat_row, q, dqp, dqn, al[18], al[19], al[20], row, gtx, gty, gtz,
+                            dir, nee_ap, nee_an, alb, acc);
+                        if (GEO) {
+                            // the sample point is barycentric-linear in the picked
+                            // triangle's vertices; dq/dl = -dq/dp
+                            const int v0 = row + 3 + ((upick > 0.5f) ? 0 : 9);
+                            const float w[3] = {w0, w1, w2};
+                            for (int k = 0; k < 3; ++k) {
+                                for (int c = 0; c < 3; ++c) {
+                                    acc.add(v0 + 3 * k + c, -aq * dqp[c] * w[k]);
+                                }
+                            }
+                        }
+                    }
                 }
             }
 
@@ -913,7 +1115,7 @@ CPT_HD void backward_pixel(const SceneTables& sc, const RenderParams& p, const G
             st.puti(b, Q_CODE, code);
             st.put(b, Q_CT_W, ct_w);
             if (FULL) {
-                st.put3(b, Q_P, px, py, pz);
+                st.put3(b, Q_O, ox, oy, oz);
                 st.put3(b, Q_D, dx, dy, dz);
                 st.put3(b, Q_N, nx, ny, nz);
                 st.put(b, Q_T, h.t);
@@ -921,42 +1123,21 @@ CPT_HD void backward_pixel(const SceneTables& sc, const RenderParams& p, const G
                 st.put3(b, Q_NEE_AP, nee_ap[0], nee_ap[1], nee_ap[2]);
                 st.put3(b, Q_NEE_AN, nee_an[0], nee_an[1], nee_an[2]);
             }
+            if (PHYSICAL) {
+                st.put3(b, Q_PA_D, pa_d[0], pa_d[1], pa_d[2]);
+                st.put(b, Q_PA_T, pa_t);
+                st.put(b, Q_PA_PP, pa_pp);
+            }
             if constexpr (TEXTURED) {
-                const int q = T.q_tex;
-                st.put3(b, q + QT_ALB, alb[0], alb[1], alb[2]);
-                st.put3(b, q + QT_TEX, ta.tex[0], ta.tex[1], ta.tex[2]);
-                if (T.grads) {
-                    for (int k = 0; k < 4; ++k) {
-                        st.puti(b, q + QT_CIDX + k, ta.has_c ? ta.c.idx[k] : 0);
-                        st.put(b, q + QT_CW + k, ta.has_c ? ta.c.w[k] : 0.0f);
-                    }
-                }
-                if (FULL) {
-                    const int u = T.q_uvg;
-                    for (int c = 0; c < 3; ++c) {
-                        st.put(b, u + QU_DU + c, ta.has_c ? ta.c.du[c] : 0.0f);
-                        st.put(b, u + QU_DV + c, ta.has_c ? ta.c.dv[c] : 0.0f);
-                    }
-                    for (int k = 0; k < 6; ++k) st.put(b, u + QU_G + k, ta.uvg[k]);
-                }
-                if (T.nmap) {
-                    const int n = T.q_nm;
-                    st.put3(b, n + QN_RAW, ta.raw[0], ta.raw[1], ta.raw[2]);
-                    for (int c = 0; c < 3; ++c) {
-                        st.put(b, n + QN_VAL + c, ta.has_n ? ta.n.val[c] : 0.0f);
-                        st.put(b, n + QN_DU + c, ta.has_n ? ta.n.du[c] : 0.0f);
-                        st.put(b, n + QN_DV + c, ta.has_n ? ta.n.dv[c] : 0.0f);
-                    }
-                    if (T.grads) {
-                        for (int k = 0; k < 4; ++k) {
-                            st.puti(b, n + QN_CIDX + k, ta.has_n ? ta.n.idx[k] : 0);
-                            st.put(b, n + QN_CW + k, ta.has_n ? ta.n.w[k] : 0.0f);
-                        }
-                    }
-                }
+                st.put3(b, T.q_tex + QT_ALB, alb[0], alb[1], alb[2]);
+                if (!PHYSICAL) put_tex_aux<FULL>(st, T, b, ta);
             }
             ++nb;
             if (!alive || nb >= p.max_bounces) break;
+            if constexpr (PHYSICAL) {
+                // a path that goes on carries the density of the continuation it took
+                pp = inside ? 0.0f : physical_prev_pdf(lb, m, dx, dy, dz, ndx, ndy, ndz, code);
+            }
             ox = nox; oy = noy; oz = noz;
             dx = ndx; dy = ndy; dz = ndz;
             r1x = tmx * wr; r1y = tmy * wg; r1z = tmz * wb;
@@ -1011,10 +1192,36 @@ CPT_HD void backward_pixel(const SceneTables& sc, const RenderParams& p, const G
             int q_normal = Q_N;      // the raw normal's planes
             bool nee_an_in = false;  // the NEE normal partials folded into an
             if (FULL) {
+                float pdf_ad[3] = {0.0f, 0.0f, 0.0f}, pdf_an[3] = {0.0f, 0.0f, 0.0f};
+                if constexpr (PHYSICAL) {
+                    // the pdf chain: bounce b's scatter set the density that
+                    // bounce b+1's emission MIS weighed (an inside hit sets 0)
+                    const float app = (b + 1 < nb) ? st.get(b + 1, Q_PA_PP) : 0.0f;
+                    float pd[3], pn[3], nd[3];
+                    st.get3(b, Q_D, pd[0], pd[1], pd[2]);
+                    st.get3(b, Q_N, pn[0], pn[1], pn[2]);
+                    if (app != 0.0f && -dot3(pd[0], pd[1], pd[2], pn[0], pn[1], pn[2]) > 0.0f) {
+                        st.get3(b + 1, Q_D, nd[0], nd[1], nd[2]);
+                        float a_m[M_COLS] = {}, a_nd[3] = {0.0f, 0.0f, 0.0f};
+                        physical_prev_pdf_vjp(pd[0], pd[1], pd[2], pn[0], pn[1], pn[2], nd[0],
+                                              nd[1], nd[2], sc.materials + mat * M_COLS, code,
+                                              app, pdf_ad, pdf_an, a_nd, a_m);
+                        // the continuation is this bounce's OUTPUT direction
+                        for (int c = 0; c < 3; ++c) ad[c] += a_nd[c];
+                        add_material_cols<false>(a_m, mat_row, nullptr, acc);
+                    }
+                }
                 scatter_chain(sc, p, L, pixel, sample, b, st, mat, code, dwx, dwy, dwz,
                               ao, ad, ap, an, ade, acc);
+                if constexpr (PHYSICAL) {
+                    // the direct phase's direction cotangent, the pdf chain's (d, n)
+                    for (int c = 0; c < 3; ++c) {
+                        ade[c] += st.get(b, Q_PA_D + c) + pdf_ad[c];
+                        an[c] += pdf_an[c];
+                    }
+                }
                 if constexpr (TEXTURED) {
-                    tex_chain(sc, L, T, b, st, mat, a_alb, ap, an, acc);
+                    tex_chain<GEO>(sc, L, T, b, st, mat, a_alb, ap, an, acc);
                     if (T.nmap) { q_normal = T.q_nm + QN_RAW; nee_an_in = true; }
                 }
             }
@@ -1032,8 +1239,8 @@ CPT_HD void backward_pixel(const SceneTables& sc, const RenderParams& p, const G
                 acc.add(mat_row + 8, amid[2] * tm[2] * (-t_in));
             }
             if (FULL) {
-                hit_chain(sc, L, b, st, mat, amid, tm, t_in, ap, an, ade, ao, ad, acc, q_normal,
-                          nee_an_in);
+                hit_chain<GEO, PHYSICAL>(sc, L, b, st, mat, amid, tm, t_in, ap, an, ade, ao, ad,
+                                         acc, q_normal, nee_an_in);
             }
 
             ax = amid[0] * bx; ay = amid[1] * by; az = amid[2] * bz;

@@ -540,8 +540,10 @@ def _scatter_sample(dx, dy, dz, nx, ny, nz, px, py, pz, cos_i,
 # and, with ``bd``, the three-way weights against the light tracer's camera
 # connections (render/bidir.py). Function for function the JAX package's
 # ``_phong_pdf_p`` ... ``_physical_direct``; csrc/megakernel.cuh states the
-# same formulas in the same operation order. Forward values only: nothing
-# here is differentiated.
+# same formulas in the same operation order. Autograd through them is the
+# plain version of the backward kernel's physical mode (render/inverse.py's
+# engine="plain"), so no NaN may enter the graph on a lane that a ``where``
+# drops.
 # ---------------------------------------------------------------------------
 
 def _phong_pdf_p(ax, ay, az, exponent, wx, wy, wz):
@@ -559,8 +561,11 @@ def _beckmann_pdf_p(ax, ay, az, roughness, mx, my, mz):
     """The Beckmann sampler's exact density of microfacet normal m about
     axis a (not the textbook NDF)."""
     cos_t = _dot(mx, my, mz, ax, ay, az)
-    r2 = roughness * roughness
     valid = (cos_t > 0.0) & (roughness > 0.0)
+    # the lanes the where drops compute a moderate density: an overflow there
+    # would turn their zero cotangent into NaN
+    cos_t = torch.where(valid, cos_t, 1.0)
+    r2 = torch.where(valid, roughness * roughness, 1.0)
     cos_safe = torch.clamp_min(cos_t, 1e-12)
     sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 1e-12))
     tan_t = sin_t / cos_safe
@@ -599,9 +604,18 @@ def _spec_probability(cos_i, m_ps, m_ior, m_pure):
     """Selection probability of the specular branch. Where the Fresnel term
     is undefined (inf/inf at an infinite ior on a material not flagged pure)
     the cascade's comparisons never take the branch: its probability is 0
-    here too."""
-    p_spec = m_ps * torch.where(m_pure > 0.5, 1.0, _fresnel_p(cos_i, m_ior))
-    return torch.where(p_spec > 0.0, p_spec, 0.0)
+    here too, with no gradient. Where the ior is infinite the Fresnel term
+    carries no gradient; elsewhere it does, and so does spec_avg, also where
+    the probability is 0 (the gradient of the physical estimator)."""
+    finite = torch.isfinite(m_ior)
+    with torch.no_grad():
+        f_raw = _fresnel_p(cos_i, m_ior)
+        f_raw = torch.where(torch.isnan(f_raw), 0.0, f_raw)
+    # a lane with an infinite ior computes with 1 in its place: nothing
+    # undefined enters the graph
+    f = torch.where(finite, _fresnel_p(cos_i, torch.where(finite, m_ior, 1.0)),
+                    f_raw)
+    return m_ps * torch.where(m_pure > 0.5, 1.0, f)
 
 
 def _physical_lobes(dx, dy, dz, nx, ny, nz, cos_i, m):
@@ -756,11 +770,13 @@ def _physical_prev_pdf(lb, dx, dy, dz, ndx, ndy, ndz,
     hx, hy, hz = _normalize3(ndx - dx, ndy - dy, ndz - dz, 1e-12)
     dm = _dot(dx, dy, dz, hx, hy, hz)
     cax, cay, caz = lb["ct_axis"]
+    # the lanes the where drops divide by 1: a tiny |dm| there would turn
+    # their zero cotangent into NaN
+    den = torch.where(dm < 0.0, 4.0 * torch.clamp_min(torch.abs(dm), 1e-12), 1.0)
     pdf_ct = torch.where(
         dm < 0.0,
         lb["prob_ct"] * _beckmann_pdf_p(cax, cay, caz, lb["roughness"],
-                                        hx, hy, hz)
-        / (4.0 * torch.clamp_min(torch.abs(dm), 1e-12)),
+                                        hx, hy, hz) / den,
         0.0)
     return torch.where(take_diff, pdf_diff,
                        torch.where(gloss_br, pdf_gloss,
@@ -1271,7 +1287,8 @@ def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
     ppb = rng.pairs_per_bounce(num_als)
     eps = RAY_BUMP_EPSILON
     intersect_sweep, occlusion_sweep = _make_sweep_fns(
-        packed, track_index=physical or textured, grid=packed_grid, stats=stats)
+        packed, track_index=physical or textured or stats is not None,
+        grid=packed_grid, stats=stats)
     mats, pls, als, bg = (packed.materials, packed.point_lights,
                           packed.area_lights, packed.background)
     pl_rows = [pls[i].unbind() for i in range(num_pls)]
@@ -1329,6 +1346,9 @@ def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
         t_safe = torch.where(hit, best_t, 0.0)
         px, py, pz = ox + dx * t_safe, oy + dy * t_safe, oz + dz * t_safe
 
+        if stats is not None:
+            stats["triangle_hits"] = stats.get("triangle_hits", 0) + int(
+                (active & hit & (prim_f >= num_spheres)).sum())
         mrow = mats[mat]                       # direct indexed material fetch
         mf = tuple(mrow[:, f] for f in range(M_COLS))
         if textured:
@@ -1490,9 +1510,12 @@ def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
                                  cos_i, u_branch, u_a, u_b, mf)
 
         if physical:
+            # the density of the continuation taken; a lane that died takes
+            # none (its direction may be NaN there: an infinite ior) and its
+            # density is never read
+            nd = [torch.where(alive, v, 0.0) for v in (new_dx, new_dy, new_dz)]
             pdf_new = _physical_prev_pdf(
-                lb, dx, dy, dz, new_dx, new_dy, new_dz,
-                take_diff, take_spec & (~ct_m), take_spec & ct_m)
+                lb, dx, dy, dz, *nd, take_diff, take_spec & (~ct_m), take_spec & ct_m)
             prev_pdf = torch.where(act_hit,
                                    torch.where(~inside, pdf_new, 0.0),
                                    prev_pdf)
@@ -1635,6 +1658,7 @@ def render_megakernel_plain(packed: PackedScene, cam_params, seed: int,
     on. ``stats``, when a dict, receives ``paths``, ``path_bounces`` (sweeps
     for the nearest hit), ``shadow_rays`` (shadow sweeps whose result can
     change the image) and ``shadow_rays_occluded``, on a textured scene
+    ``triangle_hits`` (hits on a triangle), on a textured scene
     ``tex_sphere_hits`` / ``tex_triangle_hits`` (texture blocks run) and
     ``color_fetches`` / ``normal_fetches``, and with ``packed_grid``
     ``grid_slab_tests`` / ``grid_sphere_tests`` / ``grid_triangle_tests``

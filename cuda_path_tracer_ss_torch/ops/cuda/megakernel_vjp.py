@@ -11,8 +11,8 @@ exact), checkpoints each bounce, and runs the adjoint recurrence
 
 summing parameter cotangents into gradient rows. It replaces the TPU kernel
 ``cuda_path_tracer_ss_tpu/ops/pallas/megakernel_vjp.py::_make_backward_kernel``
-(launched by ``_backward_grads``) in its reference-parity form, on untextured
-and textured scenes, replaying through linear sweeps or through the supercell
+(launched by ``_backward_grads``) in every grad mode, on untextured and
+textured scenes, replaying through linear sweeps or through the supercell
 grid (``packed_grid``: the forward kernel's own grid sweeps; the grid gets no
 gradient). Discrete decisions (which primitive is hit,
 visibility, the scatter branch) are detached; continuous factors are
@@ -23,6 +23,17 @@ differentiated.
 dL/d(origin, direction) through every scatter step and hit and into the eye
 ray: roughness, ior, spec_exp, point-light positions, sphere centres and radii
 and the camera (rotation, position, tan_half_fov) receive gradients.
+``grad_mode="geo"`` adds the triangle geometry (``TRI_FIELDS``): rows for
+every triangle's packed (v0, e1, e2, n0, n1, n2) — the Moller-Trumbore adjoint
+of the winning triangle, its corner normals' barycentric weights — and for
+every area light's six vertices, which ``pack_scene``'s autograd carries back
+into ``tri_v*`` / ``tri_n*``. ``physical=True`` differentiates the physical
+(unbiased MIS) estimator exactly (the hand-written adjoint of its direct
+phase and of the emission-MIS pdf chain, ``csrc/megakernel.cuh``): the field
+set ``PALLAS_TRAINABLE_FIELDS_PHYS`` (``materials.spec_avg`` in, ``al_power``
+out), with geo ``PALLAS_TRAINABLE_FIELDS_PHYS_GEO``. Both build on the full
+path adjoint; geo takes no grid (its ``ValueError``: the cell lists would go
+stale as the vertices move).
 
 On a textured scene the replay re-runs the forward's texture block, and
 the texel rows are computed when the atlas requires grad: ``textures`` trains
@@ -31,14 +42,17 @@ albedo's cotangent is split into material rows (times the texel) and texel
 rows (times the material's diffuse, one ``atomicAdd`` per bilinear corner and
 channel). Full mode adds the UV swim (the texel factor moves with the hit) and,
 on a normal-mapped scene, the hand-written pullback of the tangent-frame
-perturbation into the raw normal and the normal map's texels. Linear mode
-cannot reach normal-map texels: training them in linear mode raises
-``ValueError`` rather than returning zeros.
+perturbation into the raw normal and the normal map's texels (geo: and into
+the triangle's edges, which the tangent frame follows; and the UVs' vertex
+terms at a fixed hit point). Linear mode cannot reach normal-map texels:
+training them in linear mode raises ``ValueError`` rather than returning
+zeros.
 
 What bounds the kernel on an H100: the replay is one forward render's FP32
 work, the reverse sweep adds work per stored bounce, and the checkpoints
-(``max_bounces * planes * 4`` bytes per pixel, 33 planes in full mode, 16 in
-linear mode, plus the textured blocks of ``_st_planes``, in a global
+(``max_bounces * planes * 4`` bytes per pixel, 16 planes in linear mode, 33
+in full and geo mode, 38 in physical mode, plus the textured blocks of
+``_st_planes``, in a global
 ``[bounce][plane][thread]`` buffer so that a warp's
 accesses are coalesced) are written and read once; on a small scene those
 bytes over the memory rate come out just above the operations over the FP32
@@ -49,19 +63,19 @@ scatter branch that was drawn is evaluated, material and primitive rows are
 read and written by direct index. Cross-block accumulation never depends on
 block order: each block sums its rows in shared memory with ``atomicAdd`` and
 writes them once to a ``[blocks, rows]`` buffer that ``torch.sum(0)`` reduces;
-scenes whose rows do not fit shared memory (4 rows per sphere) add into
-``[rows]`` with global atomics. Float additions therefore happen in an order
+scenes whose rows do not fit shared memory (4 rows per sphere, 18 per
+triangle in geo mode) add into ``[rows]`` with global atomics. Float additions therefore happen in an order
 that changes from run to run: two runs agree to rounding, not to the bit.
 
 Device rule: tables on a CUDA device go to the kernels, or the call raises;
 the plain version (``render_megakernel_diff_plain``: autograd through the
 plain forward render) runs only for tables on the CPU, or when called by name.
 
-Not ported yet, each raising ``NotImplementedError``: ``grad_mode="geo"``
-(textured or not), ``physical=True``, the sharded entry.
+Not ported yet, raising ``NotImplementedError``: the sharded entry.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import torch
@@ -71,9 +85,14 @@ from .megakernel import PackedScene, _unported
 
 # Material gradient rows per material, in row order: diffuse(3) specular(3)
 # absorption(3) emission(3) diff_avg(1); full mode adds roughness, ior,
-# spec_exp.
+# spec_exp; physical mode spec_avg.
 P_COLS = 13
 P_COLS_FULL = 16
+P_COLS_PHYS = 17
+# Geo mode: rows per triangle (v0, e1, e2, n0, n1, n2) and per area light
+# (power 3, then its six vertices 18).
+TRI_ROWS = 18
+AL_ROWS_GEO = 21
 # Camera rows appended after the background in full mode: rotation 9
 # (row-major), position 3, tan_half_fov. z_near has a structurally zero
 # gradient (the eye direction is normalize(z_near * v)).
@@ -84,6 +103,7 @@ CAM_ROWS = 13
 # (csrc: tex_layout).
 ST_PLANES = 16
 ST_PLANES_FULL = 33
+ST_PLANES_PHYS = 38   # + the direct phase's d, t and prev_pdf cotangents
 TEX_PLANES, TEX_PLANES_GRADS = 6, 14
 UVG_PLANES = 12
 NMAP_PLANES, NMAP_PLANES_GRADS = 12, 20
@@ -99,13 +119,15 @@ PALLAS_TRAINABLE_FIELDS_FULL = PALLAS_TRAINABLE_FIELDS | frozenset({
     "materials.roughness", "materials.ior", "materials.spec_exp", "pl_pos",
     "sph_center", "sph_radius",
 })
-# Field sets of the modes that are not ported yet; they word the refusals.
+# ... with physical=True (al_power drops out: the physical NEE reads the
+# light's material emission; spec_avg comes in) ...
 PALLAS_TRAINABLE_FIELDS_PHYS = (PALLAS_TRAINABLE_FIELDS_FULL
                                 | frozenset({"materials.spec_avg"})) - \
     frozenset({"al_power"})
 PALLAS_TRAINABLE_FIELDS_TEX = PALLAS_TRAINABLE_FIELDS | frozenset({"textures"})
 PALLAS_TRAINABLE_FIELDS_TEX_FULL = PALLAS_TRAINABLE_FIELDS_FULL | frozenset(
     {"textures"})
+# ... on a textured scene; and grad_mode="geo" adds the triangle geometry.
 TRI_FIELDS = frozenset({"tri_v0", "tri_v1", "tri_v2",
                         "tri_n0", "tri_n1", "tri_n2"})
 PALLAS_TRAINABLE_FIELDS_GEO = PALLAS_TRAINABLE_FIELDS_FULL | TRI_FIELDS
@@ -114,26 +136,36 @@ PALLAS_TRAINABLE_FIELDS_PHYS_GEO = PALLAS_TRAINABLE_FIELDS_PHYS | TRI_FIELDS
 # Launches of the backward CUDA kernel made by this module's wrapper (and
 # nowhere else) ...
 LAUNCH_COUNT = 0
-# ... of which through the grid, per grad mode [linear, full]
-LAUNCHES_GRID = [0, 0]
+# ... and per instantiation: (mode, textured, grid) with mode one of "linear",
+# "full", "geo", "physical", "physical-geo".
+LAUNCHES_BY_MODE = collections.Counter()
 
 
-def _grad_rows(counts, full: bool = False, texels: int = 0) -> int:
+def _grad_rows(counts, full: bool = False, texels: int = 0,
+               physical: bool = False, tri: bool = False) -> int:
     """Total gradient rows of the backward kernel (csrc: ``grad_layout``);
-    ``texels`` atlas texels with gradient rows (3 each, last)."""
-    num_spheres, _, num_mats, num_pls, num_als = counts
-    if full:
-        return (num_mats * P_COLS_FULL + 6 * num_pls + 3 * num_als + 3
-                + CAM_ROWS + 4 * num_spheres + 3 * texels)
-    return num_mats * P_COLS + 3 * num_pls + 3 * num_als + 3 + 3 * texels
+    ``texels`` atlas texels with gradient rows (3 each, last). ``physical``
+    and ``tri`` (geo) imply the full path adjoint."""
+    num_spheres, num_tris, num_mats, num_pls, num_als = counts
+    if physical or tri:
+        full = True
+    if not full:
+        return num_mats * P_COLS + 3 * num_pls + 3 * num_als + 3 + 3 * texels
+    pcols = P_COLS_PHYS if physical else P_COLS_FULL
+    al_stride = AL_ROWS_GEO if tri else 3
+    return (num_mats * pcols + 6 * num_pls + al_stride * num_als + 3
+            + CAM_ROWS + 4 * num_spheres + (TRI_ROWS * num_tris if tri else 0)
+            + 3 * texels)
 
 
 def _st_planes(full: bool, textured: bool = False, tex_grads: bool = False,
-               nmap: bool = False) -> int:
+               nmap: bool = False, physical: bool = False) -> int:
     """Checkpoint planes per bounce (csrc: ``tex_layout``): only the blocks
     the mode needs — the normal-map block only in full mode on a
-    normal-mapped scene, its corner planes only with texel gradients."""
-    planes = ST_PLANES_FULL if full else ST_PLANES
+    normal-mapped scene, its corner planes only with texel gradients.
+    ``full`` is true for the geo and physical modes as well."""
+    planes = (ST_PLANES_PHYS if physical
+              else ST_PLANES_FULL if full else ST_PLANES)
     if textured:
         planes += TEX_PLANES_GRADS if tex_grads else TEX_PLANES
         if full:
@@ -159,34 +191,42 @@ def _tex_grads(packed: PackedScene, full: bool) -> bool:
     return tex_grads
 
 
-def _reject_unported_diff(grad_mode: str, physical: bool = False) -> bool:
-    """Validate ``grad_mode``; returns True for the full path adjoint."""
+def _reject_unported_diff(grad_mode: str, physical: bool = False,
+                          sharded: bool = False) -> bool:
+    """Validate ``grad_mode``; returns True for the full path adjoint (which
+    geo and physical build on). Only the sharded entry is not ported."""
     if grad_mode not in ("full", "linear", "geo"):
         raise ValueError(f"grad_mode must be 'full', 'linear' or 'geo', "
                          f"got {grad_mode!r}")
-    if grad_mode == "geo":
-        _unported("grad_mode='geo' (triangle-geometry gradients: "
-                  f"{sorted(TRI_FIELDS)})",
-                  "Queue 1 item 6 / Queue 2: K2 geo")
-    if physical:
-        _unported("the physical (unbiased MIS) estimator's adjoint",
-                  "Queue 1 item 6 / Queue 2: K2 physical, after K1 physical")
-    return grad_mode == "full"
+    if sharded:
+        _unported("render_megakernel_diff_sharded (multi-device training)",
+                  "Queue 1 item 10 / item 6: sharded")
+    return grad_mode != "linear" or physical
+
+
+def _check_geo_grid(grad_mode: str, packed_grid) -> None:
+    if grad_mode == "geo" and packed_grid is not None:
+        raise ValueError("grad_mode='geo' takes no grid: the cell lists would "
+                         "go stale as the vertices move; use packed_grid=None")
 
 
 def _unpack_rows(rowsum: torch.Tensor, packed: PackedScene, full: bool,
-                 tex_grads: bool = False):
+                 tex_grads: bool = False, physical: bool = False,
+                 geo: bool = False):
     """Gradient rows ``[rows]`` -> (PackedScene cotangent, camera cotangent
     (rot [3,3], pos [3], tan_half [], z_near [])), all on ``rowsum``'s
-    device. Columns that the kernel does not differentiate (triangles,
-    area-light vertices, flags, spec_avg, refr_avg, the texture meta, UV and
-    map-id tables) are zero; so is the atlas without ``tex_grads``."""
+    device. Columns that the kernel does not differentiate (flags, refr_avg,
+    spec_avg outside physical mode, triangles and area-light vertices outside
+    geo mode, the texture meta, UV and map-id tables) are zero; so is the
+    atlas without ``tex_grads``."""
     counts = packed.counts
-    num_spheres, _, num_mats, num_pls, num_als = counts
-    pcols = P_COLS_FULL if full else P_COLS
+    num_spheres, num_tris, num_mats, num_pls, num_als = counts
+    full = full or physical or geo
+    pcols = P_COLS_PHYS if physical else P_COLS_FULL if full else P_COLS
     pl_stride = 6 if full else 3
+    al_stride = AL_ROWS_GEO if geo else 3
     texels = packed.tex_counts[1] if tex_grads else 0
-    rows = _grad_rows(counts, full, texels)
+    rows = _grad_rows(counts, full, texels, physical, geo)
     rowsum = rowsum.to(torch.float32)
     if rowsum.shape != (rows,):
         raise ValueError(f"expected {rows} gradient rows, "
@@ -203,10 +243,12 @@ def _unpack_rows(rowsum: torch.Tensor, packed: PackedScene, full: bool,
         d_mats[:, 17] = m[:, 13]     # roughness
         d_mats[:, 13] = m[:, 14]     # ior
         d_mats[:, 12] = m[:, 15]     # spec_exp
+    if physical:
+        d_mats[:, 15] = m[:, 16]     # spec_avg
 
     row_pl0 = num_mats * pcols
     row_al0 = row_pl0 + pl_stride * num_pls
-    row_bg0 = row_al0 + 3 * num_als
+    row_bg0 = row_al0 + al_stride * num_als
     d_pls = zeros(packed.point_lights)
     if num_pls:
         block = rowsum[row_pl0:row_al0].reshape(num_pls, pl_stride)
@@ -216,10 +258,14 @@ def _unpack_rows(rowsum: torch.Tensor, packed: PackedScene, full: bool,
             d_pls[:num_pls, 3:6] = block            # power
     d_als = zeros(packed.area_lights)
     if num_als:
-        d_als[:num_als, 18:21] = rowsum[row_al0:row_bg0].reshape(num_als, 3)
+        block = rowsum[row_al0:row_bg0].reshape(num_als, al_stride)
+        d_als[:num_als, 18:21] = block[:, 0:3]   # power
+        if geo:
+            d_als[:num_als, 0:18] = block[:, 3:]  # the six vertices
     d_bg = rowsum[row_bg0:row_bg0 + 3].clone()
 
     d_sph = zeros(packed.spheres)
+    d_tri = zeros(packed.triangles)
     tex = {}
     if packed.textured:
         tex = dict(zip(("tex_atlas", "tex_meta", "tex_triuv", "tex_matids"),
@@ -234,12 +280,17 @@ def _unpack_rows(rowsum: torch.Tensor, packed: PackedScene, full: bool,
         cam = rowsum[row_bg0 + 3:row_bg0 + 3 + CAM_ROWS]
         d_cam = (cam[0:9].reshape(3, 3).clone(), cam[9:12].clone(),
                  cam[12].clone(), d_cam[3])
+        row_geo0 = row_bg0 + 3 + CAM_ROWS
         if num_spheres:
-            row_geo0 = row_bg0 + 3 + CAM_ROWS
             d_sph[:num_spheres, 0:4] = rowsum[
                 row_geo0:row_geo0 + 4 * num_spheres].reshape(num_spheres, 4)
+        if geo and num_tris:
+            # packed v0, e1, e2, n0, n1, n2
+            row_tri0 = row_geo0 + 4 * num_spheres
+            d_tri[:num_tris, 0:18] = rowsum[
+                row_tri0:row_tri0 + TRI_ROWS * num_tris].reshape(num_tris, 18)
     d_packed = dataclasses.replace(
-        packed, spheres=d_sph, triangles=zeros(packed.triangles),
+        packed, spheres=d_sph, triangles=d_tri,
         materials=d_mats, point_lights=d_pls, area_lights=d_als,
         background=d_bg, **tex)
     return d_packed, d_cam
@@ -249,14 +300,19 @@ def _unpack_rows(rowsum: torch.Tensor, packed: PackedScene, full: bool,
 # The plain PyTorch version
 # ---------------------------------------------------------------------------
 
-def _detach_undifferentiated(packed: PackedScene) -> PackedScene:
-    als = packed.area_lights
-    als = torch.cat([als[:, :18].detach(), als[:, 18:]], -1)
+def _detach_undifferentiated(packed: PackedScene, geo: bool) -> PackedScene:
+    """What the kernel gives no gradient: the texture meta, UV and map-id
+    tables, and outside geo mode the triangles and the area lights' vertex
+    columns."""
     tex = {}
     if packed.textured:
         tex = dict(tex_meta=packed.tex_meta.detach(),
                    tex_triuv=packed.tex_triuv.detach(),
                    tex_matids=packed.tex_matids.detach())
+    if geo:
+        return dataclasses.replace(packed, **tex)
+    als = packed.area_lights
+    als = torch.cat([als[:, :18].detach(), als[:, 18:]], -1)
     return dataclasses.replace(packed, triangles=packed.triangles.detach(),
                                area_lights=als, **tex)
 
@@ -268,24 +324,26 @@ def render_megakernel_diff_plain(packed: PackedScene, cam_params, seed: int,
                                  packed_grid=None,
                                  physical: bool = False) -> torch.Tensor:
     """The plain PyTorch version of the differentiable render: autograd
-    through the plain forward render (``render_megakernel_plain``), with the
-    packed tables and the camera as differentiable tensors. It shares no
-    adjoint formula with the kernel: it is the yardstick of the kernel's
-    gradients, and what ``engine="plain"`` trains with.
+    through the plain forward render (``render_megakernel_plain``, physical
+    too), with the packed tables and the camera as differentiable tensors.
+    It shares no adjoint formula with the kernel: it is the yardstick of the
+    kernel's gradients, and what ``engine="plain"`` trains with.
 
-    The kernel gives the triangle table and the area lights' vertex columns
-    no gradient (they belong to ``grad_mode="geo"``); this version DETACHES
-    those columns, so the two agree table by table in full mode. In linear
-    mode the kernel leaves the full-only columns and the camera at zero while
+    Outside ``grad_mode="geo"`` the kernel gives the triangle table and the
+    area lights' vertex columns no gradient; this version DETACHES those
+    columns, so the two agree table by table in full mode. In linear mode
+    the kernel leaves the full-only columns and the camera at zero while
     autograd fills them: compare the linear fields only. Texel gradients are
-    refused where the kernel refuses them. ``packed_grid`` sweeps through the
-    grid (the same hits, so the same gradients)."""
+    refused where the kernel refuses them, and so is geo through a grid.
+    ``packed_grid`` sweeps through the grid (the same hits, so the same
+    gradients)."""
     full = _reject_unported_diff(grad_mode, physical)
+    _check_geo_grid(grad_mode, packed_grid)
     _tex_grads(packed, full)
-    return mk.render_megakernel_plain(_detach_undifferentiated(packed),
-                                      cam_params, seed, width, height, spp,
-                                      max_bounces, sample_offset=sample_offset,
-                                      packed_grid=packed_grid)
+    return mk.render_megakernel_plain(
+        _detach_undifferentiated(packed, grad_mode == "geo"), cam_params, seed,
+        width, height, spp, max_bounces, sample_offset=sample_offset,
+        packed_grid=packed_grid, physical=physical)
 
 
 # ---------------------------------------------------------------------------
@@ -304,7 +362,8 @@ def _kernel_fn():
                    vp, vp, ctypes.POINTER(ctypes.c_int),         # grid
                    ctypes.POINTER(ctypes.c_float),               # camera
                    ci, ci, ci, ci, ci, ci, ci, ci,               # scalars
-                   ci, ci, ci, ci,          # full, tex_grads, tex_nmap, shared
+                   ci, ci, ci, ci, ci, ci,  # full, physical, geo, tex_grads,
+                                            # tex_nmap, shared
                    vp, vp, vp, vp]                   # g, scratch, out, stream
     fn.restype = ci
     for const in (lib.cpt_backward_threads_per_block,
@@ -321,20 +380,29 @@ def _kernel_fn():
 LAST_ROUTE = None
 
 
+def _mode_name(full: bool, physical: bool, geo: bool) -> str:
+    if physical:
+        return "physical-geo" if geo else "physical"
+    return "geo" if geo else ("full" if full else "linear")
+
+
 def backward_rows_cuda(packed: PackedScene, cam_params, seed: int, width: int,
                        height: int, spp: int, max_bounces: int,
                        g_img: torch.Tensor, sample_offset: int = 0,
                        full: bool = False, pixel_offset: int = 0,
                        n_local=None, tex_grads: bool = False,
-                       packed_grid=None) -> torch.Tensor:
+                       packed_grid=None, physical: bool = False,
+                       geo: bool = False) -> torch.Tensor:
     """Launch the backward CUDA kernel: the gradient rows ``[rows]`` (float32,
     on the tables' device) of the MEAN radiance over ``spp`` of the pixel
     range ``[pixel_offset, pixel_offset + n_local)`` (default: the whole
     image) for the cotangent ``g_img`` (``n_local * 3`` values); with
     ``tex_grads`` (a textured scene) 3 texel rows per atlas texel come last;
-    ``packed_grid`` replays through the grid. Launches on the current stream
-    of the tables' device and does not synchronise; raises if the kernel does
-    not build or the launch is refused."""
+    ``packed_grid`` replays through the grid. ``physical`` differentiates the
+    physical estimator, ``geo`` adds the triangle and light-vertex rows (both
+    imply ``full``; geo takes no grid). Launches on the current stream of the
+    tables' device and does not synchronise; raises if the kernel does not
+    build or the launch is refused."""
     global LAUNCH_COUNT, LAST_ROUTE
     n = width * height if n_local is None else n_local
     mk._check_render_args(packed, width, height, spp, max_bounces,
@@ -345,6 +413,9 @@ def backward_rows_cuda(packed: PackedScene, cam_params, seed: int, width: int,
     if g_img.device != device or g_img.numel() != 3 * n:
         raise ValueError(f"g_img: need {3 * n} values on {device}, got "
                          f"{g_img.numel()} on {g_img.device}")
+    if geo and packed_grid is not None:
+        raise ValueError("grad_mode='geo' has no grid instantiation")
+    full = full or physical or geo
     lib, fn = _kernel_fn()
     # per-sample cotangent: the forward returned the MEAN over spp
     g = (g_img.detach().reshape(n, 3).to(torch.float32) / spp).contiguous()
@@ -355,8 +426,10 @@ def backward_rows_cuda(packed: PackedScene, cam_params, seed: int, width: int,
         raise ValueError("texel gradients of a normal-mapped scene need "
                          "full=True (the perturbation pullback)")
     texels = packed.tex_counts[1]
-    rows = _grad_rows(packed.counts, full, texels if tex_grads else 0)
-    planes = _st_planes(full, packed.textured, tex_grads, packed.tex_nmap)
+    rows = _grad_rows(packed.counts, full, texels if tex_grads else 0,
+                      physical, geo)
+    planes = _st_planes(full, packed.textured, tex_grads, packed.tex_nmap,
+                        physical)
     threads = lib.cpt_backward_threads_per_block()
     shared = rows <= lib.cpt_backward_shared_rows_max()
     num_s, num_t, num_m, num_pl, num_al = packed.counts
@@ -376,14 +449,15 @@ def backward_rows_cuda(packed: PackedScene, cam_params, seed: int, width: int,
                  *mk.tex_args(packed), texels, *mk.grid_args(packed_grid), cam_c,
                  int(seed), int(pixel_offset), int(n), int(sample_offset),
                  int(spp), int(max_bounces), int(width), int(height),
-                 int(full), int(tex_grads), int(packed.tex_nmap), int(shared),
+                 int(full), int(physical), int(geo), int(tex_grads),
+                 int(packed.tex_nmap), int(shared),
                  g.data_ptr(), scratch.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("backward megakernel launch failed: CUDA error "
                            f"{err} ({lib.cpt_error_string(err).decode()})")
     LAUNCH_COUNT += 1
-    if packed_grid is not None:
-        LAUNCHES_GRID[int(full)] += 1
+    LAUNCHES_BY_MODE[(_mode_name(full, physical, geo), packed.textured,
+                      packed_grid is not None)] += 1
     LAST_ROUTE = "shared" if shared else "global"
     return out.sum(0)
 
@@ -392,13 +466,15 @@ def backward_grads_cuda(packed: PackedScene, cam_params, seed: int,
                         width: int, height: int, spp: int, max_bounces: int,
                         g_img: torch.Tensor, sample_offset: int = 0,
                         full: bool = False, tex_grads: bool = False,
-                        pixel_offset: int = 0, n_local=None, packed_grid=None):
+                        pixel_offset: int = 0, n_local=None, packed_grid=None,
+                        physical: bool = False, geo: bool = False):
     """Run the backward kernel; returns (PackedScene cotangent, camera
-    cotangent). The camera cotangent is zeros unless ``full``."""
+    cotangent). The camera cotangent is zeros in linear mode."""
     rows = backward_rows_cuda(packed, cam_params, seed, width, height, spp,
                               max_bounces, g_img, sample_offset, full,
-                              pixel_offset, n_local, tex_grads, packed_grid)
-    return _unpack_rows(rows, packed, full, tex_grads)
+                              pixel_offset, n_local, tex_grads, packed_grid,
+                              physical, geo)
+    return _unpack_rows(rows, packed, full, tex_grads, physical, geo)
 
 
 class _RenderDiff(torch.autograd.Function):
@@ -407,7 +483,8 @@ class _RenderDiff(torch.autograd.Function):
     without textures), the four camera tensors, then the non-differentiable
     arguments (``layout``: the packed scene whose texture tables and counts
     the tensors above belong to; ``packed_grid``: the grid both kernels sweep
-    through, or None). ``launch`` is the pair (forward sums, backward grads)
+    through, or None; ``physical`` / ``geo``: the estimator and the geometry
+    rows). ``launch`` is the pair (forward sums, backward grads)
     of kernel wrappers: ``render_megakernel_diff`` passes the CUDA ones; the
     tests pass the host build of the same math."""
 
@@ -415,7 +492,7 @@ class _RenderDiff(torch.autograd.Function):
     def forward(ctx, spheres, triangles, materials, point_lights, area_lights,
                 background, tex_atlas, rot, pos, tan_half, z_near, layout,
                 seed, width, height, spp, max_bounces, sample_offset, full,
-                tex_grads, packed_grid, launch):
+                tex_grads, packed_grid, physical, geo, launch):
         packed = dataclasses.replace(
             layout, spheres=spheres, triangles=triangles, materials=materials,
             point_lights=point_lights, area_lights=area_lights,
@@ -423,32 +500,33 @@ class _RenderDiff(torch.autograd.Function):
         cam = (rot, pos, tan_half, z_near)
         sums = launch[0](packed, cam, seed, width, height, spp, max_bounces,
                          0, width * height, sample_offset,
-                         packed_grid=packed_grid)
+                         packed_grid=packed_grid, physical=physical)
         ctx.save_for_backward(*packed.tables(), *cam)
         ctx.packed = packed
         ctx.args = (seed, width, height, spp, max_bounces, sample_offset,
-                    full, tex_grads, packed_grid, launch[1])
+                    full, tex_grads, packed_grid, physical, geo, launch[1])
         return (sums / spp).reshape(height, width, 3)
 
     @staticmethod
     def backward(ctx, g):
         saved = ctx.saved_tensors
         (seed, width, height, spp, max_bounces, sample_offset, full,
-         tex_grads, packed_grid, backward_grads) = ctx.args
+         tex_grads, packed_grid, physical, geo, backward_grads) = ctx.args
         packed = dataclasses.replace(ctx.packed, **dict(zip(
             ("spheres", "triangles", "materials", "point_lights",
              "area_lights", "background"), saved[:6])))
         cam = saved[6:]
         d_packed, d_cam = backward_grads(
             packed, cam, seed, width, height, spp, max_bounces, g,
-            sample_offset, full, tex_grads, packed_grid=packed_grid)
+            sample_offset, full, tex_grads, packed_grid=packed_grid,
+            physical=physical, geo=geo)
         # a camera tensor may live on another device than the tables
         d_cam = tuple(d.reshape(c.shape).to(c.device) if need else None
                       for d, c, need in zip(d_cam, cam,
                                             ctx.needs_input_grad[7:11]))
         d_atlas = d_packed.tex_atlas if ctx.needs_input_grad[6] else None
         # the grid is discrete structure: no gradient
-        return (*d_packed.tables(), d_atlas, *d_cam) + (None,) * 11
+        return (*d_packed.tables(), d_atlas, *d_cam) + (None,) * 13
 
 
 def render_megakernel_diff(packed: PackedScene, cam_params, seed: int,
@@ -465,23 +543,31 @@ def render_megakernel_diff(packed: PackedScene, cam_params, seed: int,
     backward kernel runs. ``max_bounces`` is a runtime argument. On a
     textured scene the texel gradients are computed when the atlas requires
     grad. ``packed_grid`` (``pack_grid`` on the tables' device) makes both
-    kernels sweep through the supercell grid; it gets no gradient."""
+    kernels sweep through the supercell grid; it gets no gradient (geo mode
+    takes none). ``physical=True`` renders with the physical estimator (K1
+    physical) and differentiates it."""
     full = _reject_unported_diff(grad_mode, physical)
+    _check_geo_grid(grad_mode, packed_grid)
     if packed.device.type != "cuda":
         return render_megakernel_diff_plain(packed, cam_params, seed, width,
                                             height, spp, max_bounces,
                                             sample_offset, grad_mode,
-                                            packed_grid=packed_grid)
+                                            packed_grid=packed_grid,
+                                            physical=physical)
     tex_grads = _tex_grads(packed, full)
     mk._check_grid(packed, packed_grid)
     cam = tuple(torch.as_tensor(v, dtype=torch.float32) for v in cam_params)
     return _RenderDiff.apply(*packed.tables(), packed.tex_atlas, *cam, packed,
                              int(seed), width, height, spp, max_bounces,
                              int(sample_offset), full, tex_grads, packed_grid,
+                             bool(physical), grad_mode == "geo",
                              (mk.render_block_sums_cuda, backward_grads_cuda))
 
 
-def render_megakernel_diff_sharded(*args, **kwargs):
+def render_megakernel_diff_sharded(packed: PackedScene, cam_params, seed: int,
+                                   width: int, height: int, spp: int, mesh,
+                                   max_bounces: int = 8, sample_offset: int = 0,
+                                   grad_mode: str = "full", packed_grid=None,
+                                   physical: bool = False) -> torch.Tensor:
     """Pixel-sharded differentiable render over several devices."""
-    _unported("render_megakernel_diff_sharded (multi-device training)",
-              "Queue 1 item 10 / item 6: sharded")
+    _reject_unported_diff(grad_mode, physical, sharded=True)

@@ -1,8 +1,9 @@
 """Differentiable rendering: gradients, FD checking, inverse rendering.
 
 The reference is forward-only; differentiability is a capability of this
-rewrite: dL/d(material parameters, light powers and positions, sphere
-geometry, camera) of an image loss, and gradient descent on it. A loss renders
+rewrite: dL/d(material parameters, light powers and positions, sphere and
+triangle geometry, camera) of an image loss, and gradient descent on it, on
+the reference-parity estimator or (``physical=True``) the unbiased one. A loss renders
 through ``render_megakernel_diff`` (``ops/cuda/megakernel_vjp.py``): on a CUDA
 device the forward megakernel and the replay-VJP kernel, on the CPU autograd
 through the plain PyTorch render. Discrete branch / hit / visibility decisions
@@ -81,22 +82,15 @@ def merge_params(scene: Scene, params: Dict[str, torch.Tensor]) -> Scene:
     return scene
 
 
-# Fields the replay VJP differentiates. The full path adjoint
-# (grad_mode="full", the default) covers every exposed trainable field on the
-# reference-parity estimator (on a textured scene the texels too); the cheaper
-# "linear" backward covers only the throughput-linear subset (plus the texels
-# of a color-mapped scene), and make_loss picks it automatically when the
-# optimized fields allow.
-def _reject_physical(physical: bool) -> None:
-    if physical:
-        _unported("gradients of the physical (unbiased MIS) estimator "
-                  f"(fields {sorted(vjp.PALLAS_TRAINABLE_FIELDS_PHYS)})",
-                  "Queue 1 item 6 / Queue 2: K2 physical")
-
-
+# Fields the replay VJP differentiates. The full path adjoint covers every
+# exposed trainable field, triangle geometry included (grad_mode="geo"), on
+# either estimator (on a textured scene the texels too); the cheaper "linear"
+# backward covers only the throughput-linear subset (plus the texels of a
+# color-mapped scene) of the parity estimator, and make_loss picks it
+# automatically when the optimized fields allow.
 def pallas_trainable(physical: bool = False) -> frozenset:
-    _reject_physical(physical)
-    return vjp.PALLAS_TRAINABLE_FIELDS_FULL
+    return (vjp.PALLAS_TRAINABLE_FIELDS_PHYS_GEO if physical
+            else vjp.PALLAS_TRAINABLE_FIELDS_GEO)
 
 
 def pallas_trainable_linear() -> frozenset:
@@ -132,21 +126,15 @@ def check_engine_fields(engine: str, field_names, physical: bool = False,
     textured = scene is not None and getattr(scene, "num_textures", 0) > 0
     ok = pallas_trainable(physical)
     if textured:
-        ok = vjp.PALLAS_TRAINABLE_FIELDS_TEX_FULL
-    tri = sorted(set(field_names) & vjp.TRI_FIELDS)
-    if tri:
-        _unported(f"gradients for triangle geometry {tri} (grad_mode='geo'"
-                  f"{', textured scenes included' if textured else ''})",
-                  "Queue 1 item 6 / Queue 2: K2 geo")
-    if "materials.spec_avg" in field_names:
+        ok = ok | frozenset({"textures"})
+    if "materials.spec_avg" in field_names and not physical:
         # in the parity estimator spec_avg only gates the detached branch
         # choice: a structurally zero gradient, refused rather than returned
         raise ValueError(
             f"engine='{engine}' has no gradient for ['materials.spec_avg']: "
             "in the reference-parity estimator it only gates a detached "
-            "branch choice. It carries a real gradient in the physical "
-            "estimator, which is not ported yet (ROADMAP.md Queue 1 item 6 / "
-            "Queue 2: K2 physical)")
+            "branch choice; it carries a real gradient in the physical "
+            "estimator (physical=True)")
     bad = [f for f in field_names if f not in ok]
     if bad:
         raise ValueError(
@@ -154,14 +142,17 @@ def check_engine_fields(engine: str, field_names, physical: bool = False,
             f"{bad}; its VJP covers {sorted(ok)}")
 
 
-def _grad_mode_for(field_names, scene=None) -> str:
+def _grad_mode_for(field_names, scene=None, physical: bool = False) -> str:
     """The throughput-linear backward kernel is leaner; it is used whenever
-    the caller names its optimized fields and none needs the path adjoint.
-    On a textured scene the linear backward also trains the texels of color
-    maps, but not those of normal maps (they need the full path adjoint's
-    perturbation pullback)."""
+    the caller names its optimized fields, none needs the path adjoint and
+    the estimator is the parity one. On a textured scene the linear backward
+    also trains the texels of color maps, but not those of normal maps (they
+    need the full path adjoint's perturbation pullback). Triangle fields
+    take the geo backward."""
     if field_names is not None and set(field_names) & vjp.TRI_FIELDS:
         return "geo"
+    if physical:
+        return "full"
     lean = pallas_trainable_linear()
     if scene is not None and getattr(scene, "num_textures", 0) > 0:
         has_nmap = bool((scene.materials.nmap_id >= 0).any())
@@ -192,18 +183,19 @@ def make_loss(scene: Scene, cam_params, target, width: int, height: int,
     ``accel="grid"`` builds the uniform grid (``ops/grid.py``) ONCE from the
     initial scene and sweeps through it in every evaluation, forward and
     backward. Valid while the optimized fields leave geometry fixed; moving
-    spheres across cell boundaries needs a rebuild."""
+    spheres across cell boundaries needs a rebuild. ``physical=True`` renders
+    and differentiates the unbiased estimator (its target must be a physical
+    render too)."""
     if accel not in ("none", "grid"):
         raise ValueError(f"unknown accel {accel!r}; use 'none' or 'grid'")
     if accel == "grid":
         _check_grid_engine(engine)
     _check_engine(engine)
-    _reject_physical(physical)
     device = torch.device(device if device is not None
                           else ("cuda" if engine == "cuda" else "cpu"))
     if engine == "cuda" and device.type != "cuda":
         raise ValueError(f"engine='cuda' needs a CUDA device, got {device}")
-    grad_mode = _grad_mode_for(field_names, scene)
+    grad_mode = _grad_mode_for(field_names, scene, physical)
     render = (vjp.render_megakernel_diff if engine == "cuda"
               else vjp.render_megakernel_diff_plain)
     grid = pack_grid(build_grid(scene), device) if accel == "grid" else None
@@ -215,7 +207,7 @@ def make_loss(scene: Scene, cam_params, target, width: int, height: int,
         s = merge_params(scene, params)
         img = render(pack_scene(s, device), cam_params, int(seed), width,
                      height, spp, max_bounces=max_bounces,
-                     grad_mode=grad_mode, packed_grid=grid)
+                     grad_mode=grad_mode, packed_grid=grid, physical=physical)
         return torch.mean((img - target) ** 2)
 
     loss.grad_mode = grad_mode

@@ -95,13 +95,22 @@ def test_check_engine_fields_agrees_with_jax(engine, name):
 
 @pytest.mark.parametrize("name", TRI)
 def test_triangle_fields_raise_naming_the_roadmap(name):
+    """The triangle fields train in grad mode geo, as in the reference; with
+    accel='grid' invert raises the reference's ValueError."""
     jinverse.check_engine_fields("pallas", [name])          # the reference has them
-    with pytest.raises(NotImplementedError, match="ROADMAP.*K2 geo"):
-        tinverse.check_engine_fields("cuda", ["materials.diffuse", name])
+    for engine in ("cuda", "plain"):
+        tinverse.check_engine_fields(engine, ["materials.diffuse", name])
+        tinverse.check_engine_fields(engine, ["materials.diffuse", name], physical=True)
+    loss = tinverse.make_loss(tpresets.cornell(), CP, torch.zeros(8, 8, 3), 8, 8, 1,
+                              engine="plain", field_names=["materials.diffuse", name])
+    assert loss.grad_mode == "geo"
+    with pytest.raises(ValueError, match="geometry fields"):
+        tinverse.invert(tpresets.cornell(), CP, torch.zeros(8, 8, 3), [name], 8, 8, steps=1,
+                        engine="plain", accel="grid")
 
 
 def test_spec_avg_raises_and_never_returns_a_silent_zero():
-    with pytest.raises(ValueError, match="spec_avg.*K2 physical"):
+    with pytest.raises(ValueError, match="spec_avg.*physical=True"):
         tinverse.check_engine_fields("cuda", ["materials.spec_avg"])
     with pytest.raises(ValueError, match="spec_avg"):
         tinverse.invert(tpresets.cornell(), CP, torch.zeros(8, 8, 3),
@@ -110,33 +119,56 @@ def test_spec_avg_raises_and_never_returns_a_silent_zero():
 
 @pytest.mark.parametrize("call,item", [
     (lambda s: tinverse.check_engine_fields("cuda", ["al_power"], physical=True),
-     "K2 physical"),
+     "ValueError: no gradient"),
     (lambda s: tinverse.check_engine_fields("lighttrace", ["materials.emission"]),
      "item 8"),
     (lambda s: tinverse.check_engine_fields("bidir", ["materials.emission"]), "item 8"),
     (lambda s: tinverse.check_engine_fields("jnp", ["materials.diffuse"]), "item 7"),
     (lambda s: tinverse.check_engine_fields(
-        "cuda", ["textures", "tri_v0"], scene=port_scene(jpresets.textured())),
-     "K2 geo"),
+        "cuda", ["textures", "tri_v0"], scene=port_scene(jpresets.textured())), None),
     (lambda s: _grid_loss_equals_linear(s), None),
-    (lambda s: tinverse.make_loss(s, CP, torch.zeros(8, 8, 3), 8, 8, 1,
-                                  engine="plain", physical=True), "K2 physical"),
+    (lambda s: _physical_loss_is_the_physical_render_s(s), None),
     (lambda s: tinverse.make_loss(s, CP, torch.zeros(8, 8, 3), 8, 8, 1,
                                   engine="bidir", physical=True), "item 8"),
     (lambda s: tinverse.invert(s, CP, torch.zeros(8, 8, 3), ["sph_center"], 8, 8,
                                steps=1, engine="plain", silhouette=True), "item 9"),
-    (lambda s: tinverse.invert(s, CP, torch.zeros(8, 8, 3), ["tri_v0"], 8, 8,
-                               steps=1, engine="plain"), "K2 geo"),
+    (lambda s: _invert_geo_steps(s), None),
 ], ids=["physical", "lighttrace", "bidir", "eager", "textured", "grid",
         "loss-physical", "loss-bidir", "silhouette", "invert-geo"])
 def test_unported_raise_naming_the_roadmap(call, item):
-    """What is not ported raises naming the ROADMAP; make_loss(accel='grid')
-    is ported (item None) and gives the linear sweeps' loss and gradients."""
+    """What is not ported raises naming the ROADMAP; what the reference
+    refuses raises its ValueError; what is ported (item None) runs: triangle
+    fields on a textured scene, make_loss(accel='grid') (the linear sweeps'
+    loss and gradients), make_loss(physical=True) (the physical render's loss)
+    and invert on triangle vertices (the loss falls)."""
     if item is None:
         call(tpresets.cornell())
         return
+    if item.startswith("ValueError: "):
+        with pytest.raises(ValueError, match=item[len("ValueError: "):]):
+            call(tpresets.cornell())
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.*" + item):
         call(tpresets.cornell())
+
+
+def _physical_loss_is_the_physical_render_s(scene):
+    target = torch.rand((8, 8, 3), generator=torch.Generator().manual_seed(2))
+    loss = tinverse.make_loss(scene, CP, target, 8, 8, 1, 3, engine="plain", physical=True)
+    img = tmk.render_megakernel_plain(tmk.pack_scene(scene, "cpu"), CP, 4, 8, 8, 1, 3,
+                                      physical=True)
+    assert loss.grad_mode == "full"
+    assert float(loss(tinverse.extract_params(scene, []), 4)) == float(
+        torch.mean((img - target) ** 2))
+
+
+def _invert_geo_steps(scene):
+    truth = tinverse.extract_params(scene, ["tri_v0"])["tri_v0"]
+    target = tmk.render_megakernel_plain(tmk.pack_scene(scene, "cpu"), CP, 0, 8, 8, 1, 3)
+    start = tinverse.with_field(scene, "tri_v0", truth + 0.05)
+    _, params, losses = tinverse.invert(start, CP, target, ["tri_v0"], 8, 8, spp=1, steps=3,
+                                        lr=0.02, max_bounces=3, engine="plain")
+    assert losses[-1] < losses[0] and bool(torch.isfinite(params["tri_v0"]).all())
 
 
 def _grid_loss_equals_linear(scene):

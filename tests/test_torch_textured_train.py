@@ -150,37 +150,56 @@ def test_texel_gradients_follow_the_atlas():
 
 @pytest.mark.parametrize("call,error,match", [
     (lambda s: tinverse.check_engine_fields("cuda", ["textures", "tri_v0"], scene=s),
-     NotImplementedError, "ROADMAP.*K2 geo"),
-    (lambda s: tinverse.check_engine_fields("cuda", ["textures"], physical=True, scene=s),
-     NotImplementedError, "ROADMAP.*K2 physical"),
-    (lambda s: tvjp.render_megakernel_diff(tmk.pack_scene(s, "cpu"), CP, 0, 8, 8, 1,
-                                           grad_mode="geo"),
-     NotImplementedError, "ROADMAP.*K2 geo"),
+     None, None),
+    (lambda s: tinverse.check_engine_fields("cuda", ["textures", "materials.spec_avg"],
+                                            physical=True, scene=s), None, None),
+    (lambda s: _geo_entry_runs(s), None, None),
     (lambda s: tinverse.check_engine_fields("plain", ["textures", "materials.spec_avg"],
                                             scene=s), ValueError, "spec_avg"),
     (lambda s: tinverse.check_engine_fields("cuda", ["textures", "tex_hw"], scene=s),
      ValueError, "no gradient"),
 ], ids=["geo", "physical", "geo-entry", "spec_avg", "unknown"])
 def test_textured_refusals(call, error, match):
+    """On a textured scene the triangle fields (geo) and the physical
+    estimator's fields train, as in the reference; what it refuses raises
+    its ValueError."""
+    if error is None:
+        call(tpresets.get_scene("textured"))
+        return
     with pytest.raises(error, match=match):
         call(tpresets.get_scene("textured"))
 
 
+def _geo_entry_runs(scene):
+    """render_megakernel_diff(grad_mode='geo') on the textured preset: the
+    triangle gradients reach the vertices, the texels theirs."""
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in tinverse.extract_params(scene, ["tri_v0", "textures"]).items()}
+    packed = tmk.pack_scene(tinverse.merge_params(scene, leaves), "cpu")
+    img = tvjp.render_megakernel_diff(packed, CP, 0, 8, 8, 1, max_bounces=2, grad_mode="geo")
+    grads = torch.autograd.grad((img ** 2).mean(), list(leaves.values()))
+    assert img.shape == (8, 8, 3) and all(bool(torch.isfinite(g).all()) for g in grads)
+    assert float(grads[0].abs().max()) > 0
+
+
 def test_textured_field_sets_are_the_reference_s():
-    """What the reference's fused engine trains on a textured scene, less
-    the triangle fields (K2 geo, not ported)."""
+    """What the reference's fused engine trains on a textured scene, with
+    either estimator, the triangle fields included."""
     scene = tpresets.get_scene("textured")
-    for name in jinverse.TRAINABLE_FIELDS:
-        try:
-            jinverse.check_engine_fields("pallas", [name], scene=jpresets.textured())
-            accepted = True
-        except ValueError:
-            accepted = False
-        if accepted and name != "materials.spec_avg":
-            tinverse.check_engine_fields("cuda", [name], scene=scene)
-        else:
-            with pytest.raises(ValueError):
-                tinverse.check_engine_fields("cuda", [name], scene=scene)
+    for physical in (False, True):
+        for name in jinverse.TRAINABLE_FIELDS + tuple(sorted(tvjp.TRI_FIELDS)):
+            try:
+                jinverse.check_engine_fields("pallas", [name], physical=physical,
+                                             scene=jpresets.textured())
+                accepted = True
+            except ValueError:
+                accepted = False
+            if accepted:
+                tinverse.check_engine_fields("cuda", [name], physical=physical, scene=scene)
+            else:
+                with pytest.raises(ValueError):
+                    tinverse.check_engine_fields("cuda", [name], physical=physical,
+                                                 scene=scene)
     assert tvjp.PALLAS_TRAINABLE_FIELDS_TEX == jvjp.PALLAS_TRAINABLE_FIELDS_TEX
     assert tvjp.PALLAS_TRAINABLE_FIELDS_TEX_FULL == jvjp.PALLAS_TRAINABLE_FIELDS_TEX_FULL
 

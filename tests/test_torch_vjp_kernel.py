@@ -191,14 +191,32 @@ def test_cpu_tables_take_the_plain_version_and_the_cuda_wrapper_refuses_them():
 @pytest.mark.parametrize("entry", ["render_megakernel_diff",
                                    "render_megakernel_diff_plain"])
 def test_unported_modes_raise(entry, kwargs, item):
-    """geo and physical raise naming the ROADMAP; the grid renders the linear
-    image and gives the linear gradients (the same hits, so bit for bit on
-    the plain engine)."""
+    """Every grad mode runs: geo and physical give, through either entry (CPU
+    tables take the plain version), the loss and gradients of the host build
+    of the CUDA kernels' math; the grid renders the linear image and gives
+    the linear gradients (the same hits, so bit for bit on the plain
+    engine)."""
     scene = tpresets.cornell()
     packed = tmk.pack_scene(scene, "cpu")
     if "packed_grid" not in kwargs:
-        with pytest.raises(NotImplementedError, match="ROADMAP.*" + item):
-            getattr(tvjp, entry)(packed, CP, 0, 8, 8, 1, **kwargs)
+        fields = ["materials.diffuse", "tri_v0"] if item == "K2 geo" else [
+            "materials.diffuse", "materials.spec_avg"]
+        mode = kwargs.get("grad_mode", "full")
+        physical = kwargs.get("physical", False)
+        got = {}
+        for engine, render in (("entry", getattr(tvjp, entry)),
+                               ("host", render_diff_hostbuild)):
+            leaves = {k: v.detach().clone().requires_grad_(True)
+                      for k, v in tinverse.extract_params(scene, fields).items()}
+            pk = tmk.pack_scene(tinverse.merge_params(scene, leaves), "cpu")
+            img = render(pk, CP, 0, 8, 8, 1, max_bounces=3, grad_mode=mode,
+                         physical=physical)
+            val = (img ** 2).mean()
+            got[engine] = (float(val.detach()), dict(zip(fields, (
+                g.numpy() for g in torch.autograd.grad(val, list(leaves.values()))))))
+        np.testing.assert_allclose(got["entry"][0], got["host"][0], rtol=1e-5)
+        assert_grads_close(got["host"][1], got["entry"][1], fields)
+        assert all(np.abs(g).max() > 0 for g in got["entry"][1].values())
         return
     grid = tmk.pack_grid(build_grid(scene), "cpu")
     out = []

@@ -1,9 +1,10 @@
 // Test-only host build of the CUDA kernels' device math: the package's
 // csrc/megakernel.cuh (forward render, all three estimator variants, linear
 // and grid sweeps),
-// csrc/megakernel_vjp.cuh (replay VJP) and csrc/lightkernel.cuh (light
-// tracing) compiled by a host C++ compiler, one loop iteration per pixel or
-// light path, so that
+// csrc/megakernel_vjp.cuh (replay VJP, every grad mode, and the hand-written
+// adjoints it is built from) and csrc/lightkernel.cuh (light tracing)
+// compiled by a host C++ compiler, one loop iteration per pixel or light
+// path, so that
 // the kernels' arithmetic can be held against the plain PyTorch version on a
 // machine without a GPU. Built by torch_port_helpers.py:
 //   g++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC -I <package>/csrc ...
@@ -71,6 +72,36 @@ void render_pixels(const cpt::SceneTables& sc, const cpt::RenderParams& p, int v
             cpt::render_pixel_t<true, true, TEXTURED>(sc, p, p.pixel_offset + i, r, g, b);
         }
     }
+}
+
+template <bool FULL, bool PHYSICAL, bool GEO>
+void backward_pixels(const cpt::SceneTables& sc, const cpt::RenderParams& p,
+                     const cpt::GradLayout& L, const cpt::TexLayout& T, const float* g,
+                     const cpt::CheckpointStore& st, HostSink& sink) {
+    for (int i = 0; i < p.n_local; ++i) {
+        const float gx = g[3 * i], gy = g[3 * i + 1], gz = g[3 * i + 2];
+        const int pixel = p.pixel_offset + i;
+        if (T.on) {
+            cpt::backward_pixel<FULL, true, PHYSICAL, GEO>(sc, p, L, T, pixel, gx, gy, gz, st, sink);
+        } else {
+            cpt::backward_pixel<FULL, false, PHYSICAL, GEO>(sc, p, L, T, pixel, gx, gy, gz, st,
+                                                            sink);
+        }
+    }
+}
+
+// A float row accumulator (the adjoints' unit tests).
+struct ArraySink {
+    float* rows;
+    void add(int row, float v) { rows[row] += v; }
+};
+
+// Lane i's n-run arrays: component k at [k * n + i].
+void get3(const float* a, int n, int i, float* v) {
+    v[0] = a[i]; v[1] = a[n + i]; v[2] = a[2 * n + i];
+}
+void put3(float* a, int n, int i, const float* v) {
+    a[i] = v[0]; a[n + i] = v[1]; a[2 * n + i] = v[2];
 }
 
 }  // namespace
@@ -158,8 +189,8 @@ int cpt_backward_megakernel_host(const float* spheres, int num_spheres,
                                  const int* grid_meta, const float* cam_host,
                                  int seed, int pixel_offset, int n_local, int sample_offset,
                                  int spp, int max_bounces, int width, int height,
-                                 int full, int texels, int tex_grads, int tex_nmap,
-                                 const float* g, double* rows) {
+                                 int full, int physical, int geo, int texels, int tex_grads,
+                                 int tex_nmap, const float* g, double* rows) {
     const cpt::SceneTables sc = make_tables(spheres, num_spheres, triangles, num_triangles,
                                             materials, num_materials, point_lights,
                                             num_point_lights, area_lights, num_area_lights,
@@ -168,29 +199,28 @@ int cpt_backward_megakernel_host(const float* spheres, int num_spheres,
                                             grid_meta);
     const cpt::RenderParams p = make_params(cam_host, seed, pixel_offset, n_local, sample_offset,
                                             spp, max_bounces, width, height);
-    const cpt::TexLayout T = cpt::tex_layout(full != 0, num_textures > 0, tex_grads != 0,
-                                             tex_nmap != 0);
-    const cpt::GradLayout L = cpt::grad_layout(num_spheres, num_materials, num_point_lights,
-                                               num_area_lights, full != 0,
-                                               T.grads ? texels : 0);
+    const bool any_full = full || physical || geo;
+    const cpt::TexLayout T = cpt::tex_layout(any_full, num_textures > 0, tex_grads != 0,
+                                             tex_nmap != 0, physical != 0);
+    const cpt::GradLayout L = cpt::grad_layout(num_spheres, num_triangles, num_materials,
+                                               num_point_lights, num_area_lights, any_full,
+                                               T.grads ? texels : 0, physical != 0, geo != 0);
     std::vector<float> scratch((size_t)(max_bounces > 1 ? max_bounces : 1) * T.planes);
     cpt::CheckpointStore st;
     st.base = scratch.data(); st.stride = 1; st.planes = T.planes;
     HostSink sink;
     sink.rows = rows;
     for (int r = 0; r < L.rows; ++r) rows[r] = 0.0;
-    for (int i = 0; i < n_local; ++i) {
-        const float gx = g[3 * i], gy = g[3 * i + 1], gz = g[3 * i + 2];
-        const int pixel = pixel_offset + i;
-        if (full && T.on) {
-            cpt::backward_pixel<true, true>(sc, p, L, T, pixel, gx, gy, gz, st, sink);
-        } else if (full) {
-            cpt::backward_pixel<true, false>(sc, p, L, T, pixel, gx, gy, gz, st, sink);
-        } else if (T.on) {
-            cpt::backward_pixel<false, true>(sc, p, L, T, pixel, gx, gy, gz, st, sink);
-        } else {
-            cpt::backward_pixel<false, false>(sc, p, L, T, pixel, gx, gy, gz, st, sink);
-        }
+    if (physical && geo) {
+        backward_pixels<true, true, true>(sc, p, L, T, g, st, sink);
+    } else if (physical) {
+        backward_pixels<true, true, false>(sc, p, L, T, g, st, sink);
+    } else if (geo) {
+        backward_pixels<true, false, true>(sc, p, L, T, g, st, sink);
+    } else if (full) {
+        backward_pixels<true, false, false>(sc, p, L, T, g, st, sink);
+    } else {
+        backward_pixels<false, false, false>(sc, p, L, T, g, st, sink);
     }
     return L.rows;
 }
@@ -316,6 +346,203 @@ void cpt_perturb_normal_vjp_host(const float* triangles, int num_spheres,
         cpt::perturb_normal_vjp(raw[i], raw[n + i], raw[2 * n + i], sphere, tgx, tgy, tgz, t[i],
                                 t[n + i], t[2 * n + i], g[i], g[n + i], g[2 * n + i], a, b);
         for (int c = 0; c < 3; ++c) { an[c * n + i] = a[c]; at[c * n + i] = b[c]; }
+    }
+}
+
+// ---- the hand-written adjoints of the geo and physical modes, lane by lane ----
+// Every array holds its components as runs of n values.
+
+// triangle_t_vjp at s = o - v0 -> a_s, a_d, a_e1, a_e2.
+void cpt_triangle_t_vjp_host(int n, const float* s, const float* d, const float* e1,
+                             const float* e2, const float* t, const float* at, const float* aw1,
+                             const float* aw2, float* as, float* ad, float* ae1, float* ae2) {
+    for (int i = 0; i < n; ++i) {
+        float sv[3], dv[3], tr[9], o_s[3], o_d[3], o_1[3], o_2[3], w1, w2;
+        get3(s, n, i, sv); get3(d, n, i, dv);
+        get3(e1, n, i, tr + 3); get3(e2, n, i, tr + 6);
+        tr[0] = tr[1] = tr[2] = 0.0f;
+        cpt::triangle_t_vjp<true>(sv[0], sv[1], sv[2], dv[0], dv[1], dv[2], tr, t[i], at[i],
+                                  aw1[i], aw2[i], o_s, o_d, o_1, o_2, w1, w2);
+        put3(as, n, i, o_s); put3(ad, n, i, o_d); put3(ae1, n, i, o_1); put3(ae2, n, i, o_2);
+    }
+}
+
+// uv_vertex_vjp on triangle rows tri[T_COLS n] with UVs triuv[6 n] at hit points
+// p -> a9[9 n] (v0, e1, e2).
+void cpt_uv_vertex_vjp_host(int n, const float* tri, const float* triuv, const float* p,
+                            const float* a_u, const float* a_v, float* a9) {
+    for (int i = 0; i < n; ++i) {
+        float pv[3], out[9];
+        get3(p, n, i, pv);
+        cpt::uv_vertex_vjp(tri + i * cpt::T_COLS, triuv + i * 6, pv[0], pv[1], pv[2], a_u[i],
+                           a_v[i], out);
+        for (int k = 0; k < 9; ++k) a9[k * n + i] = out[k];
+    }
+}
+
+// The tangent frame's edge terms: perturb_normal_vjp's tangent cotangent on
+// triangle rows tri[T_COLS n] (UVs triuv[6 n]) pulled through
+// tri_uv_tangent_vjp -> a_e[6 n] (e1, e2).
+void cpt_tangent_edges_vjp_host(int n, const float* tri, const float* triuv, const float* raw,
+                                const float* t, const float* g, float* a_e) {
+    for (int i = 0; i < n; ++i) {
+        float r[3], tv[3], gv[3], tg[3], an[3], at[3], atg[3], ae[6] = {};
+        get3(raw, n, i, r); get3(t, n, i, tv); get3(g, n, i, gv);
+        cpt::tri_uv_tangent(tri + i * cpt::T_COLS, triuv + i * 6, tg[0], tg[1], tg[2]);
+        cpt::perturb_normal_vjp(r[0], r[1], r[2], false, tg[0], tg[1], tg[2], tv[0], tv[1], tv[2],
+                                gv[0], gv[1], gv[2], an, at, atg);
+        cpt::tri_uv_tangent_vjp(tri + i * cpt::T_COLS, triuv + i * 6, atg, ae, ae + 3);
+        for (int k = 0; k < 6; ++k) a_e[k * n + i] = ae[k];
+    }
+}
+
+// physical_lobes_vjp at (d, n, cos_i, m[20]) with the lobes' cotangent a_lb[12]
+// (nu 3, gloss axis 3, ct axis 3, prob_g, prob_ct, nv) -> a_d, a_n, a_cos, a_m[20].
+void cpt_physical_lobes_vjp_host(int n, const float* d, const float* nrm, const float* cos_i,
+                                 const float* m, const float* a_lb, float* a_d, float* a_n,
+                                 float* a_cos, float* a_m) {
+    for (int i = 0; i < n; ++i) {
+        float dv[3], nv[3], mv[cpt::M_COLS], od[3] = {}, on[3] = {}, om[cpt::M_COLS] = {},
+              oc = 0.0f;
+        get3(d, n, i, dv); get3(nrm, n, i, nv);
+        for (int k = 0; k < cpt::M_COLS; ++k) mv[k] = m[k * n + i];
+        cpt::LobesAdj a;
+        const float* q = a_lb;
+        a.nux = q[i]; a.nuy = q[n + i]; a.nuz = q[2 * n + i];
+        a.gax = q[3 * n + i]; a.gay = q[4 * n + i]; a.gaz = q[5 * n + i];
+        a.cax = q[6 * n + i]; a.cay = q[7 * n + i]; a.caz = q[8 * n + i];
+        a.prob_g = q[9 * n + i]; a.prob_ct = q[10 * n + i]; a.nv = q[11 * n + i];
+        cpt::physical_lobes_vjp(dv[0], dv[1], dv[2], nv[0], nv[1], nv[2], cos_i[i], mv, a, od, on,
+                                oc, om);
+        put3(a_d, n, i, od); put3(a_n, n, i, on);
+        a_cos[i] = oc;
+        for (int k = 0; k < cpt::M_COLS; ++k) a_m[k * n + i] = om[k];
+    }
+}
+
+// lobe_terms_vjp toward w with the lobes physical_lobes_all(d, n, -d.n, m) and
+// the cotangents a5 of (s_d, p_g, s_ct, p_ct, cos_s) -> a_lb[12] (as above),
+// a_m[20], a_d, a_n, a_w.
+void cpt_lobe_terms_vjp_host(int n, const float* d, const float* nrm, const float* m,
+                             const float* w, const float* a5, float* a_lb, float* a_m, float* a_d,
+                             float* a_n, float* a_w) {
+    for (int i = 0; i < n; ++i) {
+        float dv[3], nv[3], wv[3], mv[cpt::M_COLS], om[cpt::M_COLS] = {}, od[3] = {}, on[3] = {},
+              ow[3] = {};
+        get3(d, n, i, dv); get3(nrm, n, i, nv); get3(w, n, i, wv);
+        for (int k = 0; k < cpt::M_COLS; ++k) mv[k] = m[k * n + i];
+        const float cos_i = -cpt::dot3(dv[0], dv[1], dv[2], nv[0], nv[1], nv[2]);
+        const cpt::Lobes lb = cpt::physical_lobes_all(dv[0], dv[1], dv[2], nv[0], nv[1], nv[2],
+                                                      cos_i, mv);
+        cpt::LobesAdj a;
+        cpt::lobe_terms_vjp(lb, mv, dv[0], dv[1], dv[2], nv[0], nv[1], nv[2], wv[0], wv[1], wv[2],
+                            a5[i], a5[n + i], a5[2 * n + i], a5[3 * n + i], a5[4 * n + i], a, om,
+                            od, on, ow);
+        const float lbv[12] = {a.nux, a.nuy, a.nuz, a.gax, a.gay, a.gaz,
+                               a.cax, a.cay, a.caz, a.prob_g, a.prob_ct, a.nv};
+        for (int k = 0; k < 12; ++k) a_lb[k * n + i] = lbv[k];
+        for (int k = 0; k < cpt::M_COLS; ++k) a_m[k * n + i] = om[k];
+        put3(a_d, n, i, od); put3(a_n, n, i, on); put3(a_w, n, i, ow);
+    }
+}
+
+// al_light_geom_vjp on area-light rows al[AL_COLS n] with the geometry's
+// cotangent a9 (area0, area1, total, n0 3, n1 3) -> a_v[18 n].
+void cpt_al_light_geom_vjp_host(int n, const float* al, const float* a9, float* a_v) {
+    for (int i = 0; i < n; ++i) {
+        cpt::LightGeomAdj a;
+        a.area0 = a9[i]; a.area1 = a9[n + i]; a.total = a9[2 * n + i];
+        a.n0x = a9[3 * n + i]; a.n0y = a9[4 * n + i]; a.n0z = a9[5 * n + i];
+        a.n1x = a9[6 * n + i]; a.n1y = a9[7 * n + i]; a.n1z = a9[8 * n + i];
+        float out[18] = {};
+        ArraySink sink{out};
+        cpt::al_light_geom_vjp(al + i * cpt::AL_COLS, a, 0, sink);
+        for (int k = 0; k < 18; ++k) a_v[k * n + i] = out[k];
+    }
+}
+
+// al_sample_point_vjp on area-light rows al[AL_COLS n] at draws (u1, u2,
+// upick) with the cotangents of the point and the normal -> a_v[18 n] and the
+// two triangles' normal cotangents a_tn[6 n].
+void cpt_al_sample_point_vjp_host(int n, const float* al, const float* u1, const float* u2,
+                                  const float* upick, const float* a_l, const float* a_nl,
+                                  float* a_v, float* a_tn) {
+    for (int i = 0; i < n; ++i) {
+        const cpt::LightGeom g = cpt::al_light_geom(al + i * cpt::AL_COLS);
+        float l[3], nl[3], out[18] = {};
+        get3(a_l, n, i, l); get3(a_nl, n, i, nl);
+        cpt::LightGeomAdj a;
+        ArraySink sink{out};
+        cpt::al_sample_point_vjp(g, u1[i], u2[i], upick[i], l, nl, a, 0, sink);
+        for (int k = 0; k < 18; ++k) a_v[k * n + i] = out[k];
+        const float tn[6] = {a.n0x, a.n0y, a.n0z, a.n1x, a.n1y, a.n1z};
+        for (int k = 0; k < 6; ++k) a_tn[k * n + i] = tn[k];
+    }
+}
+
+// physical_prev_pdf_vjp of branch[i] -> a_d, a_n, a_nd, a_m[20].
+void cpt_physical_prev_pdf_vjp_host(int n, const float* d, const float* nrm, const float* nd,
+                                    const float* m, const int* branch, const float* a_pdf,
+                                    float* a_d, float* a_n, float* a_nd, float* a_m) {
+    for (int i = 0; i < n; ++i) {
+        float dv[3], nv[3], ndv[3], mv[cpt::M_COLS], om[cpt::M_COLS] = {}, od[3] = {}, on[3] = {},
+              ond[3] = {};
+        get3(d, n, i, dv); get3(nrm, n, i, nv); get3(nd, n, i, ndv);
+        for (int k = 0; k < cpt::M_COLS; ++k) mv[k] = m[k * n + i];
+        cpt::physical_prev_pdf_vjp(dv[0], dv[1], dv[2], nv[0], nv[1], nv[2], ndv[0], ndv[1],
+                                   ndv[2], mv, branch[i], a_pdf[i], od, on, ond, om);
+        put3(a_d, n, i, od); put3(a_n, n, i, on); put3(a_nd, n, i, ond);
+        for (int k = 0; k < cpt::M_COLS; ++k) a_m[k * n + i] = om[k];
+    }
+}
+
+// physical_direct_vjp<geo> at n hits of the scene (seed; pixel, sample, pair0,
+// hit point, shading normal, direction, t, pp, material columns m[20 n], hit
+// primitive, cotangent g per lane) -> dir, a_p, a_n, a_d, a_t, a_pp, a_m[20 n],
+// the rows each lane adds (rows[n * nrows], DirectRows as given) and the
+// occlusion flags occ[n * (Lp + La)].
+void cpt_physical_direct_vjp_host(const float* spheres, int num_spheres, const float* triangles,
+                                  int num_triangles, const float* materials, int num_materials,
+                                  const float* point_lights, int num_point_lights,
+                                  const float* area_lights, int num_area_lights, int seed, int n,
+                                  const int* pixel, const int* sample, const int* pair0,
+                                  const float* p, const float* nrm, const float* d,
+                                  const float* t, const float* pp, const float* m,
+                                  const int* prim, const float* g, int geo, int row_pl0,
+                                  int pl_stride, int pcols, int row_al0, int al_stride,
+                                  int nrows, float* dir, float* a_p, float* a_n, float* a_d,
+                                  float* a_t, float* a_pp, float* a_m, double* rows, int* occ) {
+    const cpt::SceneTables sc = make_tables(spheres, num_spheres, triangles, num_triangles,
+                                            materials, num_materials, point_lights,
+                                            num_point_lights, area_lights, num_area_lights,
+                                            nullptr);
+    const cpt::DirectRows R = {row_pl0, pl_stride, pcols, row_al0, al_stride};
+    const int nl = num_point_lights + num_area_lights;
+    for (int i = 0; i < n; ++i) {
+        float pv[3], nv[3], dv[3], gv[3], mv[cpt::M_COLS], o_dir[3], o_p[3] = {}, o_n[3] = {},
+              o_d[3] = {}, o_m[cpt::M_COLS] = {}, o_t = 0.0f, o_pp = 0.0f;
+        get3(p, n, i, pv); get3(nrm, n, i, nv); get3(d, n, i, dv); get3(g, n, i, gv);
+        for (int k = 0; k < cpt::M_COLS; ++k) mv[k] = m[k * n + i];
+        HostSink sink;
+        sink.rows = rows + (size_t)i * nrows;
+        for (int r = 0; r < nrows; ++r) sink.rows[r] = 0.0;
+        cpt::Lobes lb;
+        if (geo) {
+            cpt::physical_direct_vjp<true>(sc, seed, pixel[i], sample[i], pair0[i], pv[0], pv[1],
+                                           pv[2], nv[0], nv[1], nv[2], dv[0], dv[1], dv[2], t[i],
+                                           pp[i], mv, prim[i], R, gv[0], gv[1], gv[2], sink,
+                                           o_dir, o_p, o_n, o_d, o_t, o_pp, o_m, lb, occ + i * nl);
+        } else {
+            cpt::physical_direct_vjp<false>(sc, seed, pixel[i], sample[i], pair0[i], pv[0], pv[1],
+                                            pv[2], nv[0], nv[1], nv[2], dv[0], dv[1], dv[2], t[i],
+                                            pp[i], mv, prim[i], R, gv[0], gv[1], gv[2], sink,
+                                            o_dir, o_p, o_n, o_d, o_t, o_pp, o_m, lb,
+                                            occ + i * nl);
+        }
+        put3(dir, n, i, o_dir); put3(a_p, n, i, o_p); put3(a_n, n, i, o_n); put3(a_d, n, i, o_d);
+        a_t[i] = o_t;
+        a_pp[i] = o_pp;
+        for (int k = 0; k < cpt::M_COLS; ++k) a_m[k * n + i] = o_m[k];
     }
 }
 

@@ -86,6 +86,30 @@ def jax_textured_quad(tex=True, nmap=False, sphere=False):
     return b.build()
 
 
+def jax_tilted_quad(area_light=False):
+    """tests/test_pallas_vjp.py::test_vjp_triangle_geometry_gradients_match_jnp's
+    scene: a tilted quad with unequal corner normals under a point light (and,
+    with ``area_light``, an area light above it)."""
+    from cuda_path_tracer_ss_tpu.models.scene import MaterialSpec, SceneBuilder
+
+    b = SceneBuilder()
+    md = b.add_material(MaterialSpec(diffuse=(0.6, 0.4, 0.3), diff_avg=0.8))
+    n0, n1 = (0.1, 0.2, 0.97), (-0.15, 0.1, 0.98)
+    b.add_triangle((-1.5, -1.2, -4.0), (1.4, -1.0, -4.4), (0.0, 1.3, -3.8),
+                   n0, n1, (0.0, 0.0, 1.0), md)
+    b.add_triangle((1.4, -1.0, -4.4), (1.8, 1.2, -4.1), (0.0, 1.3, -3.8),
+                   n1, (0.05, -0.1, 0.99), (0.0, 0.0, 1.0), md)
+    b.add_point_light((0.5, 2.5, -1.0), (60.0, 55.0, 50.0))
+    if area_light:
+        from cuda_path_tracer_ss_tpu.models.scene import rotate_deg, scale, translate
+
+        ml = b.add_material(MaterialSpec(emission=(4.0, 4.0, 3.5)))
+        b.add_area_light(translate((0.0, 2.0, -3.0)) @ rotate_deg(90.0, (1, 0, 0))
+                         @ scale((1.5, 1.5, 1.5)), ml, (4.0, 4.0, 3.5))
+    b.background = np.zeros(3, np.float32)
+    return b.build()
+
+
 def assert_per_pixel_parity(got, want):
     """The repo's per-pixel criterion (tests/test_pallas_cpu.py): same random
     streams on both sides, so only float op-order noise remains — all
@@ -133,7 +157,7 @@ def _host_kernel(fma):
                   ci, ci, ci, ci, ci, ci, ci, ci]
     lib.cpt_render_megakernel_host.argtypes = scene_args + [ci, ci, vp]
     lib.cpt_render_megakernel_host.restype = ci
-    lib.cpt_backward_megakernel_host.argtypes = scene_args + [ci] * 4 + [vp, vp]
+    lib.cpt_backward_megakernel_host.argtypes = scene_args + [ci] * 6 + [vp, vp]
     lib.cpt_backward_megakernel_host.restype = ci
     lib.cpt_light_records_host.argtypes = (
         [vp, ci] * 5 + [ctypes.POINTER(ctypes.c_float)] + [ci] * 9 + [vp] * 4)
@@ -156,6 +180,16 @@ def _host_kernel(fma):
     lib.cpt_texture_block_host.restype = ci
     lib.cpt_perturb_normal_vjp_host.argtypes = [vp, ci, vp, ci] + [vp] * 6
     lib.cpt_perturb_normal_vjp_host.restype = None
+    for name, nargs in (("triangle_t_vjp", 12), ("uv_vertex_vjp", 6),
+                        ("tangent_edges_vjp", 6), ("physical_lobes_vjp", 9),
+                        ("lobe_terms_vjp", 10), ("al_light_geom_vjp", 3),
+                        ("al_sample_point_vjp", 8), ("physical_prev_pdf_vjp", 10)):
+        fn = getattr(lib, f"cpt_{name}_host")
+        fn.argtypes = [ci] + [vp] * nargs
+        fn.restype = None
+    lib.cpt_physical_direct_vjp_host.argtypes = (
+        [vp, ci] * 5 + [ci, ci] + [vp] * 11 + [ci] * 7 + [vp] * 9)
+    lib.cpt_physical_direct_vjp_host.restype = None
     return lib
 
 
@@ -248,7 +282,8 @@ def light_records_hostbuild(packed, cam_params, seed, width, height, n_paths,
 
 def backward_grads_hostbuild(packed, cam_params, seed, width, height, spp,
                              max_bounces, g_img, sample_offset=0, full=False,
-                             tex_grads=False, packed_grid=None):
+                             tex_grads=False, packed_grid=None, physical=False,
+                             geo=False):
     """``backward_grads_cuda`` computed by the host build of the backward
     kernel's math (no FMA contraction), one pixel at a time, on CPU tables:
     (PackedScene cotangent, camera cotangent), unpacked from the gradient
@@ -261,13 +296,13 @@ def backward_grads_hostbuild(packed, cam_params, seed, width, height, spp,
     tex_grads = bool(tex_grads) and packed.textured
     texels = packed.tex_counts[1]
     rows = torch.zeros(tvjp._grad_rows(packed.counts, full,
-                                       texels if tex_grads else 0),
+                                       texels if tex_grads else 0, physical, geo),
                        dtype=torch.float64)
     got = _host_kernel(False).cpt_backward_megakernel_host(
-        *args, int(full), texels, int(tex_grads), int(packed.tex_nmap),
-        g.data_ptr(), rows.data_ptr())
+        *args, int(full), int(physical), int(geo), texels, int(tex_grads),
+        int(packed.tex_nmap), g.data_ptr(), rows.data_ptr())
     assert got == rows.numel(), (got, rows.numel())
-    return tvjp._unpack_rows(rows, packed, full, tex_grads)
+    return tvjp._unpack_rows(rows, packed, full, tex_grads, physical, geo)
 
 
 def _three_runs(*arrays):
@@ -387,10 +422,13 @@ def vjp_case_fields(jscene, grad_mode):
     return fields
 
 
-def jax_value_and_grad(jscene, fields, width, height, spp, bounces, seed):
+def jax_value_and_grad(jscene, fields, width, height, spp, bounces, seed,
+                       physical=False, jit=True):
     """The oracle: ``jax.value_and_grad`` of the MSE-to-zero loss over the
-    reference's jnp engine (``render(..., live_cutoff=None)``) with respect
-    to the named scene fields -> (loss, {field: numpy gradient})."""
+    reference's jnp engine (``render(..., live_cutoff=None)``, ``physical``
+    its unbiased estimator) with respect to the named scene fields -> (loss,
+    {field: numpy gradient}). ``jit=False`` runs it op by op: at a few
+    pixels that costs less than compiling it."""
     import jax
     import jax.numpy as jnp
     from cuda_path_tracer_ss_tpu.models.camera import Camera as JCamera
@@ -403,10 +441,14 @@ def jax_value_and_grad(jscene, fields, width, height, spp, bounces, seed):
     def loss(params, seed):
         s = jinverse.merge_params(jscene, params)
         img = render(s, cp, width, height, spp, seed, max_bounces=bounces,
-                     live_cutoff=None)
+                     live_cutoff=None, physical=physical)
         return jnp.mean(img ** 2)
 
-    v, g = jax.device_get(jax.jit(jax.value_and_grad(loss))(params, seed))
+    if jit:
+        v, g = jax.device_get(jax.jit(jax.value_and_grad(loss))(params, seed))
+    else:
+        with jax.disable_jit():
+            v, g = jax.device_get(jax.value_and_grad(loss)(params, seed))
     return float(v), {k: np.asarray(a) for k, a in g.items()}
 
 
@@ -423,26 +465,29 @@ def jax_preset_value_and_grad(name, grad_mode):
 
 
 def render_diff_hostbuild(packed, cam_params, seed, width, height, spp,
-                          max_bounces=8, grad_mode="full", packed_grid=None):
+                          max_bounces=8, grad_mode="full", packed_grid=None,
+                          physical=False):
     """``render_megakernel_diff`` as the CUDA kernels would compute it, on CPU
     tables: the package's own ``torch.autograd.Function`` with both launches
     replaced by the host build of their device math (forward =
     csrc/megakernel.cuh, backward = csrc/megakernel_vjp.cuh)."""
-    full = grad_mode == "full"
+    full = tvjp._reject_unported_diff(grad_mode, physical)
+    tvjp._check_geo_grid(grad_mode, packed_grid)
     tex_grads = tvjp._tex_grads(packed, full)
     cam = tuple(torch.as_tensor(v, dtype=torch.float32) for v in cam_params)
     return tvjp._RenderDiff.apply(
         *packed.tables(), packed.tex_atlas, *cam, packed, int(seed), width,
         height, spp, max_bounces, 0, full, tex_grads, packed_grid,
+        bool(physical), grad_mode == "geo",
         (render_block_sums_hostbuild, backward_grads_hostbuild))
 
 
 def port_value_and_grad(scene, cam_params, fields, width, height, spp, bounces,
-                        seed, engine, grad_mode, packed_grid=None):
+                        seed, engine, grad_mode, packed_grid=None, physical=False):
     """(loss, {field: numpy gradient}) of the MSE-to-zero loss on the port:
     ``engine`` "plain" (autograd through the plain render) or "host" (the
     kernels' math from the host build); ``packed_grid`` sweeps through the
-    grid."""
+    grid; ``physical`` renders and differentiates the physical estimator."""
     from cuda_path_tracer_ss_torch.render import inverse as tinverse
 
     render = {"plain": tvjp.render_megakernel_diff_plain,
@@ -451,7 +496,8 @@ def port_value_and_grad(scene, cam_params, fields, width, height, spp, bounces,
               for k, v in tinverse.extract_params(scene, fields).items()}
     packed = tmk.pack_scene(tinverse.merge_params(scene, leaves), "cpu")
     img = render(packed, cam_params, seed, width, height, spp,
-                 max_bounces=bounces, grad_mode=grad_mode, packed_grid=packed_grid)
+                 max_bounces=bounces, grad_mode=grad_mode, packed_grid=packed_grid,
+                 physical=physical)
     val = torch.mean(img ** 2)
     grads = torch.autograd.grad(val, list(leaves.values()))
     return float(val.detach()), {k: g.numpy() for k, g in zip(leaves, grads)}
@@ -468,3 +514,148 @@ def assert_grads_close(got, want, fields):
         scale = np.abs(a).max() + 1e-12
         np.testing.assert_allclose(b, a, atol=1e-4 * scale, rtol=1e-3,
                                    err_msg=k)
+
+
+# ---- the hand-written adjoints of the geo and physical modes, lane by lane -----
+
+def _lanes(*arrays):
+    """[n] / [n, k] arrays -> their run layouts (and keep-alive list)."""
+    return [_runs(a) for a in arrays]
+
+
+def _out(n, k=None, dtype=np.float32):
+    return np.zeros((n,) if k is None else (k, n), dtype)
+
+
+def triangle_t_vjp_hostbuild(s, d, e1, e2, t, at, aw1, aw2):
+    """``csrc triangle_t_vjp<true>``: (a_s, a_d, a_e1, a_e2), each [n, 3]."""
+    ins = _lanes(s, d, e1, e2, t, at, aw1, aw2)
+    n = ins[4].size
+    outs = [_out(n, 3) for _ in range(4)]
+    _host_kernel(False).cpt_triangle_t_vjp_host(n, *map(_ptr, ins), *map(_ptr, outs))
+    return [o.T for o in outs]
+
+
+def uv_vertex_vjp_hostbuild(tri, triuv, p, a_u, a_v):
+    """``csrc uv_vertex_vjp`` on triangle rows [n, 19], UVs [n, 6]: [n, 9]."""
+    tri = np.ascontiguousarray(tri, np.float32)
+    triuv = np.ascontiguousarray(triuv, np.float32)
+    p, a_u, a_v = _lanes(p, a_u, a_v)
+    n = a_u.size
+    out = _out(n, 9)
+    _host_kernel(False).cpt_uv_vertex_vjp_host(n, _ptr(tri), _ptr(triuv), _ptr(p), _ptr(a_u),
+                                               _ptr(a_v), _ptr(out))
+    return out.T
+
+
+def tangent_edges_vjp_hostbuild(tri, triuv, raw, t, g):
+    """The tangent frame's edge terms (perturb_normal_vjp's tangent cotangent
+    through tri_uv_tangent_vjp) on triangle rows [n, 19]: [n, 6] (e1, e2)."""
+    tri = np.ascontiguousarray(tri, np.float32)
+    triuv = np.ascontiguousarray(triuv, np.float32)
+    raw, t, g = _lanes(raw, t, g)
+    n = raw.shape[1]
+    out = _out(n, 6)
+    _host_kernel(False).cpt_tangent_edges_vjp_host(n, _ptr(tri), _ptr(triuv), _ptr(raw),
+                                                   _ptr(t), _ptr(g), _ptr(out))
+    return out.T
+
+
+def physical_lobes_vjp_hostbuild(d, nrm, cos_i, m, a_lb):
+    """``csrc physical_lobes_vjp``: (a_d [n, 3], a_n [n, 3], a_cos [n],
+    a_m [n, 20]); a_lb [n, 12] = (nu, gloss axis, ct axis, prob_g, prob_ct,
+    nv)."""
+    d, nrm, cos_i, m, a_lb = _lanes(d, nrm, cos_i, m, a_lb)
+    n = cos_i.size
+    a_d, a_n, a_m = _out(n, 3), _out(n, 3), _out(n, 20)
+    a_cos = _out(n)
+    _host_kernel(False).cpt_physical_lobes_vjp_host(
+        n, _ptr(d), _ptr(nrm), _ptr(cos_i), _ptr(m), _ptr(a_lb), _ptr(a_d), _ptr(a_n),
+        _ptr(a_cos), _ptr(a_m))
+    return a_d.T, a_n.T, a_cos, a_m.T
+
+
+def lobe_terms_vjp_hostbuild(d, nrm, m, w, a5):
+    """``csrc lobe_terms_vjp`` with the lobes of (d, n, m): (a_lb [n, 12],
+    a_m [n, 20], a_d, a_n, a_w [n, 3])."""
+    d, nrm, m, w, a5 = _lanes(d, nrm, m, w, a5)
+    n = d.shape[1]
+    a_lb, a_m = _out(n, 12), _out(n, 20)
+    a_d, a_n, a_w = _out(n, 3), _out(n, 3), _out(n, 3)
+    _host_kernel(False).cpt_lobe_terms_vjp_host(
+        n, _ptr(d), _ptr(nrm), _ptr(m), _ptr(w), _ptr(a5), _ptr(a_lb), _ptr(a_m), _ptr(a_d),
+        _ptr(a_n), _ptr(a_w))
+    return a_lb.T, a_m.T, a_d.T, a_n.T, a_w.T
+
+
+def al_light_geom_vjp_hostbuild(al, a9):
+    """``csrc al_light_geom_vjp`` on area-light rows [n, 23]: [n, 18]."""
+    al = np.ascontiguousarray(al, np.float32)
+    (a9,) = _lanes(a9)
+    n = al.shape[0]
+    out = _out(n, 18)
+    _host_kernel(False).cpt_al_light_geom_vjp_host(n, _ptr(al), _ptr(a9), _ptr(out))
+    return out.T
+
+
+def al_sample_point_vjp_hostbuild(al, u1, u2, upick, a_l, a_nl):
+    """``csrc al_sample_point_vjp``: (a_v [n, 18], a_tn [n, 6] the two
+    triangles' normal cotangents)."""
+    al = np.ascontiguousarray(al, np.float32)
+    u1, u2, upick, a_l, a_nl = _lanes(u1, u2, upick, a_l, a_nl)
+    n = u1.size
+    a_v, a_tn = _out(n, 18), _out(n, 6)
+    _host_kernel(False).cpt_al_sample_point_vjp_host(
+        n, _ptr(al), _ptr(u1), _ptr(u2), _ptr(upick), _ptr(a_l), _ptr(a_nl), _ptr(a_v),
+        _ptr(a_tn))
+    return a_v.T, a_tn.T
+
+
+def physical_prev_pdf_vjp_hostbuild(d, nrm, nd, m, branch, a_pdf):
+    """``csrc physical_prev_pdf_vjp``: (a_d, a_n, a_nd [n, 3], a_m [n, 20])."""
+    d, nrm, nd, m, a_pdf = _lanes(d, nrm, nd, m, a_pdf)
+    (branch,) = _lanes(branch)
+    branch = np.ascontiguousarray(branch, np.int32)
+    n = a_pdf.size
+    a_d, a_n, a_nd, a_m = _out(n, 3), _out(n, 3), _out(n, 3), _out(n, 20)
+    _host_kernel(False).cpt_physical_prev_pdf_vjp_host(
+        n, _ptr(d), _ptr(nrm), _ptr(nd), _ptr(m), _ptr(branch), _ptr(a_pdf), _ptr(a_d),
+        _ptr(a_n), _ptr(a_nd), _ptr(a_m))
+    return a_d.T, a_n.T, a_nd.T, a_m.T
+
+
+# Rows physical_direct_vjp_hostbuild lays out per lane: per material 12 (its
+# emission at +9), per point light 6, per area light 21 (its vertices at +3).
+def direct_rows_layout(counts):
+    num_mats, num_pls, num_als = counts[2], counts[3], counts[4]
+    row_pl0 = 12 * num_mats
+    row_al0 = row_pl0 + 6 * num_pls
+    return row_pl0, row_al0, row_al0 + 21 * num_als
+
+
+def physical_direct_vjp_hostbuild(packed, seed, pixel, sample, pair0, p, nrm, d, t, pp, m,
+                                  prim, g, geo):
+    """``csrc physical_direct_vjp<geo>`` at n hits: dict of dir, a_p, a_n, a_d
+    [n, 3], a_t, a_pp [n], a_m [n, 20], rows [n, R] (direct_rows_layout) and
+    occ [n, Lp + La] (1: the shadow ray ran and was occluded)."""
+    tables = [x.detach().contiguous() for x in packed.tables()[:5]]
+    args = []
+    for x, count in zip(tables, packed.counts):
+        args += [x.data_ptr(), count]
+    ints = [np.ascontiguousarray(a, np.int32) for a in (pixel, sample, pair0, prim)]
+    p, nrm, d, t, pp, m, g = _lanes(p, nrm, d, t, pp, m, g)
+    n = t.size
+    row_pl0, row_al0, nrows = direct_rows_layout(packed.counts)
+    out = dict(dir=_out(n, 3), a_p=_out(n, 3), a_n=_out(n, 3), a_d=_out(n, 3), a_t=_out(n),
+               a_pp=_out(n), a_m=_out(n, 20))
+    rows = np.zeros((n, nrows), np.float64)
+    occ = np.zeros((n, packed.counts[3] + packed.counts[4]), np.int32)
+    _host_kernel(False).cpt_physical_direct_vjp_host(
+        *args, int(seed), n, _ptr(ints[0]), _ptr(ints[1]), _ptr(ints[2]), _ptr(p), _ptr(nrm),
+        _ptr(d), _ptr(t), _ptr(pp), _ptr(m), _ptr(ints[3]), _ptr(g), int(geo), row_pl0, 6, 12,
+        row_al0, 21, nrows, *(_ptr(out[k]) for k in ("dir", "a_p", "a_n", "a_d", "a_t", "a_pp",
+                                                     "a_m")),
+        _ptr(rows), _ptr(occ))
+    out = {k: (v.T if v.ndim == 2 else v) for k, v in out.items()}
+    out.update(rows=rows, occ=occ)
+    return out
