@@ -14,7 +14,9 @@ prints no result. It
 5. holds it against goldens made by an independent implementation on a CPU,
 6. drives the main path at full size — Cornell box, 800x800, 8 bounces,
    2000 spp through ``ProgressiveRenderer`` — counts the kernel's launches,
-   and times the single-launch form,
+   and times the single-launch form beside its registers, resident blocks
+   per SM, where its tables live and the lane efficiency of its
+   regenerating schedule and of the nested one it replaced,
 7. checks that checkpoint / resume is bit-identical,
 8. holds the backward kernel's gradients against its plain PyTorch version
    (autograd through the plain render) on five scenes, in grad modes linear
@@ -146,12 +148,11 @@ PHYSICAL_PLAIN_SPP = 8     # the plain version's share of the physical work
 BIDIR = dict(scene="caustic", width=512, height=512, max_bounces=8, spp=256,
              n_paths=2_097_152)
 BIDIR_PLAIN_SPP = 4        # the plain version's share of the eye half
-EARLIER_DEFAULT_MS = 1200.0    # the default instantiation's 2000-spp launch before
-                           # the kernel source held three (PERF.md, 700 W card)
-# ... and its range and registers on the trees before the grid instantiations
-# (PERF.md)
-EARLIER_DEFAULT_RANGE_MS = (1195.2, 1209.4)
-EARLIER_DEFAULT_REGISTERS = 87
+# The default instantiation's 2000-spp launch and registers before K1 ran
+# per-lane path regeneration, with a loop over samples around a loop over
+# bounces (PERF.md; NVIDIA H100 80GB HBM3, 700 W)
+NESTED_DEFAULT_RANGE_MS = (1195.2, 1211.2)
+NESTED_DEFAULT_REGISTERS = 87
 
 # The texture block, counted from csrc/megakernel.cuh the same way: per hit of
 # a textured scene the unit normal, the UVs and the tangent (a sphere: the
@@ -650,13 +651,24 @@ def main() -> int:
         f"fmad=false {ms:.1f} ms = {bench_rays / ms / 1e3:.1f} M primary rays/s; "
         f"fmad=true {ms_fmad:.1f} ms = {bench_rays / ms_fmad / 1e3:.1f} M primary rays/s; "
         f"{PLAIN_SPP}-spp launch {ms_plain_shape:.2f} ms")
-    log(f"[bench] the default instantiation beside its time before the source held "
-        f"three: {ms:.1f} ms now, {EARLIER_DEFAULT_MS:.1f} ms then ({ms / EARLIER_DEFAULT_MS - 1:+.2%})")
-    default_regs = report["ptxas"]["megakernel/render_kernel<0,0,0,0,0>"]["registers"]
-    log(f"[bench] untextured linear default instantiation beside the trees before the grid: "
-        f"{ms:.1f} ms and {default_regs} registers now, {EARLIER_DEFAULT_RANGE_MS[0]:.1f}-"
-        f"{EARLIER_DEFAULT_RANGE_MS[1]:.1f} ms and {EARLIER_DEFAULT_REGISTERS} registers then "
-        "(PERF.md)")
+    # what the launch got, and the lane efficiency (live bounces over 32 x
+    # the warps' loop iterations) of K1's regenerating schedule and of the
+    # nested one it replaced, on the plain version's tally at PLAIN_SPP
+    occ = mk.render_occupancy(packed)
+    eff = {k: stats["path_bounces"] / (32 * stats[k])
+           for k in ("warp_iterations", "warp_iterations_nested")}
+    log(f"[bench] default instantiation: {ms:.1f} ms, {occ['registers']} registers, "
+        f"{occ['blocks_per_sm']} resident blocks of 128 per SM, small tables "
+        + (f"in shared memory ({occ['smem_bytes']} B per block)" if occ["smem_bytes"]
+           else "in global memory")
+        + f"; lane efficiency at {PLAIN_SPP} spp: regenerating "
+        f"{eff['warp_iterations']:.3f}, nested {eff['warp_iterations_nested']:.3f} "
+        f"({stats['warp_iterations_nested'] / stats['warp_iterations']:.2f}x the warp "
+        f"iterations); before per-lane regeneration {NESTED_DEFAULT_RANGE_MS[0]:.1f}-"
+        f"{NESTED_DEFAULT_RANGE_MS[1]:.1f} ms and {NESTED_DEFAULT_REGISTERS} registers "
+        f"(PERF.md): {ms / NESTED_DEFAULT_RANGE_MS[1]:.3f}-{ms / NESTED_DEFAULT_RANGE_MS[0]:.3f}"
+        " of it")
+    report["bench_default"] = {"ms": ms, **occ, "lane_efficiency": eff}
 
     # bound: this run's operation count (the plain version's tally over
     # PLAIN_SPP samples, scaled to the timed sample count) over the FP32 peak,
@@ -1051,6 +1063,13 @@ def main() -> int:
         f"{stats_p['path_bounces'] / stats_p['paths']:.3f} bounces and "
         f"{stats_p['shadow_rays'] / stats_p['paths']:.3f} shadow rays per path "
         f"({stats_p['shadow_rays_occluded'] / max(stats_p['shadow_rays'], 1):.1%} occluded)")
+    occ_p = mk.render_occupancy(packed, physical=True)
+    log(f"[physical bench] physical instantiation: {occ_p['registers']} registers, "
+        f"{occ_p['blocks_per_sm']} resident blocks per SM, small tables in "
+        f"{'shared' if occ_p['smem_bytes'] else 'global'} memory; lane efficiency at "
+        f"{PHYSICAL_PLAIN_SPP} spp: regenerating "
+        f"{stats_p['path_bounces'] / (32 * stats_p['warp_iterations']):.3f}, nested "
+        f"{stats_p['path_bounces'] / (32 * stats_p['warp_iterations_nested']):.3f}")
     log(f"[bound] physical instantiation: {phys_flops:.3e} float32 operations -> "
         f"{phys_bound[2]:.2f} ms; bytes -> {phys_bound[3]:.4f} ms; kernel at "
         f"{phys_bound[0] / phys_ms:.1%} of its bound")
@@ -1478,7 +1497,8 @@ def main() -> int:
         + ", ".join(f"<{k[0]},{k[1]},{k[2]},{k[3]}> {regs[k[:4] + (0,)]} -> {regs[k]}"
                     for k in sorted(regs) if k[4])
         + f"; the linear float32 default keeps {regs[(0, 0, 0, 0, 0)]} "
-        f"({EARLIER_DEFAULT_REGISTERS} before the grid). A grid instantiation is what a runtime "
+        f"({NESTED_DEFAULT_REGISTERS} before per-lane regeneration). A grid instantiation is "
+        "what a runtime "
         "branch on the grid pointer alone would build: it holds both sweeps")
 
     # 14a. every grid instantiation against its plain version and against linear
@@ -1597,7 +1617,8 @@ def main() -> int:
                                         packed.table_bytes + 12 * w * h, 4 * pg_c.idx.numel())
     log(f"[grid main path] one launch, cornell {w}x{h} {nb} bounces {spp} spp: grid "
         f"{grid_ms:.1f} ms, linear {ms_again:.1f} ms (and {ms:.1f} ms in [bench]; "
-        f"{EARLIER_DEFAULT_RANGE_MS[0]}-{EARLIER_DEFAULT_RANGE_MS[1]} ms before the grid); grid vs plain at "
+        f"{NESTED_DEFAULT_RANGE_MS[0]}-{NESTED_DEFAULT_RANGE_MS[1]} ms before per-lane "
+        f"regeneration); grid vs plain at "
         f"{PHYSICAL_PLAIN_SPP} spp (same samples) {rate_gc:.4%} of pixels, max abs err "
         f"{err_gc:.2e}, plain grid version {grid_plain_ms:.0f} ms; per path "
         f"{stats_gc['grid_slab_tests'] / stats_gc['paths']:.1f} box gates, "
@@ -2183,6 +2204,10 @@ def main() -> int:
         "launches_training_path": {m: t["k1"] for m, t in train.items()},
         "ms_training_shape": ms_k1,
         "share_of_bound": bound_ms / ms,
+        "registers": occ["registers"],
+        "blocks_per_sm": occ["blocks_per_sm"],
+        "tables_smem_bytes": occ["smem_bytes"],
+        "lane_efficiency": eff,
     }] + variants + [{
         "name": f"backward_megakernel[{mode}]",
         "route": "cuda",

@@ -10,15 +10,50 @@
 // texture block applies color and normal maps at every hit, with direct
 // indexed loads from a flat texel atlas); each with linear sweeps or with the
 // supercell grid's; each with float32 or bfloat16 storage of the carries
-// (state_bf16; 24 kernels). One thread
-// per pixel over a 1-D grid; the ragged edge is masked by i < n_local. The
-// per-pixel math is in megakernel.cuh. The scene tables and the grid's CSR
-// table are read through read-only global memory (const __restrict__): a
-// 10k-primitive scene runs like a small one, and a small scene's tables stay
-// in L1. Bound on this card: FP32 arithmetic throughput (a launch reads a few
-// KB of tables and writes 12 bytes per pixel). With the grid a thread tests
-// only the primitives of the boxes its own ray reaches: divergence instead of
-// a block vote.
+// (state_bf16; 24 kernels). One thread per pixel over a 1-D grid; the ragged
+// edge is masked by i < n_local. The per-pixel math is in megakernel.cuh.
+//
+// What bounds it on this card: FP32 issue. A launch reads a few KB of tables
+// and writes 12 bytes per pixel; cornell 800x800 x 8 bounces x 2000 spp needs
+// 5.2e12 float32 operations, 77.5 ms at 67 TFLOP/s (chip_smoke.py [bound]).
+//
+// What held it back (before this design: 1195-1211 ms there, 87 registers): a
+// loop over samples around a loop over bounces. A lane whose path had ended waited at
+// the inner loop's end for the warp's longest path of that sample, so only
+// 34 % of the lane slots the warps issued carried a live path (the plain
+// version's tally of the kernel's warps, render_block_sums_plain: stats).
+//
+// What the design does about it: the TPU kernel's own schedule, persistent
+// path regeneration (render_pixel_t): one loop, one bounce per iteration, and
+// a lane whose path ends starts its next sample's path in the next
+// iteration. Lane efficiency 0.34 -> 0.7-0.9 at 16-256 spp; the sums are the
+// nested loop's bit for bit. Cornell 2000 spp: 523 ms default (90
+// registers), 723-724 ms physical (116), against 1205-1210 / 1668-1674 in
+// turns with the nested kernel on one card (k1_turns.py; NVIDIA H100 80GB
+// HBM3, 700 W).
+//
+// Occupancy: no __launch_bounds__. Capping registers for 6 or 8 resident
+// blocks of 128 (80 / 64 registers) was 4-7 % faster there (default 499-503
+// ms, physical 674-675 ms) but spills in every instantiation (24-404 bytes),
+// and a spilling cap is not kept; 128 threads per block, 5 (default) or 4
+// (physical, textured) resident blocks per SM.
+//
+// Tables: each block first copies the small tables (spheres, triangles,
+// materials, lights, background and the texture bundle's meta, material map
+// ids and UVs: 1.8 KB on cornell, 2.6 KB on textured) into shared memory and
+// reads them there, when they fit the 48 KB a launch takes without opting in
+// and cost no resident block per SM (staged_bytes: the default
+// instantiation stops at about 45 KB, stress_dense(2200)); the texel atlas,
+// the grid's tables and larger scenes stay in global memory. Faster than
+// global memory in 10 of 10 alternating pairs on each of cornell default
+// (median 523.2 / 527.4 ms), physical (721.9 / 729.1) and textured (732.8 /
+// 740.8): the divergent per-lane gather of the hit material's 20 columns is
+// served by shared memory's banks.
+//
+// Tensor cores have no part: the work is scalar FP32 ray and BSDF math held
+// bit-exact against the plain version under -fmad=false; TF32 or bf16
+// products would break that parity. Nor has TMA: the tables are a few KB
+// copied once per block in front of milliseconds of work.
 //
 // Plain C interface, loaded with ctypes: no PyTorch headers. Each launch
 // function enqueues on the given stream, does not synchronise, and returns
@@ -34,14 +69,26 @@ namespace {
 // latencies with warps. The launch shape is the kernel's own business.
 constexpr int THREADS_PER_BLOCK = 128;
 
+// The dynamic shared memory a launch may take without opting in
+// (cudaFuncAttributeMaxDynamicSharedMemorySize): a scene whose small tables
+// (megakernel.cuh: small_table_floats) exceed it reads them from global memory.
+constexpr int MAX_STAGED_BYTES = 48 * 1024;
+
+// `staged` != 0: the block first copies the small tables into its dynamic
+// shared memory (small_table_floats floats) and reads them there.
 template <bool PHYSICAL, bool BIDIR, bool TEXTURED, bool GRID, bool BF16>
-__global__ void render_kernel(cpt::SceneTables sc, cpt::RenderParams p,
+__global__ void render_kernel(cpt::SceneTables sc, cpt::RenderParams p, int staged,
                               float* __restrict__ out) {
+    extern __shared__ float tables[];
+    cpt::SceneTables s = cpt::grid_tables<GRID>(sc);
+    if (staged) {
+        s = cpt::stage_tables(s, tables, threadIdx.x, blockDim.x);
+        __syncthreads();
+    }
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= p.n_local) return;
     float r, g, b;
-    cpt::render_pixel_t<PHYSICAL, BIDIR, TEXTURED>(cpt::grid_tables<GRID>(sc),
-                                                   cpt::bf16_params<BF16>(p),
+    cpt::render_pixel_t<PHYSICAL, BIDIR, TEXTURED>(s, cpt::bf16_params<BF16>(p),
                                                    p.pixel_offset + i, r, g, b);
     out[3 * i + 0] = r;
     out[3 * i + 1] = g;
@@ -56,36 +103,59 @@ __global__ void uniform_pairs_kernel(const int* __restrict__ seed, const int* __
     cpt::uniform_pair(seed[i], pixel[i], sample[i], pair[i], u0[i], u1[i]);
 }
 
+using RenderKernel = void (*)(cpt::SceneTables, cpt::RenderParams, int, float*);
+
 template <bool PHYSICAL, bool BIDIR, bool TEXTURED, bool GRID>
-void launch_render_g(const cpt::SceneTables& sc, const cpt::RenderParams& p, float* out,
-                     int blocks, cudaStream_t st) {
-    if (p.state_bf16) {
-        render_kernel<PHYSICAL, BIDIR, TEXTURED, GRID, true>
-            <<<blocks, THREADS_PER_BLOCK, 0, st>>>(sc, p, out);
-    } else {
-        render_kernel<PHYSICAL, BIDIR, TEXTURED, GRID, false>
-            <<<blocks, THREADS_PER_BLOCK, 0, st>>>(sc, p, out);
-    }
+RenderKernel kernel_g(bool bf16) {
+    return bf16 ? render_kernel<PHYSICAL, BIDIR, TEXTURED, GRID, true>
+                : render_kernel<PHYSICAL, BIDIR, TEXTURED, GRID, false>;
 }
 
 template <bool PHYSICAL, bool BIDIR, bool TEXTURED>
-void launch_render_t(const cpt::SceneTables& sc, const cpt::RenderParams& p, float* out,
-                     int blocks, cudaStream_t st) {
-    if (sc.grid.idx != nullptr) {
-        launch_render_g<PHYSICAL, BIDIR, TEXTURED, true>(sc, p, out, blocks, st);
-    } else {
-        launch_render_g<PHYSICAL, BIDIR, TEXTURED, false>(sc, p, out, blocks, st);
-    }
+RenderKernel kernel_t(bool grid, bool bf16) {
+    return grid ? kernel_g<PHYSICAL, BIDIR, TEXTURED, true>(bf16)
+                : kernel_g<PHYSICAL, BIDIR, TEXTURED, false>(bf16);
 }
 
 template <bool PHYSICAL, bool BIDIR>
-void launch_render(const cpt::SceneTables& sc, const cpt::RenderParams& p, float* out,
-                   int blocks, cudaStream_t st) {
-    if (sc.num_textures > 0) {
-        launch_render_t<PHYSICAL, BIDIR, true>(sc, p, out, blocks, st);
-    } else {
-        launch_render_t<PHYSICAL, BIDIR, false>(sc, p, out, blocks, st);
-    }
+RenderKernel kernel_v(bool textured, bool grid, bool bf16) {
+    return textured ? kernel_t<PHYSICAL, BIDIR, true>(grid, bf16)
+                    : kernel_t<PHYSICAL, BIDIR, false>(grid, bf16);
+}
+
+// The instantiation for estimator `variant` (0 reference-parity, 1 physical,
+// 2 physical with the bidirectional carries); null for another variant.
+RenderKernel render_kernel_of(int variant, bool textured, bool grid, bool bf16) {
+    if (variant == 0) return kernel_v<false, false>(textured, grid, bf16);
+    if (variant == 1) return kernel_v<true, false>(textured, grid, bf16);
+    if (variant == 2) return kernel_v<true, true>(textured, grid, bf16);
+    return nullptr;
+}
+
+// Resident blocks per SM of `kernel` at `smem` bytes of dynamic shared memory
+// (0 if the query fails; its error stays for cudaGetLastError).
+int resident_blocks(RenderKernel kernel, int smem) {
+    int blocks = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS_PER_BLOCK, smem);
+    return blocks;
+}
+
+// Dynamic shared memory of a launch of `kernel` on `sc`: its small tables,
+// when they fit MAX_STAGED_BYTES and cost no resident block per SM against a
+// launch without them; else 0, and they are read from global memory.
+int staged_bytes(RenderKernel kernel, const cpt::SceneTables& sc) {
+    const long long bytes = (long long)cpt::small_table_floats(sc) * (long long)sizeof(float);
+    if (bytes > MAX_STAGED_BYTES) return 0;
+    return resident_blocks(kernel, (int)bytes) >= resident_blocks(kernel, 0) ? (int)bytes : 0;
+}
+
+cpt::SceneTables table_counts(int num_spheres, int num_triangles, int num_materials,
+                              int num_point_lights, int num_area_lights, int num_textures) {
+    cpt::SceneTables sc;
+    sc.num_spheres = num_spheres; sc.num_triangles = num_triangles;
+    sc.num_materials = num_materials; sc.num_point_lights = num_point_lights;
+    sc.num_area_lights = num_area_lights; sc.num_textures = num_textures;
+    return sc;
 }
 
 }  // namespace
@@ -135,18 +205,38 @@ int cpt_render_megakernel(const float* spheres, int num_spheres,
     p.sample_offset = sample_offset; p.spp = spp; p.max_bounces = max_bounces;
     p.state_bf16 = state_bf16;
     cpt::set_image_size(p, width, height);
+    const RenderKernel kernel = render_kernel_of(variant, num_textures > 0, grid_idx != nullptr,
+                                                 state_bf16 != 0);
+    if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+    const int smem = staged_bytes(kernel, sc);
     const int blocks = (n_local + THREADS_PER_BLOCK - 1) / THREADS_PER_BLOCK;
-    const cudaStream_t st = (cudaStream_t)stream;
-    if (variant == 0) {
-        launch_render<false, false>(sc, p, out, blocks, st);
-    } else if (variant == 1) {
-        launch_render<true, false>(sc, p, out, blocks, st);
-    } else if (variant == 2) {
-        launch_render<true, true>(sc, p, out, blocks, st);
-    } else {
-        return (int)cudaErrorInvalidValue;
-    }
+    kernel<<<blocks, THREADS_PER_BLOCK, smem, (cudaStream_t)stream>>>(sc, p, smem > 0, out);
     return (int)cudaGetLastError();
+}
+
+// What a launch of cpt_render_megakernel on a scene of these table counts
+// gets: *smem_bytes the dynamic shared memory of its staged tables (0: the
+// tables stay in global memory), *registers the instantiation's registers
+// per thread; returns its resident blocks per SM at that shared memory
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus a CUDA error.
+int cpt_render_occupancy(int variant, int textured, int grid, int state_bf16,
+                         int num_spheres, int num_triangles, int num_materials,
+                         int num_point_lights, int num_area_lights, int num_textures,
+                         int* smem_bytes, int* registers) {
+    const RenderKernel kernel = render_kernel_of(variant, textured != 0, grid != 0,
+                                                 state_bf16 != 0);
+    if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
+    *smem_bytes = staged_bytes(kernel, table_counts(num_spheres, num_triangles, num_materials,
+                                                    num_point_lights, num_area_lights,
+                                                    num_textures));
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return -(int)err;
+    *registers = attr.numRegs;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS_PER_BLOCK,
+                                                        *smem_bytes);
+    return err == cudaSuccess ? blocks : -(int)err;
 }
 
 // Debug entry: u0[i], u1[i] = uniform_pair(seed[i], pixel[i], sample[i], pair[i]).

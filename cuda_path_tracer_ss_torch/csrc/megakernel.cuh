@@ -1,6 +1,7 @@
 // Device math of the forward-render megakernel: one call of render_pixel_t()
-// traces every sample of one pixel (eye ray, bounce loop, next-event
-// estimation, scatter) and returns the pixel's radiance SUM over samples.
+// traces every sample of one pixel (eye ray, bounces with next-event
+// estimation and scatter, one bounce per loop iteration with per-lane path
+// regeneration) and returns the pixel's radiance SUM over samples.
 //
 // Replaces the per-lane body of the TPU kernel
 // cuda_path_tracer_ss_tpu/ops/pallas/megakernel.py::_make_render_kernel in
@@ -99,6 +100,50 @@ template <bool GRID>
 CPT_HD SceneTables grid_tables(const SceneTables& sc) {
     SceneTables s = sc;
     if (!GRID) s.grid.idx = nullptr;
+    return s;
+}
+
+// The small tables: every table of `sc` but the texel atlas and the grid's.
+// Their size in floats, as stage_tables lays them out.
+CPT_HD int small_table_floats(const SceneTables& sc) {
+    int n = sc.num_spheres * S_COLS + sc.num_triangles * T_COLS + sc.num_materials * M_COLS
+            + sc.num_point_lights * PL_COLS + sc.num_area_lights * AL_COLS + 3;
+    if (sc.num_textures > 0) {
+        n += sc.num_textures * 3 + sc.num_materials * 2 + sc.num_triangles * 6;
+    }
+    return n;
+}
+
+// n floats from src to dst + off, worker `tid` of `workers` taking every
+// workers-th float; returns the copy and moves off past it.
+CPT_HD const float* copy_table(const float* src, int n, float* dst, int& off, int tid,
+                               int workers) {
+    float* d = dst + off;
+    for (int k = tid; k < n; k += workers) d[k] = src[k];
+    off += n;
+    return d;
+}
+
+// Copies the small tables of `sc` into dst (small_table_floats(sc) floats,
+// worker `tid` of `workers` doing its share; the caller synchronises) and
+// returns `sc` pointed at the copy. Only the rows a table's count covers are
+// copied: the sweeps, the shading and the texture block read no others.
+CPT_HD SceneTables stage_tables(const SceneTables& sc, float* dst, int tid, int workers) {
+    SceneTables s = sc;
+    int off = 0;
+    s.spheres = copy_table(sc.spheres, sc.num_spheres * S_COLS, dst, off, tid, workers);
+    s.triangles = copy_table(sc.triangles, sc.num_triangles * T_COLS, dst, off, tid, workers);
+    s.materials = copy_table(sc.materials, sc.num_materials * M_COLS, dst, off, tid, workers);
+    s.point_lights = copy_table(sc.point_lights, sc.num_point_lights * PL_COLS, dst, off, tid,
+                                workers);
+    s.area_lights = copy_table(sc.area_lights, sc.num_area_lights * AL_COLS, dst, off, tid,
+                               workers);
+    s.background = copy_table(sc.background, 3, dst, off, tid, workers);
+    if (sc.num_textures > 0) {
+        s.tex_meta = copy_table(sc.tex_meta, sc.num_textures * 3, dst, off, tid, workers);
+        s.tex_matids = copy_table(sc.tex_matids, sc.num_materials * 2, dst, off, tid, workers);
+        s.tex_triuv = copy_table(sc.tex_triuv, sc.num_triangles * 6, dst, off, tid, workers);
+    }
     return s;
 }
 
@@ -2057,12 +2102,199 @@ CPT_HD void eye_ray_j(const RenderParams& p, int pixel, int sample, float pxi, f
     normalize3(dx0, dy0, dz0, 1e-20f, dx, dy, dz);
 }
 
+// The carries of one path between bounces: the TPU kernel's per-lane state.
+struct PathState {
+    float ox, oy, oz, dx, dy, dz;         // the ray
+    float r0x, r0y, r0z;                  // radiance gathered
+    float r1x, r1y, r1z;                  // throughput
+    float prev_pdf;                       // PHYSICAL: density of the last scatter
+    float lt_S, pf_model, pco, j_img;     // BIDIR: the bidirectional carries
+    int b;                                // bounces made
+};
+
+// A fresh path of sample `sample`: the eye ray, throughput 1, radiance 0,
+// prev_pdf 0, and the bidirectional carries lt_S 0, pf_model 0, pco 1 and
+// the eye ray's camera importance.
+template <bool BIDIR>
+CPT_HD void start_path(const RenderParams& p, int pixel, int sample, float pxi, float pyi,
+                       PathState& st) {
+    st.ox = p.cam[9]; st.oy = p.cam[10]; st.oz = p.cam[11];
+    st.prev_pdf = 0.0f;
+    st.lt_S = 0.0f; st.pf_model = 0.0f; st.pco = 1.0f; st.j_img = 0.0f;
+    if constexpr (BIDIR) {
+        eye_ray_j(p, pixel, sample, pxi, pyi, st.dx, st.dy, st.dz, st.j_img);
+    } else {
+        eye_ray(p, pixel, sample, pxi, pyi, st.dx, st.dy, st.dz);
+    }
+    st.r0x = 0.0f; st.r0y = 0.0f; st.r0z = 0.0f;
+    st.r1x = 1.0f; st.r1y = 1.0f; st.r1z = 1.0f;
+    st.b = 0;
+}
+
+// One bounce of the path in `st` (sample `sample` of flat pixel `pixel`):
+// the sweep, the shading (emission, next-event estimation) and the scatter.
+// Returns true when the path ended in it: a miss (background term), a death,
+// or still alive after max_bounces bounces (a capped path keeps its
+// radiance and gets no background term). Pairs of bounce b start at
+// 1 + b*(2 + 2*La): +0 (branch, dir a), +1 (dir b, unused), +2+2i (u1, u2),
+// +3+2i (u3, pick).
+template <bool PHYSICAL, bool BIDIR, bool TEXTURED>
+CPT_HD bool trace_bounce(const SceneTables& sc, const RenderParams& p, int pixel, int sample,
+                         PathState& st) {
+    const int ppb = 2 + 2 * sc.num_area_lights;
+    const int pair0 = 1 + st.b * ppb;
+    const float ox = st.ox, oy = st.oy, oz = st.oz, dx = st.dx, dy = st.dy, dz = st.dz;
+    const Hit h = intersect_sweep(sc, ox, oy, oz, dx, dy, dz);
+    if (!(h.t < INFINITY)) {  // miss: background, path ends
+        st.r0x += sc.background[0] * st.r1x;
+        st.r0y += sc.background[1] * st.r1y;
+        st.r0z += sc.background[2] * st.r1z;
+        store_carry(p, st.r0x, st.r0y, st.r0z);
+        return true;
+    }
+    const float px = ox + dx * h.t, py = oy + dy * h.t, pz = oz + dz * h.t;
+    float nx = h.nx, ny = h.ny, nz = h.nz;
+    const float* m = sc.materials + h.mat * M_COLS;
+    float mt[TEXTURED ? M_COLS : 1];
+    if constexpr (TEXTURED) {
+        // color map on the diffuse albedo, normal map on the shading
+        // normal, before the cosine, NEE and the scatter
+        for (int k = 0; k < M_COLS; ++k) mt[k] = m[k];
+        texture_block<false, false>(sc, ox, oy, oz, dx, dy, dz, h.prim, h.mat, mt,
+                                    nx, ny, nz, nullptr);
+        m = mt;
+    }
+    const float cos_i = -dot3(dx, dy, dz, nx, ny, nz);
+    const bool inside = cos_i <= 0.0f;
+
+    float dir_r, dir_g, dir_b;
+    Lobes lb;
+    BidirIn bd;
+    float c_a = 0.0f;
+    if constexpr (PHYSICAL) {
+        lb = physical_lobes(dx, dy, dz, nx, ny, nz, cos_i, m);
+        bd.nu = 0.0f; bd.T = 0.0f; bd.pco = 1.0f; bd.t2 = 1.0f; bd.is_primary = (st.b == 0);
+        if constexpr (BIDIR) {
+            const float cos_arr = fabsf(dot3(dx, dy, dz, lb.nux, lb.nuy, lb.nuz));
+            bd.nu = p.cam[15];
+            bd.pco = st.pco;
+            bd.t2 = fmaxf(h.t * h.t, 1e-12f);
+            c_a = st.j_img * cos_arr / bd.t2;
+            const float e_prev = st.pf_model * cos_arr / bd.t2;
+            bd.T = fminf(bd.is_primary ? 1.0f / fmaxf(c_a, 1e-20f)
+                                       : st.lt_S / fmaxf(e_prev, 1e-20f),
+                         MIS_RATIO_CLAMP);
+        }
+        physical_direct<BIDIR>(sc, p.seed, pixel, sample, pair0, px, py, pz, nx, ny, nz,
+                               dx, dy, dz, h.t, st.prev_pdf, lb, m, h.prim, bd,
+                               dir_r, dir_g, dir_b);
+        if (inside) {
+            st.r1x = st.r1x * expf(-h.t * m[6]);
+            st.r1y = st.r1y * expf(-h.t * m[7]);
+            st.r1z = st.r1z * expf(-h.t * m[8]);
+        }
+    } else {
+        // emission always; NEE only from outside
+        dir_r = m[9]; dir_g = m[10]; dir_b = m[11];
+        if (!inside) {
+            for (int i = 0; i < sc.num_point_lights; ++i) {
+                const float* pl = sc.point_lights + i * PL_COLS;
+                light_contribution(sc, px, py, pz, nx, ny, nz, m, pl[0], pl[1], pl[2],
+                                   pl[3], pl[4], pl[5], dir_r, dir_g, dir_b);
+            }
+            for (int i = 0; i < sc.num_area_lights; ++i) {
+                const float* al = sc.area_lights + i * AL_COLS;
+                float u1, u2, u3, upick;
+                uniform_pair(p.seed, pixel, sample, pair0 + 2 + 2 * i, u1, u2);
+                uniform_pair(p.seed, pixel, sample, pair0 + 3 + 2 * i, u3, upick);
+                const float inv_tot = 1.0f / fmaxf(u1 + u2 + u3, 1e-12f);
+                const float w0 = u1 * inv_tot, w1 = u2 * inv_tot, w2 = u3 * inv_tot;
+                const float* a = (upick > 0.5f) ? al : al + 9;
+                const float lx = a[0] * w0 + a[3] * w1 + a[6] * w2;
+                const float ly = a[1] * w0 + a[4] * w1 + a[7] * w2;
+                const float lz = a[2] * w0 + a[5] * w1 + a[8] * w2;
+                light_contribution(sc, px, py, pz, nx, ny, nz, m, lx, ly, lz,
+                                   al[18], al[19], al[20], dir_r, dir_g, dir_b);
+            }
+        } else {
+            // Beer-Lambert absorption along the segment inside the medium
+            st.r1x = st.r1x * expf(-h.t * m[6]);
+            st.r1y = st.r1y * expf(-h.t * m[7]);
+            st.r1z = st.r1z * expf(-h.t * m[8]);
+        }
+    }
+    st.r0x = st.r0x + st.r1x * dir_r;
+    st.r0y = st.r0y + st.r1y * dir_g;
+    st.r0z = st.r0z + st.r1z * dir_b;
+    store_carry(p, st.r0x, st.r0y, st.r0z);
+
+    float u_branch, u_a, u_b, unused;
+    uniform_pair(p.seed, pixel, sample, pair0, u_branch, u_a);
+    uniform_pair(p.seed, pixel, sample, pair0 + 1, u_b, unused);
+    float nox, noy, noz, ndx, ndy, ndz, wr, wg, wb, ct_w;
+    int branch;
+    const bool alive = scatter_sample(dx, dy, dz, nx, ny, nz, px, py, pz, cos_i,
+                                      u_branch, u_a, u_b, m,
+                                      nox, noy, noz, ndx, ndy, ndz, wr, wg, wb,
+                                      branch, ct_w);
+    ++st.b;
+    if (!alive || st.b >= p.max_bounces) return true;
+    if constexpr (PHYSICAL) {
+        // a path that goes on carries the density of the continuation it took
+        st.prev_pdf = inside ? 0.0f
+                             : physical_prev_pdf(lb, m, dx, dy, dz, ndx, ndy, ndz, branch);
+    }
+    if constexpr (BIDIR) {
+        // chain-model densities of the taken branch, both directions
+        const float pdf_fwd_m = chain_model_taken(dx, dy, dz, nx, ny, nz, cos_i,
+                                                  ndx, ndy, ndz, m, branch);
+        const float cos_rev = dot3(ndx, ndy, ndz, nx, ny, nz);
+        const float pdf_rev_m = chain_model_taken(-ndx, -ndy, -ndz, nx, ny, nz, cos_rev,
+                                                  -dx, -dy, -dz, m, branch);
+        const float lam_full = pdf_rev_m * st.pco / bd.t2;
+        st.lt_S = fminf(bd.is_primary
+                            ? (((branch == BRANCH_DIFFUSE) && (cos_i > 0.0f)) ? 1.0f : 0.0f)
+                                  / fmaxf(c_a, 1e-20f)
+                            : bd.T * lam_full,
+                        MIS_RATIO_CLAMP);
+        st.pf_model = pdf_fwd_m;
+        st.pco = fabsf(dot3(ndx, ndy, ndz, lb.nux, lb.nuy, lb.nuz));
+    }
+    st.ox = nox; st.oy = noy; st.oz = noz;
+    st.dx = ndx; st.dy = ndy; st.dz = ndz;
+    st.r1x = st.r1x * wr; st.r1y = st.r1y * wg; st.r1z = st.r1z * wb;
+    store_carry(p, st.r1x, st.r1y, st.r1z);
+    return false;
+}
+
+// A finished path's radiance into the pixel's sums, clamped first when
+// cam[14] (the sample clamp) is positive.
+CPT_HD void add_sample(const RenderParams& p, const PathState& st,
+                       float& sum_r, float& sum_g, float& sum_b) {
+    const float clamp_v = p.cam[14];
+    float rx = st.r0x, ry = st.r0y, rz = st.r0z;
+    if (clamp_v > 0.0f) {
+        rx = fminf(rx, clamp_v);
+        ry = fminf(ry, clamp_v);
+        rz = fminf(rz, clamp_v);
+    }
+    sum_r += rx; sum_g += ry; sum_b += rz;
+}
+
 // Radiance SUM over p.spp samples of flat pixel `pixel` (= y*width + x, row 0
 // at the bottom). Every draw is a pure function of (seed, pixel,
-// sample_offset + s, pair); pairs per bounce b start at 1 + b*(2 + 2*La):
-// +0 (branch, dir a), +1 (dir b, unused), +2+2i (u1, u2), +3+2i (u3, pick).
-// A path ends when it dies or is still alive after max_bounces bounces; a
-// capped path keeps its radiance and gets no background term.
+// sample_offset + s, pair).
+//
+// The schedule is the TPU kernel's persistent path regeneration: ONE loop,
+// one bounce per iteration. A lane holds its sample index s and its path's
+// carries; the iteration in which a path ends adds it to the sums (in sample
+// order) and the next iteration starts sample s + 1's eye ray. A warp then
+// issues the sweep and the shading for every lane that still has samples
+// left, not only for the lanes whose path of the current sample is still
+// alive: no lane waits for the warp's longest path of a sample. The eye ray
+// is before the sweep and the sum after it, so every live lane reaches the
+// sweep at one program point. The per-lane arithmetic, and so the sums, are
+// those of a loop over samples around a loop over bounces.
 //
 // PHYSICAL selects the unbiased MIS estimator (the density of the last
 // scatter is carried to weigh an emission hit); BIDIR adds the carries of the
@@ -2072,8 +2304,9 @@ CPT_HD void eye_ray_j(const RenderParams& p, int pixel, int sample, float pxi, f
 // the scene's color and normal maps at every hit (on a local copy of the hit
 // material's columns). Tables that carry a grid sweep through it (see
 // grid_tables); p.state_bf16 stores r0 / r1 as bfloat16 at the end of every
-// bounce (a kernel fixes it at compile time, see bf16_params). The default instantiation is the reference-parity estimator on an
-// untextured scene with linear sweeps.
+// bounce (a kernel fixes it at compile time, see bf16_params). The default
+// instantiation is the reference-parity estimator on an untextured scene with
+// linear sweeps.
 template <bool PHYSICAL, bool BIDIR, bool TEXTURED>
 CPT_HD void render_pixel_t(const SceneTables& sc, const RenderParams& p, int pixel,
                            float& sum_r, float& sum_g, float& sum_b) {
@@ -2082,152 +2315,17 @@ CPT_HD void render_pixel_t(const SceneTables& sc, const RenderParams& p, int pix
     if (pixel < 0 || pixel >= p.width * p.height) return;
     const float pxi = (float)(pixel % p.width);
     const float pyi = (float)(pixel / p.width);
-    const int ppb = 2 + 2 * sc.num_area_lights;
-    const float clamp_v = p.cam[14];
-
-    for (int s = 0; s < p.spp; ++s) {
+    PathState st;
+    bool fresh = true;  // the lane starts a path in this iteration
+    int s = 0;
+    while (s < p.spp) {
         const int sample = p.sample_offset + s;
-        float ox = p.cam[9], oy = p.cam[10], oz = p.cam[11];
-        float dx, dy, dz;
-        float prev_pdf = 0.0f;                                         // PHYSICAL
-        float lt_S = 0.0f, pf_model = 0.0f, pco = 1.0f, j_img = 0.0f;  // BIDIR
-        if constexpr (BIDIR) {
-            eye_ray_j(p, pixel, sample, pxi, pyi, dx, dy, dz, j_img);
-        } else {
-            eye_ray(p, pixel, sample, pxi, pyi, dx, dy, dz);
+        if (fresh) start_path<BIDIR>(p, pixel, sample, pxi, pyi, st);
+        fresh = trace_bounce<PHYSICAL, BIDIR, TEXTURED>(sc, p, pixel, sample, st);
+        if (fresh) {
+            add_sample(p, st, sum_r, sum_g, sum_b);
+            ++s;
         }
-        float r0x = 0.0f, r0y = 0.0f, r0z = 0.0f;  // radiance gathered
-        float r1x = 1.0f, r1y = 1.0f, r1z = 1.0f;  // throughput
-        int b = 0;
-        while (true) {
-            const int pair0 = 1 + b * ppb;
-            const Hit h = intersect_sweep(sc, ox, oy, oz, dx, dy, dz);
-            if (!(h.t < INFINITY)) {  // miss: background, path ends
-                r0x += sc.background[0] * r1x;
-                r0y += sc.background[1] * r1y;
-                r0z += sc.background[2] * r1z;
-                store_carry(p, r0x, r0y, r0z);
-                break;
-            }
-            const float px = ox + dx * h.t, py = oy + dy * h.t, pz = oz + dz * h.t;
-            float nx = h.nx, ny = h.ny, nz = h.nz;
-            const float* m = sc.materials + h.mat * M_COLS;
-            float mt[TEXTURED ? M_COLS : 1];
-            if constexpr (TEXTURED) {
-                // color map on the diffuse albedo, normal map on the shading
-                // normal, before the cosine, NEE and the scatter
-                for (int k = 0; k < M_COLS; ++k) mt[k] = m[k];
-                texture_block<false, false>(sc, ox, oy, oz, dx, dy, dz, h.prim, h.mat, mt,
-                                            nx, ny, nz, nullptr);
-                m = mt;
-            }
-            const float cos_i = -dot3(dx, dy, dz, nx, ny, nz);
-            const bool inside = cos_i <= 0.0f;
-
-            float dir_r, dir_g, dir_b;
-            Lobes lb;
-            BidirIn bd;
-            float c_a = 0.0f;
-            if constexpr (PHYSICAL) {
-                lb = physical_lobes(dx, dy, dz, nx, ny, nz, cos_i, m);
-                bd.nu = 0.0f; bd.T = 0.0f; bd.pco = 1.0f; bd.t2 = 1.0f; bd.is_primary = (b == 0);
-                if constexpr (BIDIR) {
-                    const float cos_arr = fabsf(dot3(dx, dy, dz, lb.nux, lb.nuy, lb.nuz));
-                    bd.nu = p.cam[15];
-                    bd.pco = pco;
-                    bd.t2 = fmaxf(h.t * h.t, 1e-12f);
-                    c_a = j_img * cos_arr / bd.t2;
-                    const float e_prev = pf_model * cos_arr / bd.t2;
-                    bd.T = fminf(bd.is_primary ? 1.0f / fmaxf(c_a, 1e-20f)
-                                               : lt_S / fmaxf(e_prev, 1e-20f),
-                                 MIS_RATIO_CLAMP);
-                }
-                physical_direct<BIDIR>(sc, p.seed, pixel, sample, pair0, px, py, pz, nx, ny, nz,
-                                       dx, dy, dz, h.t, prev_pdf, lb, m, h.prim, bd,
-                                       dir_r, dir_g, dir_b);
-                if (inside) {
-                    r1x = r1x * expf(-h.t * m[6]);
-                    r1y = r1y * expf(-h.t * m[7]);
-                    r1z = r1z * expf(-h.t * m[8]);
-                }
-            } else {
-                // emission always; NEE only from outside
-                dir_r = m[9]; dir_g = m[10]; dir_b = m[11];
-                if (!inside) {
-                    for (int i = 0; i < sc.num_point_lights; ++i) {
-                        const float* pl = sc.point_lights + i * PL_COLS;
-                        light_contribution(sc, px, py, pz, nx, ny, nz, m, pl[0], pl[1], pl[2],
-                                           pl[3], pl[4], pl[5], dir_r, dir_g, dir_b);
-                    }
-                    for (int i = 0; i < sc.num_area_lights; ++i) {
-                        const float* al = sc.area_lights + i * AL_COLS;
-                        float u1, u2, u3, upick;
-                        uniform_pair(p.seed, pixel, sample, pair0 + 2 + 2 * i, u1, u2);
-                        uniform_pair(p.seed, pixel, sample, pair0 + 3 + 2 * i, u3, upick);
-                        const float inv_tot = 1.0f / fmaxf(u1 + u2 + u3, 1e-12f);
-                        const float w0 = u1 * inv_tot, w1 = u2 * inv_tot, w2 = u3 * inv_tot;
-                        const float* a = (upick > 0.5f) ? al : al + 9;
-                        const float lx = a[0] * w0 + a[3] * w1 + a[6] * w2;
-                        const float ly = a[1] * w0 + a[4] * w1 + a[7] * w2;
-                        const float lz = a[2] * w0 + a[5] * w1 + a[8] * w2;
-                        light_contribution(sc, px, py, pz, nx, ny, nz, m, lx, ly, lz,
-                                           al[18], al[19], al[20], dir_r, dir_g, dir_b);
-                    }
-                } else {
-                    // Beer-Lambert absorption along the segment inside the medium
-                    r1x = r1x * expf(-h.t * m[6]);
-                    r1y = r1y * expf(-h.t * m[7]);
-                    r1z = r1z * expf(-h.t * m[8]);
-                }
-            }
-            r0x = r0x + r1x * dir_r;
-            r0y = r0y + r1y * dir_g;
-            r0z = r0z + r1z * dir_b;
-            store_carry(p, r0x, r0y, r0z);
-
-            float u_branch, u_a, u_b, unused;
-            uniform_pair(p.seed, pixel, sample, pair0, u_branch, u_a);
-            uniform_pair(p.seed, pixel, sample, pair0 + 1, u_b, unused);
-            float nox, noy, noz, ndx, ndy, ndz, wr, wg, wb, ct_w;
-            int branch;
-            const bool alive = scatter_sample(dx, dy, dz, nx, ny, nz, px, py, pz, cos_i,
-                                              u_branch, u_a, u_b, m,
-                                              nox, noy, noz, ndx, ndy, ndz, wr, wg, wb,
-                                              branch, ct_w);
-            ++b;
-            if (!alive || b >= p.max_bounces) break;
-            if constexpr (PHYSICAL) {
-                // a path that goes on carries the density of the continuation it took
-                prev_pdf = inside ? 0.0f
-                                  : physical_prev_pdf(lb, m, dx, dy, dz, ndx, ndy, ndz, branch);
-            }
-            if constexpr (BIDIR) {
-                // chain-model densities of the taken branch, both directions
-                const float pdf_fwd_m = chain_model_taken(dx, dy, dz, nx, ny, nz, cos_i,
-                                                          ndx, ndy, ndz, m, branch);
-                const float cos_rev = dot3(ndx, ndy, ndz, nx, ny, nz);
-                const float pdf_rev_m = chain_model_taken(-ndx, -ndy, -ndz, nx, ny, nz, cos_rev,
-                                                          -dx, -dy, -dz, m, branch);
-                const float lam_full = pdf_rev_m * pco / bd.t2;
-                lt_S = fminf(bd.is_primary
-                                 ? (((branch == BRANCH_DIFFUSE) && (cos_i > 0.0f)) ? 1.0f : 0.0f)
-                                       / fmaxf(c_a, 1e-20f)
-                                 : bd.T * lam_full,
-                             MIS_RATIO_CLAMP);
-                pf_model = pdf_fwd_m;
-                pco = fabsf(dot3(ndx, ndy, ndz, lb.nux, lb.nuy, lb.nuz));
-            }
-            ox = nox; oy = noy; oz = noz;
-            dx = ndx; dy = ndy; dz = ndz;
-            r1x = r1x * wr; r1y = r1y * wg; r1z = r1z * wb;
-            store_carry(p, r1x, r1y, r1z);
-        }
-        if (clamp_v > 0.0f) {
-            r0x = fminf(r0x, clamp_v);
-            r0y = fminf(r0y, clamp_v);
-            r0z = fminf(r0z, clamp_v);
-        }
-        sum_r += r0x; sum_g += r0y; sum_b += r0z;
     }
 }
 

@@ -1261,7 +1261,8 @@ def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
                        stats: Optional[dict] = None, physical: bool = False,
                        bidir_nu: Optional[float] = None,
                        packed_grid: Optional[PackedGrid] = None,
-                       state_bf16: bool = False) -> torch.Tensor:
+                       state_bf16: bool = False,
+                       lane_tally=None) -> torch.Tensor:
     """Radiance SUMS over spp for ``n_local`` pixels from ``pixel_offset``,
     ``[n_local, 3]`` float32 on the tables' device. ``cam`` is
     ``_cam_tensor``'s. Differentiable in the default variant: tables or a
@@ -1273,7 +1274,10 @@ def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
     cosine of the last scatter, the eye ray's camera importance).
     ``packed_grid`` sweeps through the supercell grid; ``state_bf16`` rounds
     the radiance and throughput carries to bfloat16 at the end of every
-    bounce, as the kernel stores them."""
+    bounce, as the kernel stores them. ``lane_tally`` = (warp_max [spp,
+    warps], lane_sum [lanes], lane0): these pixels are the kernel's lanes
+    from lane0 on; each lane's bounces of sample s raise warp_max[s] at its
+    warp (lane // 32) and add to lane_sum at the lane."""
     bidir = bidir_nu is not None
     textured = packed.textured
     device = packed.device
@@ -1571,14 +1575,22 @@ def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
         # bounces (it keeps its radiance, no background term); the first
         # bounce always runs
         b = 0
+        lane_b = torch.zeros(n_local, dtype=torch.int64, device=device)
         while True:
             if stats is not None:
                 stats["path_bounces"] = (stats.get("path_bounces", 0)
                                          + int(state[12].sum()))
+            if lane_tally is not None:
+                lane_b += state[12]
             state = bounce(state, sample, b)
             b += 1
             if b >= max_bounces or not bool(state[12].any()):
                 break
+        if lane_tally is not None:
+            warp_max, lane_sum, lane0 = lane_tally
+            lanes = lane0 + torch.arange(n_local, device=device)
+            warp_max[s].scatter_reduce_(0, lanes // 32, lane_b, "amax")
+            lane_sum[lane0:lane0 + n_local] += lane_b
         for c in range(3):
             r0 = state[6 + c]
             if clamp_v > 0.0:
@@ -1634,13 +1646,30 @@ def render_block_sums_plain(packed: PackedScene, cam_params, seed: int,
     cam = _cam_tensor(cam_params, packed.device)
     prims = max(packed.counts[0] + packed.counts[1], 1)
     chunk = max(1, _PLAIN_CHUNK_ENTRIES // prims)
+    warps = (n_local + 31) // 32
+    warp_max = lane_sum = None
+    if stats is not None:
+        warp_max = torch.zeros((spp, warps), dtype=torch.int64, device=packed.device)
+        lane_sum = torch.zeros(n_local, dtype=torch.int64, device=packed.device)
     parts = [
         _render_sums_plain(packed, cam, float(sample_clamp), int(seed),
                            width, height, spp,
                            max_bounces, pixel_offset + start,
                            min(chunk, n_local - start), sample_offset, stats,
-                           physical, bidir_nu, packed_grid, bool(state_bf16))
+                           physical, bidir_nu, packed_grid, bool(state_bf16),
+                           None if stats is None else (warp_max, lane_sum, start))
         for start in range(0, n_local, chunk)]
+    if stats is not None:
+        # the kernel's 32-lane warps of consecutive threads: nested, a warp
+        # runs each sample as long as its longest path (sum over samples of
+        # the max over lanes); regenerating, as long as its busiest lane
+        # (max over lanes of the sum over samples)
+        lanes = torch.arange(n_local, device=packed.device)
+        busiest = torch.zeros(warps, dtype=torch.int64, device=packed.device)
+        busiest.scatter_reduce_(0, lanes // 32, lane_sum, "amax")
+        for key, count in (("warp_iterations", busiest.sum()),
+                           ("warp_iterations_nested", warp_max.sum())):
+            stats[key] = stats.get(key, 0) + int(count)
     return parts[0] if len(parts) == 1 else torch.cat(parts, 0)
 
 
@@ -1663,7 +1692,13 @@ def render_megakernel_plain(packed: PackedScene, cam_params, seed: int,
     ``color_fetches`` / ``normal_fetches``, and with ``packed_grid``
     ``grid_slab_tests`` / ``grid_sphere_tests`` / ``grid_triangle_tests``
     (the grid sweeps' box gates and primitive tests on those sweeps) — the
-    operation count behind the kernel's bound."""
+    operation count behind the kernel's bound — and ``warp_iterations`` /
+    ``warp_iterations_nested``: the loop iterations the kernel's 32-lane
+    warps of consecutive pixels issue with per-lane path regeneration (per
+    warp, the most bounces one lane makes over all samples) and with a loop
+    over samples around a loop over bounces (per warp and sample, the most
+    bounces one lane makes). ``path_bounces`` over 32 times either is that
+    schedule's lane efficiency."""
     n = width * height
     sums = render_block_sums_plain(packed, cam_params, seed, width, height,
                                    spp, max_bounces, 0, n, sample_offset,
@@ -1824,6 +1859,33 @@ def render_block_sums_cuda(packed: PackedScene, cam_params, seed: int,
     if state_bf16:
         LAUNCHES_BF16[variant] += 1
     return out
+
+
+def render_occupancy(packed: PackedScene, physical: bool = False,
+                     bidir_nu: Optional[float] = None,
+                     packed_grid: Optional[PackedGrid] = None,
+                     state_bf16: bool = False) -> dict:
+    """What a launch of the kernel on ``packed`` gets on the current CUDA
+    device: ``blocks_per_sm`` (resident blocks of 128 threads), ``registers``
+    per thread of the instantiation, and ``smem_bytes``, the scene's small
+    tables copied into each block's shared memory (0: they are read from
+    global memory, because they exceed 48 KB or would cost a resident
+    block)."""
+    variant = _check_variant(physical, bidir_nu)
+    lib, _ = _kernel_fn()
+    fn = lib.cpt_render_occupancy
+    ci = ctypes.c_int
+    fn.argtypes = [ci] * 10 + [ctypes.POINTER(ci)] * 2
+    fn.restype = ci
+    smem, regs = ci(0), ci(0)
+    blocks = fn(variant, int(packed.textured), int(packed_grid is not None),
+                int(bool(state_bf16)), *packed.counts, packed.tex_counts[0],
+                ctypes.byref(smem), ctypes.byref(regs))
+    if blocks < 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-blocks} "
+                           f"({lib.cpt_error_string(-blocks).decode()})")
+    return {"blocks_per_sm": blocks, "registers": regs.value,
+            "smem_bytes": smem.value}
 
 
 def uniform_pairs_cuda(seed: torch.Tensor, pixel: torch.Tensor,

@@ -15,7 +15,8 @@ KERNEL_SOURCES = ("megakernel.cu", "megakernel.cuh", "megakernel_vjp.cu",
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "k1_turns.py")]
     for base, _, names in os.walk(PORT):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     return sorted(files)

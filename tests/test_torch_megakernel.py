@@ -443,3 +443,105 @@ def test_bf16_approximates_f32(cornell_packed):
     assert np.all(np.isfinite(b16))
     assert np.abs(f32 - b16).max() < 0.02, np.abs(f32 - b16).max()
     np.testing.assert_allclose(b16.mean(), f32.mean(), rtol=0.01)
+
+
+# ---- K1's schedule: per-lane path regeneration --------------------------------
+
+# Where a lane's path ends and the next sample's starts: one and three
+# samples, the bounce cap at 1, 2 and 8, the sample clamp on the sum, a
+# sample window that starts late, a pixel range that runs past the image.
+REGEN_BOUNDARIES = {
+    "spp1": dict(spp=1), "spp3": dict(spp=3), "nb1": dict(max_bounces=1),
+    "nb2": dict(max_bounces=2), "nb8": dict(max_bounces=8),
+    "clamp": dict(sample_clamp=0.5), "offset": dict(sample_offset=11),
+    "past_image": dict(pixel_offset=32 * 24 - 200, n_local=330),
+    "textured": dict(scene="textured"), "grid": dict(scene="stress", grid=True),
+    "bf16": dict(state_bf16=True),
+}
+REGEN_VARIANTS = {"default": {}, "physical": dict(physical=True),
+                  "bidir": dict(physical=True, bidir_nu=64.0)}
+
+
+@pytest.mark.parametrize("variant", list(REGEN_VARIANTS))
+@pytest.mark.parametrize("case", list(REGEN_BOUNDARIES))
+def test_regenerating_schedule_matches_nested_and_plain(case, variant):
+    """K1's render_pixel_t (one loop, one bounce per iteration, a lane
+    starting its next sample's path in the iteration after its path ends),
+    compiled for the host, gives the sums of a loop over samples around a
+    loop over bounces bit for bit, also when it reads the small tables from
+    the copy its blocks make in shared memory; and it holds per pixel against
+    the plain version (32x24 image)."""
+    kw = dict(REGEN_BOUNDARIES[case])
+    scene = kw.pop("scene", "cornell")
+    grid = kw.pop("grid", False)
+    w, h = 32, 24
+    args = dict(spp=2, max_bounces=6, pixel_offset=0, n_local=w * h)
+    args.update(kw)
+    args.update(REGEN_VARIANTS[variant])
+    if grid:
+        args["packed_grid"] = tmk.pack_grid(build_grid(tpresets.get_scene(scene)), "cpu")
+    packed = tmk.pack_scene(tpresets.get_scene(scene), "cpu")
+    regen = render_block_sums_hostbuild(packed, CP, 7, w, h, **args)
+    for schedule in ("nested", "staged"):
+        other = render_block_sums_hostbuild(packed, CP, 7, w, h, schedule=schedule, **args)
+        assert np.array_equal(regen.numpy().view(np.uint32), other.numpy().view(np.uint32)), \
+            schedule
+    plain = tmk.render_block_sums_plain(packed, CP, 7, w, h, **args)
+    inside = max(0, min(args["n_local"], w * h - args["pixel_offset"]))
+    assert not bool(regen[inside:].any())
+    assert_per_pixel_parity(regen[:inside].numpy() / args["spp"],
+                            plain[:inside].numpy() / args["spp"])
+    if "sample_clamp" in kw:
+        assert float(regen.max()) <= args["spp"] * kw["sample_clamp"]
+
+
+def _tally(packed, w, h, spp, nb, pixel_offset=0, n_local=None, sample_offset=0, **kw):
+    stats = {}
+    tmk.render_block_sums_plain(packed, CP, 3, w, h, spp, nb, pixel_offset,
+                                w * h if n_local is None else n_local,
+                                sample_offset, stats=stats, **kw)
+    return stats
+
+
+def test_lane_tally_at_one_bounce(cornell_packed):
+    """With max_bounces=1 every path is one bounce: both schedules issue spp
+    iterations in every warp that holds a pixel of the image (lanes count
+    from the range's first pixel, so warps straddle image rows; lanes past
+    the image do no work)."""
+    w, h, spp = 10, 7, 3
+    for off, n in ((0, 70), (5, 100), (33, 37)):
+        stats = _tally(cornell_packed, w, h, spp, 1, off, n)
+        warps = len({i // 32 for i in range(n) if off + i < w * h})
+        assert stats["warp_iterations"] == stats["warp_iterations_nested"] == spp * warps
+        assert stats["path_bounces"] == spp * min(n, w * h - off)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(physical=True)])
+def test_lane_tally_bounds_and_identities(cornell_packed, kw):
+    """live bounces <= 32 x regenerating <= 32 x nested iterations; one
+    sample gives both schedules the same count; one lane issues exactly its
+    own bounces; the nested count adds up over sample windows, the
+    regenerating one does not exceed the sum."""
+    w, h, nb = 24, 16, 8
+    stats = _tally(cornell_packed, w, h, 4, nb, **kw)
+    live = stats["path_bounces"]
+    assert live <= 32 * stats["warp_iterations"] <= 32 * stats["warp_iterations_nested"]
+    assert stats["warp_iterations"] < stats["warp_iterations_nested"]
+    one = _tally(cornell_packed, w, h, 1, nb, **kw)
+    assert one["warp_iterations"] == one["warp_iterations_nested"]
+    lane = _tally(cornell_packed, w, h, 4, nb, pixel_offset=100, n_local=1, **kw)
+    assert lane["warp_iterations"] == lane["warp_iterations_nested"] == lane["path_bounces"]
+    parts = [_tally(cornell_packed, w, h, 1, nb, sample_offset=s, **kw) for s in range(4)]
+    assert sum(p["warp_iterations_nested"] for p in parts) == stats["warp_iterations_nested"]
+    assert sum(p["warp_iterations"] for p in parts) >= stats["warp_iterations"]
+
+
+def test_lane_tally_across_plain_chunks(cornell_packed, monkeypatch):
+    """The plain version cuts a large range into pixel chunks that need not
+    start on a warp boundary: the tally is that of the whole range."""
+    w, h = 20, 12
+    whole = _tally(cornell_packed, w, h, 3, 6, 7, 230)
+    # 16 primitives: chunks of 45 pixels, five of six starting inside a warp
+    monkeypatch.setattr(tmk, "_PLAIN_CHUNK_ENTRIES", 45 * 16)
+    chunked = _tally(cornell_packed, w, h, 3, 6, 7, 230)
+    assert chunked == whole

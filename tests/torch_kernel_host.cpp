@@ -57,20 +57,59 @@ cpt::RenderParams make_params(const float* cam_host, int seed, int pixel_offset,
     return p;
 }
 
+// The schedule K1 had before per-lane path regeneration: a loop over samples
+// around a loop over bounces, on the same per-path functions. The
+// regenerating render_pixel_t must give its sums bit for bit.
+template <bool PHYSICAL, bool BIDIR, bool TEXTURED>
+void render_pixel_nested(const cpt::SceneTables& sc, const cpt::RenderParams& p, int pixel,
+                         float& sum_r, float& sum_g, float& sum_b) {
+    sum_r = 0.0f; sum_g = 0.0f; sum_b = 0.0f;
+    if (pixel < 0 || pixel >= p.width * p.height) return;
+    const float pxi = (float)(pixel % p.width);
+    const float pyi = (float)(pixel / p.width);
+    for (int s = 0; s < p.spp; ++s) {
+        const int sample = p.sample_offset + s;
+        cpt::PathState st;
+        cpt::start_path<BIDIR>(p, pixel, sample, pxi, pyi, st);
+        while (!cpt::trace_bounce<PHYSICAL, BIDIR, TEXTURED>(sc, p, pixel, sample, st)) {
+        }
+        cpt::add_sample(p, st, sum_r, sum_g, sum_b);
+    }
+}
+
+// schedule 0: render_pixel_t; 1: render_pixel_nested; 2: render_pixel_t on
+// a copy of the small tables made by stage_tables (as K1's blocks read them
+// from shared memory), copied by two interleaved workers.
+template <bool PHYSICAL, bool BIDIR, bool TEXTURED>
+void render_pixels_v(const cpt::SceneTables& sc, const cpt::RenderParams& p, int schedule,
+                     float* out) {
+    cpt::SceneTables s = sc;
+    std::vector<float> copy;
+    if (schedule == 2) {
+        copy.assign(cpt::small_table_floats(sc), -1.0f);
+        for (int w = 0; w < 2; ++w) s = cpt::stage_tables(sc, copy.data(), w, 2);
+    }
+    for (int i = 0; i < p.n_local; ++i) {
+        float* o = out + 3 * i;
+        if (schedule == 1) {
+            render_pixel_nested<PHYSICAL, BIDIR, TEXTURED>(s, p, p.pixel_offset + i, o[0], o[1],
+                                                           o[2]);
+        } else {
+            cpt::render_pixel_t<PHYSICAL, BIDIR, TEXTURED>(s, p, p.pixel_offset + i, o[0], o[1],
+                                                           o[2]);
+        }
+    }
+}
+
 template <bool TEXTURED>
 void render_pixels(const cpt::SceneTables& sc, const cpt::RenderParams& p, int variant,
-                   float* out) {
-    for (int i = 0; i < p.n_local; ++i) {
-        float& r = out[3 * i];
-        float& g = out[3 * i + 1];
-        float& b = out[3 * i + 2];
-        if (variant == 0) {
-            cpt::render_pixel_t<false, false, TEXTURED>(sc, p, p.pixel_offset + i, r, g, b);
-        } else if (variant == 1) {
-            cpt::render_pixel_t<true, false, TEXTURED>(sc, p, p.pixel_offset + i, r, g, b);
-        } else {
-            cpt::render_pixel_t<true, true, TEXTURED>(sc, p, p.pixel_offset + i, r, g, b);
-        }
+                   int schedule, float* out) {
+    if (variant == 0) {
+        render_pixels_v<false, false, TEXTURED>(sc, p, schedule, out);
+    } else if (variant == 1) {
+        render_pixels_v<true, false, TEXTURED>(sc, p, schedule, out);
+    } else {
+        render_pixels_v<true, true, TEXTURED>(sc, p, schedule, out);
     }
 }
 
@@ -111,7 +150,7 @@ extern "C" {
 // Same arguments as cpt_render_megakernel (variant: 0 reference-parity, 1
 // physical, 2 physical with the bidirectional carries; a texture count > 0
 // picks the textured instantiation, a grid_idx the grid sweeps), every pointer
-// a host pointer, without the launch parameters.
+// a host pointer, without the launch parameters; `schedule` as render_pixels_v.
 int cpt_render_megakernel_host(const float* spheres, int num_spheres,
                                const float* triangles, int num_triangles,
                                const float* materials, int num_materials,
@@ -124,7 +163,7 @@ int cpt_render_megakernel_host(const float* spheres, int num_spheres,
                                const int* grid_meta, const float* cam_host,
                                int seed, int pixel_offset, int n_local, int sample_offset,
                                int spp, int max_bounces, int width, int height, int variant,
-                               int state_bf16, float* out) {
+                               int state_bf16, int schedule, float* out) {
     const cpt::SceneTables sc = make_tables(spheres, num_spheres, triangles, num_triangles,
                                             materials, num_materials, point_lights,
                                             num_point_lights, area_lights, num_area_lights,
@@ -134,9 +173,9 @@ int cpt_render_megakernel_host(const float* spheres, int num_spheres,
     const cpt::RenderParams p = make_params(cam_host, seed, pixel_offset, n_local, sample_offset,
                                             spp, max_bounces, width, height, state_bf16);
     if (num_textures > 0) {
-        render_pixels<true>(sc, p, variant, out);
+        render_pixels<true>(sc, p, variant, schedule, out);
     } else {
-        render_pixels<false>(sc, p, variant, out);
+        render_pixels<false>(sc, p, variant, schedule, out);
     }
     return 0;
 }

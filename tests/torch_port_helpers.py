@@ -155,7 +155,7 @@ def _host_kernel(fma):
                   vp, vp, ctypes.POINTER(ctypes.c_int),
                   ctypes.POINTER(ctypes.c_float),
                   ci, ci, ci, ci, ci, ci, ci, ci]
-    lib.cpt_render_megakernel_host.argtypes = scene_args + [ci, ci, vp]
+    lib.cpt_render_megakernel_host.argtypes = scene_args + [ci, ci, ci, vp]
     lib.cpt_render_megakernel_host.restype = ci
     lib.cpt_backward_megakernel_host.argtypes = scene_args + [ci] * 6 + [vp, vp]
     lib.cpt_backward_megakernel_host.restype = ci
@@ -217,17 +217,22 @@ def render_block_sums_hostbuild(packed, cam_params, seed, width, height, spp,
                                 max_bounces, pixel_offset, n_local,
                                 sample_offset=0, sample_clamp=0.0, fma=False,
                                 physical=False, bidir_nu=None, packed_grid=None,
-                                state_bf16=False):
+                                state_bf16=False, schedule="regenerating"):
     """``render_block_sums`` computed by the host build of the kernel math,
-    one pixel at a time, on CPU tables (and a CPU grid)."""
+    one pixel at a time, on CPU tables (and a CPU grid). ``schedule``:
+    "regenerating" (K1's render_pixel_t), "nested" (a loop over samples
+    around a loop over bounces on the same per-path functions) or "staged"
+    (render_pixel_t on the copy of the small tables K1's blocks make in
+    shared memory)."""
     args, _tables = _scene_args(packed, cam_params, seed, width, height, spp,
                                 max_bounces, pixel_offset, n_local,
                                 sample_offset, sample_clamp, bidir_nu,
                                 packed_grid)
     variant = tmk._check_variant(physical, bidir_nu)
+    code = ("regenerating", "nested", "staged").index(schedule)
     out = torch.empty((n_local, 3), dtype=torch.float32)
     _host_kernel(fma).cpt_render_megakernel_host(*args, variant, int(state_bf16),
-                                                 out.data_ptr())
+                                                 code, out.data_ptr())
     return out
 
 
