@@ -24,7 +24,9 @@ prints no result. It
 9. drives the training path at full size — ``invert`` on Cornell, 256x256,
    16 spp, 8 bounces, 30 Adam steps, once per grad mode — and counts the
    launches of both kernels,
-10. times a gradient step and both kernels apart at that size,
+10. times a gradient step and both kernels apart at that size, and prints
+    the backward kernel's lane efficiency in its two flat passes and in the
+    nested loops they replaced at 16 and 64 spp (``[k2 lanes]``),
 11. holds the forward kernel's physical (unbiased MIS) and bidirectional
     instantiations against their plain versions on the seven scenes and
     against goldens, and the light-tracing kernel's records, with and without
@@ -61,7 +63,9 @@ prints no result. It
     kernel, backward kernel, the rest), runs geo on ``mesh_dense(4)``
     (5,120 triangles: the global-atomics route), fits a textured quad's
     vertices (``[geo train]``, 250 Adam steps) and trains Cornell through
-    the physical estimator (``[physical train]``, 30 Adam steps),
+    the physical estimator (``[physical train]``, 30 Adam steps), and
+    prints the scratch the backward kernel's checkpoint stacks take on
+    every training configuration (``[k2 scratch]``),
 16. prints one JSON line describing every kernel, then the result line.
 
 Any failed phase raises: the exit code is then non-zero and the result line
@@ -835,7 +839,9 @@ def main() -> int:
         ms_step = median_ms(lambda: inverse.value_and_grad(loss, params, 0))
         ms_k2 = median_ms(lambda: vjp.backward_rows_cuda(packed_train, cp, 0, tw, th, tspp,
                                                          tnb, g_img, full=full))
-        bench[mode] = dict(ms_step=ms_step, ms=ms_k2, loss=loss)
+        # the stacks this launch allocated (megakernel_vjp.py: LAST_STACK)
+        bench[mode] = dict(ms_step=ms_step, ms=ms_k2, loss=loss,
+                           scratch_bytes=4 * vjp.LAST_STACK[1])
         rays = n_train * tspp
         log(f"[grad bench] cornell {tw}x{th} {tspp} spp {tnb} bounces, {mode} "
             f"({len(fields)} fields): value_and_grad step {ms_step:.2f} ms = "
@@ -902,21 +908,20 @@ def main() -> int:
               f"grad bench {mode}: losses differ ({float(v_k)} vs {float(v_p)})")
 
         # bound: the replay is one forward render; the reverse sweep adds per stored
-        # bounce (cornell is a closed box: every sweep of a path hits, so the
-        # plain version's tally of sweeps counts the stored bounces), per
+        # bounce (the plain version's tally of the sweeps that hit), per
         # visible light sample and per path. Bytes the function must move:
         # tables and cotangent in, rows out. The checkpoints (written once,
         # read once) are this kernel's own traffic: their time at the memory
         # rate is printed apart and is no part of the bound.
         visible = stats_t["shadow_rays"] - stats_t["shadow_rays_occluded"]
         flops = (flop_count(packed_train.counts, stats_t)
-                 + stats_t["path_bounces"] * REVERSE_BOUNCE_FLOPS[mode]
+                 + stats_t["stored_bounces"] * REVERSE_BOUNCE_FLOPS[mode]
                  + visible * NEE_PARTIAL_FLOPS[mode]
                  + stats_t["paths"] * EYE_VJP_FLOPS[mode])
         planes = vjp.ST_PLANES_FULL if mode == "full" else vjp.ST_PLANES
         rows = vjp._grad_rows(packed_train.counts, mode == "full")
         moved = packed_train.table_bytes + 12 * n_train + 4 * rows
-        scratch = 2 * 4 * planes * stats_t["path_bounces"]
+        scratch = 2 * 4 * planes * stats_t["stored_bounces"]
         k2_ops_ms = flops / PEAK_FP32_FLOPS * 1e3
         k2_bytes_ms = moved / PEAK_BYTES_PER_S * 1e3
         bench[mode].update(bound_ms=max(k2_ops_ms, k2_bytes_ms),
@@ -929,6 +934,32 @@ def main() -> int:
             f"checkpoints ({planes * 4} B per stored bounce, written and read once: "
             f"{scratch:.3e} bytes) would take {bench[mode]['scratch_bytes_ms']:.3f} ms "
             "at the memory rate")
+
+    # K2's lane efficiency (live bounces of both passes over 32 x the warps'
+    # loop iterations) in its two flat passes and in the nested loops they
+    # replaced, on the plain version's tally of the training step's paths, with
+    # the stack the wrapper gives full mode at 16 and at 64 spp
+    k2_lanes = {}
+    full_slot = vjp._slot_floats(vjp.ST_PLANES_FULL)
+    for n_spp in (tspp, 4 * tspp):
+        capacity = vjp._stack_slots(n_spp, tnb, n_train, full_slot, True)
+        st = stats_t
+        if n_spp != tspp:
+            st = {}
+            mk.render_block_sums_plain(packed_train, cp, 0, tw, th, n_spp, tnb, 0, n_train,
+                                       stats=st, k2_capacity=capacity)
+        work = st["path_bounces"] + st["stored_bounces"]
+        k2_eff = {k: work / (32 * st[k]) for k in ("k2_warp_iterations",
+                                                   "k2_warp_iterations_nested")}
+        k2_lanes[n_spp] = dict(k2_eff, capacity=capacity)
+        log(f"[k2 lanes] cornell {tw}x{th} {n_spp} spp {tnb} bounces, stack of {capacity} "
+            f"slots: {st['path_bounces'] / st['paths']:.3f} sweeps and "
+            f"{st['stored_bounces'] / st['paths']:.3f} stored bounces per path; lane "
+            f"efficiency two flat passes {k2_eff['k2_warp_iterations']:.3f}, nested "
+            f"{k2_eff['k2_warp_iterations_nested']:.3f} "
+            f"({st['k2_warp_iterations_nested'] / st['k2_warp_iterations']:.2f}x the warp "
+            "iterations)")
+    report["k2_lanes"] = k2_lanes
 
     # ---- 11. the unbiased instantiations against their plain versions ----------------
     VARIANTS = {"physical": dict(physical=True),
@@ -1399,8 +1430,8 @@ def main() -> int:
         visible = stats_g["shadow_rays"] - stats_g["shadow_rays_occluded"]
         mode = loss.grad_mode
         k2_flops = (flop_count(packed_g.counts, stats_g) + texture_flops(stats_g)
-                    + stats_g["path_bounces"] * (REVERSE_BOUNCE_FLOPS[mode]
-                                                 + TEX_REVERSE_FLOPS[mode])
+                    + stats_g["stored_bounces"] * (REVERSE_BOUNCE_FLOPS[mode]
+                                                   + TEX_REVERSE_FLOPS[mode])
                     + (stats_g["normal_fetches"] * NMAP_PULLBACK_FLOPS if full else 0)
                     + visible * NEE_PARTIAL_FLOPS[mode] + stats_g["paths"] * EYE_VJP_FLOPS[mode])
         texels = packed_g.tex_counts[1]
@@ -1771,7 +1802,7 @@ def main() -> int:
         k2_bound, k2_work = least_bound(
             packed_train.counts, stats_tg, 1.0, packed_train.table_bytes + 12 * tw * th
             + 4 * rows, 4 * pg_t.idx.numel(),
-            stats_tg["path_bounces"] * REVERSE_BOUNCE_FLOPS[mode]
+            stats_tg["stored_bounces"] * REVERSE_BOUNCE_FLOPS[mode]
             + visible * NEE_PARTIAL_FLOPS[mode] + stats_tg["paths"] * EYE_VJP_FLOPS[mode])
         grid_train[mode] = dict(k1=k1g, k2=k2g, ms=k2_ms, plain_ms=p_ms, max_abs_err=err_t,
                                 bound=k2_bound, grid_work=k2_work,
@@ -1837,13 +1868,13 @@ def main() -> int:
         stored bounce; per visible light sample; per path)."""
         visible = stats["shadow_rays"] - stats["shadow_rays_occluded"]
         flops = (flop_count(counts, stats, physical=physical)
-                 + stats["path_bounces"] * REVERSE_BOUNCE_FLOPS[mode]
+                 + stats["stored_bounces"] * REVERSE_BOUNCE_FLOPS[mode]
                  + visible * NEE_PARTIAL_FLOPS[mode] + stats["paths"] * EYE_VJP_FLOPS[mode])
         if textured:
-            flops += (texture_flops(stats) + stats["path_bounces"] * TEX_REVERSE_FLOPS[mode]
+            flops += (texture_flops(stats) + stats["stored_bounces"] * TEX_REVERSE_FLOPS[mode]
                       + stats["normal_fetches"] * NMAP_PULLBACK_FLOPS)
         if physical:
-            flops += (stats["path_bounces"] * PHYS_REVERSE_BOUNCE_FLOPS
+            flops += (stats["stored_bounces"] * PHYS_REVERSE_BOUNCE_FLOPS
                       + stats["shadow_rays"] * (PHYS_LIGHT_VJP_FLOPS
                                                 + (PHYS_GEO_LIGHT_FLOPS if geo else 0)))
         if geo:
@@ -1896,7 +1927,7 @@ def main() -> int:
         ms_k2 = median_ms(lambda: vjp.backward_rows_cuda(
             packed_b, cp, 0, b_w, b_h, b_spp, b_nb, g_img, full=True, physical=physical,
             geo=geo, tex_grads="textures" in fields, packed_grid=grid))
-        route = vjp.LAST_ROUTE
+        route, scratch_bytes = vjp.LAST_ROUTE, 4 * vjp.LAST_STACK[1]
         # the paths' tally from the plain version, on up to 4 of the samples
         stats_b, s_spp = {}, min(b_spp, 4)
         mk.render_megakernel_plain(packed_b, cp, 0, b_w, b_h, s_spp, b_nb, stats=stats_b,
@@ -1913,8 +1944,9 @@ def main() -> int:
                      bound=bound, route=route, rows=rows, launches=launched[key],
                      registers=k2_registers(route == "shared", textured, grid is not None,
                                             physical, geo),
-                     scratch_bytes_ms=2 * 4 * planes * stats_b["path_bounces"]
-                     / PEAK_BYTES_PER_S * 1e3, plain_ms=None, max_abs_err=None)
+                     scratch_bytes_ms=2 * 4 * planes * stats_b["stored_bounces"]
+                     / PEAK_BYTES_PER_S * 1e3, scratch_bytes=scratch_bytes, plain_ms=None,
+                     max_abs_err=None)
         if plain:
             v_k, g_k = inverse.value_and_grad(loss, params, 0)
             torch.cuda.synchronize()
@@ -2122,6 +2154,45 @@ def main() -> int:
                   new_k2={k: {kk: vv for kk, vv in v.items() if kk != "bound"}
                           for k, v in new_k2.items()})
 
+    # 15f. K2's checkpoint stacks: the scratch the wrapper allocates
+    # (megakernel_vjp.py: capacity x slot floats x pixels) on every training
+    # configuration above
+    def k2_scratch(scene, dims, full, physical=False, tex_grads=False):
+        s_w, s_h, s_spp, s_nb = dims
+        packed_s = mk.pack_scene(scene, "cpu")
+        slot = vjp._slot_floats(vjp._st_planes(full or physical, packed_s.textured,
+                                               tex_grads, packed_s.tex_nmap, physical))
+        capacity = vjp._stack_slots(s_spp, s_nb, s_w * s_h, slot, full or physical)
+        return capacity * slot * s_w * s_h * 4, capacity, slot
+
+    quads = {"color quad": textured_quad(), "color+normal quad": textured_quad(nmap=True)}
+    scratch_cfgs = {f"cornell {m}": (start, train_dims, m != "linear", "physical" in m)
+                    for m in ("linear", "full", "geo", "physical", "physical-geo")}
+    scratch_cfgs.update({
+        f"{name} {size}x{size} {b_spp} spp {b_nb} b": (
+            quads[name], (size, size, b_spp, b_nb), "pl_pos" in fields, False, True)
+        for name, size, b_spp, b_nb, fields in TEX_GRAD_BENCH})
+    scratch_cfgs.update({
+        "textured painting": (presets.textured(), (tt["width"], tt["height"], tt["spp"],
+                                                   tt["max_bounces"]), True, False, True),
+        "color+normal quad physical": (quads["color+normal quad"], (128, 128, 16, 4), True,
+                                       True, True),
+        "mesh_dense(4) geo": (mesh, train_dims, True),
+        "mesh-fit quad geo": (mf_start, (gt["width"], gt["height"], gt["spp"],
+                                         gt["max_bounces"]), True)})
+    scratch = {k: k2_scratch(*v) for k, v in scratch_cfgs.items()}
+    largest = max(scratch, key=lambda k: scratch[k][0])
+    log("[k2 scratch] checkpoint stacks (bytes, slots per pixel, floats per slot): "
+        + "; ".join(f"{k} {v[0] / 1e9:.3f} GB, {v[1]}, {v[2]}" for k, v in scratch.items())
+        + f"; largest: {largest}, {scratch[largest][0] / 1e9:.3f} GB (budget "
+        f"{vjp.SCRATCH_BUDGET / 1e9:.3f} GB)")
+    check(scratch[largest][0] <= vjp.SCRATCH_BUDGET, "K2's scratch exceeds its budget")
+    for mode in bench:
+        check(scratch[f"cornell {mode}"][0] == bench[mode]["scratch_bytes"],
+              f"[k2 scratch] cornell {mode}: {scratch[f'cornell {mode}'][0]} bytes, the "
+              f"launch allocated {bench[mode]['scratch_bytes']}")
+    report["k2_scratch"] = scratch
+
     # ---- 16. report ----------------------------------------------------------------
     k1_common = {
         "route": "cuda",
@@ -2226,6 +2297,8 @@ def main() -> int:
         "ms_value_and_grad_step": b["ms_step"],
         "ms_per_training_step": train[mode]["ms_per_step"],
         "scratch_bytes_ms": b["scratch_bytes_ms"],
+        "scratch_bytes": b["scratch_bytes"],
+        "lane_efficiency": {k: v for k, v in k2_lanes[tspp].items() if k != "capacity"},
         "two_runs_rel_diff": determinism[mode],
         "share_of_bound": b["bound_ms"] / b["ms"],
     } for mode, b in bench.items()] + [{
@@ -2360,6 +2433,7 @@ def main() -> int:
         "rows": v["rows"],
         "rows_route": v["route"],
         "scratch_bytes_ms": v["scratch_bytes_ms"],
+        "scratch_bytes": v["scratch_bytes"],
         "share_of_bound": v["bound"][0] / v["ms"],
     } for label, v in new_k2.items()]}
     report.update(grid_main_path_s=grid_main_s, grid_train={

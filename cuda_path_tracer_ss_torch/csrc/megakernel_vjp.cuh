@@ -7,17 +7,23 @@
 // in every grad mode: "linear" and "full" on the reference-parity estimator,
 // "geo" (full plus the triangle and area-light vertex rows) and the exact
 // adjoint of the physical estimator (PHYSICAL, with or without geo), on
-// untextured and on textured (color-mapped, normal-mapped) scenes. Per
-// sample the thread
+// untextured and on textured (color-mapped, normal-mapped) scenes. For every
+// path of its pixel the thread
 //   1. REPLAYS the path from the counter RNG with the forward kernel's own
 //      device functions (megakernel.cuh: sweeps, scatter_sample, uniform_pair,
 //      eye ray), so it walks the forward's path hit for hit and branch for
-//      branch, and checkpoints every bounce;
-//   2. runs the adjoint recurrence over the stored bounces, last to first:
+//      branch, and checkpoints every bounce (replay_bounce);
+//   2. runs the adjoint recurrence over the stored bounces, last to first
+//      (reverse_bounce):
 //        A_mid(b) = A_after(b) * w(b) + g * direct(b);  A_in(b) = A_mid(b) * beer(b)
 //      and, in full mode, carries dL/d(origin, direction) through the scatter
 //      step (scatter_chain) and the hit (hit_chain) of every bounce;
-//   3. in full mode pulls the eye ray's cotangent back into the camera rows.
+//   3. in full mode pulls the eye ray's cotangent back into the camera rows
+//      (eye_vjp).
+// backward_pixel schedules these per path as two flat passes with per-lane
+// regeneration: all of the pixel's replays, one bounce per loop iteration,
+// pushing the bounces onto the lane's checkpoint stack; then all of its
+// reverse sweeps, popping it.
 // Discrete decisions (which primitive is hit, visibility, the scatter branch,
 // the clamp of the light cosine, the light draws) carry no gradient; every
 // continuous factor does.
@@ -38,10 +44,10 @@
 // that was drawn is evaluated, a miss ends the replay and stores nothing,
 // material / sphere / triangle rows are read and written by direct index.
 //
-// Two seams keep this header usable from a host compiler too (CPT_HD collapses
-// to `inline`): the checkpoint store is a strided view over a float buffer
-// (stride = threads of the launch on the card, 1 on a host), and the row
-// accumulator is a template parameter with one method, add(row, value).
+// Three seams keep this header usable from a host compiler too (CPT_HD
+// collapses to `inline`): the checkpoint stack (CheckpointStore: a lane's own
+// slots), the row accumulator and the camera rows' accumulator are template
+// parameters; an accumulator has one method, add(row, value).
 //
 // Row layout of the accumulator (GradLayout): per material `pcols` rows
 // (diffuse 3, specular 3, absorption 3, emission 3, diff_avg; full mode adds
@@ -128,11 +134,20 @@ constexpr int QN_CW = 16;      // weights (4)  } gradients
 constexpr int NMAP_PLANES = 12;
 constexpr int NMAP_PLANES_GRADS = 20;
 
+// Two planes after a slot's checkpoint planes say, in the last slot of a
+// path, which sample it was and how it ended: QM_SAMPLE the sample (from
+// sample_offset), QM_END 2 * (bounces stored) + 1 if the path ended in a miss.
+constexpr int QM_SAMPLE = 0;
+constexpr int QM_END = 1;
+constexpr int META_PLANES = 2;
+
 // Where a textured replay keeps what; `on` is false on an untextured scene.
 struct TexLayout {
     bool on, grads, nmap;   // textured; texel gradients; normal-map block
     int q_tex, q_uvg, q_nm; // first plane of each block
-    int planes;             // planes per bounce in all
+    int planes;             // checkpoint planes per bounce in all
+    int q_meta;             // first of the META_PLANES
+    int slot_floats;        // floats per slot: the planes and the meta, padded to 4
 };
 
 // `full` is true for the geo and physical modes too (they build on the full
@@ -147,6 +162,8 @@ inline TexLayout tex_layout(bool full, bool textured, bool grads, bool nmap_scen
     T.q_uvg = T.q_tex + (textured ? (T.grads ? TEX_PLANES_GRADS : TEX_PLANES) : 0);
     T.q_nm = T.q_uvg + ((textured && full) ? UVG_PLANES : 0);
     T.planes = T.q_nm + (T.nmap ? (T.grads ? NMAP_PLANES_GRADS : NMAP_PLANES) : 0);
+    T.q_meta = T.planes;
+    T.slot_floats = (T.planes + META_PLANES + 3) / 4 * 4;
     return T;
 }
 
@@ -179,32 +196,58 @@ inline GradLayout grad_layout(int num_spheres, int num_triangles, int num_materi
     return L;
 }
 
-// Checkpoints of one thread: plane q of bounce b lies at
-// base[(b * planes + q) * stride]. On the card `base` points at the thread's
-// own column of a [bounce][plane][thread] buffer, so a warp's accesses are
-// coalesced.
+// Four neighbouring planes of one slot.
+struct Quad {
+    float x, y, z, w;
+};
+
+CPT_HD float int_bits(int i) {
+    float f;
+    memcpy(&f, &i, sizeof(f));
+    return f;
+}
+
+CPT_HD int float_bits(float f) {
+    int i;
+    memcpy(&i, &f, sizeof(i));
+    return i;
+}
+
+// A lane's checkpoint stack: slot k holds one stored bounce, plane q of it
+// at at(k, q). The lane's slots lie together, [thread][slot][plane] with
+// slot_floats a multiple of 4 and the lane's first slot 16-byte aligned, so
+// put4 / get4 move four planes in one access (on the card a float4), and the
+// sectors a lane touches hold its own planes only, whatever the depths of
+// the other lanes of its warp.
 struct CheckpointStore {
     float* base;
-    size_t stride;
-    int planes;
-    CPT_HD float get(int b, int q) const { return base[(size_t)(b * planes + q) * stride]; }
-    CPT_HD void put(int b, int q, float v) const { base[(size_t)(b * planes + q) * stride] = v; }
-    CPT_HD int geti(int b, int q) const {
-        const float f = get(b, q);
-        int i;
-        memcpy(&i, &f, sizeof(i));
-        return i;
+    int slot_floats;
+    CPT_HD float* at(int k, int q) const { return base + (size_t)k * slot_floats + q; }
+    CPT_HD float get(int k, int q) const { return *at(k, q); }
+    CPT_HD void put(int k, int q, float v) const { *at(k, q) = v; }
+    CPT_HD int geti(int k, int q) const { return float_bits(get(k, q)); }
+    CPT_HD void puti(int k, int q, int i) const { put(k, q, int_bits(i)); }
+    CPT_HD void get3(int k, int q, float& x, float& y, float& z) const {
+        x = get(k, q); y = get(k, q + 1); z = get(k, q + 2);
     }
-    CPT_HD void puti(int b, int q, int i) const {
-        float f;
-        memcpy(&f, &i, sizeof(f));
-        put(b, q, f);
+    CPT_HD void put3(int k, int q, float x, float y, float z) const {
+        put(k, q, x); put(k, q + 1, y); put(k, q + 2, z);
     }
-    CPT_HD void get3(int b, int q, float& x, float& y, float& z) const {
-        x = get(b, q); y = get(b, q + 1); z = get(b, q + 2);
+    // planes q .. q+3, q a multiple of 4
+    CPT_HD Quad get4(int k, int q) const {
+#if defined(__CUDACC__)
+        const float4 v = *reinterpret_cast<const float4*>(at(k, q));
+        return {v.x, v.y, v.z, v.w};
+#else
+        return {get(k, q), get(k, q + 1), get(k, q + 2), get(k, q + 3)};
+#endif
     }
-    CPT_HD void put3(int b, int q, float x, float y, float z) const {
-        put(b, q, x); put(b, q + 1, y); put(b, q + 2, z);
+    CPT_HD void put4(int k, int q, float x, float y, float z, float w) const {
+#if defined(__CUDACC__)
+        *reinterpret_cast<float4*>(at(k, q)) = make_float4(x, y, z, w);
+#else
+        put(k, q, x); put(k, q + 1, y); put(k, q + 2, z); put(k, q + 3, w);
+#endif
     }
 };
 
@@ -290,13 +333,14 @@ CPT_HD float nee_partials(const float* m, int mat_row, float q, const float* dqp
 
 // Consumes the carried cotangents of bounce b's OUTPUT ray (ao: origin, ad:
 // direction) and the weight cotangent dw = A_after * T_mid, re-deriving the
-// forward's branch math from the stored (d, n) and the replayed uniforms.
+// forward's branch math from the (d, n) stored in slot k and the uniforms of
+// bounce b, replayed.
 // Gives the cotangents flowing into the hit point (ap), the surfel normal
 // (an) and the INCOMING direction (ade), and adds the roughness / ior /
 // spec_exp rows. Only the branch that was drawn is evaluated.
-template <class Sink>
+template <class Store, class Sink>
 CPT_HD void scatter_chain(const SceneTables& sc, const RenderParams& p, const GradLayout& L,
-                          int pixel, int sample, int b, const CheckpointStore& st,
+                          int pixel, int sample, int b, const Store& st, int k,
                           int mat, int code, float dwx, float dwy, float dwz,
                           const float* ao, const float* ad, float* ap, float* an, float* ade,
                           Sink& acc) {
@@ -304,8 +348,8 @@ CPT_HD void scatter_chain(const SceneTables& sc, const RenderParams& p, const Gr
     if (code == BRANCH_NONE) return;
     const float eps = RAY_BUMP_EPSILON;
     float dx, dy, dz, nx, ny, nz;
-    st.get3(b, Q_D, dx, dy, dz);
-    st.get3(b, Q_N, nx, ny, nz);
+    st.get3(k, Q_D, dx, dy, dz);
+    st.get3(k, Q_N, nx, ny, nz);
     const float* m = sc.materials + mat * M_COLS;
     const int mat_row = mat * L.pcols;
     const int pair0 = 1 + b * (2 + 2 * sc.num_area_lights);
@@ -598,13 +642,13 @@ CPT_HD void tri_uv_tangent_vjp(const float* tri, const float* uv, const float* a
 
 // The texel rows of one fetch: value vals[c] times each stored corner weight
 // into the corner texel's channel-c row.
-template <class Sink>
-CPT_HD void scatter_texels(const CheckpointStore& st, int b, int q_idx, int q_w, const float* vals,
+template <class Store, class Sink>
+CPT_HD void scatter_texels(const Store& st, int k, int q_idx, int q_w, const float* vals,
                            int row_tex0, Sink& acc) {
-    for (int k = 0; k < 4; ++k) {
-        const float w = st.get(b, q_w + k);
+    for (int j = 0; j < 4; ++j) {
+        const float w = st.get(k, q_w + j);
         if (w == 0.0f) continue;
-        const int row = row_tex0 + 3 * st.geti(b, q_idx + k);
+        const int row = row_tex0 + 3 * st.geti(k, q_idx + j);
         acc.add(row + 0, vals[0] * w);
         acc.add(row + 1, vals[1] * w);
         acc.add(row + 2, vals[2] * w);
@@ -665,27 +709,27 @@ CPT_HD void triangle_t_vjp(float sx, float sy, float sz, float dx, float dy, flo
 
 // normal -> (point | barycentrics), point -> (origin, direction, t), t ->
 // (origin, direction) through the winning primitive's analytic intersection
-// Jacobian, plus the Beer factor's t adjoint (and, PHYSICAL, the direct
+// Jacobian (the bounce stored in slot k), plus the Beer factor's t adjoint (and, PHYSICAL, the direct
 // phase's, plane Q_PA_T). amid = A_mid, tm = T_mid of the bounce. Overwrites
 // (ao, ad) — the carried cotangent of the bounce's OUTPUT ray — with the
 // cotangent of its INPUT ray, and adds the sphere rows (GEO: the triangle
 // rows). `an` is the cotangent of the geometric (raw) normal, kept at plane
 // `q_normal`; `nee_an_in` says that the NEE normal partials are in it already
 // (the normal-map pullback folded them in).
-template <bool GEO, bool PHYSICAL, class Sink>
-CPT_HD void hit_chain(const SceneTables& sc, const GradLayout& L, int b, const CheckpointStore& st,
+template <bool GEO, bool PHYSICAL, class Store, class Sink>
+CPT_HD void hit_chain(const SceneTables& sc, const GradLayout& L, int k, const Store& st,
                       int mat, const float* amid, const float* tm, float t_in,
                       const float* ap, const float* an, const float* ade,
                       float* ao, float* ad, Sink& acc, int q_normal = Q_N,
                       bool nee_an_in = false) {
     float ox, oy, oz, dx, dy, dz, nx, ny, nz, nax, nay, naz, nnx = 0.0f, nny = 0.0f, nnz = 0.0f;
-    st.get3(b, Q_O, ox, oy, oz);
-    st.get3(b, Q_D, dx, dy, dz);
-    st.get3(b, q_normal, nx, ny, nz);
-    st.get3(b, Q_NEE_AP, nax, nay, naz);
-    if (!nee_an_in) st.get3(b, Q_NEE_AN, nnx, nny, nnz);
-    const float t_hit = st.get(b, Q_T);
-    const int prim = st.geti(b, Q_PRIM);
+    st.get3(k, Q_O, ox, oy, oz);
+    st.get3(k, Q_D, dx, dy, dz);
+    st.get3(k, q_normal, nx, ny, nz);
+    st.get3(k, Q_NEE_AP, nax, nay, naz);
+    if (!nee_an_in) st.get3(k, Q_NEE_AN, nnx, nny, nnz);
+    const float t_hit = st.get(k, Q_T);
+    const int prim = st.geti(k, Q_PRIM);
     float apx = ap[0] + nax, apy = ap[1] + nay, apz = ap[2] + naz;
     const float anx = an[0] + nnx, any_ = an[1] + nny, anz = an[2] + nnz;
 
@@ -693,7 +737,7 @@ CPT_HD void hit_chain(const SceneTables& sc, const GradLayout& L, int b, const C
     const float* m = sc.materials + mat * M_COLS;
     float at = 0.0f;
     if (t_in > 0.0f) at = -(amid[0] * tm[0] * m[6] + amid[1] * tm[1] * m[7] + amid[2] * tm[2] * m[8]);
-    if (PHYSICAL) at += st.get(b, Q_PA_T);
+    if (PHYSICAL) at += st.get(k, Q_PA_T);
 
     float aox, aoy, aoz, adx, ady, adz;
     if (prim < sc.num_spheres) {
@@ -821,28 +865,28 @@ CPT_HD void uv_vertex_vjp(const float* tr, const float* uv, float px, float py, 
 // the tangent frame (its edges) and the UVs (the VJP of the plane
 // barycentrics' metric solve (a, b) = M^-1 [e1.q, e2.q], q = p - v0, M the
 // edges' Gram matrix; the hit point's own motion is in A_p already).
-template <bool GEO, class Sink>
-CPT_HD void tex_chain(const SceneTables& sc, const GradLayout& L, const TexLayout& T, int b,
-                      const CheckpointStore& st, int mat, const float* a_alb, float* ap,
+template <bool GEO, class Store, class Sink>
+CPT_HD void tex_chain(const SceneTables& sc, const GradLayout& L, const TexLayout& T, int k,
+                      const Store& st, int mat, const float* a_alb, float* ap,
                       float* an, Sink& acc) {
-    const int prim = st.geti(b, Q_PRIM);
+    const int prim = st.geti(k, Q_PRIM);
     const bool sphere = prim < sc.num_spheres;
     int q_raw = Q_N;
     float a_u = 0.0f, a_v = 0.0f;
     if (T.nmap) {
         const int n = T.q_nm;
         q_raw = n + QN_RAW;
-        for (int c = 0; c < 3; ++c) an[c] += st.get(b, Q_NEE_AN + c);
+        for (int c = 0; c < 3; ++c) an[c] += st.get(k, Q_NEE_AN + c);
         if (sc.tex_matids[2 * mat + 1] >= 0.0f) {
             float rx, ry, rz, tgx = 0.0f, tgy = 0.0f, tgz = 0.0f, nt[3], an_raw[3];
-            st.get3(b, n + QN_RAW, rx, ry, rz);
+            st.get3(k, n + QN_RAW, rx, ry, rz);
             if (!sphere) {
                 const int ti = prim - sc.num_spheres;
                 tri_uv_tangent(sc.triangles + ti * T_COLS, sc.tex_triuv + ti * 6, tgx, tgy, tgz);
             }
             float atg[3];
-            perturb_normal_vjp(rx, ry, rz, sphere, tgx, tgy, tgz, st.get(b, n + QN_VAL),
-                               st.get(b, n + QN_VAL + 1), st.get(b, n + QN_VAL + 2),
+            perturb_normal_vjp(rx, ry, rz, sphere, tgx, tgy, tgz, st.get(k, n + QN_VAL),
+                               st.get(k, n + QN_VAL + 1), st.get(k, n + QN_VAL + 2),
                                an[0], an[1], an[2], an_raw, nt,
                                (GEO && !sphere) ? atg : nullptr);
             if (GEO && !sphere) {
@@ -854,30 +898,30 @@ CPT_HD void tex_chain(const SceneTables& sc, const GradLayout& L, const TexLayou
                 for (int k = 0; k < 6; ++k) acc.add(L.row_tri0 + TRI_ROWS * ti + 3 + k, ae[k]);
             }
             an[0] = an_raw[0]; an[1] = an_raw[1]; an[2] = an_raw[2];
-            if (T.grads) scatter_texels(st, b, n + QN_CIDX, n + QN_CW, nt, L.row_tex0, acc);
+            if (T.grads) scatter_texels(st, k, n + QN_CIDX, n + QN_CW, nt, L.row_tex0, acc);
             for (int c = 0; c < 3; ++c) {
-                a_u += nt[c] * st.get(b, n + QN_DU + c);
-                a_v += nt[c] * st.get(b, n + QN_DV + c);
+                a_u += nt[c] * st.get(k, n + QN_DU + c);
+                a_v += nt[c] * st.get(k, n + QN_DV + c);
             }
         }
     }
     const float* md = sc.materials + mat * M_COLS;
     const int u = T.q_uvg;
     for (int c = 0; c < 3; ++c) {
-        a_u += a_alb[c] * md[c] * st.get(b, u + QU_DU + c);
-        a_v += a_alb[c] * md[c] * st.get(b, u + QU_DV + c);
+        a_u += a_alb[c] * md[c] * st.get(k, u + QU_DU + c);
+        a_v += a_alb[c] * md[c] * st.get(k, u + QU_DV + c);
     }
     if (a_u == 0.0f && a_v == 0.0f) return;
     float g[6];
-    for (int k = 0; k < 6; ++k) g[k] = st.get(b, u + QU_G + k);
+    for (int j = 0; j < 6; ++j) g[j] = st.get(k, u + QU_G + j);
     if (!sphere) {
         for (int c = 0; c < 3; ++c) ap[c] += a_u * g[c] + a_v * g[3 + c];
         if (GEO) {
             const int ti = prim - sc.num_spheres;
             float ox, oy, oz, dx, dy, dz, a9[9];
-            st.get3(b, Q_O, ox, oy, oz);
-            st.get3(b, Q_D, dx, dy, dz);
-            const float t = st.get(b, Q_T);
+            st.get3(k, Q_O, ox, oy, oz);
+            st.get3(k, Q_D, dx, dy, dz);
+            const float t = st.get(k, Q_T);
             const float px = ox + dx * t, py = oy + dy * t, pz = oz + dz * t;
             uv_vertex_vjp(sc.triangles + ti * T_COLS, sc.tex_triuv + ti * 6, px, py, pz, a_u, a_v,
                           a9);
@@ -885,45 +929,45 @@ CPT_HD void tex_chain(const SceneTables& sc, const GradLayout& L, const TexLayou
         }
     } else {
         float rx, ry, rz, anx, any_, anz;
-        st.get3(b, q_raw, rx, ry, rz);
+        st.get3(k, q_raw, rx, ry, rz);
         norm3_vjp(rx, ry, rz, a_u * g[0], a_v * g[2], a_u * g[1], 1e-20f, anx, any_, anz);
         an[0] += anx; an[1] += any_; an[2] += anz;
     }
 }
 
-// The texture block's checkpoint planes of bounce b (all but the albedo
+// The texture block's checkpoint planes in slot k (all but the albedo
 // cotangent's): its texel multipliers, corners, UV partials and normal-map
 // bundle.
-template <bool FULL>
-CPT_HD void put_tex_aux(const CheckpointStore& st, const TexLayout& T, int b, const TexAux& ta) {
+template <bool FULL, class Store>
+CPT_HD void put_tex_aux(const Store& st, const TexLayout& T, int k, const TexAux& ta) {
     const int q = T.q_tex;
-    st.put3(b, q + QT_TEX, ta.tex[0], ta.tex[1], ta.tex[2]);
+    st.put3(k, q + QT_TEX, ta.tex[0], ta.tex[1], ta.tex[2]);
     if (T.grads) {
-        for (int k = 0; k < 4; ++k) {
-            st.puti(b, q + QT_CIDX + k, ta.has_c ? ta.c.idx[k] : 0);
-            st.put(b, q + QT_CW + k, ta.has_c ? ta.c.w[k] : 0.0f);
+        for (int j = 0; j < 4; ++j) {
+            st.puti(k, q + QT_CIDX + j, ta.has_c ? ta.c.idx[j] : 0);
+            st.put(k, q + QT_CW + j, ta.has_c ? ta.c.w[j] : 0.0f);
         }
     }
     if (FULL) {
         const int u = T.q_uvg;
         for (int c = 0; c < 3; ++c) {
-            st.put(b, u + QU_DU + c, ta.has_c ? ta.c.du[c] : 0.0f);
-            st.put(b, u + QU_DV + c, ta.has_c ? ta.c.dv[c] : 0.0f);
+            st.put(k, u + QU_DU + c, ta.has_c ? ta.c.du[c] : 0.0f);
+            st.put(k, u + QU_DV + c, ta.has_c ? ta.c.dv[c] : 0.0f);
         }
-        for (int k = 0; k < 6; ++k) st.put(b, u + QU_G + k, ta.uvg[k]);
+        for (int j = 0; j < 6; ++j) st.put(k, u + QU_G + j, ta.uvg[j]);
     }
     if (T.nmap) {
         const int n = T.q_nm;
-        st.put3(b, n + QN_RAW, ta.raw[0], ta.raw[1], ta.raw[2]);
+        st.put3(k, n + QN_RAW, ta.raw[0], ta.raw[1], ta.raw[2]);
         for (int c = 0; c < 3; ++c) {
-            st.put(b, n + QN_VAL + c, ta.has_n ? ta.n.val[c] : 0.0f);
-            st.put(b, n + QN_DU + c, ta.has_n ? ta.n.du[c] : 0.0f);
-            st.put(b, n + QN_DV + c, ta.has_n ? ta.n.dv[c] : 0.0f);
+            st.put(k, n + QN_VAL + c, ta.has_n ? ta.n.val[c] : 0.0f);
+            st.put(k, n + QN_DU + c, ta.has_n ? ta.n.du[c] : 0.0f);
+            st.put(k, n + QN_DV + c, ta.has_n ? ta.n.dv[c] : 0.0f);
         }
         if (T.grads) {
-            for (int k = 0; k < 4; ++k) {
-                st.puti(b, n + QN_CIDX + k, ta.has_n ? ta.n.idx[k] : 0);
-                st.put(b, n + QN_CW + k, ta.has_n ? ta.n.w[k] : 0.0f);
+            for (int j = 0; j < 4; ++j) {
+                st.puti(k, n + QN_CIDX + j, ta.has_n ? ta.n.idx[j] : 0);
+                st.put(k, n + QN_CW + j, ta.has_n ? ta.n.w[j] : 0.0f);
             }
         }
     }
@@ -950,317 +994,431 @@ CPT_HD void add_material_cols(const float* a_m, int mat_row, float* alb, Sink& a
     acc.add(mat_row + 16, a_m[15]);  // spec_avg
 }
 
-// ---- one pixel, all samples -------------------------------------------------------
+// ---- one path, bounce by bounce -----------------------------------------------------
+
+// The carries of one path between replayed bounces.
+struct ReplayState {
+    float ox, oy, oz, dx, dy, dz;  // the ray
+    float r1x, r1y, r1z;           // throughput entering the bounce
+    float pp;                      // PHYSICAL: density of the last scatter
+    int b;                         // bounces stored
+};
+
+// A fresh path of sample `sample`: the eye ray, throughput 1, density 0.
+CPT_HD void start_replay(const RenderParams& p, int pixel, int sample, float pxi, float pyi,
+                         ReplayState& rs) {
+    rs.ox = p.cam[9]; rs.oy = p.cam[10]; rs.oz = p.cam[11];
+    eye_ray(p, pixel, sample, pxi, pyi, rs.dx, rs.dy, rs.dz);
+    rs.r1x = 1.0f; rs.r1y = 1.0f; rs.r1z = 1.0f;
+    rs.pp = 0.0f;
+    rs.b = 0;
+}
+
+// What a replayed bounce did to its path.
+constexpr int REPLAY_GOES_ON = 0;  // stored the bounce; the path goes on
+constexpr int REPLAY_ENDED = 1;    // stored the bounce; the path died or reached max_bounces
+constexpr int REPLAY_MISSED = 2;   // a miss: nothing stored, the path ended
+
+// Bounce rs.b of the path in `rs` (sample `sample` of flat pixel `pixel`),
+// replayed with the forward kernel's own device functions: the sweep, the
+// shading with the partials that are linear in g * T_mid (the material,
+// light and background rows, added here; in full mode the NEE position /
+// normal cotangents, stored) and the scatter. A hit is checkpointed in slot
+// k. The same streams and the same path termination as the forward's
+// trace_bounce.
+template <bool FULL, bool TEXTURED, bool PHYSICAL, bool GEO, class Store, class Sink>
+CPT_HD int replay_bounce(const SceneTables& sc, const RenderParams& p, const GradLayout& L,
+                         const TexLayout& T, int pixel, int sample, float gx, float gy,
+                         float gz, ReplayState& rs, const Store& st, int k, Sink& acc) {
+    const int pair0 = 1 + rs.b * (2 + 2 * sc.num_area_lights);
+    const float ox = rs.ox, oy = rs.oy, oz = rs.oz, dx = rs.dx, dy = rs.dy, dz = rs.dz;
+    const Hit h = intersect_sweep(sc, ox, oy, oz, dx, dy, dz);
+    if (!(h.t < INFINITY)) {
+        // miss: direct = background; nothing stored, the recurrence starts
+        // from A = g * background
+        acc.add(L.row_bg0 + 0, gx * rs.r1x);
+        acc.add(L.row_bg0 + 1, gy * rs.r1y);
+        acc.add(L.row_bg0 + 2, gz * rs.r1z);
+        return REPLAY_MISSED;
+    }
+    const float px = ox + dx * h.t, py = oy + dy * h.t, pz = oz + dz * h.t;
+    float nx = h.nx, ny = h.ny, nz = h.nz;
+    const float* m = sc.materials + h.mat * M_COLS;
+    const int mat_row = h.mat * L.pcols;
+    // textured: the forward's texture block, with its adjoint bundle
+    float mt[TEXTURED ? M_COLS : 1];
+    TexAux ta;
+    if constexpr (TEXTURED) {
+        for (int c = 0; c < M_COLS; ++c) mt[c] = m[c];
+        texture_block<true, FULL>(sc, ox, oy, oz, dx, dy, dz, h.prim, h.mat, mt, nx, ny, nz, &ta);
+        m = mt;
+        // the physical direct phase needs many registers: store the bundle
+        // before it
+        if (PHYSICAL) put_tex_aux<FULL>(st, T, k, ta);
+    }
+    const float cos_i = -dot3(dx, dy, dz, nx, ny, nz);
+    const bool inside = cos_i <= 0.0f;
+
+    // Beer-Lambert BEFORE the direct add
+    float beer_x = 1.0f, beer_y = 1.0f, beer_z = 1.0f;
+    if (inside) {
+        beer_x = expf(-h.t * m[6]);
+        beer_y = expf(-h.t * m[7]);
+        beer_z = expf(-h.t * m[8]);
+    }
+    const float tmx = rs.r1x * beer_x, tmy = rs.r1y * beer_y, tmz = rs.r1z * beer_z;
+    // g * T_mid: the adjoint of direct(b); every replay-phase partial is linear in it
+    const float gtx = gx * tmx, gty = gy * tmy, gtz = gz * tmz;
+
+    float dir[3];
+    float nee_ap[3] = {0.0f, 0.0f, 0.0f}, nee_an[3] = {0.0f, 0.0f, 0.0f};
+    float alb[3] = {0.0f, 0.0f, 0.0f};  // textured: NEE cotangent of the albedo
+    Lobes lb;                            // PHYSICAL: the hit's lobes ...
+    float pa_d[3] = {0.0f, 0.0f, 0.0f}, pa_t = 0.0f, pa_pp = 0.0f;  // ... and cotangents
+    if constexpr (PHYSICAL) {
+        // the physical direct phase and its exact adjoint
+        float a_m[M_COLS] = {};
+        const DirectRows R = {L.row_pl0, L.pl_stride, L.pcols, L.row_al0, L.al_stride};
+        physical_direct_vjp<GEO>(sc, p.seed, pixel, sample, pair0, px, py, pz, nx, ny, nz,
+                                 dx, dy, dz, h.t, rs.pp, m, h.prim, R, gtx, gty, gtz, acc,
+                                 dir, nee_ap, nee_an, pa_d, pa_t, pa_pp, a_m, lb);
+        add_material_cols<TEXTURED>(a_m, mat_row, alb, acc);
+    } else {
+        // emission always
+        dir[0] = m[9]; dir[1] = m[10]; dir[2] = m[11];
+        acc.add(mat_row + 9, gtx);
+        acc.add(mat_row + 10, gty);
+        acc.add(mat_row + 11, gtz);
+        float dqp[3], dqn[3];
+        if (!inside) {
+            for (int i = 0; i < sc.num_point_lights; ++i) {
+                const float* pl = sc.point_lights + i * PL_COLS;
+                const float q = light_q<FULL>(sc, px, py, pz, nx, ny, nz, pl[0], pl[1], pl[2],
+                                              dqp, dqn);
+                if (q == 0.0f) continue;  // invisible or facing away: every partial is 0
+                const int row = L.row_pl0 + L.pl_stride * i;
+                const float aq = nee_partials<FULL, TEXTURED>(
+                    m, mat_row, q, dqp, dqn, pl[3], pl[4], pl[5], row + L.pl_pow_off,
+                    gtx, gty, gtz, dir, nee_ap, nee_an, alb, acc);
+                if (FULL) {
+                    // dq/d(light position) = -dq/dp: q depends on l - p only
+                    acc.add(row + 0, -aq * dqp[0]);
+                    acc.add(row + 1, -aq * dqp[1]);
+                    acc.add(row + 2, -aq * dqp[2]);
+                }
+            }
+            for (int i = 0; i < sc.num_area_lights; ++i) {
+                const float* al = sc.area_lights + i * AL_COLS;
+                float u1, u2, u3, upick;
+                uniform_pair(p.seed, pixel, sample, pair0 + 2 + 2 * i, u1, u2);
+                uniform_pair(p.seed, pixel, sample, pair0 + 3 + 2 * i, u3, upick);
+                const float inv_tot = 1.0f / fmaxf(u1 + u2 + u3, 1e-12f);
+                const float w0 = u1 * inv_tot, w1 = u2 * inv_tot, w2 = u3 * inv_tot;
+                const float* a = (upick > 0.5f) ? al : al + 9;
+                const float lx = a[0] * w0 + a[3] * w1 + a[6] * w2;
+                const float ly = a[1] * w0 + a[4] * w1 + a[7] * w2;
+                const float lz = a[2] * w0 + a[5] * w1 + a[8] * w2;
+                const float q = light_q<FULL>(sc, px, py, pz, nx, ny, nz, lx, ly, lz, dqp, dqn);
+                if (q == 0.0f) continue;
+                const int row = L.row_al0 + (GEO ? AL_ROWS_GEO : 3) * i;
+                const float aq = nee_partials<FULL, TEXTURED>(
+                    m, mat_row, q, dqp, dqn, al[18], al[19], al[20], row, gtx, gty, gtz,
+                    dir, nee_ap, nee_an, alb, acc);
+                if (GEO) {
+                    // the sample point is barycentric-linear in the picked
+                    // triangle's vertices; dq/dl = -dq/dp
+                    const int v0 = row + 3 + ((upick > 0.5f) ? 0 : 9);
+                    const float w[3] = {w0, w1, w2};
+                    for (int j = 0; j < 3; ++j) {
+                        for (int c = 0; c < 3; ++c) {
+                            acc.add(v0 + 3 * j + c, -aq * dqp[c] * w[j]);
+                        }
+                    }
+                }
+            }
+        }
+    }
+
+    // scatter: the SAME scatter_sample the forward kernel runs
+    float u_branch, u_a, u_b, unused;
+    uniform_pair(p.seed, pixel, sample, pair0, u_branch, u_a);
+    uniform_pair(p.seed, pixel, sample, pair0 + 1, u_b, unused);
+    float nox, noy, noz, ndx, ndy, ndz, wr = 1.0f, wg = 1.0f, wb = 1.0f, ct_w;
+    int code;
+    const bool alive = scatter_sample(dx, dy, dz, nx, ny, nz, px, py, pz, cos_i,
+                                      u_branch, u_a, u_b, m,
+                                      nox, noy, noz, ndx, ndy, ndz, wr, wg, wb, code, ct_w);
+
+    // checkpoint this bounce, four planes to a store (the Q_* order)
+    st.put4(k, 0, tmx, tmy, tmz, wr);
+    st.put4(k, 4, wg, wb, beer_x, beer_y);
+    st.put4(k, 8, beer_z, dir[0], dir[1], dir[2]);
+    st.put4(k, 12, inside ? h.t : 0.0f, int_bits(h.mat), int_bits(code), ct_w);
+    if (FULL) {
+        st.put4(k, 16, ox, oy, oz, dx);
+        st.put4(k, 20, dy, dz, nx, ny);
+        st.put4(k, 24, nz, h.t, int_bits(h.prim), nee_ap[0]);
+        st.put4(k, 28, nee_ap[1], nee_ap[2], nee_an[0], nee_an[1]);
+        if (PHYSICAL) {
+            st.put4(k, 32, nee_an[2], pa_d[0], pa_d[1], pa_d[2]);
+            st.put(k, Q_PA_T, pa_t);
+            st.put(k, Q_PA_PP, pa_pp);
+        } else {
+            st.put(k, Q_NEE_AN + 2, nee_an[2]);
+        }
+    }
+    if constexpr (TEXTURED) {
+        st.put3(k, T.q_tex + QT_ALB, alb[0], alb[1], alb[2]);
+        if (!PHYSICAL) put_tex_aux<FULL>(st, T, k, ta);
+    }
+    ++rs.b;
+    if (!alive || rs.b >= p.max_bounces) return REPLAY_ENDED;
+    if constexpr (PHYSICAL) {
+        // a path that goes on carries the density of the continuation it took
+        rs.pp = inside ? 0.0f : physical_prev_pdf(lb, m, dx, dy, dz, ndx, ndy, ndz, code);
+    }
+    rs.ox = nox; rs.oy = noy; rs.oz = noz;
+    rs.dx = ndx; rs.dy = ndy; rs.dz = ndz;
+    rs.r1x = tmx * wr; rs.r1y = tmy * wg; rs.r1z = tmz * wb;
+    return REPLAY_GOES_ON;
+}
+static_assert(Q_W == 3 && Q_BEER == 6 && Q_DIRECT == 9 && Q_T_IN == 12 && Q_MAT == 13 &&
+                  Q_CODE == 14 && Q_CT_W == 15 && Q_O == 16 && Q_D == 19 && Q_N == 22 &&
+                  Q_T == 25 && Q_PRIM == 26 && Q_NEE_AP == 27 && Q_NEE_AN == 30 &&
+                  Q_PA_D == 33 && Q_PA_T == 36 && Q_PA_PP == 37,
+              "replay_bounce stores the planes four at a time in this order");
+
+// The carries of the reverse sweep between bounces of one path.
+struct ReverseState {
+    float ax, ay, az;  // A_after of the bounce
+    float ao[3];       // FULL: cotangent of the origin of the ray LEAVING it ...
+    float ad[3];       // ... and of its direction
+};
+
+// A path's reverse sweep before its last stored bounce: A_after = g *
+// background after a miss, else 0; nothing carried on the ray.
+CPT_HD void start_reverse(const SceneTables& sc, float gx, float gy, float gz, bool missed,
+                          ReverseState& rv) {
+    rv.ax = missed ? gx * sc.background[0] : 0.0f;
+    rv.ay = missed ? gy * sc.background[1] : 0.0f;
+    rv.az = missed ? gz * sc.background[2] : 0.0f;
+    for (int c = 0; c < 3; ++c) { rv.ao[c] = 0.0f; rv.ad[c] = 0.0f; }
+}
+
+// The adjoint recurrence through bounce b of sample `sample`, stored in slot
+// k; `last` says that it is the path's last stored bounce (else bounce b + 1
+// lies in slot k + 1):
+//   A_mid(b) = A_after(b) * w(b) + g * direct(b);  A_in(b) = A_mid(b) * beer(b)
+// and, in full mode, the carried dL/d(origin, direction) through the
+// scatter step (scatter_chain) and the hit (hit_chain). Leaves A_in(b) and
+// the cotangent of the bounce's INPUT ray in `rv`.
+template <bool FULL, bool TEXTURED, bool PHYSICAL, bool GEO, class Store, class Sink>
+CPT_HD void reverse_bounce(const SceneTables& sc, const RenderParams& p, const GradLayout& L,
+                           const TexLayout& T, int pixel, int sample, int b, bool last,
+                           float gx, float gy, float gz, ReverseState& rv, const Store& st,
+                           int k, Sink& acc) {
+    const Quad c0 = st.get4(k, 0), c1 = st.get4(k, 4), c2 = st.get4(k, 8), c3 = st.get4(k, 12);
+    const float tm[3] = {c0.x, c0.y, c0.z};
+    const float wx = c0.w, wy = c1.x, wz = c1.y;
+    const float bx = c1.z, by = c1.w, bz = c2.x;
+    const float der = c2.y, deg = c2.z, deb = c2.w;
+    const float t_in = c3.x;
+    const int mat = float_bits(c3.y);
+    const int code = float_bits(c3.z);
+    const float ct_w = c3.w;
+    const int mat_row = mat * L.pcols;
+    const float ax = rv.ax, ay = rv.ay, az = rv.az;
+
+    // scatter factor: d w = A_after * T_mid, routed by the branch taken
+    const float dwx = ax * tm[0], dwy = ay * tm[1], dwz = az * tm[2];
+    float a_alb[3];  // textured: cotangent of the effective albedo
+    if constexpr (TEXTURED) {
+        // NEE's share (replay) + the diffuse branch weight's, split into the
+        // material rows (x texel) and the texel rows (x the material's
+        // diffuse x corner weight)
+        const float df = (code == BRANCH_DIFFUSE) ? 1.0f : 0.0f;
+        const int q = T.q_tex;
+        a_alb[0] = st.get(k, q + QT_ALB + 0) + dwx * df;
+        a_alb[1] = st.get(k, q + QT_ALB + 1) + dwy * df;
+        a_alb[2] = st.get(k, q + QT_ALB + 2) + dwz * df;
+        acc.add(mat_row + 0, a_alb[0] * st.get(k, q + QT_TEX + 0));
+        acc.add(mat_row + 1, a_alb[1] * st.get(k, q + QT_TEX + 1));
+        acc.add(mat_row + 2, a_alb[2] * st.get(k, q + QT_TEX + 2));
+        if (T.grads) {
+            const float* md = sc.materials + mat * M_COLS;
+            const float v[3] = {a_alb[0] * md[0], a_alb[1] * md[1], a_alb[2] * md[2]};
+            scatter_texels(st, k, q + QT_CIDX, q + QT_CW, v, L.row_tex0, acc);
+        }
+    } else if (code == BRANCH_DIFFUSE) {
+        acc.add(mat_row + 0, dwx);
+        acc.add(mat_row + 1, dwy);
+        acc.add(mat_row + 2, dwz);
+    }
+    if (code == BRANCH_COOK_TORRANCE || code == BRANCH_GLOSS) {
+        const float scale = (code == BRANCH_COOK_TORRANCE) ? ct_w : 1.0f;
+        acc.add(mat_row + 3, dwx * scale);
+        acc.add(mat_row + 4, dwy * scale);
+        acc.add(mat_row + 5, dwz * scale);
+    }
+    float ap[3], an[3], ade[3];
+    int q_normal = Q_N;      // the raw normal's planes
+    bool nee_an_in = false;  // the NEE normal partials folded into an
+    if (FULL) {
+        float pdf_ad[3] = {0.0f, 0.0f, 0.0f}, pdf_an[3] = {0.0f, 0.0f, 0.0f};
+        if constexpr (PHYSICAL) {
+            // the pdf chain: bounce b's scatter set the density that bounce
+            // b+1's emission MIS weighed (an inside hit sets 0)
+            const float app = last ? 0.0f : st.get(k + 1, Q_PA_PP);
+            float pd[3], pn[3], nd[3];
+            st.get3(k, Q_D, pd[0], pd[1], pd[2]);
+            st.get3(k, Q_N, pn[0], pn[1], pn[2]);
+            if (app != 0.0f && -dot3(pd[0], pd[1], pd[2], pn[0], pn[1], pn[2]) > 0.0f) {
+                st.get3(k + 1, Q_D, nd[0], nd[1], nd[2]);
+                float a_m[M_COLS] = {}, a_nd[3] = {0.0f, 0.0f, 0.0f};
+                physical_prev_pdf_vjp(pd[0], pd[1], pd[2], pn[0], pn[1], pn[2], nd[0], nd[1],
+                                      nd[2], sc.materials + mat * M_COLS, code, app, pdf_ad,
+                                      pdf_an, a_nd, a_m);
+                // the continuation is this bounce's OUTPUT direction
+                for (int c = 0; c < 3; ++c) rv.ad[c] += a_nd[c];
+                add_material_cols<false>(a_m, mat_row, nullptr, acc);
+            }
+        }
+        scatter_chain(sc, p, L, pixel, sample, b, st, k, mat, code, dwx, dwy, dwz, rv.ao, rv.ad,
+                      ap, an, ade, acc);
+        if constexpr (PHYSICAL) {
+            // the direct phase's direction cotangent, the pdf chain's (d, n)
+            for (int c = 0; c < 3; ++c) {
+                ade[c] += st.get(k, Q_PA_D + c) + pdf_ad[c];
+                an[c] += pdf_an[c];
+            }
+        }
+        if constexpr (TEXTURED) {
+            tex_chain<GEO>(sc, L, T, k, st, mat, a_alb, ap, an, acc);
+            if (T.nmap) { q_normal = T.q_nm + QN_RAW; nee_an_in = true; }
+        }
+    }
+
+    // through the multiply, then this bounce's direct add
+    float amid[3];
+    amid[0] = ax * wx + gx * der;
+    amid[1] = ay * wy + gy * deg;
+    amid[2] = az * wz + gz * deb;
+
+    // Beer-Lambert: d absorption = A_mid * T_mid * (-t), inside hits only
+    if (t_in > 0.0f) {
+        acc.add(mat_row + 6, amid[0] * tm[0] * (-t_in));
+        acc.add(mat_row + 7, amid[1] * tm[1] * (-t_in));
+        acc.add(mat_row + 8, amid[2] * tm[2] * (-t_in));
+    }
+    if (FULL) {
+        hit_chain<GEO, PHYSICAL>(sc, L, k, st, mat, amid, tm, t_in, ap, an, ade, rv.ao, rv.ad,
+                                 acc, q_normal, nee_an_in);
+    }
+    rv.ax = amid[0] * bx; rv.ay = amid[1] * by; rv.az = amid[2] * bz;
+}
+
+// Full mode, after bounce 0: the eye ray's VJP into the 13 camera rows from
+// `row0` (rotation 9 row-major, position 3, tan_half_fov); (ao, ad) is the
+// cotangent of the eye ray. d0 = normalize(R u), u the camera-space pixel
+// vector (same jitter draw); o0 = camera position.
+template <class CamSink>
+CPT_HD void eye_vjp(const RenderParams& p, int pixel, int sample, float pxi, float pyi,
+                    const float* ao, const float* ad, int row0, CamSink& cam) {
+    float sx_, sy_, sz_, vx, vy, vz, avx, avy, avz;
+    eye_ray_raw(p, pixel, sample, pxi, pyi, sx_, sy_, sz_, vx, vy, vz);
+    norm3_vjp(vx, vy, vz, ad[0], ad[1], ad[2], 1e-20f, avx, avy, avz);
+    const int row = row0;
+    cam.add(row + 0, avx * sx_); cam.add(row + 1, avx * sy_); cam.add(row + 2, avx * sz_);
+    cam.add(row + 3, avy * sx_); cam.add(row + 4, avy * sy_); cam.add(row + 5, avy * sz_);
+    cam.add(row + 6, avz * sx_); cam.add(row + 7, avz * sy_); cam.add(row + 8, avz * sz_);
+    cam.add(row + 9, ao[0]); cam.add(row + 10, ao[1]); cam.add(row + 11, ao[2]);
+    // sx_, sy_ are both proportional to tan_half; sz_ (= z_near) is not
+    const float aux = p.cam[0] * avx + p.cam[3] * avy + p.cam[6] * avz;
+    const float auy = p.cam[1] * avx + p.cam[4] * avy + p.cam[7] * avz;
+    cam.add(row + 12, (aux * sx_ + auy * sy_) / p.cam[12]);
+}
+
+// ---- one pixel, all samples: two flat passes --------------------------------------
 
 // Adds pixel `pixel`'s share of the gradient for the per-SAMPLE cotangent
 // (gx, gy, gz) of its radiance (the wrapper divides the image cotangent by
-// spp: the forward returns the mean). `st` must hold max(max_bounces, 1)
-// bounces of T.planes planes. Same streams, same path termination as
-// render_pixel; TEXTURED (a scene with textures) as its textured
-// instantiation, PHYSICAL as the physical one, with the planes and rows of `T`
-// / `L`. PHYSICAL and GEO build on the full path adjoint.
-template <bool FULL, bool TEXTURED, bool PHYSICAL = false, bool GEO = false, class Sink>
+// spp: the forward returns the mean) into `acc`, and in full mode its camera
+// rows into `cam` (from row `cam_row0`). `st` is the lane's checkpoint stack
+// of `capacity` slots, at least max(max_bounces, 1). Same streams, same path
+// termination as render_pixel_t; TEXTURED (a scene with textures) as its
+// textured instantiation, PHYSICAL as the physical one, with the planes and
+// rows of `T` / `L`. PHYSICAL and GEO build on the full path adjoint.
+//
+// The schedule is per-lane path regeneration in two flat passes, each ONE
+// loop with one bounce per iteration:
+//   1. the forward replay. A lane whose path ended (a miss, a death, or
+//      max_bounces bounces) starts its next sample's eye ray in the next
+//      iteration; every stored bounce is pushed onto the lane's stack, and the
+//      path's last slot records its sample and how it ended (QM_SAMPLE,
+//      QM_END). A lane starts no new path while fewer than max_bounces slots
+//      are free.
+//   2. the reverse sweep, popping the stack: the last sample's bounces come
+//      first, from its last bounce down to bounce 0, after which the eye-ray
+//      VJP runs. A path's first pop starts its recurrence from what its last
+//      slot recorded.
+// The two passes alternate in rounds until every sample is done (one round
+// when the stack holds spp paths of max_bounces). A warp so runs the
+// replay for every lane that still has samples in the round, and the reverse
+// for every lane with bounces on its stack: no lane waits for the warp's
+// longest path of a sample. The per-path arithmetic (replay_bounce,
+// reverse_bounce, eye_vjp) is that of a loop over samples around a replay and
+// a reverse sweep; only the order of the row additions differs.
+template <bool FULL, bool TEXTURED, bool PHYSICAL = false, bool GEO = false, class Store,
+          class Sink, class CamSink>
 CPT_HD void backward_pixel(const SceneTables& sc, const RenderParams& p, const GradLayout& L,
                            const TexLayout& T, int pixel, float gx, float gy, float gz,
-                           const CheckpointStore& st, Sink& acc) {
+                           const Store& st, int capacity, Sink& acc, CamSink& cam,
+                           int cam_row0) {
     static_assert(FULL || !(PHYSICAL || GEO), "geo and physical build on the full adjoint");
     if (pixel < 0 || pixel >= p.width * p.height) return;
     const float pxi = (float)(pixel % p.width);
     const float pyi = (float)(pixel / p.width);
-    const int ppb = 2 + 2 * sc.num_area_lights;
-
-    for (int s = 0; s < p.spp; ++s) {
-        const int sample = p.sample_offset + s;
-        float ox = p.cam[9], oy = p.cam[10], oz = p.cam[11];
-        float dx, dy, dz;
-        eye_ray(p, pixel, sample, pxi, pyi, dx, dy, dz);
-        float r1x = 1.0f, r1y = 1.0f, r1z = 1.0f;  // throughput entering the bounce
-        float ax = 0.0f, ay = 0.0f, az = 0.0f;     // A_after of the last stored bounce
-        int nb = 0;                                // bounces stored
-        float pp = 0.0f;                           // PHYSICAL: density of the last scatter
-
-        // ---- replay -------------------------------------------------------------
+    const int span = p.max_bounces > 1 ? p.max_bounces : 1;  // slots one path may take
+    int next = 0;  // the next sample to start
+    while (next < p.spp) {
+        // ---- 1. forward replay --------------------------------------------------
+        int top = 0;  // slots in use
+        int s = 0;    // the sample of the path in rs
+        ReplayState rs;
+        bool fresh = true;  // the lane starts a path in this iteration
         while (true) {
-            const int b = nb;
-            const int pair0 = 1 + b * ppb;
-            const Hit h = intersect_sweep(sc, ox, oy, oz, dx, dy, dz);
-            if (!(h.t < INFINITY)) {
-                // miss: direct = background; nothing stored, the recurrence
-                // starts from A = g * background
-                acc.add(L.row_bg0 + 0, gx * r1x);
-                acc.add(L.row_bg0 + 1, gy * r1y);
-                acc.add(L.row_bg0 + 2, gz * r1z);
-                ax = gx * sc.background[0];
-                ay = gy * sc.background[1];
-                az = gz * sc.background[2];
-                break;
+            if (fresh) {
+                if (next >= p.spp || capacity - top < span) break;
+                s = next++;
+                start_replay(p, pixel, p.sample_offset + s, pxi, pyi, rs);
             }
-            const float px = ox + dx * h.t, py = oy + dy * h.t, pz = oz + dz * h.t;
-            float nx = h.nx, ny = h.ny, nz = h.nz;
-            const float* m = sc.materials + h.mat * M_COLS;
-            const int mat_row = h.mat * L.pcols;
-            // textured: the forward's texture block, with its adjoint bundle
-            float mt[TEXTURED ? M_COLS : 1];
-            TexAux ta;
-            if constexpr (TEXTURED) {
-                for (int k = 0; k < M_COLS; ++k) mt[k] = m[k];
-                texture_block<true, FULL>(sc, ox, oy, oz, dx, dy, dz, h.prim, h.mat, mt,
-                                          nx, ny, nz, &ta);
-                m = mt;
-                // the physical direct phase needs many registers: store the
-                // bundle before it
-                if (PHYSICAL) put_tex_aux<FULL>(st, T, b, ta);
+            const int end = replay_bounce<FULL, TEXTURED, PHYSICAL, GEO>(
+                sc, p, L, T, pixel, p.sample_offset + s, gx, gy, gz, rs, st, top, acc);
+            if (end != REPLAY_MISSED) ++top;
+            fresh = end != REPLAY_GOES_ON;
+            if (fresh && rs.b > 0) {
+                st.puti(top - 1, T.q_meta + QM_SAMPLE, s);
+                st.puti(top - 1, T.q_meta + QM_END, 2 * rs.b + (end == REPLAY_MISSED ? 1 : 0));
             }
-            const float cos_i = -dot3(dx, dy, dz, nx, ny, nz);
-            const bool inside = cos_i <= 0.0f;
-
-            // Beer-Lambert BEFORE the direct add
-            float beer_x = 1.0f, beer_y = 1.0f, beer_z = 1.0f;
-            if (inside) {
-                beer_x = expf(-h.t * m[6]);
-                beer_y = expf(-h.t * m[7]);
-                beer_z = expf(-h.t * m[8]);
-            }
-            const float tmx = r1x * beer_x, tmy = r1y * beer_y, tmz = r1z * beer_z;
-            // g * T_mid: the adjoint of direct(b); every replay-phase partial is linear in it
-            const float gtx = gx * tmx, gty = gy * tmy, gtz = gz * tmz;
-
-            float dir[3];
-            float nee_ap[3] = {0.0f, 0.0f, 0.0f}, nee_an[3] = {0.0f, 0.0f, 0.0f};
-            float alb[3] = {0.0f, 0.0f, 0.0f};  // textured: NEE cotangent of the albedo
-            Lobes lb;                            // PHYSICAL: the hit's lobes ...
-            float pa_d[3] = {0.0f, 0.0f, 0.0f}, pa_t = 0.0f, pa_pp = 0.0f;  // ... and cotangents
-            if constexpr (PHYSICAL) {
-                // the physical direct phase and its exact adjoint
-                float a_m[M_COLS] = {};
-                const DirectRows R = {L.row_pl0, L.pl_stride, L.pcols, L.row_al0, L.al_stride};
-                physical_direct_vjp<GEO>(sc, p.seed, pixel, sample, pair0, px, py, pz, nx, ny, nz,
-                                         dx, dy, dz, h.t, pp, m, h.prim, R, gtx, gty, gtz, acc,
-                                         dir, nee_ap, nee_an, pa_d, pa_t, pa_pp, a_m, lb);
-                add_material_cols<TEXTURED>(a_m, mat_row, alb, acc);
-            } else {
-                // emission always
-                dir[0] = m[9]; dir[1] = m[10]; dir[2] = m[11];
-                acc.add(mat_row + 9, gtx);
-                acc.add(mat_row + 10, gty);
-                acc.add(mat_row + 11, gtz);
-                float dqp[3], dqn[3];
-                if (!inside) {
-                    for (int i = 0; i < sc.num_point_lights; ++i) {
-                        const float* pl = sc.point_lights + i * PL_COLS;
-                        const float q = light_q<FULL>(sc, px, py, pz, nx, ny, nz, pl[0], pl[1],
-                                                      pl[2], dqp, dqn);
-                        if (q == 0.0f) continue;  // invisible or facing away: every partial is 0
-                        const int row = L.row_pl0 + L.pl_stride * i;
-                        const float aq = nee_partials<FULL, TEXTURED>(
-                            m, mat_row, q, dqp, dqn, pl[3], pl[4], pl[5], row + L.pl_pow_off,
-                            gtx, gty, gtz, dir, nee_ap, nee_an, alb, acc);
-                        if (FULL) {
-                            // dq/d(light position) = -dq/dp: q depends on l - p only
-                            acc.add(row + 0, -aq * dqp[0]);
-                            acc.add(row + 1, -aq * dqp[1]);
-                            acc.add(row + 2, -aq * dqp[2]);
-                        }
-                    }
-                    for (int i = 0; i < sc.num_area_lights; ++i) {
-                        const float* al = sc.area_lights + i * AL_COLS;
-                        float u1, u2, u3, upick;
-                        uniform_pair(p.seed, pixel, sample, pair0 + 2 + 2 * i, u1, u2);
-                        uniform_pair(p.seed, pixel, sample, pair0 + 3 + 2 * i, u3, upick);
-                        const float inv_tot = 1.0f / fmaxf(u1 + u2 + u3, 1e-12f);
-                        const float w0 = u1 * inv_tot, w1 = u2 * inv_tot, w2 = u3 * inv_tot;
-                        const float* a = (upick > 0.5f) ? al : al + 9;
-                        const float lx = a[0] * w0 + a[3] * w1 + a[6] * w2;
-                        const float ly = a[1] * w0 + a[4] * w1 + a[7] * w2;
-                        const float lz = a[2] * w0 + a[5] * w1 + a[8] * w2;
-                        const float q = light_q<FULL>(sc, px, py, pz, nx, ny, nz, lx, ly, lz,
-                                                      dqp, dqn);
-                        if (q == 0.0f) continue;
-                        const int row = L.row_al0 + (GEO ? AL_ROWS_GEO : 3) * i;
-                        const float aq = nee_partials<FULL, TEXTURED>(
-                            m, mat_row, q, dqp, dqn, al[18], al[19], al[20], row, gtx, gty, gtz,
-                            dir, nee_ap, nee_an, alb, acc);
-                        if (GEO) {
-                            // the sample point is barycentric-linear in the picked
-                            // triangle's vertices; dq/dl = -dq/dp
-                            const int v0 = row + 3 + ((upick > 0.5f) ? 0 : 9);
-                            const float w[3] = {w0, w1, w2};
-                            for (int k = 0; k < 3; ++k) {
-                                for (int c = 0; c < 3; ++c) {
-                                    acc.add(v0 + 3 * k + c, -aq * dqp[c] * w[k]);
-                                }
-                            }
-                        }
-                    }
-                }
-            }
-
-            // scatter: the SAME scatter_sample the forward kernel runs
-            float u_branch, u_a, u_b, unused;
-            uniform_pair(p.seed, pixel, sample, pair0, u_branch, u_a);
-            uniform_pair(p.seed, pixel, sample, pair0 + 1, u_b, unused);
-            float nox, noy, noz, ndx, ndy, ndz, wr = 1.0f, wg = 1.0f, wb = 1.0f, ct_w;
-            int code;
-            const bool alive = scatter_sample(dx, dy, dz, nx, ny, nz, px, py, pz, cos_i,
-                                              u_branch, u_a, u_b, m,
-                                              nox, noy, noz, ndx, ndy, ndz, wr, wg, wb, code, ct_w);
-
-            // checkpoint this bounce
-            st.put3(b, Q_TM, tmx, tmy, tmz);
-            st.put3(b, Q_W, wr, wg, wb);
-            st.put3(b, Q_BEER, beer_x, beer_y, beer_z);
-            st.put3(b, Q_DIRECT, dir[0], dir[1], dir[2]);
-            st.put(b, Q_T_IN, inside ? h.t : 0.0f);
-            st.puti(b, Q_MAT, h.mat);
-            st.puti(b, Q_CODE, code);
-            st.put(b, Q_CT_W, ct_w);
-            if (FULL) {
-                st.put3(b, Q_O, ox, oy, oz);
-                st.put3(b, Q_D, dx, dy, dz);
-                st.put3(b, Q_N, nx, ny, nz);
-                st.put(b, Q_T, h.t);
-                st.puti(b, Q_PRIM, h.prim);
-                st.put3(b, Q_NEE_AP, nee_ap[0], nee_ap[1], nee_ap[2]);
-                st.put3(b, Q_NEE_AN, nee_an[0], nee_an[1], nee_an[2]);
-            }
-            if (PHYSICAL) {
-                st.put3(b, Q_PA_D, pa_d[0], pa_d[1], pa_d[2]);
-                st.put(b, Q_PA_T, pa_t);
-                st.put(b, Q_PA_PP, pa_pp);
-            }
-            if constexpr (TEXTURED) {
-                st.put3(b, T.q_tex + QT_ALB, alb[0], alb[1], alb[2]);
-                if (!PHYSICAL) put_tex_aux<FULL>(st, T, b, ta);
-            }
-            ++nb;
-            if (!alive || nb >= p.max_bounces) break;
-            if constexpr (PHYSICAL) {
-                // a path that goes on carries the density of the continuation it took
-                pp = inside ? 0.0f : physical_prev_pdf(lb, m, dx, dy, dz, ndx, ndy, ndz, code);
-            }
-            ox = nox; oy = noy; oz = noz;
-            dx = ndx; dy = ndy; dz = ndz;
-            r1x = tmx * wr; r1y = tmy * wg; r1z = tmz * wb;
         }
-
-        // ---- reverse sweep over the stored bounces ------------------------------
-        // (ao, ad): cotangent of the ray LEAVING bounce b; zero after the last one
-        float ao[3] = {0.0f, 0.0f, 0.0f}, ad[3] = {0.0f, 0.0f, 0.0f};
-        for (int b = nb - 1; b >= 0; --b) {
-            float tm[3], wx, wy, wz, bx, by, bz, der, deg, deb;
-            st.get3(b, Q_TM, tm[0], tm[1], tm[2]);
-            st.get3(b, Q_W, wx, wy, wz);
-            st.get3(b, Q_BEER, bx, by, bz);
-            st.get3(b, Q_DIRECT, der, deg, deb);
-            const float t_in = st.get(b, Q_T_IN);
-            const int mat = st.geti(b, Q_MAT);
-            const int code = st.geti(b, Q_CODE);
-            const int mat_row = mat * L.pcols;
-
-            // scatter factor: d w = A_after * T_mid, routed by the branch taken
-            const float dwx = ax * tm[0], dwy = ay * tm[1], dwz = az * tm[2];
-            float a_alb[3];  // textured: cotangent of the effective albedo
-            if constexpr (TEXTURED) {
-                // NEE's share (replay) + the diffuse branch weight's, split into
-                // the material rows (x texel) and the texel rows (x the material's
-                // diffuse x corner weight)
-                const float df = (code == BRANCH_DIFFUSE) ? 1.0f : 0.0f;
-                const int q = T.q_tex;
-                a_alb[0] = st.get(b, q + QT_ALB + 0) + dwx * df;
-                a_alb[1] = st.get(b, q + QT_ALB + 1) + dwy * df;
-                a_alb[2] = st.get(b, q + QT_ALB + 2) + dwz * df;
-                acc.add(mat_row + 0, a_alb[0] * st.get(b, q + QT_TEX + 0));
-                acc.add(mat_row + 1, a_alb[1] * st.get(b, q + QT_TEX + 1));
-                acc.add(mat_row + 2, a_alb[2] * st.get(b, q + QT_TEX + 2));
-                if (T.grads) {
-                    const float* md = sc.materials + mat * M_COLS;
-                    const float v[3] = {a_alb[0] * md[0], a_alb[1] * md[1], a_alb[2] * md[2]};
-                    scatter_texels(st, b, q + QT_CIDX, q + QT_CW, v, L.row_tex0, acc);
-                }
-            } else if (code == BRANCH_DIFFUSE) {
-                acc.add(mat_row + 0, dwx);
-                acc.add(mat_row + 1, dwy);
-                acc.add(mat_row + 2, dwz);
+        // ---- 2. reverse sweep, last slot first -------------------------------------
+        ReverseState rv;
+        int b = -1, nb = 0, sample = 0;  // b < 0: the next pop starts a path
+        while (top > 0) {
+            const int k = top - 1;
+            if (b < 0) {
+                const int ended = st.geti(k, T.q_meta + QM_END);
+                sample = p.sample_offset + st.geti(k, T.q_meta + QM_SAMPLE);
+                nb = ended >> 1;
+                b = nb - 1;
+                start_reverse(sc, gx, gy, gz, (ended & 1) != 0, rv);
             }
-            if (code == BRANCH_COOK_TORRANCE || code == BRANCH_GLOSS) {
-                const float scale = (code == BRANCH_COOK_TORRANCE) ? st.get(b, Q_CT_W) : 1.0f;
-                acc.add(mat_row + 3, dwx * scale);
-                acc.add(mat_row + 4, dwy * scale);
-                acc.add(mat_row + 5, dwz * scale);
-            }
-            float ap[3], an[3], ade[3];
-            int q_normal = Q_N;      // the raw normal's planes
-            bool nee_an_in = false;  // the NEE normal partials folded into an
-            if (FULL) {
-                float pdf_ad[3] = {0.0f, 0.0f, 0.0f}, pdf_an[3] = {0.0f, 0.0f, 0.0f};
-                if constexpr (PHYSICAL) {
-                    // the pdf chain: bounce b's scatter set the density that
-                    // bounce b+1's emission MIS weighed (an inside hit sets 0)
-                    const float app = (b + 1 < nb) ? st.get(b + 1, Q_PA_PP) : 0.0f;
-                    float pd[3], pn[3], nd[3];
-                    st.get3(b, Q_D, pd[0], pd[1], pd[2]);
-                    st.get3(b, Q_N, pn[0], pn[1], pn[2]);
-                    if (app != 0.0f && -dot3(pd[0], pd[1], pd[2], pn[0], pn[1], pn[2]) > 0.0f) {
-                        st.get3(b + 1, Q_D, nd[0], nd[1], nd[2]);
-                        float a_m[M_COLS] = {}, a_nd[3] = {0.0f, 0.0f, 0.0f};
-                        physical_prev_pdf_vjp(pd[0], pd[1], pd[2], pn[0], pn[1], pn[2], nd[0],
-                                              nd[1], nd[2], sc.materials + mat * M_COLS, code,
-                                              app, pdf_ad, pdf_an, a_nd, a_m);
-                        // the continuation is this bounce's OUTPUT direction
-                        for (int c = 0; c < 3; ++c) ad[c] += a_nd[c];
-                        add_material_cols<false>(a_m, mat_row, nullptr, acc);
-                    }
-                }
-                scatter_chain(sc, p, L, pixel, sample, b, st, mat, code, dwx, dwy, dwz,
-                              ao, ad, ap, an, ade, acc);
-                if constexpr (PHYSICAL) {
-                    // the direct phase's direction cotangent, the pdf chain's (d, n)
-                    for (int c = 0; c < 3; ++c) {
-                        ade[c] += st.get(b, Q_PA_D + c) + pdf_ad[c];
-                        an[c] += pdf_an[c];
-                    }
-                }
-                if constexpr (TEXTURED) {
-                    tex_chain<GEO>(sc, L, T, b, st, mat, a_alb, ap, an, acc);
-                    if (T.nmap) { q_normal = T.q_nm + QN_RAW; nee_an_in = true; }
-                }
-            }
-
-            // through the multiply, then this bounce's direct add
-            float amid[3];
-            amid[0] = ax * wx + gx * der;
-            amid[1] = ay * wy + gy * deg;
-            amid[2] = az * wz + gz * deb;
-
-            // Beer-Lambert: d absorption = A_mid * T_mid * (-t), inside hits only
-            if (t_in > 0.0f) {
-                acc.add(mat_row + 6, amid[0] * tm[0] * (-t_in));
-                acc.add(mat_row + 7, amid[1] * tm[1] * (-t_in));
-                acc.add(mat_row + 8, amid[2] * tm[2] * (-t_in));
-            }
-            if (FULL) {
-                hit_chain<GEO, PHYSICAL>(sc, L, b, st, mat, amid, tm, t_in, ap, an, ade, ao, ad,
-                                         acc, q_normal, nee_an_in);
-            }
-
-            ax = amid[0] * bx; ay = amid[1] * by; az = amid[2] * bz;
-        }
-
-        if (FULL) {
-            // eye-ray VJP -> camera rows: d0 = normalize(R u), u the camera-space
-            // pixel vector (same jitter draw); o0 = camera position
-            float sx_, sy_, sz_, vx, vy, vz, avx, avy, avz;
-            eye_ray_raw(p, pixel, sample, pxi, pyi, sx_, sy_, sz_, vx, vy, vz);
-            norm3_vjp(vx, vy, vz, ad[0], ad[1], ad[2], 1e-20f, avx, avy, avz);
-            const int row = L.row_cam0;
-            acc.add(row + 0, avx * sx_); acc.add(row + 1, avx * sy_); acc.add(row + 2, avx * sz_);
-            acc.add(row + 3, avy * sx_); acc.add(row + 4, avy * sy_); acc.add(row + 5, avy * sz_);
-            acc.add(row + 6, avz * sx_); acc.add(row + 7, avz * sy_); acc.add(row + 8, avz * sz_);
-            acc.add(row + 9, ao[0]); acc.add(row + 10, ao[1]); acc.add(row + 11, ao[2]);
-            // sx_, sy_ are both proportional to tan_half; sz_ (= z_near) is not
-            const float aux = p.cam[0] * avx + p.cam[3] * avy + p.cam[6] * avz;
-            const float auy = p.cam[1] * avx + p.cam[4] * avy + p.cam[7] * avz;
-            acc.add(row + 12, (aux * sx_ + auy * sy_) / p.cam[12]);
+            reverse_bounce<FULL, TEXTURED, PHYSICAL, GEO>(sc, p, L, T, pixel, sample, b,
+                                                          b + 1 == nb, gx, gy, gz, rv, st, k,
+                                                          acc);
+            if (FULL && b == 0) eye_vjp(p, pixel, sample, pxi, pyi, rv.ao, rv.ad, cam_row0, cam);
+            --b;
+            --top;
         }
     }
 }

@@ -1274,10 +1274,9 @@ def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
     cosine of the last scatter, the eye ray's camera importance).
     ``packed_grid`` sweeps through the supercell grid; ``state_bf16`` rounds
     the radiance and throughput carries to bfloat16 at the end of every
-    bounce, as the kernel stores them. ``lane_tally`` = (warp_max [spp,
-    warps], lane_sum [lanes], lane0): these pixels are the kernel's lanes
-    from lane0 on; each lane's bounces of sample s raise warp_max[s] at its
-    warp (lane // 32) and add to lane_sum at the lane."""
+    bounce, as the kernel stores them. ``lane_tally`` = (``_LaneTally``,
+    lane0): these pixels are the kernels' lanes from lane0 on; each path's
+    sweeps and stored bounces go to the tally."""
     bidir = bidir_nu is not None
     textured = packed.textured
     device = packed.device
@@ -1493,6 +1492,8 @@ def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
             dir_r, dir_g, dir_b = parity_direct()
 
         act_hit = active & hit
+        if lane_tally is not None:
+            hits.append(act_hit)
         beer_mask = act_hit & inside
         r1x = torch.where(beer_mask, r1x * torch.exp(-t_safe * m_ar), r1x)
         r1y = torch.where(beer_mask, r1y * torch.exp(-t_safe * m_ag), r1y)
@@ -1576,6 +1577,7 @@ def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
         # bounce always runs
         b = 0
         lane_b = torch.zeros(n_local, dtype=torch.int64, device=device)
+        hits = []   # per bounce, the lanes whose sweep hit (a bounce stored)
         while True:
             if stats is not None:
                 stats["path_bounces"] = (stats.get("path_bounces", 0)
@@ -1587,10 +1589,8 @@ def _render_sums_plain(packed: PackedScene, cam: torch.Tensor,
             if b >= max_bounces or not bool(state[12].any()):
                 break
         if lane_tally is not None:
-            warp_max, lane_sum, lane0 = lane_tally
-            lanes = lane0 + torch.arange(n_local, device=device)
-            warp_max[s].scatter_reduce_(0, lanes // 32, lane_b, "amax")
-            lane_sum[lane0:lane0 + n_local] += lane_b
+            tally, lane0 = lane_tally
+            tally.add(s, lane0, lane_b, torch.stack(hits).sum(0))
         for c in range(3):
             r0 = state[6 + c]
             if clamp_v > 0.0:
@@ -1636,9 +1636,13 @@ def render_block_sums_plain(packed: PackedScene, cam_params, seed: int,
                             physical: bool = False,
                             bidir_nu: Optional[float] = None,
                             packed_grid: Optional[PackedGrid] = None,
-                            state_bf16: bool = False) -> torch.Tensor:
+                            state_bf16: bool = False,
+                            k2_capacity: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch radiance sums ``[n_local, 3]`` for the pixel range
-    ``[pixel_offset, pixel_offset + n_local)``, on the tables' device."""
+    ``[pixel_offset, pixel_offset + n_local)``, on the tables' device.
+    ``stats`` as ``render_megakernel_plain`` fills it; ``k2_capacity``: the
+    slots of the backward kernel's checkpoint stacks that its tally assumes
+    (default: max(max_bounces, 1) * spp, one round)."""
     _check_render_args(packed, width, height, spp, max_bounces, pixel_offset,
                        n_local, sample_offset, seed)
     _check_variant(physical, bidir_nu)
@@ -1646,31 +1650,91 @@ def render_block_sums_plain(packed: PackedScene, cam_params, seed: int,
     cam = _cam_tensor(cam_params, packed.device)
     prims = max(packed.counts[0] + packed.counts[1], 1)
     chunk = max(1, _PLAIN_CHUNK_ENTRIES // prims)
-    warps = (n_local + 31) // 32
-    warp_max = lane_sum = None
+    tally = None
     if stats is not None:
-        warp_max = torch.zeros((spp, warps), dtype=torch.int64, device=packed.device)
-        lane_sum = torch.zeros(n_local, dtype=torch.int64, device=packed.device)
+        span = max(max_bounces, 1)
+        tally = _LaneTally(n_local, spp, span,
+                           span * spp if k2_capacity is None else k2_capacity,
+                           packed.device)
     parts = [
         _render_sums_plain(packed, cam, float(sample_clamp), int(seed),
                            width, height, spp,
                            max_bounces, pixel_offset + start,
                            min(chunk, n_local - start), sample_offset, stats,
                            physical, bidir_nu, packed_grid, bool(state_bf16),
-                           None if stats is None else (warp_max, lane_sum, start))
+                           None if tally is None else (tally, start))
         for start in range(0, n_local, chunk)]
-    if stats is not None:
-        # the kernel's 32-lane warps of consecutive threads: nested, a warp
-        # runs each sample as long as its longest path (sum over samples of
-        # the max over lanes); regenerating, as long as its busiest lane
-        # (max over lanes of the sum over samples)
-        lanes = torch.arange(n_local, device=packed.device)
-        busiest = torch.zeros(warps, dtype=torch.int64, device=packed.device)
-        busiest.scatter_reduce_(0, lanes // 32, lane_sum, "amax")
-        for key, count in (("warp_iterations", busiest.sum()),
-                           ("warp_iterations_nested", warp_max.sum())):
-            stats[key] = stats.get(key, 0) + int(count)
+    if tally is not None:
+        for key, count in tally.counts().items():
+            stats[key] = stats.get(key, 0) + count
     return parts[0] if len(parts) == 1 else torch.cat(parts, 0)
+
+
+class _LaneTally:
+    """The loop iterations the kernels' 32-lane warps of consecutive threads
+    run over the paths of a pixel range, from each path's sweeps f (a
+    miss included) and stored bounces r (the sweeps that hit).
+
+    K1 nested: a warp runs each sample as long as its longest path (sum over
+    samples of the max over lanes of f); regenerating, as long as its
+    busiest lane (max over lanes of the sum of f over samples). K2 runs a
+    replay of f and a reverse sweep of r iterations per path. Nested, each
+    sample costs the warp's longest replay plus its longest reverse sweep;
+    in two flat passes, each round costs the most replay iterations one lane
+    makes in it plus the most reverse iterations. A lane starts a path in
+    the current round only while ``capacity - slots in use >= span``, else
+    it opens a new round with an empty stack (csrc: backward_pixel)."""
+
+    def __init__(self, n_lanes: int, spp: int, span: int, capacity: int,
+                 device):
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.int64, device=device)
+
+        self.warps = (n_lanes + 31) // 32
+        self.span, self.capacity = span, capacity
+        self.warp = torch.arange(n_lanes, device=device) // 32
+        self.f_max, self.r_max = zeros(spp, self.warps), zeros(spp, self.warps)
+        self.f_sum = zeros(n_lanes)
+        self.stored = 0
+        # K2's rounds: per lane its stack top, round, and the round's replay
+        # and reverse iterations; per (round, warp) the most of each
+        self.top, self.round = zeros(n_lanes), zeros(n_lanes)
+        self.p1, self.p2 = zeros(n_lanes), zeros(n_lanes)
+        self.p1_max, self.p2_max = zeros(spp * self.warps), zeros(spp * self.warps)
+
+    def _close(self, lanes: torch.Tensor) -> None:
+        """The rounds of ``lanes`` end: their iterations into the maxima."""
+        idx = self.round[lanes] * self.warps + self.warp[lanes]
+        self.p1_max.scatter_reduce_(0, idx, self.p1[lanes], "amax")
+        self.p2_max.scatter_reduce_(0, idx, self.p2[lanes], "amax")
+
+    def add(self, s: int, lane0: int, f: torch.Tensor, r: torch.Tensor) -> None:
+        """Sample s of lanes lane0.. took f sweeps and stored r bounces."""
+        lanes = lane0 + torch.arange(f.numel(), device=f.device)
+        warp = self.warp[lanes]
+        self.f_max[s].scatter_reduce_(0, warp, f, "amax")
+        self.r_max[s].scatter_reduce_(0, warp, r, "amax")
+        self.f_sum[lanes] += f
+        self.stored += int(r.sum())
+        full = lanes[self.capacity - self.top[lanes] < self.span]
+        self._close(full)
+        self.round[full] += 1
+        self.top[full] = 0
+        self.p1[full] = 0
+        self.p2[full] = 0
+        self.top[lanes] += r
+        self.p1[lanes] += f
+        self.p2[lanes] += r
+
+    def counts(self) -> dict:
+        self._close(torch.arange(self.f_sum.numel(), device=self.f_sum.device))
+        busiest = torch.zeros(self.warps, dtype=torch.int64, device=self.f_sum.device)
+        busiest.scatter_reduce_(0, self.warp, self.f_sum, "amax")
+        return {"warp_iterations": int(busiest.sum()),
+                "warp_iterations_nested": int(self.f_max.sum()),
+                "stored_bounces": self.stored,
+                "k2_warp_iterations": int(self.p1_max.sum() + self.p2_max.sum()),
+                "k2_warp_iterations_nested": int(self.f_max.sum() + self.r_max.sum())}
 
 
 def render_megakernel_plain(packed: PackedScene, cam_params, seed: int,
@@ -1698,7 +1762,12 @@ def render_megakernel_plain(packed: PackedScene, cam_params, seed: int,
     warp, the most bounces one lane makes over all samples) and with a loop
     over samples around a loop over bounces (per warp and sample, the most
     bounces one lane makes). ``path_bounces`` over 32 times either is that
-    schedule's lane efficiency."""
+    schedule's lane efficiency. The backward kernel replays the same paths:
+    ``stored_bounces`` (the sweeps that hit, which its reverse sweep
+    visits) and ``k2_warp_iterations`` / ``k2_warp_iterations_nested``, its
+    warps' iterations over both passes in its two flat passes and in the
+    nested loops (``_LaneTally``); ``path_bounces + stored_bounces`` over 32
+    times either is its lane efficiency."""
     n = width * height
     sums = render_block_sums_plain(packed, cam_params, seed, width, height,
                                    spp, max_bounces, 0, n, sample_offset,

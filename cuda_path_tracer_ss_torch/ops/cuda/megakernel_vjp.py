@@ -48,24 +48,59 @@ terms at a fixed hit point). Linear mode cannot reach normal-map texels:
 training them in linear mode raises ``ValueError`` rather than returning
 zeros.
 
+The schedule is per-lane path regeneration in two flat passes: a thread
+replays every path of its pixel in one loop, one bounce per iteration,
+starting its next sample's eye ray as soon as a path ends and pushing every
+stored bounce onto its own checkpoint stack; a second loop pops the stack,
+one reverse bounce per iteration (the eye ray's VJP after a path's bounce 0).
+No lane of a warp waits for the warp's longest path of a sample. A stack
+holds ``capacity`` slots of ``_slot_floats`` floats (the checkpoint planes
+and two that say where a path ended, padded to four), and a lane starts no
+path while fewer than ``max(max_bounces, 1)`` are free, so the passes
+alternate in rounds when it fills. The wrapper derives the capacity, no
+caller sets it (``_stack_slots``)::
+
+    span     = max(max_bounces, 1)
+    paths    = min(spp, max(1, SCRATCH_BUDGET // (span * slot_floats * 4 * n)))
+    paths    = min(paths, LINEAR_PATHS_PER_ROUND)  # linear mode only
+    capacity = span * paths                        # slots per pixel
+    scratch  = capacity * slot_floats * n floats   # n pixels of the launch
+
+with ``SCRATCH_BUDGET`` 2 GiB: in full, geo and physical mode one round
+whenever ``spp`` paths of ``max_bounces`` bounces fit in it, as at cornell
+256x256 x 16 spp x 8 bounces (capacity 128; 1.21 GB full and geo, 1.34 GB
+physical). Linear mode's reverse sweep is cheap, and there stacks of 1, 2
+or 4 paths per round ran 8-10 % faster on an H100 than one round of 16
+paths, whose stacks leave L2 (``k1_turns.py``); it keeps 4 paths per round
+(capacity 32 at 8 bounces, 0.17 GB at cornell 256x256), the most of the
+three, so that its lanes still start new paths within a round, while full
+and physical mode ran 1.2-2.0x slower on those stacks. The largest of
+``chip_smoke.py``'s training
+configurations is the color+normal quad at 256x256 x 32 spp x 4 bounces,
+full mode with texel gradients: slot 84 floats, capacity 96, 2.11 GB. The
+checkpoint bytes written and read are those of the stored bounces alone;
+the footprint is the whole stack.
+
 What bounds the kernel on an H100: the replay is one forward render's FP32
 work, the reverse sweep adds work per stored bounce, and the checkpoints
-(``max_bounces * planes * 4`` bytes per pixel, 16 planes in linear mode, 33
-in full and geo mode, 38 in physical mode, plus the textured blocks of
-``_st_planes``, in a global
-``[bounce][plane][thread]`` buffer so that a warp's
-accesses are coalesced) are written and read once; on a small scene those
-bytes over the memory rate come out just above the operations over the FP32
-rate, and the kernel runs far from both (divergent paths, dependent
-``sqrt`` / ``div`` chains). What the design does about it: one thread per pixel
-branches on its own path — a miss ends the replay, only the adjoint of the
-scatter branch that was drawn is evaluated, material and primitive rows are
-read and written by direct index. Cross-block accumulation never depends on
-block order: each block sums its rows in shared memory with ``atomicAdd`` and
-writes them once to a ``[blocks, rows]`` buffer that ``torch.sum(0)`` reduces;
-scenes whose rows do not fit shared memory (4 rows per sphere, 18 per
-triangle in geo mode) add into ``[rows]`` with global atomics. Float additions therefore happen in an order
-that changes from run to run: two runs agree to rounding, not to the bit.
+(``planes * 4`` bytes per stored bounce, 16 planes in linear mode, 33 in
+full and geo mode, 38 in physical mode, plus the textured blocks of
+``_st_planes``) are written and read once; on a small scene those bytes over
+the memory rate come out just above the operations over the FP32 rate, and
+the kernel runs far from both (divergent paths, dependent ``sqrt`` / ``div``
+chains). What the design does about it: one thread per pixel branches on its
+own path — a miss ends the replay, only the adjoint of the scatter branch
+that was drawn is evaluated, material and primitive rows are read and written
+by direct index; a lane's slots lie together, so its checkpoints move as
+whole sectors (``float4``) whatever the stack depths of the other lanes.
+Cross-block accumulation never depends on block order: each block sums its
+rows in shared memory with ``atomicAdd`` and writes them once to a ``[blocks,
+rows]`` buffer that ``torch.sum(0)`` reduces; scenes whose rows do not fit
+shared memory (4 rows per sphere, 18 per triangle in geo mode) add into
+``[rows]`` with global atomics. The 13 camera rows that every path of the
+full modes adds to are summed per thread in shared memory and reduced once
+per block. Float additions therefore happen in an order that changes from
+run to run: two runs agree to rounding, not to the bit.
 
 Device rule: tables on a CUDA device go to the kernels, or the call raises;
 the plain version (``render_megakernel_diff_plain``: autograd through the
@@ -107,6 +142,13 @@ ST_PLANES_PHYS = 38   # + the direct phase's d, t and prev_pdf cotangents
 TEX_PLANES, TEX_PLANES_GRADS = 6, 14
 UVG_PLANES = 12
 NMAP_PLANES, NMAP_PLANES_GRADS = 12, 20
+# A checkpoint slot: the planes, then the sample and the end of the path it
+# closes (csrc: QM_SAMPLE, QM_END), padded to four floats.
+META_PLANES = 2
+# Bytes the backward kernel's checkpoint stacks may take (see _stack_slots).
+SCRATCH_BUDGET = 2 << 30
+# Paths per round of linear mode's stacks (see _stack_slots).
+LINEAR_PATHS_PER_ROUND = 4
 
 # Fields render_megakernel_diff differentiates in grad_mode="linear" ...
 PALLAS_TRAINABLE_FIELDS = frozenset({
@@ -173,6 +215,24 @@ def _st_planes(full: bool, textured: bool = False, tex_grads: bool = False,
             if nmap:
                 planes += NMAP_PLANES_GRADS if tex_grads else NMAP_PLANES
     return planes
+
+
+def _slot_floats(planes: int) -> int:
+    """Floats per checkpoint slot (csrc: ``tex_layout(...).slot_floats``)."""
+    return (planes + META_PLANES + 3) // 4 * 4
+
+
+def _stack_slots(spp: int, max_bounces: int, n: int, slot_floats: int,
+                 full: bool) -> int:
+    """Slots of each pixel's checkpoint stack: room for as many paths of
+    ``max(max_bounces, 1)`` bounces as ``SCRATCH_BUDGET`` holds over ``n``
+    pixels, at least one and at most ``spp`` (one round); linear mode
+    (``full`` false) at most ``LINEAR_PATHS_PER_ROUND``."""
+    span = max(max_bounces, 1)
+    paths = min(spp, max(1, SCRATCH_BUDGET // (span * slot_floats * 4 * n)))
+    if not full:
+        paths = min(paths, LINEAR_PATHS_PER_ROUND)
+    return span * paths
 
 
 def _tex_grads(packed: PackedScene, full: bool) -> bool:
@@ -364,6 +424,7 @@ def _kernel_fn():
                    ci, ci, ci, ci, ci, ci, ci, ci,               # scalars
                    ci, ci, ci, ci, ci, ci,  # full, physical, geo, tex_grads,
                                             # tex_nmap, shared
+                   ci,                                # capacity
                    vp, vp, vp, vp]                   # g, scratch, out, stream
     fn.restype = ci
     for const in (lib.cpt_backward_threads_per_block,
@@ -378,6 +439,8 @@ def _kernel_fn():
 # Which accumulation route the last launch took: "shared" (per-block rows in
 # shared memory) or "global" (global atomics, rows above the shared limit).
 LAST_ROUTE = None
+# The last launch's checkpoint stacks: (slots per pixel, scratch floats).
+LAST_STACK = None
 
 
 def _mode_name(full: bool, physical: bool, geo: bool) -> str:
@@ -403,7 +466,7 @@ def backward_rows_cuda(packed: PackedScene, cam_params, seed: int, width: int,
     imply ``full``; geo takes no grid). Launches on the current stream of the
     tables' device and does not synchronise; raises if the kernel does not
     build or the launch is refused."""
-    global LAUNCH_COUNT, LAST_ROUTE
+    global LAUNCH_COUNT, LAST_ROUTE, LAST_STACK
     n = width * height if n_local is None else n_local
     mk._check_render_args(packed, width, height, spp, max_bounces,
                           pixel_offset, n, sample_offset, seed)
@@ -428,15 +491,16 @@ def backward_rows_cuda(packed: PackedScene, cam_params, seed: int, width: int,
     texels = packed.tex_counts[1]
     rows = _grad_rows(packed.counts, full, texels if tex_grads else 0,
                       physical, geo)
-    planes = _st_planes(full, packed.textured, tex_grads, packed.tex_nmap,
-                        physical)
+    slot = _slot_floats(_st_planes(full, packed.textured, tex_grads,
+                                   packed.tex_nmap, physical))
+    capacity = _stack_slots(spp, max_bounces, n, slot, full)
     threads = lib.cpt_backward_threads_per_block()
     shared = rows <= lib.cpt_backward_shared_rows_max()
     num_s, num_t, num_m, num_pl, num_al = packed.counts
     tables = [t.detach() for t in packed.tables()]
     with torch.cuda.device(device):
-        scratch = torch.empty(max(max_bounces, 1) * planes * n,
-                              dtype=torch.float32, device=device)
+        scratch = torch.empty(capacity * slot * n, dtype=torch.float32,
+                              device=device)
         if shared:
             out = torch.empty(((n + threads - 1) // threads, rows),
                               dtype=torch.float32, device=device)
@@ -450,7 +514,7 @@ def backward_rows_cuda(packed: PackedScene, cam_params, seed: int, width: int,
                  int(seed), int(pixel_offset), int(n), int(sample_offset),
                  int(spp), int(max_bounces), int(width), int(height),
                  int(full), int(physical), int(geo), int(tex_grads),
-                 int(packed.tex_nmap), int(shared),
+                 int(packed.tex_nmap), int(shared), int(capacity),
                  g.data_ptr(), scratch.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("backward megakernel launch failed: CUDA error "
@@ -459,6 +523,7 @@ def backward_rows_cuda(packed: PackedScene, cam_params, seed: int, width: int,
     LAUNCHES_BY_MODE[(_mode_name(full, physical, geo), packed.textured,
                       packed_grid is not None)] += 1
     LAST_ROUTE = "shared" if shared else "global"
+    LAST_STACK = (capacity, scratch.numel())
     return out.sum(0)
 
 

@@ -1,27 +1,38 @@
 #!/usr/bin/env python3
-"""K1 (the port's forward-render kernel, ``csrc/megakernel.cu``) on one CUDA
-device, in turns: against the kernel of another tree, and against patched
-copies of this tree that build its alternatives.
+"""K1 and K2 (the port's forward-render and replay-VJP kernels,
+``csrc/megakernel.cu`` and ``csrc/megakernel_vjp.cu``) on one CUDA device, in
+turns: against the kernels of another tree, and against patched copies of
+this tree that build their alternatives.
 
 Run from the repository root, with the other tree (a commit taken with
 ``git archive`` into a git-ignored directory) as ``--parent``::
 
     mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
-    python3 k1_turns.py --parent build/parent
+    python3 k1_turns.py --parent build/parent [--kernels k1|k2|both]
 
 Every kernel is launched through its own tree's package: the other tree's
 ``cuda_path_tracer_ss_torch/`` and the patched copies of this one are copied
 under ``build/k1_turns/<label>/cpt_<label>/`` and imported under that name,
 so each builds its library into its own ``build/`` with its own
-``utils/build.py``. The copies of this tree differ from it in one line of
-``csrc/megakernel.cu`` each:
+``utils/build.py``. The copies of this tree differ from it in the edits of
+``PATCHES``, which carry the code of each alternative:
 
 - ``bounds6`` / ``bounds8``: ``__launch_bounds__(THREADS_PER_BLOCK, n)`` on
   ``render_kernel``;
 - ``global_tables``: ``MAX_STAGED_BYTES = 0``, the small tables read from
-  global memory in every scene.
+  global memory in every scene;
+- ``strided``: K2's checkpoint slots strided over the lanes,
+  ``[slot][plane][thread]``, moved one float at a time, in place of each
+  lane's own slots;
+- ``camera_atomics``: K2's camera rows added with shared-memory (or global)
+  atomics as every other row, in place of the per-thread columns;
+- ``stack1`` / ``stack2`` / ``stack4``: K2's stacks sized by the wrapper for
+  at most 1 / 2 / 4 paths per round (``_stack_slots``);
+- ``k2_bounds5``: ``__launch_bounds__(THREADS_PER_BLOCK, 5)`` on
+  ``backward_kernel`` (at most 96 registers).
 
-Phases, each printed as it ends and kept in ``--out`` (JSON):
+K1's phases (``--kernels k1`` or ``both``), each printed as it ends and kept
+in ``--out`` (JSON):
 
 1. ``[build]`` the five libraries side by side; registers and spills of
    every instantiation, and resident blocks per SM and staged table bytes of
@@ -41,16 +52,46 @@ Phases, each printed as it ends and kept in ``--out`` (JSON):
    C B A).
 5. ``[turns tables]`` the small tables in shared memory (this tree) against
    global memory (``global_tables``): cornell default and physical and
-   ``textured`` default at 2000 spp, ``TABLE_PAIRS`` pairs, the side that
-   runs first alternating; each side of a pair is the median of 3 launches.
-   Per case: each side's median and quartiles, the pairs shared memory
-   wins, and whether that is a gain (wins in at least 9 of 10 pairs, and the
-   medians differ by more than the global side's interquartile range).
+   ``textured`` default at 2000 spp, ``PAIRS`` pairs, the side that runs
+   first alternating; each side of a pair is the median of 3 launches. Per
+   case: each side's median and quartiles, the pairs shared memory wins, and
+   whether that is a gain (wins in at least 9 of 10 pairs, and the medians
+   differ by more than the global side's interquartile range).
 6. ``[lanes]`` the lane efficiency of K1's regenerating schedule and of the
    nested one (live bounces over 32 x the warps' loop iterations, the plain
    version's tally) on a band of 32 rows across the middle of the 800x800
    image, 8 bounces, 16 / 64 / 256 spp (cornell default and physical,
    ``textured`` default).
+
+K2's phases (``--kernels k2`` or ``both``), on the cases of ``K2_CASES``:
+cornell 256x256 x 16 spp x 8 bounces in grad modes linear, full, geo,
+physical, physical + geo and physical through the grid; the color+normal
+quad, physical with texel gradients, 128x128 x 16 spp x 4 bounces; the
+mesh-fit quad, geo, 128x128 x 4 spp x 2 bounces; and, once,
+``mesh_dense(4)`` geo at 256x256 (global atomics):
+
+7. ``[k2 build]`` the four K2 libraries side by side; registers and spills
+   of all 32 instantiations, other tree -> this tree, and of the patched
+   copies.
+8. ``[k2 rows]`` each case's gradient rows from both trees and the patched
+   copies, for the same cotangent: the largest difference over the largest
+   row (the bound: 1e-4); ``stress_dense(3000)`` at 32x32 for the
+   global-atomics route of full and physical mode. ``[k2 camera rows]``
+   there, the 13 camera rows alone, each difference over its own row: this
+   tree against the other, each tree run twice, and (with g++ on the
+   machine) each tree against the host build's float64 sums of the same
+   contributions, also over the sum of their magnitudes.
+9. ``[k2 turns tree]`` other tree, this tree, this tree, other tree, medians
+   of 5 launches (10 calls each below 5 ms); ``mesh_dense(4)`` one turn each.
+10. ``[k2 turns layout]`` each lane's own slots (this tree) against the
+    strided slots (``strided``): cornell linear, full and physical, ``PAIRS``
+    pairs each, scored as in phase 5 (the sum of the pairs won decides).
+11. ``[k2 turns camera]`` camera columns (this tree) against camera atomics
+    (``camera_atomics``): cornell full, ``PAIRS`` pairs, scored as in phase 5.
+12. ``[k2 turns stack]`` this tree against ``stack1`` / ``stack2`` /
+    ``stack4`` in cornell linear, full and physical, and against
+    ``k2_bounds5`` in cornell linear: ``PAIRS`` pairs each, scored as in
+    phase 5 with the copy as the side that must win.
 
 Without a CUDA device it exits non-zero.
 """
@@ -77,17 +118,71 @@ TRAIN = dict(width=256, height=256, max_bounces=8, spp=16)
 MATRIX = dict(width=400, height=400, spp=16, bounces=(1, 8))
 BITS_SPP = 64
 LANE_SPP = (16, 64, 256)
-TABLE_PAIRS = 10
+PAIRS = 10
 STAGING_SPHERES = (1000, 2000, 2200, 2300, 2400)
 
-# label -> (text of csrc/megakernel.cu, its replacement); each occurs once
-KERNEL = "__global__ void render_kernel("
-PATCHES = {
-    "bounds6": (KERNEL, "__global__ void __launch_bounds__(THREADS_PER_BLOCK, 6) render_kernel("),
-    "bounds8": (KERNEL, "__global__ void __launch_bounds__(THREADS_PER_BLOCK, 8) render_kernel("),
-    "global_tables": ("constexpr int MAX_STAGED_BYTES = 48 * 1024;",
-                      "constexpr int MAX_STAGED_BYTES = 0;"),
+# K2's cases: label -> (scene, (width, height, spp, bounces), backward_rows_cuda
+# flags); the scenes are built by each tree's own modules (Tree.scene)
+K2_TRAIN = (256, 256, 16, 8)
+K2_CASES = {
+    "cornell linear": ("cornell", K2_TRAIN, {}),
+    "cornell full": ("cornell", K2_TRAIN, dict(full=True)),
+    "cornell geo": ("cornell", K2_TRAIN, dict(geo=True)),
+    "cornell physical": ("cornell", K2_TRAIN, dict(physical=True)),
+    "cornell physical+geo": ("cornell", K2_TRAIN, dict(physical=True, geo=True)),
+    "cornell physical grid": ("cornell", K2_TRAIN, dict(physical=True, grid=True)),
+    "color+normal quad physical": ("color+normal quad", (128, 128, 16, 4),
+                                   dict(physical=True, tex_grads=True)),
+    "mesh-fit quad geo": ("mesh-fit quad", (128, 128, 4, 2), dict(geo=True)),
 }
+K2_ONCE = {"mesh_dense(4) geo": ("mesh_dense(4)", K2_TRAIN, dict(geo=True))}
+K2_GLOBAL = {  # the global-atomics route of full and physical mode, rows only
+    "stress_dense(3000) full": ("stress_dense(3000)", (32, 32, 2, 4), dict(full=True)),
+    "stress_dense(3000) physical": ("stress_dense(3000)", (32, 32, 2, 4),
+                                    dict(physical=True)),
+}
+K2_ROWS_BOUND = 1e-4
+
+# label -> the edits of its copy: (file under the package, its text, the
+# replacement), each text occurring once
+KERNEL = "__global__ void render_kernel("
+K2_KERNEL = "__global__ void backward_kernel("
+STACK_PATHS = "    paths = min(spp, max(1, SCRATCH_BUDGET // (span * slot_floats * 4 * n)))"
+PATCHES = {
+    "bounds6": [("csrc/megakernel.cu", KERNEL,
+                 "__global__ void __launch_bounds__(THREADS_PER_BLOCK, 6) render_kernel(")],
+    "bounds8": [("csrc/megakernel.cu", KERNEL,
+                 "__global__ void __launch_bounds__(THREADS_PER_BLOCK, 8) render_kernel(")],
+    "global_tables": [("csrc/megakernel.cu", "constexpr int MAX_STAGED_BYTES = 48 * 1024;",
+                       "constexpr int MAX_STAGED_BYTES = 0;")],
+    # K2's checkpoint slots strided over the launch's threads, [slot][plane][thread],
+    # moved one float at a time
+    "strided": [
+        ("csrc/megakernel_vjp.cuh",
+         "    CPT_HD float* at(int k, int q) const { return base + (size_t)k * slot_floats + q; }",
+         "    size_t stride;\n    CPT_HD float* at(int k, int q) const {\n"
+         "        return base + ((size_t)k * slot_floats + q) * stride;\n    }"),
+        ("csrc/megakernel_vjp.cuh", "#if defined(__CUDACC__)\n        const float4 v",
+         "#if 0\n        const float4 v"),
+        ("csrc/megakernel_vjp.cuh", "#if defined(__CUDACC__)\n        *reinterpret_cast<float4*>",
+         "#if 0\n        *reinterpret_cast<float4*>"),
+        ("csrc/megakernel_vjp.cu",
+         "        st.base = scratch + (size_t)i * capacity * T.slot_floats;",
+         "        st.base = scratch + (size_t)i;\n        st.stride = (size_t)p.n_local;")],
+    # K2's camera rows added with atomics, as every other row
+    "camera_atomics": [
+        ("csrc/megakernel_vjp.cu", "    constexpr bool COLUMNS = FULL;",
+         "    constexpr bool COLUMNS = false;"),
+        ("csrc/megakernel_vjp.cu", "(any_full ? (size_t)cpt::CAM_ROWS * CAM_PITCH : 0)", "0")],
+    # K2's stack sized for at most 1 / 2 / 4 paths per round
+    **{f"stack{k}": [("ops/cuda/megakernel_vjp.py", STACK_PATHS,
+                      STACK_PATHS.replace("min(spp, ", f"min(spp, {k}, "))] for k in (1, 2, 4)},
+    # K2 held to 5 resident blocks of 128 threads per SM (at most 96 registers)
+    "k2_bounds5": [("csrc/megakernel_vjp.cu", K2_KERNEL,
+                    "__global__ void __launch_bounds__(THREADS_PER_BLOCK, 5) backward_kernel(")],
+}
+K1_COPIES = ("bounds6", "bounds8", "global_tables")
+K2_COPIES = ("strided", "camera_atomics", "stack1", "stack2", "stack4", "k2_bounds5")
 
 
 def log(msg: str) -> None:
@@ -119,18 +214,17 @@ def median_ms(fn, reps: int = 5, inner: int = 1) -> float:
 
 def copy_package(src_root: str, label: str, patch=None):
     """The package of tree ``src_root`` copied to
-    ``build/k1_turns/<label>/cpt_<label>/`` (its csrc patched with ``patch``)
-    and imported under that name."""
+    ``build/k1_turns/<label>/cpt_<label>/`` (its files edited as ``patch``
+    says) and imported under that name."""
     base = os.path.join(ROOT, "build", "k1_turns", label)
     dst = os.path.join(base, f"cpt_{label}")
     shutil.rmtree(base, ignore_errors=True)
     shutil.copytree(os.path.join(src_root, PACKAGE), dst,
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
-    if patch is not None:
-        path = os.path.join(dst, "csrc", "megakernel.cu")
+    for source, old, new in patch or ():
+        path = os.path.join(dst, source)
         with open(path) as f:
             text = f.read()
-        old, new = patch
         if text.count(old) != 1:
             raise RuntimeError(f"{label}: {old!r} occurs {text.count(old)} times in {path}")
         with open(path, "w") as f:
@@ -145,17 +239,54 @@ class Tree:
     def __init__(self, pkg):
         self.pkg = pkg
         self.mk = importlib.import_module(pkg.__name__ + ".ops.cuda.megakernel")
+        self.vjp = importlib.import_module(pkg.__name__ + ".ops.cuda.megakernel_vjp")
         self.presets = importlib.import_module(pkg.__name__ + ".models.presets")
+        self.scenes = importlib.import_module(pkg.__name__ + ".models.scene")
         self.grid = importlib.import_module(pkg.__name__ + ".ops.grid")
         self.build = importlib.import_module(pkg.__name__ + ".utils.build")
         camera = importlib.import_module(pkg.__name__ + ".models.camera")
         self.cp = camera.camera_arrays(camera.Camera())
         self._packed = {}
 
+    def scene(self, name: str):
+        """A preset, ``stress_dense(n)`` / ``mesh_dense(n)``, or one of
+        chip_smoke.py's quads, built by this tree's own modules."""
+        if name.endswith(")"):
+            fn, arg = name[:-1].split("(")
+            return getattr(self.presets, fn)(int(arg))
+        if name in ("color+normal quad", "mesh-fit quad"):
+            b = self.scenes.SceneBuilder()
+            spec = self.scenes.MaterialSpec
+            n = (0, 0, 1)
+            uv = [(0, 0), (1, 0), (1, 1), (0, 1)]
+            if name == "color+normal quad":
+                checker = np.zeros((2, 2, 3), np.float32)
+                checker[:, 0] = (1.0, 0.1, 0.1)
+                checker[:, 1] = (0.1, 0.1, 1.0)
+                nm = np.zeros((2, 2, 3), np.float32)
+                nm[..., 0], nm[..., 1], nm[..., 2] = 0.85, 0.5, 0.9
+                m = b.add_material(spec(diffuse=(1.0, 1.0, 1.0), diff_avg=0.8,
+                                        texture=b.add_texture(checker),
+                                        normal_map=b.add_texture(nm)))
+                s, z, light = 2.0, -4.0, ((0.0, 0.0, -1.0), (60.0, 60.0, 60.0))
+            else:
+                tex = np.random.default_rng(3).uniform(0.05, 1.0, (16, 16, 3)).astype(np.float32)
+                m = b.add_material(spec(diffuse=(1.0, 1.0, 1.0), diff_avg=0.9,
+                                        texture=b.add_texture(tex)))
+                s, z, light = 6.0, -4.0, ((0.0, 0.0, -0.5), (40.0, 40.0, 40.0))
+            x = 0.45 if name == "mesh-fit quad" else 0.0   # the fit's starting shift
+            v = [(-s + x, -s, z), (s + x, -s, z), (s + x, s, z), (-s + x, s, z)]
+            b.add_triangle(v[0], v[1], v[2], n, n, n, m, uv=(uv[0], uv[1], uv[2]))
+            b.add_triangle(v[0], v[2], v[3], n, n, n, m, uv=(uv[0], uv[2], uv[3]))
+            b.add_point_light(*light)
+            b.background = np.zeros(3, np.float32)
+            return b.build()
+        return getattr(self.presets, name)()
+
     def packed(self, name: str, grid: bool = False):
         key = (name, grid)
         if key not in self._packed:
-            scene = getattr(self.presets, name)()
+            scene = self.scene(name)
             self._packed[key] = (self.mk.pack_grid(self.grid.build_grid(scene), "cuda") if grid
                                  else self.mk.pack_scene(scene, "cuda"))
         return self._packed[key]
@@ -169,64 +300,92 @@ class Tree:
                                                   packed_grid=packed_grid, **kw)
         return fn
 
+    def k2_launcher(self, case):
+        """K2's launch of ``case`` = (scene, dims, flags) for a fixed random
+        cotangent."""
+        scene, (w, h, spp, nb), flags = case
+        flags = dict(flags)
+        packed = self.packed(scene)
+        packed_grid = self.packed(scene, grid=True) if flags.pop("grid", False) else None
+        g_img = torch.rand((h, w, 3), generator=torch.Generator().manual_seed(2)).cuda()
+
+        def fn():
+            return self.vjp.backward_rows_cuda(packed, self.cp, 0, w, h, spp, nb, g_img,
+                                               packed_grid=packed_grid, **flags)
+        return fn
+
 
 def quartiles(xs) -> list:
     return [float(q) for q in np.percentile(xs, [25, 50, 75])]
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", required=True,
-                    help=f"root of the other tree (holds {PACKAGE}/)")
-    ap.add_argument("--out", default=os.path.join(ROOT, "build", "k1_turns.json"),
-                    help="JSON report (default: the git-ignored build/)")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("k1_turns: no CUDA device", file=sys.stderr)
-        return 1
-
-    report = {}
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    log(f"[device] {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
-    report["device"] = smi
-
-    # ---- 1. builds, side by side ------------------------------------------------
-    sys.path.insert(0, ROOT)
-    trees = {"parent": Tree(copy_package(os.path.abspath(args.parent), "parent")),
-             "change": Tree(importlib.import_module(PACKAGE))}
-    for label, patch in PATCHES.items():
-        trees[label] = Tree(copy_package(ROOT, label, patch))
+def build_side_by_side(trees, library: str) -> float:
+    """Build ``library`` in every tree at once (one nvcc each); seconds."""
     errors = []
 
     def build_one(tree):
         try:
-            tree.build.load_kernels("megakernel")
+            tree.build.load_kernels(library)
         except BaseException as e:  # re-raised below, on the main thread
             errors.append(e)
 
     t0 = time.time()
-    threads = [threading.Thread(target=build_one, args=(t,)) for t in trees.values()]
+    threads = [threading.Thread(target=build_one, args=(t,)) for t in trees]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
         raise errors[0]
-    log(f"[build] {len(threads)} libraries side by side: {time.time() - t0:.1f} s")
+    return time.time() - t0
 
-    def ptxas(tree):
-        out = {}
-        for k in tree.build.ptxas_report("megakernel"):
-            if "render_kernel" in k["kernel"]:
-                bools = "".join(c for c in k["kernel"].split("render_kernel")[1]
-                                .split("Ev")[0] if c in "01")
-                out[bools] = (k["registers"], k["spill_stores"], k["spill_loads"])
-        return out
 
+def ptxas(tree, library: str, kernel: str) -> dict:
+    """{template bools: (registers, spill bytes stored, spill bytes loaded)}
+    of ``kernel``'s instantiations in ``library``."""
+    out = {}
+    for k in tree.build.ptxas_report(library):
+        if kernel in k["kernel"]:
+            bools = "".join(c for c in k["kernel"].split(kernel)[1].split("Ev")[0]
+                            if c in "01")
+            out[bools] = (k["registers"], k["spill_stores"], k["spill_loads"])
+    return out
+
+
+def in_pairs(fns, reps: int = 3, inner: int = 1):
+    """``PAIRS`` pairs of the two launch functions ``fns`` ({label: fn}), the
+    side that runs first alternating, each side the median of ``reps``
+    launches: {label: [ms per pair]}."""
+    a, b = fns
+    for fn in fns.values():
+        fn()
+    runs = {lab: [] for lab in fns}
+    for k in range(PAIRS):
+        for lab in ((a, b) if k % 2 == 0 else (b, a)):
+            runs[lab].append(float(np.median(launch_ms(fns[lab], reps, inner))))
+    return runs
+
+
+def score(runs, mine: str, other: str) -> dict:
+    """Pairs ``mine`` wins, both sides' quartiles, and whether that is a gain:
+    at least 9 of 10 pairs, and the medians apart by more than the other
+    side's interquartile range."""
+    wins = sum(x < y for x, y in zip(runs[mine], runs[other]))
+    q_m, q_o = quartiles(runs[mine]), quartiles(runs[other])
+    gain = wins >= 0.9 * PAIRS and q_o[1] - q_m[1] > q_o[2] - q_o[0]
+    return {"runs": runs, f"quartiles_{mine}": q_m, f"quartiles_{other}": q_o,
+            "wins": wins, "gain": gain}
+
+
+def k1_phases(trees, report) -> None:
+    """Phases 1-6: K1 against the other tree and its patched copies."""
+    labels = ["parent", "change", *K1_COPIES]
+    log(f"[build] {len(labels)} libraries side by side: "
+        f"{build_side_by_side([trees[lab] for lab in labels], 'megakernel'):.1f} s")
     report["build"] = {}
-    for label, tree in trees.items():
-        regs = ptxas(tree)
+    for label in labels:
+        tree = trees[label]
+        regs = ptxas(tree, "megakernel", "render_kernel")
         entry = {"ptxas": regs}
         if hasattr(tree.mk, "render_occupancy"):
             for name, scene, kw in (("default", "cornell", {}),
@@ -293,7 +452,8 @@ def main() -> int:
                      inner=10 if size is TRAIN else 1)
         report["turns_tree"][case] = t
         log(f"[turns tree] {case}: parent {t['parent']} ms, change {t['change']} ms")
-    for scene, title in (("stress_dense", "stress_dense(10000)"), ("mesh_dense", "mesh_dense(4)")):
+    for scene, title in (("stress_dense(10000)", "stress_dense(10000)"),
+                         ("mesh_dense(4)", "mesh_dense(4)")):
         for b in MATRIX["bounces"]:
             for grid in (False, True):
                 case = (f"{title} {MATRIX['width']}x{MATRIX['height']} b={b} "
@@ -319,25 +479,15 @@ def main() -> int:
     for case, scene, kw in (("cornell default", "cornell", {}),
                             ("cornell physical", "cornell", dict(physical=True)),
                             ("textured default", "textured", {})):
-        fns = {lab: trees[lab].launcher(scene, w, h, FULL["spp"], nb, **kw)
-               for lab in ("change", "global_tables")}
-        for fn in fns.values():
-            fn()
-        runs = {lab: [] for lab in fns}
-        for k in range(TABLE_PAIRS):
-            sides = ("change", "global_tables") if k % 2 == 0 else ("global_tables", "change")
-            for lab in sides:
-                runs[lab].append(float(np.median(launch_ms(fns[lab], reps=3))))
-        wins = sum(s < g for s, g in zip(runs["change"], runs["global_tables"]))
-        q_s, q_g = quartiles(runs["change"]), quartiles(runs["global_tables"])
-        gain = wins >= 0.9 * TABLE_PAIRS and q_g[1] - q_s[1] > q_g[2] - q_g[0]
-        report["turns_tables"][case] = {"runs": runs, "quartiles_shared": q_s,
-                                        "quartiles_global": q_g, "shared_wins": wins,
-                                        "gain": gain}
-        log(f"[turns tables] {case} 2000 spp, {TABLE_PAIRS} pairs: shared quartiles "
-            f"{q_s} ms, global {q_g} ms; shared faster in {wins} of {TABLE_PAIRS} pairs; "
-            f"{'a gain' if gain else 'no gain'} (rule: >= 9 of 10 and the medians apart by "
-            f"more than global's interquartile range {q_g[2] - q_g[0]:.3f} ms); "
+        runs = in_pairs({lab: trees[lab].launcher(scene, w, h, FULL["spp"], nb, **kw)
+                         for lab in ("change", "global_tables")})
+        sc = score(runs, "change", "global_tables")
+        report["turns_tables"][case] = sc
+        q_s, q_g = sc["quartiles_change"], sc["quartiles_global_tables"]
+        log(f"[turns tables] {case} 2000 spp, {PAIRS} pairs: shared quartiles "
+            f"{q_s} ms, global {q_g} ms; shared faster in {sc['wins']} of {PAIRS} pairs; "
+            f"{'a gain' if sc['gain'] else 'no gain'} (rule: >= 9 of 10 and the medians apart "
+            f"by more than global's interquartile range {q_g[2] - q_g[0]:.3f} ms); "
             f"runs shared {runs['change']} global {runs['global_tables']}")
 
     # ---- 6. lane efficiency of both schedules (counts) ---------------------------------
@@ -359,6 +509,189 @@ def main() -> int:
                 f"{eff['warp_iterations_nested']:.3f} "
                 f"({stats['warp_iterations_nested'] / stats['warp_iterations']:.2f}x the warp "
                 "iterations)")
+
+
+def k2_phases(trees, report) -> None:
+    """Phases 7-11: K2 against the other tree and its patched copies."""
+    labels = ["parent", "change", *K2_COPIES]
+    log(f"[k2 build] {len(labels)} libraries side by side: "
+        f"{build_side_by_side([trees[lab] for lab in labels], 'megakernel_vjp'):.1f} s")
+    # <FULL, SHARED, TEXTURED, GRID, PHYSICAL, GEO>
+    regs = {lab: ptxas(trees[lab], "megakernel_vjp", "backward_kernel") for lab in labels}
+    report["k2_build"] = regs
+    before, after = regs["parent"], regs["change"]
+    log("[k2 build] registers (spill bytes stored / loaded) of every instantiation "
+        "<full, shared, textured, grid, physical, geo>, other tree -> this tree: "
+        + ", ".join(f"<{','.join(k)}> {before[k][0]} ({before[k][1]}/{before[k][2]}) -> "
+                    f"{after[k][0]} ({after[k][1]}/{after[k][2]})" for k in sorted(after)))
+    for lab in K2_COPIES:
+        log(f"[k2 build] {lab}: " + ", ".join(f"<{','.join(k)}> {v[0]} ({v[1]}/{v[2]})"
+                                             for k, v in sorted(regs[lab].items())))
+
+    # ---- 8. rows of both trees and of the copies -----------------------------------------
+    report["k2_rows"] = {}
+    for case, spec in {**K2_CASES, **K2_ONCE, **K2_GLOBAL}.items():
+        rows = {lab: trees[lab].k2_launcher(spec)().double() for lab in labels}
+        again = trees["change"].k2_launcher(spec)().double()
+        torch.cuda.synchronize()
+        top = float(rows["parent"].abs().max())
+        gaps = {lab: float((r - rows["parent"]).abs().max()) / top for lab, r in rows.items()
+                if lab != "parent"}
+        gaps["change twice"] = float((again - rows["change"]).abs().max()) / top
+        route = trees["change"].vjp.LAST_ROUTE
+        report["k2_rows"][case] = dict(gaps, route=route, max_abs_row=top)
+        log(f"[k2 rows] {case} ({route} rows): largest difference over the largest row "
+            f"({top:.4g}), against the other tree: "
+            + ", ".join(f"{lab} {v:.2e}" for lab, v in gaps.items())
+            + f" (bound {K2_ROWS_BOUND:g})")
+
+    # ---- 8b. the camera rows alone, on the global route ----------------------------------
+    report["k2_camera_rows"] = {label: camera_rows(trees, spec)
+                                for label, spec in K2_GLOBAL.items()}
+
+    # ---- 9. the other tree and this one, in turns -----------------------------------------
+    report["k2_turns_tree"] = {}
+    for case, spec in {**K2_CASES, **K2_ONCE}.items():
+        once = case in K2_ONCE
+        order = ["parent", "change"] if once else ["parent", "change", "change", "parent"]
+        probe = median_ms(trees["change"].k2_launcher(spec), reps=1)
+        inner = 10 if probe < 5.0 else 1
+        t = {}
+        for label in order:
+            t.setdefault(label, []).append(median_ms(trees[label].k2_launcher(spec),
+                                                     reps=1 if once else 5, inner=inner))
+        report["k2_turns_tree"][case] = t
+        log(f"[k2 turns tree] {case} {spec[1][0]}x{spec[1][1]} {spec[1][2]} spp "
+            f"{spec[1][3]} b: parent {t['parent']} ms, change {t['change']} ms "
+            f"({np.median(t['parent']) / np.median(t['change']):.2f}x)")
+
+    # ---- 10. the checkpoint layout, in pairs ---------------------------------------------
+    report["k2_turns_layout"] = {}
+    won = 0
+    for case in ("cornell linear", "cornell full", "cornell physical"):
+        runs = in_pairs({lab: trees[lab].k2_launcher(K2_CASES[case])
+                         for lab in ("change", "strided")}, inner=5)
+        sc = score(runs, "change", "strided")
+        won += sc["wins"]
+        report["k2_turns_layout"][case] = sc
+        log(f"[k2 turns layout] {case}, {PAIRS} pairs: lane slots quartiles "
+            f"{sc['quartiles_change']} ms, strided {sc['quartiles_strided']} ms; lane slots "
+            f"faster in {sc['wins']} of {PAIRS}; runs lane {runs['change']} strided "
+            f"{runs['strided']}")
+    report["k2_turns_layout"]["lane_slots_wins"] = won
+    log(f"[k2 turns layout] lane slots won {won} of {3 * PAIRS} pairs (kept by the rule "
+        f"in PERF.md at >= {2 * PAIRS})")
+
+    # ---- 11. the camera rows, in pairs ------------------------------------------------------
+    runs = in_pairs({lab: trees[lab].k2_launcher(K2_CASES["cornell full"])
+                     for lab in ("change", "camera_atomics")}, inner=5)
+    sc = score(runs, "change", "camera_atomics")
+    report["k2_turns_camera"] = sc
+    q_c, q_a = sc["quartiles_change"], sc["quartiles_camera_atomics"]
+    log(f"[k2 turns camera] cornell full, {PAIRS} pairs: camera columns quartiles {q_c} ms, "
+        f"atomics {q_a} ms; columns faster in {sc['wins']} of {PAIRS}; "
+        f"{'a gain' if sc['gain'] else 'no gain'} (rule: >= 9 of 10 and the medians apart by "
+        f"more than the atomics' interquartile range {q_a[2] - q_a[0]:.3f} ms); runs "
+        f"columns {runs['change']} atomics {runs['camera_atomics']}")
+
+    # ---- 12. smaller stacks and a register cap, in pairs --------------------------------
+    report["k2_turns_stack"] = {}
+    for case in ("cornell linear", "cornell full", "cornell physical"):
+        for lab in ("stack1", "stack2", "stack4", "k2_bounds5"):
+            if lab == "k2_bounds5" and case != "cornell linear":
+                continue
+            runs = in_pairs({lb: trees[lb].k2_launcher(K2_CASES[case])
+                             for lb in (lab, "change")}, inner=5)
+            sc = score(runs, lab, "change")
+            stack = trees[lab].vjp.LAST_STACK
+            report["k2_turns_stack"][f"{case}, {lab}"] = dict(sc, stack=stack)
+            q_l, q_c = sc[f"quartiles_{lab}"], sc["quartiles_change"]
+            log(f"[k2 turns stack] {case}, {lab} (slots per pixel, scratch floats {stack}; this "
+                f"tree {trees['change'].vjp.LAST_STACK}), {PAIRS} pairs: quartiles {q_l} ms "
+                f"against this tree's {q_c} ms; {lab} faster in {sc['wins']} of {PAIRS}; "
+                f"{'a gain' if sc['gain'] else 'no gain'} (rule: >= 9 of 10 and the medians "
+                f"apart by more than this tree's interquartile range {q_c[2] - q_c[0]:.3f} ms)")
+
+
+def camera_rows(trees, spec) -> dict:
+    """The 13 camera rows of ``spec`` (a K2_GLOBAL case) row by row, each
+    difference over that row's own magnitude: this tree against the other,
+    each tree against a second run of itself and, where g++ can build the
+    host build of the kernel's math (``tests/torch_kernel_host.cpp``), each
+    tree against its float64 sums of the same float32 contributions, also
+    over the sum of the contributions' magnitudes (how far float32 sums of
+    cancelling terms can stray)."""
+    scene, (w, h, spp, nb), flags = spec
+    change = trees["change"]
+    num_spheres, num_tris = change.packed(scene).counts[:2]
+    physical, geo = flags.get("physical", False), flags.get("geo", False)
+    end = (change.vjp._grad_rows(change.packed(scene).counts, True, 0, physical, geo)
+           - 4 * num_spheres - (change.vjp.TRI_ROWS * num_tris if geo else 0))
+    cam = slice(end - change.vjp.CAM_ROWS, end)
+    runs = {lab: [trees[lab].k2_launcher(spec)()[cam].double().cpu() for _ in range(2)]
+            for lab in ("parent", "change")}
+
+    def own(a, b):
+        return ((a - b).abs() / torch.maximum(a.abs(), b.abs()).clamp_min(1e-30)).tolist()
+
+    out = {"change vs parent": own(runs["change"][0], runs["parent"][0]),
+           "parent twice": own(*runs["parent"]), "change twice": own(*runs["change"])}
+    try:
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+        helpers = importlib.import_module("torch_port_helpers")
+        g_img = torch.rand((h, w, 3), generator=torch.Generator().manual_seed(2))
+        host, rec_rows, rec_vals = helpers.backward_rows_hostbuild(
+            change.mk.pack_scene(change.scene(scene), "cpu"), change.cp, 0, w, h, spp, nb,
+            g_img, record=True, **flags)
+    except (AssertionError, ImportError, OSError) as e:
+        log(f"[k2 camera rows] no host build ({str(e).splitlines()[0] if str(e) else e!r})")
+        host = None
+    if host is not None:
+        mass = torch.from_numpy(np.bincount(rec_rows, np.abs(rec_vals.astype(np.float64)),
+                                            minlength=host.numel()))[cam]
+        for lab in ("parent", "change"):
+            gap = (runs[lab][0] - host[cam]).abs()
+            out[f"{lab} vs host float64"] = (gap / host[cam].abs().clamp_min(1e-30)).tolist()
+            out[f"{lab} vs host over sum |c|"] = (gap / mass.clamp_min(1e-30)).tolist()
+        out["host over sum |c|"] = (host[cam].abs() / mass.clamp_min(1e-30)).tolist()
+    out["rows"] = {lab: r[0].tolist() for lab, r in runs.items()}
+    for key, v in out.items():
+        if key != "rows":
+            log(f"[k2 camera rows] {scene} {flags}: {key}, per row: "
+                + " ".join(f"{x:.1e}" for x in v) + f" (largest {max(v):.2e})")
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", required=True,
+                    help=f"root of the other tree (holds {PACKAGE}/)")
+    ap.add_argument("--kernels", choices=("k1", "k2", "both"), default="both",
+                    help="whose phases to run")
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "k1_turns.json"),
+                    help="JSON report (default: the git-ignored build/)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("k1_turns: no CUDA device", file=sys.stderr)
+        return 1
+
+    report = {}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    log(f"[device] {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    report["device"] = smi
+
+    sys.path.insert(0, ROOT)
+    trees = {"parent": Tree(copy_package(os.path.abspath(args.parent), "parent")),
+             "change": Tree(importlib.import_module(PACKAGE))}
+    copies = ((K1_COPIES if args.kernels != "k2" else ())
+              + (K2_COPIES if args.kernels != "k1" else ()))
+    for label in copies:
+        trees[label] = Tree(copy_package(ROOT, label, PATCHES[label]))
+    if args.kernels != "k2":
+        k1_phases(trees, report)
+    if args.kernels != "k1":
+        k2_phases(trees, report)
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

@@ -1,13 +1,15 @@
 // Test-only host build of the CUDA kernels' device math: the package's
 // csrc/megakernel.cuh (forward render, all three estimator variants, linear
 // and grid sweeps),
-// csrc/megakernel_vjp.cuh (replay VJP, every grad mode, and the hand-written
-// adjoints it is built from) and csrc/lightkernel.cuh (light tracing)
+// csrc/megakernel_vjp.cuh (replay VJP, every grad mode, both schedules, and
+// the hand-written adjoints it is built from)
+// and csrc/lightkernel.cuh (light tracing)
 // compiled by a host C++ compiler, one loop iteration per pixel or light
 // path, so that
 // the kernels' arithmetic can be held against the plain PyTorch version on a
 // machine without a GPU. Built by torch_port_helpers.py:
 //   g++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC -I <package>/csrc ...
+#include <utility>
 #include <vector>
 
 #include "lightkernel.cuh"
@@ -16,10 +18,16 @@
 namespace {
 
 // The host's row accumulator: double sums, so that what is compared is the
-// kernel's per-path arithmetic and not the order of a float summation.
+// kernel's per-path arithmetic and not the order of a float summation. With
+// a log it also records every contribution the card's sinks would add (the
+// nonzero ones), as (row, value).
 struct HostSink {
     double* rows;
-    void add(int row, float v) { rows[row] += (double)v; }
+    std::vector<std::pair<int, float>>* log = nullptr;
+    void add(int row, float v) {
+        rows[row] += (double)v;
+        if (log != nullptr && v != 0.0f) log->emplace_back(row, v);
+    }
 };
 
 cpt::SceneTables make_tables(const float* spheres, int num_spheres,
@@ -113,19 +121,68 @@ void render_pixels(const cpt::SceneTables& sc, const cpt::RenderParams& p, int v
     }
 }
 
+// The schedule K2 had before its two flat passes: a loop over samples around
+// a replay loop and a reverse loop, bounce b in slot b, on the same per-path
+// functions. The flat backward_pixel must send the same contributions.
+template <bool FULL, bool TEXTURED, bool PHYSICAL, bool GEO, class Store, class Sink>
+void backward_pixel_nested(const cpt::SceneTables& sc, const cpt::RenderParams& p,
+                           const cpt::GradLayout& L, const cpt::TexLayout& T, int pixel, float gx,
+                           float gy, float gz, const Store& st, Sink& acc) {
+    if (pixel < 0 || pixel >= p.width * p.height) return;
+    const float pxi = (float)(pixel % p.width);
+    const float pyi = (float)(pixel / p.width);
+    for (int s = 0; s < p.spp; ++s) {
+        const int sample = p.sample_offset + s;
+        cpt::ReplayState rs;
+        cpt::start_replay(p, pixel, sample, pxi, pyi, rs);
+        int end;
+        do {
+            end = cpt::replay_bounce<FULL, TEXTURED, PHYSICAL, GEO>(sc, p, L, T, pixel, sample, gx,
+                                                                   gy, gz, rs, st, rs.b, acc);
+        } while (end == cpt::REPLAY_GOES_ON);
+        cpt::ReverseState rv;
+        cpt::start_reverse(sc, gx, gy, gz, end == cpt::REPLAY_MISSED, rv);
+        for (int b = rs.b - 1; b >= 0; --b) {
+            cpt::reverse_bounce<FULL, TEXTURED, PHYSICAL, GEO>(sc, p, L, T, pixel, sample, b,
+                                                              b + 1 == rs.b, gx, gy, gz, rv, st,
+                                                              b, acc);
+        }
+        if (FULL) cpt::eye_vjp(p, pixel, sample, pxi, pyi, rv.ao, rv.ad, L.row_cam0, acc);
+    }
+}
+
+// Every pixel of the range, one after the other, on stacks of `capacity`
+// slots: schedule 0 the flat two passes (backward_pixel), 1 the nested loops.
+template <bool FULL, bool TEXTURED, bool PHYSICAL, bool GEO>
+void backward_pixels_t(const cpt::SceneTables& sc, const cpt::RenderParams& p,
+                       const cpt::GradLayout& L, const cpt::TexLayout& T, const float* g,
+                       int schedule, int capacity, HostSink& sink) {
+    std::vector<float> scratch((size_t)capacity * T.slot_floats * (p.n_local > 0 ? p.n_local : 1),
+                               -1.0f);
+    for (int i = 0; i < p.n_local; ++i) {
+        cpt::CheckpointStore st;
+        st.slot_floats = T.slot_floats;
+        st.base = scratch.data() + (size_t)i * capacity * T.slot_floats;
+        const float gx = g[3 * i], gy = g[3 * i + 1], gz = g[3 * i + 2];
+        const int pixel = p.pixel_offset + i;
+        if (schedule == 1) {
+            backward_pixel_nested<FULL, TEXTURED, PHYSICAL, GEO>(sc, p, L, T, pixel, gx, gy, gz,
+                                                                 st, sink);
+        } else {
+            cpt::backward_pixel<FULL, TEXTURED, PHYSICAL, GEO>(sc, p, L, T, pixel, gx, gy, gz, st,
+                                                               capacity, sink, sink, L.row_cam0);
+        }
+    }
+}
+
 template <bool FULL, bool PHYSICAL, bool GEO>
 void backward_pixels(const cpt::SceneTables& sc, const cpt::RenderParams& p,
                      const cpt::GradLayout& L, const cpt::TexLayout& T, const float* g,
-                     const cpt::CheckpointStore& st, HostSink& sink) {
-    for (int i = 0; i < p.n_local; ++i) {
-        const float gx = g[3 * i], gy = g[3 * i + 1], gz = g[3 * i + 2];
-        const int pixel = p.pixel_offset + i;
-        if (T.on) {
-            cpt::backward_pixel<FULL, true, PHYSICAL, GEO>(sc, p, L, T, pixel, gx, gy, gz, st, sink);
-        } else {
-            cpt::backward_pixel<FULL, false, PHYSICAL, GEO>(sc, p, L, T, pixel, gx, gy, gz, st,
-                                                            sink);
-        }
+                     int schedule, int capacity, HostSink& sink) {
+    if (T.on) {
+        backward_pixels_t<FULL, true, PHYSICAL, GEO>(sc, p, L, T, g, schedule, capacity, sink);
+    } else {
+        backward_pixels_t<FULL, false, PHYSICAL, GEO>(sc, p, L, T, g, schedule, capacity, sink);
     }
 }
 
@@ -215,6 +272,10 @@ int cpt_light_records_host(const float* spheres, int num_spheres,
 
 // Same arguments as cpt_backward_megakernel without scratch, launch shape and
 // stream; rows[] receives the gradient rows (GradLayout) summed over pixels.
+// `schedule` (0 flat, 1 nested) and `capacity` (slots per lane) as
+// backward_pixels. With rec_rows non-null
+// the nonzero contributions are also recorded, (rec_rows[j], rec_vals[j]) for
+// j < min(*n_records, max_records); *n_records receives their number.
 // Returns the number of rows.
 int cpt_backward_megakernel_host(const float* spheres, int num_spheres,
                                  const float* triangles, int num_triangles,
@@ -229,7 +290,9 @@ int cpt_backward_megakernel_host(const float* spheres, int num_spheres,
                                  int seed, int pixel_offset, int n_local, int sample_offset,
                                  int spp, int max_bounces, int width, int height,
                                  int full, int physical, int geo, int texels, int tex_grads,
-                                 int tex_nmap, const float* g, double* rows) {
+                                 int tex_nmap, const float* g, double* rows, int schedule,
+                                 int capacity, long long max_records, int* rec_rows,
+                                 float* rec_vals, long long* n_records) {
     const cpt::SceneTables sc = make_tables(spheres, num_spheres, triangles, num_triangles,
                                             materials, num_materials, point_lights,
                                             num_point_lights, area_lights, num_area_lights,
@@ -244,24 +307,39 @@ int cpt_backward_megakernel_host(const float* spheres, int num_spheres,
     const cpt::GradLayout L = cpt::grad_layout(num_spheres, num_triangles, num_materials,
                                                num_point_lights, num_area_lights, any_full,
                                                T.grads ? texels : 0, physical != 0, geo != 0);
-    std::vector<float> scratch((size_t)(max_bounces > 1 ? max_bounces : 1) * T.planes);
-    cpt::CheckpointStore st;
-    st.base = scratch.data(); st.stride = 1; st.planes = T.planes;
+    if (capacity < (max_bounces > 1 ? max_bounces : 1)) return -1;
+    std::vector<std::pair<int, float>> log;
     HostSink sink;
     sink.rows = rows;
+    if (rec_rows != nullptr) sink.log = &log;
     for (int r = 0; r < L.rows; ++r) rows[r] = 0.0;
     if (physical && geo) {
-        backward_pixels<true, true, true>(sc, p, L, T, g, st, sink);
+        backward_pixels<true, true, true>(sc, p, L, T, g, schedule, capacity, sink);
     } else if (physical) {
-        backward_pixels<true, true, false>(sc, p, L, T, g, st, sink);
+        backward_pixels<true, true, false>(sc, p, L, T, g, schedule, capacity, sink);
     } else if (geo) {
-        backward_pixels<true, false, true>(sc, p, L, T, g, st, sink);
+        backward_pixels<true, false, true>(sc, p, L, T, g, schedule, capacity, sink);
     } else if (full) {
-        backward_pixels<true, false, false>(sc, p, L, T, g, st, sink);
+        backward_pixels<true, false, false>(sc, p, L, T, g, schedule, capacity, sink);
     } else {
-        backward_pixels<false, false, false>(sc, p, L, T, g, st, sink);
+        backward_pixels<false, false, false>(sc, p, L, T, g, schedule, capacity, sink);
+    }
+    if (rec_rows != nullptr) {
+        *n_records = (long long)log.size();
+        for (size_t j = 0; j < log.size() && (long long)j < max_records; ++j) {
+            rec_rows[j] = log[j].first;
+            rec_vals[j] = log[j].second;
+        }
     }
     return L.rows;
+}
+
+// tex_layout(...).slot_floats: the floats of one checkpoint slot.
+int cpt_slot_floats_host(int full, int physical, int geo, int textured, int tex_grads,
+                         int tex_nmap) {
+    return cpt::tex_layout(full || physical || geo, textured != 0, tex_grads != 0, tex_nmap != 0,
+                           physical != 0)
+        .slot_floats;
 }
 
 // The two scene sweeps on n rays (o, d: three runs of n floats each; max_d

@@ -157,8 +157,12 @@ def _host_kernel(fma):
                   ci, ci, ci, ci, ci, ci, ci, ci]
     lib.cpt_render_megakernel_host.argtypes = scene_args + [ci, ci, ci, vp]
     lib.cpt_render_megakernel_host.restype = ci
-    lib.cpt_backward_megakernel_host.argtypes = scene_args + [ci] * 6 + [vp, vp]
+    lib.cpt_backward_megakernel_host.argtypes = (
+        scene_args + [ci] * 6 + [vp, vp] + [ci] * 2
+        + [ctypes.c_longlong, vp, vp, ctypes.POINTER(ctypes.c_longlong)])
     lib.cpt_backward_megakernel_host.restype = ci
+    lib.cpt_slot_floats_host.argtypes = [ci] * 6
+    lib.cpt_slot_floats_host.restype = ci
     lib.cpt_light_records_host.argtypes = (
         [vp, ci] * 5 + [ctypes.POINTER(ctypes.c_float)] + [ci] * 9 + [vp] * 4)
     lib.cpt_light_records_host.restype = ci
@@ -285,6 +289,61 @@ def light_records_hostbuild(packed, cam_params, seed, width, height, n_paths,
     return pix, r, g, b
 
 
+def backward_rows_hostbuild(packed, cam_params, seed, width, height, spp,
+                            max_bounces, g_img, sample_offset=0, full=False,
+                            tex_grads=False, packed_grid=None, physical=False,
+                            geo=False, pixel_offset=0, n_local=None,
+                            schedule="flat", capacity=None, record=False):
+    """``backward_rows_cuda`` computed by the host build of the backward
+    kernel's math (no FMA contraction), one pixel at a time, on CPU tables:
+    the gradient rows (float64 sums) of the pixel range. ``schedule``:
+    "flat" (the kernel's two passes, backward_pixel) or "nested" (a loop over
+    samples around a replay and a reverse loop); ``capacity``: slots per
+    pixel's stack (default: what the CUDA wrapper derives). With ``record``
+    also the nonzero contributions in the order they were made: (rows, int32
+    row indices, float32 values)."""
+    n = width * height if n_local is None else n_local
+    args, _tables = _scene_args(packed, cam_params, seed, width, height, spp,
+                                max_bounces, pixel_offset, n, sample_offset,
+                                0.0, packed_grid=packed_grid)
+    g = (g_img.detach().reshape(n, 3).to(torch.float32) / spp).contiguous()
+    tex_grads = bool(tex_grads) and packed.textured
+    full = full or physical or geo
+    texels = packed.tex_counts[1]
+    rows = torch.zeros(tvjp._grad_rows(packed.counts, full,
+                                       texels if tex_grads else 0, physical, geo),
+                       dtype=torch.float64)
+    if capacity is None:
+        slot = tvjp._slot_floats(tvjp._st_planes(full, packed.textured, tex_grads,
+                                                 packed.tex_nmap, physical))
+        capacity = tvjp._stack_slots(spp, max_bounces, n, slot, full)
+    lib = _host_kernel(False)
+    cap = 0
+    while True:
+        rec_rows = np.empty(cap, np.int32)
+        rec_vals = np.empty(cap, np.float32)
+        count = ctypes.c_longlong(0)
+        got = lib.cpt_backward_megakernel_host(
+            *args, int(full), int(physical), int(geo), texels, int(tex_grads),
+            int(packed.tex_nmap), g.data_ptr(), rows.data_ptr(),
+            ("flat", "nested").index(schedule), int(capacity),
+            cap,
+            _ptr(rec_rows) if record else None, _ptr(rec_vals) if record else None,
+            ctypes.byref(count))
+        assert got == rows.numel(), (got, rows.numel())
+        if not record:
+            return rows
+        if count.value <= cap:
+            return rows, rec_rows[:count.value], rec_vals[:count.value]
+        cap = count.value
+
+
+def slot_floats_hostbuild(full, physical, geo, textured, tex_grads, nmap):
+    """The backward kernel's floats per checkpoint slot (csrc: tex_layout)."""
+    return _host_kernel(False).cpt_slot_floats_host(
+        int(full), int(physical), int(geo), int(textured), int(tex_grads), int(nmap))
+
+
 def backward_grads_hostbuild(packed, cam_params, seed, width, height, spp,
                              max_bounces, g_img, sample_offset=0, full=False,
                              tex_grads=False, packed_grid=None, physical=False,
@@ -293,20 +352,10 @@ def backward_grads_hostbuild(packed, cam_params, seed, width, height, spp,
     kernel's math (no FMA contraction), one pixel at a time, on CPU tables:
     (PackedScene cotangent, camera cotangent), unpacked from the gradient
     rows by the port's own ``_unpack_rows``."""
-    n = width * height
-    args, _tables = _scene_args(packed, cam_params, seed, width, height, spp,
-                                max_bounces, 0, n, sample_offset, 0.0,
-                                packed_grid=packed_grid)
-    g = (g_img.detach().reshape(n, 3).to(torch.float32) / spp).contiguous()
+    rows = backward_rows_hostbuild(packed, cam_params, seed, width, height, spp,
+                                   max_bounces, g_img, sample_offset, full,
+                                   tex_grads, packed_grid, physical, geo)
     tex_grads = bool(tex_grads) and packed.textured
-    texels = packed.tex_counts[1]
-    rows = torch.zeros(tvjp._grad_rows(packed.counts, full,
-                                       texels if tex_grads else 0, physical, geo),
-                       dtype=torch.float64)
-    got = _host_kernel(False).cpt_backward_megakernel_host(
-        *args, int(full), int(physical), int(geo), texels, int(tex_grads),
-        int(packed.tex_nmap), g.data_ptr(), rows.data_ptr())
-    assert got == rows.numel(), (got, rows.numel())
     return tvjp._unpack_rows(rows, packed, full, tex_grads, physical, geo)
 
 
