@@ -29,13 +29,20 @@ prints no result. It
     nested loops they replaced at 16 and 64 spp (``[k2 lanes]``),
 11. holds the forward kernel's physical (unbiased MIS) and bidirectional
     instantiations against their plain versions on the seven scenes and
-    against goldens, and the light-tracing kernel's records, with and without
-    the bidirectional weights, against its plain version on six scenes,
+    against goldens, and the light-tracing kernel, with and without the
+    bidirectional weights, against its plain version on six scenes: its
+    record sink record by record, its image sink against the plain records
+    summed,
 12. drives the unbiased paths at full size — Cornell 800x800, 8 bounces,
     2000 spp through ``ProgressiveRenderer(physical=True)``;
     ``render_bidir_fast`` on the caustic scene, 512x512, 256 spp + 2,097,152
     light paths, 8 bounces; ``render_lighttrace_fast`` at that path count —
-    counts each instantiation's launches and times them apart,
+    counts each instantiation's launches (one light-kernel launch of the
+    image sink per call, no ``index_add_``) and times them apart: the image
+    sink beside the records + ``index_add_`` of all records and of the
+    non-empty ones, with the light kernel's registers and the lane
+    efficiency of its bounce loop (one path per lane) and of a schedule that
+    regenerates paths over the card's resident lanes,
 13. the textured path: holds the forward kernel's textured instantiations
     (default, physical, bidir) against their plain versions on four textured
     scenes, drives ``ProgressiveRenderer`` on the ``textured`` preset at
@@ -351,6 +358,20 @@ def record_match(got, want):
         ok &= torch.isclose(g, w, rtol=1e-4, atol=1e-6 * big)
         err = max(err, float(((g - w).abs() * same_pix).max()))
     return float(ok.float().mean()), float(same_pix.float().mean()), err, big
+
+
+def light_images_agree(got: torch.Tensor, want: torch.Tensor, share: float, n_records: int,
+                       big: float, n_paths: int) -> bool:
+    """Two light-traced images (divided by ``n_paths``) under the bars of
+    tests/test_lighttrace.py:274-277 — mean gap < 1e-5, 99.5 % of pixels
+    below 2e-5, largest gap < 2e-3 — where a record whose gate flipped (the
+    ``1 - share`` of ``n_records`` that disagree) may move its pixel by its
+    own value (at most ``big`` / ``n_paths``)."""
+    d = (got - want).abs()
+    flipped = round((1.0 - share) * n_records)
+    return (bool(torch.isfinite(got).all()) and float(d.mean()) < 1e-5
+            and float(d.max()) < 2e-3 + flipped * big / n_paths
+            and float((d < 2e-5).float().mean()) > 0.995)
 
 
 def golden_check(name: str, got: np.ndarray, want: np.ndarray, corr_min=None):
@@ -1014,13 +1035,20 @@ def main() -> int:
                 f"to {big:.3g}; image gap mean {float(d.mean()):.2e}, max "
                 f"{float(d.max()):.2e}, {float((d < 2e-5).float().mean()):.4%} below 2e-5")
             check(share >= 0.999, f"light {name} nu={nu}: only {share:.4%} of records match")
-            # a record whose gate flipped moves its pixel by its own value
-            flipped = round((1.0 - share) * got[0].numel())
-            check(float(d.mean()) < 1e-5
-                  and float(d.max()) < 2e-3 + flipped * big / L_PATHS
-                  and float((d < 2e-5).float().mean()) > 0.995,
+            check(light_images_agree(img_k, img_p, share, got[0].numel(), big, L_PATHS),
                   f"light {name} nu={nu}: images differ")
-            report["light_vs_plain"][f"{name}/{nu}"] = (share, same_pix, err_l)
+            # the image sink: the same splats, added by the kernel itself
+            img_i = lk.light_image_cuda(packed_s, cp, 3, LW, LH, L_PATHS, 6,
+                                        bidir_nu=nu) / L_PATHS
+            torch.cuda.synchronize()
+            d_i = (img_i - img_p).abs()
+            log(f"[light kernel vs plain] {name:16s} nu={nu}: image sink against the plain "
+                f"records summed: gap mean {float(d_i.mean()):.2e}, max {float(d_i.max()):.2e}, "
+                f"{float((d_i < 2e-5).float().mean()):.4%} below 2e-5")
+            check(light_images_agree(img_i, img_p, share, got[0].numel(), big, L_PATHS),
+                  f"light image sink {name} nu={nu}: image differs from the plain records'")
+            report["light_vs_plain"][f"{name}/{nu}"] = (share, same_pix, err_l,
+                                                        float(d_i.max()))
     no_light = mk.pack_scene(presets.cornell(), dev)
     no_light = type(no_light)(*no_light.tables(), no_light.counts[:4] + (0,))
     try:
@@ -1114,7 +1142,7 @@ def main() -> int:
     mk.LAUNCH_COUNT = 0            # every count to 0 just before the path ...
     mk.LAUNCHES_BY_VARIANT[:] = [0, 0, 0]
     lk.LAUNCH_COUNT = 0
-    lk.LAUNCHES_BY_VARIANT[:] = [0, 0]
+    lk.LAUNCHES_BY_VARIANT[:] = [0, 0, 0, 0]
     lk.SPLAT_CALLS = 0
     torch.cuda.synchronize()
     t0 = time.time()
@@ -1123,19 +1151,21 @@ def main() -> int:
     bidir_main_s = time.time() - t0
     launches_b = (list(mk.LAUNCHES_BY_VARIANT), list(lk.LAUNCHES_BY_VARIANT),
                   lk.SPLAT_CALLS)   # ... and read just after
-    check(launches_b == ([0, 0, 1], [0, 1], 1),
+    check(launches_b == ([0, 0, 1], [0, 0, 0, 1], 0),
           f"bidir main path launched {launches_b}, not one eye-half kernel, one light "
-          "kernel and one index_add_")
+          "kernel of the image sink and no index_add_")
     check(tuple(bidir_img.shape) == (bh, bw, 3) and bool(torch.isfinite(bidir_img).all())
           and float(bidir_img.min()) >= 0.0, "bidir main-path image wrong")
-    lk.LAUNCHES_BY_VARIANT[:] = [0, 0]
+    lk.LAUNCHES_BY_VARIANT[:] = [0, 0, 0, 0]
+    lk.SPLAT_CALLS = 0
     lt_img = lk.render_lighttrace_fast(packed_b, cp, light_seed, bw, bh, n_paths,
                                        max_bounces=bnb)
     lt_again = lk.render_lighttrace_fast(packed_b, cp, light_seed, bw, bh, n_paths,
                                          max_bounces=bnb)
     torch.cuda.synchronize()
     launches_lt = list(lk.LAUNCHES_BY_VARIANT)
-    check(launches_lt == [2, 0], f"light tracing alone launched {launches_lt}")
+    check(launches_lt == [0, 0, 2, 0] and lk.SPLAT_CALLS == 0,
+          f"light tracing alone launched {launches_lt}, {lk.SPLAT_CALLS} index_add_")
     two_runs_gap = float((lt_img - lt_again).abs().max())
     check(two_runs_gap <= 1e-5 * float(lt_img.max()),
           f"two runs of the light image differ by {two_runs_gap:.2e}")
@@ -1147,7 +1177,8 @@ def main() -> int:
     lit_lt = float((lt_img.sum(-1) > 1e-4).float().mean())
     log(f"[bidir main path] render_bidir_fast {BIDIR['scene']} {bw}x{bh} {bnb} bounces "
         f"{bspp} spp + {n_paths} light paths: launches {launches_b[0]} (eye half by "
-        f"instantiation), {launches_b[1]} (light kernel), {launches_b[2]} index_add_; "
+        f"instantiation), {launches_b[1]} (light kernel by <image sink, bidir>), "
+        f"{launches_b[2]} index_add_; "
         f"{bidir_main_s:.3f} s; lit pixels {lit_b:.1%} (light tracing alone {lit_lt:.1%}: "
         f"no glass); two runs of the light image differ by {two_runs_gap:.2e} at most "
         f"(values up to {float(lt_img.max()):.3g})")
@@ -1169,11 +1200,16 @@ def main() -> int:
           "bidir instantiation disagrees with plain at full width")
     light = {}
     for label, nu in (("light", None), ("light_bidir", nu_main)):
+        bidir = nu is not None
+        occ_i = lk.light_occupancy(bidir, splat=True)
+        occ_r = lk.light_occupancy(bidir, splat=False)
         stats_l = {}
         torch.cuda.synchronize()
         t0 = time.time()
         want = lk.light_records_plain(packed_b, cp, light_seed, bw, bh, n_paths, bnb,
-                                      bidir_nu=nu, stats=stats_l)
+                                      bidir_nu=nu, stats=stats_l,
+                                      n_lanes=occ_i["resident_lanes"])
+        want_img = lk.splat_records(want, bw, bh)
         torch.cuda.synchronize()
         l_plain_ms = (time.time() - t0) * 1e3
         got = lk.light_records_cuda(packed_b, cp, light_seed, bw, bh, n_paths, bnb,
@@ -1182,28 +1218,82 @@ def main() -> int:
         share, same_pix, err_l, big = record_match(got, want)
         check(share >= 0.999, f"{label}: only {share:.4%} of records match at full size")
         del want
-        l_ms = median_ms(lambda: lk.light_records_cuda(packed_b, cp, light_seed, bw, bh,
-                                                       n_paths, bnb, bidir_nu=nu))
+        # the image sink against the plain records summed
+        img_k = lk.light_image_cuda(packed_b, cp, light_seed, bw, bh, n_paths, bnb,
+                                    bidir_nu=nu) / n_paths
+        check(light_images_agree(img_k, want_img / n_paths, share, got[0].numel(), big,
+                                 n_paths),
+              f"{label}: the image sink differs from the plain records summed")
+        img_err = float((img_k - want_img / n_paths).abs().max())
+        keep = (got[1] != 0) | (got[2] != 0) | (got[3] != 0)
+        hottest = int(torch.bincount(got[0][keep].long(), minlength=bw * bh).max())
+        n_kept = int(keep.sum())
+        del want_img, img_k, keep
+
+        def image():
+            return lk.light_image_cuda(packed_b, cp, light_seed, bw, bh, n_paths, bnb,
+                                       bidir_nu=nu)
+
+        def records():
+            return lk.light_records_cuda(packed_b, cp, light_seed, bw, bh, n_paths, bnb,
+                                         bidir_nu=nu)
+
+        def masked_add(recs):
+            # the nearest library route: index_add_ of the non-empty records only
+            pix, r, g, b = recs
+            nonzero = (r != 0) | (g != 0) | (b != 0)
+            rgb = torch.stack([r[nonzero], g[nonzero], b[nonzero]], -1)
+            return torch.zeros((bw * bh, 3), dtype=torch.float32,
+                               device=dev).index_add_(0, pix[nonzero], rgb)
+
+        i_ms = median_ms(image)                                      # (a)
+        l_ms = median_ms(records)
         splat_ms = median_ms(lambda: lk.splat_records(got, bw, bh))
+        route_b_ms = median_ms(lambda: lk.splat_records(records(), bw, bh))   # (b)
+        masked_ms = median_ms(lambda: masked_add(got))
+        route_c_ms = median_ms(lambda: masked_add(records()))        # (c)
         record_bytes = 16 * (bnb + 1) * n_paths
-        l_flops = light_flop_count(packed_b.counts, stats_l, bidir=nu is not None)
+        l_flops = light_flop_count(packed_b.counts, stats_l, bidir=bidir)
         l_bound = bound_of(l_flops, packed_b.table_bytes + record_bytes)
-        light[label] = dict(ms=l_ms, plain_ms=l_plain_ms, splat_ms=splat_ms, share=share,
-                            max_abs_err=err_l, bound=l_bound, stats=stats_l,
+        i_bound = bound_of(l_flops, packed_b.table_bytes + 12 * bw * bh)
+        eff = {k: stats_l["path_bounces"] / (32 * stats_l[k])
+               for k in ("warp_iterations", "warp_iterations_nested")}
+        light[label] = dict(ms=l_ms, image_ms=i_ms, plain_ms=l_plain_ms, splat_ms=splat_ms,
+                            route_b_ms=route_b_ms, route_c_ms=route_c_ms,
+                            masked_splat_ms=masked_ms, share=share, max_abs_err=err_l,
+                            image_max_abs_err=img_err, bound=l_bound, image_bound=i_bound,
+                            stats=stats_l, lane_efficiency=eff, hottest_pixel_splats=hottest,
+                            nonempty_records=n_kept, occupancy_image=occ_i,
+                            occupancy_records=occ_r,
                             record_bytes_ms=record_bytes / PEAK_BYTES_PER_S * 1e3)
         log(f"[light bench] {BIDIR['scene']} {bw}x{bh} {bnb} bounces {n_paths} paths, "
-            f"nu={nu}: kernel {l_ms:.3f} ms = {n_paths / l_ms / 1e3:.1f} M paths/s (median "
-            f"of 5), index_add_ of its records {splat_ms:.3f} ms, plain version "
-            f"{l_plain_ms:.0f} ms; {share:.4%} of {got[0].numel()} records match plain "
-            f"(same pixel {same_pix:.4%}), max abs err {err_l:.2e} of values up to {big:.3g};"
-            f" {stats_l['path_bounces'] / stats_l['paths']:.3f} bounces, "
+            f"nu={nu} (medians of 5): (a) image sink {i_ms:.3f} ms = "
+            f"{n_paths / i_ms / 1e3:.1f} M paths/s; (b) record sink {l_ms:.3f} ms + "
+            f"index_add_ of all {got[0].numel()} records {splat_ms:.3f} ms, together "
+            f"{route_b_ms:.3f} ms; (c) record sink + index_add_ of the {n_kept} non-empty "
+            f"records (masked first; the add alone {masked_ms:.3f} ms) {route_c_ms:.3f} ms; "
+            f"(a) is {route_c_ms / i_ms:.2f}x faster than (c), {route_b_ms / i_ms:.2f}x than "
+            f"(b); plain version {l_plain_ms:.0f} ms")
+        log(f"[light bench] nu={nu}: records {share:.4%} of {got[0].numel()} match plain "
+            f"(same pixel {same_pix:.4%}), max abs err {err_l:.2e} of values up to {big:.3g}; "
+            f"image sink vs the plain records summed: max abs err {img_err:.2e}; "
+            f"{stats_l['path_bounces'] / stats_l['paths']:.3f} bounces, "
             f"{stats_l['vis_rays'] / stats_l['paths']:.3f} visibility rays "
             f"({stats_l['vis_rays_occluded'] / max(stats_l['vis_rays'], 1):.1%} occluded) and "
-            f"{stats_l['splats'] / stats_l['paths']:.3f} splats per path")
+            f"{stats_l['splats'] / stats_l['paths']:.3f} splats per path; hottest pixel "
+            f"{hottest} splats")
+        log(f"[light bench] nu={nu}: image sink {occ_i['registers']} registers, "
+            f"{occ_i['blocks_per_sm']} blocks of {occ_i['threads_per_block']} per SM; record "
+            f"sink {occ_r['registers']} registers, {occ_r['blocks_per_sm']} blocks per SM; "
+            f"lane efficiency of the bounce loop: one path per lane (the kernel) "
+            f"{eff['warp_iterations_nested']:.3f}, regenerating over the "
+            f"{occ_i['resident_lanes']} resident lanes (measured slower, PERF.md) "
+            f"{eff['warp_iterations']:.3f}")
         log(f"[bound] light kernel, nu={nu}: {l_flops:.3e} float32 operations -> "
-            f"{l_bound[2]:.3f} ms; tables in and records out ({record_bytes:.3e} B, "
-            f"{light[label]['record_bytes_ms']:.3f} ms of it) -> {l_bound[3]:.3f} ms; "
-            f"kernel at {l_bound[0] / l_ms:.1%} of its bound ({l_bound[1]})")
+            f"{l_bound[2]:.3f} ms; image sink: tables in, image out ({12 * bw * bh} B) -> "
+            f"{i_bound[3]:.4f} ms, at {i_bound[0] / i_ms:.1%} of its bound ({i_bound[1]}); "
+            f"record sink: tables in and records out ({record_bytes:.3e} B) -> "
+            f"{l_bound[3]:.3f} ms, at {l_bound[0] / l_ms:.1%} of its bound ({l_bound[1]})")
         del got
     eye_ms = median_ms(lambda: mk.render_block_sums_cuda(
         packed_b, cp, 0, bw, bh, bspp, bnb, 0, bw * bh, physical=True, bidir_nu=nu_main))
@@ -1215,12 +1305,15 @@ def main() -> int:
     eye_flops = flop_count(packed_b.counts, stats_e, bspp / BIDIR_PLAIN_SPP, physical=True,
                            bidir=True)
     eye_bound = bound_of(eye_flops, packed_b.table_bytes + 12 * bw * bh)
-    log(f"[bidir bench] {BIDIR['scene']} {bw}x{bh} {bnb} bounces: eye half ({bspp} spp, "
-        f"bidir instantiation) {eye_ms:.2f} ms = {bw * bh * bspp / eye_ms / 1e3:.1f} M "
-        f"primary rays/s; light half {light['light_bidir']['ms']:.3f} ms + index_add_ "
-        f"{light['light_bidir']['splat_ms']:.3f} ms; render_bidir_fast {bidir_ms:.2f} ms "
-        f"(medians of 5). Eye half vs plain at {BIDIR_PLAIN_SPP} spp: {eye_rate:.4%} of "
-        f"pixels, max abs err {eye_err:.2e}; plain version {eye_plain_ms:.0f} ms")
+    light_half_ms = light["light_bidir"]["image_ms"]
+    log(f"[bidir bench] {BIDIR['scene']} {bw}x{bh} {bnb} bounces: render_bidir_fast "
+        f"{bidir_ms:.2f} ms = eye half ({bspp} spp, bidir instantiation) {eye_ms:.2f} ms "
+        f"({bw * bh * bspp / eye_ms / 1e3:.1f} M primary rays/s) + light half (image sink) "
+        f"{light_half_ms:.3f} ms + the rest {bidir_ms - eye_ms - light_half_ms:.3f} ms "
+        f"(medians of 5; the light half's records + index_add_ would take "
+        f"{light['light_bidir']['route_b_ms']:.3f} ms). Eye half vs plain at "
+        f"{BIDIR_PLAIN_SPP} spp: {eye_rate:.4%} of pixels, max abs err {eye_err:.2e}; plain "
+        f"version {eye_plain_ms:.0f} ms")
     log(f"[bound] bidir instantiation: {eye_flops:.3e} float32 operations -> "
         f"{eye_bound[2]:.2f} ms; bytes -> {eye_bound[3]:.4f} ms; kernel at "
         f"{eye_bound[0] / eye_ms:.1%} of its bound")
@@ -2204,9 +2297,6 @@ def main() -> int:
         "route": "cuda",
         "source": "cuda_path_tracer_ss_torch/csrc/lightkernel.cu",
         "replaces": "cuda_path_tracer_ss_tpu/ops/pallas/lightkernel.py:48",
-        # no single PyTorch call traces light paths; the index_add_ that sums
-        # the records is outside the kernel and is timed apart (splat_ms)
-        "library_ms": None,
     }
     variants = [{
         **k1_common,
@@ -2239,20 +2329,34 @@ def main() -> int:
         "share_of_bound": eye_bound[0] / eye_ms,
     }] + [{
         **k3_common,
-        "name": f"light_records[{'bidir' if label == 'light_bidir' else 'plain weights'}]",
-        "launches": launches_b[1][1] if label == "light_bidir" else launches_lt[0],
-        "max_abs_err": v["max_abs_err"],
-        "ms": v["ms"],
+        "name": f"light_{sink}[{'bidir' if label == 'light_bidir' else 'plain weights'}]",
+        # main path: the image sink, once per render_bidir_fast (bidir) and per
+        # render_lighttrace_fast (plain weights); the record sink is on no path
+        "launches": ((launches_b[1][3] if label == "light_bidir" else launches_lt[2])
+                     if sink == "image" else
+                     (launches_b[1][1] if label == "light_bidir" else launches_lt[0])),
+        "max_abs_err": v["image_max_abs_err"] if sink == "image" else v["max_abs_err"],
+        "ms": v["image_ms"] if sink == "image" else v["ms"],
         "plain_ms": v["plain_ms"],
-        "bound_ms": v["bound"][0],
-        "bound_by": v["bound"][1],
+        "bound_ms": (v["image_bound"] if sink == "image" else v["bound"])[0],
+        "bound_by": (v["image_bound"] if sink == "image" else v["bound"])[1],
+        # the image's nearest library route: the record sink + index_add_ of
+        # the non-empty records; no PyTorch call writes the records
+        "library_ms": v["route_c_ms"] if sink == "image" else None,
         "shape": f"{BIDIR['scene']} {bw}x{bh}, {bnb} bounces, {n_paths} paths, one launch",
-        "plain_shape": "the same",
+        "plain_shape": ("the same, plain records summed by index_add_" if sink == "image"
+                        else "the same"),
+        "registers": v[f"occupancy_{'image' if sink == 'image' else 'records'}"]["registers"],
+        "lane_efficiency": v["lane_efficiency"]["warp_iterations_nested"],
+        "lane_efficiency_regenerating": v["lane_efficiency"]["warp_iterations"],
         "match_rate": v["share"],
+        "route_b_ms": v["route_b_ms"],
         "splat_ms": v["splat_ms"],
         "record_bytes_ms": v["record_bytes_ms"],
-        "share_of_bound": v["bound"][0] / v["ms"],
-    } for label, v in light.items()]
+        "hottest_pixel_splats": v["hottest_pixel_splats"],
+        "share_of_bound": ((v["image_bound"][0] / v["image_ms"]) if sink == "image"
+                           else v["bound"][0] / v["ms"]),
+    } for sink in ("records", "image") for label, v in light.items()]
     kernels = {"kernels": [{
         "name": "render_megakernel",
         "route": "cuda",
@@ -2447,6 +2551,7 @@ def main() -> int:
     report.update(kernels=kernels["kernels"], main_path_s=main_s, train=train,
                   physical_main_path_s=phys_main_s, bidir_main_path_s=bidir_main_s,
                   render_bidir_fast_ms=bidir_ms, light_two_runs_gap=two_runs_gap,
+                  light_bench=light,
                   main_path_passes=[m["pass_samples"] for m in passes],
                   total_s=time.time() - t_start)
     if args.out_dir:

@@ -34,7 +34,7 @@ from .models.scene import (
     scene_from_numpy,
     scene_to_numpy,
 )
-from .ops.cuda.lightkernel import light_records, render_lighttrace_fast
+from .ops.cuda.lightkernel import light_image, light_records, render_lighttrace_fast
 from .ops.cuda.megakernel import (
     PackedScene,
     pack_scene,
@@ -83,6 +83,7 @@ __all__ = [
     "extract_params",
     "get_scene",
     "invert",
+    "light_image",
     "light_records",
     "make_loss",
     "merge_params",

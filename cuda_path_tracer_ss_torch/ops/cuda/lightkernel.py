@@ -5,31 +5,44 @@ plain PyTorch version, and the image entry point.
 The CUDA kernel (``csrc/lightkernel.cu``, device math in
 ``csrc/lightkernel.cuh``) replaces the TPU kernel
 ``cuda_path_tracer_ss_tpu/ops/pallas/lightkernel.py::_make_light_kernel``,
-with and without the bidirectional MIS weights (``bidir_nu``). Like that
-kernel it stops where a scatter-add begins: it writes one splat RECORD per
-path vertex — planes ``pix`` (int32) and ``r, g, b`` (float32) of
-``[max_bounces + 1, n_local]``, slot 0 the emitter surface, slot ``b + 1`` the
-camera connection of bounce ``b``, zeros where a gate fails or the path has
-ended — and ``render_lighttrace_fast`` sums the records into the image with
-one ``index_add_`` outside the kernel.
+with and without the bidirectional MIS weights (``bidir_nu``), and the
+scatter-add the TPU kernel leaves to XLA. It has two sinks for the splats
+its gates pass, each an instantiation of the same per-path arithmetic:
+
+- the IMAGE sink (``light_image_cuda``, the render path): every splat is
+  added into the unnormalised image ``[width * height, 3]`` with float
+  atomics; no records, no ``index_add_``;
+- the RECORD sink (``light_records_cuda``): one splat record per path vertex
+  — planes ``pix`` (int32) and ``r, g, b`` (float32) of ``[max_bounces + 1,
+  n_local]``, slot 0 the emitter surface, slot ``b + 1`` the camera
+  connection of bounce ``b``, zeros where a gate fails or the path has ended
+  — the contract the plain version keeps, so that the kernel can be held
+  against it record by record.
 
 What bounds it on an H100: FP32 arithmetic throughput. A path tests every
-primitive twice per bounce (nearest hit, visibility of the eye), while the
-launch reads a few KB of tables and writes 16 bytes per record. What the
-design does about it: one thread per light path runs a plain bounce loop on
-scalar registers, loads its light and its material by index, skips the
-visibility sweep of a vertex that is off screen or faces away, and leaves the
-loop when its path dies. ``n_paths``, ``max_bounces``, the sample index and
-the path offset are runtime arguments: one build serves every batch.
+primitive twice per bounce (nearest hit, visibility of the eye), while a
+launch of the image sink reads a few KB of tables and adds into 12 bytes per
+pixel. What the design does about it: one thread per light path runs a plain
+bounce loop on scalar registers, loads its light and its material by index,
+skips the visibility sweep of a vertex that is off screen or faces away, and
+leaves the loop when its path dies; about one splat per path passes its
+gates, spread over the image, so the image sink's atomics barely meet.
+Per-lane regeneration (a persistent grid whose lanes open their next path as
+soon as one ends) doubles the bounce loop's lane efficiency but was measured
+slower and is not used (``csrc/lightkernel.cu``). ``n_paths``,
+``max_bounces``, the sample index and the path offset are runtime arguments:
+one build serves every batch.
 
 RNG: the counter streams of ``utils/rng.py`` keyed on (seed, GLOBAL path
 index, sample_idx); the kernel, the plain version and the eye paths' scatter
 cascade (``megakernel._scatter_sample``) are shared, so kernel and plain
-version agree record by record up to float op-order noise.
+version agree record by record up to float op-order noise, whatever the
+schedule.
 
-Device rule: the records are made on the device the packed tables live on. On
-a CUDA device the kernel is launched or the call raises; the plain version
-runs only for tables on the CPU, or when called by name.
+Device rule: the records and the image are made on the device the packed
+tables live on. On a CUDA device the kernel is launched or the call raises;
+the plain version (records, summed by ``splat_records``) runs only for tables
+on the CPU, or when called by name.
 """
 from __future__ import annotations
 
@@ -49,10 +62,12 @@ from .megakernel import (AL_COLS, CAM_FLOATS, M_COLS, PackedScene,
                          _check_tables, _dot, _make_sweep_fns, _normalize3,
                          _rotate_y_to, _scatter_sample)
 
-# Launches of the CUDA kernel made by this module's wrapper (and nowhere
-# else), in all and per instantiation [plain weights, bidirectional weights].
+# Launches of the CUDA kernel made by this module's wrappers (and nowhere
+# else), in all and per instantiation <SPLAT, BIDIR>: [records, plain
+# weights; records, bidirectional weights; image, plain weights; image,
+# bidirectional weights].
 LAUNCH_COUNT = 0
-LAUNCHES_BY_VARIANT = [0, 0]
+LAUNCHES_BY_VARIANT = [0, 0, 0, 0]
 # Calls of splat_records (one index_add_ each; no kernel of this package).
 SPLAT_CALLS = 0
 
@@ -124,7 +139,9 @@ def _light_records_plain(packed: PackedScene, cam: torch.Tensor, seed: int,
                          width: int, height: int, n_paths: int,
                          max_bounces: int, path_offset: int, n_local: int,
                          sample_idx: int, bidir_nu: Optional[float],
-                         stats: Optional[dict]) -> Records:
+                         stats: Optional[dict]):
+    """The records of one chunk of paths, and each path's bounces (the
+    kernel's loop iterations on it)."""
     device = packed.device
     num_als = packed.counts[4]
     L = num_als
@@ -213,6 +230,7 @@ def _light_records_plain(packed: PackedScene, cam: torch.Tensor, seed: int,
     oy = pty + ney * eps
     oz = ptz + nez * eps
     active = in_range
+    length = torch.zeros(n_local, dtype=torch.int64, device=device)
 
     # bidirectional carries (render/bidir.py's U / r0 / pr recurrences)
     cos0 = torch.abs(_dot(nex, ney, nez, dx, dy, dz))
@@ -227,6 +245,7 @@ def _light_records_plain(packed: PackedScene, cam: torch.Tensor, seed: int,
     for b in range(max_bounces):
         if not bool(active.any()):
             break                       # the remaining records stay zero
+        length += active
         if stats is not None:
             stats["path_bounces"] = (stats.get("path_bounces", 0)
                                      + int(active.sum()))
@@ -323,7 +342,21 @@ def _light_records_plain(packed: PackedScene, cam: torch.Tensor, seed: int,
 
     if stats is not None:
         stats["paths"] = stats.get("paths", 0) + int(in_range.sum())
-    return pix, cr, cg, cb
+    return (pix, cr, cg, cb), length
+
+
+def _warp_iterations(length: torch.Tensor, n_lanes: int) -> int:
+    """The bounce loop's iterations 32-lane warps issue over paths of
+    ``length`` bounces (local order) when ``n_lanes`` lanes trace them
+    regenerating: lane ``l`` takes paths ``l, l + n_lanes, ...`` and iterates
+    once per bounce of each; a warp iterates as long as its busiest lane.
+    With ``n_lanes`` >= the path count, one path per lane: the kernel's
+    schedule."""
+    n_lanes = max(1, min(int(n_lanes), length.numel()))
+    lanes = torch.arange(length.numel(), device=length.device) % n_lanes
+    per_lane = torch.zeros(-(-n_lanes // 32) * 32, dtype=torch.int64,
+                           device=length.device).index_add_(0, lanes, length)
+    return int(per_lane.reshape(-1, 32).amax(1).sum())
 
 
 def light_records_plain(packed: PackedScene, cam_params, seed: int,
@@ -332,7 +365,8 @@ def light_records_plain(packed: PackedScene, cam_params, seed: int,
                         path_offset: int = 0, n_local: Optional[int] = None,
                         sample_idx: int = 0,
                         bidir_nu: Optional[float] = None,
-                        stats: Optional[dict] = None) -> Records:
+                        stats: Optional[dict] = None,
+                        n_lanes: Optional[int] = None) -> Records:
     """The plain PyTorch version of the light kernel: records ``(pix, r, g,
     b)`` of ``[max_bounces + 1, n_local]`` for the paths with global indices
     ``[path_offset, path_offset + n_local)`` of a batch of ``n_paths``, on
@@ -340,7 +374,11 @@ def light_records_plain(packed: PackedScene, cam_params, seed: int,
     ``path_bounces`` (sweeps for the nearest hit), ``vis_rays`` (visibility
     sweeps whose result can change a record), ``vis_rays_occluded`` and
     ``splats`` (non-empty records) — the operation count behind the kernel's
-    bound."""
+    bound — and ``warp_iterations_nested`` / ``warp_iterations``: the bounce
+    loop's iterations the kernel's warps of 32 paths issue (one path per
+    lane), and those a schedule that regenerates paths over ``n_lanes``
+    lanes would issue (default: one lane per path). ``path_bounces`` over 32
+    times either is that schedule's lane efficiency."""
     if n_local is None:
         n_local = n_paths - path_offset
     _check_light_args(packed, width, height, n_paths, max_bounces,
@@ -348,12 +386,17 @@ def light_records_plain(packed: PackedScene, cam_params, seed: int,
     cam = _cam_tensor(cam_params, packed.device)
     prims = max(packed.counts[0] + packed.counts[1], 1)
     chunk = max(1, mk._PLAIN_CHUNK_ENTRIES // prims)
-    parts = [
+    parts, lengths = zip(*(
         _light_records_plain(packed, cam, int(seed), width, height, n_paths,
                              max_bounces, path_offset + start,
                              min(chunk, n_local - start), int(sample_idx),
                              bidir_nu, stats)
-        for start in range(0, n_local, chunk)]
+        for start in range(0, n_local, chunk)))
+    if stats is not None:
+        length = torch.cat(lengths)
+        for key, lanes in (("warp_iterations", n_lanes or n_local),
+                           ("warp_iterations_nested", n_local)):
+            stats[key] = stats.get(key, 0) + _warp_iterations(length, lanes)
     if len(parts) == 1:
         return parts[0]
     return tuple(torch.cat(planes, 1) for planes in zip(*parts))
@@ -364,21 +407,66 @@ def light_records_plain(packed: PackedScene, cam_params, seed: int,
 # ---------------------------------------------------------------------------
 
 def _kernel_fn():
-    """(library, launch function) of the built kernel library — built at
-    first use by utils/build.py — with the function's C types declared."""
+    """The built kernel library — built at first use by utils/build.py —
+    with its functions' C types declared."""
     from ...utils.build import load_kernels
 
     lib = load_kernels("lightkernel")
-    fn = lib.cpt_light_records
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, ci, vp, ci, vp, ci, vp, ci, vp, ci,       # tables
-                   ctypes.POINTER(ctypes.c_float),               # camera
-                   ci, ci, ci, ci, ci, ci, ci, ci, ci,           # scalars
-                   vp, vp, vp, vp, vp]                           # out, stream
-    fn.restype = ci
+    head = [vp, ci, vp, ci, vp, ci, vp, ci, vp, ci,              # tables
+            ctypes.POINTER(ctypes.c_float),                      # camera
+            ci, ci, ci, ci, ci, ci, ci, ci, ci]                  # scalars
+    lib.cpt_light_records.argtypes = head + [vp, vp, vp, vp, vp]  # out, stream
+    lib.cpt_light_image.argtypes = head + [vp, vp]                # image, stream
+    lib.cpt_light_records.restype = lib.cpt_light_image.restype = ci
+    lib.cpt_light_occupancy.argtypes = [ci, ci] + [ctypes.POINTER(ci)] * 4
+    lib.cpt_light_occupancy.restype = ci
     lib.cpt_light_error_string.argtypes = [ci]
     lib.cpt_light_error_string.restype = ctypes.c_char_p
-    return lib, fn
+    return lib
+
+
+def _launch(splat: bool, packed: PackedScene, cam_params, seed: int,
+            width: int, height: int, n_paths: int, max_bounces: int,
+            path_offset: int, n_local: Optional[int], sample_idx: int,
+            bidir_nu: Optional[float]):
+    """Launch instantiation <SPLAT = splat, BIDIR = bidir_nu given> on the
+    current stream of the tables' device, into outputs zeroed here; returns
+    the image ``[width * height, 3]`` or the records."""
+    global LAUNCH_COUNT
+    if n_local is None:
+        n_local = n_paths - path_offset
+    _check_light_args(packed, width, height, n_paths, max_bounces,
+                      path_offset, n_local, sample_idx, seed, bidir_nu)
+    _check_tables(packed)
+    lib = _kernel_fn()
+    cam = _cam_table(cam_params, 0.0, bidir_nu)
+    cam_c = (ctypes.c_float * CAM_FLOATS)(*cam.tolist())
+    args = []
+    for table, count in zip(packed.tables()[:5], packed.counts):
+        args += [table.data_ptr(), count]
+    args += [cam_c, int(seed), int(path_offset), int(n_local),
+             int(sample_idx), int(n_paths), int(max_bounces), int(width),
+             int(height), int(bidir_nu is not None)]
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if splat:
+            out = torch.zeros((width * height, 3), dtype=torch.float32,
+                              device=packed.device)
+            err = lib.cpt_light_image(*args, out.data_ptr(), stream)
+        else:
+            shape = (max_bounces + 1, n_local)
+            out = (torch.zeros(shape, dtype=torch.int32, device=packed.device),
+                   *(torch.zeros(shape, dtype=torch.float32,
+                                 device=packed.device) for _ in range(3)))
+            err = lib.cpt_light_records(*args, *(t.data_ptr() for t in out),
+                                        stream)
+    if err != 0:
+        raise RuntimeError("light kernel launch failed: CUDA error "
+                           f"{err} ({lib.cpt_light_error_string(err).decode()})")
+    LAUNCH_COUNT += 1
+    LAUNCHES_BY_VARIANT[2 * int(splat) + int(bidir_nu is not None)] += 1
+    return out
 
 
 def light_records_cuda(packed: PackedScene, cam_params, seed: int,
@@ -387,42 +475,46 @@ def light_records_cuda(packed: PackedScene, cam_params, seed: int,
                        path_offset: int = 0, n_local: Optional[int] = None,
                        sample_idx: int = 0,
                        bidir_nu: Optional[float] = None) -> Records:
-    """Launch the CUDA light kernel: records ``(pix, r, g, b)`` of
-    ``[max_bounces + 1, n_local]``. Launches on the current stream of the
-    tables' device and does not synchronise; raises if the kernel does not
-    build or the launch is refused."""
-    global LAUNCH_COUNT
-    if n_local is None:
-        n_local = n_paths - path_offset
-    _check_light_args(packed, width, height, n_paths, max_bounces,
-                      path_offset, n_local, sample_idx, seed, bidir_nu)
-    _check_tables(packed)
-    lib, fn = _kernel_fn()
-    cam = _cam_table(cam_params, 0.0, bidir_nu)
-    cam_c = (ctypes.c_float * CAM_FLOATS)(*cam.tolist())
-    num_s, num_t, num_m, num_pl, num_al = packed.counts
-    shape = (max_bounces + 1, n_local)
-    with torch.cuda.device(packed.device):
-        pix = torch.empty(shape, dtype=torch.int32, device=packed.device)
-        r, g, b = (torch.empty(shape, dtype=torch.float32,
-                               device=packed.device) for _ in range(3))
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(packed.spheres.data_ptr(), num_s,
-                 packed.triangles.data_ptr(), num_t,
-                 packed.materials.data_ptr(), num_m,
-                 packed.point_lights.data_ptr(), num_pl,
-                 packed.area_lights.data_ptr(), num_al, cam_c,
-                 int(seed), int(path_offset), int(n_local), int(sample_idx),
-                 int(n_paths), int(max_bounces), int(width), int(height),
-                 int(bidir_nu is not None),
-                 pix.data_ptr(), r.data_ptr(), g.data_ptr(), b.data_ptr(),
-                 stream)
+    """Launch the CUDA light kernel with its record sink: records ``(pix, r,
+    g, b)`` of ``[max_bounces + 1, n_local]``. Launches on the current stream
+    of the tables' device and does not synchronise; raises if the kernel
+    does not build or the launch is refused."""
+    return _launch(False, packed, cam_params, seed, width, height, n_paths,
+                   max_bounces, path_offset, n_local, sample_idx, bidir_nu)
+
+
+def light_image_cuda(packed: PackedScene, cam_params, seed: int, width: int,
+                     height: int, n_paths: int,
+                     max_bounces: int = DEFAULT_MAX_BOUNCES,
+                     path_offset: int = 0, n_local: Optional[int] = None,
+                     sample_idx: int = 0,
+                     bidir_nu: Optional[float] = None) -> torch.Tensor:
+    """Launch the CUDA light kernel with its image sink: the UNNORMALISED
+    image ``[width * height, 3]`` the paths splat into — the sum of their
+    records, added with atomics (two calls agree to rounding, not to the
+    bit). Launches on the current stream of the tables' device and does not
+    synchronise; raises if the kernel does not build or the launch is
+    refused."""
+    return _launch(True, packed, cam_params, seed, width, height, n_paths,
+                   max_bounces, path_offset, n_local, sample_idx, bidir_nu)
+
+
+def light_occupancy(bidir: bool = False, splat: bool = True) -> dict:
+    """What a launch of instantiation <SPLAT = splat, BIDIR = bidir> gets on
+    the current CUDA device: ``registers`` per thread, ``blocks_per_sm``
+    (resident blocks of ``threads_per_block``), ``sms``, and
+    ``resident_lanes``, the threads the card holds at once."""
+    lib = _kernel_fn()
+    regs, blocks, sms, threads = (ctypes.c_int(0) for _ in range(4))
+    err = lib.cpt_light_occupancy(int(bidir), int(splat), ctypes.byref(regs),
+                                  ctypes.byref(blocks), ctypes.byref(sms),
+                                  ctypes.byref(threads))
     if err != 0:
-        raise RuntimeError("light kernel launch failed: CUDA error "
-                           f"{err} ({lib.cpt_light_error_string(err).decode()})")
-    LAUNCH_COUNT += 1
-    LAUNCHES_BY_VARIANT[int(bidir_nu is not None)] += 1
-    return pix, r, g, b
+        raise RuntimeError(f"occupancy query failed: CUDA error {err} "
+                           f"({lib.cpt_light_error_string(err).decode()})")
+    return {"registers": regs.value, "blocks_per_sm": blocks.value,
+            "sms": sms.value, "threads_per_block": threads.value,
+            "resident_lanes": blocks.value * sms.value * threads.value}
 
 
 def light_records(packed: PackedScene, cam_params, seed: int, width: int,
@@ -432,7 +524,7 @@ def light_records(packed: PackedScene, cam_params, seed: int, width: int,
                   sample_idx: int = 0,
                   bidir_nu: Optional[float] = None) -> Records:
     """Splat records of a block of light paths. CUDA tables go to the
-    kernel; CPU tables to the plain version."""
+    kernel's record sink; CPU tables to the plain version."""
     fn = (light_records_cuda if packed.device.type == "cuda"
           else light_records_plain)
     return fn(packed, cam_params, seed, width, height, n_paths, max_bounces,
@@ -453,6 +545,23 @@ def splat_records(records: Records, width: int, height: int) -> torch.Tensor:
     return img.index_add_(0, pix.reshape(-1), rgb)
 
 
+def light_image(packed: PackedScene, cam_params, seed: int, width: int,
+                height: int, n_paths: int,
+                max_bounces: int = DEFAULT_MAX_BOUNCES,
+                path_offset: int = 0, n_local: Optional[int] = None,
+                sample_idx: int = 0,
+                bidir_nu: Optional[float] = None) -> torch.Tensor:
+    """The UNNORMALISED image ``[width * height, 3]`` a block of light paths
+    splats. CUDA tables go to the kernel's image sink (one launch, nothing
+    else); CPU tables to the plain version's records, summed by
+    ``splat_records``."""
+    args = (packed, cam_params, seed, width, height, n_paths, max_bounces,
+            path_offset, n_local, sample_idx, bidir_nu)
+    if packed.device.type == "cuda":
+        return light_image_cuda(*args)
+    return splat_records(light_records_plain(*args), width, height)
+
+
 def render_lighttrace_fast(packed: PackedScene, cam_params, seed: int,
                            width: int, height: int, n_paths: int,
                            max_bounces: int = DEFAULT_MAX_BOUNCES,
@@ -463,7 +572,6 @@ def render_lighttrace_fast(packed: PackedScene, cam_params, seed: int,
     ``sample_idx`` for more samples), on the packed tables' device.
     ``bidir_nu`` weights every splat against the eye side's techniques
     (render/bidir.py): pass ``n_paths / spp`` of the eye half."""
-    records = light_records(packed, cam_params, seed, width, height, n_paths,
-                            max_bounces, 0, n_paths, sample_idx, bidir_nu)
-    img = splat_records(records, width, height)
+    img = light_image(packed, cam_params, seed, width, height, n_paths,
+                      max_bounces, 0, n_paths, sample_idx, bidir_nu)
     return (img / n_paths).reshape(height, width, 3)

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""K1 and K2 (the port's forward-render and replay-VJP kernels,
-``csrc/megakernel.cu`` and ``csrc/megakernel_vjp.cu``) on one CUDA device, in
-turns: against the kernels of another tree, and against patched copies of
-this tree that build their alternatives.
+"""K1, K2 and K3 (the port's forward-render, replay-VJP and light-tracing
+kernels, ``csrc/megakernel.cu``, ``csrc/megakernel_vjp.cu`` and
+``csrc/lightkernel.cu``) on one CUDA device, in turns: against the kernels of
+another tree, and against patched copies of this tree that build their
+alternatives.
 
 Run from the repository root, with the other tree (a commit taken with
 ``git archive`` into a git-ignored directory) as ``--parent``::
 
     mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
-    python3 k1_turns.py --parent build/parent [--kernels k1|k2|both]
+    python3 k1_turns.py --parent build/parent [--kernels k1|k2|k3|both|all]
 
 Every kernel is launched through its own tree's package: the other tree's
 ``cuda_path_tracer_ss_torch/`` and the patched copies of this one are copied
@@ -29,7 +30,15 @@ so each builds its library into its own ``build/`` with its own
 - ``stack1`` / ``stack2`` / ``stack4``: K2's stacks sized by the wrapper for
   at most 1 / 2 / 4 paths per round (``_stack_slots``);
 - ``k2_bounds5``: ``__launch_bounds__(THREADS_PER_BLOCK, 5)`` on
-  ``backward_kernel`` (at most 96 registers).
+  ``backward_kernel`` (at most 96 registers);
+- ``k3_regenerating``: K3 on a persistent grid (resident blocks per SM x
+  SMs, at most a block per 128 paths) whose lanes regenerate paths — lane
+  ``l`` traces paths ``l, l + n_lanes, ...``, one bounce per iteration,
+  opening its next path as soon as one ends — in place of one path per
+  lane;
+- ``k3_float4``: K3's image sink adds a splat with one ``float4`` atomic
+  into a ``[width * height, 4]`` image (the wrapper returns its first three
+  columns), in place of three ``float`` atomics into ``[width * height, 3]``.
 
 K1's phases (``--kernels k1`` or ``both``), each printed as it ends and kept
 in ``--out`` (JSON):
@@ -93,6 +102,30 @@ mesh-fit quad, geo, 128x128 x 4 spp x 2 bounces; and, once,
     ``k2_bounds5`` in cornell linear: ``PAIRS`` pairs each, scored as in
     phase 5 with the copy as the side that must win.
 
+K3's phases (``--kernels k3`` or ``all``), on caustic 512x512, 8 bounces,
+2,097,152 light paths, with plain weights and with the bidirectional ones
+(nu = 2,097,152 / 256):
+
+13. ``[k3 build]`` the light-kernel libraries of both trees and of the two
+    copies side by side; registers and spills of every instantiation (the
+    other tree: <bidir>; this tree: <bidir, image sink>).
+14. ``[k3 image]`` ``render_lighttrace_fast`` of both trees — the other
+    tree's record kernel + ``index_add_``, this tree's image sink — their
+    images compared (largest difference over the largest value), and in
+    turns other, this, this, other (medians of 5).
+    ``[k3 bidir]`` ``render_bidir_fast`` at 256 spp the same way.
+15. ``[k3 lanes]`` the lane efficiency of K3's bounce loop one path per
+    lane (this tree) and regenerating over the lanes the card holds at once,
+    the plain version's tally; and the image sink of both schedules timed on
+    the emission vertex alone (``max_bounces`` 0) and whole.
+16. ``[k3 turns schedule]`` the regenerating schedule (``k3_regenerating``)
+    against one path per lane (this tree), image sink, ``PAIRS`` pairs in
+    each weight mode, each side the median of 3 launches of 5 calls; it
+    replaces one path per lane only if it wins at least 9 of 10 pairs in each
+    mode and the medians differ by more than this tree's interquartile range.
+17. ``[k3 turns splat]`` ``k3_float4`` against this tree's three ``float``
+    atomics, the same way.
+
 Without a CUDA device it exits non-zero.
 """
 from __future__ import annotations
@@ -143,11 +176,81 @@ K2_GLOBAL = {  # the global-atomics route of full and physical mode, rows only
 }
 K2_ROWS_BOUND = 1e-4
 
+# K3's cases: caustic 512x512, 8 bounces, 2,097,152 light paths, plain weights
+# and the bidirectional ones of render_bidir_fast at 256 spp
+K3 = dict(scene="caustic", width=512, height=512, max_bounces=8, n_paths=2_097_152, spp=256)
+K3_NU = {"plain weights": None, "bidir": K3["n_paths"] / K3["spp"]}
+K3_SEED = 1  # any fixed light seed
+
 # label -> the edits of its copy: (file under the package, its text, the
 # replacement), each text occurring once
 KERNEL = "__global__ void render_kernel("
 K2_KERNEL = "__global__ void backward_kernel("
 STACK_PATHS = "    paths = min(spp, max(1, SCRATCH_BUDGET // (span * slot_floats * 4 * n)))"
+# K3's regenerating schedule: its lane step, its kernel body and its grid
+K3_KERNEL = "template <bool BIDIR, bool SPLAT>\n__global__ void light_kernel("
+K3_LANE_STEP = """// A lane's current path (local index) and that path's carries.
+struct LightLane {
+    cpt::LightPathState st;
+    int local;
+    bool fresh;  // the lane opens its path in its next step
+};
+
+// One bounce of the lane's path, opened first when its last path ended;
+// false once the lane has no path left.
+template <bool BIDIR, class Sink>
+__device__ __forceinline__ bool light_lane_step(const cpt::SceneTables& sc,
+                                                const cpt::LightParams& p, int n_lanes,
+                                                LightLane& ln, const Sink& sink) {
+    while (ln.local < p.n_local) {
+        if (ln.fresh) {
+            ln.fresh = false;
+            if (!cpt::start_light_path<BIDIR>(sc, p, ln.local, ln.st, sink)) {
+                ln.fresh = true;
+                ln.local += n_lanes;
+                continue;
+            }
+        }
+        if (!cpt::light_bounce<BIDIR>(sc, p, ln.local, ln.st, sink)) {
+            ln.fresh = true;
+            ln.local += n_lanes;
+        }
+        return true;
+    }
+    return false;
+}
+
+"""
+K3_ONE_PATH = """    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= p.n_local) return;
+    // the JAX light kernel takes no grid: linear sweeps, folded at compile time
+    const cpt::SceneTables tables = cpt::grid_tables<false>(sc);
+    if constexpr (SPLAT) {
+        cpt::light_path<BIDIR>(tables, p, i, ImageSink{img});
+    } else {
+        cpt::light_path<BIDIR>(tables, p, i, records);
+    }"""
+K3_REGENERATING = """    const cpt::SceneTables tables = cpt::grid_tables<false>(sc);
+    const int n_lanes = gridDim.x * blockDim.x;
+    LightLane ln;
+    ln.local = blockIdx.x * blockDim.x + threadIdx.x;
+    ln.fresh = true;
+    if constexpr (SPLAT) {
+        const ImageSink sink{img};
+        while (light_lane_step<BIDIR>(tables, p, n_lanes, ln, sink)) {
+        }
+    } else {
+        while (light_lane_step<BIDIR>(tables, p, n_lanes, ln, records)) {
+        }
+    }"""
+K3_GRID = ("    const long long blocks = ((long long)n_local + THREADS_PER_BLOCK - 1) / "
+           "THREADS_PER_BLOCK;")
+K3_PERSISTENT_GRID = """    int blocks_per_sm = 0, sms = 0;
+    const cudaError_t err = residency(light_kernel_of(bidir, splat), blocks_per_sm, sms);
+    if (err != cudaSuccess) return (int)err;
+    const long long needed = ((long long)n_local + THREADS_PER_BLOCK - 1) / THREADS_PER_BLOCK;
+    const long long resident = (long long)blocks_per_sm * sms;
+    const long long blocks = needed < resident ? needed : resident;"""
 PATCHES = {
     "bounds6": [("csrc/megakernel.cu", KERNEL,
                  "__global__ void __launch_bounds__(THREADS_PER_BLOCK, 6) render_kernel(")],
@@ -180,9 +283,29 @@ PATCHES = {
     # K2 held to 5 resident blocks of 128 threads per SM (at most 96 registers)
     "k2_bounds5": [("csrc/megakernel_vjp.cu", K2_KERNEL,
                     "__global__ void __launch_bounds__(THREADS_PER_BLOCK, 5) backward_kernel(")],
+    # K3 on a persistent grid whose lanes regenerate paths
+    "k3_regenerating": [
+        ("csrc/lightkernel.cu", K3_KERNEL, K3_LANE_STEP + K3_KERNEL),
+        ("csrc/lightkernel.cu", K3_ONE_PATH, K3_REGENERATING),
+        ("csrc/lightkernel.cu", K3_GRID, K3_PERSISTENT_GRID)],
+    # K3's image sink with one float4 atomic per splat into [width * height][4]
+    "k3_float4": [
+        ("csrc/lightkernel.cu",
+         "        float* px = img + 3 * (size_t)pixel;\n"
+         "        atomicAdd(px, r);\n        atomicAdd(px + 1, g);\n        atomicAdd(px + 2, b);",
+         "        atomicAdd(reinterpret_cast<float4*>(img) + pixel, make_float4(r, g, b, 0.0f));"),
+        ("ops/cuda/lightkernel.py",
+         "            out = torch.zeros((width * height, 3), dtype=torch.float32,\n"
+         "                              device=packed.device)\n"
+         "            err = lib.cpt_light_image(*args, out.data_ptr(), stream)",
+         "            out = torch.zeros((width * height, 4), dtype=torch.float32,\n"
+         "                              device=packed.device)\n"
+         "            err = lib.cpt_light_image(*args, out.data_ptr(), stream)\n"
+         "            out = out[:, :3]")],
 }
 K1_COPIES = ("bounds6", "bounds8", "global_tables")
 K2_COPIES = ("strided", "camera_atomics", "stack1", "stack2", "stack4", "k2_bounds5")
+K3_COPIES = ("k3_regenerating", "k3_float4")
 
 
 def log(msg: str) -> None:
@@ -243,6 +366,8 @@ class Tree:
         self.presets = importlib.import_module(pkg.__name__ + ".models.presets")
         self.scenes = importlib.import_module(pkg.__name__ + ".models.scene")
         self.grid = importlib.import_module(pkg.__name__ + ".ops.grid")
+        self.lk = importlib.import_module(pkg.__name__ + ".ops.cuda.lightkernel")
+        self.bidir = importlib.import_module(pkg.__name__ + ".render.bidir")
         self.build = importlib.import_module(pkg.__name__ + ".utils.build")
         camera = importlib.import_module(pkg.__name__ + ".models.camera")
         self.cp = camera.camera_arrays(camera.Camera())
@@ -298,6 +423,23 @@ class Tree:
         def fn():
             return self.mk.render_block_sums_cuda(packed, self.cp, 0, w, h, spp, nb, 0, w * h,
                                                   packed_grid=packed_grid, **kw)
+        return fn
+
+    def k3_launcher(self, nu, entry="render_lighttrace_fast", max_bounces=K3["max_bounces"]):
+        """One batch of K3's case through ``entry``: this tree's
+        ``render_lighttrace_fast`` or ``light_image_cuda`` (the image sink),
+        or ``render_bidir_fast`` (which takes its nu from the counts)."""
+        packed = self.packed(K3["scene"])
+        w, h, nb, n = K3["width"], K3["height"], max_bounces, K3["n_paths"]
+        if entry == "render_bidir_fast":
+            def fn():
+                return self.bidir.render_bidir_fast(packed, self.cp, w, h, K3["spp"], n, 0,
+                                                    max_bounces=nb)
+            return fn
+        call = getattr(self.lk, entry)
+
+        def fn():
+            return call(packed, self.cp, K3_SEED, w, h, n, nb, bidir_nu=nu)
         return fn
 
     def k2_launcher(self, case):
@@ -613,6 +755,95 @@ def k2_phases(trees, report) -> None:
                 f"apart by more than this tree's interquartile range {q_c[2] - q_c[0]:.3f} ms)")
 
 
+def k3_phases(trees, report) -> None:
+    """Phases 13-17: K3 against the other tree and its patched copies."""
+    labels = ["parent", "change", *K3_COPIES]
+    log(f"[k3 build] {len(labels)} light-kernel libraries side by side: "
+        f"{build_side_by_side([trees[lab] for lab in labels], 'lightkernel'):.1f} s; "
+        f"forward kernels of both trees: "
+        f"{build_side_by_side([trees['parent'], trees['change']], 'megakernel'):.1f} s")
+    regs = {lab: ptxas(trees[lab], "lightkernel", "light_kernel") for lab in labels}
+    report["k3_build"] = regs
+    for lab in labels:
+        log(f"[k3 build] {lab}: registers (spill bytes stored / loaded) of "
+            f"<{'bidir' if lab == 'parent' else 'bidir, image sink'}>: "
+            + ", ".join(f"<{','.join(k)}> {v[0]} ({v[1]}/{v[2]})"
+                        for k, v in sorted(regs[lab].items())))
+    change = trees["change"]
+    w, h, n = K3["width"], K3["height"], K3["n_paths"]
+
+    # ---- 14. both trees' images, in turns ----------------------------------------
+    order = ["parent", "change", "change", "parent"]
+    report["k3_image"] = {}
+    for mode, nu in K3_NU.items():
+        imgs = {lab: trees[lab].k3_launcher(nu)() for lab in ("parent", "change")}
+        torch.cuda.synchronize()
+        top = float(imgs["parent"].abs().max())
+        gap = float((imgs["change"] - imgs["parent"]).abs().max()) / top
+        t = {}
+        for label in order:
+            t.setdefault(label, []).append(median_ms(trees[label].k3_launcher(nu)))
+        report["k3_image"][mode] = {"turns": t, "gap_over_max": gap}
+        log(f"[k3 image] render_lighttrace_fast {mode}: images differ by {gap:.2e} of the "
+            f"largest value; parent (records + index_add_) {t['parent']} ms, change (image "
+            f"sink) {t['change']} ms ({np.median(t['parent']) / np.median(t['change']):.1f}x)")
+    imgs = {lab: trees[lab].k3_launcher(None, "render_bidir_fast")()
+            for lab in ("parent", "change")}
+    torch.cuda.synchronize()
+    gap = float((imgs["change"] - imgs["parent"]).abs().max()) / float(imgs["parent"].abs().max())
+    t = {}
+    for label in order:
+        t.setdefault(label, []).append(median_ms(trees[label].k3_launcher(None,
+                                                                         "render_bidir_fast")))
+    report["k3_bidir"] = {"turns": t, "gap_over_max": gap}
+    log(f"[k3 bidir] render_bidir_fast {K3['scene']} {w}x{h} {K3['spp']} spp + {n} paths: "
+        f"images differ by {gap:.2e} of the largest value; parent {t['parent']} ms, change "
+        f"{t['change']} ms ({np.median(t['parent']) / np.median(t['change']):.2f}x)")
+
+    # ---- 15. lane efficiency of both schedules (counts), and the emission's share ----------
+    report["k3_lanes"] = {}
+    for mode, nu in K3_NU.items():
+        occ = change.lk.light_occupancy(nu is not None, splat=True)
+        stats = {}
+        change.lk.light_records_plain(change.packed(K3["scene"]), change.cp, K3_SEED, w, h, n,
+                                      K3["max_bounces"], bidir_nu=nu, stats=stats,
+                                      n_lanes=occ["resident_lanes"])
+        eff = {k: stats["path_bounces"] / (32 * stats[k])
+               for k in ("warp_iterations", "warp_iterations_nested")}
+        ms = {f"{lab} b={nb}": median_ms(trees[lab].k3_launcher(nu, "light_image_cuda", nb),
+                                         inner=5)
+              for lab in ("change", "k3_regenerating") for nb in (0, K3["max_bounces"])}
+        report["k3_lanes"][mode] = {**stats, "lane_efficiency": eff, "occupancy": occ,
+                                    "image_ms": ms}
+        log(f"[k3 lanes] {mode}: {stats['path_bounces'] / stats['paths']:.3f} bounces per "
+            f"path; lane efficiency one path per lane (this tree) "
+            f"{eff['warp_iterations_nested']:.3f}, regenerating over the "
+            f"{occ['resident_lanes']} resident lanes ({occ['registers']} registers, "
+            f"{occ['blocks_per_sm']} blocks per SM) {eff['warp_iterations']:.3f}; image sink "
+            "(median of 5 launches of 5 calls) with the emission vertex alone (b=0) and "
+            "whole: " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()))
+
+    # ---- 16 / 17. the schedule and the splat route, in pairs: the copy must win ------------
+    for phase, copy in (("k3_turns_schedule", "k3_regenerating"),
+                        ("k3_turns_splat", "k3_float4")):
+        report[phase] = {}
+        for mode, nu in K3_NU.items():
+            a = change.k3_launcher(nu, "light_image_cuda")()
+            b = trees[copy].k3_launcher(nu, "light_image_cuda")()
+            torch.cuda.synchronize()
+            gap = float((a - b).abs().max()) / float(a.abs().max())
+            runs = in_pairs({lab: trees[lab].k3_launcher(nu, "light_image_cuda")
+                             for lab in (copy, "change")}, inner=5)
+            sc = score(runs, copy, "change")
+            report[phase][mode] = dict(sc, gap_over_max=gap)
+            q_c, q_t = sc[f"quartiles_{copy}"], sc["quartiles_change"]
+            log(f"[{phase.replace('_', ' ')}] {mode}, {PAIRS} pairs: {copy} quartiles {q_c} "
+                f"ms, this tree {q_t} ms; {copy} faster in {sc['wins']} of {PAIRS}; "
+                f"{'a gain' if sc['gain'] else 'no gain'} (rule: >= 9 of 10 and the medians "
+                f"apart by more than this tree's interquartile range {q_t[2] - q_t[0]:.4f} "
+                f"ms); images differ by {gap:.2e} of the largest value")
+
+
 def camera_rows(trees, spec) -> dict:
     """The 13 camera rows of ``spec`` (a K2_GLOBAL case) row by row, each
     difference over that row's own magnitude: this tree against the other,
@@ -666,8 +897,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True,
                     help=f"root of the other tree (holds {PACKAGE}/)")
-    ap.add_argument("--kernels", choices=("k1", "k2", "both"), default="both",
-                    help="whose phases to run")
+    ap.add_argument("--kernels", choices=("k1", "k2", "k3", "both", "all"), default="both",
+                    help="whose phases to run (both: k1 and k2; all: k1, k2 and k3)")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "k1_turns.json"),
                     help="JSON report (default: the git-ignored build/)")
     args = ap.parse_args()
@@ -684,14 +915,14 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     trees = {"parent": Tree(copy_package(os.path.abspath(args.parent), "parent")),
              "change": Tree(importlib.import_module(PACKAGE))}
-    copies = ((K1_COPIES if args.kernels != "k2" else ())
-              + (K2_COPIES if args.kernels != "k1" else ()))
-    for label in copies:
+    kernels = {"both": ("k1", "k2"), "all": ("k1", "k2", "k3")}.get(args.kernels,
+                                                                  (args.kernels,))
+    copies = {"k1": K1_COPIES, "k2": K2_COPIES, "k3": K3_COPIES}
+    for label in (c for k in kernels for c in copies[k]):
         trees[label] = Tree(copy_package(ROOT, label, PATCHES[label]))
-    if args.kernels != "k2":
-        k1_phases(trees, report)
-    if args.kernels != "k1":
-        k2_phases(trees, report)
+    phases = {"k1": k1_phases, "k2": k2_phases, "k3": k3_phases}
+    for k in kernels:
+        phases[k](trees, report)
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

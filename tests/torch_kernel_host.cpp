@@ -200,6 +200,93 @@ void put3(float* a, int n, int i, const float* v) {
     a[i] = v[0]; a[n + i] = v[1]; a[2 * n + i] = v[2];
 }
 
+// The light kernel's image sink on the host: serial float adds.
+struct HostImageSink {
+    float* img;
+    void splat(int, int, int pixel, float r, float g, float b) const {
+        img[3 * pixel] += r;
+        img[3 * pixel + 1] += g;
+        img[3 * pixel + 2] += b;
+    }
+};
+
+cpt::LightParams make_light_params(const float* cam_host, int seed, int path_offset,
+                                   int n_local, int sample_idx, int n_paths, int max_bounces,
+                                   int width, int height) {
+    cpt::LightParams p;
+    for (int k = 0; k < cpt::CAM_FLOATS; ++k) p.cam[k] = cam_host[k];
+    p.seed = seed; p.path_offset = path_offset; p.n_local = n_local;
+    p.sample_idx = sample_idx; p.n_paths = n_paths; p.max_bounces = max_bounces;
+    cpt::set_light_image_size(p, width, height);
+    return p;
+}
+
+// A lane of the regenerating schedule the light kernel was measured with
+// (k1_turns.py, copy k3_regenerating): its current path and that path's
+// carries. Lane l of n_lanes traces paths l, l + n_lanes, ..., one bounce
+// per iteration, opening its next path as soon as one ends.
+struct LightLane {
+    cpt::LightPathState st;
+    int local = 0;
+    bool fresh = true;  // the lane opens its path in its next step
+};
+
+// One iteration of lane `ln`: one bounce of its path, opened first when the
+// lane's last path ended (a path that makes no bounce is opened and passed
+// over in the same step). False, having done nothing, once the lane has no
+// path left.
+template <bool BIDIR, class Sink>
+bool light_lane_step(const cpt::SceneTables& sc, const cpt::LightParams& p, int n_lanes,
+                     LightLane& ln, const Sink& sink) {
+    while (ln.local < p.n_local) {
+        if (ln.fresh) {
+            ln.fresh = false;
+            if (!cpt::start_light_path<BIDIR>(sc, p, ln.local, ln.st, sink)) {
+                ln.fresh = true;
+                ln.local += n_lanes;
+                continue;
+            }
+        }
+        if (!cpt::light_bounce<BIDIR>(sc, p, ln.local, ln.st, sink)) {
+            ln.fresh = true;
+            ln.local += n_lanes;
+        }
+        return true;
+    }
+    return false;
+}
+
+// The light paths of p in one of two schedules. 0: the kernel's, one path
+// per call traced to its end (light_path), in path order. 1: the
+// regenerating schedule over n_lanes lanes, stepped lanes in order, one
+// bounce per lane per iteration, until no lane has a path left.
+template <bool BIDIR, class Sink>
+void light_paths_t(const cpt::SceneTables& sc, const cpt::LightParams& p, int schedule,
+                   int n_lanes, const Sink& sink) {
+    if (schedule == 0) {
+        for (int i = 0; i < p.n_local; ++i) cpt::light_path<BIDIR>(sc, p, i, sink);
+        return;
+    }
+    std::vector<LightLane> lanes(n_lanes);
+    for (int l = 0; l < n_lanes; ++l) lanes[l].local = l;
+    for (bool any = true; any;) {
+        any = false;
+        for (int l = 0; l < n_lanes; ++l) {
+            any = light_lane_step<BIDIR>(sc, p, n_lanes, lanes[l], sink) || any;
+        }
+    }
+}
+
+template <class Sink>
+void light_paths(const cpt::SceneTables& sc, const cpt::LightParams& p, bool bidir,
+                 int schedule, int n_lanes, const Sink& sink) {
+    if (bidir) {
+        light_paths_t<true>(sc, p, schedule, n_lanes, sink);
+    } else {
+        light_paths_t<false>(sc, p, schedule, n_lanes, sink);
+    }
+}
+
 }  // namespace
 
 extern "C" {
@@ -237,8 +324,8 @@ int cpt_render_megakernel_host(const float* spheres, int num_spheres,
     return 0;
 }
 
-// Same arguments as cpt_light_records, every pointer a host pointer, without
-// the stream.
+// Same arguments as cpt_light_records, every pointer a host pointer, into
+// zeroed planes, without the stream; `schedule` as light_paths.
 int cpt_light_records_host(const float* spheres, int num_spheres,
                            const float* triangles, int num_triangles,
                            const float* materials, int num_materials,
@@ -247,26 +334,36 @@ int cpt_light_records_host(const float* spheres, int num_spheres,
                            const float* cam_host,
                            int seed, int path_offset, int n_local, int sample_idx,
                            int n_paths, int max_bounces, int width, int height, int bidir,
-                           int* pix, float* r, float* g, float* b) {
-    const cpt::SceneTables sc = make_tables(spheres, num_spheres, triangles, num_triangles,
-                                            materials, num_materials, point_lights,
-                                            num_point_lights, area_lights, num_area_lights,
-                                            nullptr);
-    cpt::LightParams p;
-    for (int k = 0; k < cpt::CAM_FLOATS; ++k) p.cam[k] = cam_host[k];
-    p.seed = seed; p.path_offset = path_offset; p.n_local = n_local;
-    p.sample_idx = sample_idx; p.n_paths = n_paths; p.max_bounces = max_bounces;
-    cpt::set_light_image_size(p, width, height);
-    for (int i = 0; i < n_local; ++i) {
-        cpt::RecordOut out;
-        out.pix = pix + i; out.r = r + i; out.g = g + i; out.b = b + i;
-        out.stride = (size_t)n_local;
-        if (bidir) {
-            cpt::light_path<true>(sc, p, path_offset + i, out);
-        } else {
-            cpt::light_path<false>(sc, p, path_offset + i, out);
-        }
-    }
+                           int schedule, int n_lanes, int* pix, float* r, float* g, float* b) {
+    const cpt::RecordSink sink{pix, r, g, b, (size_t)n_local};
+    light_paths(make_tables(spheres, num_spheres, triangles, num_triangles, materials,
+                            num_materials, point_lights, num_point_lights, area_lights,
+                            num_area_lights, nullptr),
+                make_light_params(cam_host, seed, path_offset, n_local, sample_idx, n_paths,
+                                  max_bounces, width, height),
+                bidir != 0, schedule, n_lanes, sink);
+    return 0;
+}
+
+// The image sink of cpt_light_image on the host: img[width * height][3]
+// (zeroed) receives every splat by a serial float add, in the schedule's
+// order.
+int cpt_light_image_host(const float* spheres, int num_spheres,
+                         const float* triangles, int num_triangles,
+                         const float* materials, int num_materials,
+                         const float* point_lights, int num_point_lights,
+                         const float* area_lights, int num_area_lights,
+                         const float* cam_host,
+                         int seed, int path_offset, int n_local, int sample_idx,
+                         int n_paths, int max_bounces, int width, int height, int bidir,
+                         int schedule, int n_lanes, float* img) {
+    const HostImageSink sink{img};
+    light_paths(make_tables(spheres, num_spheres, triangles, num_triangles, materials,
+                            num_materials, point_lights, num_point_lights, area_lights,
+                            num_area_lights, nullptr),
+                make_light_params(cam_host, seed, path_offset, n_local, sample_idx, n_paths,
+                                  max_bounces, width, height),
+                bidir != 0, schedule, n_lanes, sink);
     return 0;
 }
 

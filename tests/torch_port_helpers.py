@@ -164,8 +164,11 @@ def _host_kernel(fma):
     lib.cpt_slot_floats_host.argtypes = [ci] * 6
     lib.cpt_slot_floats_host.restype = ci
     lib.cpt_light_records_host.argtypes = (
-        [vp, ci] * 5 + [ctypes.POINTER(ctypes.c_float)] + [ci] * 9 + [vp] * 4)
+        [vp, ci] * 5 + [ctypes.POINTER(ctypes.c_float)] + [ci] * 11 + [vp] * 4)
     lib.cpt_light_records_host.restype = ci
+    lib.cpt_light_image_host.argtypes = (
+        [vp, ci] * 5 + [ctypes.POINTER(ctypes.c_float)] + [ci] * 11 + [vp])
+    lib.cpt_light_image_host.restype = ci
     lib.cpt_sweeps_host.argtypes = [vp, ci, vp, ci, vp, vp,
                                     ctypes.POINTER(ctypes.c_int)] + [ci] + [vp] * 6
     lib.cpt_sweeps_host.restype = None
@@ -266,27 +269,59 @@ def round_bf16_hostbuild(x):
     return y
 
 
-def light_records_hostbuild(packed, cam_params, seed, width, height, n_paths,
-                            max_bounces, path_offset=0, n_local=None,
-                            sample_idx=0, bidir_nu=None, fma=False):
-    """``light_records`` computed by the host build of the light kernel's
-    math, one path at a time, on CPU tables."""
-    n_local = n_paths - path_offset if n_local is None else n_local
+def _light_args(packed, cam_params, seed, width, height, n_paths,
+                max_bounces, path_offset, n_local, sample_idx, bidir_nu,
+                schedule, n_lanes):
+    """The arguments the host light entries share before their outputs, and
+    the tables they point into (to be kept alive over the call)."""
     cam = tmk._cam_table(cam_params, 0.0, bidir_nu)
     cam_c = (ctypes.c_float * tmk.CAM_FLOATS)(*cam.tolist())
     tables = [t.detach().contiguous() for t in packed.tables()[:5]]
     args = []
     for t, count in zip(tables, packed.counts):
         args += [t.data_ptr(), count]
+    args += [cam_c, int(seed), int(path_offset), int(n_local),
+             int(sample_idx), int(n_paths), int(max_bounces), int(width),
+             int(height), int(bidir_nu is not None),
+             ("one_path", "regenerating").index(schedule), int(n_lanes or 1)]
+    return args, tables
+
+
+def light_records_hostbuild(packed, cam_params, seed, width, height, n_paths,
+                            max_bounces, path_offset=0, n_local=None,
+                            sample_idx=0, bidir_nu=None, fma=False,
+                            schedule="one_path", n_lanes=None):
+    """``light_records`` computed by the host build of the light kernel's
+    math, on CPU tables. ``schedule``: "one_path" (each path traced to its
+    end, one after the other) or "regenerating" (the kernel's schedule over
+    ``n_lanes`` lanes, stepped lanes in order, one bounce per iteration)."""
+    n_local = n_paths - path_offset if n_local is None else n_local
+    args, _tables = _light_args(packed, cam_params, seed, width, height,
+                                n_paths, max_bounces, path_offset, n_local,
+                                sample_idx, bidir_nu, schedule, n_lanes)
     shape = (max_bounces + 1, n_local)
-    pix = torch.empty(shape, dtype=torch.int32)
-    r, g, b = (torch.empty(shape, dtype=torch.float32) for _ in range(3))
+    pix = torch.zeros(shape, dtype=torch.int32)
+    r, g, b = (torch.zeros(shape, dtype=torch.float32) for _ in range(3))
     _host_kernel(fma).cpt_light_records_host(
-        *args, cam_c, int(seed), int(path_offset), int(n_local),
-        int(sample_idx), int(n_paths), int(max_bounces), int(width),
-        int(height), int(bidir_nu is not None),
-        pix.data_ptr(), r.data_ptr(), g.data_ptr(), b.data_ptr())
+        *args, pix.data_ptr(), r.data_ptr(), g.data_ptr(), b.data_ptr())
     return pix, r, g, b
+
+
+def light_image_hostbuild(packed, cam_params, seed, width, height, n_paths,
+                          max_bounces, path_offset=0, n_local=None,
+                          sample_idx=0, bidir_nu=None,
+                          schedule="one_path", n_lanes=None):
+    """``light_image`` (unnormalised, ``[width * height, 3]``) computed by
+    the host build of the light kernel's image sink: every splat added by a
+    serial float add, in the order of ``schedule`` (as for
+    ``light_records_hostbuild``)."""
+    n_local = n_paths - path_offset if n_local is None else n_local
+    args, _tables = _light_args(packed, cam_params, seed, width, height,
+                                n_paths, max_bounces, path_offset, n_local,
+                                sample_idx, bidir_nu, schedule, n_lanes)
+    img = torch.zeros((width * height, 3), dtype=torch.float32)
+    _host_kernel(False).cpt_light_image_host(*args, img.data_ptr())
+    return img
 
 
 def backward_rows_hostbuild(packed, cam_params, seed, width, height, spp,
