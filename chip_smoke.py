@@ -73,7 +73,17 @@ prints no result. It
     the physical estimator (``[physical train]``, 30 Adam steps), and
     prints the scratch the backward kernel's checkpoint stacks take on
     every training configuration (``[k2 scratch]``),
-16. prints one JSON line describing every kernel, then the result line.
+16. the eager engine (``render/integrator.py``, the JAX package's jnp
+    engine in PyTorch; it launches no kernel): ``ProgressiveRenderer(engine=
+    "eager")`` on Cornell 800x800, 8 bounces, 16 spp with and without the
+    live-ray cutoff, and 4 spp physical, each held against K1 on the same
+    samples (``[eager main path]``); ``live_ray_stats`` and ``cli benchmark
+    --engine eager --stats`` (``[eager stats]``); the textured preset against
+    textured K1 (``[eager textured]``); the grid walk on ``mesh_dense(4)``
+    against the linear sweeps (``[eager grid]``); and autograd through it
+    against K2 at the training step's size, with times and peak memory
+    (``[eager grad bench]``),
+17. prints one JSON line describing every kernel, then the result line.
 
 Any failed phase raises: the exit code is then non-zero and the result line
 is not printed. ``--out-dir DIR`` keeps the rendered PNG and a JSON report.
@@ -235,6 +245,16 @@ PHYS_FIELDS = ["materials.diffuse", "materials.specular", "materials.emission",
 GEO_TRAIN = dict(width=128, height=128, spp=4, max_bounces=2, steps=250, lr=0.01,
                  shift=0.45)
 PHYS_TRAIN_STEPS = 30
+
+# The eager engine (render/integrator.py): its main path at the default
+# configuration's size with spp cut from 2000 to 16 for the script's time
+# (passes of 4), the physical estimator at 4 spp, the textured preset, the
+# grid walk on a 5,120-triangle mesh, and the training configuration's step.
+EAGER = dict(width=800, height=800, max_bounces=8, spp=16, pass_spp=4,
+             physical_spp=4)
+EAGER_TEX = dict(width=256, height=256, max_bounces=8, spp=4)
+EAGER_GRID = dict(width=128, height=128, max_bounces=4, spp=1)
+EAGER_CLI_SIZE = 64
 
 
 def log(msg: str) -> None:
@@ -452,6 +472,201 @@ def texture_flops(stats) -> float:
             + stats.get("tex_triangle_hits", 0) * TEX_TRIANGLE_HIT_FLOPS
             + stats.get("color_fetches", 0) * COLOR_FETCH_FLOPS
             + stats.get("normal_fetches", 0) * NORMAL_FETCH_FLOPS)
+
+
+def eager_phases(dev, cp, mk, inverse, start, target_train) -> dict:
+    """The eager engine on the card: its main path (no kernel launch) held
+    against K1 on the same samples, the live-ray statistics, the textured
+    preset against textured K1, the grid walk against the linear sweeps, and
+    autograd through it against K2 at the training step's size."""
+    from cuda_path_tracer_ss_torch.models import presets
+    from cuda_path_tracer_ss_torch.models.camera import Camera
+    from cuda_path_tracer_ss_torch.ops.grid import build_grid
+    from cuda_path_tracer_ss_torch.render import integrator
+    from cuda_path_tracer_ss_torch.render.renderer import (ProgressiveRenderer,
+                                                           RenderConfig)
+
+    out = {}
+    w, h, nb = EAGER["width"], EAGER["height"], EAGER["max_bounces"]
+    cornell = presets.cornell()
+    packed = mk.pack_scene(cornell, dev)
+
+    # ---- [eager main path]: ProgressiveRenderer(engine="eager") ---------------
+    def run_renderer(spp, cutoff, physical=False):
+        passes = []
+        mk.LAUNCH_COUNT = 0   # the count to 0 just before the path ...
+        r = ProgressiveRenderer(
+            cornell, Camera(),
+            RenderConfig(width=w, height=h, max_bounces=nb, spp=spp,
+                         samples_per_pass=EAGER["pass_spp"], engine="eager",
+                         live_cutoff=cutoff, physical=physical),
+            on_pass=passes.append)
+        # each bounce step timed between two synchronizations (one pass is one
+        # wavefront: 4 samples of 800x800 fit in integrator.WAVE_RAYS)
+        integrator.BOUNCE_TIMES = steps = []
+        t0 = time.time()
+        try:
+            r.run()
+        finally:
+            integrator.BOUNCE_TIMES = None
+        total_s = time.time() - t0
+        launches = mk.LAUNCH_COUNT   # ... read just after: the eager engine launches none
+        img = torch.from_numpy(r.radiance()).to(dev)
+        check(launches == 0, f"eager main path launched K1 {launches} times")
+        check(tuple(img.shape) == (h, w, 3) and bool(torch.isfinite(img).all())
+              and float(img.min()) >= 0.0, "eager main path: a bad image")
+        ms = [p["pass_time_s"] * 1e3 for p in passes]
+        steady = float(np.median(ms[1:] if len(ms) > 1 else ms))
+        waves = []
+        for b, rays, t in steps:
+            if b == 0:
+                waves.append([])
+            waves[-1].append((rays, t))
+        check(len(waves) == len(passes), "one wavefront per eager pass")
+        waves = waves[1:] if len(waves) > 1 else waves
+        per_bounce = []
+        for b in range(max(len(wv) for wv in waves)):
+            seen = [wv[b] for wv in waves if len(wv) > b]
+            per_bounce.append(dict(bounce=b, live_share=seen[0][0] / waves[0][0][0],
+                                   ms=float(np.median([t for _, t in seen]))))
+        return img, dict(total_s=total_s, pass_ms=ms, ms_per_pass=steady,
+                         per_bounce=per_bounce,
+                         mrays_per_s=w * h * EAGER["pass_spp"] / steady / 1e3)
+
+    def bounce_text(m):
+        return ", ".join(f"b{x['bounce']} {x['live_share']:.3f} {x['ms']:.2f} ms"
+                         for x in m["per_bounce"])
+
+    spp = EAGER["spp"]
+    for cutoff in (128, None):
+        img, m = run_renderer(spp, cutoff)
+        out[f"main_cutoff_{cutoff}"] = m
+        log(f"[eager main path] cornell {w}x{h} {nb} bounces {spp} spp (cut from 2000 "
+            f"for time) in passes of {EAGER['pass_spp']}, live_cutoff={cutoff}: "
+            f"{m['mrays_per_s']:.2f} M primary rays/s, {m['ms_per_pass']:.1f} ms per "
+            f"pass (median of the passes after the first; all: "
+            f"{', '.join(f'{x:.1f}' for x in m['pass_ms'])}), {m['total_s']:.2f} s in "
+            f"all; 0 kernel launches. Each bounce of the {EAGER['pass_spp']}-sample "
+            f"wavefront (live share entering it, ms, median of the passes after the "
+            f"first): {bounce_text(m)}")
+    k1 = mk.render_megakernel(packed, cp, 0, w, h, spp, max_bounces=nb)
+    rate, gap, err = match_stats(img, k1)
+    log(f"[eager main path] live_cutoff=None against K1 on the same samples: "
+        f"{rate:.4%} of pixels within rtol 1e-4 / atol 1e-5, channel means "
+        f"{gap:.2e} apart, max abs err {err:.2e}")
+    check(rate >= 0.995 and gap <= 1e-3, f"eager vs K1: {rate:.4%}, {gap:.2e}")
+    out["main_vs_k1"] = dict(match_rate=rate, mean_gap=gap, max_abs_err=err)
+    pspp = EAGER["physical_spp"]
+    img, m = run_renderer(pspp, None, physical=True)
+    k1 = mk.render_megakernel(packed, cp, 0, w, h, pspp, max_bounces=nb, physical=True)
+    rate, gap, err = match_stats(img, k1)
+    out["physical"] = dict(m, match_rate=rate, mean_gap=gap, max_abs_err=err)
+    log(f"[eager main path] physical=True {w}x{h} {nb} bounces {pspp} spp: "
+        f"{m['mrays_per_s']:.2f} M primary rays/s, {m['ms_per_pass']:.1f} ms per pass "
+        f"(each bounce: {bounce_text(m)}); against K1 physical: {rate:.4%} of pixels, "
+        f"means {gap:.2e} apart, max abs err {err:.2e}")
+    check(rate >= 0.995 and gap <= 1e-3, f"eager physical vs K1: {rate:.4%}, {gap:.2e}")
+
+    # ---- [eager stats] ------------------------------------------------------------
+    fr = integrator.live_ray_stats(cornell, cp, w, h, 0, max_bounces=nb,
+                                   device=dev).cpu().numpy()
+    log(f"[eager stats] cornell {w}x{h} {nb} bounces, live share entering each "
+        f"bounce: {', '.join(f'{f:.4f}' for f in fr)}")
+    check(fr[0] == 1.0 and bool(np.all(np.diff(fr) <= 0)), "live fractions")
+    proc = subprocess.run(
+        [sys.executable, "-m", "cuda_path_tracer_ss_torch.cli", "benchmark",
+         "--engine", "eager", "--stats", "--scene", "cornell", "--width",
+         str(EAGER_CLI_SIZE), "--height", str(EAGER_CLI_SIZE), "--spp", "4",
+         "--bounces", str(nb), "--repeats", "2"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, "cli benchmark --engine eager --stats: " + proc.stderr[-2000:])
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    cli_fr = line["live_ray_fraction_per_bounce"]
+    log(f"[eager stats] cli benchmark --engine eager --stats at {EAGER_CLI_SIZE}^2: "
+        f"{line['primary_rays_per_s'] / 1e6:.3f} M primary rays/s on {line['device']}, "
+        f"fractions {cli_fr}")
+    check(line["engine"] == "eager" and cli_fr[0] == 1.0 and line["device"] != "cpu"
+          and all(b <= a for a, b in zip(cli_fr, cli_fr[1:])), "cli --stats line")
+    out["stats"] = dict(fractions=fr.tolist(), cli=line)
+
+    # ---- [eager textured] ------------------------------------------------------------
+    tw_, th_, tnb_, tspp_ = (EAGER_TEX[k] for k in ("width", "height", "max_bounces", "spp"))
+    textured = presets.textured()
+    tex_dev = textured.to(dev)
+    with torch.no_grad():
+        eager_t = lambda: integrator.render(tex_dev, cp, tw_, th_, tspp_, 0,  # noqa: E731
+                                            max_bounces=tnb_, live_cutoff=None, device=dev)
+        img = eager_t()
+        ms_e = median_ms(eager_t, reps=3)
+    packed_t = mk.pack_scene(textured, dev)
+    k1 = mk.render_megakernel(packed_t, cp, 0, tw_, th_, tspp_, max_bounces=tnb_)
+    ms_k = median_ms(lambda: mk.render_megakernel(packed_t, cp, 0, tw_, th_, tspp_,
+                                                  max_bounces=tnb_), reps=3)
+    rate, gap, err = match_stats(img, k1)
+    out["textured"] = dict(ms=ms_e, k1_ms=ms_k, match_rate=rate, mean_gap=gap,
+                           max_abs_err=err)
+    log(f"[eager textured] textured {tw_}x{th_} {tspp_} spp {tnb_} bounces: eager "
+        f"{ms_e:.1f} ms, textured K1 {ms_k:.2f} ms; {rate:.4%} of pixels within rtol 1e-4 "
+        f"/ atol 1e-5, means {gap:.2e} apart, max abs err {err:.2e}")
+    check(rate >= 0.995 and gap <= 1e-3, f"eager textured vs K1: {rate:.4%}, {gap:.2e}")
+
+    # ---- [eager grid] -------------------------------------------------------------
+    gw, gh, gnb, gspp = (EAGER_GRID[k] for k in ("width", "height", "max_bounces", "spp"))
+    mesh = presets.mesh_dense(4)
+    mesh_dev = mesh.to(dev)
+    grid = build_grid(mesh).to(dev)
+    imgs, times = {}, {}
+    # both bounce loops: the scan (live_cutoff=None) and the live cutoff's
+    for label, g, cutoff in (("linear", None, None), ("grid", grid, None),
+                             ("grid, live_cutoff=0", grid, 0),
+                             ("linear, live_cutoff=0", None, 0)):
+        with torch.no_grad():
+            fn = lambda: integrator.render(mesh_dev, cp, gw, gh, gspp, 0,  # noqa: E731
+                                           max_bounces=gnb, live_cutoff=cutoff, grid=g,
+                                           device=dev)
+            imgs[label] = fn()
+            times[label] = median_ms(fn, reps=3)
+    same = all(torch.equal(v, imgs["linear"]) for v in imgs.values())
+    log(f"[eager grid] mesh_dense(4) ({mesh.num_triangles} triangles, grid "
+        f"{grid.res}) {gw}x{gh} {gspp} spp {gnb} bounces: "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in times.items())
+        + f"; images identical: {same}")
+    check(same, "eager grid images differ from the linear one")
+    out["grid"] = dict(ms=times, identical=same)
+
+    # ---- [eager grad bench]: autograd through the eager engine against K2 -------------
+    tw, th, tnb, tspp = TRAIN["width"], TRAIN["height"], TRAIN["max_bounces"], TRAIN["spp"]
+    out["grad"] = {}
+    for mode, fields in TRAIN_FIELDS.items():
+        params = inverse.extract_params(start, fields)
+        res = {}
+        for engine in ("eager", "cuda"):
+            loss = inverse.make_loss(start, cp, target_train, tw, th, tspp, tnb,
+                                     engine=engine, field_names=fields, device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            val, grad = inverse.value_and_grad(loss, params, 0)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            ms = median_ms(lambda: inverse.value_and_grad(loss, params, 0))
+            res[engine] = dict(val=float(val), grad=grad, ms=ms, peak_bytes=peak)
+        e, c = res["eager"], res["cuda"]
+        worst, rel, abs_err, ok = grad_gap(e["grad"], c["grad"])
+        loss_rel = abs(e["val"] - c["val"]) / abs(c["val"])
+        out["grad"][mode] = dict(eager_ms=e["ms"], cuda_ms=c["ms"],
+                                 eager_peak_bytes=e["peak_bytes"],
+                                 cuda_peak_bytes=c["peak_bytes"], loss_rel=loss_rel,
+                                 worst_field=worst, worst_rel=rel, max_abs_err=abs_err)
+        log(f"[eager grad bench] cornell {tw}x{th} {tspp} spp {tnb} bounces, {mode} "
+            f"({', '.join(fields)}): eager autograd {e['ms']:.1f} ms per value_and_grad "
+            f"step (median of 5), peak {e['peak_bytes'] / 1e9:.3f} GB; cuda engine "
+            f"(K1 + K2) {c['ms']:.2f} ms, peak {c['peak_bytes'] / 1e9:.3f} GB; "
+            f"{e['ms'] / c['ms']:.1f}x. Eager against K2: loss {loss_rel:.2e} apart, "
+            f"worst field {worst} {rel:.2e} of its max|g| (abs {abs_err:.2e})")
+        check(loss_rel <= 1e-5, f"eager vs cuda loss {mode}: {loss_rel:.2e}")
+        check(ok, f"eager autograd vs K2 {mode}: {worst} {rel:.2e}")
+    return out
 
 
 def main() -> int:
@@ -2286,7 +2501,14 @@ def main() -> int:
               f"launch allocated {bench[mode]['scratch_bytes']}")
     report["k2_scratch"] = scratch
 
-    # ---- 16. report ----------------------------------------------------------------
+    # ---- 16. the eager engine -----------------------------------------------------
+    t0 = time.time()
+    eager = eager_phases(dev, cp, mk, inverse, start, target_train)
+    eager["phases_s"] = time.time() - t0
+    log(f"[eager] the five eager phases took {eager['phases_s']:.1f} s")
+    report["eager"] = eager
+
+    # ---- 17. report ----------------------------------------------------------------
     k1_common = {
         "route": "cuda",
         "source": "cuda_path_tracer_ss_torch/csrc/megakernel.cu",

@@ -4,7 +4,7 @@ Replaces the reference's GLUT window + keyboard loop (``CudaTracer.cu:649-786``,
 ``CudaUtils.h:27-188``) with file-output commands:
 
   render     progressive render of a scene preset -> PNG/TGA/NPY
-  benchmark  primary rays/s of the megakernel on the chosen device
+  benchmark  primary rays/s of the chosen engine on the chosen device
   lighttrace adjoint render: light paths splatted through the camera
   bidir      bidirectional render: MIS-weighted eye paths + light paths
   grad-check AD-vs-finite-difference report for chosen scene fields
@@ -12,7 +12,8 @@ Replaces the reference's GLUT window + keyboard loop (``CudaTracer.cu:649-786``,
 
 All run on ``--device cuda`` unless told otherwise; without a card they
 fail instead of rendering somewhere else. Runtime-configurable everything the
-reference hardcoded: resolution, spp, bounces, scene preset, seed.
+reference hardcoded: resolution, spp, bounces, scene preset, seed, early-exit
+cutoff.
 """
 from __future__ import annotations
 
@@ -37,19 +38,26 @@ def _common(p: argparse.ArgumentParser):
     p.add_argument("--spp", type=int, default=64)
     p.add_argument("--bounces", type=int, default=15)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--live-cutoff", type=int, default=128,
+                   help="the eager engine's early exit: a sample's bounce "
+                        "loop stops once at most this many of its rays are "
+                        "live; a negative value traces every bounce")
     p.add_argument("--samples-per-pass", type=int, default=None,
                    help="samples accumulated per progressive pass; default "
                         "AUTO — 'render' grows passes 4 -> 1024 to amortize "
                         "launch overhead (spp is a runtime kernel argument)")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default cuda; 'cpu' "
-                        "runs the plain PyTorch version)")
+                        "runs the plain PyTorch version, or the eager "
+                        "engine with --engine eager)")
     p.add_argument("--engine", default="auto",
-                   choices=["auto", "cuda", "plain"],
+                   choices=["auto", "cuda", "plain", "eager"],
                    help="cuda = the hand-written CUDA megakernel, plain = "
                         "the plain PyTorch version of the same function "
-                        "(slow; the yardstick of correctness), auto = cuda "
-                        "on a CUDA device, plain on --device cpu")
+                        "(slow; the yardstick of correctness), eager = the "
+                        "JAX package's jnp engine in PyTorch (full autograd "
+                        "for grad-check / invert), auto = cuda on a CUDA "
+                        "device, plain on --device cpu")
     p.add_argument("--accel", default="none", choices=["none", "grid"],
                    help="spatial acceleration: grid = the supercell grid's "
                         "culled sweeps (ops/grid.py; the same image; faster "
@@ -62,12 +70,16 @@ def _common(p: argparse.ArgumentParser):
                         "training commands have no gradient for it yet)")
 
 
+def _cutoff(args):
+    return None if args.live_cutoff < 0 else args.live_cutoff
+
+
 def _config(args):
     from .render.renderer import RenderConfig
 
     return RenderConfig(width=args.width, height=args.height,
                         max_bounces=args.bounces, spp=args.spp,
-                        seed=args.seed,
+                        seed=args.seed, live_cutoff=_cutoff(args),
                         samples_per_pass=args.samples_per_pass,
                         engine=args.engine, accel=args.accel,
                         physical=args.physical, device=args.device)
@@ -154,6 +166,7 @@ def cmd_benchmark(args):
     from .ops.cuda.megakernel import (pack_grid, pack_scene, render_megakernel,
                                       render_megakernel_plain)
     from .ops.grid import build_grid
+    from .render import integrator
     from .utils.profiling import sync, timed
 
     cfg = _config(args)
@@ -163,19 +176,35 @@ def cmd_benchmark(args):
     cp = camera_arrays(Camera())
     # pack once: per-repeat packing would be counted in the timing
     scene = _scene(args)
-    packed = pack_scene(scene, device)
-    grid = (pack_grid(build_grid(scene), device) if args.accel == "grid"
-            else None)
-    render = render_megakernel if engine == "cuda" else render_megakernel_plain
     window = [0]
+    if engine == "eager":
+        # the scene (and grid) moved to the device once, like the packing
+        scene_dev = scene.to(integrator.resolve_device(device))
+        grid = (build_grid(scene).to(device) if args.accel == "grid"
+                else None)
 
-    def run():
-        # distinct sample window per call: timing reflects fresh work
-        window[0] += 1
-        return render(packed, cp, args.seed, args.width, args.height,
-                      args.spp, args.bounces,
-                      sample_offset=(window[0] - 1) * args.spp,
-                      physical=args.physical, packed_grid=grid)
+        def run():
+            window[0] += 1
+            with torch.no_grad():
+                return integrator.render(
+                    scene_dev, cp, args.width, args.height, args.spp,
+                    args.seed, args.bounces, live_cutoff=_cutoff(args),
+                    sample_offset=(window[0] - 1) * args.spp, grid=grid,
+                    physical=args.physical, device=device)
+    else:
+        packed = pack_scene(scene, device)
+        grid = (pack_grid(build_grid(scene), device) if args.accel == "grid"
+                else None)
+        render = (render_megakernel if engine == "cuda"
+                  else render_megakernel_plain)
+
+        def run():
+            # distinct sample window per call: timing reflects fresh work
+            window[0] += 1
+            return render(packed, cp, args.seed, args.width, args.height,
+                          args.spp, args.bounces,
+                          sample_offset=(window[0] - 1) * args.spp,
+                          physical=args.physical, packed_grid=grid)
 
     t0 = time.perf_counter()
     run()
@@ -196,6 +225,14 @@ def cmd_benchmark(args):
                    if device.type == "cuda" else "cpu"),
         "checksum": float(img.sum()),
     }
+    if engine == "eager":
+        out["live_cutoff"] = _cutoff(args)
+    if args.stats:
+        fracs = integrator.live_ray_stats(scene, cp, args.width, args.height,
+                                          args.seed, max_bounces=args.bounces,
+                                          device=device)
+        out["live_ray_fraction_per_bounce"] = [round(float(f), 4)
+                                               for f in fracs]
     print(json.dumps(out))
 
 
@@ -206,8 +243,11 @@ def _light_setup(args):
     import torch
 
     from .models.camera import Camera, camera_arrays
-    from .ops.cuda.megakernel import pack_scene
+    from .ops.cuda.megakernel import _unported, pack_scene
 
+    if args.engine == "eager":
+        _unported(f"'{args.cmd} --engine eager' (light paths on the eager "
+                  "engine)", "Queue 1 item 8")
     device = torch.device(args.device)
     engine = _config(args).resolved_engine()
     if engine != ("cuda" if device.type == "cuda" else "plain"):
@@ -314,16 +354,25 @@ def cmd_grad_check(args):
 
 def cmd_invert(args):
     import numpy as np
+    import torch
 
     from .ops.cuda.megakernel import (pack_scene, render_megakernel,
                                       render_megakernel_plain)
-    from .render import inverse
+    from .render import integrator, inverse
     from .utils.image import write_png
 
     scene_true, cp, engine, fields = _training_setup(args)
     render = render_megakernel if engine == "cuda" else render_megakernel_plain
 
     def image(scene):
+        # each engine trains toward its own render of the truth
+        if engine == "eager":
+            with torch.no_grad():
+                return integrator.render(scene, cp, args.width, args.height,
+                                         args.spp, args.seed, args.bounces,
+                                         live_cutoff=None,
+                                         physical=args.physical,
+                                         device=args.device)
         return render(pack_scene(scene, args.device), cp, args.seed,
                       args.width, args.height, args.spp, args.bounces,
                       physical=args.physical)
@@ -373,6 +422,9 @@ def main(argv=None):
     p = sub.add_parser("benchmark", help="measure primary rays/s")
     _common(p)
     p.add_argument("--repeats", type=int, default=3)
+    p.add_argument("--stats", action="store_true",
+                   help="add the eager engine's live-ray fraction entering "
+                        "each bounce (live_ray_stats, sample 0)")
     p.set_defaults(fn=cmd_benchmark)
 
     p = sub.add_parser("grad-check", help="AD vs finite differences")

@@ -9,6 +9,7 @@ INV_PI = 0.31830988618           # CudaTracer.h:4 (INVERSE_PI)
 
 DEFAULT_MAX_BOUNCES = 15         # CudaTracer.h:39 (maxIterations)
 DEFAULT_DIM = 512                # CudaUtils.h:7 (DIM)
+LIVE_RAY_CUTOFF = 128            # CudaTracer.cu:622 early-exit threshold
 
 # Ceiling of every MIS density ratio and chain carry of the bidirectional
 # weights, applied before the ratio is squared or carried on: a density that

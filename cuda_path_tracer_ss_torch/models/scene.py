@@ -116,6 +116,16 @@ class Scene:
     def replace(self, **kw) -> "Scene":
         return dataclasses.replace(self, **kw)
 
+    def to(self, device) -> "Scene":
+        """The same scene with every tensor on ``device`` (``Tensor.to``: a
+        field that requires grad keeps its graph)."""
+        def move(obj):
+            return dataclasses.replace(obj, **{
+                f.name: (move(v) if dataclasses.is_dataclass(v) else v.to(device))
+                for f in dataclasses.fields(obj)
+                for v in (getattr(obj, f.name),)})
+        return move(self)
+
 
 _MATERIAL_FIELDS = tuple(f.name for f in dataclasses.fields(Materials))
 _SCENE_FIELDS = tuple(f.name for f in dataclasses.fields(Scene)

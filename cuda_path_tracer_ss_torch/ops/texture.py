@@ -166,19 +166,99 @@ def triangle_uv_tangent(e1, e2, uv0, uv1, uv2):
     return tuple(torch.where(degen, e1[c] * e1inv, tt[c]) for c in range(3))
 
 
-def apply_maps(scene, ro, rd, prim, normal, mat, diffuse):
-    """Texture the per-lane material and surfel of a scene (``ro``, ``rd``,
-    ``normal``, ``diffuse`` [N, 3]; ``prim``, ``mat`` [N] int): returns
-    (diffuse', normal') with the diffuse albedo modulated by the color map
-    and the shading normal perturbed by the normal map; lanes whose maps are
-    -1 pass through. The plain render's texture block on the scene's packed
-    tables; no random numbers."""
-    from .cuda.megakernel import _texture_block_plain, pack_scene
+# ---------------------------------------------------------------------------
+# The eager engine's texture block: the JAX package's Scene-level
+# ``apply_maps`` on Vec3 lanes, reading ``scene.textures`` directly (no
+# packed tables, nothing repacked per bounce).
+# ---------------------------------------------------------------------------
+
+def _sphere_tangent_vec(n):
+    """d(position)/du of ``sphere_uv`` (longitude circles) with a pole
+    fallback, through the gradient-clamped normalize: near a pole the
+    tangent's norm vanishes, and a plain normalize's inf derivative times
+    the zero cotangent of an unused branch is NaN."""
+    from .vec import Vec3, where as vwhere
+
+    t = Vec3(-n.z, torch.zeros_like(n.y), n.x)
+    degen = t.norm2() < 1e-12
+    fallback = Vec3(torch.ones_like(n.x), torch.zeros_like(n.y),
+                    torch.zeros_like(n.z))
+    return vwhere(degen, fallback, t.normalize_clamped_grad(eps=1e-20))
+
+
+def apply_maps_eager(scene, ro, rd, hit, surfel, m):
+    """Texture the per-lane material and surfel of the eager engine
+    (``ops/intersect.Hit`` / ``Surfel``, ``ops/bsdf.MaterialLookup``):
+    returns (m', surfel') with the diffuse albedo modulated by the color map
+    and the shading normal perturbed by the normal map; lanes whose maps
+    are -1 pass through. No random numbers."""
+    from .intersect import triangle_t
+    from .vec import Vec3, gather, where as vwhere
 
     if not scene.num_textures:
-        return diffuse, normal
-    new_d, new_n = _texture_block_plain(
-        pack_scene(scene, ro.device), *ro.unbind(-1), *rd.unbind(-1),
-        prim.to(torch.int64), mat.to(torch.int64), *normal.unbind(-1),
-        diffuse.unbind(-1))
-    return torch.stack(new_d, -1), torch.stack(new_n, -1)
+        return m, surfel
+    S, T = scene.num_spheres, scene.num_triangles
+    is_tri = hit.prim >= S
+    n_unit = surfel.normal.normalize(eps=1e-20)
+
+    u = torch.zeros_like(hit.t)
+    v = torch.zeros_like(hit.t)
+    tang = Vec3(torch.ones_like(hit.t), torch.zeros_like(hit.t),
+                torch.zeros_like(hit.t))
+
+    if S:
+        su, sv = sphere_uv(n_unit.x, n_unit.y, n_unit.z)
+        st = _sphere_tangent_vec(n_unit)
+        u = torch.where(~is_tri, su, u)
+        v = torch.where(~is_tri, sv, v)
+        tang = vwhere(~is_tri, st, tang)
+
+    if T:
+        ti = torch.clamp(hit.prim - S, 0, T - 1)
+        v0, v1, v2 = (gather(scene.tri_v0, ti), gather(scene.tri_v1, ti),
+                      gather(scene.tri_v2, ti))
+        _, w1, w2, _ = triangle_t(ro, rd, v0, v1, v2)
+        w0 = 1.0 - (w1 + w2)
+        uv0, uv1, uv2 = scene.tri_uv0[ti], scene.tri_uv1[ti], scene.tri_uv2[ti]
+        tu = uv0[:, 0] * w0 + uv1[:, 0] * w1 + uv2[:, 0] * w2
+        tv = uv0[:, 1] * w0 + uv1[:, 1] * w1 + uv2[:, 1] * w2
+        u = torch.where(is_tri, tu, u)
+        v = torch.where(is_tri, tv, v)
+        # UV-aligned tangent: T = (e1 dv2 - e2 dv1) / det
+        e1 = v1 - v0
+        e2 = v2 - v0
+        du1 = uv1[:, 0] - uv0[:, 0]
+        dv1 = uv1[:, 1] - uv0[:, 1]
+        du2 = uv2[:, 0] - uv0[:, 0]
+        dv2 = uv2[:, 1] - uv0[:, 1]
+        det = du1 * dv2 - du2 * dv1
+        det_bad = torch.abs(det) < 1e-12
+        inv_det = torch.where(det_bad, 0.0,
+                              1.0 / torch.where(det_bad, 1.0, det))
+        tt = (e1 * dv2 - e2 * dv1) * inv_det
+        degen = det_bad | (tt.norm2() < 1e-16)
+        # a stable fallback frame for UV-less triangles
+        tt = vwhere(degen, e1.normalize(eps=1e-20), tt)
+        tang = vwhere(is_tri, tt, tang)
+
+    mat = surfel.mat.long()
+    tex_id = scene.materials.tex_id[mat]
+    nmap_id = scene.materials.nmap_id[mat]
+    albedo = Vec3(*sample_bilinear(scene.textures, scene.tex_hw, tex_id, u, v))
+    scale = vwhere(tex_id >= 0, albedo, Vec3.ones(u.shape, like=u))
+    new_m = m._replace(diffuse=m.diffuse * scale)
+
+    texel = Vec3(*sample_bilinear(scene.textures, scene.tex_hw, nmap_id, u, v))
+    # the tangent frame orthonormalised against the shading normal, through
+    # the gradient-clamped normalize (the projection degenerates at the
+    # sphere's poles, where no normal map may consume the frame)
+    t_ortho = (tang - n_unit * n_unit.dot(tang)).normalize_clamped_grad(eps=1e-20)
+    b = n_unit.cross(t_ortho)
+    tn = texel * 2.0 - 1.0
+    perturbed = (t_ortho * tn.x + b * tn.y
+                 + n_unit * torch.clamp_min(tn.z, 1e-3)).normalize(eps=1e-20)
+    # unmapped lanes keep the unnormalised interpolated normal; mapped lanes
+    # get the unit perturbed normal scaled back to the original length
+    n_len = torch.sqrt(torch.clamp_min(surfel.normal.norm2(), 1e-20))
+    new_n = vwhere(nmap_id >= 0, perturbed * n_len, surfel.normal)
+    return new_m, surfel._replace(normal=new_n)

@@ -65,13 +65,13 @@ def render_bidir_fast(packed: PackedScene, cam_params, width: int,
 def render_bidir(*args, **kwargs):
     """The eager-engine bidirectional render: not ported yet."""
     _unported("render_bidir on the eager engine (use render_bidir_fast)",
-              "Queue 1 item 7")
+              "Queue 1 item 8")
 
 
 def render_bidir_sharded(*args, **kwargs):
     """The eager-engine bidirectional render over a device mesh: not ported
     yet."""
-    _unported("render_bidir_sharded", "Queue 1 items 7 and 10")
+    _unported("render_bidir_sharded", "Queue 1 items 8 and 10")
 
 
 def render_bidir_fast_sharded(*args, **kwargs):

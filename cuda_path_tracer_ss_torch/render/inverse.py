@@ -6,9 +6,11 @@ triangle geometry, camera) of an image loss, and gradient descent on it, on
 the reference-parity estimator or (``physical=True``) the unbiased one. A loss renders
 through ``render_megakernel_diff`` (``ops/cuda/megakernel_vjp.py``): on a CUDA
 device the forward megakernel and the replay-VJP kernel, on the CPU autograd
-through the plain PyTorch render. Discrete branch / hit / visibility decisions
-are detached and continuous factors differentiated, so gradients match finite
-differences on the same random streams.
+through the plain PyTorch render; or (``engine="eager"``) by autograd through
+the eager engine (``render/integrator.py``), on any device. Discrete branch /
+hit / visibility decisions are detached and continuous factors
+differentiated, so gradients match finite differences on the same random
+streams.
 
 Parameters are a dict ``{field name: tensor}``; names address nested
 dataclass fields with dots, 3-vector fields are ``[N, 3]`` tensors.
@@ -27,6 +29,7 @@ from ..ops.cuda import megakernel_vjp as vjp
 from ..ops.cuda.megakernel import _unported, pack_grid, pack_scene
 from ..ops.grid import build_grid
 from ..utils import rng
+from . import integrator
 
 # Scene leaves it makes sense to optimize.
 TRAINABLE_FIELDS = (
@@ -49,8 +52,9 @@ TRAINABLE_FIELDS = (
 )
 
 # "cuda": the CUDA kernels (needs a CUDA device); "plain": autograd through
-# the plain PyTorch render (any device).
-ENGINES = ("cuda", "plain")
+# the plain PyTorch render (any device); "eager": autograd through the eager
+# engine, the counterpart of the JAX package's jnp engine (any device).
+ENGINES = ("cuda", "plain", "eager")
 
 
 def get_field(scene: Scene, name: str) -> torch.Tensor:
@@ -102,9 +106,8 @@ def _check_engine(engine: str) -> None:
         _unported(f"engine={engine!r} (training through light paths)",
                   "Queue 1 item 8")
     if engine == "jnp":
-        _unported("the eager engine (full autodiff of every field, the "
-                  "counterpart of the reference's jnp engine)",
-                  "Queue 1 item 7")
+        raise ValueError("unknown engine 'jnp': the JAX package's jnp "
+                         "engine is engine='eager' here")
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; use one of {ENGINES}")
 
@@ -118,11 +121,14 @@ def _check_grid_engine(engine: str) -> None:
 def check_engine_fields(engine: str, field_names, physical: bool = False,
                         scene=None) -> None:
     """Raise early if the chosen engine cannot differentiate a field — a
-    silent zero gradient is the failure mode this guards against. Both
-    engines of this package differentiate the same set: the plain engine
-    detaches what the kernel detaches. Pass ``scene`` so that a textured
-    scene gets its field set (the texels as well)."""
+    silent zero gradient is the failure mode this guards against. The cuda
+    and plain engines differentiate the same set: the plain engine detaches
+    what the kernel detaches. Pass ``scene`` so that a textured scene gets
+    its field set (the texels as well). The eager engine, like the
+    reference's jnp engine, is full autograd and restricts no field."""
     _check_engine(engine)
+    if engine == "eager":
+        return
     textured = scene is not None and getattr(scene, "num_textures", 0) > 0
     ok = pallas_trainable(physical)
     if textured:
@@ -174,11 +180,13 @@ def make_loss(scene: Scene, cam_params, target, width: int, height: int,
 
     ``engine="cuda"`` renders with the forward megakernel and
     back-propagates with the replay-VJP kernel; ``engine="plain"`` is
-    autograd through the plain PyTorch render. Both consume identical RNG
-    streams, so losses and gradients agree to float tolerance. ``device``
-    defaults to "cuda" for the cuda engine and to "cpu" for the plain one;
-    the loss lives on it. ``loss.grad_mode`` tells which backward was
-    picked.
+    autograd through the plain PyTorch render; ``engine="eager"`` is
+    autograd through the eager engine's ``render`` (``live_cutoff=None``).
+    All consume identical RNG streams, so losses and gradients agree to
+    float tolerance. ``device`` defaults to "cuda" for the cuda and eager
+    engines and to "cpu" for the plain one; the loss lives on it.
+    ``loss.grad_mode`` tells which backward was picked ("autograd" on the
+    eager engine).
 
     ``accel="grid"`` builds the uniform grid (``ops/grid.py``) ONCE from the
     initial scene and sweeps through it in every evaluation, forward and
@@ -192,15 +200,30 @@ def make_loss(scene: Scene, cam_params, target, width: int, height: int,
         _check_grid_engine(engine)
     _check_engine(engine)
     device = torch.device(device if device is not None
-                          else ("cuda" if engine == "cuda" else "cpu"))
+                          else ("cpu" if engine == "plain" else "cuda"))
     if engine == "cuda" and device.type != "cuda":
         raise ValueError(f"engine='cuda' needs a CUDA device, got {device}")
+    if not isinstance(target, torch.Tensor):
+        target = torch.from_numpy(np.array(target, np.float32))
+    if engine == "eager":
+        device = integrator.resolve_device(device)
+        target = target.to(device=device, dtype=torch.float32)
+        egrid = build_grid(scene).to(device) if accel == "grid" else None
+
+        def eager_loss(params, seed):
+            img = integrator.render(merge_params(scene, params), cam_params,
+                                    width, height, spp, int(seed),
+                                    max_bounces=max_bounces, live_cutoff=None,
+                                    grid=egrid, physical=physical,
+                                    device=device)
+            return torch.mean((img - target) ** 2)
+
+        eager_loss.grad_mode = "autograd"
+        return eager_loss
     grad_mode = _grad_mode_for(field_names, scene, physical)
     render = (vjp.render_megakernel_diff if engine == "cuda"
               else vjp.render_megakernel_diff_plain)
     grid = pack_grid(build_grid(scene), device) if accel == "grid" else None
-    if not isinstance(target, torch.Tensor):
-        target = torch.from_numpy(np.array(target, np.float32))
     target = target.to(device=device, dtype=torch.float32)
 
     def loss(params, seed):

@@ -19,7 +19,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..constants import DEFAULT_MAX_BOUNCES
+from ..constants import DEFAULT_MAX_BOUNCES, LIVE_RAY_CUTOFF
 from ..models.camera import Camera, camera_arrays
 from ..models.scene import scene_to_numpy
 from ..ops import tonemap
@@ -27,8 +27,9 @@ from ..ops.cuda import megakernel
 from ..ops.grid import build_grid
 from ..utils import image as image_io
 from ..utils.profiling import PassMeter, sync
+from . import integrator
 
-ENGINES = ("auto", "cuda", "plain")
+ENGINES = ("auto", "cuda", "plain", "eager")
 
 
 @dataclasses.dataclass
@@ -49,10 +50,16 @@ class RenderConfig:
     # "cuda": the hand-written CUDA megakernel (needs a CUDA device);
     # "plain": the plain PyTorch version of the same function (any device;
     #   the yardstick of correctness, slow);
+    # "eager": the JAX package's jnp engine in plain PyTorch
+    #   (render/integrator.py; any device, fixed passes);
     # "auto": cuda on a CUDA device, plain on device="cpu".
-    # Both consume identical counter-based RNG streams (utils/rng.py), so
+    # All consume identical counter-based RNG streams (utils/rng.py), so
     # they produce the same image per pixel up to float op-order noise.
     engine: str = "auto"
+    # The eager engine's early exit: a sample's wavefront stops once at most
+    # this many of its rays are live (the reference's numRays > 128); None
+    # traces every bounce. The other engines trace every bounce.
+    live_cutoff: Optional[int] = LIVE_RAY_CUTOFF
     # Reference-quirk display pipeline: per-sample clamp -> gamma -> 8-bit
     # quantize -> integer accumulation (writeToPixelsKernel,
     # CudaTracer.cu:63-104). Forces samples_per_pass == 1.
@@ -72,6 +79,9 @@ class RenderConfig:
     device: str = "cuda"
 
     def resolved_engine(self) -> str:
+        if self.engine == "jnp":
+            raise ValueError("unknown engine 'jnp': the JAX package's jnp "
+                             "engine is engine='eager' here")
         if self.engine not in ENGINES:
             raise ValueError(f"unknown engine {self.engine!r}; use one of "
                              f"{ENGINES}")
@@ -98,9 +108,11 @@ class RenderConfig:
 
     def auto_pass_growth(self) -> bool:
         """True when ``run()`` may grow pass sizes beyond the base: AUTO
-        mode outside compat accumulation (both engines take spp at run
-        time)."""
-        return self.samples_per_pass is None and not self.compat_int_accum
+        mode outside compat accumulation on the kernel and plain engines
+        (they take spp at run time); the eager engine keeps fixed passes,
+        as the reference's jnp engine does."""
+        return (self.samples_per_pass is None and not self.compat_int_accum
+                and self.engine != "eager")
 
 
 class ProgressiveRenderer:
@@ -120,15 +132,48 @@ class ProgressiveRenderer:
         self._engine = config.resolved_engine()
         self._device = torch.device(config.device)
         # pack ONCE: the tables (and the grid, built once per scene) live on
-        # the rendering device for the renderer's lifetime
-        self._packed = megakernel.pack_scene(scene, self._device)
-        self._grid = (megakernel.pack_grid(build_grid(scene), self._device)
-                      if config.accel == "grid" else None)
+        # the rendering device for the renderer's lifetime; the eager
+        # engine keeps the scene itself there
+        grid = build_grid(scene) if config.accel == "grid" else None
+        if self._engine == "eager":
+            self._scene_dev = scene.to(integrator.resolve_device(self._device))
+            self._grid = grid.to(self._device) if grid is not None else None
+        else:
+            self._packed = megakernel.pack_scene(scene, self._device)
+            self._grid = (megakernel.pack_grid(grid, self._device)
+                          if grid is not None else None)
         self._seed = int(config.seed)
         # Space-key mode switch (CudaTracer.cu:760-765): ray-trace mode caps
         # paths at 1 bounce (usePathTracer=false ran 1 iteration).
         self._ray_trace_mode = False
         self.reset()
+
+    def _accumulate(self, cam_params, first_sample: int, bounces: int,
+                    pass_spp: int) -> None:
+        """Add global samples [first_sample, first_sample + pass_spp) to
+        the accumulator. The eager engine adds them one by one, as the
+        reference's jnp pass does; the others add the pass mean times its
+        size (compat accumulation: one sample, quantized)."""
+        cfg = self.config
+        if self._engine == "eager":
+            with torch.no_grad():
+                for r in integrator.sample_radiance(
+                        self._scene_dev, cam_params, cfg.width, cfg.height,
+                        self._seed,
+                        range(first_sample, first_sample + pass_spp),
+                        max_bounces=bounces, live_cutoff=cfg.live_cutoff,
+                        grid=self._grid, physical=cfg.physical):
+                    self._accum = (tonemap.compat_accumulate(
+                        self._accum, r, cfg.gamma) if cfg.compat_int_accum
+                        else self._accum + r)
+            return
+        img = self._render_pass(cam_params, first_sample, bounces, pass_spp)
+        if cfg.compat_int_accum:
+            # compat forces one sample per pass: the mean IS the sample
+            self._accum = tonemap.compat_accumulate(self._accum, img,
+                                                    cfg.gamma)
+        else:
+            self._accum = self._accum + img * float(pass_spp)
 
     def _render_pass(self, cam_params, first_sample: int, bounces: int,
                      pass_spp: int) -> torch.Tensor:
@@ -189,14 +234,8 @@ class ProgressiveRenderer:
         cam_params = camera_arrays(self.camera)
         sync(self._device)
         t0 = time.perf_counter()
-        img = self._render_pass(cam_params, self._samples_done,
-                                self.effective_bounces, n)
-        if cfg.compat_int_accum:
-            # compat forces one sample per pass: the mean IS the sample
-            self._accum = tonemap.compat_accumulate(self._accum, img,
-                                                    cfg.gamma)
-        else:
-            self._accum = self._accum + img * float(n)
+        self._accumulate(cam_params, self._samples_done,
+                         self.effective_bounces, n)
         sync(self._device)
         dt = time.perf_counter() - t0
         self._samples_done += n

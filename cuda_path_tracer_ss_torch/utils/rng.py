@@ -109,6 +109,21 @@ def eye_jitter(seed, pixel_idx, sample_idx):
     return uniform_pair(seed, pixel_idx, sample_idx, PAIR_EYE)
 
 
+def bounce_rows(seed, pixel_idx, sample_idx, bounce_idx, num_area_lights: int):
+    """The ``[3 + 4 * num_area_lights, N]`` uniform block one bounce
+    consumes, rows in the eager engine's layout: (branch, dir_a, dir_b) then
+    4 rows per area light (u1, u2, u3, pick)."""
+    base = pair_base(bounce_idx, num_area_lights)
+    b0, b1 = uniform_pair(seed, pixel_idx, sample_idx, base)
+    b2, _ = uniform_pair(seed, pixel_idx, sample_idx, base + 1)
+    rows = [b0, b1, b2]
+    for i in range(num_area_lights):
+        u1, u2 = uniform_pair(seed, pixel_idx, sample_idx, base + 2 + 2 * i)
+        u3, up = uniform_pair(seed, pixel_idx, sample_idx, base + 3 + 2 * i)
+        rows += [u1, u2, u3, up]
+    return torch.stack(rows)
+
+
 def seed_for(base_seed: int, stream: int) -> int:
     """Derive an unrelated int32 seed (distinct threefry key word) for an
     auxiliary stream; int32 wrap-around arithmetic."""

@@ -128,6 +128,12 @@ def test_light_commands_pick_their_engine_by_the_device(cmd):
         main([cmd, *LIGHT, "--engine", "cuda"])
 
 
+@pytest.mark.parametrize("cmd", ["lighttrace", "bidir"])
+def test_light_commands_on_the_eager_engine_raise_naming_the_roadmap(cmd):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        main([cmd, *LIGHT, "--engine", "eager"])
+
+
 # ---- the training commands ----------------------------------------------------
 
 TRAIN = ["--width", "10", "--height", "10", "--spp", "2", "--bounces", "3",

@@ -45,7 +45,15 @@ def test_port_has_its_modules():
                  "cuda_path_tracer_ss_torch/render/bidir.py",
                  "cuda_path_tracer_ss_torch/render/inverse.py",
                  "cuda_path_tracer_ss_torch/render/renderer.py",
-                 "cuda_path_tracer_ss_torch/utils/build.py"):
+                 "cuda_path_tracer_ss_torch/utils/build.py",
+                 "cuda_path_tracer_ss_torch/ops/vec.py",
+                 "cuda_path_tracer_ss_torch/ops/intersect.py",
+                 "cuda_path_tracer_ss_torch/ops/optics.py",
+                 "cuda_path_tracer_ss_torch/ops/sampling.py",
+                 "cuda_path_tracer_ss_torch/ops/bsdf.py",
+                 "cuda_path_tracer_ss_torch/ops/shading.py",
+                 "cuda_path_tracer_ss_torch/ops/compaction.py",
+                 "cuda_path_tracer_ss_torch/render/integrator.py"):
         assert want in names
     for src in KERNEL_SOURCES:
         assert os.path.isfile(os.path.join(PORT, "csrc", src))
@@ -66,7 +74,8 @@ def test_importing_the_port_leaves_jax_out():
             "cuda_path_tracer_ss_torch.render.inverse, "
             "cuda_path_tracer_ss_torch.ops.texture, "
             "cuda_path_tracer_ss_torch.ops.grid, "
-            "cuda_path_tracer_ss_torch.utils.obj; "
+            "cuda_path_tracer_ss_torch.utils.obj, "
+            "cuda_path_tracer_ss_torch.render.integrator; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -207,7 +207,7 @@ def _hits(jscene, lanes=128, seed=3):
 
 @pytest.mark.parametrize("name", list(SCENES))
 def test_apply_maps_matches_jax(name):
-    """The port's apply_maps (the plain render's texture block) and the
+    """The plain render's texture block (``_texture_block_plain``) and the
     kernels' texture_block (host build), each against the reference's
     apply_maps at the same hits."""
     jscene = SCENES[name]()
@@ -223,8 +223,9 @@ def test_apply_maps_matches_jax(name):
     base_d = scene.materials.diffuse[torch.from_numpy(mat).long()]
     t = {k: torch.from_numpy(np.ascontiguousarray(a)) for k, a in
          (("o", o), ("d", d), ("n", nrm))}
-    got_d, got_n = ttex.apply_maps(scene, t["o"], t["d"], torch.from_numpy(prim),
-                                   t["n"], torch.from_numpy(mat), base_d)
+    got_d, got_n = (torch.stack(c, -1) for c in tmk._texture_block_plain(
+        packed, *t["o"].unbind(-1), *t["d"].unbind(-1), torch.from_numpy(prim).long(),
+        torch.from_numpy(mat).long(), *t["n"].unbind(-1), base_d.unbind(-1)))
     np.testing.assert_allclose(got_d.numpy(), want_d, **TOL_BLOCK)
     np.testing.assert_allclose(got_n.numpy(), want_n, **TOL_BLOCK)
     hd, hn, _ = texture_block_hostbuild(packed, o, d, prim, mat, nrm)
