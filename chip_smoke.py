@@ -83,7 +83,19 @@ prints no result. It
     against the linear sweeps (``[eager grid]``); and autograd through it
     against K2 at the training step's size, with times and peak memory
     (``[eager grad bench]``),
-17. prints one JSON line describing every kernel, then the result line.
+17. light paths on the eager engine (``render/lighttrace.py``,
+    ``render_bidir``; no kernel launch): ``render_lighttrace`` on K3's
+    configuration with plain and bidirectional weights against K3's image
+    sink on the same streams, and on ``textured`` against the CPU (``[eager
+    light]``); ``render_bidir`` against ``render_bidir_fast`` and the
+    bidirectional golden (``[eager bidir]``); the light-path loss engines'
+    steps with their peak memory, the reference's FD probes and emission
+    inversion, and the caustic inversion demo where its step times allow
+    (``[eager light train]``); ``utils/profiling.trace`` around an eager eye
+    bounce, an eager light bounce and one K1 launch, with their kernels,
+    device-busy time, idle share and top operations, and ``checked_render``
+    (``[trace]``),
+18. prints one JSON line describing every kernel, then the result line.
 
 Any failed phase raises: the exit code is then non-zero and the result line
 is not printed. ``--out-dir DIR`` keeps the rendered PNG and a JSON report.
@@ -255,6 +267,21 @@ EAGER = dict(width=800, height=800, max_bounces=8, spp=16, pass_spp=4,
 EAGER_TEX = dict(width=256, height=256, max_bounces=8, spp=4)
 EAGER_GRID = dict(width=128, height=128, max_bounces=4, spp=1)
 EAGER_CLI_SIZE = 64
+# The eager light tracer (render/lighttrace.py; it launches no kernel): K3's
+# configuration of [light bench]; textured against the CPU; the eager
+# render_bidir at BIDIR's width with spp cut from 256 to 16 for time (nu kept
+# at 8192); the light-path training step; the reference's FD probe and
+# inversion settings (tests/test_lighttrace.py:149-211, tests/test_bidir.py:
+# 85-203); the traced bounces and K1 launch.
+EAGER_LIGHT_TEX = dict(width=128, height=128, n_paths=65_536)
+EAGER_BIDIR = dict(spp=16, n_paths=131_072)
+LIGHT_TRAIN = dict(scene="shadowed_caustic", width=128, height=128, spp=4,
+                   max_bounces=6, fields=["materials.emission", "materials.diffuse"])
+LIGHT_TRAIN_BIG = dict(width=256, height=256, spp=16, max_bounces=8)
+DEMO = dict(width=24, height=24, steps=250, max_bounces=6, limit_s=60.0)
+TRACE_K1_SPP = 64
+TRACE_BOUNCE = 3
+DEVICE_EVENT_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def log(msg: str) -> None:
@@ -666,6 +693,364 @@ def eager_phases(dev, cp, mk, inverse, start, target_train) -> dict:
             f"worst field {worst} {rel:.2e} of its max|g| (abs {abs_err:.2e})")
         check(loss_rel <= 1e-5, f"eager vs cuda loss {mode}: {loss_rel:.2e}")
         check(ok, f"eager autograd vs K2 {mode}: {worst} {rel:.2e}")
+    return out
+
+
+def trace_summary(path: str, window=None, top: int = 5) -> dict:
+    """What a ``utils/profiling.trace`` Chrome trace shows on the device:
+    the CUDA kernels, the device-busy ms (the union of the device events'
+    intervals), the wall ms and the ``top`` operations by device time (a
+    device event is named by the aten op that launched it). ``window`` names
+    a CPU range (``record_function``): only the device work launched inside
+    it counts, and its duration is the wall time."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    device = [e for e in events if e.get("cat") in DEVICE_EVENT_CATS]
+    wall_ms = None
+    if window is not None:
+        rng_ev = next(e for e in events
+                      if e.get("cat") == "user_annotation" and e["name"] == window)
+        t0, t1 = rng_ev["ts"], rng_ev["ts"] + rng_ev["dur"]
+        launched = {e["args"]["correlation"] for e in events
+                    if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                    and t0 <= e["ts"] <= t1 and "correlation" in e.get("args", {})}
+        device = [e for e in device if e.get("args", {}).get("correlation") in launched]
+        wall_ms = rng_ev["dur"] / 1e3
+    ops = {e["args"]["External id"]: e["name"] for e in events
+           if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}
+    busy, end = 0.0, -1.0
+    for e in sorted(device, key=lambda e: e["ts"]):
+        start, stop = e["ts"], e["ts"] + e["dur"]
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    by_op = {}
+    for e in device:
+        name = ops.get(e.get("args", {}).get("External id"), e["name"][:60])
+        by_op[name] = by_op.get(name, 0.0) + e["dur"] / 1e3
+    return dict(kernels=sum(e.get("cat") == "kernel" for e in device),
+                device_events=len(device), busy_ms=busy / 1e3, wall_ms=wall_ms,
+                top=sorted(by_op.items(), key=lambda kv: -kv[1])[:top])
+
+
+def peak_of(fn, dev):
+    """(result, bytes allocated above the start at the peak) of one call."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated(dev) - base
+
+
+def eager_light_phases(dev, cp, mk, lk, inverse) -> dict:
+    """Light paths on the eager engine (render/lighttrace.py,
+    render_bidir; no kernel launch): against K3's image sink and
+    render_bidir_fast on the same streams, textured against the CPU, the
+    bidirectional golden, the light-path loss engines' steps, FD probes and
+    inversion, then the [trace] profiles and checked_render."""
+    from cuda_path_tracer_ss_torch.models import presets
+    from cuda_path_tracer_ss_torch.render import integrator
+    from cuda_path_tracer_ss_torch.render.bidir import render_bidir, render_bidir_fast
+    from cuda_path_tracer_ss_torch.render.lighttrace import render_lighttrace
+    from cuda_path_tracer_ss_torch.utils import rng
+
+    out = {}
+    bw, bh, bnb, n_paths = (BIDIR[k] for k in ("width", "height", "max_bounces", "n_paths"))
+    light_seed = rng.seed_for(0, 1)
+    caustic = presets.get_scene(BIDIR["scene"])
+    caustic_dev = caustic.to(dev)
+    packed = mk.pack_scene(caustic, dev)
+
+    def no_launches(fn):
+        mk.LAUNCH_COUNT = 0   # the counts to 0 just before the path ...
+        lk.LAUNCH_COUNT = 0
+        res = fn()
+        torch.cuda.synchronize()
+        counts = (mk.LAUNCH_COUNT, lk.LAUNCH_COUNT)   # ... read just after
+        check(counts == (0, 0), f"the eager light path launched kernels {counts}")
+        return res
+
+    # ---- [eager light]: eager render_lighttrace against K3's image sink -----------------
+    out["light"] = {}
+    for nu in (None, n_paths / BIDIR["spp"]):
+        with torch.no_grad():
+            def eager():
+                return render_lighttrace(caustic_dev, cp, bw, bh, n_paths, light_seed,
+                                         max_bounces=bnb, bidir_nu=nu, device=dev)
+            img, peak = peak_of(lambda: no_launches(eager), dev)
+            ms = median_ms(eager, reps=3)
+        k3 = lambda: lk.render_lighttrace_fast(packed, cp, light_seed, bw, bh,  # noqa: E731
+                                               n_paths, max_bounces=bnb, bidir_nu=nu)
+        want = k3()
+        k3_ms = median_ms(k3)
+        d = (img - want).abs()
+        px_share = float((d.amax(-1) < 2e-5).float().mean())
+        ok = (bool(torch.isfinite(img).all()) and float(d.mean()) < 1e-5
+              and px_share > 0.995)
+        out["light"][str(nu)] = dict(ms=ms, k3_ms=k3_ms, peak_bytes=peak,
+                                     mean_gap=float(d.mean()), max_gap=float(d.max()),
+                                     share_2e5=px_share)
+        log(f"[eager light] {BIDIR['scene']} {bw}x{bh} {bnb} bounces {n_paths} paths, "
+            f"nu={nu}: eager render_lighttrace {ms:.1f} ms (median of 3) = "
+            f"{n_paths / ms / 1e3:.2f} M paths/s, peak {peak / 1e9:.3f} GB, 0 kernel "
+            f"launches; K3's image sink {k3_ms:.3f} ms: {ms / k3_ms:.0f}x. Against K3 on the "
+            f"same streams: mean gap {float(d.mean()):.2e}, {px_share:.4%} of pixels "
+            f"< 2e-5, max {float(d.max()):.2e} (float atomics on both sides: neither "
+            f"image is bit-stable)")
+        check(ok, f"eager light nu={nu} against K3: {float(d.mean()):.2e}, {px_share:.4%}")
+    tw, th, tn = (EAGER_LIGHT_TEX[k] for k in ("width", "height", "n_paths"))
+    textured = presets.textured()
+    with torch.no_grad():
+        t0 = time.time()
+        img = no_launches(lambda: render_lighttrace(textured, cp, tw, th, tn, 0,
+                                                    max_bounces=bnb, device=dev))
+        card_s = time.time() - t0
+        t0 = time.time()
+        on_cpu = render_lighttrace(textured, cp, tw, th, tn, 0, max_bounces=bnb,
+                                   device="cpu")
+        cpu_s = time.time() - t0
+    rate, gap, err = match_stats(img.cpu(), on_cpu)
+    out["light_textured"] = dict(card_s=card_s, cpu_s=cpu_s, match_rate=rate, mean_gap=gap,
+                                 max_abs_err=err)
+    log(f"[eager light] textured {tw}x{th} {tn} paths {bnb} bounces (no kernel traces a "
+        f"textured scene): card {card_s * 1e3:.1f} ms (first call), CPU {cpu_s:.2f} s; "
+        f"{rate:.4%} of pixels within rtol 1e-4 / atol 1e-5, means {gap:.2e} apart, max "
+        f"abs err {err:.2e}")
+    check(rate >= 0.995 and gap <= 1e-3, f"eager textured light, card vs CPU: {rate:.4%}")
+
+    # ---- [eager bidir]: eager render_bidir against render_bidir_fast -------------------
+    espp, en = EAGER_BIDIR["spp"], EAGER_BIDIR["n_paths"]
+    nu = en / espp
+    with torch.no_grad():
+        eager_b = lambda: render_bidir(caustic_dev, cp, bw, bh, espp, en, 0,  # noqa: E731
+                                       max_bounces=bnb, device=dev)
+        img, peak = peak_of(lambda: no_launches(eager_b), dev)
+        eye_ms = median_ms(lambda: integrator.render(
+            caustic_dev, cp, bw, bh, espp, 0, max_bounces=bnb, live_cutoff=None,
+            physical=True, bidir_nu=nu, device=dev), reps=3)
+        light_ms = median_ms(lambda: render_lighttrace(
+            caustic_dev, cp, bw, bh, en, light_seed, max_bounces=bnb, bidir_nu=nu,
+            device=dev), reps=3)
+    fast = lambda: render_bidir_fast(packed, cp, bw, bh, espp, en, 0,  # noqa: E731
+                                     max_bounces=bnb)
+    want = fast()
+    fast_ms = median_ms(fast)
+    rate, gap, err = match_stats(img, want)
+    out["bidir"] = dict(eye_ms=eye_ms, light_ms=light_ms, fast_ms=fast_ms, peak_bytes=peak,
+                        match_rate=rate, mean_gap=gap, max_abs_err=err)
+    log(f"[eager bidir] {BIDIR['scene']} {bw}x{bh} {bnb} bounces, {espp} spp (cut from "
+        f"{BIDIR['spp']} for time) + {en} light paths (nu {nu:g}, the bench's): eager eye "
+        f"half {eye_ms:.1f} ms + light half {light_ms:.1f} ms (medians of 3), peak "
+        f"{peak / 1e9:.3f} GB, 0 kernel launches; render_bidir_fast {fast_ms:.2f} ms: "
+        f"{(eye_ms + light_ms) / fast_ms:.0f}x. Against it: {rate:.4%} of pixels within "
+        f"rtol 1e-4 / atol 1e-5, means {gap:.2e} apart, max abs err {err:.2e}")
+    check(rate >= 0.995 and gap <= 1e-3, f"eager bidir vs render_bidir_fast: {rate:.4%}")
+    want = torch.from_numpy(np.load(os.path.join(
+        GOLDEN, "bidir_shadowed_caustic_16x16_2spp_512p_3b.npy")))
+    with torch.no_grad():
+        got = render_bidir(presets.shadowed_caustic(), cp, 16, 16, 2, 512, 42,
+                           max_bounces=3, device=dev).cpu()
+    rate, gap, err = match_stats(got, want)
+    log(f"[eager bidir] golden bidir_shadowed_caustic_16x16_2spp_512p_3b: {rate:.4%} of "
+        f"pixels within rtol 1e-4 / atol 1e-5, means {gap:.2e} apart, max abs err "
+        f"{err:.2e}, {float((got == want).all(-1).float().mean()):.2%} bit-equal")
+    check(rate >= 0.995 and gap <= 1e-3, "eager bidir golden on the card")
+    out["bidir_golden"] = dict(match_rate=rate, mean_gap=gap, max_abs_err=err)
+
+    # ---- [eager light train] ------------------------------------------------------------
+    lt = LIGHT_TRAIN
+    lw, lh, lspp, lnb, fields = (lt[k] for k in ("width", "height", "spp", "max_bounces",
+                                                 "fields"))
+    scene_t = presets.get_scene(lt["scene"])
+    params = inverse.extract_params(scene_t, fields)
+    brighter = inverse.merge_params(scene_t, {"materials.emission":
+                                              params["materials.emission"] * 1.2})
+    out["train"] = {}
+    for engine in ("lighttrace", "bidir"):
+        with torch.no_grad():
+            target = (render_lighttrace(brighter, cp, lw, lh, lspp * lw * lh, 1,
+                                        max_bounces=lnb, device=dev)
+                      if engine == "lighttrace" else
+                      render_bidir(brighter, cp, lw, lh, lspp, lspp * lw * lh, 1,
+                                   max_bounces=lnb, device=dev))
+        loss = inverse.make_loss(scene_t, cp, target, lw, lh, lspp, lnb, engine=engine,
+                                 physical=True, device=dev)
+        (val, grad), peak = peak_of(lambda: no_launches(
+            lambda: inverse.value_and_grad(loss, params, 0)), dev)
+        ms = median_ms(lambda: inverse.value_and_grad(loss, params, 0))
+        finite = all(bool(torch.isfinite(g).all()) for g in grad.values())
+        out["train"][engine] = dict(ms=ms, peak_bytes=peak, loss=float(val))
+        log(f"[eager light train] {lt['scene']} {lw}x{lh} {lspp} spp ({lspp * lw * lh} light "
+            f"paths) {lnb} bounces, engine={engine}, fields {', '.join(fields)}: "
+            f"{ms:.1f} ms per value_and_grad step (median of 5), peak {peak / 1e9:.3f} GB "
+            f"(one graph), loss {float(val):.4e}, gradients finite: {finite}")
+        check(finite and float(grad["materials.emission"].abs().max()) > 0,
+              f"{engine} gradients")
+    bw2, bh2, bspp2, bnb2 = (LIGHT_TRAIN_BIG[k] for k in ("width", "height", "spp",
+                                                          "max_bounces"))
+    loss = inverse.make_loss(scene_t, cp, torch.zeros(bh2, bw2, 3), bw2, bh2, bspp2, bnb2,
+                             engine="lighttrace", physical=True, device=dev)
+    t0 = time.time()
+    (_, grad), peak = peak_of(lambda: inverse.value_and_grad(loss, params, 0), dev)
+    big_s = time.time() - t0
+    out["train"]["lighttrace_big"] = dict(s=big_s, peak_bytes=peak)
+    log(f"[eager light train] lighttrace at {bw2}x{bh2} x {bspp2} spp ({bspp2 * bw2 * bh2} "
+        f"light paths) x {bnb2} bounces: one step {big_s * 1e3:.0f} ms (first call), peak "
+        f"{peak / 1e9:.3f} GB of the card's 80: one graph per step fits")
+    check(all(bool(torch.isfinite(g).all()) for g in grad.values()), "big step gradients")
+
+    lam = presets.cornell_lambert()
+    fd_target = render_lighttrace(lam, cp, 12, 12, 2000, 0, max_bounces=3, device=dev) * 0.8
+    loss = inverse.make_loss(lam, cp, fd_target, 12, 12, 2, max_bounces=3,
+                             engine="lighttrace", physical=True, device=dev)
+    ad, fd = inverse.directional_fd_check(
+        loss, inverse.extract_params(lam, ("materials.emission",)), 5, eps=1e-2)
+    rel = float(np.max(np.abs(ad - fd) / np.abs(fd)))
+    log(f"[eager light train] FD probe of tests/test_lighttrace.py:149-168 on the card: "
+        f"ad {ad.tolist()}, fd {fd.tolist()}, largest relative gap {rel:.2e} (rtol 2e-3)")
+    check(bool(np.allclose(ad, fd, rtol=2e-3, atol=1e-9)), "lighttrace FD probe")
+    bfields = ["materials.emission", "materials.diffuse"]
+    loss = inverse.make_loss(lam, cp, torch.zeros(12, 12, 3), 12, 12, 2, max_bounces=3,
+                             engine="bidir", physical=True, device=dev)
+    ad, fd = inverse.directional_fd_check(loss, inverse.extract_params(lam, bfields), 0,
+                                          eps=2e-3)
+    rel_b = float(np.max(np.abs(ad - fd) / np.abs(fd)))
+    log(f"[eager light train] FD probe of tests/test_bidir.py:173-203 on the card: ad "
+        f"{ad.tolist()}, fd {fd.tolist()}, largest relative gap {rel_b:.2e} (rtol 0.08)")
+    check(bool(np.allclose(ad, fd, rtol=0.08, atol=5e-7)) and np.abs(ad).max() > 1e-7,
+          "bidir FD probe")
+    p = inverse.extract_params(lam, ("materials.emission",))
+    bright = inverse.merge_params(lam, {"materials.emission": p["materials.emission"] * 1.5})
+    target = render_lighttrace(bright, cp, 12, 12, 288, 3, max_bounces=3, device=dev)
+    t0 = time.time()
+    _, got, losses = inverse.invert(lam, cp, target, ("materials.emission",), 12, 12,
+                                    spp=2, steps=40, lr=5e-2, seed=3, max_bounces=3,
+                                    engine="lighttrace", physical=True, device=dev)
+    inv_s = time.time() - t0
+    em_err = float((got["materials.emission"] - p["materials.emission"] * 1.5).abs().max())
+    log(f"[eager light train] invert(engine='lighttrace') of tests/test_lighttrace.py:"
+        f"181-211 (12x12, 2 spp, 3 bounces, 40 Adam steps): loss {losses[0]:.3e} -> "
+        f"{losses[-1]:.3e} ({losses[0] / losses[-1]:.0f}x), emission error {em_err:.3f}, "
+        f"{inv_s:.2f} s")
+    check(losses[-1] < losses[0] / 10 and em_err < 0.2, "lighttrace emission inversion")
+    out["invert"] = dict(s=inv_s, loss_ratio=losses[0] / losses[-1], emission_err=em_err,
+                         fd_rel=rel, fd_rel_bidir=rel_b)
+
+    # the caustic inversion demo runs here only if its step times allow it
+    dw, dh, dnb = DEMO["width"], DEMO["height"], DEMO["max_bounces"]
+    sc = presets.shadowed_caustic()
+    em = inverse.extract_params(sc, ["materials.emission"])
+    with torch.no_grad():
+        demo_target = render_bidir(sc, cp, dw, dh, 64, 600_000, 123, max_bounces=dnb,
+                                   device=dev)
+    step_ms = {}
+    for engine, spp in (("bidir", 4), ("eager", 8)):
+        loss = inverse.make_loss(sc, cp, demo_target, dw, dh, spp, dnb, engine=engine,
+                                 physical=True, device=dev)
+        step_ms[engine] = median_ms(lambda: inverse.value_and_grad(loss, em, 0))
+    projected = DEMO["steps"] * (step_ms["bidir"] + step_ms["eager"]) / 1e3
+    out["demo"] = dict(step_ms=step_ms, projected_s=projected)
+    log(f"[eager light train] caustic inversion demo (tests/test_bidir.py:85-131, 2 x "
+        f"{DEMO['steps']} steps at {dw}x{dh}): a step takes bidir {step_ms['bidir']:.1f} "
+        f"ms, forward {step_ms['eager']:.1f} ms; projected {projected:.1f} s "
+        + ("(under the limit: runs now)" if projected < DEMO["limit_s"] else
+           f"(over {DEMO['limit_s']:.0f} s: stays a slow test, tests/"
+           "test_torch_eager_light_grad.py::test_caustic_inversion_bidir_beats_forward)"))
+    if projected < DEMO["limit_s"]:
+        em_true = em["materials.emission"]
+        li = int(em_true.abs().sum(1).argmax())
+        start = inverse.with_field(sc, "materials.emission", em_true * 0.35)
+        errs = {}
+        t0 = time.time()
+        for engine, spp in (("bidir", 4), ("eager", 8)):
+            _, pe, _ = inverse.invert(start, cp, demo_target, ["materials.emission"], dw, dh,
+                                      spp=spp, steps=DEMO["steps"], lr=0.5,
+                                      max_bounces=dnb, seed=0, resample_every=1,
+                                      engine=engine, physical=True, device=dev)
+            errs[engine] = ((pe["materials.emission"][li] - em_true[li]).abs()
+                            / em_true[li]).cpu().numpy()
+        eb, ef = errs["bidir"], errs["eager"]
+        log(f"[eager light train] demo in {time.time() - t0:.1f} s: relative emission "
+            f"error bidir {eb.tolist()}, forward {ef.tolist()}")
+        check(eb.max() < 0.35 and ef.min() > 0.6 and eb.max() < 0.5 * ef.min(),
+              "caustic inversion demo")
+        out["demo"]["errors"] = dict(bidir=eb.tolist(), eager=ef.tolist())
+    return out
+
+
+def trace_phases(dev, cp, mk) -> dict:
+    """[trace]: utils/profiling.trace around one eager eye bounce, one eager
+    light bounce and one K1 launch; CUDA kernels, device-busy ms against the
+    wall, the idle share and the top device operations of each. Traces go
+    to chiprun_out/traces/. Then checked_render on the card."""
+    from cuda_path_tracer_ss_torch.models import presets
+    from cuda_path_tracer_ss_torch.render import integrator
+    from cuda_path_tracer_ss_torch.render.lighttrace import render_lighttrace
+    from cuda_path_tracer_ss_torch.utils import debug, profiling, rng
+
+    out = {}
+    trace_root = os.path.join(ROOT, "chiprun_out", "traces")
+    cornell = presets.cornell()
+    cornell_dev = cornell.to(dev)
+    caustic_dev = presets.get_scene(BIDIR["scene"]).to(dev)
+    w, h, nb, pspp = EAGER["width"], EAGER["height"], EAGER["max_bounces"], EAGER["pass_spp"]
+    bw, bh, bnb, n_paths = (BIDIR[k] for k in ("width", "height", "max_bounces", "n_paths"))
+    b = TRACE_BOUNCE
+
+    def eye():
+        return integrator.render(cornell_dev, cp, w, h, pspp, 0, max_bounces=nb,
+                                 live_cutoff=None, device=dev)
+
+    def light():
+        return render_lighttrace(caustic_dev, cp, bw, bh, n_paths, rng.seed_for(0, 1),
+                                 max_bounces=bnb, device=dev)
+
+    packed = mk.pack_scene(cornell, dev)
+
+    def k1():
+        return mk.render_megakernel(packed, cp, 0, w, h, TRACE_K1_SPP, max_bounces=nb)
+
+    cases = (("eager eye bounce", eye, f"eye bounce {b}",
+              f"cornell {w}x{h}, the {pspp}-spp wavefront, bounce {b}"),
+             ("eager light bounce", light, f"light bounce {b}",
+              f"{BIDIR['scene']} {bw}x{bh}, {n_paths} paths, bounce {b}"),
+             ("K1 launch", k1, None, f"cornell {w}x{h} x {nb} b x {TRACE_K1_SPP} spp"))
+    for label, fn, window, what in cases:
+        with torch.no_grad():
+            fn()                                   # warm, unprofiled
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            log_dir = os.path.join(trace_root, label.replace(" ", "_"))
+            with profiling.trace(log_dir):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                traced_ms = (time.perf_counter() - t0) * 1e3
+        summ = trace_summary(os.path.join(log_dir, profiling.TRACE_FILE), window)
+        wall = summ["wall_ms"] if window is not None else traced_ms
+        idle = 1.0 - summ["busy_ms"] / wall if wall else float("nan")
+        summ.update(call_ms=plain_ms, traced_call_ms=traced_ms, wall_ms=wall, idle_share=idle)
+        out[label] = summ
+        top = "; ".join(f"{name} {ms:.3f} ms" for name, ms in summ["top"])
+        log(f"[trace] {label} ({what}): {summ['kernels']} CUDA kernels "
+            f"({summ['device_events']} device events), device busy {summ['busy_ms']:.3f} ms "
+            f"of {wall:.3f} ms wall under the profiler: idle share {idle:.1%}; the whole "
+            f"call {plain_ms:.1f} ms unprofiled, {traced_ms:.1f} ms profiled. Top device "
+            f"operations: {top}")
+        check(summ["kernels"] > 0, f"[trace] {label}: no CUDA kernel in the trace")
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    img = debug.checked_render(cornell, cp, 64, 64, 1, 0, max_bounces=nb, device=dev)
+    torch.cuda.synchronize()
+    chk_s = time.time() - t0
+    debug.assert_finite({"image": img}, name="checked_render")
+    log(f"[trace] checked_render cornell 64x64 x 1 spp x {nb} bounces on the card: no NaN "
+        f"in any operation's output, {chk_s:.2f} s")
+    out["checked_render_s"] = chk_s
     return out
 
 
@@ -2508,7 +2893,18 @@ def main() -> int:
     log(f"[eager] the five eager phases took {eager['phases_s']:.1f} s")
     report["eager"] = eager
 
-    # ---- 17. report ----------------------------------------------------------------
+    # ---- 16b. light paths on the eager engine, and the profiles -------------------
+    t0 = time.time()
+    eager_light = eager_light_phases(dev, cp, mk, lk, inverse)
+    eager_light["phases_s"] = time.time() - t0
+    t0 = time.time()
+    eager_light["trace"] = trace_phases(dev, cp, mk)
+    eager_light["trace_s"] = time.time() - t0
+    log(f"[eager] the light-path phases took {eager_light['phases_s']:.1f} s, [trace] "
+        f"{eager_light['trace_s']:.1f} s")
+    report["eager_light"] = eager_light
+
+    # ---- 18. report ----------------------------------------------------------------
     k1_common = {
         "route": "cuda",
         "source": "cuda_path_tracer_ss_torch/csrc/megakernel.cu",

@@ -13,7 +13,10 @@ the megakernel's physical (MIS) variant and its bidirectional carries, the
 light-tracing kernel under ``render_lighttrace_fast``, ``render_bidir_fast``
 and the ``lighttrace`` / ``bidir`` commands; and textures — color and normal
 maps in both kernels (forward render and training, the texels trainable),
-the ``textured`` and ``mesh`` presets, the OBJ/MTL loader and ``--obj``.
+the ``textured`` and ``mesh`` presets, the OBJ/MTL loader and ``--obj``;
+and the eager engine — the JAX package's jnp engine in plain PyTorch, eye
+paths (``render/integrator.py``) and light paths (``render_lighttrace``,
+``render_bidir``), differentiable by autograd.
 """
 
 from .constants import (
@@ -46,7 +49,7 @@ from .ops.cuda.megakernel_vjp import (
     render_megakernel_diff,
     render_megakernel_diff_plain,
 )
-from .render.bidir import render_bidir_fast
+from .render.bidir import render_bidir, render_bidir_fast
 from .render.inverse import (
     TRAINABLE_FIELDS,
     check_engine_fields,
@@ -56,6 +59,7 @@ from .render.inverse import (
     make_loss,
     merge_params,
 )
+from .render.lighttrace import render_lighttrace
 from .render.renderer import ProgressiveRenderer, RenderConfig
 
 __version__ = "0.1.0"
@@ -88,8 +92,10 @@ __all__ = [
     "make_loss",
     "merge_params",
     "pack_scene",
+    "render_bidir",
     "render_bidir_fast",
     "render_fast2",
+    "render_lighttrace",
     "render_lighttrace_fast",
     "render_megakernel",
     "render_megakernel_diff",

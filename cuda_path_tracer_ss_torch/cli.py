@@ -51,13 +51,18 @@ def _common(p: argparse.ArgumentParser):
                         "runs the plain PyTorch version, or the eager "
                         "engine with --engine eager)")
     p.add_argument("--engine", default="auto",
-                   choices=["auto", "cuda", "plain", "eager"],
+                   choices=["auto", "cuda", "plain", "eager", "lighttrace",
+                            "bidir"],
                    help="cuda = the hand-written CUDA megakernel, plain = "
                         "the plain PyTorch version of the same function "
                         "(slow; the yardstick of correctness), eager = the "
                         "JAX package's jnp engine in PyTorch (full autograd "
-                        "for grad-check / invert), auto = cuda on a CUDA "
-                        "device, plain on --device cpu")
+                        "for grad-check / invert; light paths for "
+                        "lighttrace / bidir), auto = cuda on a CUDA device, "
+                        "plain on --device cpu. 'lighttrace' and 'bidir' "
+                        "are training-only estimator engines (grad-check / "
+                        "invert; both need --physical): render with the "
+                        "lighttrace / bidir subcommands")
     p.add_argument("--accel", default="none", choices=["none", "grid"],
                    help="spatial acceleration: grid = the supercell grid's "
                         "culled sweeps (ops/grid.py; the same image; faster "
@@ -66,8 +71,8 @@ def _common(p: argparse.ArgumentParser):
     p.add_argument("--physical", action="store_true",
                    help="unbiased estimator mode: correct-measure light "
                         "sampling with power-heuristic MIS instead of the "
-                        "reference's NEE ('render', 'benchmark'; the "
-                        "training commands have no gradient for it yet)")
+                        "reference's NEE (every command; grad-check / "
+                        "invert with --engine lighttrace|bidir need it)")
 
 
 def _cutoff(args):
@@ -77,6 +82,10 @@ def _cutoff(args):
 def _config(args):
     from .render.renderer import RenderConfig
 
+    if args.engine in ("lighttrace", "bidir"):
+        raise ValueError(f"--engine {args.engine} is a training-only "
+                         "estimator engine (grad-check / invert); render "
+                         f"with the '{args.engine}' subcommand instead")
     return RenderConfig(width=args.width, height=args.height,
                         max_bounces=args.bounces, spp=args.spp,
                         seed=args.seed, live_cutoff=_cutoff(args),
@@ -237,25 +246,33 @@ def cmd_benchmark(args):
 
 
 def _light_setup(args):
-    """(packed scene, cam_params, engine) of the two commands that trace
-    light paths. Their engine follows the device: the kernels on a CUDA
-    device, the plain versions on the CPU."""
+    """(scene, cam_params, engine) of the two commands that trace light
+    paths; the scene is packed for the kernel engines. ``--engine eager``
+    traces them on the eager engine on either device; otherwise the engine
+    follows the device: the kernels on a CUDA device, the plain versions on
+    the CPU. The kernels have no texture block: a textured scene needs
+    ``--engine eager`` (no silent switch)."""
     import torch
 
     from .models.camera import Camera, camera_arrays
-    from .ops.cuda.megakernel import _unported, pack_scene
+    from .ops.cuda.megakernel import pack_scene
+    from .render import integrator
 
+    cp = camera_arrays(Camera())
+    scene = _scene(args)
     if args.engine == "eager":
-        _unported(f"'{args.cmd} --engine eager' (light paths on the eager "
-                  "engine)", "Queue 1 item 8")
+        return scene.to(integrator.resolve_device(args.device)), cp, "eager"
     device = torch.device(args.device)
     engine = _config(args).resolved_engine()
     if engine != ("cuda" if device.type == "cuda" else "plain"):
         raise ValueError(f"'{args.cmd}' picks its engine by the device; "
                          f"--engine {engine} needs --device "
                          f"{'cuda' if engine == 'cuda' else 'cpu'}")
-    packed = pack_scene(_scene(args), device)
-    return packed, camera_arrays(Camera()), engine
+    if scene.num_textures:
+        raise ValueError(f"'{args.cmd}' on a textured scene needs --engine "
+                         "eager: the light kernel and its plain version have "
+                         "no texture block")
+    return pack_scene(scene, device), cp, engine
 
 
 def _write_display(path: str, acc, batches: int):
@@ -270,17 +287,27 @@ def _write_display(path: str, acc, batches: int):
 
 def cmd_lighttrace(args):
     import numpy as np
+    import torch
 
     from .ops.cuda.lightkernel import render_lighttrace_fast
+    from .render.lighttrace import render_lighttrace
 
-    packed, cp, engine = _light_setup(args)
+    scene, cp, engine = _light_setup(args)
     acc = np.zeros((args.height, args.width, 3), np.float64)
     t0 = time.time()
     for k in range(args.batches):
         # one path count for every batch: the kernel takes it at run time
-        img = render_lighttrace_fast(packed, cp, args.seed, args.width,
-                                     args.height, args.paths,
-                                     max_bounces=args.bounces, sample_idx=k)
+        if engine == "eager":
+            with torch.no_grad():
+                img = render_lighttrace(scene, cp, args.width, args.height,
+                                        args.paths, args.seed,
+                                        max_bounces=args.bounces,
+                                        sample_idx=k, device=args.device)
+        else:
+            img = render_lighttrace_fast(scene, cp, args.seed, args.width,
+                                         args.height, args.paths,
+                                         max_bounces=args.bounces,
+                                         sample_idx=k)
         acc += img.cpu().numpy()    # the copy waits for the device
         print(f"batch {k + 1}/{args.batches}  "
               f"({(k + 1) * args.paths / (time.time() - t0) / 1e6:.2f} M "
@@ -290,18 +317,27 @@ def cmd_lighttrace(args):
 
 def cmd_bidir(args):
     import numpy as np
+    import torch
 
-    from .render.bidir import render_bidir_fast
+    from .render.bidir import render_bidir, render_bidir_fast
 
-    packed, cp, engine = _light_setup(args)
+    scene, cp, engine = _light_setup(args)
     acc = np.zeros((args.height, args.width, 3), np.float64)
     t0 = time.time()
     for k in range(args.batches):
-        img = render_bidir_fast(packed, cp, args.width, args.height,
-                                args.spp, args.paths, args.seed,
-                                max_bounces=args.bounces,
-                                sample_offset=k * args.spp,
-                                light_sample_idx=k)
+        if engine == "eager":
+            with torch.no_grad():
+                img = render_bidir(scene, cp, args.width, args.height,
+                                   args.spp, args.paths, args.seed,
+                                   max_bounces=args.bounces,
+                                   sample_offset=k * args.spp,
+                                   light_sample_idx=k, device=args.device)
+        else:
+            img = render_bidir_fast(scene, cp, args.width, args.height,
+                                    args.spp, args.paths, args.seed,
+                                    max_bounces=args.bounces,
+                                    sample_offset=k * args.spp,
+                                    light_sample_idx=k)
         acc += img.cpu().numpy()    # the copy waits for the device
         done = (k + 1) * (args.spp * args.width * args.height + args.paths)
         print(f"batch {k + 1}/{args.batches}  "
@@ -316,9 +352,12 @@ def _training_setup(args):
     from .models.camera import Camera, camera_arrays
     from .render import inverse
 
-    cfg = _config(args)
-    engine = cfg.resolved_engine()
-    cfg.check_ported()
+    if args.engine in inverse.LIGHT_ENGINES:
+        engine = args.engine    # the eager engine's light paths, on --device
+    else:
+        cfg = _config(args)
+        engine = cfg.resolved_engine()
+        cfg.check_ported()
     scene = _scene(args)
     fields = args.fields.split(",")
     inverse.check_engine_fields(engine, fields, physical=args.physical,
@@ -365,8 +404,9 @@ def cmd_invert(args):
     render = render_megakernel if engine == "cuda" else render_megakernel_plain
 
     def image(scene):
-        # each engine trains toward its own render of the truth
-        if engine == "eager":
+        # each engine trains toward its own render of the truth; the light
+        # engines, as the reference's, toward the eager forward estimator's
+        if engine in ("eager",) + inverse.LIGHT_ENGINES:
             with torch.no_grad():
                 return integrator.render(scene, cp, args.width, args.height,
                                          args.spp, args.seed, args.bounces,

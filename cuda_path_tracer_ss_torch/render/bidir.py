@@ -16,9 +16,12 @@ The weights are the power heuristic over count x density with
 per-vertex factor through the same chain-model function
 (``ops/cuda/megakernel._chain_model_lobes``), so the weights of a path sum to 1.
 
+``render_bidir`` runs on the eager engine (``render/integrator.py`` with the
+bidirectional carries, ``render/lighttrace.py`` with the weights), so
+autograd differentiates it (``make_loss(engine="bidir")``);
 ``render_bidir_fast`` runs on the two hand-written kernels: the physical
 megakernel with the bidirectional carries and the light-tracing kernel. The
-entries that run on the eager engine or across devices are not ported yet.
+entries that run across devices are not ported yet.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ from ..constants import DEFAULT_MAX_BOUNCES
 from ..ops.cuda.lightkernel import render_lighttrace_fast
 from ..ops.cuda.megakernel import PackedScene, _unported, render_megakernel
 from ..utils import rng
+from . import integrator
+from .lighttrace import render_lighttrace
 
 
 def render_bidir_fast(packed: PackedScene, cam_params, width: int,
@@ -62,16 +67,40 @@ def render_bidir_fast(packed: PackedScene, cam_params, width: int,
     return fwd + lt
 
 
-def render_bidir(*args, **kwargs):
-    """The eager-engine bidirectional render: not ported yet."""
-    _unported("render_bidir on the eager engine (use render_bidir_fast)",
-              "Queue 1 item 8")
+def render_bidir(scene, cam_params, width: int, height: int, spp: int,
+                 n_paths: int, seed: int,
+                 max_bounces: int = DEFAULT_MAX_BOUNCES,
+                 sample_offset: int = 0, light_sample_idx: int = 0,
+                 device="cuda") -> torch.Tensor:
+    """Combined bidirectional render on the eager engine -> ``[height,
+    width, 3]`` radiance on ``device``: ``spp`` eye samples per pixel plus
+    ``n_paths`` light paths, each contribution MIS-weighted with
+    ``nu = n_paths / spp``; an unbiased estimate of the same per-pixel means
+    as the forward ``physical=True`` estimator. Batch with distinct
+    ``sample_offset`` (eye) and ``light_sample_idx`` (light) and average.
+    Autograd reaches the scene's fields."""
+    if not scene.num_area_lights:
+        raise ValueError("bidirectional rendering needs an area light "
+                         "(use the forward estimator for point-light-only "
+                         "scenes)")
+    nu = float(n_paths) / float(spp)
+    fwd = integrator.render(scene, cam_params, width, height, spp, seed,
+                            max_bounces=max_bounces, live_cutoff=None,
+                            sample_offset=sample_offset, physical=True,
+                            bidir_nu=nu, device=device)
+    # the light half draws from another seed: pixel and path indices are
+    # both small integers, so a shared seed would alias their stream keys
+    lt = render_lighttrace(scene, cam_params, width, height, n_paths,
+                           rng.seed_for(seed, 1), max_bounces=max_bounces,
+                           sample_idx=light_sample_idx, bidir_nu=nu,
+                           device=device)
+    return fwd + lt
 
 
 def render_bidir_sharded(*args, **kwargs):
     """The eager-engine bidirectional render over a device mesh: not ported
     yet."""
-    _unported("render_bidir_sharded", "Queue 1 items 8 and 10")
+    _unported("render_bidir_sharded", "Queue 1 item 10")
 
 
 def render_bidir_fast_sharded(*args, **kwargs):

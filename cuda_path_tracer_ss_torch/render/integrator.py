@@ -425,19 +425,21 @@ def _trace_wave(scene, origins: Vec3, directions: Vec3, seed, sample_idx,
                 wave = tree_take(wave, keep)
         if not wave.slot.shape[0]:
             break
-        u = rng.bounce_rows(seed, wave.pixel, wave.sample, b,
-                            scene.num_area_lights)
-        # the last bounce's scattered state is never read: not drawn
-        last = b == max_bounces - 1
-        wave = wave._replace(path=bounce(
-            scene, wave.path, u, do_scatter=not last, grid=grid,
-            physical=physical, nee=nee, light_area_table=area_table,
-            bidir_nu=bidir_nu, bounce_idx=b))
-        if not last:
-            wave, live = partition_by_activity(wave)
-            live = int(live)
-            retire(tree_take(wave, slice(live, None)))
-            wave = tree_take(wave, slice(0, live))
+        # a range of its own in a profiler's trace (utils/profiling.trace)
+        with torch.profiler.record_function(f"eye bounce {b}"):
+            u = rng.bounce_rows(seed, wave.pixel, wave.sample, b,
+                                scene.num_area_lights)
+            # the last bounce's scattered state is never read: not drawn
+            last = b == max_bounces - 1
+            wave = wave._replace(path=bounce(
+                scene, wave.path, u, do_scatter=not last, grid=grid,
+                physical=physical, nee=nee, light_area_table=area_table,
+                bidir_nu=bidir_nu, bounce_idx=b))
+            if not last:
+                wave, live = partition_by_activity(wave)
+                live = int(live)
+                retire(tree_take(wave, slice(live, None)))
+                wave = tree_take(wave, slice(0, live))
         if timing is not None:
             _sync(dev)
             timing.append((b, rays_in, (time.perf_counter() - t0) * 1e3))

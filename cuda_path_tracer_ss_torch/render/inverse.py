@@ -7,7 +7,10 @@ the reference-parity estimator or (``physical=True``) the unbiased one. A loss r
 through ``render_megakernel_diff`` (``ops/cuda/megakernel_vjp.py``): on a CUDA
 device the forward megakernel and the replay-VJP kernel, on the CPU autograd
 through the plain PyTorch render; or (``engine="eager"``) by autograd through
-the eager engine (``render/integrator.py``), on any device. Discrete branch /
+the eager engine (``render/integrator.py``), on any device; or by autograd
+through light paths on the eager engine: ``engine="lighttrace"``
+(``render/lighttrace.py``) and ``engine="bidir"`` (``render/bidir.py``), both
+of the physical estimator. Discrete branch /
 hit / visibility decisions are detached and continuous factors
 differentiated, so gradients match finite differences on the same random
 streams.
@@ -53,8 +56,11 @@ TRAINABLE_FIELDS = (
 
 # "cuda": the CUDA kernels (needs a CUDA device); "plain": autograd through
 # the plain PyTorch render (any device); "eager": autograd through the eager
-# engine, the counterpart of the JAX package's jnp engine (any device).
-ENGINES = ("cuda", "plain", "eager")
+# engine, the counterpart of the JAX package's jnp engine (any device);
+# "lighttrace" / "bidir": autograd through the eager engine's light paths
+# alone / MIS-combined with its eye paths (any device; physical=True).
+LIGHT_ENGINES = ("lighttrace", "bidir")
+ENGINES = ("cuda", "plain", "eager") + LIGHT_ENGINES
 
 
 def get_field(scene: Scene, name: str) -> torch.Tensor:
@@ -102,9 +108,6 @@ def pallas_trainable_linear() -> frozenset:
 
 
 def _check_engine(engine: str) -> None:
-    if engine in ("lighttrace", "bidir"):
-        _unported(f"engine={engine!r} (training through light paths)",
-                  "Queue 1 item 8")
     if engine == "jnp":
         raise ValueError("unknown engine 'jnp': the JAX package's jnp "
                          "engine is engine='eager' here")
@@ -113,7 +116,7 @@ def _check_engine(engine: str) -> None:
 
 
 def _check_grid_engine(engine: str) -> None:
-    if engine in ("lighttrace", "bidir"):
+    if engine in LIGHT_ENGINES:
         raise ValueError(f"engine='{engine}' does not take accel='grid'"
                          " (the adjoint tracer uses the linear sweeps)")
 
@@ -124,10 +127,29 @@ def check_engine_fields(engine: str, field_names, physical: bool = False,
     silent zero gradient is the failure mode this guards against. The cuda
     and plain engines differentiate the same set: the plain engine detaches
     what the kernel detaches. Pass ``scene`` so that a textured scene gets
-    its field set (the texels as well). The eager engine, like the
-    reference's jnp engine, is full autograd and restricts no field."""
+    its field set (the texels as well). The eager, lighttrace and bidir
+    engines, like the reference's, are full autograd and restrict only the
+    fields their estimator never reads."""
     _check_engine(engine)
-    if engine == "eager":
+    if engine == "lighttrace":
+        # light paths emit materials.emission and meet no point light: these
+        # fields would get a silent zero gradient
+        bad = [f for f in field_names
+               if f in ("al_power", "pl_power", "pl_pos")]
+        if bad:
+            raise ValueError(
+                f"engine='lighttrace' has no gradient for {bad}: light "
+                "paths emit materials.emission and ignore point lights — "
+                "optimize 'materials.emission' (or use engine='eager')")
+    if engine == "bidir":
+        # both halves are physical: area lights emit their material's
+        # emission, never al_power (point lights live in the eye half)
+        if "al_power" in field_names:
+            raise ValueError(
+                "engine='bidir' has no gradient for ['al_power']: the "
+                "physical estimator emits materials.emission — optimize "
+                "'materials.emission' instead")
+    if engine in ("eager",) + LIGHT_ENGINES:
         return
     textured = scene is not None and getattr(scene, "num_textures", 0) > 0
     ok = pallas_trainable(physical)
@@ -183,8 +205,13 @@ def make_loss(scene: Scene, cam_params, target, width: int, height: int,
     autograd through the plain PyTorch render; ``engine="eager"`` is
     autograd through the eager engine's ``render`` (``live_cutoff=None``).
     All consume identical RNG streams, so losses and gradients agree to
-    float tolerance. ``device`` defaults to "cuda" for the cuda and eager
-    engines and to "cpu" for the plain one; the loss lives on it.
+    float tolerance. ``engine="lighttrace"`` renders ``spp * width *
+    height`` light paths (``render_lighttrace``), ``engine="bidir"`` adds
+    them to ``spp`` eye samples under MIS weights (``render_bidir``); both
+    estimate the physical integral and need ``physical=True``, and splat
+    pixels are detached as every discrete decision is. ``device`` defaults
+    to "cpu" for the plain engine and to "cuda" for the others; the loss
+    lives on it.
     ``loss.grad_mode`` tells which backward was picked ("autograd" on the
     eager engine).
 
@@ -205,6 +232,9 @@ def make_loss(scene: Scene, cam_params, target, width: int, height: int,
         raise ValueError(f"engine='cuda' needs a CUDA device, got {device}")
     if not isinstance(target, torch.Tensor):
         target = torch.from_numpy(np.array(target, np.float32))
+    if engine in LIGHT_ENGINES:
+        return _light_loss(scene, cam_params, target, width, height, spp,
+                           max_bounces, engine, physical, device)
     if engine == "eager":
         device = integrator.resolve_device(device)
         target = target.to(device=device, dtype=torch.float32)
@@ -235,6 +265,38 @@ def make_loss(scene: Scene, cam_params, target, width: int, height: int,
 
     loss.grad_mode = grad_mode
     return loss
+
+
+def _light_loss(scene, cam_params, target, width, height, spp, max_bounces,
+                engine, physical, device) -> Callable:
+    """The loss of ``make_loss(engine="lighttrace"|"bidir")``: one graph
+    through the light paths (and, for bidir, the eye paths) of a step."""
+    if not physical:
+        raise ValueError(
+            f"engine='{engine}' estimates the PHYSICAL integral (light paths "
+            "and MIS weights have no reference-parity analog); pass "
+            "physical=True so that the target's provenance matches")
+    from .bidir import render_bidir
+    from .lighttrace import render_lighttrace
+
+    device = integrator.resolve_device(device)
+    target = target.to(device=device, dtype=torch.float32)
+    n_paths = spp * width * height   # the effort of spp eye samples
+
+    def light_loss(params, seed):
+        s = merge_params(scene, params)
+        if engine == "lighttrace":
+            img = render_lighttrace(s, cam_params, width, height, n_paths,
+                                    int(seed), max_bounces=max_bounces,
+                                    device=device)
+        else:
+            img = render_bidir(s, cam_params, width, height, spp, n_paths,
+                               int(seed), max_bounces=max_bounces,
+                               device=device)
+        return torch.mean((img - target) ** 2)
+
+    light_loss.grad_mode = "autograd"
+    return light_loss
 
 
 def value_and_grad(loss: Callable, params: Dict[str, torch.Tensor], seed
@@ -297,6 +359,13 @@ def invert(scene_init: Scene, cam_params, target, field_names: Iterable[str],
     scene — see make_loss); its gates come first, in the reference's order,
     so that they raise what the reference raises."""
     field_names = tuple(field_names)
+    if silhouette and engine in LIGHT_ENGINES:
+        raise ValueError(
+            f"silhouette=True supports engine='eager' or 'cuda': the "
+            f"boundary term's jump integrand is the forward estimator's — "
+            f"mixing it with the '{engine}' interior gradient would blend "
+            "two different integrands' boundary weights (use engine='eager' "
+            "with physical=True for boundary-aware physical training)")
     if accel == "grid":
         if silhouette:
             raise ValueError("silhouette=True moves geometry; accel='grid' "

@@ -8,16 +8,23 @@ The reference's entire story is one cudaEvent pair + a console line
   clock is read only after it.
 * ``timed``: time a callable, warm-up excluded; CUDA events on a card, the
   host clock on the CPU.
+* ``trace``: a context manager around ``torch.profiler`` that writes a
+  Chrome trace (``chrome://tracing``, Perfetto) of the block into a
+  directory: host operations always, device kernels and copies on a card.
 * ``PassMeter``: running rays/s, spp, and per-pass ms; renders the reference's
   one-line console format or structured JSONL.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import time
 from typing import Optional
 
 import torch
+
+TRACE_FILE = "trace.json"
 
 
 def sync(device) -> None:
@@ -48,6 +55,23 @@ def timed(fn, *args, reps: int = 3, warmup: int = 1, device="cuda"):
     for _ in range(reps):
         out = fn(*args)
     return out, (time.perf_counter() - t0) / reps
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile the block: yields the ``torch.profiler.profile`` (its
+    ``key_averages()`` and ``events()`` are read after the block) and writes
+    its Chrome trace to ``log_dir/trace.json``. CPU activity always, CUDA
+    activity too when a card is present."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
 
 
 class PassMeter:

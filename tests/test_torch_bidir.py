@@ -143,8 +143,7 @@ def test_bidir_needs_an_area_light():
         tbidir.render_bidir_fast(dark, CP, 8, 8, 1, 64, 0)
 
 
-@pytest.mark.parametrize("entry,item", [("render_bidir", "item 8"),
-                                        ("render_bidir_sharded", "item"),
+@pytest.mark.parametrize("entry,item", [("render_bidir_sharded", "item"),
                                         ("render_bidir_fast_sharded", "item 10")])
 def test_unported_entries_raise_naming_the_roadmap(entry, item):
     with pytest.raises(NotImplementedError, match="ROADMAP.*" + item):

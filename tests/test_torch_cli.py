@@ -130,8 +130,15 @@ def test_light_commands_pick_their_engine_by_the_device(cmd):
 
 @pytest.mark.parametrize("cmd", ["lighttrace", "bidir"])
 def test_light_commands_on_the_eager_engine_raise_naming_the_roadmap(cmd):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        main([cmd, *LIGHT, "--engine", "eager"])
+    """Light paths on the eager engine are ported (ROADMAP Queue 1 item 8
+    is done; they no longer raise naming it): without --device cpu they keep
+    the device rule and raise without a card, with no fallback to the CPU
+    (tests/test_torch_eager_light_grad.py runs them on the CPU)."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a machine without a GPU")
+    on_card = [a for a in LIGHT if a not in ("--device", "cpu")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([cmd, *on_card, "--engine", "eager"])
 
 
 # ---- the training commands ----------------------------------------------------

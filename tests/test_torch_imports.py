@@ -53,7 +53,9 @@ def test_port_has_its_modules():
                  "cuda_path_tracer_ss_torch/ops/bsdf.py",
                  "cuda_path_tracer_ss_torch/ops/shading.py",
                  "cuda_path_tracer_ss_torch/ops/compaction.py",
-                 "cuda_path_tracer_ss_torch/render/integrator.py"):
+                 "cuda_path_tracer_ss_torch/render/integrator.py",
+                 "cuda_path_tracer_ss_torch/render/lighttrace.py",
+                 "cuda_path_tracer_ss_torch/utils/debug.py"):
         assert want in names
     for src in KERNEL_SOURCES:
         assert os.path.isfile(os.path.join(PORT, "csrc", src))
@@ -75,7 +77,10 @@ def test_importing_the_port_leaves_jax_out():
             "cuda_path_tracer_ss_torch.ops.texture, "
             "cuda_path_tracer_ss_torch.ops.grid, "
             "cuda_path_tracer_ss_torch.utils.obj, "
-            "cuda_path_tracer_ss_torch.render.integrator; "
+            "cuda_path_tracer_ss_torch.render.integrator, "
+            "cuda_path_tracer_ss_torch.render.lighttrace, "
+            "cuda_path_tracer_ss_torch.utils.debug, "
+            "cuda_path_tracer_ss_torch.utils.profiling; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
