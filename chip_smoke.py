@@ -95,6 +95,14 @@ prints no result. It
     bounce, an eager light bounce and one K1 launch, with their kernels,
     device-busy time, idle share and top operations, and ``checked_render``
     (``[trace]``),
+17. the silhouette terms (``render/silhouette.py``; the boundary terms launch
+    no kernel): ``make_grad_with_boundary`` with K1 + K2's interior gradient
+    against the all-eager one (``[silhouette vs eager]``), the reference's
+    FD probes on the card (``[silhouette fd]``), ``invert(silhouette=True)``
+    on Cornell 256x256, 16 spp, 8 bounces with the step's parts, peak memory
+    and one K1 and one K2 launch per step (``[silhouette main path]``), the
+    mirror inversion and ``cli invert --silhouette`` (``[silhouette
+    invert]``),
 18. prints one JSON line describing every kernel, then the result line.
 
 Any failed phase raises: the exit code is then non-zero and the result line
@@ -282,6 +290,17 @@ DEMO = dict(width=24, height=24, steps=250, max_bounces=6, limit_s=60.0)
 TRACE_K1_SPP = 64
 TRACE_BOUNCE = 3
 DEVICE_EVENT_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# The silhouette terms (render/silhouette.py): the reference's engine
+# comparison and FD probes at their size (tests/test_silhouette.py: 32x32, 96
+# spp, 2 bounces, seed 3), the training step at the gradient bench's
+# configuration with the reference's boundary defaults, its mirror inversion,
+# and cli invert --silhouette.
+SIL = dict(width=32, height=32, spp=96, max_bounces=2, seed=3)
+SIL_MAIN = dict(width=256, height=256, spp=16, max_bounces=8, steps=3, lr=0.01, shift=0.05,
+                fields=["sph_center", "sph_radius", "tri_v0"], step_limit_s=60.0,
+                cut=(128, 128))
+SIL_INVERT = dict(steps=25, lr=0.05, shift=0.45, max_bounces=3)
+SIL_CLI_SIZE = 64
 
 
 def log(msg: str) -> None:
@@ -1051,6 +1070,275 @@ def trace_phases(dev, cp, mk) -> dict:
     log(f"[trace] checked_render cornell 64x64 x 1 spp x {nb} bounces on the card: no NaN "
         f"in any operation's output, {chk_s:.2f} s")
     out["checked_render_s"] = chk_s
+    return out
+
+
+def silhouette_phases(dev, cp, mk, vjp, inverse) -> dict:
+    """The silhouette slice (render/silhouette.py): make_grad_with_boundary
+    with K1 + K2's interior gradient against the all-eager one, the
+    reference's FD probes on the card, the training step on cornell with
+    its four parts, peak memory and launches, the mirror inversion and cli
+    invert --silhouette."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_port_helpers import silhouette_scene
+    from cuda_path_tracer_ss_torch.models import presets
+    from cuda_path_tracer_ss_torch.models import scene as scene_mod
+    from cuda_path_tracer_ss_torch.render import integrator, silhouette
+
+    out = {}
+    sw, sh, sspp, snb, seed = (SIL[k] for k in ("width", "height", "spp", "max_bounces",
+                                                "seed"))
+
+    def setup(scene, fields, engine="cuda", w=sw, h=sh, fd_spp=sspp, **kw):
+        """(value_and_grad, FD loss, params) of the reference's _setup."""
+        target = torch.zeros((h, w, 3))
+        args = dict(max_bounces=snb, n_sphere=512, n_edge=128, boundary_spp=4)
+        args.update(kw)
+        vg = silhouette.make_grad_with_boundary(scene, cp, target, fields, w, h, sspp,
+                                                engine=engine, device=dev, **args)
+        loss = inverse.make_loss(scene, cp, target, w, h, fd_spp, args["max_bounces"],
+                                 engine=engine, field_names=fields,
+                                 physical=args.get("physical", False), device=dev)
+        return vg, loss, inverse.extract_params(scene, fields)
+
+    def fd(loss, params, name, idx, eps):
+        p1 = {k: v.clone() for k, v in params.items()}
+        p2 = {k: v.clone() for k, v in params.items()}
+        p1[name][idx] += eps
+        p2[name][idx] -= eps
+        with torch.no_grad():
+            return (float(loss(p1, seed)) - float(loss(p2, seed))) / (2 * eps)
+
+    def close(a, b, rtol, atol=0.0):
+        return abs(a - b) <= atol + rtol * abs(b)
+
+    # ---- [silhouette vs eager] ------------------------------------------------------
+    t0 = time.time()
+    sphere = silhouette_scene("emissive_sphere", scene_mod)
+    fields = ("sph_radius", "sph_center")
+    params = inverse.extract_params(sphere, fields)
+    kw = dict(max_bounces=snb, n_sphere=256, boundary_spp=4, device=dev)
+    vg_k = silhouette.make_grad_with_boundary(sphere, cp, torch.zeros((sh, sw, 3)), fields,
+                                              sw, sh, sspp, engine="cuda", **kw)
+    vg_e = silhouette.make_grad_with_boundary(sphere, cp, torch.zeros((sh, sw, 3)), fields,
+                                              sw, sh, sspp, engine="eager", **kw)
+    mk.LAUNCH_COUNT = 0   # every count to 0 just before the path ...
+    vjp.LAUNCH_COUNT = 0
+    v_k, g_k = vg_k(params, seed)
+    torch.cuda.synchronize()
+    k_launches = (mk.LAUNCH_COUNT, vjp.LAUNCH_COUNT)   # ... read just after
+    v_e, g_e = vg_e(params, seed)
+    loss_gap = abs(float(v_k) - float(v_e)) / abs(float(v_e))
+    gaps = {}
+    for k in fields:
+        a, b = g_e[k].cpu().numpy(), g_k[k].cpu().numpy()
+        gaps[k] = float(np.max(np.abs(b - a) / (2e-3 * (np.abs(a).max() + 1e-9)
+                                                + 1e-2 * np.abs(a))))
+    out["vs_eager"] = dict(loss_gap=loss_gap, gaps=gaps, launches=k_launches,
+                           g_radius=float(g_k["sph_radius"][0]), s=time.time() - t0)
+    log(f"[silhouette vs eager] emissive sphere {sw}x{sh} {sspp} spp {snb} bounces, fields "
+        f"{', '.join(fields)}: engine='cuda' (K1 + K2 interior) against engine='eager': loss "
+        f"gap {loss_gap:.1e} (rtol 1e-5); gradient gaps in units of the bar (atol 2e-3 "
+        f"max|g| + rtol 1e-2; <= 1 passes) {gaps}; d/d radius {float(g_k['sph_radius'][0]):.4f}"
+        f"; K1 / K2 launches {k_launches}; {out['vs_eager']['s']:.1f} s")
+    check(loss_gap <= 1e-5, f"silhouette vs eager: loss gap {loss_gap:.2e}")
+    check(all(v <= 1.0 for v in gaps.values()), f"silhouette vs eager: gradients {gaps}")
+    check(k_launches == (1, 1), f"silhouette vs eager: K1 / K2 launches {k_launches}")
+
+    # ---- [silhouette fd]: the reference's FD probes on the card -----------------------
+    t0 = time.time()
+    probes = []
+
+    def probe(label, got, want, rtol, atol=0.0):
+        ok = close(got, want, rtol, atol)
+        probes.append(dict(label=label, grad=got, fd=want, rtol=rtol, atol=atol, ok=ok))
+        log(f"[silhouette fd] {label}: gradient {got:.5f}, FD {want:.5f} (rtol {rtol}, atol "
+            f"{atol:.2e}): {'ok' if ok else 'FAIL'}")
+
+    vg, loss, params = setup(sphere, fields)
+    _, g = vg(params, seed)
+    g_r = float(g["sph_radius"][0])
+    g_c = g["sph_center"].cpu().numpy().reshape(3)
+    check(g_r > 0.5, f"sphere radius gradient {g_r}")
+    probe("sphere radius (tests/test_silhouette.py:53-73)", g_r,
+          fd(loss, params, "sph_radius", 0, 0.03), 0.12)
+    probe("sphere depth", float(g_c[2]), fd(loss, params, "sph_center", (0, 2), 0.04), 0.15,
+          0.05 * abs(g_r))
+    check(abs(g_c[0]) < 0.05 * abs(g_r), f"lateral sphere gradient {g_c[0]}")
+
+    tri = silhouette_scene("triangle", scene_mod)
+    vg, loss, params = setup(tri, ("tri_v0", "tri_v1"))
+    _, g = vg(params, seed)
+    g0, g1 = (g[k].cpu().numpy().reshape(3) for k in ("tri_v0", "tri_v1"))
+    scale = max(np.abs(g0).max(), np.abs(g1).max())
+    for name, grad in (("tri_v0", g0), ("tri_v1", g1)):
+        for axis in (0, 1):
+            probe(f"triangle edge {name}[{axis}] (:76-102)", float(grad[axis]),
+                  fd(loss, params, name, (0, axis), 0.04), 0.2, 0.06 * scale)
+
+    shadow = silhouette_scene("shadow", scene_mod)
+    for physical in (True, False):
+        vg, loss, params = setup(shadow, ("sph_center", "sph_radius"), n_sphere=256,
+                                 n_phi=128, physical=physical, fd_spp=256)
+        _, g = vg(params, seed)
+        fd_r = fd(loss, params, "sph_radius", 0, 0.04)
+        fd_x = fd(loss, params, "sph_center", (0, 0), 0.05)
+        check(abs(fd_r) > 1e-4, f"shadow FD {fd_r}")
+        label = "physical" if physical else "parity"
+        probe(f"shadow radius, {label} (:199-233)", float(g["sph_radius"][0]), fd_r,
+              0.2 if physical else 0.3, 0.1 * abs(fd_r))
+        probe(f"shadow lateral, {label}", float(g["sph_center"][0, 0]), fd_x, 0.3,
+              0.15 * abs(fd_r))
+
+    mirror = silhouette_scene("mirror_sphere", scene_mod)
+    check(silhouette.mirror_triangles(mirror) == (0, 1), "mirror triangles")
+    vg, loss, params = setup(mirror, fields, max_bounces=3, n_mirror=256)
+    _, g = vg(params, seed)
+    g_r = float(g["sph_radius"][0])
+    check(g_r > 0.02, f"mirror radius gradient {g_r}")
+    fd_r = fd(loss, params, "sph_radius", 0, 0.05)
+    probe("mirror-reflected radius (:473-510)", g_r, fd_r, 0.2)
+    probe("mirror-reflected lateral", float(g["sph_center"][0, 0]),
+          fd(loss, params, "sph_center", (0, 0), 0.06), 0.25, 0.06 * abs(g_r))
+    vg_off, _, _ = setup(mirror, fields, max_bounces=3, mirrors=False)
+    _, g_off = vg_off(params, seed)
+    off = abs(float(g_off["sph_radius"][0]))
+    log(f"[silhouette fd] without the mirror families |d/d radius| {off:.5f} (< 0.25 |FD| = "
+        f"{0.25 * abs(fd_r):.5f})")
+    check(off < 0.25 * abs(fd_r), "mirror counterfactual")
+    out["fd"] = dict(probes=probes, s=time.time() - t0)
+    log(f"[silhouette fd] {sum(p['ok'] for p in probes)} of {len(probes)} probes within the "
+        f"reference's tolerances, {out['fd']['s']:.1f} s")
+    check(all(p["ok"] for p in probes), "silhouette FD probes")
+
+    # ---- [silhouette main path]: invert(silhouette=True) on cornell ---------------------
+    sm = SIL_MAIN
+    cornell = presets.cornell()
+    truth = inverse.extract_params(cornell, sm["fields"])
+    # the spheres moved off the truth; the triangles' first corners start there
+    start = inverse.merge_params(cornell, {k: v + sm["shift"] for k, v in truth.items()
+                                           if k.startswith("sph_")})
+
+    class SlowStep(Exception):
+        pass
+
+    def main_path(w, h):
+        target = mk.render_megakernel(mk.pack_scene(cornell, dev), cp, 0, w, h, sm["spp"],
+                                      sm["max_bounces"])
+        stamps = []
+
+        def cb(step, val, p):
+            torch.cuda.synchronize()
+            stamps.append(time.time())
+            if step == 0 and stamps[0] - t_start > sm["step_limit_s"] and w > sm["cut"][0]:
+                raise SlowStep
+
+        silhouette.STEP_TIMES = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        mk.LAUNCH_COUNT = 0   # every count to 0 just before the path ...
+        vjp.LAUNCH_COUNT = 0
+        vjp.LAUNCHES_BY_MODE.clear()
+        t_start = time.time()
+        _, p_out, losses = inverse.invert(
+            start, cp, target, sm["fields"], w, h, spp=sm["spp"], steps=sm["steps"],
+            lr=sm["lr"], seed=0, max_bounces=sm["max_bounces"], engine="cuda",
+            silhouette=True, device=dev, callback=cb)
+        torch.cuda.synchronize()
+        launches = (mk.LAUNCH_COUNT, vjp.LAUNCH_COUNT, dict(vjp.LAUNCHES_BY_MODE))  # ... after
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        parts = silhouette.STEP_TIMES
+        silhouette.STEP_TIMES = None
+        return dict(stamps=[t_start] + stamps, losses=losses, parts=parts, peak=peak,
+                    launches=launches, target=target, params=p_out)
+
+    t0 = time.time()
+    mw, mh = sm["width"], sm["height"]
+    try:
+        r = main_path(mw, mh)
+    except SlowStep:
+        silhouette.STEP_TIMES = None
+        log(f"[silhouette main path] the first step at {mw}x{mh} took over "
+            f"{sm['step_limit_s']:.0f} s: cut to {sm['cut'][0]}x{sm['cut'][1]}")
+        mw, mh = sm["cut"]
+        r = main_path(mw, mh)
+    n = sm["steps"]
+    step_s = np.diff(r["stamps"])
+    later = step_s[1:]
+    names = ("interior", "adjoint", "detector", "boundary", "shadow")
+    med = {k: float(np.median([p[k] for p in r["parts"][1:]])) for k in names}
+    first = r["parts"][0]
+    k1, k2, by_mode = r["launches"]
+    # the boundary terms alone at the last parameters: total - interior
+    vg = silhouette.make_grad_with_boundary(start, cp, r["target"], sm["fields"], mw, mh,
+                                            sm["spp"], max_bounces=sm["max_bounces"],
+                                            engine="cuda", device=dev)
+    loss = inverse.make_loss(start, cp, r["target"], mw, mh, sm["spp"], sm["max_bounces"],
+                             engine="cuda", field_names=sm["fields"], device=dev)
+    _, g_tot = vg(r["params"], 0)
+    _, g_int = inverse.value_and_grad(loss, r["params"], 0)
+    bnd_r = (g_tot["sph_radius"] - g_int["sph_radius"]).cpu().numpy()
+    finite = all(bool(torch.isfinite(g).all()) for g in g_tot.values())
+    out["main"] = dict(size=(mw, mh), step_s=step_s.tolist(), median_later_ms=float(
+        np.median(later)) * 1e3, parts_median_ms=med, parts_first_ms=first,
+        peak_bytes=r["peak"], k1_per_step=k1 / n, k2_per_step=k2 / n, k2_modes=str(by_mode),
+        losses=r["losses"], boundary_radius=bnd_r.tolist(), s=time.time() - t0)
+    log(f"[silhouette main path] invert(silhouette=True, engine='cuda') cornell {mw}x{mh} "
+        f"{sm['spp']} spp {sm['max_bounces']} bounces, fields {', '.join(sm['fields'])} + "
+        f"{sm['shift']} (sphere fields), {n} Adam steps (boundary defaults: n_sphere 256, n_edge 64, "
+        f"boundary_spp 8, n_phi 64, n_isect 32, n_mirror 32): steps {[f'{t:.2f}' for t in step_s]}"
+        f" s; median of the later steps {out['main']['median_later_ms']:.0f} ms = interior "
+        f"{med['interior']:.1f} + adjoint image {med['adjoint']:.1f} + detector "
+        f"{med['detector']:.1f} + boundary_grad {med['boundary']:.1f} + shadow term "
+        f"{med['shadow']:.1f} ms (first step: "
+        + ", ".join(f"{k} {v:.0f}" for k, v in first.items())
+        + f" ms); peak {r['peak'] / 1e9:.3f} GB; K1 / K2 launches per step {k1 / n:g} / "
+        f"{k2 / n:g} ({by_mode}); loss {r['losses'][0]:.4e} -> {r['losses'][-1]:.4e}; boundary"
+        f" d/d radius {bnd_r.tolist()}")
+    check(k1 == n and k2 == n, f"silhouette main path: K1 / K2 launches {k1} / {k2} for {n} "
+          "steps")
+    check(by_mode == {("geo", False, False): n}, f"silhouette main path: K2 modes {by_mode}")
+    check(finite and all(np.isfinite(r["losses"])), "silhouette main path: non-finite")
+    check(bool(np.all(np.isfinite(bnd_r))) and float(np.abs(bnd_r).max()) > 0,
+          f"silhouette main path: boundary d/d radius {bnd_r}")
+
+    # ---- [silhouette invert]: the README's mirror inversion, and the CLI -------------
+    t0 = time.time()
+    si = SIL_INVERT
+    target = mk.render_megakernel(mk.pack_scene(mirror, dev), cp, seed, sw, sh, sspp,
+                                  si["max_bounces"])
+    p0 = inverse.extract_params(mirror, ("sph_center",))
+    shifted = p0["sph_center"].clone()
+    shifted[0, 0] += si["shift"]
+    scene0 = inverse.merge_params(mirror, {"sph_center": shifted})
+    _, p_inv, losses = inverse.invert(scene0, cp, target, ("sph_center",), sw, sh, spp=sspp,
+                                      steps=si["steps"], lr=si["lr"], seed=seed,
+                                      max_bounces=si["max_bounces"], silhouette=True,
+                                      engine="cuda", device=dev)
+    err = float((p_inv["sph_center"] - p0["sph_center"]).abs().max())
+    inv_s = time.time() - t0
+    log(f"[silhouette invert] sphere seen only in the mirror (tests/test_silhouette.py:574-599)"
+        f", {sw}x{sh} {sspp} spp {si['max_bounces']} bounces, sph_center x + {si['shift']}, "
+        f"{si['steps']} Adam steps on engine='cuda': loss {losses[0]:.4e} -> {losses[-1]:.4e} "
+        f"({losses[-1] / losses[0]:.3f} of the first, < 0.25), centre error {err:.4f} "
+        f"(< 0.12); {inv_s:.1f} s")
+    check(losses[-1] < 0.25 * losses[0] and err < 0.12, "silhouette mirror inversion")
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "cuda_path_tracer_ss_torch.cli", "invert", "--silhouette",
+         "--scene", "cornell", "--fields", "sph_radius,sph_center", "--width",
+         str(SIL_CLI_SIZE), "--height", str(SIL_CLI_SIZE), "--spp", "8", "--bounces", "4",
+         "--steps", "3", "--perturb", "0.05"], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    cli_s = time.time() - t0
+    tail = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    log(f"[silhouette invert] cli invert --silhouette cornell {SIL_CLI_SIZE}^2 8 spp 4 bounces,"
+        f" 3 steps, as a process on the card: exit {proc.returncode}, {cli_s:.1f} s, last line "
+        f"{tail}")
+    check(proc.returncode == 0, "cli invert --silhouette: " + proc.stderr[-2000:])
+    check(np.isfinite(json.loads(tail)["final_loss"]), "cli invert --silhouette: final loss")
+    out["invert"] = dict(losses=(losses[0], losses[-1]), err=err, s=inv_s, cli_s=cli_s)
     return out
 
 
@@ -2904,6 +3192,14 @@ def main() -> int:
         f"{eager_light['trace_s']:.1f} s")
     report["eager_light"] = eager_light
 
+    # ---- 17. the silhouette terms ----------------------------------------------------
+    t0 = time.time()
+    sil = silhouette_phases(dev, cp, mk, vjp, inverse)
+    sil["phases_s"] = time.time() - t0
+    log(f"[silhouette] the four silhouette phases took {sil['phases_s']:.1f} s")
+    report["silhouette"] = sil
+    new_k2["geo"]["launches_silhouette_step"] = sil["main"]["k2_per_step"]
+
     # ---- 18. report ----------------------------------------------------------------
     k1_common = {
         "route": "cuda",
@@ -2995,6 +3291,7 @@ def main() -> int:
         "match_rate_fmad_true": rate_f,
         "bounces_per_path": bounces_per_path,
         "launches_training_path": {m: t["k1"] for m, t in train.items()},
+        "launches_silhouette_step": sil["main"]["k1_per_step"],
         "ms_training_shape": ms_k1,
         "share_of_bound": bound_ms / ms,
         "registers": occ["registers"],
@@ -3150,6 +3447,8 @@ def main() -> int:
         "plain_shape": v.get("plain_shape", (f"the same, value_and_grad step of the plain "
                                              f"engine, {TRAIN_PLAIN_CHUNK} samples at a time")),
         "launches_on": v.get("launches_on", "six value_and_grad steps at that shape"),
+        **({"launches_silhouette_step": v["launches_silhouette_step"]}
+           if "launches_silhouette_step" in v else {}),
         "ms_value_and_grad_step": v["ms_step"],
         "registers": v["registers"],
         "rows": v["rows"],

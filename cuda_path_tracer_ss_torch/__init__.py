@@ -16,7 +16,9 @@ maps in both kernels (forward render and training, the texels trainable),
 the ``textured`` and ``mesh`` presets, the OBJ/MTL loader and ``--obj``;
 and the eager engine — the JAX package's jnp engine in plain PyTorch, eye
 paths (``render/integrator.py``) and light paths (``render_lighttrace``,
-``render_bidir``), differentiable by autograd.
+``render_bidir``), differentiable by autograd; and the silhouette
+(visibility-boundary) terms of geometry gradients (``render/silhouette.py``,
+``invert(silhouette=True)``) on the eager engine.
 """
 
 from .constants import (
@@ -61,6 +63,11 @@ from .render.inverse import (
 )
 from .render.lighttrace import render_lighttrace
 from .render.renderer import ProgressiveRenderer, RenderConfig
+from .render.silhouette import (
+    boundary_grad,
+    make_grad_with_boundary,
+    shadow_boundary_grad,
+)
 
 __version__ = "0.1.0"
 
@@ -81,6 +88,7 @@ __all__ = [
     "Scene",
     "SceneBuilder",
     "TRAINABLE_FIELDS",
+    "boundary_grad",
     "camera_arrays",
     "check_engine_fields",
     "directional_fd_check",
@@ -89,6 +97,7 @@ __all__ = [
     "invert",
     "light_image",
     "light_records",
+    "make_grad_with_boundary",
     "make_loss",
     "merge_params",
     "pack_scene",
@@ -103,4 +112,5 @@ __all__ = [
     "render_megakernel_plain",
     "scene_from_numpy",
     "scene_to_numpy",
+    "shadow_boundary_grad",
 ]

@@ -400,6 +400,10 @@ def cmd_invert(args):
     from .render import integrator, inverse
     from .utils.image import write_png
 
+    if args.silhouette and args.engine == "auto" and args.device == "cpu":
+        # the boundary term trains on the eager engine or the kernels: on
+        # the CPU, the eager engine (the plain one is refused)
+        args.engine = "eager"
     scene_true, cp, engine, fields = _training_setup(args)
     render = render_megakernel if engine == "cuda" else render_megakernel_plain
 
@@ -507,7 +511,8 @@ def main(argv=None):
     p.add_argument("--out", default=None)
     p.add_argument("--silhouette", action="store_true",
                    help="add the edge-sampled visibility-boundary term to "
-                        "geometry gradients; not ported yet, raises")
+                        "geometry gradients (render/silhouette.py); with "
+                        "--device cpu the engine defaults to eager")
     p.set_defaults(fn=cmd_invert)
 
     args = ap.parse_args(argv)

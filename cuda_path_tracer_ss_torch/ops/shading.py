@@ -100,10 +100,15 @@ def area_light_point(scene, light_idx: int, u1, u2, u3, upick) -> Vec3:
 # The unbiased estimator's direct lighting (physical=True).
 # ---------------------------------------------------------------------------
 
+def _tri_verts(scene, tri):
+    """The three corners of triangle(s) ``tri`` as Vec3s."""
+    return (gather(scene.tri_v0, tri), gather(scene.tri_v1, tri),
+            gather(scene.tri_v2, tri))
+
+
 def _tri_area_normal(scene, tri):
     """(area, raw geometric normal, verts) of triangle ``tri``."""
-    v0, v1, v2 = (gather(scene.tri_v0, tri), gather(scene.tri_v1, tri),
-                  gather(scene.tri_v2, tri))
+    v0, v1, v2 = _tri_verts(scene, tri)
     n_raw = (v1 - v0).cross(v2 - v0)
     area = 0.5 * torch.sqrt(torch.clamp_min(n_raw.norm2(), _EPS))
     return area, n_raw, (v0, v1, v2)

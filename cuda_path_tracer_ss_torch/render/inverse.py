@@ -29,7 +29,7 @@ import torch
 from ..constants import DEFAULT_MAX_BOUNCES
 from ..models.scene import Scene
 from ..ops.cuda import megakernel_vjp as vjp
-from ..ops.cuda.megakernel import _unported, pack_grid, pack_scene
+from ..ops.cuda.megakernel import pack_grid, pack_scene
 from ..ops.grid import build_grid
 from ..utils import rng
 from . import integrator
@@ -359,6 +359,10 @@ def invert(scene_init: Scene, cam_params, target, field_names: Iterable[str],
     scene — see make_loss); its gates come first, in the reference's order,
     so that they raise what the reference raises."""
     field_names = tuple(field_names)
+    if silhouette and engine == "plain":
+        raise ValueError("silhouette=True supports engine='eager' or 'cuda' "
+                         "(the plain engine is the kernels' CPU yardstick; "
+                         "train with engine='eager' on the CPU)")
     if silhouette and engine in LIGHT_ENGINES:
         raise ValueError(
             f"silhouette=True supports engine='eager' or 'cuda': the "
@@ -379,25 +383,35 @@ def invert(scene_init: Scene, cam_params, target, field_names: Iterable[str],
         _check_grid_engine(engine)
     check_engine_fields(engine, field_names, physical=physical,
                         scene=scene_init)
-    if silhouette:
-        _unported("silhouette=True (the edge-sampled visibility-boundary "
-                  "term of geometry gradients)", "Queue 1 item 9")
     params = {k: v.detach().clone().requires_grad_(True)
               for k, v in extract_params(scene_init, field_names).items()}
     # the steps of optax.adam(lr): b1 0.9, b2 0.999, eps 1e-8 outside the root
     optimizer = torch.optim.Adam(list(params.values()), lr=lr,
                                  betas=(0.9, 0.999), eps=1e-8)
-    loss = make_loss(scene_init, cam_params, target, width, height, spp,
-                     max_bounces, engine=engine, accel=accel,
-                     field_names=field_names, physical=physical,
-                     device=device)
+    if silhouette:
+        from .silhouette import make_grad_with_boundary
+        vg = make_grad_with_boundary(scene_init, cam_params, target,
+                                     field_names, width, height, spp,
+                                     max_bounces=max_bounces,
+                                     physical=physical, engine=engine,
+                                     device=device)
+    else:
+        loss = make_loss(scene_init, cam_params, target, width, height, spp,
+                         max_bounces, engine=engine, accel=accel,
+                         field_names=field_names, physical=physical,
+                         device=device)
     losses = []
     for step in range(steps):
         s = (rng.seed_for(seed, step // resample_every)
              if resample_every else seed)
         optimizer.zero_grad(set_to_none=True)
-        val = loss(params, s)
-        val.backward()
+        if silhouette:
+            val, grads = vg(params, s)
+            for k, p in params.items():
+                p.grad = grads[k]
+        else:
+            val = loss(params, s)
+            val.backward()
         optimizer.step()
         losses.append(float(val.detach()))
         if callback:

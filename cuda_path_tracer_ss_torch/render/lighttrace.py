@@ -38,7 +38,7 @@ of the whole batch gives (``lighttrace_block``).
 
 ``project_dir`` lives here: the reference keeps it in
 ``render/silhouette.py`` and imports it into its light tracer; the port's
-silhouette module (ROADMAP Queue 1 item 9) imports it from this module.
+silhouette module imports it from this module.
 """
 from __future__ import annotations
 

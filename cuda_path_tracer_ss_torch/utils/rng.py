@@ -129,3 +129,49 @@ def seed_for(base_seed: int, stream: int) -> int:
     auxiliary stream; int32 wrap-around arithmetic."""
     v = (int(base_seed) * 1000003 + int(stream)) & _MASK32
     return v - 0x100000000 if v >= 0x80000000 else v
+
+
+# ---- the JAX PRNG key stream ---------------------------------------------------
+#
+# The JAX package draws the silhouette module's curve-stratum jitter from
+# ``jax.random`` (default Threefry implementation, partitionable layout), not
+# from the counter streams above. These four functions reproduce
+# ``PRNGKey`` / ``fold_in`` / ``split`` / ``uniform`` bit for bit so that the
+# two packages sample the same curve points. A key is a pair of int32 tensors
+# (its two 32-bit words).
+
+JAX_ROUNDS = 20  # jax.random's Threefry-2x32 round count
+
+
+def jax_key(seed, device=None):
+    """``jax.random.PRNGKey(seed)`` for a 32-bit seed: the words (0, seed)."""
+    return (torch.zeros((), dtype=torch.int32, device=device),
+            _to_int32(_word(seed, device)))
+
+
+def jax_fold_in(key, data):
+    """``jax.random.fold_in(key, data)``; ``data`` is taken as uint32."""
+    return threefry2x32(key[0], key[1], 0, _word(data, key[0].device),
+                        rounds=JAX_ROUNDS)
+
+
+def jax_split(key, n: int = 2):
+    """``jax.random.split(key, n)`` as a tuple of ``n`` keys."""
+    i = torch.arange(n, dtype=torch.int64, device=key[0].device)
+    o0, o1 = threefry2x32(key[0], key[1], 0, i, rounds=JAX_ROUNDS)
+    return tuple((o0[j], o1[j]) for j in range(n))
+
+
+def jax_uniform(key, shape) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)``: float32 in [0, 1), each element
+    from the Threefry block of its flat index (hi, lo words), the two output
+    words XORed, the top 23 bits as the mantissa of a float in [1, 2)."""
+    n = 1
+    for s in shape:
+        n *= int(s)
+    i = torch.arange(n, dtype=torch.int64, device=key[0].device)
+    b0, b1 = threefry2x32(key[0], key[1], i >> 32, i & _MASK32,
+                          rounds=JAX_ROUNDS)
+    bits = (b0 ^ b1).to(torch.int64) & _MASK32
+    one_two = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return (one_two - 1.0).reshape(tuple(shape))

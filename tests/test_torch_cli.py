@@ -217,9 +217,17 @@ def test_training_commands_refuse_what_is_not_ported(cmd, flag, item, capsys):
     assert got[0] == got[1]
 
 
-def test_invert_refuses_silhouette_and_spec_avg():
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        main(["invert", "--device", "cpu", *TRAIN, "--steps", "1", "--silhouette"])
+def test_invert_refuses_silhouette_and_spec_avg(capsys):
+    """--silhouette on the CPU trains one step on the eager engine (the
+    plain engine refuses it); spec_avg without --physical is refused."""
+    main(["invert", "--device", "cpu", *TRAIN, "--steps", "1", "--silhouette",
+          "--scene", "shadowed_caustic", "--fields", "sph_radius", "--width", "8",
+          "--height", "8", "--spp", "1", "--bounces", "2"])
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert np.isfinite(got["final_loss"]) and "sph_radius" in got["max_abs_err"]
+    with pytest.raises(ValueError, match="silhouette=True supports"):
+        main(["invert", "--device", "cpu", *TRAIN, "--steps", "1", "--silhouette",
+              "--engine", "plain"])
     with pytest.raises(ValueError, match="spec_avg"):
         main(["invert", "--device", "cpu", *TRAIN, "--fields", "materials.spec_avg"])
 

@@ -55,6 +55,7 @@ def test_port_has_its_modules():
                  "cuda_path_tracer_ss_torch/ops/compaction.py",
                  "cuda_path_tracer_ss_torch/render/integrator.py",
                  "cuda_path_tracer_ss_torch/render/lighttrace.py",
+                 "cuda_path_tracer_ss_torch/render/silhouette.py",
                  "cuda_path_tracer_ss_torch/utils/debug.py"):
         assert want in names
     for src in KERNEL_SOURCES:
@@ -79,6 +80,7 @@ def test_importing_the_port_leaves_jax_out():
             "cuda_path_tracer_ss_torch.utils.obj, "
             "cuda_path_tracer_ss_torch.render.integrator, "
             "cuda_path_tracer_ss_torch.render.lighttrace, "
+            "cuda_path_tracer_ss_torch.render.silhouette, "
             "cuda_path_tracer_ss_torch.utils.debug, "
             "cuda_path_tracer_ss_torch.utils.profiling; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -748,3 +748,121 @@ def physical_direct_vjp_hostbuild(packed, seed, pixel, sample, pair0, p, nrm, d,
     out = {k: (v.T if v.ndim == 2 else v) for k, v in out.items()}
     out.update(rows=rows, occ=occ)
     return out
+
+
+# ---- the small scenes of tests/test_silhouette.py, in either package ------------
+
+def silhouette_scene(name, scene_mod):
+    """Scene ``name`` of the JAX package's tests/test_silhouette.py, built
+    with ``scene_mod`` (``cuda_path_tracer_ss_tpu.models.scene`` or
+    ``cuda_path_tracer_ss_torch.models.scene``): the same arrays either way.
+    "mirror_tableau" is the reflected-sphere scene with the reflected-edge
+    scene's off-frustum triangle added (both mirror families at once)."""
+    m = scene_mod
+    b = m.SceneBuilder()
+    rot_down = np.array([[1, 0, 0, 0], [0, 0, 1, 0], [0, -1, 0, 0],
+                         [0, 0, 0, 1]], np.float32)
+    mirror = m.MaterialSpec(diffuse=(0.0, 0.0, 0.0), diff_avg=0.0,
+                            specular=(1.0, 1.0, 1.0), spec_exp=float("inf"),
+                            spec_avg=1.0, flags=m.MAT_FLAG_PURE_REFLECTION)
+    if name == "emissive_sphere":
+        e = b.add_material(m.MaterialSpec(emission=(3.0, 3.0, 3.0)))
+        b.add_sphere((0.0, 0.0, -4.0), 1.2, e)
+    elif name == "triangle":
+        e = b.add_material(m.MaterialSpec(emission=(3.0, 3.0, 3.0)))
+        n = (0.0, 0.0, 1.0)
+        b.add_triangle((-1.0, -0.8, -4.0), (1.2, -0.6, -4.0), (0.1, 1.1, -4.0),
+                       n, n, n, e)
+    elif name in ("shadow", "tri_blocker", "glossy_shadow"):
+        glossy = name == "glossy_shadow"
+        md = b.add_material(
+            m.MaterialSpec(diffuse=(0.15, 0.15, 0.15), diff_avg=0.1,
+                           specular=(1.0, 1.0, 1.0), spec_avg=0.7, spec_exp=40.0,
+                           ior=8.0) if glossy
+            else m.MaterialSpec(diffuse=(0.9, 0.9, 0.9), diff_avg=0.8))
+        if glossy:   # a glossy wall at z=-5 facing the camera
+            n = (0.0, 0.0, 1.0)
+            b.add_triangle((-3, -3, -5), (3, -3, -5), (3, 3, -5), n, n, n, md)
+            b.add_triangle((-3, -3, -5), (3, 3, -5), (-3, 3, -5), n, n, n, md)
+        else:        # a floor at y=-2 facing up
+            n = (0.0, 1.0, 0.0)
+            b.add_triangle((-4, -2, -8), (4, -2, -8), (4, -2, -1), n, n, n, md)
+            b.add_triangle((-4, -2, -8), (4, -2, -1), (-4, -2, -1), n, n, n, md)
+        mb = b.add_material(m.MaterialSpec(diffuse=(0.0, 0.0, 0.0), diff_avg=0.0))
+        if name == "shadow":
+            b.add_sphere((0.0, 0.5, -4.0), 0.8, mb)
+        elif name == "glossy_shadow":
+            b.add_sphere((0.0, 2.4, -3.5), 0.5, mb)
+        else:
+            nb = (0.0, 1.0, 0.0)
+            b.add_triangle((-1.2, 0.5, -4.9), (1.2, 0.5, -4.6), (0.0, 0.5, -3.0),
+                           nb, nb, nb, mb)
+        ml = b.add_material(m.MaterialSpec(emission=(4.0, 4.0, 4.0)))
+        t = (m.translate((0.0, 3.0, -2.0)) @ np.diag([1.2, 1.2, 1.2, 1.0]) if glossy
+             else m.translate((0.0, 3.0, -4.0)) @ np.diag([1.5, 1.5, 1.5, 1.0]))
+        b.add_area_light(t @ rot_down, ml, (1.0, 1.0, 1.0))
+    elif name == "buried_sphere":
+        mq = b.add_material(m.MaterialSpec(emission=(1.0, 1.0, 1.0)))
+        ms = b.add_material(m.MaterialSpec(emission=(4.0, 4.0, 4.0)))
+        n = (0.0, 0.0, 1.0)
+        b.add_triangle((-6.0, -6.0, -4.0), (6.0, -6.0, -4.0), (6.0, 6.0, -4.0),
+                       n, n, n, mq)
+        b.add_triangle((-6.0, -6.0, -4.0), (6.0, 6.0, -4.0), (-6.0, 6.0, -4.0),
+                       n, n, n, mq)
+        b.add_sphere((0.0, 0.0, -4.55), 1.0, ms)
+    elif name in ("mirror_sphere", "mirror_edge", "mirror_tableau"):
+        mm = b.add_material(mirror)
+        ms = b.add_material(m.MaterialSpec(emission=(3.0, 3.0, 3.0)))
+        A = (-0.8485282, -1.2, -2.1514718)
+        B = (0.8485282, -1.2, -3.8485282)
+        C = (0.8485282, 1.2, -3.8485282)
+        D = (-0.8485282, 1.2, -2.1514718)
+        n = (0.70710678, 0.0, 0.70710678)
+        b.add_triangle(A, B, C, n, n, n, mm)
+        b.add_triangle(A, C, D, n, n, n, mm)
+        if name != "mirror_sphere":
+            nx = (-1.0, 0.0, 0.0)
+            b.add_triangle((6.0, -1.5, -1.9), (6.0, -1.5, -4.1), (6.0, 1.5, -3.0),
+                           nx, nx, nx, ms)
+        if name != "mirror_edge":
+            b.add_sphere((6.0, 0.0, -3.0), 1.5, ms)
+    elif name == "mirror_shadow":
+        mm = b.add_material(mirror)
+        A = (-1.2727922, -1.8, -1.7272078)
+        B = (1.2727922, -1.8, -4.2727922)
+        C = (1.2727922, 1.8, -4.2727922)
+        D = (-1.2727922, 1.8, -1.7272078)
+        n = (0.70710678, 0.0, 0.70710678)
+        b.add_triangle(A, B, C, n, n, n, mm)
+        b.add_triangle(A, C, D, n, n, n, mm)
+        md = b.add_material(m.MaterialSpec(diffuse=(0.9, 0.9, 0.9), diff_avg=0.8))
+        ny = (0.0, 1.0, 0.0)
+        b.add_triangle((5.0, -4.0, -4.5), (8.0, -4.0, -4.5), (8.0, -4.0, -1.5),
+                       ny, ny, ny, md)
+        b.add_triangle((5.0, -4.0, -4.5), (8.0, -4.0, -1.5), (5.0, -4.0, -1.5),
+                       ny, ny, ny, md)
+        mb = b.add_material(m.MaterialSpec(diffuse=(0.0, 0.0, 0.0), diff_avg=0.0))
+        b.add_sphere((6.5, -1.5, -3.0), 0.8, mb)
+        ml = b.add_material(m.MaterialSpec(emission=(12.0, 12.0, 12.0)))
+        t = m.translate((6.5, 1.0, -3.0)) @ np.diag([2.0, 2.0, 2.0, 1.0])
+        b.add_area_light(t @ rot_down, ml, (3.0, 3.0, 3.0))
+    elif name in ("curved_mirror", "no_mirror"):
+        ml = b.add_material(m.MaterialSpec(emission=(8.0, 8.0, 8.0)))
+        md = m.MaterialSpec(diffuse=(0.9, 0.4, 0.2), diff_avg=0.8,
+                            emission=(6.0, 6.0, 6.0) if name == "curved_mirror"
+                            else (0.0, 0.0, 0.0))
+        if name == "curved_mirror":
+            # a big curved mirror fills the view; a glowing sphere behind the
+            # camera dominates its reflection
+            b.add_sphere((0.0, 0.0, -4.0), 1.8, b.add_material(mirror))
+            b.add_sphere((0.0, 0.0, 7.0), 6.0, b.add_material(md))
+            b.add_area_light(m.translate((0.0, 5.5, -3.0)) @ m.rotate_deg(90, (1, 0, 0))
+                             @ m.scale((2.0,) * 3), ml, (30.0, 30.0, 30.0))
+        else:
+            b.add_sphere((0.0, 0.0, -4.0), 1.0, b.add_material(md))
+            b.add_area_light(m.translate((0.0, 3.0, -3.0)) @ m.rotate_deg(90, (1, 0, 0))
+                             @ m.scale((2.0,) * 3), ml, (30.0, 30.0, 30.0))
+    else:
+        raise KeyError(name)
+    b.background = np.zeros(3, np.float32)
+    return b.build()
