@@ -103,7 +103,19 @@ prints no result. It
     and one K1 and one K2 launch per step (``[silhouette main path]``), the
     mirror inversion and ``cli invert --silhouette`` (``[silhouette
     invert]``),
-18. prints one JSON line describing every kernel, then the result line.
+18. the multi-device path (``parallel/``, the sharded entries): the main
+    paths' configurations — K1 at Cornell 800x800 x 2000 spp (default and
+    physical), K2's step at 256x256 x 16 spp (full and physical), K3 and
+    ``render_bidir_fast`` at the caustic configuration, the eager engine at
+    256x256 x 4 spp — through their sharded entries over a world of one rank
+    on NCCL in this process (``[sharded nccl]``) and over four ranks sharing
+    the card on gloo (``[sharded x4]``: pixel, path, sample and 2-D meshes),
+    each held against its unsharded call (K1's and K2's images bit-equal)
+    with both times, its launches counted and the all_reduce timed alone;
+    then ``python -m cuda_path_tracer_ss_torch.parallel.dryrun 4 --backend
+    gloo``, the reference's certification run (``[dryrun]``, 12 lines),
+19. prints one JSON line describing every kernel (with the sharded path's
+    launches and times beside K1, K2 and K3), then the result line.
 
 Any failed phase raises: the exit code is then non-zero and the result line
 is not printed. ``--out-dir DIR`` keeps the rendered PNG and a JSON report.
@@ -479,37 +491,6 @@ def grad_gap(got: dict, want: dict):
         if err / scale >= worst_rel:
             worst, worst_rel = k, err / scale
     return worst, worst_rel, worst_abs, ok
-
-
-def textured_quad(tex=True, nmap=False, sphere=False):
-    """The reference's texture test scene: a 2x2 red/blue checker color map
-    and / or a constant tilted normal map on a UV-mapped quad (or a sphere
-    with procedural UVs) lit by a point light."""
-    from cuda_path_tracer_ss_torch.models.scene import MaterialSpec, SceneBuilder
-
-    b = SceneBuilder()
-    checker = np.zeros((2, 2, 3), np.float32)
-    checker[:, 0] = (1.0, 0.1, 0.1)
-    checker[:, 1] = (0.1, 0.1, 1.0)
-    tid = b.add_texture(checker) if tex else -1
-    nid = -1
-    if nmap:
-        nm = np.zeros((2, 2, 3), np.float32)
-        nm[..., 0], nm[..., 1], nm[..., 2] = 0.85, 0.5, 0.9
-        nid = b.add_texture(nm)
-    m = b.add_material(MaterialSpec(diffuse=(1.0, 1.0, 1.0), diff_avg=0.8,
-                                    texture=tid, normal_map=nid))
-    if sphere:
-        b.add_sphere((0.0, 0.0, -4.0), 1.6, m)
-    else:
-        v = [(-2, -2, -4), (2, -2, -4), (2, 2, -4), (-2, 2, -4)]
-        uv = [(0, 0), (1, 0), (1, 1), (0, 1)]
-        n = (0, 0, 1)
-        b.add_triangle(v[0], v[1], v[2], n, n, n, m, uv=(uv[0], uv[1], uv[2]))
-        b.add_triangle(v[0], v[2], v[3], n, n, n, m, uv=(uv[0], uv[2], uv[3]))
-    b.add_point_light((0.0, 0.0, -1.0), (60.0, 60.0, 60.0))
-    b.background = np.zeros(3, np.float32)
-    return b.build()
 
 
 def texture_flops(stats) -> float:
@@ -1340,6 +1321,323 @@ def silhouette_phases(dev, cp, mk, vjp, inverse) -> dict:
     check(np.isfinite(json.loads(tail)["final_loss"]), "cli invert --silhouette: final loss")
     out["invert"] = dict(losses=(losses[0], losses[-1]), err=err, s=inv_s, cli_s=cli_s)
     return out
+
+
+# The multi-device path (parallel/ and the sharded entries), at the main
+# path's configurations: K1 at FULL (default and physical), K2's step at TRAIN
+# (full and physical), K3 and render_bidir_fast at BIDIR, the eager engine at
+# 256x256 x 4 spp, each beside its unsharded call. [sharded nccl]: a world of
+# one rank over NCCL in this process; [sharded x4]: four ranks sharing the
+# card over gloo (NCCL does not put two ranks on one GPU), which measures the
+# collective's overhead, not scaling; [dryrun]: the certification run on four
+# ranks over gloo.
+SHARD_EAGER = dict(width=256, height=256, spp=4, max_bounces=8)
+SHARD_RANKS = 4
+SHARD_REPS = 3
+# kernels-line entry -> the sharded case that runs it
+SHARDED_KERNEL_CASES = {
+    "render_megakernel": "k1 default", "render_megakernel[physical]": "k1 physical",
+    "render_megakernel[bidir]": "bidir fast", "backward_megakernel[full]": "k2 full",
+    "backward_megakernel[physical]": "k2 physical",
+    "light_image[plain weights]": "k3 plain", "light_image[bidir]": "k3 bidir"}
+KERNEL_OF = {"render_megakernel": "K1", "backward_megakernel": "K2", "light_image": "K3"}
+DRYRUN_TIMEOUT_S = 600
+DRYRUN_LINES = 12
+
+
+def shard_inputs(dev, cp) -> dict:
+    """The sharded phases' scenes and tables, made alike in every process."""
+    from cuda_path_tracer_ss_torch.models import presets
+    from cuda_path_tracer_ss_torch.ops.cuda import megakernel as mk
+    from cuda_path_tracer_ss_torch.render import inverse
+
+    cornell = presets.cornell()
+    packed = mk.pack_scene(cornell, dev)
+    t = TRAIN
+    return dict(cornell=cornell, packed=packed,
+                caustic=mk.pack_scene(presets.caustic(), dev),
+                start=inverse.with_field(cornell, "materials.diffuse",
+                                         cornell.materials.diffuse + 0.2),
+                target=mk.render_megakernel(packed, cp, 0, t["width"], t["height"],
+                                            t["spp"], t["max_bounces"]))
+
+
+def shard_cases(inp, cp, dev, meshes=None) -> dict:
+    """name -> (launches of (K1, K2, K3) one call makes, the call). With
+    ``meshes`` (``pixels``, ``paths``, ``samples``, ``2d``) the sharded
+    entries, without them the unsharded calls they are held against."""
+    from cuda_path_tracer_ss_torch.ops.cuda import lightkernel as lk
+    from cuda_path_tracer_ss_torch.ops.cuda import megakernel as mk
+    from cuda_path_tracer_ss_torch.ops.cuda import megakernel_vjp as vjp
+    from cuda_path_tracer_ss_torch.parallel import sharding
+    from cuda_path_tracer_ss_torch.render import bidir, integrator, inverse
+
+    f, t, b, e = FULL, TRAIN, BIDIR, SHARD_EAGER
+    nu = b["n_paths"] / b["spp"]
+    sharded = meshes is not None
+    m = meshes or {}
+
+    def k1(physical):
+        if sharded:
+            return mk.render_megakernel_sharded(inp["packed"], cp, 0, f["width"], f["height"],
+                                                f["spp"], m["pixels"],
+                                                max_bounces=f["max_bounces"],
+                                                physical=physical)
+        return mk.render_megakernel(inp["packed"], cp, 0, f["width"], f["height"], f["spp"],
+                                    f["max_bounces"], physical=physical)
+
+    def k2(mode):
+        # full mode trains the camera position too: a host tensor beside
+        # tables on the card
+        fields = TRAIN_FIELDS["full"] if mode == "full" else PHYS_FIELDS
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in inverse.extract_params(inp["start"], fields).items()}
+        packed = mk.pack_scene(inverse.merge_params(inp["start"], leaves), dev)
+        cam = [torch.as_tensor(np.asarray(v, np.float32)) for v in cp]
+        kw = dict(physical=True)
+        if mode == "full":
+            kw = dict(grad_mode="full")
+            leaves["camera position"] = cam[1] = cam[1].clone().requires_grad_(True)
+        if sharded:
+            img = vjp.render_megakernel_diff_sharded(packed, cam, 0, t["width"], t["height"],
+                                                     t["spp"], m["pixels"],
+                                                     max_bounces=t["max_bounces"], **kw)
+        else:
+            img = vjp.render_megakernel_diff(packed, cam, 0, t["width"], t["height"],
+                                             t["spp"], max_bounces=t["max_bounces"], **kw)
+        loss = torch.mean((img - inp["target"]) ** 2)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return img.detach(), dict(zip(leaves, grads))
+
+    def k3(bidir_nu):
+        args = (inp["caustic"], cp, 0, b["width"], b["height"], b["n_paths"])
+        if sharded:
+            return lk.render_lighttrace_fast_sharded(*args, m["paths"],
+                                                     max_bounces=b["max_bounces"],
+                                                     bidir_nu=bidir_nu)
+        return lk.render_lighttrace_fast(*args, max_bounces=b["max_bounces"],
+                                         bidir_nu=bidir_nu)
+
+    def bidir_fast():
+        args = (inp["caustic"], cp, b["width"], b["height"], b["spp"], b["n_paths"], 0)
+        if sharded:
+            return bidir.render_bidir_fast_sharded(*args, m["pixels"], m["paths"],
+                                                   max_bounces=b["max_bounces"])
+        return bidir.render_bidir_fast(*args, max_bounces=b["max_bounces"])
+
+    def eager(kind):
+        args = (inp["cornell"], cp, e["width"], e["height"], e["spp"], 0)
+        kw = dict(max_bounces=e["max_bounces"], live_cutoff=None)
+        if not sharded:
+            return integrator.render(*args, device=dev, **kw)
+        entry = {"pixels": sharding.render_pixel_sharded,
+                 "samples": sharding.render_sample_sharded,
+                 "2d": sharding.render_2d_sharded}[kind]
+        return entry(*args, m[kind], **kw)
+
+    cases = {
+        "k1 default": ((1, 0, 0), lambda: k1(False)),
+        "k1 physical": ((1, 0, 0), lambda: k1(True)),
+        "k2 full": ((1, 1, 0), lambda: k2("full")),
+        "k2 physical": ((1, 1, 0), lambda: k2("physical")),
+        "k3 plain": ((0, 0, 1), lambda: k3(None)),
+        "k3 bidir": ((0, 0, 1), lambda: k3(nu)),
+        "bidir fast": ((1, 0, 1), bidir_fast),
+        "eager pixels": ((0, 0, 0), lambda: eager("pixels")),
+    }
+    if not sharded or "samples" in m:
+        cases["eager samples"] = ((0, 0, 0), lambda: eager("samples"))
+        cases["eager 2d"] = ((0, 0, 0), lambda: eager("2d"))
+    return cases
+
+
+def _launch_counts():
+    from cuda_path_tracer_ss_torch.ops.cuda import lightkernel as lk
+    from cuda_path_tracer_ss_torch.ops.cuda import megakernel as mk
+    from cuda_path_tracer_ss_torch.ops.cuda import megakernel_vjp as vjp
+
+    return mk.LAUNCH_COUNT, vjp.LAUNCH_COUNT, lk.LAUNCH_COUNT
+
+
+def _zero_launch_counts():
+    from cuda_path_tracer_ss_torch.ops.cuda import lightkernel as lk
+    from cuda_path_tracer_ss_torch.ops.cuda import megakernel as mk
+    from cuda_path_tracer_ss_torch.ops.cuda import megakernel_vjp as vjp
+
+    mk.LAUNCH_COUNT = vjp.LAUNCH_COUNT = lk.LAUNCH_COUNT = 0
+
+
+def _to_host(x):
+    if isinstance(x, tuple):
+        return tuple(_to_host(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _to_host(v) for k, v in x.items()}
+    return x.detach().cpu()
+
+
+def run_shard_cases(cases, barrier=None) -> dict:
+    """Every case once with its launch counts checked (every count to 0 just
+    before the call, read just after), then ``SHARD_REPS`` timed calls
+    (synchronised; ``barrier`` lines the ranks up before each): name ->
+    (result on the host, median ms, launches)."""
+    out = {}
+    for name, (want, fn) in cases.items():
+        _zero_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        got = _launch_counts()
+        check(got == want, f"{name}: launches (K1, K2, K3) {got}, expected {want}")
+        times = []
+        for _ in range(SHARD_REPS):
+            if barrier:
+                barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = (_to_host(res), float(np.median(times)), got)
+    return out
+
+
+def psum_ms(mesh, axis, dev) -> float:
+    """The all_reduce's own time (median of ``SHARD_REPS``) on a zero image
+    of K1's main-path size."""
+    from cuda_path_tracer_ss_torch.parallel import mesh as pm
+
+    x = torch.zeros((FULL["width"] * FULL["height"], 3), device=dev)
+    pm.psum(x, mesh, axis)
+    times = []
+    for _ in range(SHARD_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pm.psum(x, mesh, axis)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _x4_rank(rank, out, cp):
+    """A rank of [sharded x4]: the sharded cases on four meshes over the four
+    ranks sharing the card; rank 0 saves what it got."""
+    import torch.distributed as dist
+    from cuda_path_tracer_ss_torch.parallel import mesh as pm
+
+    dev = pm.rank_device("cuda")
+    inp = shard_inputs(dev, cp)
+    meshes = {"pixels": pm.make_mesh(SHARD_RANKS), "paths": pm.make_mesh(
+        SHARD_RANKS, axis=pm.PATH_AXIS), "samples": pm.make_mesh(
+        SHARD_RANKS, axis=pm.SAMPLE_AXIS), "2d": pm.make_mesh_2d(2, 2)}
+    res = run_shard_cases(shard_cases(inp, cp, dev, meshes), barrier=dist.barrier)
+    ar = psum_ms(meshes["pixels"], pm.PIXEL_AXIS, dev)
+    if rank == 0:
+        torch.save({"cases": res, "psum_ms": ar,
+                    "backend": dist.get_backend(), "device": str(dev)},
+                   os.path.join(out, "x4.pt"))
+
+
+def compare_shard(name, got, want) -> str:
+    """Hold a sharded result against the unsharded one; returns how."""
+    if name.startswith("k1") or name == "eager pixels":
+        check(torch.equal(got, want), f"{name}: not bit-equal to the unsharded call "
+              f"(max abs diff {float((got - want).abs().max()):.3e})")
+        return "bit-equal"
+    if name.startswith("k2"):
+        check(torch.equal(got[0], want[0]), f"{name}: image not bit-equal")
+        worst = 0.0
+        for k, g in want[1].items():
+            ok = bool(((got[1][k] - g).abs() <= 1e-7 + 1e-4 * g.abs()).all())
+            worst = max(worst, float(((got[1][k] - g).abs() / (1e-7 + 1e-4 * g.abs())).max()))
+            check(ok, f"{name}: gradient {k} outside rtol 1e-4 / atol 1e-7")
+        return f"image bit-equal, gradients within rtol 1e-4 / atol 1e-7 (worst at {worst:.3f} of the bar)"
+    if name.startswith("k3") or name == "bidir fast":
+        d = (got - want).abs()
+        check(light_images_agree(got, want, 1.0, 0, 0.0, BIDIR["n_paths"]),
+              f"{name}: outside the light bars (mean {float(d.mean()):.2e}, max "
+              f"{float(d.max()):.2e})")
+        return f"within the light bars (max abs diff {float(d.max()):.2e})"
+    check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+          f"{name}: outside rtol 1e-5 / atol 1e-6 (max abs diff "
+          f"{float((got - want).abs().max()):.2e})")
+    return f"within rtol 1e-5 / atol 1e-6 (max abs diff {float((got - want).abs().max()):.2e})"
+
+
+def sharded_phases(dev, cp, smi) -> dict:
+    """[sharded nccl], [sharded x4] and [dryrun]."""
+    import torch.distributed as dist
+    from cuda_path_tracer_ss_torch.parallel import mesh as pm
+
+    report = {"card": smi}
+    t_all = time.time()
+    inp = shard_inputs(dev, cp)
+    ref = run_shard_cases(shard_cases(inp, cp, dev))
+
+    # ---- [sharded nccl]: a world of one rank, this process ----
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as rdv:
+        pm.initialize_distributed("file://" + os.path.join(rdv, "rendezvous"), 1, 0,
+                                  backend="nccl")
+        try:
+            meshes = {"pixels": pm.make_mesh(1), "paths": pm.make_mesh(1, axis=pm.PATH_AXIS),
+                      "samples": pm.make_mesh(1, axis=pm.SAMPLE_AXIS),
+                      "2d": pm.make_mesh_2d(1, 1)}
+            check(dist.get_backend() == "nccl", "the one-rank world is not on NCCL")
+            got = run_shard_cases(shard_cases(inp, cp, dev, meshes))
+            ar = psum_ms(meshes["pixels"], pm.PIXEL_AXIS, dev)
+        finally:
+            dist.destroy_process_group()
+    report["nccl"] = {"psum_ms": ar, "s": time.time() - t0, "cases": {}}
+    for name, (res, ms, launches) in got.items():
+        how = compare_shard(name, res, ref[name][0])
+        log(f"[sharded nccl] {name:14s} {ms:9.3f} ms sharded (1 rank) vs {ref[name][1]:9.3f} "
+            f"ms unsharded, launches (K1, K2, K3) {launches}: {how}")
+        report["nccl"]["cases"][name] = dict(ms=ms, unsharded_ms=ref[name][1],
+                                             launches=launches, check=how)
+    log(f"[sharded nccl] all_reduce of the {FULL['width']}x{FULL['height']}x3 image over "
+        f"one NCCL rank: {ar:.3f} ms; phase {report['nccl']['s']:.1f} s ({smi})")
+
+    # ---- [sharded x4]: four ranks sharing the card, over gloo ----
+    t0 = time.time()
+    log(f"[sharded x4] {SHARD_RANKS} ranks on cuda:0 over gloo, asked for by name: NCCL "
+        "does not put two ranks on one GPU; ranks sharing one card measure the "
+        "collective's overhead, not scaling")
+    with tempfile.TemporaryDirectory() as out:
+        pm.spawn_world(SHARD_RANKS, _x4_rank, out, cp, device_type="cuda", backend="gloo")
+        x4 = torch.load(os.path.join(out, "x4.pt"))
+    check(x4["backend"] == "gloo", f"[sharded x4] ran over {x4['backend']}")
+    report["x4"] = {"psum_ms": x4["psum_ms"], "s": time.time() - t0, "cases": {}}
+    for name, (res, ms, launches) in x4["cases"].items():
+        how = compare_shard(name, res, ref[name][0])
+        log(f"[sharded x4] {name:14s} {ms:9.3f} ms over 4 ranks vs {ref[name][1]:9.3f} ms "
+            f"unsharded, rank 0's launches (K1, K2, K3) {launches}: {how}")
+        report["x4"]["cases"][name] = dict(ms=ms, unsharded_ms=ref[name][1],
+                                           launches=launches, check=how)
+    log(f"[sharded x4] all_reduce of the {FULL['width']}x{FULL['height']}x3 image over 4 "
+        f"gloo ranks (through the host): {x4['psum_ms']:.3f} ms; phase "
+        f"{report['x4']['s']:.1f} s ({smi})")
+
+    # ---- [dryrun]: the certification run, four ranks over gloo ----
+    t0 = time.time()
+    cmd = [sys.executable, "-m", "cuda_path_tracer_ss_torch.parallel.dryrun",
+           str(SHARD_RANKS), "--backend", "gloo"]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        raise
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("dryrun_multichip(")]
+    for ln in lines:
+        log(f"[dryrun] {ln}")
+    check(proc.returncode == 0, f"[dryrun] exit {proc.returncode}: {stderr[-2000:]}")
+    check(len(lines) == DRYRUN_LINES, f"[dryrun] {len(lines)} lines of {DRYRUN_LINES}")
+    report["dryrun"] = {"lines": lines, "s": time.time() - t0}
+    report["s"] = time.time() - t_all
+    log(f"[dryrun] {len(lines)} steps in {report['dryrun']['s']:.1f} s; the sharded "
+        f"phases took {report['s']:.1f} s in all ({smi})")
+    return report
 
 
 def main() -> int:
@@ -2208,8 +2506,8 @@ def main() -> int:
 
     # ---- 13a. the textured instantiations against their plain versions -----------------
     tex_scenes = {"textured": presets.textured, "mesh": presets.mesh_demo,
-                  "color+normal quad": lambda: textured_quad(nmap=True),
-                  "color sphere": lambda: textured_quad(sphere=True)}
+                  "color+normal quad": lambda: presets.textured_quad(nmap=True),
+                  "color sphere": lambda: presets.textured_quad(sphere=True)}
     report["texture_vs_plain"] = {}
     for name, make in tex_scenes.items():
         packed_s = mk.pack_scene(make(), dev)
@@ -2343,12 +2641,12 @@ def main() -> int:
     # ---- 13c. the textured backward kernel against the plain engine's autograd -------------
     report["textured_vjp_vs_plain"] = {}
     tex_vjp_cases = [
-        ("color quad", lambda: textured_quad(), ["textures", "materials.diffuse"]),
-        ("color quad", lambda: textured_quad(),
+        ("color quad", lambda: presets.textured_quad(), ["textures", "materials.diffuse"]),
+        ("color quad", lambda: presets.textured_quad(),
          ["textures", "materials.roughness", "pl_pos"]),
-        ("color sphere", lambda: textured_quad(sphere=True),
+        ("color sphere", lambda: presets.textured_quad(sphere=True),
          ["sph_center", "sph_radius", "textures"]),
-        ("color+normal quad", lambda: textured_quad(nmap=True),
+        ("color+normal quad", lambda: presets.textured_quad(nmap=True),
          ["textures", "materials.diffuse", "pl_pos"]),
         ("textured", presets.textured, ["textures", "materials.diffuse"]),
     ]
@@ -2387,7 +2685,7 @@ def main() -> int:
     # ---- 13d. textured gradient steps in the reference's configurations -------------------
     tex_grad_bench = []
     for name, size, b_spp, b_nb, fields in TEX_GRAD_BENCH:
-        scene = textured_quad(nmap="normal" in name)
+        scene = presets.textured_quad(nmap="normal" in name)
         packed_g = mk.pack_scene(scene, dev)
         target_g = mk.render_megakernel(packed_g, cp, 0, size, size, b_spp, b_nb)
         loss = inverse.make_loss(scene, cp, target_g, size, size, b_spp, b_nb, engine="cuda",
@@ -2554,7 +2852,7 @@ def main() -> int:
     # 14b. the backward kernel through the grid
     report["grid_vjp_vs_plain"] = {}
     for name, make in (("cornell", presets.cornell), ("stress", presets.stress),
-                       ("color+normal quad", lambda: textured_quad(nmap=True))):
+                       ("color+normal quad", lambda: presets.textured_quad(nmap=True))):
         scene = make()
         for mode in ("linear", "full"):
             fields = scene_fields(scene, mode)
@@ -2962,12 +3260,12 @@ def main() -> int:
     # 15a. the new modes against the plain engine on small inputs
     report["new_modes_vs_plain"] = {}
     small_cases = [
-        ("color quad", lambda: textured_quad(), GEO_FIELDS + ["textures"], False, "none"),
-        ("color+normal quad", lambda: textured_quad(nmap=True), GEO_FIELDS + ["textures"],
+        ("color quad", lambda: presets.textured_quad(), GEO_FIELDS + ["textures"], False, "none"),
+        ("color+normal quad", lambda: presets.textured_quad(nmap=True), GEO_FIELDS + ["textures"],
          False, "none"),
-        ("color quad", lambda: textured_quad(), ["materials.diffuse", "textures", "pl_pos"],
+        ("color quad", lambda: presets.textured_quad(), ["materials.diffuse", "textures", "pl_pos"],
          True, "none"),
-        ("color+normal quad", lambda: textured_quad(nmap=True),
+        ("color+normal quad", lambda: presets.textured_quad(nmap=True),
          ["materials.diffuse", "textures", "tri_v0", "tri_v1"], True, "none"),
         ("cornell", presets.cornell, PHYS_FIELDS, True, "grid"),
         ("stress_dense", lambda: presets.stress_dense(3000), PHYS_FIELDS, True, "none"),
@@ -2997,7 +3295,7 @@ def main() -> int:
     new_k2["physical, grid"] = new_mode_bench("cornell", start, PHYS_FIELDS, train_dims, True,
                                               accel="grid")
     new_k2["physical, textured"] = new_mode_bench(
-        "color+normal quad", textured_quad(nmap=True),
+        "color+normal quad", presets.textured_quad(nmap=True),
         ["materials.diffuse", "textures", "pl_pos"], (128, 128, 16, 4), True)
     for mode, fields, physical in (("geo", GEO_FIELDS, False), ("physical", PHYS_FIELDS, True)):
         loss = inverse.make_loss(start, cp, target_train, tw, th, tspp, tnb, engine="cuda",
@@ -3146,7 +3444,7 @@ def main() -> int:
         capacity = vjp._stack_slots(s_spp, s_nb, s_w * s_h, slot, full or physical)
         return capacity * slot * s_w * s_h * 4, capacity, slot
 
-    quads = {"color quad": textured_quad(), "color+normal quad": textured_quad(nmap=True)}
+    quads = {"color quad": presets.textured_quad(), "color+normal quad": presets.textured_quad(nmap=True)}
     scratch_cfgs = {f"cornell {m}": (start, train_dims, m != "linear", "physical" in m)
                     for m in ("linear", "full", "geo", "physical", "physical-geo")}
     scratch_cfgs.update({
@@ -3199,6 +3497,10 @@ def main() -> int:
     log(f"[silhouette] the four silhouette phases took {sil['phases_s']:.1f} s")
     report["silhouette"] = sil
     new_k2["geo"]["launches_silhouette_step"] = sil["main"]["k2_per_step"]
+
+    # ---- 17b. the multi-device path ---------------------------------------------------
+    shard = sharded_phases(dev, cp, smi)
+    report["sharded"] = shard
 
     # ---- 18. report ----------------------------------------------------------------
     k1_common = {
@@ -3457,6 +3759,16 @@ def main() -> int:
         "scratch_bytes": v["scratch_bytes"],
         "share_of_bound": v["bound"][0] / v["ms"],
     } for label, v in new_k2.items()]}
+    # the sharded path's launches and times beside each kernel it runs
+    for entry in kernels["kernels"]:
+        case = SHARDED_KERNEL_CASES.get(entry["name"])
+        if case:
+            one, four = shard["nccl"]["cases"][case], shard["x4"]["cases"][case]
+            k = ("K1", "K2", "K3").index(KERNEL_OF[entry["name"].split("[")[0]])
+            entry["sharded"] = {
+                "case": case, "launches_1_rank_nccl": one["launches"][k],
+                "launches_per_rank_4_gloo": four["launches"][k], "ms_1_rank_nccl": one["ms"],
+                "ms_4_ranks_gloo": four["ms"], "ms_unsharded": one["unsharded_ms"]}
     report.update(grid_main_path_s=grid_main_s, grid_train={
         m: {k: v for k, v in t.items() if k != "bound"} for m, t in grid_train.items()},
         bf16_main_path_s=bf_main_s)
@@ -3478,7 +3790,8 @@ def main() -> int:
                     open(os.path.join(args.out_dir, os.path.basename(path)), "wb") as dst:
                 dst.write(src.read())
         with open(os.path.join(args.out_dir, "chip_smoke.json"), "w") as f:
-            json.dump(report, f, indent=1)
+            # numpy / torch scalars (float32 sums of the phases) as numbers
+            json.dump(report, f, indent=1, default=lambda o: o.item())
     out_dir_ctx.cleanup()
     log(f"[done] {time.time() - t_start:.0f} s")
     log(smi)

@@ -18,7 +18,10 @@ and the eager engine — the JAX package's jnp engine in plain PyTorch, eye
 paths (``render/integrator.py``) and light paths (``render_lighttrace``,
 ``render_bidir``), differentiable by autograd; and the silhouette
 (visibility-boundary) terms of geometry gradients (``render/silhouette.py``,
-``invert(silhouette=True)``) on the eager engine.
+``invert(silhouette=True)``) on the eager engine; and rendering and training
+over several processes (``parallel/``: meshes over ``torch.distributed``,
+the eager engine's sharded renders, the kernels' sharded entries and the
+multi-device certification run).
 """
 
 from .constants import (
@@ -39,19 +42,47 @@ from .models.scene import (
     scene_from_numpy,
     scene_to_numpy,
 )
-from .ops.cuda.lightkernel import light_image, light_records, render_lighttrace_fast
+from .ops.cuda.lightkernel import (
+    light_image,
+    light_records,
+    render_lighttrace_fast,
+    render_lighttrace_fast_sharded,
+)
 from .ops.cuda.megakernel import (
     PackedScene,
     pack_scene,
     render_fast2,
     render_megakernel,
     render_megakernel_plain,
+    render_megakernel_sharded,
 )
 from .ops.cuda.megakernel_vjp import (
     render_megakernel_diff,
     render_megakernel_diff_plain,
+    render_megakernel_diff_sharded,
 )
-from .render.bidir import render_bidir, render_bidir_fast
+from .parallel.mesh import (
+    PATH_AXIS,
+    PIXEL_AXIS,
+    SAMPLE_AXIS,
+    initialize_distributed,
+    make_mesh,
+    make_mesh_2d,
+    spawn_world,
+)
+from .parallel.sharding import (
+    jit_pixel_sharded,
+    render_2d_sharded,
+    render_lighttrace_sharded,
+    render_pixel_sharded,
+    render_sample_sharded,
+)
+from .render.bidir import (
+    render_bidir,
+    render_bidir_fast,
+    render_bidir_fast_sharded,
+    render_bidir_sharded,
+)
 from .render.inverse import (
     TRAINABLE_FIELDS,
     check_engine_fields,
@@ -76,15 +107,18 @@ __all__ = [
     "DEFAULT_DIM",
     "DEFAULT_MAX_BOUNCES",
     "GAMMA_CORRECTION",
-    "MaterialSpec",
-    "Materials",
     "MAT_FLAG_COOK_TORRANCE",
     "MAT_FLAG_PURE_REFLECTION",
+    "MaterialSpec",
+    "Materials",
+    "PATH_AXIS",
+    "PIXEL_AXIS",
     "PRESETS",
     "PackedScene",
     "ProgressiveRenderer",
     "RAY_BUMP_EPSILON",
     "RenderConfig",
+    "SAMPLE_AXIS",
     "Scene",
     "SceneBuilder",
     "TRAINABLE_FIELDS",
@@ -94,23 +128,37 @@ __all__ = [
     "directional_fd_check",
     "extract_params",
     "get_scene",
+    "initialize_distributed",
     "invert",
+    "jit_pixel_sharded",
     "light_image",
     "light_records",
     "make_grad_with_boundary",
     "make_loss",
+    "make_mesh",
+    "make_mesh_2d",
     "merge_params",
     "pack_scene",
+    "render_2d_sharded",
     "render_bidir",
     "render_bidir_fast",
+    "render_bidir_fast_sharded",
+    "render_bidir_sharded",
     "render_fast2",
     "render_lighttrace",
     "render_lighttrace_fast",
+    "render_lighttrace_fast_sharded",
+    "render_lighttrace_sharded",
     "render_megakernel",
     "render_megakernel_diff",
     "render_megakernel_diff_plain",
+    "render_megakernel_diff_sharded",
     "render_megakernel_plain",
+    "render_megakernel_sharded",
+    "render_pixel_sharded",
+    "render_sample_sharded",
     "scene_from_numpy",
     "scene_to_numpy",
     "shadow_boundary_grad",
+    "spawn_world",
 ]

@@ -498,6 +498,38 @@ def mesh_dense(subdiv: int = 4) -> Scene:
     return b.build()
 
 
+def textured_quad(tex: bool = True, nmap: bool = False,
+                  sphere: bool = False) -> Scene:
+    """The JAX package's texture test scene (its ``tests/test_texture.py``
+    quad): a 2x2 red / blue checker color map and / or a constant tilted
+    normal map on a UV-mapped quad (or a sphere with procedural UVs) lit by a
+    point light, on black. Not a preset: the multi-device certification run
+    (``parallel/dryrun.py``) and ``chip_smoke.py`` train on it."""
+    b = SceneBuilder()
+    checker = np.zeros((2, 2, 3), np.float32)
+    checker[:, 0] = (1.0, 0.1, 0.1)   # left texel column red
+    checker[:, 1] = (0.1, 0.1, 1.0)   # right column blue
+    tid = b.add_texture(checker) if tex else -1
+    nid = -1
+    if nmap:
+        nm = np.zeros((2, 2, 3), np.float32)
+        nm[..., 0], nm[..., 1], nm[..., 2] = 0.85, 0.5, 0.9
+        nid = b.add_texture(nm)
+    m = b.add_material(MaterialSpec(diffuse=(1.0, 1.0, 1.0), diff_avg=0.8,
+                                    texture=tid, normal_map=nid))
+    if sphere:
+        b.add_sphere((0.0, 0.0, -4.0), 1.6, m)
+    else:
+        v = [(-2, -2, -4), (2, -2, -4), (2, 2, -4), (-2, 2, -4)]
+        uv = [(0, 0), (1, 0), (1, 1), (0, 1)]
+        n = (0, 0, 1)
+        b.add_triangle(v[0], v[1], v[2], n, n, n, m, uv=(uv[0], uv[1], uv[2]))
+        b.add_triangle(v[0], v[2], v[3], n, n, n, m, uv=(uv[0], uv[2], uv[3]))
+    b.add_point_light((0.0, 0.0, -1.0), (60.0, 60.0, 60.0))
+    b.background = np.zeros(3, np.float32)
+    return b.build()
+
+
 PRESETS = {
     "showcase": showcase,
     "mirror_box": showcase,

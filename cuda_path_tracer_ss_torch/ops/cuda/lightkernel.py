@@ -42,7 +42,9 @@ schedule.
 Device rule: the records and the image are made on the device the packed
 tables live on. On a CUDA device the kernel is launched or the call raises;
 the plain version (records, summed by ``splat_records``) runs only for tables
-on the CPU, or when called by name.
+on the CPU, or when called by name. ``render_lighttrace_fast_sharded`` splits
+the paths over the ranks of a mesh (``parallel.mesh``): one launch per rank,
+one psum of the images.
 """
 from __future__ import annotations
 
@@ -54,6 +56,7 @@ import torch
 
 from ...constants import (DEFAULT_MAX_BOUNCES, INV_PI, MIS_RATIO_CLAMP,
                           RAY_BUMP_EPSILON)
+from ...parallel.mesh import PATH_AXIS, axis_index, axis_size, check_device, psum
 from ...utils import rng
 from . import megakernel as mk
 from .megakernel import (AL_COLS, CAM_FLOATS, M_COLS, PackedScene,
@@ -575,3 +578,32 @@ def render_lighttrace_fast(packed: PackedScene, cam_params, seed: int,
     img = light_image(packed, cam_params, seed, width, height, n_paths,
                       max_bounces, 0, n_paths, sample_idx, bidir_nu)
     return (img / n_paths).reshape(height, width, 3)
+
+
+def render_lighttrace_fast_sharded(packed: PackedScene, cam_params, seed: int,
+                                   width: int, height: int, n_paths: int, mesh,
+                                   max_bounces: int = DEFAULT_MAX_BOUNCES,
+                                   sample_idx: int = 0,
+                                   bidir_nu: Optional[float] = None
+                                   ) -> torch.Tensor:
+    """``render_lighttrace_fast`` over ``mesh``'s path axis
+    (``parallel.mesh``): each rank splats a block of ``n_paths / ranks``
+    GLOBAL path indices into its own full-size image (``light_image``: one
+    launch of the kernel's image sink on a card), one psum over the path
+    axis merges them, then the division by ``n_paths``. Streams key on the
+    global path index, so only the order of the float splat sums differs
+    from a single device. The tables must be on the mesh's device type."""
+    if packed.counts[4] == 0:
+        raise ValueError("light tracing needs at least one area light")
+    if packed.tex_counts[0]:
+        raise ValueError("textured light tracing is not on this kernel "
+                         "(the light kernel has no texture block)")
+    n_dev = axis_size(mesh, PATH_AXIS, "render_lighttrace_fast_sharded")
+    check_device(mesh, packed.device, "render_lighttrace_fast_sharded")
+    if n_paths % n_dev:
+        raise ValueError(f"n_paths={n_paths} not divisible by {n_dev} devices")
+    per = n_paths // n_dev
+    img = light_image(packed, cam_params, seed, width, height, n_paths,
+                      max_bounces, axis_index(mesh, PATH_AXIS) * per, per,
+                      sample_idx, bidir_nu)
+    return (psum(img, mesh, PATH_AXIS) / n_paths).reshape(height, width, 3)

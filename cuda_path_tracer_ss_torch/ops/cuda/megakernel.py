@@ -40,6 +40,8 @@ they agree per pixel up to float op-order noise.
 Device rule: ``render_megakernel`` renders on the device its packed tables
 live on. On a CUDA device it launches the kernel or raises; the plain
 version runs only for tables on the CPU, or when called by name.
+``render_megakernel_sharded`` splits the pixels over the ranks of a mesh
+(``parallel.mesh``): one launch per rank on its tile, one psum of the tiles.
 """
 from __future__ import annotations
 
@@ -52,6 +54,8 @@ import numpy as np
 import torch
 
 from ...constants import INV_PI, MIS_RATIO_CLAMP, RAY_BUMP_EPSILON
+from ...parallel.mesh import (PIXEL_AXIS, axis_index, axis_size, check_device,
+                              in_full_image, psum, tile_range)
 from ...utils import rng
 from ..texture import (_sphere_tangent, bilinear, perturb_normal, sphere_uv,
                        triangle_uv_tangent, wrap)
@@ -77,12 +81,6 @@ LAUNCHES_GRID = [0, 0, 0]
 LAUNCHES_BF16 = [0, 0, 0]
 
 _TWO_PI = 2.0 * math.pi
-
-
-def _unported(what: str, where: str):
-    raise NotImplementedError(
-        f"{what} is not ported to the PyTorch/CUDA package yet "
-        f"(ROADMAP.md {where})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -2032,6 +2030,31 @@ def render_megakernel(packed: PackedScene, cam_params, seed: int,
                              physical=physical, bidir_nu=bidir_nu,
                              packed_grid=packed_grid, state_bf16=state_bf16)
     return (sums / spp).reshape(height, width, 3)
+
+
+def render_megakernel_sharded(packed: PackedScene, cam_params, seed: int,
+                              width: int, height: int, spp: int, mesh,
+                              max_bounces: int = 15, sample_clamp: float = 0.0,
+                              sample_offset: int = 0, packed_grid=None,
+                              physical: bool = False, state_bf16: bool = False,
+                              bidir_nu: Optional[float] = None) -> torch.Tensor:
+    """``render_megakernel`` over ``mesh``'s pixel axis (``parallel.mesh``):
+    each rank launches the kernel once on its tile of flat pixels (ceil(W*H /
+    ranks) each, the last rank the remainder), writes the sums into a zero
+    image and one psum over the pixel axis merges them before the division by
+    ``spp`` — the single-device op order, so the image is bit-equal to
+    ``render_megakernel``'s, on every rank. The tables must be on the
+    mesh's device type."""
+    n = width * height
+    n_dev = axis_size(mesh, PIXEL_AXIS, "render_megakernel_sharded")
+    check_device(mesh, packed.device, "render_megakernel_sharded")
+    first, n_local = tile_range(n, n_dev, axis_index(mesh, PIXEL_AXIS))
+    sums = render_block_sums(packed, cam_params, seed, width, height, spp,
+                             max_bounces, first, n_local, sample_offset,
+                             sample_clamp, physical=physical, bidir_nu=bidir_nu,
+                             packed_grid=packed_grid, state_bf16=state_bf16)
+    return (psum(in_full_image(sums, first, n), mesh, PIXEL_AXIS) / spp
+            ).reshape(height, width, 3)
 
 
 def render_fast2(scene, cam_params, width: int, height: int, spp: int,

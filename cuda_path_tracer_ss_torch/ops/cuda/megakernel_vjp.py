@@ -106,7 +106,12 @@ Device rule: tables on a CUDA device go to the kernels, or the call raises;
 the plain version (``render_megakernel_diff_plain``: autograd through the
 plain forward render) runs only for tables on the CPU, or when called by name.
 
-Not ported yet, raising ``NotImplementedError``: the sharded entry.
+``render_megakernel_diff_sharded`` trains over several ranks
+(``parallel.mesh``): each rank runs the forward kernel and, in the backward
+pass, the replay kernel on its own tile of pixels with the tile's slice of
+the image cotangent; the tiles merge with one psum, and the gradients of the
+replicated tables and camera are summed over the ranks by
+``parallel.mesh.replicate``.
 """
 from __future__ import annotations
 
@@ -115,8 +120,10 @@ import ctypes
 import dataclasses
 import torch
 
+from ...parallel.mesh import (PIXEL_AXIS, axis_index, axis_size, check_device,
+                              in_full_image, psum, replicate, tile_range)
 from . import megakernel as mk
-from .megakernel import PackedScene, _unported
+from .megakernel import PackedScene
 
 # Material gradient rows per material, in row order: diffuse(3) specular(3)
 # absorption(3) emission(3) diff_avg(1); full mode adds roughness, ior,
@@ -251,16 +258,12 @@ def _tex_grads(packed: PackedScene, full: bool) -> bool:
     return tex_grads
 
 
-def _reject_unported_diff(grad_mode: str, physical: bool = False,
-                          sharded: bool = False) -> bool:
+def _check_grad_mode(grad_mode: str, physical: bool = False) -> bool:
     """Validate ``grad_mode``; returns True for the full path adjoint (which
-    geo and physical build on). Only the sharded entry is not ported."""
+    geo and physical build on)."""
     if grad_mode not in ("full", "linear", "geo"):
         raise ValueError(f"grad_mode must be 'full', 'linear' or 'geo', "
                          f"got {grad_mode!r}")
-    if sharded:
-        _unported("render_megakernel_diff_sharded (multi-device training)",
-                  "Queue 1 item 10 / item 6: sharded")
     return grad_mode != "linear" or physical
 
 
@@ -382,10 +385,14 @@ def render_megakernel_diff_plain(packed: PackedScene, cam_params, seed: int,
                                  max_bounces: int = 8, sample_offset: int = 0,
                                  grad_mode: str = "full",
                                  packed_grid=None,
-                                 physical: bool = False) -> torch.Tensor:
+                                 physical: bool = False,
+                                 pixel_offset: int = 0,
+                                 n_local=None) -> torch.Tensor:
     """The plain PyTorch version of the differentiable render: autograd
     through the plain forward render (``render_megakernel_plain``, physical
     too), with the packed tables and the camera as differentiable tensors.
+    With ``n_local`` it renders the tile ``[pixel_offset, pixel_offset +
+    n_local)`` of flat pixels alone: mean radiance ``[n_local, 3]``.
     It shares no adjoint formula with the kernel: it is the yardstick of the
     kernel's gradients, and what ``engine="plain"`` trains with.
 
@@ -397,13 +404,19 @@ def render_megakernel_diff_plain(packed: PackedScene, cam_params, seed: int,
     refused where the kernel refuses them, and so is geo through a grid.
     ``packed_grid`` sweeps through the grid (the same hits, so the same
     gradients)."""
-    full = _reject_unported_diff(grad_mode, physical)
+    full = _check_grad_mode(grad_mode, physical)
     _check_geo_grid(grad_mode, packed_grid)
     _tex_grads(packed, full)
-    return mk.render_megakernel_plain(
-        _detach_undifferentiated(packed, grad_mode == "geo"), cam_params, seed,
-        width, height, spp, max_bounces, sample_offset=sample_offset,
-        packed_grid=packed_grid, physical=physical)
+    packed = _detach_undifferentiated(packed, grad_mode == "geo")
+    if n_local is None:
+        return mk.render_megakernel_plain(
+            packed, cam_params, seed, width, height, spp, max_bounces,
+            sample_offset=sample_offset, packed_grid=packed_grid,
+            physical=physical)
+    return mk.render_block_sums_plain(
+        packed, cam_params, seed, width, height, spp, max_bounces,
+        pixel_offset, n_local, sample_offset, physical=physical,
+        packed_grid=packed_grid) / spp
 
 
 # ---------------------------------------------------------------------------
@@ -543,8 +556,10 @@ def backward_grads_cuda(packed: PackedScene, cam_params, seed: int,
 
 
 class _RenderDiff(torch.autograd.Function):
-    """Forward: one launch of the forward megakernel. Backward: one launch of
-    the replay-VJP kernel. Inputs: the six tables, the texel atlas (None
+    """Forward: one launch of the forward megakernel on the flat pixels
+    ``[pixel_offset, pixel_offset + n_local)``, whose mean radiance
+    ``[n_local, 3]`` it returns. Backward: one launch of the replay-VJP
+    kernel on the same pixels. Inputs: the six tables, the texel atlas (None
     without textures), the four camera tensors, then the non-differentiable
     arguments (``layout``: the packed scene whose texture tables and counts
     the tensors above belong to; ``packed_grid``: the grid both kernels sweep
@@ -556,42 +571,46 @@ class _RenderDiff(torch.autograd.Function):
     @staticmethod
     def forward(ctx, spheres, triangles, materials, point_lights, area_lights,
                 background, tex_atlas, rot, pos, tan_half, z_near, layout,
-                seed, width, height, spp, max_bounces, sample_offset, full,
-                tex_grads, packed_grid, physical, geo, launch):
+                seed, width, height, spp, max_bounces, sample_offset,
+                pixel_offset, n_local, full, tex_grads, packed_grid, physical,
+                geo, launch):
         packed = dataclasses.replace(
             layout, spheres=spheres, triangles=triangles, materials=materials,
             point_lights=point_lights, area_lights=area_lights,
             background=background, tex_atlas=tex_atlas)
         cam = (rot, pos, tan_half, z_near)
         sums = launch[0](packed, cam, seed, width, height, spp, max_bounces,
-                         0, width * height, sample_offset,
+                         pixel_offset, n_local, sample_offset,
                          packed_grid=packed_grid, physical=physical)
         ctx.save_for_backward(*packed.tables(), *cam)
         ctx.packed = packed
         ctx.args = (seed, width, height, spp, max_bounces, sample_offset,
-                    full, tex_grads, packed_grid, physical, geo, launch[1])
-        return (sums / spp).reshape(height, width, 3)
+                    pixel_offset, n_local, full, tex_grads, packed_grid,
+                    physical, geo, launch[1])
+        return sums / spp
 
     @staticmethod
     def backward(ctx, g):
         saved = ctx.saved_tensors
-        (seed, width, height, spp, max_bounces, sample_offset, full,
-         tex_grads, packed_grid, physical, geo, backward_grads) = ctx.args
+        (seed, width, height, spp, max_bounces, sample_offset, pixel_offset,
+         n_local, full, tex_grads, packed_grid, physical, geo,
+         backward_grads) = ctx.args
         packed = dataclasses.replace(ctx.packed, **dict(zip(
             ("spheres", "triangles", "materials", "point_lights",
              "area_lights", "background"), saved[:6])))
         cam = saved[6:]
         d_packed, d_cam = backward_grads(
             packed, cam, seed, width, height, spp, max_bounces, g,
-            sample_offset, full, tex_grads, packed_grid=packed_grid,
-            physical=physical, geo=geo)
+            sample_offset, full, tex_grads, pixel_offset=pixel_offset,
+            n_local=n_local, packed_grid=packed_grid, physical=physical,
+            geo=geo)
         # a camera tensor may live on another device than the tables
         d_cam = tuple(d.reshape(c.shape).to(c.device) if need else None
                       for d, c, need in zip(d_cam, cam,
                                             ctx.needs_input_grad[7:11]))
         d_atlas = d_packed.tex_atlas if ctx.needs_input_grad[6] else None
         # the grid is discrete structure: no gradient
-        return (*d_packed.tables(), d_atlas, *d_cam) + (None,) * 13
+        return (*d_packed.tables(), d_atlas, *d_cam) + (None,) * 15
 
 
 def render_megakernel_diff(packed: PackedScene, cam_params, seed: int,
@@ -611,21 +630,33 @@ def render_megakernel_diff(packed: PackedScene, cam_params, seed: int,
     kernels sweep through the supercell grid; it gets no gradient (geo mode
     takes none). ``physical=True`` renders with the physical estimator (K1
     physical) and differentiates it."""
-    full = _reject_unported_diff(grad_mode, physical)
+    return _render_diff_tile(packed, cam_params, seed, width, height, spp,
+                             max_bounces, sample_offset, grad_mode, packed_grid,
+                             physical, 0, width * height).reshape(height, width, 3)
+
+
+def _render_diff_tile(packed: PackedScene, cam_params, seed, width, height,
+                      spp, max_bounces, sample_offset, grad_mode, packed_grid,
+                      physical, first, n_local) -> torch.Tensor:
+    """Differentiable mean radiance ``[n_local, 3]`` of the flat pixels
+    ``[first, first + n_local)``: K1 forward and K2 backward on CUDA tables,
+    the plain version on CPU tables."""
+    full = _check_grad_mode(grad_mode, physical)
     _check_geo_grid(grad_mode, packed_grid)
     if packed.device.type != "cuda":
         return render_megakernel_diff_plain(packed, cam_params, seed, width,
                                             height, spp, max_bounces,
                                             sample_offset, grad_mode,
-                                            packed_grid=packed_grid,
-                                            physical=physical)
+                                            packed_grid, physical, first,
+                                            n_local)
     tex_grads = _tex_grads(packed, full)
     mk._check_grid(packed, packed_grid)
     cam = tuple(torch.as_tensor(v, dtype=torch.float32) for v in cam_params)
     return _RenderDiff.apply(*packed.tables(), packed.tex_atlas, *cam, packed,
                              int(seed), width, height, spp, max_bounces,
-                             int(sample_offset), full, tex_grads, packed_grid,
-                             bool(physical), grad_mode == "geo",
+                             int(sample_offset), first, n_local, full,
+                             tex_grads, packed_grid, bool(physical),
+                             grad_mode == "geo",
                              (mk.render_block_sums_cuda, backward_grads_cuda))
 
 
@@ -634,5 +665,35 @@ def render_megakernel_diff_sharded(packed: PackedScene, cam_params, seed: int,
                                    max_bounces: int = 8, sample_offset: int = 0,
                                    grad_mode: str = "full", packed_grid=None,
                                    physical: bool = False) -> torch.Tensor:
-    """Pixel-sharded differentiable render over several devices."""
-    _reject_unported_diff(grad_mode, physical, sharded=True)
+    """``render_megakernel_diff`` over ``mesh``'s pixel axis
+    (``parallel.mesh``), in every grad mode it takes: each rank renders
+    its tile of flat pixels (ceil(W*H / ranks) each, the last rank the
+    remainder) with the forward kernel and, in the backward pass, runs the
+    replay kernel on that tile with the tile's slice of the image cotangent
+    (CPU tables: the plain version on the tile). The tiles merge with one
+    psum over the pixel axis — the image is bit-equal to
+    ``render_megakernel_diff``'s, on every rank — and the gradients of the
+    tables, the atlas and the camera tensors are summed over the ranks once
+    (``parallel.mesh.replicate``, applied here). The tables must be on the
+    mesh's device type."""
+    _check_grad_mode(grad_mode, physical)
+    n = width * height
+    n_dev = axis_size(mesh, PIXEL_AXIS, "render_megakernel_diff_sharded")
+    check_device(mesh, packed.device, "render_megakernel_diff_sharded")
+    _check_geo_grid(grad_mode, packed_grid)
+    first, n_local = tile_range(n, n_dev, axis_index(mesh, PIXEL_AXIS))
+    cam = [torch.as_tensor(v, dtype=torch.float32) for v in cam_params]
+    names = ("spheres", "triangles", "materials", "point_lights",
+             "area_lights", "background", "tex_atlas")
+    tensors = [getattr(packed, k) for k in names] + cam
+    grad = [i for i, t in enumerate(tensors)
+            if t is not None and t.requires_grad]
+    keep = replicate([tensors[i] for i in grad], mesh)
+    for i, k in zip(grad, keep):
+        tensors[i] = k
+    packed = dataclasses.replace(packed, **dict(zip(names, tensors)))
+    tile = _render_diff_tile(packed, tensors[len(names):], seed, width, height,
+                             spp, max_bounces, sample_offset, grad_mode,
+                             packed_grid, physical, first, n_local)
+    return psum(in_full_image(tile, first, n), mesh, PIXEL_AXIS,
+                keep).reshape(height, width, 3)

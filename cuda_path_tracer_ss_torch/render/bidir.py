@@ -20,16 +20,22 @@ per-vertex factor through the same chain-model function
 bidirectional carries, ``render/lighttrace.py`` with the weights), so
 autograd differentiates it (``make_loss(engine="bidir")``);
 ``render_bidir_fast`` runs on the two hand-written kernels: the physical
-megakernel with the bidirectional carries and the light-tracing kernel. The
-entries that run across devices are not ported yet.
+megakernel with the bidirectional carries and the light-tracing kernel.
+``render_bidir_sharded`` and ``render_bidir_fast_sharded`` run the same two
+halves over several ranks (``parallel.mesh``): the eye half over a pixel mesh
+(no collective but the merge of the tiles), the light half over a path mesh
+(one psum of the splat images).
 """
 from __future__ import annotations
 
 import torch
 
 from ..constants import DEFAULT_MAX_BOUNCES
-from ..ops.cuda.lightkernel import render_lighttrace_fast
-from ..ops.cuda.megakernel import PackedScene, _unported, render_megakernel
+from ..ops.cuda.lightkernel import (render_lighttrace_fast,
+                                    render_lighttrace_fast_sharded)
+from ..ops.cuda.megakernel import (PackedScene, render_megakernel,
+                                   render_megakernel_sharded)
+from ..parallel.sharding import render_lighttrace_sharded, render_pixel_sharded
 from ..utils import rng
 from . import integrator
 from .lighttrace import render_lighttrace
@@ -97,12 +103,58 @@ def render_bidir(scene, cam_params, width: int, height: int, spp: int,
     return fwd + lt
 
 
-def render_bidir_sharded(*args, **kwargs):
-    """The eager-engine bidirectional render over a device mesh: not ported
-    yet."""
-    _unported("render_bidir_sharded", "Queue 1 item 10")
+def render_bidir_sharded(scene, cam_params, width: int, height: int,
+                         spp: int, n_paths: int, seed: int, mesh_pixels,
+                         mesh_paths, max_bounces: int = DEFAULT_MAX_BOUNCES,
+                         sample_offset: int = 0,
+                         light_sample_idx: int = 0) -> torch.Tensor:
+    """``render_bidir`` over several ranks on the eager engine: the eye half
+    in pixel tiles over ``mesh_pixels`` (``render_pixel_sharded``), the light
+    half in blocks of global path indices over ``mesh_paths``
+    (``render_lighttrace_sharded``), two meshes over the same ranks. The eye
+    half equals the single-device one bit for bit, the light half up to the
+    order of its splat sums; autograd reaches the scene's fields, their
+    gradients summed over the ranks once per half."""
+    if not scene.num_area_lights:
+        raise ValueError("bidirectional rendering needs an area light")
+    nu = float(n_paths) / float(spp)
+    fwd = render_pixel_sharded(scene, cam_params, width, height, spp, seed,
+                               mesh_pixels, max_bounces=max_bounces,
+                               live_cutoff=None, sample_offset=sample_offset,
+                               physical=True, bidir_nu=nu)
+    lt = render_lighttrace_sharded(scene, cam_params, width, height, n_paths,
+                                   rng.seed_for(seed, 1), mesh_paths,
+                                   max_bounces=max_bounces,
+                                   sample_idx=light_sample_idx, bidir_nu=nu)
+    return fwd + lt
 
 
-def render_bidir_fast_sharded(*args, **kwargs):
-    """``render_bidir_fast`` over several devices: not ported yet."""
-    _unported("render_bidir_fast_sharded", "Queue 1 item 10")
+def render_bidir_fast_sharded(packed: PackedScene, cam_params, width: int,
+                              height: int, spp: int, n_paths: int, seed: int,
+                              mesh_pixels, mesh_paths,
+                              max_bounces: int = DEFAULT_MAX_BOUNCES,
+                              sample_offset: int = 0,
+                              light_sample_idx: int = 0) -> torch.Tensor:
+    """``render_bidir_fast`` over several ranks: the physical megakernel with
+    the bidirectional carries in pixel tiles over ``mesh_pixels``
+    (``render_megakernel_sharded``: bit-equal to one device), the light
+    kernel's paths over ``mesh_paths`` (``render_lighttrace_fast_sharded``:
+    equal up to the order of the splat sums)."""
+    if packed.counts[4] == 0:
+        raise ValueError("bidirectional rendering needs an area light")
+    if packed.textured:
+        # checked before the eye half runs: the light half would refuse
+        raise ValueError("textured light tracing is not on this kernel "
+                         "(the light kernel has no texture block)")
+    nu = float(n_paths) / float(spp)
+    fwd = render_megakernel_sharded(packed, cam_params, seed, width, height,
+                                    spp, mesh_pixels, max_bounces=max_bounces,
+                                    sample_offset=sample_offset, physical=True,
+                                    bidir_nu=nu)
+    lt = render_lighttrace_fast_sharded(packed, cam_params,
+                                        rng.seed_for(seed, 1), width, height,
+                                        n_paths, mesh_paths,
+                                        max_bounces=max_bounces,
+                                        sample_idx=light_sample_idx,
+                                        bidir_nu=nu)
+    return fwd + lt

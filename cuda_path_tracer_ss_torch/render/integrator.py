@@ -501,17 +501,21 @@ def sample_radiance(scene, cam_params, width: int, height: int, seed,
                     samples, max_bounces: int = DEFAULT_MAX_BOUNCES,
                     live_cutoff: Optional[int] = None, grid=None,
                     physical: bool = False, nee: bool = True,
-                    bidir_nu: Optional[float] = None):
+                    bidir_nu: Optional[float] = None, pixel_idx=None):
     """Yield the ``[W*H, 3]`` radiance of each global sample index in
     ``samples``, in order. Samples are traced together, up to
     ``WAVE_RAYS`` rays per wavefront; the live cutoff applies to each
-    sample on its own. ``scene`` (and ``grid``) are on the render device."""
+    sample on its own. ``scene`` (and ``grid``) are on the render device.
+    ``pixel_idx`` (flat indices on that device) traces those pixels alone
+    and yields ``[len(pixel_idx), 3]``: a tile of the same image, the live
+    cutoff counting the tile's rays."""
     dev = scene.background.device
     cam = camera_tensors(cam_params, dev)
-    n = width * height
+    pix = (torch.arange(width * height, dtype=torch.int64, device=dev)
+           if pixel_idx is None else pixel_idx.to(torch.int64))
+    n = pix.shape[0]
     samples = list(samples)
     per_wave = max(1, WAVE_RAYS // max(n, 1))
-    pix = torch.arange(n, dtype=torch.int64, device=dev)
     for k0 in range(0, len(samples), per_wave):
         batch = samples[k0:k0 + per_wave]
         b = len(batch)

@@ -143,11 +143,15 @@ def test_bidir_needs_an_area_light():
         tbidir.render_bidir_fast(dark, CP, 8, 8, 1, 64, 0)
 
 
-@pytest.mark.parametrize("entry,item", [("render_bidir_sharded", "item"),
-                                        ("render_bidir_fast_sharded", "item 10")])
-def test_unported_entries_raise_naming_the_roadmap(entry, item):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*" + item):
-        getattr(tbidir, entry)(None, CP, 8, 8, 1, 64, 0)
+@pytest.mark.parametrize("entry,scene", [
+    pytest.param("render_bidir_sharded", "scene", id="render_bidir_sharded-item"),
+    pytest.param("render_bidir_fast_sharded", "packed", id="render_bidir_fast_sharded-item 10")])
+def test_unported_entries_raise_naming_the_roadmap(entry, scene):
+    """The sharded entries are ported (tests/test_torch_sharding.py runs them
+    over four ranks); given no mesh they raise ``ValueError`` naming it."""
+    arg = tpresets.caustic() if scene == "scene" else _packed("caustic")
+    with pytest.raises(ValueError, match="needs a DeviceMesh"):
+        getattr(tbidir, entry)(arg, CP, 8, 8, 1, 64, 0, None, None)
 
 
 def test_batches_draw_other_samples():

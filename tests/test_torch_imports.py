@@ -16,7 +16,9 @@ KERNEL_SOURCES = ("megakernel.cu", "megakernel.cuh", "megakernel_vjp.cu",
 
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "k1_turns.py")]
+             os.path.join(ROOT, "k1_turns.py"),
+             # the body of the multi-process tests' ranks
+             os.path.join(ROOT, "tests", "torch_dist_worker.py")]
     for base, _, names in os.walk(PORT):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -56,7 +58,11 @@ def test_port_has_its_modules():
                  "cuda_path_tracer_ss_torch/render/integrator.py",
                  "cuda_path_tracer_ss_torch/render/lighttrace.py",
                  "cuda_path_tracer_ss_torch/render/silhouette.py",
-                 "cuda_path_tracer_ss_torch/utils/debug.py"):
+                 "cuda_path_tracer_ss_torch/utils/debug.py",
+                 "cuda_path_tracer_ss_torch/parallel/__init__.py",
+                 "cuda_path_tracer_ss_torch/parallel/mesh.py",
+                 "cuda_path_tracer_ss_torch/parallel/sharding.py",
+                 "cuda_path_tracer_ss_torch/parallel/dryrun.py"):
         assert want in names
     for src in KERNEL_SOURCES:
         assert os.path.isfile(os.path.join(PORT, "csrc", src))
@@ -82,7 +88,10 @@ def test_importing_the_port_leaves_jax_out():
             "cuda_path_tracer_ss_torch.render.lighttrace, "
             "cuda_path_tracer_ss_torch.render.silhouette, "
             "cuda_path_tracer_ss_torch.utils.debug, "
-            "cuda_path_tracer_ss_torch.utils.profiling; "
+            "cuda_path_tracer_ss_torch.utils.profiling, "
+            "cuda_path_tracer_ss_torch.parallel.mesh, "
+            "cuda_path_tracer_ss_torch.parallel.sharding, "
+            "cuda_path_tracer_ss_torch.parallel.dryrun; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -118,6 +118,31 @@ def test_linear_mode_leaves_full_only_rows_at_zero():
     assert float(g[2][:, 0:3].abs().max()) > 0 and float(g[3][:, 3:6].abs().max()) > 0
 
 
+@pytest.mark.parametrize("grad_mode,physical", [("linear", False), ("full", False),
+                                               ("geo", False), ("full", True)])
+def test_kernel_math_on_tiles_sums_to_the_image(grad_mode, physical):
+    """A rank of ``render_megakernel_diff_sharded``: ``_RenderDiff`` over a
+    tile of pixels (the kernels' math from the host build) renders that
+    slice of the image bit for bit, and the tiles' gradients (81 pixels in
+    tiles of 21, 21, 21, 18) sum to the image's."""
+    packed = tmk.pack_scene(tpresets.cornell(), "cpu")
+    mats = packed.materials.detach().clone().requires_grad_(True)
+    p = dataclasses.replace(packed, materials=mats)
+    kw = dict(max_bounces=3, grad_mode=grad_mode, physical=physical)
+    img = render_diff_hostbuild(p, CP, 5, 9, 9, 2, **kw)
+    want, = torch.autograd.grad(torch.mean(img ** 2), mats)
+    g_img = (2 * img / img.numel()).detach().reshape(-1, 3)
+    got = torch.zeros_like(want)
+    for first, n_local in ((0, 21), (21, 21), (42, 21), (63, 18)):
+        tile = render_diff_hostbuild(p, CP, 5, 9, 9, 2, pixel_offset=first,
+                                     n_local=n_local, **kw)
+        torch.testing.assert_close(tile.detach(), img.detach().reshape(-1, 3)[first:first + n_local],
+                                   rtol=0, atol=0)
+        got += torch.autograd.grad(tile, mats, g_img[first:first + n_local])[0]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-7)
+    assert float(want.abs().max()) > 0
+
+
 # ---- function by function, against jax.vjp of the reference's helpers ---------
 # rtol 1e-5 / atol 1e-6: the same float32 formulas on both sides; what differs
 # is 1/sqrt against the reference's rsqrt and the order of a few additions.
@@ -233,5 +258,10 @@ def test_unknown_grad_mode_and_sharded_entry_raise():
     packed = tmk.pack_scene(tpresets.cornell(), "cpu")
     with pytest.raises(ValueError, match="grad_mode"):
         tvjp.render_megakernel_diff(packed, CP, 0, 8, 8, 1, grad_mode="all")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*sharded"):
+    with pytest.raises(ValueError, match="grad_mode"):
+        tvjp.render_megakernel_diff_sharded(packed, CP, 0, 8, 8, 1, mesh=None,
+                                            grad_mode="all")
+    # ported (tests/test_torch_sharding.py runs it over four ranks): no
+    # mesh is a ValueError naming the mesh
+    with pytest.raises(ValueError, match="needs a DeviceMesh"):
         tvjp.render_megakernel_diff_sharded(packed, CP, 0, 8, 8, 1, mesh=None)

@@ -382,14 +382,15 @@ def slot_floats_hostbuild(full, physical, geo, textured, tex_grads, nmap):
 def backward_grads_hostbuild(packed, cam_params, seed, width, height, spp,
                              max_bounces, g_img, sample_offset=0, full=False,
                              tex_grads=False, packed_grid=None, physical=False,
-                             geo=False):
+                             geo=False, pixel_offset=0, n_local=None):
     """``backward_grads_cuda`` computed by the host build of the backward
     kernel's math (no FMA contraction), one pixel at a time, on CPU tables:
     (PackedScene cotangent, camera cotangent), unpacked from the gradient
     rows by the port's own ``_unpack_rows``."""
     rows = backward_rows_hostbuild(packed, cam_params, seed, width, height, spp,
                                    max_bounces, g_img, sample_offset, full,
-                                   tex_grads, packed_grid, physical, geo)
+                                   tex_grads, packed_grid, physical, geo,
+                                   pixel_offset, n_local)
     tex_grads = bool(tex_grads) and packed.textured
     return tvjp._unpack_rows(rows, packed, full, tex_grads, physical, geo)
 
@@ -555,20 +556,25 @@ def jax_preset_value_and_grad(name, grad_mode):
 
 def render_diff_hostbuild(packed, cam_params, seed, width, height, spp,
                           max_bounces=8, grad_mode="full", packed_grid=None,
-                          physical=False):
+                          physical=False, pixel_offset=0, n_local=None):
     """``render_megakernel_diff`` as the CUDA kernels would compute it, on CPU
     tables: the package's own ``torch.autograd.Function`` with both launches
     replaced by the host build of their device math (forward =
-    csrc/megakernel.cuh, backward = csrc/megakernel_vjp.cuh)."""
-    full = tvjp._reject_unported_diff(grad_mode, physical)
+    csrc/megakernel.cuh, backward = csrc/megakernel_vjp.cuh). With
+    ``n_local``, the tile ``[pixel_offset, pixel_offset + n_local)`` alone,
+    ``[n_local, 3]``, as a rank of ``render_megakernel_diff_sharded`` runs it."""
+    full = tvjp._check_grad_mode(grad_mode, physical)
     tvjp._check_geo_grid(grad_mode, packed_grid)
     tex_grads = tvjp._tex_grads(packed, full)
     cam = tuple(torch.as_tensor(v, dtype=torch.float32) for v in cam_params)
-    return tvjp._RenderDiff.apply(
+    tile = n_local is not None
+    img = tvjp._RenderDiff.apply(
         *packed.tables(), packed.tex_atlas, *cam, packed, int(seed), width,
-        height, spp, max_bounces, 0, full, tex_grads, packed_grid,
+        height, spp, max_bounces, 0, pixel_offset,
+        n_local if tile else width * height, full, tex_grads, packed_grid,
         bool(physical), grad_mode == "geo",
         (render_block_sums_hostbuild, backward_grads_hostbuild))
+    return img if tile else img.reshape(height, width, 3)
 
 
 def port_value_and_grad(scene, cam_params, fields, width, height, spp, bounces,
