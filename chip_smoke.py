@@ -7,7 +7,11 @@ prints no result. It
 
 1. prints the device and its power limit,
 2. builds the CUDA kernels from ``cuda_path_tracer_ss_torch/csrc`` (the
-   default ``-fmad=false`` build and the ``-fmad=true`` build, in parallel),
+   default ``-fmad=false`` build and the ``-fmad=true`` build, in parallel)
+   through the build cache (``utils/compile_cache.py``), then shows the
+   cache at work (``[build cache]``): a fresh process loads the four
+   libraries with no compiler run, and two fresh processes on one empty
+   cache build each library once between them, under the lock,
 3. holds the kernel's random numbers bit-equal to ``utils/rng.py``,
 4. holds the kernel against its plain PyTorch version on seven scenes, from
    16 primitives to 3000,
@@ -114,7 +118,16 @@ prints no result. It
     with both times, its launches counted and the all_reduce timed alone;
     then ``python -m cuda_path_tracer_ss_torch.parallel.dryrun 4 --backend
     gloo``, the reference's certification run (``[dryrun]``, 12 lines),
-19. prints one JSON line describing every kernel (with the sharded path's
+19. the rest of the shell: ``native.py``'s library built on this machine,
+    its five scenes against ``models/presets.py``, its TGA writer and
+    tonemap against the Python writer and the device's ``image_u8``
+    (``[native]``); ``cli render`` at the main path's configuration as a
+    process, its image bit-equal to the main path's, its seconds split
+    (``[cli]``); the same render SIGKILLed after its first snapshot and
+    resumed to the same bits (``[kill resume]``); ``cli interact`` at
+    800x800 fed key lines (``[interact]``); ``cli view``'s server driven
+    over HTTP, with passes per second and each pass's parts (``[view]``),
+20. prints one JSON line describing every kernel (with the sharded path's
     launches and times beside K1, K2 and K3), then the result line.
 
 Any failed phase raises: the exit code is then non-zero and the result line
@@ -123,6 +136,7 @@ is not printed. ``--out-dir DIR`` keeps the rendered PNG and a JSON report.
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import json
 import os
@@ -1640,6 +1654,400 @@ def sharded_phases(dev, cp, smi) -> dict:
     return report
 
 
+# ---- the rest of the shell: the build cache, native.py, the CLI as a process,
+# interact and the viewer ----------------------------------------------------------
+SHELL_ARGS = ["--scene", "cornell", "--width", str(FULL["width"]), "--height",
+              str(FULL["height"]), "--bounces", str(FULL["max_bounces"])]
+NATIVE_PRESETS = ("showcase", "cornell", "cornell_empty", "glass", "point_lights")
+COLD_BUILD_LIMIT_S = 120.0  # [build] slower than this: no second cold build
+PROCESS_TIMEOUT_S = 300
+VIEW_WINDOW_S = 5.0
+INTERACT_KEYS = "\nw\np\n0\nx\n"
+INTERACT_SPP = [4, 8, 4, 4, 8]  # the pass before each key line: w and p reset
+TONEMAP_OFF_BY_ONE_SHARE = 1e-5  # host tonemap against the card's, bytes one level off
+
+# a fresh process: import the port, load the libraries named in argv[1] side
+# by side (one thread each, as [build] does), print its seconds
+_LOAD_ALL = r"""
+import json, sys, threading, time
+t0 = time.perf_counter()
+import cuda_path_tracer_ss_torch
+from cuda_path_tracer_ss_torch.utils import build
+t1 = time.perf_counter()
+errors = []
+def one(name, fmad):
+    try:
+        build.load_kernels(name, fmad=fmad)
+    except BaseException as e:
+        errors.append(repr(e))
+threads = [threading.Thread(target=one, args=tuple(b)) for b in json.loads(sys.argv[1])]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+print(json.dumps({"import_s": t1 - t0, "load_s": time.perf_counter() - t1,
+                  "errors": errors}))
+sys.exit(1 if errors else 0)
+"""
+
+
+def run_port(args, env=None):
+    """(stdout, wall seconds) of ``python args`` from the repository root;
+    a non-zero exit fails the phase, a hung process is killed."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *args], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=PROCESS_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"python {' '.join(args[:3])} ... exit {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    return proc.stdout, wall
+
+
+def build_cache_phase(build, builds, build_s: float, smi: str):
+    """[build cache], started right after [build]: a fresh process loads the
+    four libraries from the warm cache and no compiler runs; then two fresh
+    processes start on an empty cache, to be finished by ``finish_cold_build``
+    after the GPU phases (their nvcc runs share the host's cores with those
+    phases; the kernels' times are CUDA events)."""
+    from cuda_path_tracer_ss_torch.utils import compile_cache
+
+    cache = compile_cache.cache_dir()
+    libs = [build._library_path(name, fmad) for name, fmad in builds]
+    mtimes = {p: os.stat(p).st_mtime_ns for p in libs}
+    logs = {n for n in os.listdir(cache) if n.endswith(".log")}
+    spec = json.dumps([list(b) for b in builds])
+    out, wall = run_port(["-c", _LOAD_ALL, spec])
+    warm = json.loads(out.strip().splitlines()[-1])
+    check(all(os.stat(p).st_mtime_ns == t for p, t in mtimes.items()),
+          "[build cache] the warm process rewrote a library")
+    new_logs = {n for n in os.listdir(cache) if n.endswith(".log")} - logs
+    check(not new_logs, f"[build cache] the warm process compiled: {sorted(new_logs)}")
+    log(f"[build cache] warm: a fresh process imported the port in {warm['import_s']:.2f} s "
+        f"and loaded the four libraries from the cache in {warm['load_s']:.3f} s ({wall:.2f} s "
+        f"as a process); no compiler ran (mtimes unchanged, no new log); [build] cold "
+        f"{build_s:.1f} s ({smi})")
+    report = {"warm": dict(warm, wall_s=wall), "cold_build_s": build_s}
+    if build_s > COLD_BUILD_LIMIT_S:
+        log(f"[build cache] cold run skipped: [build] took {build_s:.1f} s, over "
+            f"{COLD_BUILD_LIMIT_S:.0f} s")
+        return report, None
+    # two processes on one empty cache, each asking for the four libraries side
+    # by side; a stand-in nvcc counts the compiles and runs the real one
+    tmp = tempfile.TemporaryDirectory()
+    bin_dir = os.path.join(tmp.name, "cuda", "bin")
+    os.makedirs(bin_dir)
+    count = os.path.join(tmp.name, "compiles")
+    nvcc = os.path.join(bin_dir, "nvcc")
+    with open(nvcc, "w") as f:
+        f.write(f'#!/bin/sh\nif [ "$1" != "--version" ]; then echo compile >> "{count}"; '
+                f'fi\nexec "{build.find_nvcc()}" "$@"\n')
+    os.chmod(nvcc, 0o755)
+    env = dict(os.environ, CUDA_HOME=os.path.dirname(bin_dir),
+               **{compile_cache.ENV_DIR: os.path.join(tmp.name, "cache")})
+    procs = [subprocess.Popen([sys.executable, "-c", _LOAD_ALL, spec], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for _ in range(2)]
+    atexit.register(_stop, procs)  # should a phase fail before they are read
+    return report, (tmp, count, env[compile_cache.ENV_DIR], procs)
+
+
+def _stop(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def finish_cold_build(report: dict, pending, smi: str) -> None:
+    """The second half of [build cache]: wait for the two cold processes."""
+    tmp, count, cache, procs = pending
+    t0 = time.perf_counter()
+    outs = []
+    try:
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=PROCESS_TIMEOUT_S)
+            check(p.returncode == 0, f"[build cache] cold process exit {p.returncode}: "
+                  f"{stderr[-2000:]}")
+            outs.append(json.loads(stdout.strip().splitlines()[-1]))
+    finally:
+        _stop(procs)
+    waited = time.perf_counter() - t0
+    with open(count) as f:
+        compiles = len(f.read().splitlines())
+    libs = sorted(n for n in os.listdir(cache) if n.endswith(".so"))
+    tmp.cleanup()
+    check(compiles == 4 and len(libs) == 4,
+          f"[build cache] cold: {compiles} compiles and {len(libs)} libraries for 4")
+    log(f"[build cache] cold: two fresh processes on one empty CPT_TORCH_BUILD_DIR, each "
+        f"asking for the four libraries side by side: {compiles} nvcc runs in all (one per "
+        f"library, the other process waited on the lock), import + load "
+        f"{outs[0]['import_s']:.2f} + {outs[0]['load_s']:.1f} s and {outs[1]['import_s']:.2f} "
+        f"+ {outs[1]['load_s']:.1f} s, beside phases 3-17b of this script (then waited "
+        f"{waited:.1f} s for them); [build] {report['cold_build_s']:.1f} s ({smi})")
+    report["cold"] = {"processes": outs, "compiles": compiles, "waited_s": waited}
+
+
+def native_phase(presets, main_rad: np.ndarray, main_u8: np.ndarray, smi: str) -> dict:
+    """[native]: libptnative built here, its scenes, tonemap and TGA writer."""
+    from cuda_path_tracer_ss_torch import native
+    from cuda_path_tracer_ss_torch.models.scene import scene_to_numpy
+    from cuda_path_tracer_ss_torch.utils import image as image_io
+
+    t0 = time.perf_counter()
+    check(native.available(), "[native] no host C++ compiler on this machine")
+    load_s = time.perf_counter() - t0
+
+    def cols(d, names, prefix=""):
+        c = [np.asarray(d[prefix + n]) for n in names]
+        return np.concatenate([a[:, None] if a.ndim == 1 else a for a in c], -1)
+
+    mats = ("diffuse", "specular", "absorption", "emission", "spec_exp", "ior", "diff_avg",
+            "spec_avg", "refr_avg", "roughness")
+    for preset in NATIVE_PRESETS:
+        got, want = native.build_scene_arrays(preset), scene_to_numpy(presets.get_scene(preset))
+        exact = [
+            (got["spheres"], cols(want, ("sph_center", "sph_radius"))),
+            (got["sph_mat"], want["sph_mat"]), (got["tri_mat"], want["tri_mat"]),
+            (got["materials"][:, :18], cols(want, mats, "materials.")),
+            (got["flags"], want["materials.flags"]), (got["al_power"], want["al_power"]),
+            (got["al_tri0"], want["al_tri0"]),
+            (got["point_lights"], cols(want, ("pl_pos", "pl_power")))]
+        tri_err = float(np.abs(got["triangles"] - cols(
+            want, ("tri_v0", "tri_v1", "tri_v2", "tri_n0", "tri_n1", "tri_n2"))).max(initial=0))
+        area_err = float((np.abs(got["al_area"] - want["al_area"])
+                          / np.abs(want["al_area"])).max(initial=0))
+        check(all(a.shape == b.shape and np.array_equal(a, b) for a, b in exact)
+              and tri_err <= 2e-6 and area_err <= 1e-6,
+              f"[native] {preset}: the native scene differs from models/presets.py")
+        log(f"[native] {preset:13s} {len(got['spheres'])} spheres, {len(got['triangles'])} "
+            f"triangles, {len(got['materials'])} materials: equal to models/presets.py "
+            f"(triangles max abs err {tri_err:.1e}, al_area max rel err {area_err:.1e})")
+    t1 = time.perf_counter()
+    host = native.tonemap_u8(main_rad)
+    host_ms = (time.perf_counter() - t1) * 1e3
+    diff = host.astype(np.int16) - main_u8.astype(np.int16)
+    n_diff = int(np.count_nonzero(diff))
+    where = [(tuple(int(i) for i in ix), float(main_rad[tuple(ix)]))
+             for ix in np.argwhere(diff)[:4]]
+    log(f"[native] tonemap_u8 of the [main path] radiance ({host_ms:.1f} ms on the host) "
+        f"against the device image_u8: {n_diff} of {diff.size} bytes differ, by at most "
+        f"{int(np.abs(diff).max())} (pixel, channel: radiance {where})")
+    # the host's powf and the card's differ by an ulp now and then, which moves a
+    # value sitting on a rounding boundary by one level
+    check(int(np.abs(diff).max()) <= 1 and n_diff <= TONEMAP_OFF_BY_ONE_SHARE * diff.size,
+          f"[native] tonemap_u8 differs from image_u8 in {n_diff} bytes")
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = os.path.join(tmp, "native.tga"), os.path.join(tmp, "python.tga")
+        check(native.write_tga(a, main_u8), "[native] write_tga failed")
+        image_io.write_tga(b, main_u8)
+        with open(a, "rb") as f, open(b, "rb") as g:
+            check(f.read() == g.read(), "[native] write_tga differs from utils/image.write_tga")
+    log(f"[native] libptnative built here and loaded in {load_s:.2f} s; write_tga of the "
+        f"[main path] image byte-equal to utils/image.write_tga ({smi})")
+    return {"load_s": load_s, "tonemap_host_ms": host_ms, "tonemap_bytes_differing": n_diff}
+
+
+def cli_phases(main_rad: np.ndarray, main_s: float, warm: dict, smi: str) -> dict:
+    """[cli]: ``cli render`` at the main path's configuration as a process;
+    [kill resume]: the same render SIGKILLed after its first snapshot and
+    relaunched with --resume until it exits 0."""
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "cli.npy")
+        render = ["-m", "cuda_path_tracer_ss_torch.cli", "render", *SHELL_ARGS,
+                  "--spp", str(FULL["spp"])]
+        stdout, wall = run_port(render + ["--out", out])
+        pass_ms = [float(x) for x in re.findall(r"Time per pass: ([0-9.]+) ms", stdout)]
+        render_s = sum(pass_ms) / 1e3
+        got = np.load(out)
+        check(got.shape == main_rad.shape and np.array_equal(got, main_rad),
+              "[cli] the CLI's image differs from [main path]'s")
+        rest = wall - warm["import_s"] - render_s
+        log(f"[cli] python -m cuda_path_tracer_ss_torch.cli render {' '.join(SHELL_ARGS)} "
+            f"--spp {FULL['spp']}: {wall:.2f} s as a process, warm cache = import "
+            f"~{warm['import_s']:.2f} s ([build cache]'s warm process) + render {render_s:.2f} "
+            f"s ({len(pass_ms)} passes, the process's own lines) + the rest {rest:.2f} s "
+            f"(CUDA context, library load ~{warm['load_s']:.3f} s for all four, scene, save, "
+            f"exit); in process [main path] {main_s:.2f} s; .npy bit-equal ({smi})")
+        report["cli"] = {"wall_s": wall, "render_s": render_s, "passes": len(pass_ms),
+                         "rest_s": rest, "main_path_s": main_s}
+
+        ck, killed = os.path.join(tmp, "ck.npz"), os.path.join(tmp, "killed.npy")
+        argv = [sys.executable, *render, "--out", killed, "--checkpoint", ck,
+                "--checkpoint-every", "1"]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.DEVNULL,
+                                stderr=subprocess.DEVNULL)
+        try:
+            while (not os.path.exists(ck) and proc.poll() is None
+                   and time.perf_counter() - t0 < PROCESS_TIMEOUT_S):
+                time.sleep(0.005)
+            snapshot_s = time.perf_counter() - t0
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        killed_rc = proc.returncode
+        check(os.path.exists(ck), "[kill resume] no snapshot was written")
+        with np.load(ck) as data:
+            at = int(data["samples_done"])
+        runs = 0
+        for runs in range(1, 5):
+            done = subprocess.run(argv + ["--resume", ck], cwd=ROOT, capture_output=True,
+                                  timeout=PROCESS_TIMEOUT_S).returncode == 0
+            if done:
+                break
+        check(done, "[kill resume] the render never completed")
+        whole = time.perf_counter() - t0
+        check(np.array_equal(np.load(killed), got),
+              "[kill resume] the resumed image differs from the uninterrupted one")
+        log(f"[kill resume] the same render with --checkpoint-every 1: SIGKILLed {snapshot_s:.2f}"
+            f" s in, after its first snapshot ({at} spp done, exit {killed_rc}), then {runs} "
+            f"--resume run(s) to exit 0: {whole:.2f} s in all; .npy bit-equal to the "
+            f"uninterrupted [cli] run ({smi})")
+        report["kill_resume"] = {"killed_after_s": snapshot_s, "samples_at_kill": at,
+                                 "resume_runs": runs, "total_s": whole}
+    return report
+
+
+def interact_phase(mk, smi: str) -> dict:
+    """[interact]: ``cli interact`` at 800x800 fed key lines on stdin."""
+    import contextlib
+    import io
+
+    import cuda_path_tracer_ss_torch.cli as cli
+    from cuda_path_tracer_ss_torch.models.camera import Camera
+
+    built = []
+    real_build, real_stdin, cwd = cli._build, sys.stdin, os.getcwd()
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        cli._build = lambda a: built.append(real_build(a)) or built[0]
+        sys.stdin = io.StringIO(INTERACT_KEYS)
+        try:
+            mk.LAUNCH_COUNT = 0  # every count to 0 just before ...
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                cli.main(["interact", *SHELL_ARGS, "--spp", str(FULL["spp"]),
+                          "--out", "interact.png"])
+            s = time.perf_counter() - t0
+            launches = mk.LAUNCH_COUNT  # ... and read just after
+        finally:
+            cli._build, sys.stdin = real_build, real_stdin
+            os.chdir(cwd)
+        files = sorted(os.listdir(tmp))
+    text = buf.getvalue()
+    spp = [int(x) for x in re.findall(r"spp=(\d+) ", text)]
+    for line in ("camera moved (w); accumulation reset", "ray-trace mode", "wrote interact.png"):
+        check(line in text, f"[interact] no line {line!r} in {text!r}")
+    check(spp == INTERACT_SPP, f"[interact] passes at spp {spp}, expected {INTERACT_SPP}")
+    check(launches == len(spp), f"[interact] {launches} K1 launches for {len(spp)} passes")
+    check(len(files) == 2 and "interact.png" in files
+          and re.fullmatch(r"render\d{4}-\d\d-\d\d-\d{6}\.png", files[1 - files.index(
+              "interact.png")]) is not None, f"[interact] files written: {files}")
+    moved = Camera()
+    moved.move("w")
+    cam = built[0].camera
+    check(np.array_equal(cam.position, moved.position)
+          and np.array_equal(cam.rotation, moved.rotation),
+          "[interact] the camera after w differs from Camera().move('w')")
+    log(f"[interact] cli interact {' '.join(SHELL_ARGS)} fed {INTERACT_KEYS!r}: passes at "
+        f"spp {spp}, {launches} K1 launches, the expected lines, the screenshot and --out "
+        f"written, camera after w = Camera().move('w'); {s:.2f} s in process ({smi})")
+    return {"s": s, "launches": launches, "spp": spp}
+
+
+def view_phase(mk, smi: str) -> dict:
+    """[view]: ``cli view``'s serve at cornell 800x800 x 8 bounces on a free
+    port, driven over HTTP; passes per second and the pass's parts."""
+    import socket
+    import urllib.request
+
+    import cuda_path_tracer_ss_torch.cli as cli
+    from cuda_path_tracer_ss_torch import viewer
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+
+    def get(path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+            return r.read()
+
+    def stats():
+        return json.loads(get("/stats"))
+
+    def wait(cond, timeout=60.0):
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            if errors:
+                raise errors[0]  # the viewer's thread failed
+            try:
+                st = stats()
+                if cond(st["spp"]):
+                    return st
+            except OSError:
+                pass  # the server is not up yet
+            time.sleep(0.02)
+        raise RuntimeError("chip_smoke check failed: [view] the viewer never got there")
+
+    holder, errors = {}, []
+    real_serve = viewer.serve
+    viewer.serve = lambda r, port: real_serve(r, port=port, state_out=holder)
+
+    def run():
+        try:
+            cli.main(["view", *SHELL_ARGS, "--port", str(port)])
+        except BaseException as e:  # re-raised below, on the main thread
+            errors.append(e)
+
+    mk.LAUNCH_COUNT = 0  # every count to 0 just before ...
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    try:
+        wait(lambda spp: spp >= 1)
+        page = get("/")
+        check(b"progressive view" in page and b"PyTorch/CUDA (cuda" in page,
+              "[view] the page does not name the port")
+        check(get("/frame.png")[:8] == b"\x89PNG\r\n\x1a\n", "[view] /frame.png is no PNG")
+        state = holder["state"]
+        with state.lock:
+            n0, t0 = len(state.pass_seconds), time.perf_counter()
+        time.sleep(VIEW_WINDOW_S)
+        with state.lock:
+            n1, t1 = len(state.pass_seconds), time.perf_counter()
+        rate = (n1 - n0) / (t1 - t0)
+        before = stats()["spp"]
+        check(get("/key?k=w") == b"ok", "[view] /key did not answer ok")
+        after = wait(lambda spp: spp < before, timeout=30.0)["spp"]
+    finally:
+        if "state" in holder:
+            holder["state"].stop = True
+        thread.join(timeout=60)
+        viewer.serve = real_serve
+    check(not thread.is_alive(), "[view] the render loop did not stop")
+    if errors:
+        raise errors[0]
+    launches = mk.LAUNCH_COUNT  # ... and read just after
+    parts = np.asarray(state.pass_seconds)[1:] * 1e3  # the first pass warms up
+    check(len(parts) + 1 < viewer.TIMING_WINDOW, "[view] more passes than the window holds")
+    check(launches == len(parts) + 1, f"[view] {launches} K1 launches for {len(parts) + 1} "
+          "passes")
+    med = np.median(parts, axis=0)
+    log(f"[view] cli view's serve on port {port}: /, /stats, /frame.png served; w reset the "
+        f"accumulation ({before} -> {after} spp); {rate:.2f} passes/s over "
+        f"{VIEW_WINDOW_S:.0f} s; median per pass {med[0]:.2f} ms K1 pass (step, 4 spp) + "
+        f"{med[1]:.2f} ms image_u8 (tonemap + copy) + {med[2]:.2f} ms encode_png; "
+        f"{launches} K1 launches for {launches} passes; stopped cleanly ({smi})")
+    return {"passes_per_s": rate, "median_ms": {"step": med[0], "image_u8": med[1],
+                                                 "encode_png": med[2]},
+            "passes": launches, "reset": [before, after]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out-dir", default=None,
@@ -1716,6 +2124,9 @@ def main() -> int:
             report["ptxas"][f"{name}{'_fmad' if fmad else ''}/{label}"] = k
             check(k["spill_stores"] == 0 and k["spill_loads"] == 0,
                   f"{label} spills registers")
+
+    # ---- 2b. the build cache: warm in a fresh process; cold beside phases 3-17b ----
+    cache_report, cold = build_cache_phase(build, builds, build_s, smi)
 
     # ---- 3. rng: the kernel's uniform_pair, bit-equal to utils/rng.py --------
     g = np.random.default_rng(0)
@@ -1798,7 +2209,8 @@ def main() -> int:
     png = os.path.join(work_dir, "cornell_800.png")
     r.save(png)
     launches = mk.LAUNCH_COUNT  # ... and read just after
-    main_img = torch.from_numpy(r.radiance()).to(dev)
+    main_rad, main_u8 = r.radiance(), r.image_u8()
+    main_img = torch.from_numpy(main_rad).to(dev)
     check(os.path.getsize(png) > 1000, "PNG not written")
     check(launches == len(passes) and launches > 0,
           f"{launches} kernel launches for {len(passes)} passes")
@@ -3501,6 +3913,19 @@ def main() -> int:
     # ---- 17b. the multi-device path ---------------------------------------------------
     shard = sharded_phases(dev, cp, smi)
     report["sharded"] = shard
+
+    # ---- 17c. the rest of the shell -------------------------------------------------
+    if cold is not None:
+        finish_cold_build(cache_report, cold, smi)
+    t0 = time.time()
+    shell = {"build_cache": cache_report,
+             "native": native_phase(presets, main_rad, main_u8, smi),
+             **cli_phases(main_rad, main_s, cache_report["warm"], smi),
+             "interact": interact_phase(mk, smi), "view": view_phase(mk, smi)}
+    shell["phases_s"] = time.time() - t0
+    log(f"[shell] [native], [cli], [kill resume], [interact] and [view] took "
+        f"{shell['phases_s']:.1f} s")
+    report["shell"] = shell
 
     # ---- 18. report ----------------------------------------------------------------
     k1_common = {

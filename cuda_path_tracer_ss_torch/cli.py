@@ -4,6 +4,9 @@ Replaces the reference's GLUT window + keyboard loop (``CudaTracer.cu:649-786``,
 ``CudaUtils.h:27-188``) with file-output commands:
 
   render     progressive render of a scene preset -> PNG/TGA/NPY
+  interact   progressive render driven by key lines on stdin (camera keys,
+             p ray/path mode, 0 screenshot, x save and quit)
+  view       live browser viewer (viewer.py) on --port
   benchmark  primary rays/s of the chosen engine on the chosen device
   lighttrace adjoint render: light paths splatted through the camera
   bidir      bidirectional render: MIS-weighted eye paths + light paths
@@ -20,6 +23,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 
 
@@ -166,6 +170,40 @@ def cmd_render(args):
         r.checkpoint(tmp)
         os.replace(tmp, final)
     print(f"wrote {args.out}")
+
+
+def cmd_interact(args):
+    r = _build(args)
+    print("keys: w/a/s/d/q/e move, t/f/g/h rotate, p toggle ray-trace mode, "
+          "0 screenshot, x quit; empty line = render more passes")
+    while True:
+        m = r.step()
+        print(f"spp={m['samples_per_pixel']} "
+              f"{m['primary_rays_per_s'] / 1e6:.2f} M rays/s", end=" > ",
+              flush=True)
+        line = sys.stdin.readline()
+        if not line:
+            break
+        for ch in line.strip():
+            if ch == "x":
+                r.save(args.out)
+                print(f"wrote {args.out}")
+                return
+            if ch == "0":
+                path = time.strftime("render%Y-%m-%d-%H%M%S.png")
+                r.save(path)
+                print(f"wrote {path}")
+            elif ch == "p":
+                mode = r.toggle_ray_trace_mode()
+                print("ray-trace mode" if mode else "path-trace mode")
+            elif r.move_camera(ch):
+                print(f"camera moved ({ch}); accumulation reset")
+
+
+def cmd_view(args):
+    from .viewer import serve
+
+    serve(_build(args), port=args.port)
 
 
 def cmd_benchmark(args):
@@ -462,6 +500,16 @@ def main(argv=None):
                         "the last completed pass via --resume")
     p.add_argument("--resume", default=None)
     p.set_defaults(fn=cmd_render)
+
+    p = sub.add_parser("interact", help="progressive render with camera keys")
+    _common(p)
+    p.add_argument("--out", default="render.png")
+    p.set_defaults(fn=cmd_interact)
+
+    p = sub.add_parser("view", help="live browser viewer (GL-window analog)")
+    _common(p)
+    p.add_argument("--port", type=int, default=8642)
+    p.set_defaults(fn=cmd_view)
 
     p = sub.add_parser("benchmark", help="measure primary rays/s")
     _common(p)

@@ -19,6 +19,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import native
 from ..constants import DEFAULT_MAX_BOUNCES, LIVE_RAY_CUTOFF
 from ..models.camera import Camera, camera_arrays
 from ..models.scene import scene_to_numpy
@@ -131,6 +132,10 @@ class ProgressiveRenderer:
         config.check_ported()
         self._engine = config.resolved_engine()
         self._device = torch.device(config.device)
+        if self._device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"the renderer was asked for device="
+                               f"{config.device!r} but no CUDA device is "
+                               "available; pass device='cpu' to render on the CPU")
         # pack ONCE: the tables (and the grid, built once per scene) live on
         # the rendering device for the renderer's lifetime; the eager
         # engine keeps the scene itself there
@@ -214,6 +219,11 @@ class ProgressiveRenderer:
         self._ray_trace_mode = not self._ray_trace_mode
         self.reset()
         return self._ray_trace_mode
+
+    @property
+    def device(self) -> torch.device:
+        """Where the accumulator lives (with its index on a card)."""
+        return self._accum.device
 
     @property
     def effective_bounces(self) -> int:
@@ -313,10 +323,16 @@ class ProgressiveRenderer:
         return self.image_u8().astype(np.float32) / 255.0
 
     def save(self, path: str):
+        """``.npy``: the mean radiance; ``.tga``: the display image through
+        the native writer (the Python one only where no host compiler
+        exists); anything else: PNG."""
         if path.endswith(".npy"):
             image_io.write_npy(path, self.radiance())
         elif path.endswith(".tga"):
-            image_io.write_tga(path, self.image_u8())
+            if not native.available():
+                image_io.write_tga(path, self.image_u8())
+            elif not native.write_tga(path, self.image_u8()):
+                raise OSError(f"the native TGA writer could not write {path!r}")
         else:
             image_io.write_png(path, self.image_u8())
 

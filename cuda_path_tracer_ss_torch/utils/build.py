@@ -3,36 +3,34 @@
 At first use a CUDA source under ``csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library of its own with a plain C interface and
 loaded with ``ctypes`` — no PyTorch headers, so a build takes seconds, and
-the kernels' builds can run side by side (one ``nvcc`` each). A library lands
-in ``cuda_path_tracer_ss_torch/build/`` (git-ignored) under a name that
-carries a hash of the sources and flags: an unchanged tree reuses its
-library, a changed one builds a new file. The compiler writes to a temporary
-name that is renamed into place, so concurrent first uses are safe. What
-``ptxas -v`` says of each kernel (registers, spills) is kept beside the
-library and read by ``ptxas_report``.
+the kernels' builds can run side by side (one ``nvcc`` each). The library
+comes from ``utils/compile_cache.py``: named by a hash of the compiler's
+version, the flags, the source and every header of ``csrc/``, built once
+under a lock and reused by every later process (the package's git-ignored
+``build/``, or ``$CPT_TORCH_BUILD_DIR``). What ``ptxas -v`` says of each
+kernel (registers, spills) is kept beside the library and read by
+``ptxas_report``.
 
 A failed build raises with the compiler's output; nothing falls back.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import re
 import shutil
-import subprocess
-import tempfile
-from typing import Dict, List, Sequence
+from typing import Dict, List
+
+from . import compile_cache
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(_PKG_DIR, "build")
 
 # kernel library name -> its source; every library may include every header
+# of csrc/, and every one is in its key
 CUDA_SOURCES = {"megakernel": "megakernel.cu",
                 "megakernel_vjp": "megakernel_vjp.cu",
                 "lightkernel": "lightkernel.cu"}
-HEADERS = ("megakernel.cuh", "megakernel_vjp.cuh", "lightkernel.cuh")
 
 # FMA contraction stays off in the default build: the plain PyTorch version
 # rounds after every multiply, and a 1-ulp change in a hit distance can
@@ -59,49 +57,12 @@ def find_nvcc() -> str:
                        "be built on this machine")
 
 
-def _digest(compiler: str, flags: Sequence[str], sources: Sequence[str]) -> str:
-    h = hashlib.sha256()
-    h.update(" ".join((compiler,) + tuple(flags)).encode())
-    for name in tuple(sources) + HEADERS:
-        with open(os.path.join(CSRC_DIR, name), "rb") as f:
-            h.update(name.encode() + b"\0" + f.read())
-    return h.hexdigest()[:16]
-
-
-def _build(compiler: str, flags: Sequence[str], sources: Sequence[str],
-           stem: str) -> str:
-    """Compile ``sources`` into ``BUILD_DIR/<stem>_<hash>.so`` unless that
-    file exists already; returns its path. The compiler's messages go to
-    ``<path>.log``."""
-    out = os.path.join(BUILD_DIR,
-                       f"{stem}_{_digest(compiler, flags, sources)}.so")
-    if os.path.isfile(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so.tmp", prefix=stem + "_",
-                               dir=BUILD_DIR)
-    os.close(fd)
-    cmd: List[str] = [compiler, *flags, "-o", tmp,
-                      *(os.path.join(CSRC_DIR, s) for s in sources)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"kernel build failed (exit {proc.returncode}): "
-                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-        with open(out + ".log", "w") as f:
-            f.write(proc.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
-
-
 def _library_path(name: str, fmad: bool) -> str:
     flags = NVCC_FLAGS + (("-fmad=true",) if fmad else ("-fmad=false",))
     key = name + ("_fmad" if fmad else "")
-    return _build(find_nvcc(), flags, (CUDA_SOURCES[name],), "libcpt_" + key)
+    return compile_cache.cached_library(
+        find_nvcc(), flags, [os.path.join(CSRC_DIR, CUDA_SOURCES[name])],
+        "libcpt_" + key)
 
 
 def load_kernels(name: str, fmad: bool = False) -> ctypes.CDLL:

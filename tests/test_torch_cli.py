@@ -47,7 +47,7 @@ def test_benchmark_prints_one_json_object(capsys):
     assert (data["width"], data["height"], data["spp"], data["bounces"]) == (16, 16, 1, 3)
 
 
-def test_unknown_and_unported_scenes_raise(tmp_path):
+def test_unknown_scene_raises_and_textured_renders(tmp_path):
     """An unknown preset raises; every preset of the reference renders, the
     textured one included."""
     with pytest.raises(KeyError, match="unknown scene preset"):
@@ -61,7 +61,7 @@ def test_unknown_and_unported_scenes_raise(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--physical"], ["--accel", "grid"]])
 @pytest.mark.parametrize("cmd", ["render", "benchmark"])
-def test_unported_flags_raise(cmd, flag, tmp_path, capsys):
+def test_physical_and_grid_flags_run(cmd, flag, tmp_path, capsys):
     """Both flags run: the physical estimator renders; the grid renders the
     linear sweeps' image (the same file, the same checksum)."""
     outs = []
@@ -129,7 +129,7 @@ def test_light_commands_pick_their_engine_by_the_device(cmd):
 
 
 @pytest.mark.parametrize("cmd", ["lighttrace", "bidir"])
-def test_light_commands_on_the_eager_engine_raise_naming_the_roadmap(cmd):
+def test_light_commands_on_the_eager_engine_keep_the_device_rule(cmd):
     """Light paths on the eager engine are ported (ROADMAP Queue 1 item 8
     is done; they no longer raise naming it): without --device cpu they keep
     the device rule and raise without a card, with no fallback to the CPU
@@ -190,7 +190,7 @@ def test_invert_prints_the_reference_cli_s_json(tmp_path, capsys):
     (["--physical", "--fields", "materials.diffuse,materials.spec_avg"], "physical"),
     (["--accel", "grid"], "grid"), (["--fields", "tri_v0,materials.diffuse"], "K2 geo")])
 @pytest.mark.parametrize("cmd", ["grad-check", "invert"])
-def test_training_commands_refuse_what_is_not_ported(cmd, flag, item, capsys):
+def test_training_commands_run_every_option(cmd, flag, item, capsys):
     """Every training option runs: gradients of the physical estimator
     (spec_avg among them) and of triangle geometry, and the grid, to the
     linear sweeps' numbers. grad-check's AD agrees with FD on the physical
@@ -217,7 +217,7 @@ def test_training_commands_refuse_what_is_not_ported(cmd, flag, item, capsys):
     assert got[0] == got[1]
 
 
-def test_invert_refuses_silhouette_and_spec_avg(capsys):
+def test_invert_silhouette_on_eager_and_spec_avg_refused(capsys):
     """--silhouette on the CPU trains one step on the eager engine (the
     plain engine refuses it); spec_avg without --physical is refused."""
     main(["invert", "--device", "cpu", *TRAIN, "--steps", "1", "--silhouette",

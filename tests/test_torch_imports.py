@@ -48,6 +48,9 @@ def test_port_has_its_modules():
                  "cuda_path_tracer_ss_torch/render/inverse.py",
                  "cuda_path_tracer_ss_torch/render/renderer.py",
                  "cuda_path_tracer_ss_torch/utils/build.py",
+                 "cuda_path_tracer_ss_torch/utils/compile_cache.py",
+                 "cuda_path_tracer_ss_torch/viewer.py",
+                 "cuda_path_tracer_ss_torch/native.py",
                  "cuda_path_tracer_ss_torch/ops/vec.py",
                  "cuda_path_tracer_ss_torch/ops/intersect.py",
                  "cuda_path_tracer_ss_torch/ops/optics.py",
@@ -91,7 +94,10 @@ def test_importing_the_port_leaves_jax_out():
             "cuda_path_tracer_ss_torch.utils.profiling, "
             "cuda_path_tracer_ss_torch.parallel.mesh, "
             "cuda_path_tracer_ss_torch.parallel.sharding, "
-            "cuda_path_tracer_ss_torch.parallel.dryrun; "
+            "cuda_path_tracer_ss_torch.parallel.dryrun, "
+            "cuda_path_tracer_ss_torch.native, "
+            "cuda_path_tracer_ss_torch.viewer, "
+            "cuda_path_tracer_ss_torch.utils.compile_cache; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -100,12 +106,19 @@ def test_importing_the_port_leaves_jax_out():
 
 
 def test_kernel_sources_avoid_fast_math_and_torch_headers():
-    from cuda_path_tracer_ss_torch.utils import build
+    from cuda_path_tracer_ss_torch.utils import build, compile_cache
 
     flags = " ".join(build.NVCC_FLAGS)
     assert "fast_math" not in flags and "fmad" not in flags  # -fmad is per build
     assert "arch=compute_90a,code=sm_90a" in flags
-    assert set(build.CUDA_SOURCES.values()) | set(build.HEADERS) == set(KERNEL_SOURCES)
+    # every header of csrc/ is in each kernel library's build key
+    for source in build.CUDA_SOURCES.values():
+        headers = compile_cache.included_headers(
+            build.NVCC_FLAGS, [os.path.join(build.CSRC_DIR, source)])
+        assert ({os.path.basename(h) for h in headers}
+                == {s for s in KERNEL_SOURCES if s.endswith(".cuh")})
+    assert set(build.CUDA_SOURCES.values()) | {
+        s for s in os.listdir(build.CSRC_DIR) if s.endswith(".cuh")} == set(KERNEL_SOURCES)
     for src in KERNEL_SOURCES:
         with open(os.path.join(PORT, "csrc", src)) as f:
             text = f.read()

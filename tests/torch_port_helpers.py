@@ -6,7 +6,7 @@ Also the test-only host build of the CUDA kernels' device math
 (``csrc/megakernel.cuh``, ``csrc/megakernel_vjp.cuh`` and
 ``csrc/lightkernel.cuh`` through ``tests/torch_kernel_host.cpp``): the only
 way to exercise the CUDA source on a machine without a GPU. It is built once
-per test process. It needs ``g++`` (or
+for all test processes, in the package's build cache. It needs ``g++`` (or
 ``c++``) on the PATH and, for the FMA variant, an x86-64 CPU with FMA3; where
 one is missing the tests that use it fail with that message."""
 import ctypes
@@ -14,8 +14,6 @@ import dataclasses
 import functools
 import os
 import shutil
-import subprocess
-import tempfile
 
 import numpy as np
 import torch
@@ -24,6 +22,7 @@ from cuda_path_tracer_ss_torch.models.scene import scene_from_numpy
 from cuda_path_tracer_ss_torch.ops.cuda import lightkernel as tlk
 from cuda_path_tracer_ss_torch.ops.cuda import megakernel as tmk
 from cuda_path_tracer_ss_torch.ops.cuda import megakernel_vjp as tvjp
+from cuda_path_tracer_ss_torch.utils import compile_cache
 from cuda_path_tracer_ss_torch.utils.build import CSRC_DIR
 
 _HOST_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -126,15 +125,11 @@ def assert_per_pixel_parity(got, want):
 
 
 @functools.lru_cache(maxsize=None)
-def _host_build_dir():
-    return tempfile.TemporaryDirectory(prefix="cpt_host_kernel_")
-
-
-@functools.lru_cache(maxsize=None)
 def _host_kernel(fma):
-    """The kernel math compiled for the host into a temporary directory that
-    goes with the process. ``fma=True`` lets the compiler contract ``a*b+c``
-    as ``nvcc -fmad=true`` and XLA's CPU backend do."""
+    """The kernel math compiled for the host through the package's build
+    cache (``utils/compile_cache.py``): one compile per flag set for all the
+    test processes, under the cache's lock. ``fma=True`` lets the compiler
+    contract ``a*b+c`` as ``nvcc -fmad=true`` and XLA's CPU backend do."""
     compiler = shutil.which("g++") or shutil.which("c++")
     assert compiler, "the host build of the kernel math needs g++ or c++ on the PATH"
     flags = ["-std=c++17", "-O2", "-shared", "-fPIC", "-I", CSRC_DIR]
@@ -144,10 +139,8 @@ def _host_kernel(fma):
         flags += ["-ffp-contract=fast", "-mfma"]
     else:
         flags += ["-ffp-contract=off"]
-    out = os.path.join(_host_build_dir().name, f"libcpt_host_{int(fma)}.so")
-    proc = subprocess.run([compiler, *flags, "-o", out, _HOST_SOURCE],
-                          capture_output=True, text=True)
-    assert proc.returncode == 0, proc.stderr
+    out = compile_cache.cached_library(compiler, flags, [_HOST_SOURCE],
+                                       f"libcpt_host_{int(fma)}")
     lib = ctypes.CDLL(out)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     scene_args = [vp, ci, vp, ci, vp, ci, vp, ci, vp, ci, vp,
