@@ -58,6 +58,7 @@ from ...constants import (DEFAULT_MAX_BOUNCES, INV_PI, MIS_RATIO_CLAMP,
                           RAY_BUMP_EPSILON)
 from ...parallel.mesh import PATH_AXIS, axis_index, axis_size, check_device, psum
 from ...utils import rng
+from ...utils.profiling import span
 from . import megakernel as mk
 from .megakernel import (AL_COLS, CAM_FLOATS, M_COLS, PackedScene,
                          _al_light_geom, _al_sample_point, _cam_table,
@@ -437,39 +438,40 @@ def _launch(splat: bool, packed: PackedScene, cam_params, seed: int,
     current stream of the tables' device, into outputs zeroed here; returns
     the image ``[width * height, 3]`` or the records."""
     global LAUNCH_COUNT
-    if n_local is None:
-        n_local = n_paths - path_offset
-    _check_light_args(packed, width, height, n_paths, max_bounces,
-                      path_offset, n_local, sample_idx, seed, bidir_nu)
-    _check_tables(packed)
-    lib = _kernel_fn()
-    cam = _cam_table(cam_params, 0.0, bidir_nu)
-    cam_c = (ctypes.c_float * CAM_FLOATS)(*cam.tolist())
-    args = []
-    for table, count in zip(packed.tables()[:5], packed.counts):
-        args += [table.data_ptr(), count]
-    args += [cam_c, int(seed), int(path_offset), int(n_local),
-             int(sample_idx), int(n_paths), int(max_bounces), int(width),
-             int(height), int(bidir_nu is not None)]
-    with torch.cuda.device(packed.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if splat:
-            out = torch.zeros((width * height, 3), dtype=torch.float32,
-                              device=packed.device)
-            err = lib.cpt_light_image(*args, out.data_ptr(), stream)
-        else:
-            shape = (max_bounces + 1, n_local)
-            out = (torch.zeros(shape, dtype=torch.int32, device=packed.device),
-                   *(torch.zeros(shape, dtype=torch.float32,
-                                 device=packed.device) for _ in range(3)))
-            err = lib.cpt_light_records(*args, *(t.data_ptr() for t in out),
-                                        stream)
-    if err != 0:
-        raise RuntimeError("light kernel launch failed: CUDA error "
-                           f"{err} ({lib.cpt_light_error_string(err).decode()})")
-    LAUNCH_COUNT += 1
-    LAUNCHES_BY_VARIANT[2 * int(splat) + int(bidir_nu is not None)] += 1
-    return out
+    with span("k3.launch"):
+        if n_local is None:
+            n_local = n_paths - path_offset
+        _check_light_args(packed, width, height, n_paths, max_bounces,
+                          path_offset, n_local, sample_idx, seed, bidir_nu)
+        _check_tables(packed)
+        lib = _kernel_fn()
+        cam = _cam_table(cam_params, 0.0, bidir_nu)
+        cam_c = (ctypes.c_float * CAM_FLOATS)(*cam.tolist())
+        args = []
+        for table, count in zip(packed.tables()[:5], packed.counts):
+            args += [table.data_ptr(), count]
+        args += [cam_c, int(seed), int(path_offset), int(n_local),
+                 int(sample_idx), int(n_paths), int(max_bounces), int(width),
+                 int(height), int(bidir_nu is not None)]
+        with torch.cuda.device(packed.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            if splat:
+                out = torch.zeros((width * height, 3), dtype=torch.float32,
+                                  device=packed.device)
+                err = lib.cpt_light_image(*args, out.data_ptr(), stream)
+            else:
+                shape = (max_bounces + 1, n_local)
+                out = (torch.zeros(shape, dtype=torch.int32, device=packed.device),
+                       *(torch.zeros(shape, dtype=torch.float32,
+                                     device=packed.device) for _ in range(3)))
+                err = lib.cpt_light_records(*args, *(t.data_ptr() for t in out),
+                                            stream)
+        if err != 0:
+            raise RuntimeError("light kernel launch failed: CUDA error "
+                               f"{err} ({lib.cpt_light_error_string(err).decode()})")
+        LAUNCH_COUNT += 1
+        LAUNCHES_BY_VARIANT[2 * int(splat) + int(bidir_nu is not None)] += 1
+        return out
 
 
 def light_records_cuda(packed: PackedScene, cam_params, seed: int,

@@ -57,6 +57,7 @@ from ...constants import INV_PI, MIS_RATIO_CLAMP, RAY_BUMP_EPSILON
 from ...parallel.mesh import (PIXEL_AXIS, axis_index, axis_size, check_device,
                               in_full_image, psum, tile_range)
 from ...utils import rng
+from ...utils.profiling import span
 from ..texture import (_sphere_tangent, bilinear, perturb_normal, sphere_uv,
                        triangle_uv_tangent, wrap)
 
@@ -1890,42 +1891,43 @@ def render_block_sums_cuda(packed: PackedScene, cam_params, seed: int,
     ``fmad=True`` selects the build that lets the compiler contract
     ``a*b+c`` (measurement only; the default build does not)."""
     global LAUNCH_COUNT
-    _check_render_args(packed, width, height, spp, max_bounces, pixel_offset,
-                       n_local, sample_offset, seed)
-    variant = _check_variant(physical, bidir_nu)
-    _check_tables(packed)
-    _check_grid(packed, packed_grid)
-    lib, fn = _kernel_fn(fmad)
-    cam = _cam_table(cam_params, sample_clamp, bidir_nu)
-    cam_c = (ctypes.c_float * CAM_FLOATS)(*cam.tolist())
-    num_s, num_t, num_m, num_pl, num_al = packed.counts
-    with torch.cuda.device(packed.device):
-        out = torch.empty((n_local, 3), dtype=torch.float32,
-                          device=packed.device)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(packed.spheres.data_ptr(), num_s,
-                 packed.triangles.data_ptr(), num_t,
-                 packed.materials.data_ptr(), num_m,
-                 packed.point_lights.data_ptr(), num_pl,
-                 packed.area_lights.data_ptr(), num_al,
-                 packed.background.data_ptr(), *tex_args(packed),
-                 *grid_args(packed_grid), cam_c,
-                 int(seed), int(pixel_offset), int(n_local),
-                 int(sample_offset), int(spp), int(max_bounces),
-                 int(width), int(height), variant, int(bool(state_bf16)),
-                 out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("megakernel launch failed: CUDA error "
-                           f"{err} ({lib.cpt_error_string(err).decode()})")
-    LAUNCH_COUNT += 1
-    LAUNCHES_BY_VARIANT[variant] += 1
-    if packed.textured:
-        LAUNCHES_TEXTURED[variant] += 1
-    if packed_grid is not None:
-        LAUNCHES_GRID[variant] += 1
-    if state_bf16:
-        LAUNCHES_BF16[variant] += 1
-    return out
+    with span("k1.launch"):
+        _check_render_args(packed, width, height, spp, max_bounces,
+                           pixel_offset, n_local, sample_offset, seed)
+        variant = _check_variant(physical, bidir_nu)
+        _check_tables(packed)
+        _check_grid(packed, packed_grid)
+        lib, fn = _kernel_fn(fmad)
+        cam = _cam_table(cam_params, sample_clamp, bidir_nu)
+        cam_c = (ctypes.c_float * CAM_FLOATS)(*cam.tolist())
+        num_s, num_t, num_m, num_pl, num_al = packed.counts
+        with torch.cuda.device(packed.device):
+            out = torch.empty((n_local, 3), dtype=torch.float32,
+                              device=packed.device)
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(packed.spheres.data_ptr(), num_s,
+                     packed.triangles.data_ptr(), num_t,
+                     packed.materials.data_ptr(), num_m,
+                     packed.point_lights.data_ptr(), num_pl,
+                     packed.area_lights.data_ptr(), num_al,
+                     packed.background.data_ptr(), *tex_args(packed),
+                     *grid_args(packed_grid), cam_c,
+                     int(seed), int(pixel_offset), int(n_local),
+                     int(sample_offset), int(spp), int(max_bounces),
+                     int(width), int(height), variant, int(bool(state_bf16)),
+                     out.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError("megakernel launch failed: CUDA error "
+                               f"{err} ({lib.cpt_error_string(err).decode()})")
+        LAUNCH_COUNT += 1
+        LAUNCHES_BY_VARIANT[variant] += 1
+        if packed.textured:
+            LAUNCHES_TEXTURED[variant] += 1
+        if packed_grid is not None:
+            LAUNCHES_GRID[variant] += 1
+        if state_bf16:
+            LAUNCHES_BF16[variant] += 1
+        return out
 
 
 def render_occupancy(packed: PackedScene, physical: bool = False,

@@ -122,6 +122,7 @@ import torch
 
 from ...parallel.mesh import (PIXEL_AXIS, axis_index, axis_size, check_device,
                               in_full_image, psum, replicate, tile_range)
+from ...utils.profiling import span
 from . import megakernel as mk
 from .megakernel import PackedScene
 
@@ -480,64 +481,65 @@ def backward_rows_cuda(packed: PackedScene, cam_params, seed: int, width: int,
     tables' device and does not synchronise; raises if the kernel does not
     build or the launch is refused."""
     global LAUNCH_COUNT, LAST_ROUTE, LAST_STACK
-    n = width * height if n_local is None else n_local
-    mk._check_render_args(packed, width, height, spp, max_bounces,
-                          pixel_offset, n, sample_offset, seed)
-    mk._check_tables(packed)
-    mk._check_grid(packed, packed_grid)
-    device = packed.device
-    if g_img.device != device or g_img.numel() != 3 * n:
-        raise ValueError(f"g_img: need {3 * n} values on {device}, got "
-                         f"{g_img.numel()} on {g_img.device}")
-    if geo and packed_grid is not None:
-        raise ValueError("grad_mode='geo' has no grid instantiation")
-    full = full or physical or geo
-    lib, fn = _kernel_fn()
-    # per-sample cotangent: the forward returned the MEAN over spp
-    g = (g_img.detach().reshape(n, 3).to(torch.float32) / spp).contiguous()
-    cam = mk._cam_table(cam_params, 0.0)
-    cam_c = (ctypes.c_float * mk.CAM_FLOATS)(*cam.tolist())
-    tex_grads = bool(tex_grads) and packed.textured
-    if tex_grads and not full and packed.tex_nmap:
-        raise ValueError("texel gradients of a normal-mapped scene need "
-                         "full=True (the perturbation pullback)")
-    texels = packed.tex_counts[1]
-    rows = _grad_rows(packed.counts, full, texels if tex_grads else 0,
-                      physical, geo)
-    slot = _slot_floats(_st_planes(full, packed.textured, tex_grads,
-                                   packed.tex_nmap, physical))
-    capacity = _stack_slots(spp, max_bounces, n, slot, full)
-    threads = lib.cpt_backward_threads_per_block()
-    shared = rows <= lib.cpt_backward_shared_rows_max()
-    num_s, num_t, num_m, num_pl, num_al = packed.counts
-    tables = [t.detach() for t in packed.tables()]
-    with torch.cuda.device(device):
-        scratch = torch.empty(capacity * slot * n, dtype=torch.float32,
-                              device=device)
-        if shared:
-            out = torch.empty(((n + threads - 1) // threads, rows),
-                              dtype=torch.float32, device=device)
-        else:
-            out = torch.zeros((1, rows), dtype=torch.float32, device=device)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(tables[0].data_ptr(), num_s, tables[1].data_ptr(), num_t,
-                 tables[2].data_ptr(), num_m, tables[3].data_ptr(), num_pl,
-                 tables[4].data_ptr(), num_al, tables[5].data_ptr(),
-                 *mk.tex_args(packed), texels, *mk.grid_args(packed_grid), cam_c,
-                 int(seed), int(pixel_offset), int(n), int(sample_offset),
-                 int(spp), int(max_bounces), int(width), int(height),
-                 int(full), int(physical), int(geo), int(tex_grads),
-                 int(packed.tex_nmap), int(shared), int(capacity),
-                 g.data_ptr(), scratch.data_ptr(), out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("backward megakernel launch failed: CUDA error "
-                           f"{err} ({lib.cpt_error_string(err).decode()})")
-    LAUNCH_COUNT += 1
-    LAUNCHES_BY_MODE[(_mode_name(full, physical, geo), packed.textured,
-                      packed_grid is not None)] += 1
-    LAST_ROUTE = "shared" if shared else "global"
-    LAST_STACK = (capacity, scratch.numel())
-    return out.sum(0)
+    with span("k2.launch"):
+        n = width * height if n_local is None else n_local
+        mk._check_render_args(packed, width, height, spp, max_bounces,
+                              pixel_offset, n, sample_offset, seed)
+        mk._check_tables(packed)
+        mk._check_grid(packed, packed_grid)
+        device = packed.device
+        if g_img.device != device or g_img.numel() != 3 * n:
+            raise ValueError(f"g_img: need {3 * n} values on {device}, got "
+                             f"{g_img.numel()} on {g_img.device}")
+        if geo and packed_grid is not None:
+            raise ValueError("grad_mode='geo' has no grid instantiation")
+        full = full or physical or geo
+        lib, fn = _kernel_fn()
+        # per-sample cotangent: the forward returned the MEAN over spp
+        g = (g_img.detach().reshape(n, 3).to(torch.float32) / spp).contiguous()
+        cam = mk._cam_table(cam_params, 0.0)
+        cam_c = (ctypes.c_float * mk.CAM_FLOATS)(*cam.tolist())
+        tex_grads = bool(tex_grads) and packed.textured
+        if tex_grads and not full and packed.tex_nmap:
+            raise ValueError("texel gradients of a normal-mapped scene need "
+                             "full=True (the perturbation pullback)")
+        texels = packed.tex_counts[1]
+        rows = _grad_rows(packed.counts, full, texels if tex_grads else 0,
+                          physical, geo)
+        slot = _slot_floats(_st_planes(full, packed.textured, tex_grads,
+                                       packed.tex_nmap, physical))
+        capacity = _stack_slots(spp, max_bounces, n, slot, full)
+        threads = lib.cpt_backward_threads_per_block()
+        shared = rows <= lib.cpt_backward_shared_rows_max()
+        num_s, num_t, num_m, num_pl, num_al = packed.counts
+        tables = [t.detach() for t in packed.tables()]
+        with torch.cuda.device(device):
+            scratch = torch.empty(capacity * slot * n, dtype=torch.float32,
+                                  device=device)
+            if shared:
+                out = torch.empty(((n + threads - 1) // threads, rows),
+                                  dtype=torch.float32, device=device)
+            else:
+                out = torch.zeros((1, rows), dtype=torch.float32, device=device)
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(tables[0].data_ptr(), num_s, tables[1].data_ptr(), num_t,
+                     tables[2].data_ptr(), num_m, tables[3].data_ptr(), num_pl,
+                     tables[4].data_ptr(), num_al, tables[5].data_ptr(),
+                     *mk.tex_args(packed), texels, *mk.grid_args(packed_grid), cam_c,
+                     int(seed), int(pixel_offset), int(n), int(sample_offset),
+                     int(spp), int(max_bounces), int(width), int(height),
+                     int(full), int(physical), int(geo), int(tex_grads),
+                     int(packed.tex_nmap), int(shared), int(capacity),
+                     g.data_ptr(), scratch.data_ptr(), out.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError("backward megakernel launch failed: CUDA error "
+                               f"{err} ({lib.cpt_error_string(err).decode()})")
+        LAUNCH_COUNT += 1
+        LAUNCHES_BY_MODE[(_mode_name(full, physical, geo), packed.textured,
+                          packed_grid is not None)] += 1
+        LAST_ROUTE = "shared" if shared else "global"
+        LAST_STACK = (capacity, scratch.numel())
+        return out.sum(0)
 
 
 def backward_grads_cuda(packed: PackedScene, cam_params, seed: int,

@@ -50,6 +50,7 @@ from ..ops.shading import (UNIFORMS_PER_AREA_LIGHT, BidirNEE, CTLobe,
                            GlossLobe, light_areas, shade, shade_physical)
 from ..ops.vec import Vec3, gather, where as vwhere
 from ..utils import rng
+from ..utils.profiling import span
 
 # Most rays ``render`` traces in one wavefront (samples are batched up to it).
 WAVE_RAYS = 1 << 22
@@ -425,8 +426,8 @@ def _trace_wave(scene, origins: Vec3, directions: Vec3, seed, sample_idx,
                 wave = tree_take(wave, keep)
         if not wave.slot.shape[0]:
             break
-        # a range of its own in a profiler's trace (utils/profiling.trace)
-        with torch.profiler.record_function(f"eye bounce {b}"):
+        # a span of its own in a profiler's trace (utils/profiling.trace)
+        with span(f"eye bounce {b}"):
             u = rng.bounce_rows(seed, wave.pixel, wave.sample, b,
                                 scene.num_area_lights)
             # the last bounce's scattered state is never read: not drawn

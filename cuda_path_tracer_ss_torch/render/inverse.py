@@ -31,7 +31,8 @@ from ..models.scene import Scene
 from ..ops.cuda import megakernel_vjp as vjp
 from ..ops.cuda.megakernel import pack_grid, pack_scene
 from ..ops.grid import build_grid
-from ..utils import rng
+from ..utils import profiling, rng
+from ..utils.profiling import span
 from . import integrator
 
 # Scene leaves it makes sense to optimize.
@@ -257,10 +258,11 @@ def make_loss(scene: Scene, cam_params, target, width: int, height: int,
     target = target.to(device=device, dtype=torch.float32)
 
     def loss(params, seed):
-        s = merge_params(scene, params)
-        img = render(pack_scene(s, device), cam_params, int(seed), width,
-                     height, spp, max_bounces=max_bounces,
-                     grad_mode=grad_mode, packed_grid=grid, physical=physical)
+        with span("inverse.pack"):
+            packed = pack_scene(merge_params(scene, params), device)
+        img = render(packed, cam_params, int(seed), width, height, spp,
+                     max_bounces=max_bounces, grad_mode=grad_mode,
+                     packed_grid=grid, physical=physical)
         return torch.mean((img - target) ** 2)
 
     loss.grad_mode = grad_mode
@@ -402,19 +404,28 @@ def invert(scene_init: Scene, cam_params, target, field_names: Iterable[str],
                          device=device)
     losses = []
     for step in range(steps):
-        s = (rng.seed_for(seed, step // resample_every)
-             if resample_every else seed)
-        optimizer.zero_grad(set_to_none=True)
-        if silhouette:
-            val, grads = vg(params, s)
-            for k, p in params.items():
-                p.grad = grads[k]
-        else:
-            val = loss(params, s)
-            val.backward()
-        optimizer.step()
-        losses.append(float(val.detach()))
-        if callback:
-            callback(step, losses[-1], params)
+        # Adam's two calls (zero_grad, step) are two spans of one name
+        with span("inverse.step", unit=True):
+            s = (rng.seed_for(seed, step // resample_every)
+                 if resample_every else seed)
+            with span("inverse.adam"):
+                optimizer.zero_grad(set_to_none=True)
+            if silhouette:
+                val, grads = vg(params, s)
+                for k, p in params.items():
+                    p.grad = grads[k]
+            else:
+                with span("inverse.forward"):
+                    val = loss(params, s)
+                with span("inverse.backward"):
+                    val.backward()
+            with span("inverse.adam"):
+                optimizer.step()
+            with span("inverse.loss_read"):
+                profiling.host_waits += 1
+                losses.append(float(val.detach()))
+            if callback:
+                with span("inverse.callback"):
+                    callback(step, losses[-1], params)
     final = {k: v.detach() for k, v in params.items()}
     return merge_params(scene_init, final), final, losses

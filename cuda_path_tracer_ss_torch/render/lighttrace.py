@@ -55,6 +55,7 @@ from ..ops.sampling import lambert_direction
 from ..ops.shading import area_light_sample_uniform
 from ..ops.vec import Vec3, where as vwhere
 from ..utils import rng
+from ..utils.profiling import span
 from .integrator import WAVE_RAYS, _on_device, camera_tensors, eye_j_img
 
 # the reference's own 1/pi here (not constants.INV_PI, a rounded literal)
@@ -213,8 +214,8 @@ def lighttrace_block(scene, cam_params, width: int, height: int, path_idx,
 
     for b in range(max_bounces):
         last = b == max_bounces - 1
-        # a range of its own in a profiler's trace (utils/profiling.trace)
-        with torch.profiler.record_function(f"light bounce {b}"):
+        # a span of its own in a profiler's trace (utils/profiling.trace)
+        with span(f"light bounce {b}"):
             img, paths = _light_bounce(scene, cam, width, height, seed,
                                        sample_idx, b, bidir_nu, img, paths,
                                        scatter_on=not last)

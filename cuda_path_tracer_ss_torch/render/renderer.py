@@ -27,7 +27,8 @@ from ..ops import tonemap
 from ..ops.cuda import megakernel
 from ..ops.grid import build_grid
 from ..utils import image as image_io
-from ..utils.profiling import PassMeter, sync
+from ..utils import profiling
+from ..utils.profiling import PassMeter, span, sync
 from . import integrator
 
 ENGINES = ("auto", "cuda", "plain", "eager")
@@ -136,22 +137,23 @@ class ProgressiveRenderer:
             raise RuntimeError(f"the renderer was asked for device="
                                f"{config.device!r} but no CUDA device is "
                                "available; pass device='cpu' to render on the CPU")
-        # pack ONCE: the tables (and the grid, built once per scene) live on
-        # the rendering device for the renderer's lifetime; the eager
-        # engine keeps the scene itself there
-        grid = build_grid(scene) if config.accel == "grid" else None
-        if self._engine == "eager":
-            self._scene_dev = scene.to(integrator.resolve_device(self._device))
-            self._grid = grid.to(self._device) if grid is not None else None
-        else:
-            self._packed = megakernel.pack_scene(scene, self._device)
-            self._grid = (megakernel.pack_grid(grid, self._device)
-                          if grid is not None else None)
         self._seed = int(config.seed)
         # Space-key mode switch (CudaTracer.cu:760-765): ray-trace mode caps
         # paths at 1 bounce (usePathTracer=false ran 1 iteration).
         self._ray_trace_mode = False
-        self.reset()
+        with span("renderer.setup"):
+            # pack ONCE: the tables (and the grid, built once per scene)
+            # live on the rendering device for the renderer's lifetime; the
+            # eager engine keeps the scene itself there
+            grid = build_grid(scene) if config.accel == "grid" else None
+            if self._engine == "eager":
+                self._scene_dev = scene.to(integrator.resolve_device(self._device))
+                self._grid = grid.to(self._device) if grid is not None else None
+            else:
+                self._packed = megakernel.pack_scene(scene, self._device)
+                self._grid = (megakernel.pack_grid(grid, self._device)
+                              if grid is not None else None)
+            self.reset()
 
     def _accumulate(self, cam_params, first_sample: int, bounces: int,
                     pass_spp: int) -> None:
@@ -200,8 +202,9 @@ class ProgressiveRenderer:
         CudaTracer.cu:602-608) — call after moving the camera."""
         cfg = self.config
         dtype = torch.int32 if cfg.compat_int_accum else torch.float32
-        self._accum = torch.zeros((cfg.width * cfg.height, 3), dtype=dtype,
-                                  device=self._device)
+        with span("renderer.reset"):
+            self._accum = torch.zeros((cfg.width * cfg.height, 3), dtype=dtype,
+                                      device=self._device)
         self._samples_done = 0
         self._meter = PassMeter(cfg.width, cfg.height,
                                 jsonl_path=cfg.metrics_jsonl)
@@ -241,15 +244,18 @@ class ProgressiveRenderer:
                 f"pass_spp={n} differs from the configured "
                 f"samples_per_pass={cfg.base_pass_size()}; variable pass "
                 "sizes need AUTO mode (samples_per_pass=None)")
-        cam_params = camera_arrays(self.camera)
-        sync(self._device)
-        t0 = time.perf_counter()
-        self._accumulate(cam_params, self._samples_done,
-                         self.effective_bounces, n)
-        sync(self._device)
-        dt = time.perf_counter() - t0
-        self._samples_done += n
-        metrics = self._meter.record(n, dt)
+        with span("renderer.pass", unit=True):
+            cam_params = camera_arrays(self.camera)
+            with span("renderer.sync"):
+                sync(self._device)
+            t0 = time.perf_counter()
+            self._accumulate(cam_params, self._samples_done,
+                             self.effective_bounces, n)
+            with span("renderer.sync"):
+                sync(self._device)
+            dt = time.perf_counter() - t0
+            self._samples_done += n
+            metrics = self._meter.record(n, dt)
         if self.on_pass:
             self.on_pass(metrics)
         return metrics
@@ -273,26 +279,28 @@ class ProgressiveRenderer:
     def run(self, total_spp: Optional[int] = None) -> np.ndarray:
         total = total_spp if total_spp is not None else self.config.spp
         base = self.config.base_pass_size()
-        if self.config.auto_pass_growth():
-            while self._samples_done < total:
-                n = min(self._auto_pass_size(self._samples_done),
-                        total - self._samples_done)
-                m = self.step(n)
-                print(self._meter.console_line(m), end="\r", flush=True)
-        else:
-            remaining = total - self._samples_done
-            if remaining > 0 and remaining % base:
-                raise ValueError(
-                    f"requested {total} spp is not reachable in whole "
-                    f"passes of {base} from {self._samples_done}")
-            while self._samples_done < total:
-                m = self.step()
-                print(self._meter.console_line(m), end="\r", flush=True)
-        print()
-        return self.image()
+        with span("renderer.run", unit=True):
+            if self.config.auto_pass_growth():
+                while self._samples_done < total:
+                    n = min(self._auto_pass_size(self._samples_done),
+                            total - self._samples_done)
+                    m = self.step(n)
+                    print(self._meter.console_line(m), end="\r", flush=True)
+            else:
+                remaining = total - self._samples_done
+                if remaining > 0 and remaining % base:
+                    raise ValueError(
+                        f"requested {total} spp is not reachable in whole "
+                        f"passes of {base} from {self._samples_done}")
+                while self._samples_done < total:
+                    m = self.step()
+                    print(self._meter.console_line(m), end="\r", flush=True)
+            print()
+            return self.image()
 
     # -- output ---------------------------------------------------------------
     def _accum_numpy(self) -> np.ndarray:
+        profiling.host_waits += 1
         a = self._accum.detach().cpu().numpy()
         return a.astype(np.uint32) if self.config.compat_int_accum else a
 
@@ -302,7 +310,8 @@ class ProgressiveRenderer:
         an approximate radiance."""
         cfg = self.config
         denom = max(self._samples_done, 1)
-        acc = self._accum_numpy().reshape(cfg.height, cfg.width, 3)
+        with span("renderer.readback"):
+            acc = self._accum_numpy().reshape(cfg.height, cfg.width, 3)
         if cfg.compat_int_accum:
             disp = acc.astype(np.float32) / (255.0 * denom)
             return disp ** (1.0 / cfg.gamma)
@@ -312,12 +321,14 @@ class ProgressiveRenderer:
         """Display image as uint8 [H,W,3]."""
         cfg = self.config
         denom = max(self._samples_done, 1)
-        if cfg.compat_int_accum:
-            u8 = tonemap.compat_display(self._accum, denom)
-        else:
-            u8 = tonemap.to_uint8(tonemap.tonemap(self._accum / denom,
-                                                  cfg.gamma))
-        return u8.cpu().numpy().reshape(cfg.height, cfg.width, 3)
+        with span("renderer.readback"):
+            if cfg.compat_int_accum:
+                u8 = tonemap.compat_display(self._accum, denom)
+            else:
+                u8 = tonemap.to_uint8(tonemap.tonemap(self._accum / denom,
+                                                      cfg.gamma))
+            profiling.host_waits += 1
+            return u8.cpu().numpy().reshape(cfg.height, cfg.width, 3)
 
     def image(self) -> np.ndarray:
         return self.image_u8().astype(np.float32) / 255.0
