@@ -220,6 +220,11 @@ BIDIR_PLAIN_SPP = 4        # the plain version's share of the eye half
 # bounces (PERF.md; NVIDIA H100 80GB HBM3, 700 W)
 NESTED_DEFAULT_RANGE_MS = (1195.2, 1211.2)
 NESTED_DEFAULT_REGISTERS = 87
+# Most registers, spill bytes stored and spill bytes loaded a thread of K2's
+# split replay launch may take (csrc/megakernel_vjp.cu holds it to 128
+# registers; it spilled 356-464 B stored / 376-624 B loaded on sm_90a,
+# PERF.md): more means the bound no longer fits the replay
+REPLAY_SPILL_BOUND = (128, 512, 768)
 
 # The texture block, counted from csrc/megakernel.cuh the same way: per hit of
 # a textured scene the unit normal, the UVs and the tangent (a sphere: the
@@ -2116,14 +2121,29 @@ def main() -> int:
             # a template's bool arguments read Lb0E / Lb1E in the mangled name
             fn = next(f for f in ("render_kernel", "backward_kernel", "light_kernel",
                                   "uniform_pairs_kernel") if f in k["kernel"])
-            bools = re.findall(r"Lb([01])E", k["kernel"].split(fn)[1].split("Ev")[0])
+            tpl_args = k["kernel"].split(fn)[1].split("Ev")[0]
+            bools = re.findall(r"Lb([01])E", tpl_args)
             label = f"{fn}<{','.join(bools)}>" if bools else fn
+            # K2's schedule phase (an int argument): 1 the split replay, 2 its reverse
+            phase = (re.findall(r"Li(\d+)E", tpl_args) or ["0"])[0]
+            label += {"1": "/replay", "2": "/reverse"}.get(phase, "")
             log(f"[build] {name}{' -fmad=true' if fmad else ''}: {label}: "
                 f"{k['registers']} registers, {k['stack']} B stack, spills "
                 f"{k['spill_stores']} B stored / {k['spill_loads']} B loaded")
             report["ptxas"][f"{name}{'_fmad' if fmad else ''}/{label}"] = k
-            check(k["spill_stores"] == 0 and k["spill_loads"] == 0,
-                  f"{label} spills registers")
+            # the split schedule's replay launch is held to 128 registers and
+            # spills by design (csrc/megakernel_vjp.cu: 356-464 B stored, 376-624 B
+            # loaded on sm_90a), within REPLAY_SPILL_BOUND; every other kernel
+            # spills nothing
+            if label.endswith("/replay"):
+                regs_max, stores_max, loads_max = REPLAY_SPILL_BOUND
+                check(k["registers"] <= regs_max and k["spill_stores"] <= stores_max
+                      and k["spill_loads"] <= loads_max,
+                      f"{label}: {k['registers']} registers, spills {k['spill_stores']} B "
+                      f"stored / {k['spill_loads']} B loaded, over {REPLAY_SPILL_BOUND}")
+            else:
+                check(k["spill_stores"] == 0 and k["spill_loads"] == 0,
+                      f"{label} spills registers")
 
     # ---- 2b. the build cache: warm in a fresh process; cold beside phases 3-17b ----
     cache_report, cold = build_cache_phase(build, builds, build_s, smi)
@@ -3577,21 +3597,34 @@ def main() -> int:
                 flops += visible * GEO_LIGHT_VERTEX_FLOPS
         return flops
 
-    def k2_registers(shared, textured, grid, physical, geo):
-        """ptxas's registers of the backward kernel with these flags."""
+    def k2_registers(shared, textured, grid, physical, geo, phase=""):
+        """ptxas's registers of the backward kernel with these flags (``phase``
+        "/replay" or "/reverse": a launch of the split schedule)."""
         key = (f"megakernel_vjp/backward_kernel<1,{int(shared)},{int(textured)},{int(grid)},"
-               f"{int(physical)},{int(geo)}>")
+               f"{int(physical)},{int(geo)}>{phase}")
         return report["ptxas"][key]["registers"]
 
     new_k2 = {}   # the kernels line's entries of the new instantiations
 
     def new_mode_bench(label, scene, fields, dims, physical, accel="none", plain=True,
-                       launches_from=None):
+                       launches_from=None, force_fused=False):
         """One gradient step of K2 in a new mode at ``dims`` = (w, h, spp,
         bounces): the value_and_grad step, the forward and backward kernels
-        apart (medians of 5, launches counted over those six steps), registers,
-        bound and, with ``plain``, the kernel's loss and gradients against
-        the plain engine on the same inputs (2 samples per autograd graph)."""
+        apart (medians of 5, wrapper calls counted over those six steps),
+        registers, bound and, with ``plain``, the kernel's loss and gradients
+        against the plain engine on the same inputs (2 samples per autograd
+        graph). ``force_fused`` runs the fused schedule where the wrapper
+        would pick the split one."""
+        if force_fused:
+            split_schedule = vjp._split_schedule
+            vjp._split_schedule = lambda *args: False
+            try:
+                entry = new_mode_bench(label, scene, fields, dims, physical, accel, plain,
+                                       launches_from)
+            finally:
+                vjp._split_schedule = split_schedule
+            check(entry["schedule"] == "fused", f"{label}: ran the {entry['schedule']} schedule")
+            return entry
         b_w, b_h, b_spp, b_nb = dims
         geo = bool(set(fields) & vjp.TRI_FIELDS)
         textured = scene.num_textures > 0
@@ -3619,6 +3652,9 @@ def main() -> int:
             packed_b, cp, 0, b_w, b_h, b_spp, b_nb, g_img, full=True, physical=physical,
             geo=geo, tex_grads="textures" in fields, packed_grid=grid))
         route, scratch_bytes = vjp.LAST_ROUTE, 4 * vjp.LAST_STACK[1]
+        schedule = vjp.LAST_SCHEDULE
+        regs = [k2_registers(route == "shared", textured, grid is not None, physical, geo, ph)
+                for ph in (("/replay", "/reverse") if schedule == "split" else ("",))]
         # the paths' tally from the plain version, on up to 4 of the samples
         stats_b, s_spp = {}, min(b_spp, 4)
         mk.render_megakernel_plain(packed_b, cp, 0, b_w, b_h, s_spp, b_nb, stats=stats_b,
@@ -3633,8 +3669,8 @@ def main() -> int:
         bound = bound_of(flops, packed_b.table_bytes + 12 * n_b + 4 * rows)
         entry = dict(label=label, dims=dims, ms_step=ms_step, ms_k1=ms_k1, ms=ms_k2,
                      bound=bound, route=route, rows=rows, launches=launched[key],
-                     registers=k2_registers(route == "shared", textured, grid is not None,
-                                            physical, geo),
+                     registers=max(regs), schedule=schedule, phase_registers=regs,
+                     launches_per_call=len(regs),
                      scratch_bytes_ms=2 * 4 * planes * stats_b["stored_bounces"]
                      / PEAK_BYTES_PER_S * 1e3, scratch_bytes=scratch_bytes, plain_ms=None,
                      max_abs_err=None)
@@ -3662,11 +3698,13 @@ def main() -> int:
             f"{b_spp} spp {b_nb} bounces ({', '.join(fields)}): value_and_grad step "
             f"{ms_step:.2f} ms = forward kernel {ms_k1:.2f} + backward kernel {ms_k2:.2f} + the "
             f"rest {ms_step - ms_k1 - ms_k2:.2f} (medians of 5); backward kernel "
-            f"{entry['registers']} registers, {rows} gradient rows ({route} route), bound "
+            f"{'/'.join(map(str, regs))} registers ({schedule} schedule), {rows} gradient "
+            f"rows ({route} route), bound "
             f"{bound[0]:.4f} ms ({bound[1]}; {flops:.3e} float32 operations), kernel at "
             f"{bound[0] / ms_k2:.1%} of it; its checkpoints ({planes} planes per stored bounce) "
             f"{entry['scratch_bytes_ms']:.3f} ms at the memory rate; {launched[key]} backward "
-            "launches over the six steps")
+            f"calls over the six steps ({len(regs)} kernel launch{'es' if len(regs) > 1 else ''} "
+            "a call)")
         return entry
 
     # 15a. the new modes against the plain engine on small inputs
@@ -3709,6 +3747,15 @@ def main() -> int:
     new_k2["physical, textured"] = new_mode_bench(
         "color+normal quad", presets.textured_quad(nmap=True),
         ["materials.diffuse", "textures", "pl_pos"], (128, 128, 16, 4), True)
+    # physical untextured at this size takes the split schedule; the fused
+    # kernels of those flags (still the path of stacks of several rounds, as
+    # at 800x800) are held against the plain engine here too
+    check(new_k2["physical"]["schedule"] == new_k2["physical, grid"]["schedule"] == "split",
+          "physical: the training size did not take the split schedule")
+    new_k2["physical, fused"] = new_mode_bench("cornell", start, PHYS_FIELDS, train_dims, True,
+                                               force_fused=True)
+    new_k2["physical, grid, fused"] = new_mode_bench(
+        "cornell", start, PHYS_FIELDS, train_dims, True, accel="grid", force_fused=True)
     for mode, fields, physical in (("geo", GEO_FIELDS, False), ("physical", PHYS_FIELDS, True)):
         loss = inverse.make_loss(start, cp, target_train, tw, th, tspp, tnb, engine="cuda",
                                  field_names=fields, physical=physical)
@@ -3832,7 +3879,9 @@ def main() -> int:
         f"fields {', '.join(phys_fields)}, diffuse + 0.2, {PHYS_TRAIN_STEPS} Adam steps: loss "
         f"{pt_losses[0]:.3e} -> {pt_losses[-1]:.3e} ({pt_losses[-1] / pt_losses[0]:.3f} of the "
         f"first), max|diffuse - truth| 0.2 -> {pt_err:.4f}; {phys_train['ms_per_step']:.2f} ms "
-        f"per step; forward launches per variant {pt_launches[0]}, backward {pt_launches[1]}")
+        f"per step; forward launches per variant {pt_launches[0]}, backward calls "
+        f"{pt_launches[1]} ({vjp.LAST_SCHEDULE} schedule"
+        f"{', two kernel launches a call' if vjp.LAST_SCHEDULE == 'split' else ''})")
     check(all(np.isfinite(pt_losses)), "physical train: non-finite loss")
     check(pt_losses[-1] < 0.1 * pt_losses[0], f"physical train: loss only fell to "
           f"{pt_losses[-1] / pt_losses[0]:.3f} of its first value")
@@ -4162,7 +4211,10 @@ def main() -> int:
         "route": "cuda",
         "source": "cuda_path_tracer_ss_torch/csrc/megakernel_vjp.cu",
         "replaces": "cuda_path_tracer_ss_tpu/ops/pallas/megakernel_vjp.py:269",
+        # wrapper calls; the split schedule makes two kernel launches a call
         "launches": v["launches"],
+        "kernel_launches": v["launches"] * v.get("launches_per_call", 1),
+        "schedule": v.get("schedule", "fused"),
         "max_abs_err": v["max_abs_err"],
         "ms": v["ms"],
         "plain_ms": v["plain_ms"],
@@ -4170,7 +4222,9 @@ def main() -> int:
         "bound_by": v["bound"][1],
         "library_ms": None,
         "shape": f"{v['label']} {v['dims'][0]}x{v['dims'][1]}, {v['dims'][3]} bounces, "
-                 f"{v['dims'][2]} spp, one launch",
+                 f"{v['dims'][2]} spp, "
+                 + ("one call of two launches (split schedule)"
+                    if v.get("schedule") == "split" else "one launch"),
         "plain_shape": v.get("plain_shape", (f"the same, value_and_grad step of the plain "
                                              f"engine, {TRAIN_PLAIN_CHUNK} samples at a time")),
         "launches_on": v.get("launches_on", "six value_and_grad steps at that shape"),

@@ -23,7 +23,8 @@
 // backward_pixel schedules these per path as two flat passes with per-lane
 // regeneration: all of the pixel's replays, one bounce per loop iteration,
 // pushing the bounces onto the lane's checkpoint stack; then all of its
-// reverse sweeps, popping it.
+// reverse sweeps, popping it. backward_pixel_replay / backward_pixel_reverse
+// are the same two passes as two calls, for the kernel's split schedule.
 // Discrete decisions (which primitive is hit, visibility, the scatter branch,
 // the clamp of the light cosine, the light draws) carry no gradient; every
 // continuous factor does.
@@ -1340,6 +1341,68 @@ CPT_HD void eye_vjp(const RenderParams& p, int pixel, int sample, float pxi, flo
 
 // ---- one pixel, all samples: two flat passes --------------------------------------
 
+// Pass 1 of a round, the forward replay: starts the pixel's samples from
+// `next` on, one bounce per iteration, a lane starting its next sample's eye
+// ray as soon as its path ends, and pushes every stored bounce onto `st`;
+// the path's last slot records its sample and how it ended (QM_SAMPLE,
+// QM_END). Starts no path while fewer than max(max_bounces, 1) of the
+// `capacity` slots are free. Returns the slots in use.
+template <bool FULL, bool TEXTURED, bool PHYSICAL, bool GEO, class Store, class Sink>
+CPT_HD int replay_round(const SceneTables& sc, const RenderParams& p, const GradLayout& L,
+                        const TexLayout& T, int pixel, float pxi, float pyi, float gx, float gy,
+                        float gz, const Store& st, int capacity, int& next, Sink& acc) {
+    const int span = p.max_bounces > 1 ? p.max_bounces : 1;  // slots one path may take
+    int top = 0;  // slots in use
+    int s = 0;    // the sample of the path in rs
+    ReplayState rs;
+    bool fresh = true;  // the lane starts a path in this iteration
+    while (true) {
+        if (fresh) {
+            if (next >= p.spp || capacity - top < span) break;
+            s = next++;
+            start_replay(p, pixel, p.sample_offset + s, pxi, pyi, rs);
+        }
+        const int end = replay_bounce<FULL, TEXTURED, PHYSICAL, GEO>(
+            sc, p, L, T, pixel, p.sample_offset + s, gx, gy, gz, rs, st, top, acc);
+        if (end != REPLAY_MISSED) ++top;
+        fresh = end != REPLAY_GOES_ON;
+        if (fresh && rs.b > 0) {
+            st.puti(top - 1, T.q_meta + QM_SAMPLE, s);
+            st.puti(top - 1, T.q_meta + QM_END, 2 * rs.b + (end == REPLAY_MISSED ? 1 : 0));
+        }
+    }
+    return top;
+}
+
+// Pass 2 of a round, the reverse sweep: pops the `top` slots of `st`, last
+// slot first: the last sample's bounces come first, from its last bounce
+// down to bounce 0, after which the eye-ray VJP runs. A path's first pop
+// starts its recurrence from what its last slot recorded.
+template <bool FULL, bool TEXTURED, bool PHYSICAL, bool GEO, class Store, class Sink,
+          class CamSink>
+CPT_HD void reverse_round(const SceneTables& sc, const RenderParams& p, const GradLayout& L,
+                          const TexLayout& T, int pixel, float pxi, float pyi, float gx,
+                          float gy, float gz, const Store& st, int top, Sink& acc, CamSink& cam,
+                          int cam_row0) {
+    ReverseState rv;
+    int b = -1, nb = 0, sample = 0;  // b < 0: the next pop starts a path
+    while (top > 0) {
+        const int k = top - 1;
+        if (b < 0) {
+            const int ended = st.geti(k, T.q_meta + QM_END);
+            sample = p.sample_offset + st.geti(k, T.q_meta + QM_SAMPLE);
+            nb = ended >> 1;
+            b = nb - 1;
+            start_reverse(sc, gx, gy, gz, (ended & 1) != 0, rv);
+        }
+        reverse_bounce<FULL, TEXTURED, PHYSICAL, GEO>(sc, p, L, T, pixel, sample, b,
+                                                      b + 1 == nb, gx, gy, gz, rv, st, k, acc);
+        if (FULL && b == 0) eye_vjp(p, pixel, sample, pxi, pyi, rv.ao, rv.ad, cam_row0, cam);
+        --b;
+        --top;
+    }
+}
+
 // Adds pixel `pixel`'s share of the gradient for the per-SAMPLE cotangent
 // (gx, gy, gz) of its radiance (the wrapper divides the image cotangent by
 // spp: the forward returns the mean) into `acc`, and in full mode its camera
@@ -1350,24 +1413,15 @@ CPT_HD void eye_vjp(const RenderParams& p, int pixel, int sample, float pxi, flo
 // rows of `T` / `L`. PHYSICAL and GEO build on the full path adjoint.
 //
 // The schedule is per-lane path regeneration in two flat passes, each ONE
-// loop with one bounce per iteration:
-//   1. the forward replay. A lane whose path ended (a miss, a death, or
-//      max_bounces bounces) starts its next sample's eye ray in the next
-//      iteration; every stored bounce is pushed onto the lane's stack, and the
-//      path's last slot records its sample and how it ended (QM_SAMPLE,
-//      QM_END). A lane starts no new path while fewer than max_bounces slots
-//      are free.
-//   2. the reverse sweep, popping the stack: the last sample's bounces come
-//      first, from its last bounce down to bounce 0, after which the eye-ray
-//      VJP runs. A path's first pop starts its recurrence from what its last
-//      slot recorded.
-// The two passes alternate in rounds until every sample is done (one round
-// when the stack holds spp paths of max_bounces). A warp so runs the
-// replay for every lane that still has samples in the round, and the reverse
-// for every lane with bounces on its stack: no lane waits for the warp's
-// longest path of a sample. The per-path arithmetic (replay_bounce,
-// reverse_bounce, eye_vjp) is that of a loop over samples around a replay and
-// a reverse sweep; only the order of the row additions differs.
+// loop with one bounce per iteration: the forward replay (replay_round) and
+// the reverse sweep (reverse_round). The two passes alternate in rounds
+// until every sample is done (one round when the stack holds spp paths of
+// max_bounces). A warp so runs the replay for every lane that still has
+// samples in the round, and the reverse for every lane with bounces on its
+// stack: no lane waits for the warp's longest path of a sample. The per-path
+// arithmetic (replay_bounce, reverse_bounce, eye_vjp) is that of a loop over
+// samples around a replay and a reverse sweep; only the order of the row
+// additions differs.
 template <bool FULL, bool TEXTURED, bool PHYSICAL = false, bool GEO = false, class Store,
           class Sink, class CamSink>
 CPT_HD void backward_pixel(const SceneTables& sc, const RenderParams& p, const GradLayout& L,
@@ -1378,49 +1432,42 @@ CPT_HD void backward_pixel(const SceneTables& sc, const RenderParams& p, const G
     if (pixel < 0 || pixel >= p.width * p.height) return;
     const float pxi = (float)(pixel % p.width);
     const float pyi = (float)(pixel / p.width);
-    const int span = p.max_bounces > 1 ? p.max_bounces : 1;  // slots one path may take
     int next = 0;  // the next sample to start
     while (next < p.spp) {
-        // ---- 1. forward replay --------------------------------------------------
-        int top = 0;  // slots in use
-        int s = 0;    // the sample of the path in rs
-        ReplayState rs;
-        bool fresh = true;  // the lane starts a path in this iteration
-        while (true) {
-            if (fresh) {
-                if (next >= p.spp || capacity - top < span) break;
-                s = next++;
-                start_replay(p, pixel, p.sample_offset + s, pxi, pyi, rs);
-            }
-            const int end = replay_bounce<FULL, TEXTURED, PHYSICAL, GEO>(
-                sc, p, L, T, pixel, p.sample_offset + s, gx, gy, gz, rs, st, top, acc);
-            if (end != REPLAY_MISSED) ++top;
-            fresh = end != REPLAY_GOES_ON;
-            if (fresh && rs.b > 0) {
-                st.puti(top - 1, T.q_meta + QM_SAMPLE, s);
-                st.puti(top - 1, T.q_meta + QM_END, 2 * rs.b + (end == REPLAY_MISSED ? 1 : 0));
-            }
-        }
-        // ---- 2. reverse sweep, last slot first -------------------------------------
-        ReverseState rv;
-        int b = -1, nb = 0, sample = 0;  // b < 0: the next pop starts a path
-        while (top > 0) {
-            const int k = top - 1;
-            if (b < 0) {
-                const int ended = st.geti(k, T.q_meta + QM_END);
-                sample = p.sample_offset + st.geti(k, T.q_meta + QM_SAMPLE);
-                nb = ended >> 1;
-                b = nb - 1;
-                start_reverse(sc, gx, gy, gz, (ended & 1) != 0, rv);
-            }
-            reverse_bounce<FULL, TEXTURED, PHYSICAL, GEO>(sc, p, L, T, pixel, sample, b,
-                                                          b + 1 == nb, gx, gy, gz, rv, st, k,
-                                                          acc);
-            if (FULL && b == 0) eye_vjp(p, pixel, sample, pxi, pyi, rv.ao, rv.ad, cam_row0, cam);
-            --b;
-            --top;
-        }
+        const int top = replay_round<FULL, TEXTURED, PHYSICAL, GEO>(
+            sc, p, L, T, pixel, pxi, pyi, gx, gy, gz, st, capacity, next, acc);
+        reverse_round<FULL, TEXTURED, PHYSICAL, GEO>(sc, p, L, T, pixel, pxi, pyi, gx, gy, gz,
+                                                     st, top, acc, cam, cam_row0);
     }
+}
+
+// backward_pixel's two passes as two calls, for a stack that holds every
+// path of the pixel (capacity >= max(max_bounces, 1) * spp: one round). The
+// replay returns the slots in use, which the reverse sweep takes, on the same
+// stack, in a later call (the kernel's split schedule: one launch each).
+template <bool FULL, bool TEXTURED, bool PHYSICAL = false, bool GEO = false, class Store,
+          class Sink>
+CPT_HD int backward_pixel_replay(const SceneTables& sc, const RenderParams& p,
+                                 const GradLayout& L, const TexLayout& T, int pixel, float gx,
+                                 float gy, float gz, const Store& st, int capacity, Sink& acc) {
+    if (pixel < 0 || pixel >= p.width * p.height) return 0;
+    int next = 0;
+    return replay_round<FULL, TEXTURED, PHYSICAL, GEO>(sc, p, L, T, pixel,
+                                                       (float)(pixel % p.width),
+                                                       (float)(pixel / p.width), gx, gy, gz, st,
+                                                       capacity, next, acc);
+}
+
+template <bool FULL, bool TEXTURED, bool PHYSICAL = false, bool GEO = false, class Store,
+          class Sink, class CamSink>
+CPT_HD void backward_pixel_reverse(const SceneTables& sc, const RenderParams& p,
+                                   const GradLayout& L, const TexLayout& T, int pixel, float gx,
+                                   float gy, float gz, const Store& st, int top, Sink& acc,
+                                   CamSink& cam, int cam_row0) {
+    if (pixel < 0 || pixel >= p.width * p.height) return;
+    reverse_round<FULL, TEXTURED, PHYSICAL, GEO>(sc, p, L, T, pixel, (float)(pixel % p.width),
+                                                 (float)(pixel / p.width), gx, gy, gz, st, top,
+                                                 acc, cam, cam_row0);
 }
 
 }  // namespace cpt

@@ -81,6 +81,23 @@ full mode with texel gradients: slot 84 floats, capacity 96, 2.11 GB. The
 checkpoint bytes written and read are those of the stored bounces alone;
 the footprint is the whole stack.
 
+Where one round holds every path, the stack lies in device memory between
+the two passes anyway, and physical mode runs them as two launches (the
+split schedule, ``_split_schedule``): a replay launch, which keeps each
+lane's slots in use in an int per pixel, then a reverse launch from them,
+each compiled for 4 resident blocks of 128 threads per SM (at most 128
+registers; the fused physical kernel holds 190-203 untextured, 2 blocks).
+One wave at 256x256 needs that bound: 512 blocks on 132 SMs (on an H100,
+4.8 against the fused launch's 8.3 ms at cornell 256x256 x 16 spp x 8
+bounces, with a few hundred bytes of spills in the replay). The route is
+read off the call: physical mode without geo, an untextured scene, linear
+sweeps or the grid, and ``capacity == max(max_bounces, 1) * spp``; every
+other call (linear, full, geo, physical + geo, textured physical, stacks of
+several rounds, as at 800x800 physical) keeps the one fused launch.
+``LAST_SCHEDULE`` names the last call's schedule, and ``RESIDENT_LAUNCHES``
+counts the calls whose every launch had its whole grid resident at once
+(``backward_occupancy``, cached per instantiation).
+
 What bounds the kernel on an H100: the replay is one forward render's FP32
 work, the reverse sweep adds work per stored bounce, and the checkpoints
 (``planes * 4`` bytes per stored bounce, 16 planes in linear mode, 33 in
@@ -438,13 +455,15 @@ def _kernel_fn():
                    ci, ci, ci, ci, ci, ci, ci, ci,               # scalars
                    ci, ci, ci, ci, ci, ci,  # full, physical, geo, tex_grads,
                                             # tex_nmap, shared
-                   ci,                                # capacity
-                   vp, vp, vp, vp]                   # g, scratch, out, stream
+                   ci, ci,                            # capacity, split
+                   vp, vp, vp, vp, vp]  # g, scratch, tops, out, stream
     fn.restype = ci
     for const in (lib.cpt_backward_threads_per_block,
                   lib.cpt_backward_shared_rows_max):
         const.argtypes = []
         const.restype = ci
+    lib.cpt_backward_occupancy.argtypes = [ci] * 7 + [ctypes.POINTER(ci)] * 2
+    lib.cpt_backward_occupancy.restype = ci
     lib.cpt_error_string.argtypes = [ci]
     lib.cpt_error_string.restype = ctypes.c_char_p
     return lib, fn
@@ -455,6 +474,63 @@ def _kernel_fn():
 LAST_ROUTE = None
 # The last launch's checkpoint stacks: (slots per pixel, scratch floats).
 LAST_STACK = None
+# The last call's schedule: "fused" (one launch) or "split" (a replay launch
+# and a reverse launch; see _split_schedule).
+LAST_SCHEDULE = None
+# Calls of the wrapper whose every kernel launch had its whole grid resident
+# at once (blocks <= resident blocks per SM x SMs; backward_occupancy).
+RESIDENT_LAUNCHES = 0
+# Schedule phases of cpt_backward_occupancy: the fused launch, the split
+# schedule's replay and its reverse sweep.
+PHASE_FUSED, PHASE_REPLAY, PHASE_REVERSE = 0, 1, 2
+_OCCUPANCY = {}
+
+
+def _split_schedule(physical: bool, geo: bool, textured: bool, capacity: int,
+                    spp: int, max_bounces: int) -> bool:
+    """Whether a call runs the split schedule: physical mode without geo on an
+    untextured scene (linear sweeps or the grid), on a stack that holds every
+    path (one round). Those instantiations hold 190-203 registers fused, 2
+    blocks of 128 threads per SM; split, each launch is held to 128 (4
+    blocks per SM). Physical + geo (211-216) and textured physical keep the
+    fused launch, as do the other modes and stacks of several rounds."""
+    return (physical and not geo and not textured
+            and capacity == max(max_bounces, 1) * spp)
+
+
+def backward_occupancy(full: bool = False, physical: bool = False,
+                       geo: bool = False, textured: bool = False,
+                       grid: bool = False, rows: int = 0,
+                       phase: int = PHASE_FUSED) -> dict:
+    """What a launch of the backward kernel with these flags and ``rows``
+    gradient rows gets on the current CUDA device in schedule phase
+    ``phase`` (``PHASE_FUSED``, ``PHASE_REPLAY``, ``PHASE_REVERSE``):
+    ``blocks_per_sm`` (resident blocks of 128 threads at the launch's shared
+    memory), ``registers`` and ``local_bytes`` (stack and spills) per thread
+    of the instantiation, and the device's ``sms``. Cached per
+    instantiation and device."""
+    device = torch.cuda.current_device()
+    key = (bool(full or physical or geo), bool(physical), bool(geo),
+           bool(textured), bool(grid), int(rows), int(phase), device)
+    if key not in _OCCUPANCY:
+        lib, _ = _kernel_fn()
+        regs, local = ctypes.c_int(0), ctypes.c_int(0)
+        blocks = lib.cpt_backward_occupancy(*(int(k) for k in key[:7]),
+                                            ctypes.byref(regs), ctypes.byref(local))
+        if blocks < 0:
+            raise RuntimeError(f"occupancy query failed: CUDA error {-blocks} "
+                               f"({lib.cpt_error_string(-blocks).decode()})")
+        _OCCUPANCY[key] = {
+            "blocks_per_sm": blocks, "registers": regs.value, "local_bytes": local.value,
+            "sms": torch.cuda.get_device_properties(device).multi_processor_count}
+    return _OCCUPANCY[key]
+
+
+def _resident(blocks: int, phases, **flags) -> bool:
+    """Whether ``blocks`` blocks of every launch of ``phases`` are resident
+    at once on the current device."""
+    return all(blocks <= o["blocks_per_sm"] * o["sms"]
+               for o in (backward_occupancy(phase=ph, **flags) for ph in phases))
 
 
 def _mode_name(full: bool, physical: bool, geo: bool) -> str:
@@ -480,7 +556,7 @@ def backward_rows_cuda(packed: PackedScene, cam_params, seed: int, width: int,
     imply ``full``; geo takes no grid). Launches on the current stream of the
     tables' device and does not synchronise; raises if the kernel does not
     build or the launch is refused."""
-    global LAUNCH_COUNT, LAST_ROUTE, LAST_STACK
+    global LAUNCH_COUNT, LAST_ROUTE, LAST_STACK, LAST_SCHEDULE, RESIDENT_LAUNCHES
     with span("k2.launch"):
         n = width * height if n_local is None else n_local
         mk._check_render_args(packed, width, height, spp, max_bounces,
@@ -509,15 +585,20 @@ def backward_rows_cuda(packed: PackedScene, cam_params, seed: int, width: int,
         slot = _slot_floats(_st_planes(full, packed.textured, tex_grads,
                                        packed.tex_nmap, physical))
         capacity = _stack_slots(spp, max_bounces, n, slot, full)
+        split = _split_schedule(physical, geo, packed.textured, capacity, spp,
+                                max_bounces)
         threads = lib.cpt_backward_threads_per_block()
+        blocks = (n + threads - 1) // threads
         shared = rows <= lib.cpt_backward_shared_rows_max()
         num_s, num_t, num_m, num_pl, num_al = packed.counts
         tables = [t.detach() for t in packed.tables()]
         with torch.cuda.device(device):
             scratch = torch.empty(capacity * slot * n, dtype=torch.float32,
                                   device=device)
+            tops = (torch.empty(n, dtype=torch.int32, device=device) if split
+                    else None)
             if shared:
-                out = torch.empty(((n + threads - 1) // threads, rows),
+                out = torch.empty(((2 if split else 1) * blocks, rows),
                                   dtype=torch.float32, device=device)
             else:
                 out = torch.zeros((1, rows), dtype=torch.float32, device=device)
@@ -529,8 +610,13 @@ def backward_rows_cuda(packed: PackedScene, cam_params, seed: int, width: int,
                      int(seed), int(pixel_offset), int(n), int(sample_offset),
                      int(spp), int(max_bounces), int(width), int(height),
                      int(full), int(physical), int(geo), int(tex_grads),
-                     int(packed.tex_nmap), int(shared), int(capacity),
-                     g.data_ptr(), scratch.data_ptr(), out.data_ptr(), stream)
+                     int(packed.tex_nmap), int(shared), int(capacity), int(split),
+                     g.data_ptr(), scratch.data_ptr(),
+                     tops.data_ptr() if split else None, out.data_ptr(), stream)
+            resident = err == 0 and _resident(
+                blocks, (PHASE_REPLAY, PHASE_REVERSE) if split else (PHASE_FUSED,),
+                full=full, physical=physical, geo=geo, textured=packed.textured,
+                grid=packed_grid is not None, rows=rows)
         if err != 0:
             raise RuntimeError("backward megakernel launch failed: CUDA error "
                                f"{err} ({lib.cpt_error_string(err).decode()})")
@@ -539,6 +625,8 @@ def backward_rows_cuda(packed: PackedScene, cam_params, seed: int, width: int,
                           packed_grid is not None)] += 1
         LAST_ROUTE = "shared" if shared else "global"
         LAST_STACK = (capacity, scratch.numel())
+        LAST_SCHEDULE = "split" if split else "fused"
+        RESIDENT_LAUNCHES += resident
         return out.sum(0)
 
 

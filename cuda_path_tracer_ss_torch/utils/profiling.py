@@ -98,6 +98,7 @@ def _counters() -> Dict[str, int]:
 
     return dict(host_waits=host_waits, k1_launches=megakernel.LAUNCH_COUNT,
                 k2_launches=megakernel_vjp.LAUNCH_COUNT,
+                k2_resident_launches=megakernel_vjp.RESIDENT_LAUNCHES,
                 k3_launches=lightkernel.LAUNCH_COUNT)
 
 

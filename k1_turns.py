@@ -126,6 +126,23 @@ K3's phases (``--kernels k3`` or ``all``), on caustic 512x512, 8 bounces,
 17. ``[k3 turns splat]`` ``k3_float4`` against this tree's three ``float``
     atomics, the same way.
 
+K2's split schedule (``--kernels k2split``: phase 18 alone):
+
+18. ``[k2 split build]`` registers and spills of K2 physical's untextured
+    instantiations (fused, replay, reverse) in this tree, the other tree
+    and two copies: ``k2_fused_bounds4`` (the fused kernel, never split,
+    under ``__launch_bounds__(THREADS_PER_BLOCK, 4)``) and ``k2_split_free``
+    (the split without a bound); ``[k2 split occupancy]`` resident blocks per
+    SM of each; ``[k2 split rows]`` the rows of cornell physical and physical
+    through the grid at 256x256 x 16 spp x 8 b from all four against the
+    other tree's, with each call's schedule and resident-grid count;
+    ``[k2 split turns]`` the four in turns, a b c d d c b a thrice (a the
+    other tree, b ``k2_fused_bounds4``, c ``k2_split_free``, d this tree),
+    medians of 5 launches; ``[k2 fused turns]`` the cases that keep the
+    fused launch (cornell linear, full, geo, physical + geo, linear and full
+    through the grid, the color+normal quad physical, the mesh-fit quad
+    geo), other tree against this tree in turns.
+
 Without a CUDA device it exits non-zero.
 """
 from __future__ import annotations
@@ -134,6 +151,7 @@ import argparse
 import importlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -186,6 +204,10 @@ K3_SEED = 1  # any fixed light seed
 # replacement), each text occurring once
 KERNEL = "__global__ void render_kernel("
 K2_KERNEL = "__global__ void backward_kernel("
+K2_SPLIT_KERNEL = ("__global__ void __launch_bounds__(THREADS_PER_BLOCK, SPLIT_MIN_BLOCKS)\n"
+                   "    backward_kernel(")
+K2_SPLIT_RULE = ("    return (physical and not geo and not textured\n"
+                 "            and capacity == max(max_bounces, 1) * spp)")
 STACK_PATHS = "    paths = min(spp, max(1, SCRATCH_BUDGET // (span * slot_floats * 4 * n)))"
 # K3's regenerating schedule: its lane step, its kernel body and its grid
 K3_KERNEL = "template <bool BIDIR, bool SPLAT>\n__global__ void light_kernel("
@@ -274,15 +296,27 @@ PATCHES = {
          "        st.base = scratch + (size_t)i;\n        st.stride = (size_t)p.n_local;")],
     # K2's camera rows added with atomics, as every other row
     "camera_atomics": [
-        ("csrc/megakernel_vjp.cu", "    constexpr bool COLUMNS = FULL;",
+        ("csrc/megakernel_vjp.cu", "    constexpr bool COLUMNS = FULL && PHASE != PHASE_REPLAY;",
          "    constexpr bool COLUMNS = false;"),
-        ("csrc/megakernel_vjp.cu", "(any_full ? (size_t)cpt::CAM_ROWS * CAM_PITCH : 0)", "0")],
+        ("csrc/megakernel_vjp.cu",
+         "(any_full && phase != PHASE_REPLAY ? (size_t)cpt::CAM_ROWS * CAM_PITCH : 0)", "0")],
     # K2's stack sized for at most 1 / 2 / 4 paths per round
     **{f"stack{k}": [("ops/cuda/megakernel_vjp.py", STACK_PATHS,
                       STACK_PATHS.replace("min(spp, ", f"min(spp, {k}, "))] for k in (1, 2, 4)},
-    # K2 held to 5 resident blocks of 128 threads per SM (at most 96 registers)
+    # K2's fused launch held to 5 resident blocks of 128 threads per SM (at
+    # most 96 registers)
     "k2_bounds5": [("csrc/megakernel_vjp.cu", K2_KERNEL,
                     "__global__ void __launch_bounds__(THREADS_PER_BLOCK, 5) backward_kernel(")],
+    # (b) K2 physical fused, never split, under the split launches' bound of
+    # 4 resident blocks per SM (at most 128 registers)
+    "k2_fused_bounds4": [
+        ("csrc/megakernel_vjp.cu", K2_KERNEL,
+         "__global__ void __launch_bounds__(THREADS_PER_BLOCK, "
+         "PHYSICAL && !GEO && !TEXTURED ? SPLIT_MIN_BLOCKS : 1) backward_kernel("),
+        ("ops/cuda/megakernel_vjp.py", K2_SPLIT_RULE, "    return False")],
+    # (c) K2 physical split, its two launches without a launch bound
+    "k2_split_free": [("csrc/megakernel_vjp.cu", K2_SPLIT_KERNEL,
+                       "__global__ void backward_kernel(")],
     # K3 on a persistent grid whose lanes regenerate paths
     "k3_regenerating": [
         ("csrc/lightkernel.cu", K3_KERNEL, K3_LANE_STEP + K3_KERNEL),
@@ -305,6 +339,14 @@ PATCHES = {
 }
 K1_COPIES = ("bounds6", "bounds8", "global_tables")
 K2_COPIES = ("strided", "camera_atomics", "stack1", "stack2", "stack4", "k2_bounds5")
+K2_SPLIT_COPIES = ("k2_fused_bounds4", "k2_split_free")
+# The split schedule's cases, and the cases that keep the fused launch
+K2_SPLIT_CASES = ("cornell physical", "cornell physical grid")
+K2_FUSED_CASES = {**{c: K2_CASES[c] for c in (
+    "cornell linear", "cornell full", "cornell geo", "cornell physical+geo",
+    "color+normal quad physical", "mesh-fit quad geo")},
+    "cornell linear grid": ("cornell", K2_TRAIN, dict(grid=True)),
+    "cornell full grid": ("cornell", K2_TRAIN, dict(full=True, grid=True))}
 K3_COPIES = ("k3_regenerating", "k3_float4")
 
 
@@ -482,16 +524,28 @@ def build_side_by_side(trees, library: str) -> float:
     return time.time() - t0
 
 
+PHASE_NAMES = {"0": "", "1": "/replay", "2": "/reverse"}
+
+
 def ptxas(tree, library: str, kernel: str) -> dict:
-    """{template bools: (registers, spill bytes stored, spill bytes loaded)}
-    of ``kernel``'s instantiations in ``library``."""
+    """{template bools (and K2's schedule phase, when not the fused one):
+    (registers, spill bytes stored, spill bytes loaded)} of ``kernel``'s
+    instantiations in ``library``."""
     out = {}
     for k in tree.build.ptxas_report(library):
         if kernel in k["kernel"]:
-            bools = "".join(c for c in k["kernel"].split(kernel)[1].split("Ev")[0]
-                            if c in "01")
-            out[bools] = (k["registers"], k["spill_stores"], k["spill_loads"])
+            args = k["kernel"].split(kernel)[1].split("Ev")[0]
+            key = "".join(re.findall(r"Lb([01])E", args))
+            ints = re.findall(r"Li(\d+)E", args)
+            key += PHASE_NAMES[ints[0]] if ints else ""
+            out[key] = (k["registers"], k["spill_stores"], k["spill_loads"])
     return out
+
+
+def tpl(key: str) -> str:
+    """A ``ptxas`` key as ``<b,b,...>`` with its schedule phase, if any."""
+    bools, _, phase = key.partition("/")
+    return f"<{','.join(bools)}>" + (f"/{phase}" if phase else "")
 
 
 def in_pairs(fns, reps: int = 3, inner: int = 1):
@@ -664,10 +718,11 @@ def k2_phases(trees, report) -> None:
     before, after = regs["parent"], regs["change"]
     log("[k2 build] registers (spill bytes stored / loaded) of every instantiation "
         "<full, shared, textured, grid, physical, geo>, other tree -> this tree: "
-        + ", ".join(f"<{','.join(k)}> {before[k][0]} ({before[k][1]}/{before[k][2]}) -> "
-                    f"{after[k][0]} ({after[k][1]}/{after[k][2]})" for k in sorted(after)))
+        + ", ".join(f"{tpl(k)} {before[k][0]} ({before[k][1]}/{before[k][2]}) -> "
+                    f"{after[k][0]} ({after[k][1]}/{after[k][2]})"
+                    for k in sorted(after) if k in before))
     for lab in K2_COPIES:
-        log(f"[k2 build] {lab}: " + ", ".join(f"<{','.join(k)}> {v[0]} ({v[1]}/{v[2]})"
+        log(f"[k2 build] {lab}: " + ", ".join(f"{tpl(k)} {v[0]} ({v[1]}/{v[2]})"
                                              for k, v in sorted(regs[lab].items())))
 
     # ---- 8. rows of both trees and of the copies -----------------------------------------
@@ -753,6 +808,94 @@ def k2_phases(trees, report) -> None:
                 f"against this tree's {q_c} ms; {lab} faster in {sc['wins']} of {PAIRS}; "
                 f"{'a gain' if sc['gain'] else 'no gain'} (rule: >= 9 of 10 and the medians "
                 f"apart by more than this tree's interquartile range {q_c[2] - q_c[0]:.3f} ms)")
+
+
+def k2_split_phases(trees, report) -> None:
+    """Phase 18: K2 physical's split schedule (this tree, variant d) against
+    the other tree (a), the fused kernel under the same launch bound
+    (``k2_fused_bounds4``, b) and the split without a bound
+    (``k2_split_free``, c); and the cases that keep the fused launch against
+    the other tree."""
+    labels = ["parent", "change", *K2_SPLIT_COPIES]
+    log(f"[k2 split build] {len(labels)} libraries side by side: "
+        f"{build_side_by_side([trees[lab] for lab in labels], 'megakernel_vjp'):.1f} s")
+    # <FULL, SHARED, TEXTURED, GRID, PHYSICAL, GEO>: physical, untextured, no geo
+    regs = {lab: {k: v for k, v in ptxas(trees[lab], "megakernel_vjp",
+                                         "backward_kernel").items()
+                  if k[2] == "0" and k[4:6] == "10"} for lab in labels}
+    report["k2_split_build"] = regs
+    for lab in labels:
+        log(f"[k2 split build] {lab}: registers (spill bytes stored / loaded) "
+            + ", ".join(f"{tpl(k)} {v[0]} ({v[1]}/{v[2]})" for k, v in sorted(regs[lab].items())))
+    cornell = trees["change"].packed("cornell")
+    rows = trees["change"].vjp._grad_rows(cornell.counts, physical=True)
+    occ = {}
+    for lab in ("change", *K2_SPLIT_COPIES):
+        vjp = trees[lab].vjp
+        for grid in (False, True):
+            for phase in (vjp.PHASE_FUSED, vjp.PHASE_REPLAY, vjp.PHASE_REVERSE):
+                o = vjp.backward_occupancy(physical=True, grid=grid, rows=rows, phase=phase)
+                occ[f"{lab} grid={int(grid)} phase={phase}"] = o
+    report["k2_split_occupancy"] = occ
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"[k2 split occupancy] cornell physical ({rows} rows, {sms} SMs; phase 0 fused, "
+        f"1 replay, 2 reverse): " + "; ".join(f"{k}: {v}" for k, v in occ.items()))
+
+    report["k2_split_rows"] = {}
+    for case in K2_SPLIT_CASES:
+        spec = K2_CASES[case]
+        got = {}
+        for lab in labels:
+            before = trees[lab].vjp.RESIDENT_LAUNCHES if lab != "parent" else 0
+            got[lab] = trees[lab].k2_launcher(spec)().double()
+            torch.cuda.synchronize()
+            sched = getattr(trees[lab].vjp, "LAST_SCHEDULE", None)
+            resident = (trees[lab].vjp.RESIDENT_LAUNCHES - before) if lab != "parent" else None
+            got[lab + " schedule"] = (sched, resident)
+        top = float(got["parent"].abs().max())
+        gaps = {lab: float((got[lab] - got["parent"]).abs().max()) / top
+                for lab in labels if lab != "parent"}
+        report["k2_split_rows"][case] = dict(
+            gaps, schedules={lab: got[lab + " schedule"] for lab in labels})
+        log(f"[k2 split rows] {case}: largest difference over the largest row ({top:.4g}) "
+            f"against the other tree: " + ", ".join(f"{lab} {v:.2e}" for lab, v in gaps.items())
+            + f" (bound {K2_ROWS_BOUND:g}); (schedule, resident calls): "
+            + ", ".join(f"{lab} {got[lab + ' schedule']}" for lab in labels))
+
+    report["k2_split_turns"] = {}
+    order = ["parent", "k2_fused_bounds4", "k2_split_free", "change"]
+    for case in K2_SPLIT_CASES:
+        spec = K2_CASES[case]
+        fns = {lab: trees[lab].k2_launcher(spec) for lab in labels}
+        for fn in fns.values():
+            fn()
+        t = {lab: [] for lab in labels}
+        for rnd in range(3):
+            for lab in order + order[::-1]:
+                t[lab].append(float(np.median(launch_ms(fns[lab], 5))))
+        report["k2_split_turns"][case] = t
+        med = {lab: float(np.median(v)) for lab, v in t.items()}
+        log(f"[k2 split turns] {case} 256x256 16 spp 8 b, medians of 5 launches, 6 turns "
+            f"each (a b c d d c b a, thrice): "
+            + "; ".join(f"{lab} {med[lab]:.3f} ms (min {min(t[lab]):.3f}, max "
+                        f"{max(t[lab]):.3f})" for lab in order)
+            + f"; parent / change {med['parent'] / med['change']:.3f}x, "
+            f"(b) / (d) {med['k2_fused_bounds4'] / med['change']:.3f}x")
+
+    report["k2_fused_turns"] = {}
+    for case, spec in K2_FUSED_CASES.items():
+        fns = {lab: trees[lab].k2_launcher(spec) for lab in ("parent", "change")}
+        inner = 10 if median_ms(fns["change"], reps=1) < 5.0 else 1
+        t = {"parent": [], "change": []}
+        for rnd in range(2):
+            for lab in ("parent", "change", "change", "parent"):
+                t[lab].append(median_ms(fns[lab], reps=5, inner=inner))
+        report["k2_fused_turns"][case] = dict(t, schedule=trees["change"].vjp.LAST_SCHEDULE)
+        med = {lab: float(np.median(v)) for lab, v in t.items()}
+        log(f"[k2 fused turns] {case} ({trees['change'].vjp.LAST_SCHEDULE}): parent "
+            f"{[round(x, 4) for x in t['parent']]} ms, change "
+            f"{[round(x, 4) for x in t['change']]} ms (change / parent "
+            f"{med['change'] / med['parent']:.3f})")
 
 
 def k3_phases(trees, report) -> None:
@@ -897,8 +1040,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True,
                     help=f"root of the other tree (holds {PACKAGE}/)")
-    ap.add_argument("--kernels", choices=("k1", "k2", "k3", "both", "all"), default="both",
-                    help="whose phases to run (both: k1 and k2; all: k1, k2 and k3)")
+    ap.add_argument("--kernels", choices=("k1", "k2", "k3", "k2split", "both", "all"),
+                    default="both",
+                    help="whose phases to run (both: k1 and k2; all: k1, k2 and k3; "
+                         "k2split: phase 18 alone)")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "k1_turns.json"),
                     help="JSON report (default: the git-ignored build/)")
     args = ap.parse_args()
@@ -917,10 +1062,10 @@ def main() -> int:
              "change": Tree(importlib.import_module(PACKAGE))}
     kernels = {"both": ("k1", "k2"), "all": ("k1", "k2", "k3")}.get(args.kernels,
                                                                   (args.kernels,))
-    copies = {"k1": K1_COPIES, "k2": K2_COPIES, "k3": K3_COPIES}
+    copies = {"k1": K1_COPIES, "k2": K2_COPIES, "k3": K3_COPIES, "k2split": K2_SPLIT_COPIES}
     for label in (c for k in kernels for c in copies[k]):
         trees[label] = Tree(copy_package(ROOT, label, PATCHES[label]))
-    phases = {"k1": k1_phases, "k2": k2_phases, "k3": k3_phases}
+    phases = {"k1": k1_phases, "k2": k2_phases, "k3": k3_phases, "k2split": k2_split_phases}
     for k in kernels:
         phases[k](trees, report)
 

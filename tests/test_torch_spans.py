@@ -81,7 +81,7 @@ def test_trace_reports_the_frame_driver_s_spans(tmp_path):
         assert v["device_s"] is None and v["idle_s"] is None
     assert rep["unattributed_idle_s"] is None
     assert rep["counters"] == dict(host_waits=5, k1_launches=0, k2_launches=0,
-                                   k3_launches=0)
+                                   k2_resident_launches=0, k3_launches=0)
     assert os.listdir(log_dir) == [profiling.TRACE_FILE]
     with open(os.path.join(log_dir, profiling.TRACE_FILE)) as f:
         events = json.load(f)["traceEvents"]

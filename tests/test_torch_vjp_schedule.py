@@ -13,6 +13,12 @@ boundaries of the schedule (one sample, bounce caps 1 / 2 / 8, paths that
 miss at their first and at a later bounce, a sample offset, a pixel range
 past the image, stacks small enough for several rounds). Also: the stack's sizing, and the plain version's tally
 of the backward kernel's warp iterations against a count by hand.
+
+The kernel's split schedule (every pixel's replay in one launch, every
+pixel's reverse sweep in a second, the stack and each lane's slots in use
+kept between them) must send the flat schedule's contributions too: held in
+physical mode, through the linear sweeps and the grid, at the same
+boundaries; and the wrapper's route rule that picks it.
 """
 import dataclasses
 
@@ -214,3 +220,74 @@ def test_k2_lane_tally_of_a_render():
     tmk.render_block_sums_plain(tmk.pack_scene(tpresets.cornell(), "cpu"), CP, 5, 12, 12,
                                 4, 8, 0, 144, stats=one, k2_capacity=8)
     assert one["k2_warp_iterations"] == one["k2_warp_iterations_nested"]
+
+
+def _split_and_flat(packed, size=8, spp=3, bounces=8, **kw):
+    """{schedule: sorted (rows, value bits)} of one pixel range in physical
+    mode: the flat schedule and the split one, both on a stack of one
+    round."""
+    grid = kw.pop("packed_grid", None)
+    g = torch.rand(size * size * 3, generator=torch.Generator().manual_seed(11))
+    n_local = kw.get("n_local")
+    if n_local is not None:
+        g = g[:3 * n_local]
+    runs = {}
+    for sched in ("flat", "split"):
+        _, rows, vals = backward_rows_hostbuild(
+            packed, CP, 5, size, size, spp, bounces, g, physical=True, packed_grid=grid,
+            schedule=sched, capacity=max(bounces, 1) * spp, record=True, **kw)
+        bits = vals.view(np.int32)
+        order = np.lexsort((bits, rows))
+        runs[sched] = (rows[order], bits[order])
+    return runs
+
+
+@pytest.mark.parametrize("name", ["cornell", "cornell grid", "shadowed_caustic"])
+@pytest.mark.parametrize("case", [
+    dict(bounces=1), dict(bounces=2), dict(bounces=8), dict(spp=1, bounces=8),
+    dict(sample_offset=9), dict(pixel_offset=58, n_local=12)])
+def test_split_schedule_sends_the_flat_contributions(name, case):
+    """Physical mode through the linear sweeps and through the grid (``cornell
+    grid``): bounce caps 1 / 2 / 8, one sample, a sample offset, a pixel range
+    that runs past the 8x8 image; ``shadowed_caustic`` has eye rays that miss
+    and paths that miss later. The same multiset of (row, value), every
+    nonzero value bit for bit."""
+    packed, grid = _scene(name)
+    runs = _split_and_flat(packed, packed_grid=grid, **case)
+    want_rows, want_bits = runs["flat"]
+    rows, bits = runs["split"]
+    assert want_rows.size > 0
+    assert np.array_equal(rows, want_rows)
+    assert np.array_equal(bits, want_bits)
+
+
+def test_split_schedule_needs_a_stack_of_one_round():
+    packed, _ = _scene("cornell")
+    g = torch.rand(4 * 4 * 3, generator=torch.Generator().manual_seed(1))
+    with pytest.raises(AssertionError):
+        backward_rows_hostbuild(packed, CP, 5, 4, 4, 3, 8, g, physical=True,
+                                schedule="split", capacity=8 * 3 - 1)
+
+
+@pytest.mark.parametrize("physical,geo,textured,spp,bounces,capacity,split", [
+    (True, False, False, 16, 8, 128, True),     # the fit cell: one round
+    (True, False, False, 16, 0, 16, True),      # bounce cap 0: a slot a path
+    (True, False, False, 2000, 8, 8 * 5, False),  # 800x800: several rounds
+    (True, True, False, 16, 8, 128, False),     # physical + geo
+    (True, False, True, 16, 8, 128, False),     # textured physical
+    (False, False, False, 16, 8, 128, False),   # full
+    (False, True, False, 16, 8, 128, False),    # geo
+    (False, False, False, 4, 8, 32, False),     # linear, one round
+])
+def test_split_route_rule(physical, geo, textured, spp, bounces, capacity, split):
+    assert tvjp._split_schedule(physical, geo, textured, capacity, spp, bounces) is split
+
+
+def test_split_route_at_the_wrapper_sizes():
+    """Physical mode takes the split at cornell 256x256 x 16 spp x 8 b (one
+    round of the wrapper's own stack), and keeps the fused launch at
+    800x800 x 2000 spp, where 2 GiB holds a few paths a pixel."""
+    slot = tvjp._slot_floats(tvjp._st_planes(True, physical=True))
+    for (w, spp, split) in ((256, 16, True), (800, 2000, False)):
+        capacity = tvjp._stack_slots(spp, 8, w * w, slot, True)
+        assert tvjp._split_schedule(True, False, False, capacity, spp, 8) is split

@@ -1,7 +1,7 @@
 // Test-only host build of the CUDA kernels' device math: the package's
 // csrc/megakernel.cuh (forward render, all three estimator variants, linear
 // and grid sweeps),
-// csrc/megakernel_vjp.cuh (replay VJP, every grad mode, both schedules, and
+// csrc/megakernel_vjp.cuh (replay VJP, every grad mode, every schedule, and
 // the hand-written adjoints it is built from)
 // and csrc/lightkernel.cuh (light tracing)
 // compiled by a host C++ compiler, one loop iteration per pixel or light
@@ -152,13 +152,35 @@ void backward_pixel_nested(const cpt::SceneTables& sc, const cpt::RenderParams& 
 }
 
 // Every pixel of the range, one after the other, on stacks of `capacity`
-// slots: schedule 0 the flat two passes (backward_pixel), 1 the nested loops.
+// slots: schedule 0 the flat two passes (backward_pixel), 1 the nested loops,
+// 2 the kernel's split schedule (every pixel's replay, each lane's stack and
+// slots in use kept, then every pixel's reverse sweep; a stack of one round).
 template <bool FULL, bool TEXTURED, bool PHYSICAL, bool GEO>
 void backward_pixels_t(const cpt::SceneTables& sc, const cpt::RenderParams& p,
                        const cpt::GradLayout& L, const cpt::TexLayout& T, const float* g,
                        int schedule, int capacity, HostSink& sink) {
     std::vector<float> scratch((size_t)capacity * T.slot_floats * (p.n_local > 0 ? p.n_local : 1),
                                -1.0f);
+    if (schedule == 2) {
+        std::vector<int> tops(p.n_local > 0 ? p.n_local : 1, 0);
+        for (int phase = 0; phase < 2; ++phase) {
+            for (int i = 0; i < p.n_local; ++i) {
+                cpt::CheckpointStore st;
+                st.slot_floats = T.slot_floats;
+                st.base = scratch.data() + (size_t)i * capacity * T.slot_floats;
+                const float gx = g[3 * i], gy = g[3 * i + 1], gz = g[3 * i + 2];
+                const int pixel = p.pixel_offset + i;
+                if (phase == 0) {
+                    tops[i] = cpt::backward_pixel_replay<FULL, TEXTURED, PHYSICAL, GEO>(
+                        sc, p, L, T, pixel, gx, gy, gz, st, capacity, sink);
+                } else {
+                    cpt::backward_pixel_reverse<FULL, TEXTURED, PHYSICAL, GEO>(
+                        sc, p, L, T, pixel, gx, gy, gz, st, tops[i], sink, sink, L.row_cam0);
+                }
+            }
+        }
+        return;
+    }
     for (int i = 0; i < p.n_local; ++i) {
         cpt::CheckpointStore st;
         st.slot_floats = T.slot_floats;
@@ -369,8 +391,9 @@ int cpt_light_image_host(const float* spheres, int num_spheres,
 
 // Same arguments as cpt_backward_megakernel without scratch, launch shape and
 // stream; rows[] receives the gradient rows (GradLayout) summed over pixels.
-// `schedule` (0 flat, 1 nested) and `capacity` (slots per lane) as
-// backward_pixels. With rec_rows non-null
+// `schedule` (0 flat, 1 nested, 2 split) and `capacity` (slots per lane) as
+// backward_pixels; the split schedule takes a stack of one round
+// (capacity >= max(max_bounces, 1) * spp), else -1. With rec_rows non-null
 // the nonzero contributions are also recorded, (rec_rows[j], rec_vals[j]) for
 // j < min(*n_records, max_records); *n_records receives their number.
 // Returns the number of rows.
@@ -404,7 +427,8 @@ int cpt_backward_megakernel_host(const float* spheres, int num_spheres,
     const cpt::GradLayout L = cpt::grad_layout(num_spheres, num_triangles, num_materials,
                                                num_point_lights, num_area_lights, any_full,
                                                T.grads ? texels : 0, physical != 0, geo != 0);
-    if (capacity < (max_bounces > 1 ? max_bounces : 1)) return -1;
+    const int span = max_bounces > 1 ? max_bounces : 1;
+    if (capacity < span || (schedule == 2 && capacity < span * spp)) return -1;
     std::vector<std::pair<int, float>> log;
     HostSink sink;
     sink.rows = rows;

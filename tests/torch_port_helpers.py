@@ -325,8 +325,10 @@ def backward_rows_hostbuild(packed, cam_params, seed, width, height, spp,
     """``backward_rows_cuda`` computed by the host build of the backward
     kernel's math (no FMA contraction), one pixel at a time, on CPU tables:
     the gradient rows (float64 sums) of the pixel range. ``schedule``:
-    "flat" (the kernel's two passes, backward_pixel) or "nested" (a loop over
-    samples around a replay and a reverse loop); ``capacity``: slots per
+    "flat" (the kernel's two passes, backward_pixel), "nested" (a loop over
+    samples around a replay and a reverse loop) or "split" (the kernel's
+    split schedule: every pixel's replay, then every pixel's reverse sweep,
+    on a stack of one round); ``capacity``: slots per
     pixel's stack (default: what the CUDA wrapper derives). With ``record``
     also the nonzero contributions in the order they were made: (rows, int32
     row indices, float32 values)."""
@@ -354,7 +356,7 @@ def backward_rows_hostbuild(packed, cam_params, seed, width, height, spp,
         got = lib.cpt_backward_megakernel_host(
             *args, int(full), int(physical), int(geo), texels, int(tex_grads),
             int(packed.tex_nmap), g.data_ptr(), rows.data_ptr(),
-            ("flat", "nested").index(schedule), int(capacity),
+            ("flat", "nested", "split").index(schedule), int(capacity),
             cap,
             _ptr(rec_rows) if record else None, _ptr(rec_vals) if record else None,
             ctypes.byref(count))
