@@ -23,9 +23,42 @@ import time
 import numpy as np
 import torch
 
-from cptbench import checks, inputs, roofline
+from cptbench import checks, faults, inputs, roofline
 from cptbench.reference import camera as ref_camera
 from cptbench.reference import fit, pathtracer, rng
+
+# (config overrides, traffic overrides) that make a run of this job kind take
+# seconds on the CPU, for the harness's tests
+TINY = (dict(width=8, height=8, spp=2), dict(steps=4, tally_paths=256))
+
+
+def plant(kind, stack):
+    """Break this job kind's timed path as ``kind`` says
+    (``cptbench/faults.py``): Adam's update, the samples and the image of
+    ``render_megakernel_diff`` (K1 forward, K2 backward). The control is
+    ``control_line``."""
+    dict(unchanged=faults.adam_unchanged, half=faults.k2_half,
+         altered=faults.k2_altered)[kind](stack)
+
+
+def control_line(cell: dict, seed: int) -> dict:
+    """The control, with no window: the reference with bfloat16 carries put
+    in the program's place for the first steps of job 0 of ``seed``, held
+    against the float32 reference."""
+    from cptbench import runner
+
+    run = runner.Run(cell, seed, 0.0, False, "cuda")
+    job = Job(run)
+    job.setup()
+    arrays, job_seed = job._start(0)
+    start = {k: torch.from_numpy(arrays[k].copy()) for k in job.fields}
+    args = (inputs.scene_tensors(job.arrays), start, job.cam, job_seed,
+            cell["traffic"]["checked_steps"], job.lr, job.resample, job.width,
+            job.height, job.spp, job.bounces, job.target, job.physical, "cuda")
+    numbers, _ = checks.training_numbers(fit.follow(*args, state_bf16=True),
+                                         fit.follow(*args), start)
+    ok, compared, _ = runner.compare(numbers, cell["limits"])
+    return dict(correct=ok, checks=compared)
 
 
 class Job:

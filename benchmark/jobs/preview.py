@@ -21,9 +21,22 @@ import time
 
 import numpy as np
 
-from cptbench import checks, inputs, roofline
+from cptbench import checks, faults, inputs, roofline
 from cptbench.reference import camera as ref_camera
 from cptbench.reference import pathtracer
+
+# (config overrides, traffic overrides) that make a run of this job kind take
+# seconds on the CPU, for the harness's tests
+TINY = (dict(width=16, height=16),
+        dict(checked_pixels=16, check_span=10, tally_paths=512, key_every=3))
+
+
+def plant(kind, stack):
+    """Break this job kind's timed path as ``kind`` says
+    (``cptbench/faults.py``): K1's samples, the renderer's accumulation,
+    the display."""
+    dict(control=faults.k1_control, unchanged=faults.renderer_unchanged,
+         half=faults.k1_half, altered=faults.display_altered)[kind](stack)
 
 
 class Job:

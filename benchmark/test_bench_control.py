@@ -13,12 +13,10 @@ sys.path[:0] = [BENCH_DIR, os.path.dirname(BENCH_DIR)]
 
 from cptbench import faults, manifest, runner  # noqa: E402
 
-import calibrate  # noqa: E402
-
 SEEDS = (2 ** 31 + 101, 2 ** 32 + 202, 303)
 CELLS = [w["name"] for w in manifest.load()["workloads"]]
-# each kind breaks the path the cell runs: the renderer's accumulation or
-# Adam's update, K1's samples or K1 + K2's, the display or the training image
+# each kind breaks the path the cell runs, as the cell's job kind plants it
+# (``plant`` / ``control_line`` in ``jobs/<kind>.py``)
 FAULTS = [(c, k) for c in CELLS for k in faults.KINDS]
 
 
@@ -34,9 +32,5 @@ def card():
 def test_control_and_faults_are_not_correct(card, cell, kind):
     c = manifest.cell(manifest.load(), cell)
     for seed in SEEDS:
-        if kind == "control" and c["traffic"]["job"] == "fit":
-            line = calibrate.fit_control(c, seed)
-        else:
-            with faults.planted(kind):
-                line = runner.run_cell(c, seed, 2.0, False)
+        line = faults.line(c, kind, seed, 2.0)
         assert not line["correct"], (cell, kind, seed, line["checks"])

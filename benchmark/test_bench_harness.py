@@ -1,8 +1,10 @@
 """CPU tests of the benchmark harness: the manifest and the files it names,
-discovery of new cells and metrics as files alone, the roofline and
+discovery of new cells, job kinds and metrics as files alone, the guard
+that keeps the accepted entries of the manifest in place, the roofline and
 idle-share arithmetic, the isolation check, the reference against the
 port's plain version, and whole runs of every cell at a tiny size on the
 CPU (the port's plain engine)."""
+import glob
 import json
 import os
 import shutil
@@ -17,18 +19,13 @@ BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH_DIR)
 sys.path[:0] = [BENCH_DIR, ROOT]
 
-from cptbench import isolation, manifest, roofline, runner, trace  # noqa: E402
+import accepted  # noqa: E402
+from cptbench import faults, isolation, manifest, roofline, runner, trace  # noqa: E402
 from cptbench.reference import fit, pathtracer  # noqa: E402
 
 CELLS = [w["name"] for w in manifest.load()["workloads"]]
-TINY = {  # config and traffic overrides that make a cell run in seconds
-    "render": (dict(width=16, height=16),
-               dict(spp=20, checked_pixels=16, tally_paths=512)),
-    "preview": (dict(width=16, height=16),
-                dict(checked_pixels=16, check_span=10, tally_paths=512,
-                     key_every=3)),
-    "fit": (dict(width=8, height=8, spp=2), dict(steps=4, tally_paths=256)),
-}
+JOBS = sorted(os.path.basename(p)[:-3]
+              for p in glob.glob(os.path.join(BENCH_DIR, "jobs", "*.py")))
 
 
 def test_manifest_meets_the_contract():
@@ -49,6 +46,81 @@ def test_manifest_meets_the_contract():
     for e in m["per_layer"]:
         assert "bound" not in e and len(e["layer"]) <= 200
     assert len(json.dumps(m)) < 64 * 1024
+    assert accepted.departures(m) == []
+
+
+def _at(entries, name):
+    return next(i for i, e in enumerate(entries) if e["name"] == name)
+
+
+def _swap(entries, a, b):
+    i, j = _at(entries, a), _at(entries, b)
+    entries[i], entries[j] = entries[j], entries[i]
+
+
+def _metric(m, name):
+    return next(e for e in m["end_to_end"] + m["per_layer"] if e["name"] == name)
+
+
+# edits to the accepted manifest that the append-only guard refuses
+DEPARTURES = {
+    "per_layer entries swapped": lambda m: _swap(
+        m["per_layer"], "inverse.host_ms", "renderer.readback_ms.preview"),
+    "a span metric dropped": lambda m: m["per_layer"].remove(
+        _metric(m, "k1.launch_ms.render")),
+    "a metric put before the span metrics": lambda m: m["per_layer"].insert(
+        _at(m["per_layer"], "renderer.readback_ms.preview"),
+        dict(_metric(m, "k1.launch_ms.render"), name="k1.launch_ms.new")),
+    "a cell dropped": lambda m: m["workloads"].remove(m["workloads"][1]),
+    "configurations swapped": lambda m: _swap(
+        m["configs"], "cornell-800", "cornell-256-fit"),
+    "a bound loosened": lambda m: _metric(m, "pass_ms_p95").update(bound=0.22),
+    "an accepted cell added to an accepted metric": lambda m: _metric(
+        m, "primary_Mrays_per_s")["workloads"].append("preview-cornell-800"),
+    "a metric's accepted cell dropped": lambda m: _metric(
+        m, "k1.launch_ms.render")["workloads"].clear(),
+    "a key added": lambda m: m["workloads"][0].update(note="x"),
+    "a layer renamed": lambda m: _metric(m, "inverse.adam_ms").update(
+        layer="training loop"),
+    "run_seconds changed": lambda m: m.update(run_seconds=30),
+}
+
+
+@pytest.mark.parametrize("edit", sorted(DEPARTURES))
+def test_the_accepted_entries_never_move_drop_or_change(edit):
+    m = manifest.load()
+    DEPARTURES[edit](m)
+    assert accepted.departures(m)
+
+
+@pytest.mark.parametrize("job", JOBS)
+def test_every_job_kind_has_its_driver_cpu_size_and_faults(job):
+    mod = manifest.job_module(job)
+    assert isinstance(mod.Job, type)
+    over_c, over_t = mod.TINY
+    assert isinstance(over_c, dict) and isinstance(over_t, dict)
+    for kind in faults.KINDS:   # each planted through the job's own module
+        if kind == "control" and hasattr(mod, "control_line"):
+            assert callable(mod.control_line)
+            continue
+        with faults.planted(kind, mod):
+            pass
+
+
+def _tiny(c):
+    over_c, over_t = c["job"].TINY
+    c["config"].update(over_c)
+    c["traffic"].update(over_t)
+    return c
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_a_fault_planted_through_the_cells_job_is_not_correct(cell):
+    """``unchanged`` reaches the job's timed path on the CPU too (the
+    others break the CUDA kernels: ``test_bench_control.py``)."""
+    c = _tiny(manifest.cell(manifest.load(), cell))
+    line = faults.line(c, "unchanged", 2 ** 33 + 6, 0.5, device="cpu")
+    assert not line["correct"], line["checks"]
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -62,10 +134,18 @@ def test_cell_files_found_by_name(cell):
     assert c["limits"] and all(v >= 0 for v in c["limits"].values())
 
 
-def test_a_new_cell_and_metric_are_files_alone(tmp_path):
+def test_a_new_cell_and_metric_are_files_alone(tmp_path, monkeypatch):
+    """Cells added to a copy by new files and appended entries alone: one on
+    a new traffic mix with a metric of its own; one with its own job kind,
+    configuration and span metric, appended after the accepted entries,
+    which runs to correct on the CPU and whose control and faults are
+    planted through its own job module."""
+    real = manifest.load()
+    m = manifest.load()
     bench = tmp_path / "benchmark"
     shutil.copytree(BENCH_DIR, bench,
                     ignore=shutil.ignore_patterns("__pycache__", ".bench_cache"))
+    # a traffic mix and a metric of the host's clock
     (bench / "traffic" / "short.json").write_text(json.dumps(
         dict(json.loads((bench / "traffic" / "converged.json").read_text()),
              spp=256)))
@@ -73,7 +153,6 @@ def test_a_new_cell_and_metric_are_files_alone(tmp_path):
         (bench / "checks" / "render-cornell-800.json").read_text())
     (bench / "metrics" / "render.seconds_each.py").write_text(
         "def read(run):\n    return run.window['seconds'] / run.window['units']\n")
-    m = manifest.load()
     m["workloads"].append(dict(name="render-cornell-800-short",
                                config="cornell-800", traffic="short", chips=1,
                                why="shorter renders"))
@@ -82,19 +161,76 @@ def test_a_new_cell_and_metric_are_files_alone(tmp_path):
                                layer="frame driver (render/renderer.py)",
                                moves="primary_Mrays_per_s",
                                workloads=["render-cornell-800-short"]))
-    for w in m["end_to_end"]:
-        if w["name"] == "primary_Mrays_per_s":
-            w["workloads"].append("render-cornell-800-short")
+    # a job kind (which records what it plants), a configuration and a
+    # reader of a program span
+    cell, kind, config = "render-copy-cornell-800", "render_copy", "cornell-800-copy"
+    (bench / "jobs" / f"{kind}.py").write_text(
+        (bench / "jobs" / "render.py").read_text()
+        + "\n\nPLANTED = []\n_plant = plant\n\n\ndef plant(kind, stack):\n"
+          "    PLANTED.append(kind)\n    _plant(kind, stack)\n")
+    (bench / "traffic" / "converged-copy.json").write_text(json.dumps(
+        dict(json.loads((bench / "traffic" / "converged.json").read_text()),
+             job=kind)))
+    shutil.copy(bench / "configs" / "cornell-800.json",
+                bench / "configs" / f"{config}.json")
+    shutil.copy(bench / "checks" / "render-cornell-800.json",
+                bench / "checks" / f"{cell}.json")
+    (bench / "metrics" / "k1.launch_ms.render_copy.py").write_text(
+        "from cptbench import spans\n\n\ndef read(run):\n"
+        "    return spans.idle_ms(run, lambda name: name == 'k1.launch')\n")
+    m["configs"].append(dict(m["configs"][0], name=config,
+                             file=f"benchmark/configs/{config}.json"))
+    m["workloads"].append(dict(name=cell, config=config,
+                               traffic="converged-copy", chips=1,
+                               why="the converged renders through a copied job"))
+    m["per_layer"].append(dict(_metric(m, "k1.launch_ms.render"),
+                               name="k1.launch_ms.render_copy",
+                               workloads=[cell]))
+    for name, new in (("primary_Mrays_per_s", "render-cornell-800-short"),
+                      ("primary_Mrays_per_s", cell),
+                      ("k1.launch_ms.render", cell)):
+        _metric(m, name)["workloads"].append(new)
     assert manifest.problems(m, str(bench)) == []
+    assert accepted.departures(m) == []
+
     c = manifest.cell(m, "render-cornell-800-short", str(bench))
     assert c["traffic"]["spp"] == 256
     assert [x["name"] for x in c["per_layer"]] == ["render.seconds_each"]
     read = manifest.reader("render.seconds_each", str(bench))
     assert read(type("R", (), {"window": {"seconds": 3.0, "units": 2}})()) == 1.5
+
+    c = manifest.cell(m, cell, str(bench))
+    assert c["job"].__file__ == str(bench / "jobs" / f"{kind}.py")
+    assert [x["name"] for x in c["end_to_end"]] == ["setup_s",
+                                                    "primary_Mrays_per_s"]
+    assert [x["name"] for x in c["per_layer"]] == ["k1.launch_ms.render",
+                                                   "k1.launch_ms.render_copy"]
+    from cuda_path_tracer_ss_torch.utils import profiling
+    with monkeypatch.context() as mp:
+        mp.setattr(profiling, "last_report", lambda: dict(
+            spans={"k1.launch": dict(idle_s=0.006)}, counters={}))
+        run = type("R", (), {"trace": {}, "job": type(
+            "J", (), {"slice_units": lambda self: 3})()})()
+        assert manifest.reader("k1.launch_ms.render_copy", str(bench))(run) == \
+            pytest.approx(2.0)
+
+    _tiny(c)
+    line = runner.run_cell(c, 2 ** 33 + 7, 0.5, False, device="cpu")
+    assert line["correct"] and line["failed"] == 0
+    assert set(line["metrics"]) == {"setup_s", "primary_Mrays_per_s"}
+    line = faults.line(c, "unchanged", 2 ** 33 + 7, 0.5, device="cpu")
+    assert not line["correct"]
+    for k in faults.KINDS:
+        with faults.planted(k, c["job"]):
+            pass
+    assert c["job"].PLANTED == ["unchanged"] + list(faults.KINDS)
+
     # and a cell whose files are missing is named
     m["workloads"].append(dict(name="ghost", config="cornell-800",
                                traffic="nowhere", chips=1, why="missing"))
     assert any("nowhere" in p for p in manifest.problems(m, str(bench)))
+    assert manifest.load() == real
+    assert not os.path.exists(os.path.join(BENCH_DIR, "jobs", f"{kind}.py"))
 
 
 def test_roofline_on_a_hand_made_tally():
@@ -243,10 +379,7 @@ def test_reference_gradient_matches_the_ports_plain_engine():
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_whole_run_on_the_cpu_is_correct(cell):
-    c = manifest.cell(manifest.load(), cell)
-    over_c, over_t = TINY[c["traffic"]["job"]]
-    c["config"].update(over_c)
-    c["traffic"].update(over_t)
+    c = _tiny(manifest.cell(manifest.load(), cell))
     line = runner.run_cell(c, 2 ** 33 + 5, 0.5, False, device="cpu")
     assert line["correct"] and line["failed"] == 0
     assert list(line)[-1] == "checks"

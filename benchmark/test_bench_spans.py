@@ -11,6 +11,7 @@ BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH_DIR)
 sys.path[:0] = [BENCH_DIR, ROOT]
 
+import accepted  # noqa: E402
 from cptbench import manifest  # noqa: E402
 
 from cuda_path_tracer_ss_torch.utils import profiling  # noqa: E402
@@ -76,9 +77,9 @@ def test_reader_of_a_program_span_or_counter(metric, monkeypatch):
 def test_the_span_metrics_are_in_the_manifest_beside_the_accepted_ones():
     m = manifest.load()
     assert manifest.problems(m) == []
+    cells = {w["name"] for w in m["workloads"][:accepted.ACCEPTED["workloads"][0]]}
     new = {e["name"]: e for e in m["per_layer"] if e["name"] in WANT}
     assert set(new) == set(WANT)
-    assert [e["name"] for e in m["per_layer"][-len(WANT):]] == list(new)
-    for e in new.values():
+    for e in new.values():   # each lists an accepted cell; later ones may follow
         assert e["source"] in ("program_span", "program_counter")
-        assert e["better"] == "lower" and len(e["workloads"]) == 1
+        assert e["better"] == "lower" and cells & set(e["workloads"])
